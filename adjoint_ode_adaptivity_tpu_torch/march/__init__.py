@@ -1,0 +1,22 @@
+"""Time marching (L1): LSRK4(5) coefficients and the eager DG advection
+march."""
+
+from adjoint_ode_adaptivity_tpu_torch.march.advec import (
+    AdvecOperators,
+    advec_march,
+    advec_operators,
+    advec_rhs,
+    cfl_dt,
+)
+from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B, RK4C
+
+__all__ = [
+    "RK4A",
+    "RK4B",
+    "RK4C",
+    "AdvecOperators",
+    "advec_operators",
+    "advec_rhs",
+    "advec_march",
+    "cfl_dt",
+]

@@ -1,0 +1,30 @@
+"""The port imports torch and NumPy, never jax: import every module of
+``adjoint_ode_adaptivity_tpu_torch`` in a fresh interpreter and check that
+jax never entered ``sys.modules``."""
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+import adjoint_ode_adaptivity_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert "adjoint_ode_adaptivity_tpu_torch.drivers.advec_dg" in names, names
+assert "adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs" in names, names
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "adjoint_ode_adaptivity_tpu.")) or m == "adjoint_ode_adaptivity_tpu")
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_never_imports_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 15
