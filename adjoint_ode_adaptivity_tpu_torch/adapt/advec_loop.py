@@ -28,6 +28,7 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     terminal_integral_cotangent,
 )
 from adjoint_ode_adaptivity_tpu_torch.march.advec import advec_operators
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import startup_1d
 
 __all__ = ["AdvecAdaptResult", "run_adaptive_advec"]
@@ -119,7 +120,7 @@ def run_adaptive_advec(
     tol: float = 1e-10,
     dtype=torch.float64,
     engine: str = "torch",
-    device="cpu",
+    device="cuda",
     checkpoint_dir: str | None = None,
 ) -> list[AdvecAdaptResult]:
     """Adaptive element bisection driven by the adjoint-weighted
@@ -127,12 +128,13 @@ def run_adaptive_advec(
 
     ``engine="cuda"`` runs the CUDA kernels on the (non-uniform)
     per-iteration mesh in float32 (``dtype`` is not read); ``"torch"``
-    honours ``dtype`` (float64 for tight-tolerance studies).
-    ``checkpoint_dir`` saves the loop after every iteration and resumes
-    from it when a checkpoint is present."""
-    device = torch.device(device)
+    honours ``dtype`` (float64 for tight-tolerance studies). ``device``
+    defaults to the card and raises when there is none; pass ``"cpu"`` to
+    run the torch engine on the CPU. ``checkpoint_dir`` saves the loop
+    after every iteration and resumes from it when a checkpoint is present."""
     if engine not in ("torch", "cuda"):
         raise ValueError(engine)
+    device = require_device(device)
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
     vx = np.linspace(x_span[0], x_span[1], k0 + 1)

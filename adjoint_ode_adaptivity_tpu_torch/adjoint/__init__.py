@@ -1,5 +1,5 @@
-"""Discrete adjoint of the DG advection march and the adjoint-weighted
-step-doubling error estimate (L2, eager torch)."""
+"""Discrete adjoints and adjoint-weighted error estimates (L2, eager torch):
+the one-step FD marches and the DG advection march."""
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     AdvecAdjointResult,
@@ -11,8 +11,32 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     lsrk_step_homogeneous_t,
     terminal_integral_cotangent,
 )
+from adjoint_ode_adaptivity_tpu_torch.adjoint.discrete import (
+    adjoint_dense_oracle,
+    adjoint_march,
+    adjoint_march_linearized,
+    adjoint_march_per_step,
+)
+from adjoint_ode_adaptivity_tpu_torch.adjoint.estimate import (
+    coarse_indicator,
+    error_estimate,
+    interp,
+    interp_to_fine,
+    refine_all,
+    residual,
+)
 
 __all__ = [
+    "adjoint_march",
+    "adjoint_march_per_step",
+    "adjoint_march_linearized",
+    "adjoint_dense_oracle",
+    "interp",
+    "refine_all",
+    "interp_to_fine",
+    "residual",
+    "error_estimate",
+    "coarse_indicator",
     "AdvecAdjointResult",
     "advec_adjoint_march",
     "advec_fwd_adj_estimate",

@@ -1,5 +1,5 @@
-"""Time marching (L1): LSRK4(5) coefficients and the eager DG advection
-march."""
+"""Time marching (L1): one-step FD rules and marches, LSRK4(5)
+coefficients and the eager DG advection march."""
 
 from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     AdvecOperators,
@@ -8,9 +8,23 @@ from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     advec_rhs,
     cfl_dt,
 )
+from adjoint_ode_adaptivity_tpu_torch.march.fd import (
+    euler_step,
+    forward_march,
+    forward_march_per_step,
+    heun_step,
+    rk4_step,
+    times_from_dt,
+)
 from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B, RK4C
 
 __all__ = [
+    "euler_step",
+    "heun_step",
+    "rk4_step",
+    "forward_march",
+    "forward_march_per_step",
+    "times_from_dt",
     "RK4A",
     "RK4B",
     "RK4C",

@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for the DG hot loops, and their loader.
+"""Hand-written CUDA kernels (the DG and FD hot loops), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
-them with plain ``nvcc -shared`` (sm_90a, a C interface, no PyTorch headers)
+them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
+``nvcc -c`` per source, all started together, then links one shared library
 into ``build/torch_kernels/`` at the root of the checkout on first use,
 cached by a hash of the sources and flags, and loads the result with ctypes.
 Nothing is built when a module is imported, so CPU-only machines import
@@ -18,19 +19,32 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["pick_chunk", "load_library", "KernelLibrary"]
+import torch
+
+__all__ = ["pick_chunk", "load_library", "KernelLibrary", "require_device"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def pick_chunk(n_steps: int, candidates=(64, 32, 16, 8, 4, 2, 1)) -> int:
     """Largest candidate chunk/segment size that divides ``n_steps``."""
     return next(c for c in candidates if n_steps % c == 0)
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`. A CUDA device that is not
+    there raises: the port's entry points run on the card unless the caller
+    asks for the CPU, and never carry on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available (pass device='cpu' "
+            "to run on the CPU)"
+        )
+    return device
 
 
 def _nvcc() -> str:
@@ -57,13 +71,22 @@ class KernelLibrary:
         lib.dg_fwd_march.restype = i
         lib.dg_adj_est_stored.argtypes = [i, i, i, i, d, d, d] + [p] * 15
         lib.dg_adj_est_stored.restype = i
-        lib.dg_error_string.argtypes = [i]
-        lib.dg_error_string.restype = ctypes.c_char_p
+        lib.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
+        lib.fd_ensemble.restype = i
+        lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
+        lib.fd_ensemble_vec.restype = i
+        lib.fd_estimate_per_member.argtypes = [i, i, i, p, i, i, i, i, ctypes.c_float] + [p] * 5
+        lib.fd_estimate_per_member.restype = i
+        for name in ("dg_error_string", "fd_error_string"):
+            getattr(lib, name).argtypes = [i]
+            getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib
 
-    def check(self, code: int, what: str) -> None:
+    def check(self, code: int, what: str, error_string=None) -> None:
+        """Raise when a C entry point returned ``code`` != 0, with the
+        message of ``error_string`` (the source file's own, default dg_rhs.cu's)."""
         if code != 0:
-            msg = self.lib.dg_error_string(code).decode()
+            msg = (error_string or self.lib.dg_error_string)(code).decode()
             raise RuntimeError(f"{what} failed: error {code} ({msg})")
 
 
@@ -80,15 +103,26 @@ def load_library() -> KernelLibrary:
     log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
     if not out.exists():
+        nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        units = [s for s in sources if s.suffix == ".cu"]
+        objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in units]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(units, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        log_path.write_text("".join(logs))
+        for src, proc, log in zip(units, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-        cmd += [str(s) for s in sources if s.suffix == ".cu"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        for o in objs:
+            o.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     log = log_path.read_text() if log_path.exists() else ""

@@ -20,16 +20,31 @@ raises, and the script exits non-zero; nothing is caught.
    with ``--kernel torch`` (float32 eager on the card); each mesh of the CUDA
    study replayed through the eager engine; the refinement decisions of both
    engines on a configuration whose indicator lies above float32 roundoff;
-   and one ``--estimate --kernel cuda`` run.
+   one ``--estimate --kernel cuda`` run; and the driver's plain march
+   (``--kernel cuda --k 512``, K1 at B=1) with its launch count.
 4. The headline pipeline (K=10^4, N=2, 2048 steps, B=8, stored trajectory),
-   timed with CUDA events for the kernels and for their plain versions.
+   timed with CUDA events for the kernels and for their plain versions; and
+   K1 at the plain march's shape against its plain version, timed likewise.
 5. The float64 effectivity identity Ση = J(u_dt) − J(u_dt/2) on the
    headline mesh and step (B=1), on bench.py's effectivity problem
    (u0 = sin(800x), J over [π, π+1], 64 steps), through the plain path, to
    1e-10 relative.
+6. Each FD kernel (csrc/fd_ensemble.cu) against its plain version, float32:
+   (a) sin(u) at 102,400 ICs, 16 steps, rf 4, trig libm and fast; (b) a
+   graded dt vector; (c) gaussian_mixture, and the other scalar ODEs at
+   4,096 ICs; (d) the d=2 harmonic oscillator at 102,400 ICs; (e) the
+   per-member kernel at B=1024, 43 steps, padded tails, both conventions.
+7. The FD paths through their entry points: ``drivers.fd_adaptive.main(
+   ["--ensemble", "1024", "--engine", "cuda", "--device-loop", "--tol", "0",
+   "--maxit", "40"])`` with the per-member kernel's launch count, every
+   iteration's grid replayed through the plain version and the torch
+   engine; the ensemble refinement signal through make_cuda_fd_ensemble(_vec);
+   and the single-run fd_adaptive default.
+8. CUDA-event times of each FD kernel and its plain version at the phase-6
+   shapes, and of the B=1024 study with each engine.
 
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is
+The line before the last is a JSON object with each kernel's launches on
+its path, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -46,11 +61,29 @@ PACKAGE = "adjoint_ode_adaptivity_tpu_torch"
 A = 6.283185307179586  # 2π
 HEADLINE = dict(n_order=2, k=10_000, n_steps=2048, batch=8)
 EFFECTIVITY_STEPS = 64  # bench.py:410's effectivity run on the headline mesh
-SOURCE = f"{PACKAGE}/csrc/dg_rhs.cu"
+SOURCES = {
+    "fwd_march": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_est_stored": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "fd_ensemble": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "fd_ensemble_vec": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "fd_estimate_per_member": f"{PACKAGE}/csrc/fd_ensemble.cu",
+}
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981",
     "adj_est_stored": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1108",
+    "fd_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:61",
+    "fd_ensemble_vec": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201",
+    "fd_estimate_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:357",
 }
+# the JAX package's benchmark shapes: the ensemble refinement signal and its
+# d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
+FD_ENSEMBLE = dict(n_ics=102_400, n_steps=16, rf=4, dt=2.0 / 16)
+FD_STUDY = dict(b=1024, maxit=40, n_steps0=2, t1=2.0, rf=4)
+FD_PM_STEPS = FD_STUDY["n_steps0"] + FD_STUDY["maxit"] + 1  # max_nodes − 1
+EPS32 = 2.0**-23
+# one H100 SXM at its full power limit (NVIDIA data sheet, dense FP32 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -242,6 +275,16 @@ def phase3(device):
     err = advec_dg.main(["--estimate", "--kernel", "cuda", "--k", "512"])
     assert np.isfinite(err) and err < 1e-2
     say("3", f"--estimate --kernel cuda --k 512: march max error {err:.3e}")
+
+    # the driver's plain march: K1 at B = 1 with no trajectory, the port of
+    # the TPU's _forward_kernel (dg_rhs.py:270)
+    dg_rhs.reset_launch_counts()
+    err = advec_dg.main(["--kernel", "cuda", "--k", "512"])
+    march = {"fwd_march": dg_rhs.fwd_march.launches,
+             "adj_est_stored": dg_rhs.adj_est_stored.launches}
+    say("3", f"--kernel cuda --k 512 (march only): max error {err:.3e}, wrapper launches {march}")
+    assert np.isfinite(err) and err < 1e-2
+    assert march == {"fwd_march": 1, "adj_est_stored": 0}, march
     return launches, hist[-1].vx
 
 
@@ -307,6 +350,37 @@ def phase4(device, errs):
     return {"fwd_march": (t_k1, t_p1), "adj_est_stored": (t_k2, t_p2)}
 
 
+def march_times(device, errs):
+    """K1 as the advec_dg march (the TPU's _forward_kernel, dg_rhs.py:270):
+    B = 1, no trajectory, at the driver's ``--kernel cuda --k 512`` defaults
+    (N = 2, T = 2, cfl 0.75); the kernel against its plain version."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.advec import cfl_dt
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    n_order, k = 2, 512
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    dt, n_steps = cfl_dt(disc, A, 0.75, 2.0)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = torch.tensor(np.sin(disc.x)[:, None, :], dtype=torch.float32, device=device)
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=dg_rhs.fwd_march(u0, 0.0, n_steps, ops)[1]), runs=5)
+    plain_ms = cuda_ms(lambda: out.update(p=dg_rhs.fwd_march_plain(u0, 0.0, n_steps, ops)[1]),
+                       runs=3, warmup=0)
+    e = float((out["k"] - out["p"]).abs().max())
+    tol = 8 * n_steps * EPS32 * float(out["p"].abs().max())
+    b_ms, b_by = march_bound(n_order, k, n_steps)
+    say("4", f"K1 as the advec_dg march (_forward_kernel, dg_rhs.py:270) K={k} N={n_order} "
+             f"B=1 steps={n_steps}: kernel {ms:.3f} ms (median of 5, {5 * n_steps} CUDA "
+             f"launches); plain {plain_ms:.3f} ms (median of 3); bound {b_ms:.5f} ms ({b_by}); "
+             f"max|kernel - plain| {e:.3e} (tol {tol:.3e})")
+    assert e <= tol, "K1 at B = 1 disagrees with its plain version"
+    errs["fwd_march"] = max(errs["fwd_march"], e)
+
+
 def phase5(device):
     import numpy as np
     import torch
@@ -336,6 +410,371 @@ def phase5(device):
     say("5", f"float64 plain path K={k} N={n_order} steps={n_steps} B=1: sum_eta {est:+.12e} "
              f"gap {gap:+.12e} |abs err| {abs(est - gap):.3e} |rel err| {rel:.3e} (limit 1e-10) [{time.perf_counter() - t0:.1f} s]")
     assert rel <= 1e-10, rel
+
+
+# ------------------------------------------------------------------ FD strand
+
+
+def fd_tol(stats, rf, d=1):
+    """float32 kernel vs plain version on the same inputs: the residual
+    r = u_j − (u_{j−1} + f·dt_f) is a difference of O(max|u|) values, so each
+    fine node's r·v carries a few ulp of max|u|·max|v| (FMA contraction in the
+    kernel, none in the plain version); a block sums rf nodes and d
+    components."""
+    return 8 * rf * d * EPS32 * float(stats["u"]) * float(stats["v"])
+
+
+def j_tol(stats, n_steps, t_max):
+    """J = Σ u_n²·dt_n: a few ulp of max|u|²·T per step."""
+    return 8 * n_steps * EPS32 * float(stats["u"]) ** 2 * t_max
+
+
+def fd_check(label, kname, got, want, tol, errs):
+    import torch
+
+    assert bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output"
+    e = float((got.double() - want.double()).abs().max())
+    say("6", f"{label}: max|kernel - plain| {e:.3e} (tol {tol:.3e}; max|plain| "
+             f"{float(want.abs().max()):.3e})")
+    assert e <= tol, f"{label}: kernel disagrees with its plain version"
+    errs[kname] = max(errs.get(kname, 0.0), e)
+
+
+def fd_inputs(device):
+    """The phase-6 inputs at the JAX package's benchmark shapes, from seeds:
+    u0 ~ U(−3, 3) seed 0 (bench.py:508-510); the d=2 states ~ U(−1, 1) seed 21
+    (bench.py:1297-1300); the per-member study's u0 ~ U(0.5, 2) seed 0
+    (bench.py:824-833) on random grids of 2..43 active steps over [0, 2]
+    with padded zero-width tails."""
+    import numpy as np
+    import torch
+
+    n, b, s = FD_ENSEMBLE["n_ics"], FD_STUDY["b"], FD_PM_STEPS
+    f32 = dict(dtype=torch.float32, device=device)
+    rng = np.random.default_rng(5)
+    times = np.full((b, s + 1), FD_STUDY["t1"])
+    for m, n_act in enumerate(rng.integers(2, s + 1, b)):
+        times[m, : n_act + 1] = np.concatenate(
+            [[0.0], np.sort(rng.uniform(0.0, FD_STUDY["t1"], n_act - 1)), [FD_STUDY["t1"]]])
+    return {
+        "u0": torch.tensor(np.random.default_rng(0).uniform(-3, 3, n), **f32),
+        "u0_vec": torch.tensor(np.random.default_rng(21).uniform(-1, 1, (n, 2)), **f32),
+        "u0_pm": torch.tensor(np.random.default_rng(0).uniform(0.5, 2.0, b), **f32),
+        "dt_pm": torch.tensor(np.diff(times, axis=1), **f32).contiguous(),
+        # a graded (nonuniform) coarse grid over [0, 2]
+        "dt_graded": np.diff(2.0 * np.linspace(0.0, 1.0, FD_ENSEMBLE["n_steps"] + 1) ** 1.5),
+    }
+
+
+def phase6(device, errs, inp):
+    """Each FD kernel against its plain version on the card, float32."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    n, s, rf, dt = (FD_ENSEMBLE[k] for k in ("n_ics", "n_steps", "rf", "dt"))
+    u0 = inp["u0"]
+
+    def ensemble(label, ode, step, trig="libm", x=u0):
+        run = fe.make_cuda_fd_ensemble(ode, s, rf, step, trig=trig, device=device)
+        got = run(x)
+        torch.cuda.synchronize()
+        stats = {}
+        want = fe.fd_ensemble_plain(x, run.plan, stats)
+        fd_check(label, "fd_ensemble", got, want, fd_tol(stats, rf), errs)
+
+    for trig in ("libm", "fast"):
+        ensemble(f"(a) sin(u) {n} ICs, uniform dt, trig={trig}", "du/dt=sin(u)", dt, trig)
+    ensemble("(b) sin(u), graded dt vector", "du/dt=sin(u)", inp["dt_graded"])
+    ensemble("(c) gaussian_mixture (time-dependent RHS)", "gaussian_mixture", dt)
+    for ode in ("du/dt=u", "du/dt=cos(2*pi*u)", "du/dt=10cos(u)", "du/dt=t*sin(u)"):
+        ensemble(f"(c') {ode} at 4096 ICs", ode, dt, x=u0[:4096] / 3)
+
+    run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+    got = run(inp["u0_vec"])
+    torch.cuda.synchronize()
+    stats = {}
+    want = fe.fd_ensemble_vec_plain(inp["u0_vec"], run.plan, stats)
+    fd_check(f"(d) harmonic_oscillator d=2, {n} ICs", "fd_ensemble_vec", got, want,
+             fd_tol(stats, rf, d=2), errs)
+
+    dt_pm, u0_pm = inp["dt_pm"], inp["u0_pm"]
+    t_max = float(dt_pm.double().sum(1).max())
+    for ode in ("du/dt=sin(u)", "gaussian_mixture"):
+        for conv in ("strided", "block"):
+            run = fe.make_cuda_fd_estimate_per_member(ode, FD_PM_STEPS, rf, conv, device=device)
+            err_k, j_k = run(dt_pm, u0_pm)
+            torch.cuda.synchronize()
+            stats = {}
+            err_p, j_p = fe.fd_estimate_per_member_plain(dt_pm, u0_pm, run.plan, stats)
+            label = f"(e) per-member {ode} B={u0_pm.shape[0]} {FD_PM_STEPS} steps {conv}"
+            fd_check(label + " err", "fd_estimate_per_member", err_k, err_p,
+                     fd_tol(stats, rf), errs)
+            fd_check(label + " J", "fd_estimate_per_member", j_k, j_p,
+                     j_tol(stats, FD_PM_STEPS, t_max), errs)
+            # zero-width padded steps contribute exactly 0
+            pad = dt_pm == 0
+            assert bool((err_k[pad] == 0).all()), "padding steps must contribute exactly 0"
+
+    # the wrappers refuse what the kernels do not take; nothing falls back
+    run = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, device=device)
+    for bad, exc in ((u0.double(), TypeError), (u0[::2], ValueError)):
+        try:
+            run(bad)
+        except exc:
+            continue
+        raise AssertionError(f"the kernel wrapper took a {bad.dtype} stride-{bad.stride()} input")
+    say("6", "float64 and non-contiguous inputs raise; no plain-version fallback on the card")
+
+
+def study_u0s():
+    """The driver's ensemble: U(u0/2, 2·u0) with u0 = 1, seed 0 (as bench.py:824-833)."""
+    import numpy as np
+
+    return np.random.default_rng(0).uniform(0.5, 2.0, FD_STUDY["b"])
+
+
+def phase7(device, errs, inp):
+    """The FD paths through their entry points: the per-member study via the
+    fd_adaptive driver (per-member kernel), the ensemble refinement signal
+    via its entry points (F1, F1 fast, F2), and the single-run default."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
+    from adjoint_ode_adaptivity_tpu_torch.drivers import fd_adaptive
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    b, maxit, rf = FD_STUDY["b"], FD_STUDY["maxit"], FD_STUDY["rf"]
+    argv = ["--ensemble", str(b), "--engine", "cuda", "--device-loop", "--tol", "0",
+            "--maxit", str(maxit)]
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = fd_adaptive.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fd_estimate_per_member": fe.fd_estimate_per_member.launches}
+    say("7", f"main path fd_adaptive {' '.join(argv)}: {len(hist)} iterations, steps "
+             f"{hist[0].n_active.max()} -> [{hist[-1].n_active.min()}..{hist[-1].n_active.max()}], "
+             f"wall {wall:.3f} s, wrapper launches {launches}")
+    assert launches["fd_estimate_per_member"] > 0, "the per-member kernel was not launched"
+    assert len(hist) == maxit + 1
+    for r in hist:
+        assert np.all(np.isfinite(r.err_steps)) and np.all(np.isfinite(r.j_coarse))
+
+    # replay every iteration's grid through the plain version (float32, same
+    # card), and through the torch engine's iteration on the same grids
+    u0s = torch.tensor(study_u0s(), dtype=torch.float32, device=device)
+    plan = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf,
+                                               device=device).plan
+    step = euler_step(odes.get_ode("du/dt=sin(u)").f)
+    worst = {"err": 0.0, "tol_err": 0.0, "j": 0.0, "tol_j": 0.0, "torch": 0.0}
+    decided = agree = 0
+    for r in hist:
+        times = torch.tensor(r.times, dtype=torch.float32, device=device)
+        stats = {}
+        err_p, j_p = fe.fd_estimate_per_member_plain(torch.diff(times, dim=1), u0s, plan, stats)
+        n_act = torch.tensor(r.n_active, device=device)
+        err_t = fd_loop.estimate_per_member(step, times, n_act, u0s, ref_factor=rf)[0]
+        err_k = torch.tensor(r.err_steps, device=device)
+        tol_e = fd_tol(stats, rf)
+        tol_j = j_tol(stats, FD_PM_STEPS, FD_STUDY["t1"])
+        e_err = float((err_k - err_p).abs().max())
+        e_j = float((torch.tensor(r.j_coarse, device=device) - j_p).abs().max())
+        assert e_err <= tol_e and e_j <= tol_j, (e_err, tol_e, e_j, tol_j)
+        for key, val in (("err", e_err), ("tol_err", tol_e), ("j", e_j), ("tol_j", tol_j),
+                         ("torch", float((err_k - err_t).abs().max()))):
+            worst[key] = max(worst[key], val)
+        # refinement decisions where the top-two margin clears the noise
+        top2 = torch.topk(err_p, 2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 4 * tol_e
+        picks = [torch.argmax(x, dim=1) for x in (err_k, err_p, err_t)]
+        same = (picks[0] == picks[1]) & (picks[1] == picks[2])
+        decided += int(clear.sum())
+        agree += int((same & clear).sum())
+    errs["fd_estimate_per_member"] = max(errs["fd_estimate_per_member"], worst["err"], worst["j"])
+    say("7", f"replay of {len(hist)} grids through the plain version: max|d err| "
+             f"{worst['err']:.3e} (tol <= {worst['tol_err']:.3e}), max|d J| {worst['j']:.3e} "
+             f"(tol <= {worst['tol_j']:.3e}); torch engine on the same grids: max|d err| "
+             f"{worst['torch']:.3e} (not bounded: another operation order)")
+    say("7", f"refinement decisions with a top-two margin > 4x tol: {decided} of "
+             f"{len(hist) * b} member-iterations; kernel, plain and torch engine agree on {agree}")
+    assert agree == decided, "a decision above the float32 noise differs between engines"
+
+    # the ensemble refinement signal through its entry points
+    n, s, dt = FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["dt"]
+    sig = {}
+    fe.reset_launch_counts()
+    for trig in ("libm", "fast"):
+        run = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, trig=trig, device=device)
+        sig[trig] = run(inp["u0"]).mean(dim=1)
+    vec = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+    sig["vec"] = vec(inp["u0_vec"]).mean(dim=1)
+    torch.cuda.synchronize()
+    launches["fd_ensemble"] = fe.fd_ensemble.launches
+    launches["fd_ensemble_vec"] = fe.fd_ensemble_vec.launches
+    for key, x in sig.items():
+        assert x.shape == (s,) and bool(torch.isfinite(x).all()), key
+    stats = {}
+    ref64 = fe.fd_ensemble_plain(inp["u0"].double(), run.plan, stats).mean(dim=1)
+    d64 = float((sig["libm"].double() - ref64).abs().max())
+    top2 = torch.topk(ref64, 2).values
+    say("7", f"ensemble signal ({n} ICs, {s} steps, rf {rf}): argmax libm "
+             f"{int(sig['libm'].argmax())} fast {int(sig['fast'].argmax())} float64 plain "
+             f"{int(ref64.argmax())} (top-two margin {float(top2[0] - top2[1]):.3e}); "
+             f"max|signal - float64| {d64:.3e}; d=2 signal argmax {int(sig['vec'].argmax())}; "
+             f"wrapper launches {launches}")
+    assert d64 <= fd_tol(stats, rf), "the float32 signal is off its float64 plain version"
+    if float(top2[0] - top2[1]) > fd_tol(stats, rf):  # the signal's decision is above the noise
+        assert int(sig["libm"].argmax()) == int(sig["fast"].argmax()) == int(ref64.argmax())
+    assert all(launches[k] > 0 for k in ("fd_ensemble", "fd_ensemble_vec"))
+
+    # the single-run default: sin(u), J = ∫u², maxit 40, torch on the card
+    t0 = time.perf_counter()
+    single = fd_adaptive.main([])
+    torch.cuda.synchronize()
+    e0, e1 = float(single[0].err_total), float(single[-1].err_total)
+    say("7", f"fd_adaptive default (single run, float32 on the card): {len(single)} iterations, "
+             f"sum(err) {e0:.4e} -> {e1:.4e}, wall {time.perf_counter() - t0:.2f} s")
+    assert np.isfinite(e1) and e1 < e0
+    return launches
+
+
+def study_times(device):
+    """Phase 8 for the study: the B = 1024, maxit 40 per-member study
+    (device loop) with the cuda and the torch engine, CUDA events around
+    the loop call."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    ode = odes.get_ode("du/dt=sin(u)")
+    kw = dict(n_steps0=FD_STUDY["n_steps0"], tol=0.0, maxit=FD_STUDY["maxit"],
+              dtype=torch.float32, device=device, device_loop=True, ode=ode)
+
+    def study(engine):
+        fd_loop.run_adaptive_fd_per_member(euler_step(ode.f), study_u0s(), (0.0, FD_STUDY["t1"]),
+                                           engine=engine, **kw)
+
+    before = fe.fd_estimate_per_member.launches
+    ms_cuda = cuda_ms(lambda: study("cuda"), runs=5)
+    per_study = (fe.fd_estimate_per_member.launches - before) / 6
+    ms_torch = cuda_ms(lambda: study("torch"), runs=1, warmup=0)
+    its = FD_STUDY["maxit"] + 1
+    say("8", f"per-member study B={FD_STUDY['b']} maxit {FD_STUDY['maxit']} (device loop): "
+             f"engine cuda {ms_cuda:.3f} ms (median of 5; {per_study:g} kernel launches per "
+             f"study, {ms_cuda / its:.3f} ms per iteration, "
+             f"{FD_STUDY['b'] * its / (ms_cuda / 1e3):.4e} member-iterations/s); engine torch "
+             f"{ms_torch:.1f} ms (one run); speed-up {ms_torch / ms_cuda:.1f}x")
+    return ms_cuda, ms_torch
+
+
+def fd_times(device, inp):
+    """Phase 8 for the kernels: CUDA events, one warm-up, median of 5, each
+    FD kernel and its plain version at the phase-6 shapes. Returns
+    {name: (kernel ms, plain ms)}."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    n, s, rf, dt = (FD_ENSEMBLE[k] for k in ("n_ics", "n_steps", "rf", "dt"))
+    u0, u0v, dt_pm, u0_pm = inp["u0"], inp["u0_vec"], inp["dt_pm"], inp["u0_pm"]
+    sin_ = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, device=device)
+    fast = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, trig="fast", device=device)
+    vec = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+    pm = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf, device=device)
+    cases = {
+        "fd_ensemble": (lambda: sin_(u0), lambda: fe.fd_ensemble_plain(u0, sin_.plan),
+                        fe.fd_ensemble, n),
+        "fd_ensemble trig=fast": (lambda: fast(u0), lambda: fe.fd_ensemble_plain(u0, fast.plan),
+                                  fe.fd_ensemble, n),
+        "fd_ensemble_vec": (lambda: vec(u0v), lambda: fe.fd_ensemble_vec_plain(u0v, vec.plan),
+                            fe.fd_ensemble_vec, n),
+        "fd_estimate_per_member": (lambda: pm(dt_pm, u0_pm),
+                                   lambda: fe.fd_estimate_per_member_plain(dt_pm, u0_pm, pm.plan),
+                                   fe.fd_estimate_per_member, FD_STUDY["b"]),
+    }
+    bounds = fd_bounds()
+    times = {}
+    for name, (kern, plain, wrapper, n_ic) in cases.items():
+        before = wrapper.launches
+        ms = cuda_ms(kern, runs=5)
+        per_call = (wrapper.launches - before) / 6
+        plain_ms = cuda_ms(plain, runs=5)
+        b_ms, b_by = bounds[name.split()[0]]
+        say("8", f"{name}: kernel {ms:.4f} ms = {n_ic / (ms / 1e3):.4e} ICs/s "
+                 f"({per_call:g} launch per call); plain {plain_ms:.3f} ms = "
+                 f"{n_ic / (plain_ms / 1e3):.4e} ICs/s; kernel speed-up {plain_ms / ms:.1f}x; "
+                 f"bound {b_ms:.5f} ms ({b_by}), kernel at {b_ms / ms:.2%} of it")
+        times[name] = (ms, plain_ms)
+    return times
+
+
+def fd_bounds():
+    """Least time on the card for each FD kernel at the phase-6/8 shapes:
+    the larger of bytes (each input read once, each output written once)
+    over 3.35 TB/s and FP32 operations over 67 TFLOP/s, counting an FMA as
+    2 and each sin, cos or exp as 1 (the least a special-function unit can
+    take). The (f, f_u) pair costs what its functor does: sin and cos for
+    sin(u); one product (−4·u₀) for the harmonic oscillator, whose Jacobian
+    is constant. Per IC, a fine node costs 15.25 (d=1) or 27.5 (d=2)
+    operations at rf 4."""
+    n, s, rf = FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["rf"]
+    b, sp = FD_STUDY["b"], FD_PM_STEPS
+    grid = 4 * (2 * s + 2 * s * rf)
+
+    def node_ops(d, pair):  # interpolation, v update, residual, r·v per component; the pair
+        return d * (3 * (rf - 1) / rf + 6 + 3 + 2) + pair
+
+    sin_node, harmonic_node = node_ops(1, pair=2), node_ops(2, pair=1)
+    work = {
+        "fd_ensemble": (4 * n + 4 * s * n + grid, n * (3 * s + s * rf * sin_node + s)),
+        "fd_ensemble_vec": (8 * n + 4 * s * n + grid, n * (5 * s + s * rf * harmonic_node + s)),
+        # + J (3/step), t (1/step), fine times and widths (3/node)
+        "fd_estimate_per_member": (4 * b + 8 * sp * b + 4 * b,
+                                   b * (7 * sp + sp * rf * (sin_node + 3) + sp)),
+    }
+    return {k: bound(*v) for k, v in work.items()}
+
+
+def bound(n_bytes, n_ops):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dg_bounds():
+    """The same for K1 and K2 at the headline (K = 10^4, N = 2, B = 8, 2048
+    steps, stored trajectory). One LSRK stage costs 2Np² + 9Np + 4
+    operations per column (volume product, lift, stage update); K1 runs 5
+    stages a step, K2 20 (two dt/2 steps and two transposed dt/2 steps) plus
+    the η accumulation. K1 writes the trajectory; K2 reads it."""
+    n_order, k, n_steps, b = (HEADLINE[x] for x in ("n_order", "k", "n_steps", "batch"))
+    np_ = n_order + 1
+    cols, state = b * k, 4 * (n_order + 1) * b * k
+    stage = stage_ops(np_)
+    geom = 3 * 4 * k
+    return {
+        "fwd_march": bound(state + geom + n_steps * state + state,
+                           n_steps * 5 * stage * cols),
+        "adj_est_stored": bound(n_steps * state + 2 * state + geom + state + 4 * cols,
+                                n_steps * (20 * stage + 3 * np_) * cols),
+    }
+
+
+def stage_ops(np_):
+    """FP32 operations of one LSRK stage per column (see dg_bounds)."""
+    return 2 * np_ * np_ + 9 * np_ + 4
+
+
+def march_bound(n_order, k, n_steps):
+    """K1 as the advec_dg march: B = 1, no trajectory; u0 and the geometry
+    read once, u_final written once, 5 stages a step."""
+    np_ = n_order + 1
+    state = 4 * np_ * k
+    return bound(2 * state + 3 * 4 * k, n_steps * 5 * stage_ops(np_) * k)
 
 
 def main() -> int:
@@ -378,7 +817,7 @@ def main() -> int:
              f"{len(regs)} kernel instances, registers {sorted(set(regs), key=int)}, "
              f"spilling instances {len(spills)}")
 
-    errs = {"fwd_march": 0.0, "adj_est_stored": 0.0}
+    errs = {name: 0.0 for name in TPU_KERNELS}
     compare_case("(a) graded", mesh(2, 24, graded=True), 8, 64, device, errs)
     compare_case("(b) N=7", mesh(7, 24, graded=False), 8, 64, device, errs)
     compare_case("(c) headline shapes", mesh(2, 10_000, graded=False), 8, 64, device, errs)
@@ -387,13 +826,23 @@ def main() -> int:
     compare_case("(d) adaptive study's last mesh",
                  startup_1d(2, 0.0, 2 * np.pi, len(last_vx) - 1, vx=last_vx), 1, 64, device, errs)
     times = phase4(device, errs)
+    march_times(device, errs)
     phase5(device)
 
+    inp = fd_inputs(device)
+    phase6(device, errs, inp)
+    launches.update(phase7(device, errs, inp))
+    times.update(fd_times(device, inp))
+    study_times(device)
+
+    bounds = {**dg_bounds(), **fd_bounds()}
+    # no single PyTorch call computes any of these pipelines: library_ms is null
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": TPU_KERNELS[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("fwd_march", "adj_est_stored")
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+        for name in TPU_KERNELS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

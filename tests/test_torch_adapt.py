@@ -15,7 +15,8 @@ from adjoint_ode_adaptivity_tpu_torch.drivers import advec_dg
 
 REPO = Path(__file__).resolve().parents[1]
 # test_advec.py::test_adaptive_element_loop_reduces_estimate's config
-KW = dict(n_order=2, k0=8, final_time=0.1, maxit=3, tol=1e-10)
+REF_KW = dict(n_order=2, k0=8, final_time=0.1, maxit=3, tol=1e-10)
+KW = {**REF_KW, "device": "cpu"}  # the port's loop defaults to the card
 
 
 def _sin(x):
@@ -24,7 +25,7 @@ def _sin(x):
 
 @pytest.fixture(scope="module")
 def jax_history():
-    return jax_run(_sin, **KW)
+    return jax_run(_sin, **REF_KW)
 
 
 def test_torch_engine_matches_xla_engine_f64(jax_history):
@@ -61,6 +62,15 @@ def test_bad_engine_and_cuda_engine_on_cpu_raise():
         run_adaptive_advec(_sin, engine="pallas")
     with pytest.raises(ValueError):
         run_adaptive_advec(_sin, engine="cuda", device="cpu")
+
+
+def test_loop_defaults_to_the_card():
+    """Without device= the loop runs on the card, and raises where there
+    is none; it never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error path cannot run here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_adaptive_advec(_sin, **REF_KW)
 
 
 def test_driver_cpu_adapt_and_estimate(capsys):

@@ -9,6 +9,12 @@ different order of operations (FMA contraction, the volume sum, the batch
 reduction), so u and λ agree to a few ulp per step relative to their
 largest entry, and η — a sum of differences λ·(u_{n+1} − half2) of O(1)
 states — to a few ulp of max|λ|·max|u| per step.
+
+The FD kernels: the residual r = u_j − (u_{j−1} + f·dt_f) is a difference of
+O(max|u|) values, so each fine node's r·v differs by a few ulp of
+max|u|·max|v| (FMA contraction in the kernel, none in the plain version);
+an indicator sums rf nodes (and d components), and J = Σu²dt a few ulp of
+max|u|²·T per step.
 """
 import numpy as np
 import pytest
@@ -17,6 +23,7 @@ import torch
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
 from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
 pytestmark = pytest.mark.cuda
 A = 2 * np.pi
@@ -66,3 +73,74 @@ def test_kernel_rejects_float64_and_plain_is_not_taken(device):
         dg_rhs.fwd_march(torch.zeros((3, 1, 16), dtype=torch.float64, device=device), 0.0, 4, ops)
     with pytest.raises(ValueError):  # not contiguous
         dg_rhs.fwd_march(torch.zeros((3, 16, 2), device=device).transpose(1, 2), 0.0, 4, ops)
+
+
+def _fd_tol(stats, rf, d=1):
+    return 8 * rf * d * EPS32 * float(stats["u"]) * float(stats["v"])
+
+
+@pytest.mark.parametrize("ode,trig", [("du/dt=sin(u)", "libm"), ("du/dt=sin(u)", "fast"),
+                                      ("gaussian_mixture", "libm"), ("du/dt=t*sin(u)", "libm")])
+def test_fd_ensemble_kernel_matches_its_plain_version(device, ode, trig):
+    rng = np.random.default_rng(0)
+    n, n_steps, rf = 3000, 8, 4
+    dt = 2.0 * rng.uniform(0.5, 1.5, n_steps) / n_steps
+    u0 = torch.tensor(rng.uniform(-3, 3, n), dtype=torch.float32, device=device)
+    run = fe.make_cuda_fd_ensemble(ode, n_steps, rf, dt, trig=trig, device=device)
+    before = fe.fd_ensemble.launches
+    got = run(u0)
+    torch.cuda.synchronize()
+    assert fe.fd_ensemble.launches == before + 1
+    stats = {}
+    want = fe.fd_ensemble_plain(u0, run.plan, stats)
+    assert got.shape == (n_steps, n) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= _fd_tol(stats, rf)
+
+
+def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
+    rng = np.random.default_rng(21)
+    u0 = torch.tensor(rng.uniform(-1, 1, (3000, 2)), dtype=torch.float32, device=device)
+    run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", 8, 4, 0.25, device=device)
+    before = fe.fd_ensemble_vec.launches
+    got = run(u0)
+    torch.cuda.synchronize()
+    assert fe.fd_ensemble_vec.launches == before + 1
+    stats = {}
+    want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+    assert float((got - want).abs().max()) <= _fd_tol(stats, 4, d=2)
+
+
+@pytest.mark.parametrize("convention", ["strided", "block"])
+def test_fd_estimate_per_member_kernel_matches_its_plain_version(device, convention):
+    rng = np.random.default_rng(5)
+    b, n_steps, rf = 300, 12, 4
+    times = np.full((b, n_steps + 1), 2.0)
+    for m, n_act in enumerate(rng.integers(2, n_steps + 1, b)):  # padded zero-width tails
+        times[m, : n_act + 1] = np.concatenate([[0.0], np.sort(rng.uniform(0, 2, n_act - 1)), [2.0]])
+    dt_b = torch.tensor(np.diff(times, axis=1), dtype=torch.float32, device=device)
+    u0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    run = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", n_steps, rf, convention,
+                                              device=device)
+    before = fe.fd_estimate_per_member.launches
+    err, j = run(dt_b, u0)
+    torch.cuda.synchronize()
+    assert fe.fd_estimate_per_member.launches == before + 1
+    stats = {}
+    err_p, j_p = fe.fd_estimate_per_member_plain(dt_b, u0, run.plan, stats)
+    assert float((err - err_p).abs().max()) <= _fd_tol(stats, rf)
+    assert float((j - j_p).abs().max()) <= 8 * n_steps * EPS32 * float(stats["u"]) ** 2 * 2.0
+    assert bool((err[dt_b == 0] == 0).all())  # padding contributes exactly 0
+
+
+def test_fd_kernels_reject_float64_and_non_contiguous(device):
+    run = fe.make_cuda_fd_ensemble("du/dt=sin(u)", 4, 4, 0.1, device=device)
+    with pytest.raises(TypeError):
+        run(torch.zeros(64, dtype=torch.float64, device=device))
+    with pytest.raises(ValueError):  # not contiguous
+        run(torch.zeros(128, device=device)[::2])
+    pm = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 4, 4, device=device)
+    with pytest.raises(ValueError):  # dt of another dtype than u0s
+        pm(torch.zeros((8, 4), dtype=torch.float64, device=device), torch.zeros(8, device=device))
+    long = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 1000, 4, device=device)
+    with pytest.raises(RuntimeError, match="shared memory"):  # the launcher refuses
+        long(torch.zeros((8, 1000), device=device), torch.zeros(8, device=device))
