@@ -7,22 +7,30 @@ step-doubling estimate η_k, and the goal-oriented h-adaptive loop on top.
 The second is the FD strand: the ODE registry, the functionals, one-step
 marches, their discrete adjoints and the adjoint-weighted residual, the
 adaptive time-grid loops (single run, backtrack, per-member ensemble), the
-``fd_adaptive`` driver, and the ensemble refinement signal.
+``fd_adaptive`` driver, and the ensemble refinement signal. The third is
+the DG-in-time strand (the reference's MATLAB MAIN.m): the Newton slab
+march, the discrete adjoint at order n+1, the per-element adjoint-weighted
+residual, Radau reconstruction, the batched ensemble pipeline, the
+single-run, ensemble-signal and per-member adaptive loops, and the
+``dg_adaptive`` driver.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
 - ``odes``, ``functionals``  the ODE registry and the output functionals
 - ``ops``        host NumPy float64 builders (Jacobi, operators, mesh) and
   the fast-trig polynomials
-- ``march``      one-step FD marches, LSRK coefficients, the advection march
+- ``march``      one-step FD marches, LSRK coefficients, the advection march,
+  the DG-in-time slab marches (single and batched)
 - ``adjoint``    discrete adjoints, the FD estimate, the advection transpose
-  step and fused estimate
+  step and fused estimate, the DG-in-time adjoint and AWR
 - ``ops.cuda``   the hand-written CUDA kernels, their plain-PyTorch
-  versions and the entry points that mirror ``ops/pallas/dg_rhs.py`` and
-  ``ops/pallas/fd_ensemble.py``
-- ``adapt``      the FD time-grid loops and the DG h-adaptive loop
-  (``engine="torch"`` or ``"cuda"``), and the refinement policies
-- ``drivers``    the ``fd_adaptive`` and ``advec_dg`` command lines
+  versions and the entry points that mirror ``ops/pallas/dg_rhs.py``,
+  ``ops/pallas/fd_ensemble.py`` and ``ops/pallas/dg_slab.py``
+- ``adapt``      the FD time-grid loops, the DG h-adaptive loop and the
+  DG-in-time loops (``engine="torch"`` or ``"cuda"``), and the refinement
+  policies
+- ``drivers``    the ``fd_adaptive``, ``advec_dg`` and ``dg_adaptive``
+  command lines
 - ``interop``    carries JAX-package state across (discretization, operator
   bundle, gaussian-mixture constants)
 

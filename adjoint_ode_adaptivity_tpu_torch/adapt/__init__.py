@@ -4,6 +4,14 @@ from adjoint_ode_adaptivity_tpu_torch.adapt.advec_loop import (
     AdvecAdaptResult,
     run_adaptive_advec,
 )
+from adjoint_ode_adaptivity_tpu_torch.adapt.dg_loop import (
+    DGAdaptResult,
+    DGEnsembleAdaptResult,
+    DGPerMemberAdaptResult,
+    run_adaptive_dg,
+    run_adaptive_dg_ensemble,
+    run_adaptive_dg_per_member,
+)
 from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import (
     AdaptResult,
     AdaptState,
@@ -28,6 +36,12 @@ from adjoint_ode_adaptivity_tpu_torch.adapt.policy import (
 __all__ = [
     "AdvecAdaptResult",
     "run_adaptive_advec",
+    "DGAdaptResult",
+    "DGEnsembleAdaptResult",
+    "DGPerMemberAdaptResult",
+    "run_adaptive_dg",
+    "run_adaptive_dg_ensemble",
+    "run_adaptive_dg_per_member",
     "AdaptState",
     "AdaptResult",
     "FDPerMemberAdaptResult",

@@ -1,5 +1,5 @@
 """Discrete adjoints and adjoint-weighted error estimates (L2, eager torch):
-the one-step FD marches and the DG advection march."""
+the one-step FD marches, the DG advection march and the DG-in-time slabs."""
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     AdvecAdjointResult,
@@ -10,6 +10,14 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     lsrk_step_homogeneous,
     lsrk_step_homogeneous_t,
     terminal_integral_cotangent,
+)
+from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import (
+    DGAdjointResult,
+    continuous_err_contribution,
+    dg_adjoint_march,
+    dg_adjoint_reconstruct,
+    dg_awr_from_adjoint,
+    dg_element_functional,
 )
 from adjoint_ode_adaptivity_tpu_torch.adjoint.discrete import (
     adjoint_dense_oracle,
@@ -45,4 +53,10 @@ __all__ = [
     "lsrk_step_homogeneous",
     "lsrk_step_homogeneous_t",
     "terminal_integral_cotangent",
+    "DGAdjointResult",
+    "dg_adjoint_march",
+    "dg_element_functional",
+    "dg_adjoint_reconstruct",
+    "dg_awr_from_adjoint",
+    "continuous_err_contribution",
 ]

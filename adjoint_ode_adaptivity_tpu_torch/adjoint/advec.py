@@ -36,6 +36,7 @@ from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     lsrk_stages,
 )
 from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
 from adjoint_ode_adaptivity_tpu_torch.ops.operators import mass_matrix
 
@@ -99,11 +100,12 @@ def lsrk_step_homogeneous_t(ops: AdvecOperators, lam: torch.Tensor, dt: float) -
 
 
 def terminal_integral_cotangent(
-    disc: Discretization1D, dtype=torch.float32, device="cpu"
+    disc: Discretization1D, dtype=torch.float32, device="cuda"
 ) -> torch.Tensor:
-    """∂J/∂u_nodal for J = ∫_Ω u(x, T) dx: per-element J·(M_ref @ 1)."""
+    """∂J/∂u_nodal for J = ∫_Ω u(x, T) dx: per-element J·(M_ref @ 1), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     m1 = mass_matrix(disc.v).sum(axis=1)
-    return torch.as_tensor(disc.jac * m1[:, None], dtype=dtype, device=device)
+    return torch.as_tensor(disc.jac * m1[:, None], dtype=dtype, device=require_device(device))
 
 
 def advec_adjoint_march(

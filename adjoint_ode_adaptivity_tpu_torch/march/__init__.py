@@ -1,5 +1,6 @@
 """Time marching (L1): one-step FD rules and marches, LSRK4(5)
-coefficients and the eager DG advection march."""
+coefficients, the eager DG advection march, and the DG-in-time slab
+marches (single and batched)."""
 
 from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     AdvecOperators,
@@ -7,6 +8,23 @@ from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     advec_operators,
     advec_rhs,
     cfl_dt,
+)
+from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import (
+    DGBatchedAdjointResult,
+    DGBatchedResult,
+    dg_adjoint_march_batched,
+    dg_element_functional_batched,
+    dg_estimate_batched,
+    dg_march_batched,
+    ge_solve_rows,
+    solve_small,
+)
+from adjoint_ode_adaptivity_tpu_torch.march.dg_time import (
+    DGMarchResult,
+    DGTimeOperators,
+    dg_march,
+    dg_time_operators,
+    elementwise_f_u,
 )
 from adjoint_ode_adaptivity_tpu_torch.march.fd import (
     euler_step,
@@ -33,4 +51,17 @@ __all__ = [
     "advec_rhs",
     "advec_march",
     "cfl_dt",
+    "DGTimeOperators",
+    "dg_time_operators",
+    "DGMarchResult",
+    "dg_march",
+    "elementwise_f_u",
+    "solve_small",
+    "ge_solve_rows",
+    "DGBatchedResult",
+    "DGBatchedAdjointResult",
+    "dg_march_batched",
+    "dg_adjoint_march_batched",
+    "dg_element_functional_batched",
+    "dg_estimate_batched",
 ]

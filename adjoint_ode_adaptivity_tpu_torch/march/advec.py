@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B, RK4C
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
 
 __all__ = [
@@ -79,10 +80,12 @@ def advec_operators(
     a: float = 2 * np.pi,
     alpha: float = 1.0,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> AdvecOperators:
+    """The operator bundle of ``disc`` on ``device`` (the card unless the
+    caller asks for the CPU; a CUDA device that is not there raises)."""
     return advec_operators_from_numpy(
-        disc.dr, disc.lift, disc.rx, disc.fscale, disc.nx, a, alpha, device, dtype
+        disc.dr, disc.lift, disc.rx, disc.fscale, disc.nx, a, alpha, require_device(device), dtype
     )
 
 

@@ -3,9 +3,10 @@ solutions, and the exact continuous adjoint for verification.
 
 Counterpart of the JAX package's ``odes.py``. Every scalar entry carries a
 closed-form ``f_u`` (the JAX package differentiates the ones it leaves out
-by AD) and a ``kernel_id`` naming its device functor in
-``csrc/fd_ensemble.cu``; an entry without a ``kernel_id`` cannot run on the
-FD kernels, and their entry points raise for it.
+by AD) and a ``kernel_id`` naming its device functor in ``csrc/odes.cuh``,
+the header shared by the FD kernels (``csrc/fd_ensemble.cu``) and the DG
+slab kernel (``csrc/dg_slab.cu``); an entry without a ``kernel_id`` cannot
+run on the kernels, and their entry points raise for it.
 
 ``gaussian_mixture`` draws its constants from ``jax.random.PRNGKey(1/2/3)``
 in the JAX package. The port holds those draws (taken with 64-bit floats,
@@ -35,7 +36,7 @@ __all__ = [
     "KERNEL_IDS",
 ]
 
-# device functors of csrc/fd_ensemble.cu (its OdeId enum)
+# device functors of csrc/odes.cuh (its AOA_ODE_SCALAR_SWITCH; 6 is the vector functor)
 KERNEL_IDS = {
     "du/dt=u": 0,
     "du/dt=sin(u)": 1,

@@ -7,7 +7,8 @@ NumPy. Accuracy on |x| ≤ DOMAIN: max abs error ≤ ~2e-7 (sin) and ~2e-8
 Outside ±DOMAIN the polynomials diverge: the caller owns the domain proof
 (u' = sin u keeps u0 ∈ [−3, 3] inside (−π, π)).
 
-The CUDA kernels (csrc/fd_ensemble.cu, ``trig="fast"``) take
+The CUDA kernels (csrc/fd_ensemble.cu and csrc/dg_slab.cu through the
+FastTrig policy of csrc/odes.cuh, ``trig="fast"``) take
 :data:`SIN_C` and :data:`COS_C`, rounded to float32, by value and evaluate
 the same Horner chains; the functions here are their plain versions and
 take torch tensors (or NumPy arrays).

@@ -42,6 +42,23 @@ raises, and the script exits non-zero; nothing is caught.
    and the single-run fd_adaptive default.
 8. CUDA-event times of each FD kernel and its plain version at the phase-6
    shapes, and of the B=1024 study with each engine.
+9. The DG slab kernel (csrc/dg_slab.cu) against its plain version, float32:
+   (a) order 1 at bench.py's shapes (B=16,384, K=16, t in [0, 2], y0 ~
+   U(0.5, 2) seed 1, 5 Newton steps), libm and fast trig; (b) orders 2 and
+   4 (Cramer and elimination) at B=1024; (c) per-member partitions with
+   zero-width tails, whose contributions are exactly 0; (d) t*sin(u) and
+   gaussian_mixture at 4,096 members; (e) B=102,400, seed 3.
+10. The DG-in-time paths through their entry points: ``drivers.dg_adaptive.
+   main(["--ensemble", "1024", "--per-member", "--device-loop"])`` with the
+   kernel's launch count, every iteration's partitions replayed through the
+   plain version (float32) and the torch engine (float64), the decisions
+   compared where the top-two margin clears the float32 bound;
+   ``--ensemble 1024`` on the shared partition; and the single-run default
+   ``dg_adaptive --maxit 30`` in float64 on the card against ``--device cpu``.
+11. CUDA-event times of the DG slab kernel and its plain version at 9(a)
+   (libm and fast), 9(e) and 9(c), and of the B=1024 ensemble and per-member
+   studies (bench.py's k0 4, maxit 10, tol 0, 8 Newton steps) with each
+   engine.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -67,6 +84,7 @@ SOURCES = {
     "fd_ensemble": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "fd_ensemble_vec": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "fd_estimate_per_member": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "dg_estimate_ensemble": f"{PACKAGE}/csrc/dg_slab.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981",
@@ -74,6 +92,7 @@ TPU_KERNELS = {
     "fd_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:61",
     "fd_ensemble_vec": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201",
     "fd_estimate_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:357",
+    "dg_estimate_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab.py:92",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -81,6 +100,12 @@ FD_ENSEMBLE = dict(n_ics=102_400, n_steps=16, rf=4, dt=2.0 / 16)
 FD_STUDY = dict(b=1024, maxit=40, n_steps0=2, t1=2.0, rf=4)
 FD_PM_STEPS = FD_STUDY["n_steps0"] + FD_STUDY["maxit"] + 1  # max_nodes − 1
 EPS32 = 2.0**-23
+# the JAX package's DG-slab benchmark shapes: the ensemble pipeline
+# (bench.py:589-608), its 102,400-member scale (bench.py:785-807) and the
+# B=1024 adaptive studies (bench.py:696-780)
+DG_SLAB = dict(b=16_384, k=16, t1=2.0, newton_iters=5, seed=1)
+DG_SLAB_BIG = dict(b=102_400, seed=3)
+DG_STUDY = dict(b=1024, k0=4, maxit=10, tol=0.0, newton_iters=8, seed=2)
 # one H100 SXM at its full power limit (NVIDIA data sheet, dense FP32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -246,7 +271,7 @@ def phase3(device):
     eps = 2.0**-23
     for it, r in enumerate(hist):
         j_t, eta_t, disc = eager_estimate(r.vx, r.n_steps, r.dt, device, torch.float32)
-        lam = terminal_integral_cotangent(disc, torch.float64).numpy()
+        lam = terminal_integral_cotangent(disc, torch.float64, "cpu").numpy()
         tol_j = 8 * np.sqrt(r.n_steps) * eps * float(np.sum(np.abs(lam)))
         tol_eta = 8 * np.sqrt(r.n_steps) * disc.np_ * eps * float(np.max(np.abs(lam)))
         dj, de = abs(r.j_value - j_t), float(np.max(np.abs(r.eta - eta_t)))
@@ -750,7 +775,10 @@ def dg_bounds():
     steps, stored trajectory). One LSRK stage costs 2Np² + 9Np + 4
     operations per column (volume product, lift, stage update); K1 runs 5
     stages a step, K2 20 (two dt/2 steps and two transposed dt/2 steps) plus
-    the η accumulation. K1 writes the trajectory; K2 reads it."""
+    the η accumulation. K1 writes the trajectory; K2 reads it. D1 at
+    bench.py's DG-slab shape (phase 9(a)), counted by :func:`dg_slab_bound`."""
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+
     n_order, k, n_steps, b = (HEADLINE[x] for x in ("n_order", "k", "n_steps", "batch"))
     np_ = n_order + 1
     cols, state = b * k, 4 * (n_order + 1) * b * k
@@ -761,6 +789,9 @@ def dg_bounds():
                            n_steps * 5 * stage * cols),
         "adj_est_stored": bound(n_steps * state + 2 * state + geom + state + 4 * cols,
                                 n_steps * (20 * stage + 3 * np_) * cols),
+        "dg_estimate_ensemble": dg_slab_bound(
+            1, DG_SLAB["k"], DG_SLAB["b"], DG_SLAB["newton_iters"],
+            dg_time_operators(1).phi.shape[0], dg_time_operators(2).phi.shape[0]),
     }
 
 
@@ -775,6 +806,302 @@ def march_bound(n_order, k, n_steps):
     np_ = n_order + 1
     state = 4 * np_ * k
     return bound(2 * state + 3 * 4 * k, n_steps * 5 * stage_ops(np_) * k)
+
+
+# ------------------------------------------------------------ DG-in-time strand
+
+
+def dg_tol(plain, k, ops_p, ops_a):
+    """float32 kernel vs plain version on the same inputs: each element's
+    Newton and adjoint solves amplify the roundoff of their assembly (FMA
+    contraction in the kernel, none in the plain version) by the slab
+    system's condition κ (that of the zero-width system Sᵀ + B, resp.
+    −Sᵀ − e_L e_Lᵀ: 1 at order 1, 5.4 at order 4), and the inflow carries
+    it through the K elements. err_k = vᵀres sums Na products of an
+    O(max|v|) weight with a difference of O(max|u|) values, and is local:
+    a shift of the states carried in through the inflow moves Sᵀu_h, the
+    outflow and the inflow term alike and cancels in the residual (to
+    O(h·f_u)), so its bound has no K factor. The err bound is also the
+    noise a refinement decision must clear."""
+    import numpy as np
+
+    a_p = ops_p.stiff.T.copy()
+    a_p[-1, -1] -= 1.0
+    a_a = -ops_a.stiff.T.copy()
+    a_a[0, 0] -= 1.0
+    kp, ka = float(np.linalg.cond(a_p)), float(np.linalg.cond(a_a))
+    umax, vmax = (float(x.abs().max()) for x in plain[:2])
+    return {"u": 8 * k * kp * EPS32 * umax, "v": 8 * k * ka * EPS32 * vmax,
+            "err": 8 * ka * ops_a.np_ * EPS32 * umax * vmax}
+
+
+def dg_case(label, device, errs, ode="du/dt=sin(u)", n=1, k=DG_SLAB["k"], b=DG_SLAB["b"],
+            seed=DG_SLAB["seed"], newton_iters=DG_SLAB["newton_iters"], trig="libm",
+            per_member=False):
+    """One phase-9 comparison: D1 against its plain version on the card."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    rng = np.random.default_rng(seed)
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    if per_member:  # random partitions of [0, 2] with zero-width tails
+        t = np.full((b, k + 1), DG_SLAB["t1"])
+        for m, n_act in enumerate(rng.integers(2, k - 3, b)):
+            t[m, : n_act + 1] = np.concatenate(
+                [[0.0], np.sort(rng.uniform(0.0, DG_SLAB["t1"], n_act - 1)), [DG_SLAB["t1"]]])
+    else:
+        t = np.linspace(0.0, DG_SLAB["t1"], k + 1)
+    times = torch.tensor(t, dtype=torch.float32, device=device)
+    ops_p, ops_a = dg_time_operators(n), dg_time_operators(n + 1)
+    run = ds.make_cuda_dg_estimate_ensemble(ode, ops_p, ops_a, k, newton_iters, trig=trig,
+                                            device=device)
+    got = run(times, y0)
+    torch.cuda.synchronize()
+    want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+    tol = dg_tol(want, k, ops_p, ops_a)
+    e = {}
+    for name, g, w in zip(("u", "v", "err"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), f"{label}: {name}"
+        e[name] = float((g - w).abs().max())
+    smem = k * ops_p.np_ * 128 * 4 <= 48 * 1024
+    say("9", f"{label}: {ode} order {n} K={k} B={b} newton {newton_iters} trig={trig} "
+             f"{'per-member' if per_member else 'shared'} times, states in "
+             f"{'shared memory' if smem else 'the u output'} | u {e['u']:.3e} (tol "
+             f"{tol['u']:.3e}) v {e['v']:.3e} (tol {tol['v']:.3e}) err {e['err']:.3e} (tol "
+             f"{tol['err']:.3e}; max|err| {float(want[2].abs().max()):.3e})")
+    assert all(e[x] <= tol[x] for x in e), f"{label}: the DG slab kernel disagrees"
+    if per_member:  # a trailing zero-width slab contributes exactly 0
+        pad = torch.diff(times, dim=1) == 0
+        assert bool(pad.any()) and bool((got[2][pad] == 0).all()), "padding must contribute 0"
+        say("9", f"{label}: {int(pad.sum())} zero-width padding slabs, every contribution "
+                 f"exactly 0")
+    errs["dg_estimate_ensemble"] = max(errs.get("dg_estimate_ensemble", 0.0), *e.values())
+    return run, times, y0
+
+
+def phase9(device, errs):
+    """The DG slab kernel against its plain version on the card, float32."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    cases = {}
+    for trig in ("libm", "fast"):
+        cases[trig] = dg_case(f"(a) bench shapes, {trig}", device, errs, trig=trig)
+    dg_case("(b) order 2 (Cramer)", device, errs, n=2, b=1024, newton_iters=8)
+    dg_case("(b') order 4 (pivoted elimination)", device, errs, n=4, k=24, b=1024,
+            newton_iters=8)
+    cases["study"] = dg_case("(c) per-member partitions", device, errs,
+                             k=DG_STUDY["k0"] + DG_STUDY["maxit"] + 1, b=DG_STUDY["b"],
+                             newton_iters=DG_STUDY["newton_iters"], per_member=True)
+    for ode in ("du/dt=t*sin(u)", "gaussian_mixture"):
+        dg_case(f"(d) {ode}", device, errs, ode=ode, b=4096)
+    cases["big"] = dg_case("(e) 102,400 members", device, errs, b=DG_SLAB_BIG["b"],
+                           seed=DG_SLAB_BIG["seed"])
+    run, times, y0 = cases["libm"]
+    for bad in (lambda: run(times.double(), y0), lambda: run(times, y0[::2])):
+        try:
+            bad()  # float64, then a non-contiguous operand
+        except ValueError:
+            continue
+        raise AssertionError("the DG slab wrapper took an input it must refuse")
+    try:
+        run(times, y0[:0])  # an empty grid: the launch is refused
+    except RuntimeError as exc:
+        say("9", f"float64 and non-contiguous inputs raise; a refused launch raises ({exc})")
+    else:
+        raise AssertionError("a refused launch did not raise")
+    torch.cuda.synchronize()
+    ds.reset_launch_counts()
+    return cases
+
+
+def dg_decisions(err_a, err_b, noise):
+    """Members whose top-two |err| margin (of ``err_b``) clears 4x the noise,
+    and how many of them both sides refine at the same element."""
+    import torch
+
+    top2 = torch.topk(err_b.abs(), 2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4 * noise
+    same = torch.argmax(err_a.abs(), dim=1) == torch.argmax(err_b.abs(), dim=1)
+    return int(clear.sum()), int((same & clear).sum())
+
+
+def phase10(device, errs):
+    """The DG-in-time paths through their entry points."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.drivers import dg_adaptive
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import dg_estimate_batched
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    argv = ["--ensemble", "1024", "--per-member", "--device-loop"]
+    ds.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = dg_adaptive.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dg_estimate_ensemble": ds.dg_estimate_ensemble.launches}
+    last = hist[-1]
+    say("10", f"main path dg_adaptive {' '.join(argv)}: {len(hist)} iterations, K "
+              f"{hist[0].n_active.max()} -> [{last.n_active.min()}..{last.n_active.max()}], "
+              f"{last.n_refining} of 1024 still refining, wall {wall:.3f} s, wrapper launches "
+              f"{launches}")
+    assert launches["dg_estimate_ensemble"] > 0, "the DG slab kernel was not launched"
+    for r in hist:
+        assert np.all(np.isfinite(r.err)) and np.all(np.isfinite(r.j))
+
+    # replay every iteration's partitions: the plain version (float32, same
+    # card, bounded) and the torch engine in float64 (decisions only)
+    sin = odes.get_ode("du/dt=sin(u)")
+    y0s = np.random.default_rng(0).uniform(0.5, 2.0, 1024)
+    k = hist[0].times.shape[1] - 1
+    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
+    plan = ds.make_cuda_dg_estimate_ensemble(sin, ops_p, ops_a, k, 8, device=device).plan
+    y32 = torch.tensor(y0s.astype(np.float32), device=device)
+    y64 = torch.tensor(y0s.astype(np.float32).astype(np.float64), device=device)
+    worst = {"err": 0.0, "tol": 0.0}
+    decided = agree = decided64 = agree64 = 0
+    for r in hist:
+        times = torch.tensor(r.times, dtype=torch.float32, device=device)
+        plain = ds.dg_estimate_ensemble_plain(times, y32, plan)
+        tol = dg_tol(plain, k, ops_p, ops_a)
+        err_k = torch.tensor(r.err, dtype=torch.float32, device=device)
+        e = float((err_k - plain[2]).abs().max())
+        assert e <= tol["err"], (e, tol["err"])
+        worst["err"], worst["tol"] = max(worst["err"], e), max(worst["tol"], tol["err"])
+        d, a = dg_decisions(err_k, plain[2], tol["err"])
+        decided, agree = decided + d, agree + a
+        err64 = dg_estimate_batched(ops_p, ops_a, sin.f, times.double(), y64, f_u=sin.f_u,
+                                    newton_iters=8)[2]
+        d, a = dg_decisions(err_k.double(), err64, tol["err"])
+        decided64, agree64 = decided64 + d, agree64 + a
+    errs["dg_estimate_ensemble"] = max(errs["dg_estimate_ensemble"], worst["err"])
+    say("10", f"replay of {len(hist)} iterations' partitions through the plain version: max|d err| "
+              f"{worst['err']:.3e} (tol <= {worst['tol']:.3e}); decisions with a top-two margin > "
+              f"4x the err bound: {decided} of {len(hist) * 1024} member-iterations, "
+              f"kernel and plain agree on {agree}; against the float64 torch engine {decided64} "
+              f"clear it, agreement on {agree64}")
+    assert agree == decided and agree64 == decided64, "a decision above the float32 noise differs"
+
+    ens = dg_adaptive.main(["--ensemble", "1024"])
+    torch.cuda.synchronize()
+    say("10", f"dg_adaptive --ensemble 1024 (shared partition, cuda engine): {len(ens)} iterations, "
+              f"K {len(ens[0].times) - 1} -> {len(ens[-1].times) - 1}, mean Adj-W Res "
+              f"{ens[0].est_total_mean:+.4e} -> {ens[-1].est_total_mean:+.4e}")
+    assert np.isfinite(ens[-1].est_total_mean) and len(ens[-1].times) > len(ens[0].times)
+
+    t0 = time.perf_counter()
+    card = dg_adaptive.main(["--maxit", "30"])
+    wall = time.perf_counter() - t0
+    cpu = dg_adaptive.main(["--maxit", "30", "--device", "cpu"])
+    assert len(card) == len(cpu)
+    diff = 0.0
+    for a, b in zip(card, cpu):
+        assert np.array_equal(a.times, b.times)
+        for f in ("u", "v", "err"):
+            diff = max(diff, float(np.max(np.abs(getattr(a, f) - getattr(b, f)))))
+        for f in ("j_coarse", "j_fine", "est_total"):
+            diff = max(diff, abs(getattr(a, f) - getattr(b, f)))
+    say("10", f"dg_adaptive --maxit 30 (float64 on the card): {len(card)} iterations, K="
+              f"{len(card[-1].times) - 1}, Σerr {card[0].est_total:+.4e} -> "
+              f"{card[-1].est_total:+.4e}, wall {wall:.2f} s; equal partitions to --device cpu, "
+              f"max value difference {diff:.3e} (limit 1e-12)")
+    assert diff <= 1e-12
+    return launches
+
+
+def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False):
+    """Least time on the card for one D1 call: the larger of bytes (times
+    and y0 read once, u, v and err written once) over 3.35 TB/s and FP32
+    operations over 67 TFLOP/s, counted from the kernel's loops — an FMA
+    as 2, a division or a sin or cos as 1, the (f, f_u) pair of sin u as 2.
+    Per member-element: newton_iters × (Nq_p points of 2Np² + 4Np + 4, the
+    residual and Jacobian assembly, one Np×Np solve) and the order-(n+1)
+    sweep (Nq_a points of 2Na² + 2Na + 2Np + 4, the assembly, one Na×Na
+    solve and vᵀres)."""
+    np_, na = n + 1, n + 2
+
+    def det_ops(m):
+        return 1 if m == 1 else 3 if m == 2 else m * (det_ops(m - 1) + 2)
+
+    def solve_ops(m):
+        if m <= 4:
+            return (m + 1) * det_ops(m) + m
+        elim = sum((m - c - 1) * (1 + 2 * (m - c - 1) + 2) for c in range(m))
+        return elim + sum(2 * (m - i - 1) + 1 for i in range(m))
+
+    fwd = newton_iters * (nqp * (2 * np_ * np_ + 4 * np_ + 4) + 4 * np_ * np_ + 3 * np_ + 1
+                          + solve_ops(np_))
+    adj = (2 * na * np_ + nqa * (2 * na * na + 2 * na + 2 * np_ + 4) + 2 * na * na + na + 1
+           + solve_ops(na) + na * (2 * na + 5))
+    n_bytes = 4 * ((k + 1) * (b if per_member else 1) + b + b * k * (np_ + na + 1))
+    return bound(n_bytes, b * k * (fwd + adj))
+
+
+def dg_times(device, cases):
+    """Phase 11: CUDA events, one warm-up, median of 5, D1 and its plain
+    version at 9(a) (libm and fast), 9(e) and 9(c) (one iteration of the
+    per-member study); the B=1024 studies with each engine. Returns
+    (kernel ms, plain ms) at 9(a) libm for the kernel line."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    out = {}
+    for key, label in (("libm", "9(a) libm"), ("fast", "9(a) trig=fast"), ("big", "9(e)"),
+                       ("study", "9(c), the studies' shape")):
+        run, times, y0 = cases[key]
+        b, k = y0.shape[0], run.plan.n_elements
+        ms = cuda_ms(lambda: run(times, y0), runs=5)
+        plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=5)
+        b_ms, b_by = dg_slab_bound(1, k, b, run.plan.newton_iters, run.plan.ops_p.phi.shape[0],
+                                   run.plan.ops_a.phi.shape[0], per_member=times.dim() == 2)
+        say("11", f"dg_estimate_ensemble {label} B={b} K={k}: kernel {ms:.4f} ms = "
+                  f"{b * k * 2 / (ms / 1e3):.4e} slab-solves/s; plain {plain_ms:.3f} ms; kernel "
+                  f"speed-up {plain_ms / ms:.1f}x; bound {b_ms:.5f} ms ({b_by}), kernel at "
+                  f"{b_ms / ms:.2%} of it")
+        out[label] = (ms, plain_ms)
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    y0s = np.random.default_rng(DG_STUDY["seed"]).uniform(0.5, 2.0, DG_STUDY["b"])
+    kw = dict(f_u=sin.f_u, k0=DG_STUDY["k0"], maxit=DG_STUDY["maxit"], tol=DG_STUDY["tol"],
+              newton_iters=DG_STUDY["newton_iters"], ode=sin, device_loop=True,
+              dtype=torch.float32, device=device)
+    its = DG_STUDY["maxit"] + 1
+    for name in ("run_adaptive_dg_ensemble", "run_adaptive_dg_per_member"):
+        loop = getattr(dg_loop, name)
+        ms_cuda = cuda_ms(lambda: loop(sin.f, y0s, (0.0, 2.0), engine="cuda", **kw), runs=5)
+        ms_torch = cuda_ms(lambda: loop(sin.f, y0s, (0.0, 2.0), engine="torch", **kw), runs=1,
+                           warmup=0)
+        say("11", f"{name} B={DG_STUDY['b']} k0 {DG_STUDY['k0']} maxit {DG_STUDY['maxit']} "
+                  f"(device loop, float32): engine cuda {ms_cuda:.3f} ms (median of 5; "
+                  f"{ms_cuda / its:.3f} ms per iteration); engine torch {ms_torch:.1f} ms (one "
+                  f"run); speed-up {ms_torch / ms_cuda:.1f}x")
+    return out["9(a) libm"]
+
+
+def instance_name(mangled: str) -> str:
+    """A kernel instance's readable name from its mangled one, e.g.
+    dg_estimate_kernel<4, OdeSin<Libm>>."""
+    import re
+
+    m = re.search(r"([a-z_]+_kernel)I(?:Li(\d+)E)?N3aoa(\d+)", mangled)
+    if m is None:
+        return mangled
+    ode = mangled[m.end(): m.end() + int(m.group(3))]
+    trig = next((t for t in ("FastTrig", "Libm") if t in mangled), None)
+    args = ([m.group(2)] if m.group(2) else []) + [f"{ode}<{trig}>" if trig else ode]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def main() -> int:
@@ -812,10 +1139,15 @@ def main() -> int:
     lib = load_library()
     log = lib.build_log.splitlines()
     regs = [ln.split()[4] for ln in log if "registers" in ln]
-    spills = [ln for ln in log if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    spills, name = [], ""
+    for ln in log:
+        if "Function properties for" in ln:
+            name = ln.split(" for ", 1)[1].strip()
+        elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{instance_name(name)} ({ln.strip()})")
     say("1", f"kernels built in {time.perf_counter() - t0:.2f} s ({lib.path.name}); "
              f"{len(regs)} kernel instances, registers {sorted(set(regs), key=int)}, "
-             f"spilling instances {len(spills)}")
+             f"spilling instances {len(spills)}: {spills}")
 
     errs = {name: 0.0 for name in TPU_KERNELS}
     compare_case("(a) graded", mesh(2, 24, graded=True), 8, 64, device, errs)
@@ -834,6 +1166,10 @@ def main() -> int:
     launches.update(phase7(device, errs, inp))
     times.update(fd_times(device, inp))
     study_times(device)
+
+    cases = phase9(device, errs)
+    launches.update(phase10(device, errs))
+    times["dg_estimate_ensemble"] = dg_times(device, cases)
 
     bounds = {**dg_bounds(), **fd_bounds()}
     # no single PyTorch call computes any of these pipelines: library_ms is null

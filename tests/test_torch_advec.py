@@ -86,7 +86,7 @@ def test_transpose_step_is_exact_adjoint(graded):
 def test_adjoint_march_matches_xla(bench16):
     disc_j, disc, ops_j, ops_t, dt, _ = bench16
     lam = jadj.terminal_integral_cotangent(disc_j, jnp.float64)
-    lam_t = tadj.terminal_integral_cotangent(disc, F64)
+    lam_t = tadj.terminal_integral_cotangent(disc, F64, "cpu")
     np.testing.assert_allclose(lam_t.numpy(), np.asarray(lam), rtol=1e-15)
     want = jadj.advec_adjoint_march(ops_j, lam, dt, 12)
     got = tadj.advec_adjoint_march(ops_t, lam_t, dt, 12)
@@ -116,7 +116,7 @@ def test_effectivity_identity_f64(bench16):
     u0 = torch.tensor(np.sin(disc.x))
     res = tadj.advec_fwd_adj_estimate(ops, disc, u0, dt, n_steps, segment=n_steps // 4)
     u_half = tmarch.advec_march(ops, u0, dt / 2, 2 * n_steps)
-    lam = tadj.terminal_integral_cotangent(disc, F64)
+    lam = tadj.terminal_integral_cotangent(disc, F64, "cpu")
     gap = float(res.j_value) - float(torch.sum(lam * u_half))
     est = float(torch.sum(res.eta))
     assert abs(gap) > 0
@@ -128,3 +128,17 @@ def test_estimate_rejects_ragged_segment(bench16):
     _, disc, _, ops, dt, _ = bench16
     with pytest.raises(ValueError):
         tadj.advec_fwd_adj_estimate(ops, disc, torch.tensor(np.sin(disc.x)), dt, 10, segment=4)
+
+
+def test_building_blocks_default_to_the_card(bench16):
+    """advec_operators and terminal_integral_cotangent run on the card
+    unless the caller asks for the CPU; without a GPU the default raises."""
+    _, disc, _, ops, _, _ = bench16
+    got = tmarch.advec_operators(disc, a=A, dtype=F64, device="cpu")
+    assert got.dr.device.type == "cpu" and torch.equal(got.rx, ops.rx)
+    assert tadj.terminal_integral_cotangent(disc, F64, "cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the no-GPU error path cannot run here")
+    for build in (lambda: tmarch.advec_operators(disc, a=A), lambda: tadj.terminal_integral_cotangent(disc)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()

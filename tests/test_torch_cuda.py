@@ -15,6 +15,16 @@ O(max|u|) values, so each fine node's r·v differs by a few ulp of
 max|u|·max|v| (FMA contraction in the kernel, none in the plain version);
 an indicator sums rf nodes (and d components), and J = Σu²dt a few ulp of
 max|u|²·T per step.
+
+The DG slab kernel: each element's Newton and adjoint solves amplify the
+roundoff of their assembly (FMA contraction in the kernel, none in the plain
+version) by the slab system's condition κ (that of the zero-width system,
+Sᵀ + B or −Sᵀ − e_L e_Lᵀ: 1 at order 1, 5.4 at order 4), and the inflow
+carries it through the K elements: u within 8·K·κ_p·ε·max|u|, v within
+8·K·κ_a·ε·max|v|. err_k = vᵀres, a sum of Na products of an O(max|v|)
+weight with a difference of O(max|u|) values, is local (a state shift
+carried in through the inflow cancels in the residual to O(h·f_u)): within
+8·κ_a·Na·ε·max|u|·max|v|.
 """
 import numpy as np
 import pytest
@@ -22,7 +32,9 @@ import torch
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
 from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
 pytestmark = pytest.mark.cuda
@@ -144,3 +156,55 @@ def test_fd_kernels_reject_float64_and_non_contiguous(device):
     long = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 1000, 4, device=device)
     with pytest.raises(RuntimeError, match="shared memory"):  # the launcher refuses
         long(torch.zeros((8, 1000), device=device), torch.zeros(8, device=device))
+
+
+def _dg_tol(plain, k, ops_p, ops_a):
+    """The DG slab kernel's bounds (module docstring)."""
+    a_p = ops_p.stiff.T.copy()
+    a_p[-1, -1] -= 1.0
+    a_a = -ops_a.stiff.T.copy()
+    a_a[0, 0] -= 1.0
+    kp, ka = np.linalg.cond(a_p), np.linalg.cond(a_a)
+    umax, vmax = (float(x.abs().max()) for x in plain[:2])
+    return (8 * k * kp * EPS32 * umax, 8 * k * ka * EPS32 * vmax,
+            8 * ka * ops_a.np_ * EPS32 * umax * vmax)
+
+
+@pytest.mark.parametrize("ode,n,trig,per_member", [
+    ("du/dt=sin(u)", 1, "libm", False), ("du/dt=sin(u)", 1, "fast", True),
+    ("du/dt=sin(u)", 4, "libm", False), ("gaussian_mixture", 2, "libm", True),
+])
+def test_dg_slab_kernel_matches_its_plain_version(device, ode, n, trig, per_member):
+    rng = np.random.default_rng(n)
+    k, b = 12, 3000
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    if per_member:  # random partitions with zero-width tails
+        t = np.full((b, k + 1), 2.0)
+        for m, n_act in enumerate(rng.integers(2, k, b)):
+            t[m, : n_act + 1] = np.concatenate([[0.0], np.sort(rng.uniform(0.1, 1.9, n_act - 1)),
+                                                [2.0]])
+    else:
+        t = np.linspace(0.0, 2.0, k + 1)
+    times = torch.tensor(t, dtype=torch.float32, device=device)
+    ops_p, ops_a = dg_time_operators(n), dg_time_operators(n + 1)
+    run = ds.make_cuda_dg_estimate_ensemble(ode, ops_p, ops_a, k, 8, trig=trig, device=device)
+    before = ds.dg_estimate_ensemble.launches
+    got = run(times, y0)
+    torch.cuda.synchronize()
+    assert ds.dg_estimate_ensemble.launches == before + 1
+    want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+    for g, w, tol in zip(got, want, _dg_tol(want, k, ops_p, ops_a)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= tol
+    if per_member:  # a trailing zero-width slab contributes exactly 0
+        assert bool((got[2][torch.diff(times, dim=1) == 0] == 0).all())
+
+
+def test_dg_slab_kernel_refusals_raise(device):
+    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
+    run = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, 4, device=device)
+    times = torch.linspace(0.0, 2.0, 5, device=device)
+    with pytest.raises(TypeError):
+        run(times.double(), torch.ones(8, dtype=torch.float64, device=device))
+    with pytest.raises(RuntimeError, match="dg_estimate_ensemble failed"):
+        run(times, torch.ones(0, device=device))  # an empty grid: the launch is refused

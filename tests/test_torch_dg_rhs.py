@@ -48,7 +48,7 @@ def test_plain_pipeline_matches_xla_f64(n_order, k, graded, dt):
     disc_j, disc = _disc(n_order, k, graded)
     b, n_steps = 3, 12
     u0 = _phased(disc, b, seed=n_order)
-    lam = terminal_integral_cotangent(disc, torch.float64)
+    lam = terminal_integral_cotangent(disc, torch.float64, "cpu")
     lam_b = lam[:, None, :].expand(disc.np_, b, k).contiguous()
     run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, b, "cpu")
     uf, lam0, eta = run(torch.tensor(u0), 0.05, lam_b)
@@ -81,7 +81,7 @@ def test_plain_pipeline_matches_pallas_interpret_f32():
         jnp.asarray(u0), jnp.float32(0.0),
         jnp.broadcast_to(lam_j[:, None, :], (disc.np_, b, disc.k)),
     )
-    lam = terminal_integral_cotangent(disc, torch.float32)
+    lam = terminal_integral_cotangent(disc, torch.float32, "cpu")
     run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, seg * nseg, b, "cpu")
     got = run(torch.tensor(u0), 0.0, lam[:, None, :].expand(disc.np_, b, disc.k).contiguous())
     for g, w, rtol, atol in zip(got, want, (2e-4, 2e-3, 5e-3), (1e-6, 2e-5, 1e-7)):
@@ -93,7 +93,7 @@ def test_single_and_march_entry_points_f64():
     disc_j, disc = _disc(3, 16, True)
     dt, n_steps = 1e-3, 8
     u0 = np.sin(disc.x)
-    lam = terminal_integral_cotangent(disc, torch.float64)
+    lam = terminal_integral_cotangent(disc, torch.float64, "cpu")
     uf, lam0, eta = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, n_steps, "cpu")(
         torch.tensor(u0), 0.0, lam
     )
