@@ -12,7 +12,9 @@ the DG-in-time strand (the reference's MATLAB MAIN.m): the Newton slab
 march, the discrete adjoint at order n+1, the per-element adjoint-weighted
 residual, Radau reconstruction, the batched ensemble pipeline, the
 single-run, ensemble-signal and per-member adaptive loops, and the
-``dg_adaptive`` driver.
+``dg_adaptive`` driver. The fourth is its hp strand: the mixed
+per-element-order march and adjoint, the p/h/hp/smooth refinement loops
+(single run, ensemble signal, per member) and ``dg_adaptive --hp``.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
@@ -20,19 +22,21 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
 - ``ops``        host NumPy float64 builders (Jacobi, operators, mesh) and
   the fast-trig polynomials
 - ``march``      one-step FD marches, LSRK coefficients, the advection march,
-  the DG-in-time slab marches (single and batched)
+  the DG-in-time slab marches (single, batched and mixed-order)
 - ``adjoint``    discrete adjoints, the FD estimate, the advection transpose
-  step and fused estimate, the DG-in-time adjoint and AWR
+  step and fused estimate, the DG-in-time adjoint and AWR (uniform and
+  mixed-order)
 - ``ops.cuda``   the hand-written CUDA kernels, their plain-PyTorch
   versions and the entry points that mirror ``ops/pallas/dg_rhs.py``,
-  ``ops/pallas/fd_ensemble.py`` and ``ops/pallas/dg_slab.py``
+  ``ops/pallas/fd_ensemble.py``, ``ops/pallas/dg_slab.py`` and
+  ``ops/pallas/dg_slab_mixed.py``
 - ``adapt``      the FD time-grid loops, the DG h-adaptive loop and the
-  DG-in-time loops (``engine="torch"`` or ``"cuda"``), and the refinement
-  policies
+  DG-in-time loops and their hp loops (``engine="torch"`` or ``"cuda"``),
+  and the refinement policies
 - ``drivers``    the ``fd_adaptive``, ``advec_dg`` and ``dg_adaptive``
   command lines
 - ``interop``    carries JAX-package state across (discretization, operator
-  bundle, gaussian-mixture constants)
+  bundle, mixed-order operator stack, gaussian-mixture constants)
 
 This package imports torch and NumPy, never jax.
 """

@@ -23,6 +23,12 @@ from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import (
     run_adaptive_fd_backtrack_padded,
     run_adaptive_fd_per_member,
 )
+from adjoint_ode_adaptivity_tpu_torch.adapt.hp_loop import (
+    HPAdaptResult,
+    HPPerMemberAdaptResult,
+    run_adaptive_dg_hp,
+    run_adaptive_dg_hp_per_member,
+)
 from adjoint_ode_adaptivity_tpu_torch.adapt.policy import (
     bisect_refine,
     bisect_refine_masked,
@@ -42,6 +48,10 @@ __all__ = [
     "run_adaptive_dg",
     "run_adaptive_dg_ensemble",
     "run_adaptive_dg_per_member",
+    "HPAdaptResult",
+    "HPPerMemberAdaptResult",
+    "run_adaptive_dg_hp",
+    "run_adaptive_dg_hp_per_member",
     "AdaptState",
     "AdaptResult",
     "FDPerMemberAdaptResult",

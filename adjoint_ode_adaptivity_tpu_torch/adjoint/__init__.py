@@ -1,5 +1,6 @@
 """Discrete adjoints and adjoint-weighted error estimates (L2, eager torch):
-the one-step FD marches, the DG advection march and the DG-in-time slabs."""
+the one-step FD marches, the DG advection march and the DG-in-time slabs
+(uniform and mixed per-element orders)."""
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     AdvecAdjointResult,
@@ -18,6 +19,18 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import (
     dg_adjoint_reconstruct,
     dg_awr_from_adjoint,
     dg_element_functional,
+)
+from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
+    MixedAdjointInterp,
+    MixedRadauInterp,
+    dg_adjoint_interp_mixed,
+    dg_adjoint_march_mixed,
+    dg_adjoint_reconstruct_mixed,
+    dg_adjoint_solve_low_mixed,
+    dg_awr_from_adjoint_mixed,
+    dg_element_functional_mixed,
+    dg_estimate_mixed,
+    dg_radau_interp_mixed,
 )
 from adjoint_ode_adaptivity_tpu_torch.adjoint.discrete import (
     adjoint_dense_oracle,
@@ -59,4 +72,14 @@ __all__ = [
     "dg_adjoint_reconstruct",
     "dg_awr_from_adjoint",
     "continuous_err_contribution",
+    "MixedAdjointInterp",
+    "MixedRadauInterp",
+    "dg_adjoint_interp_mixed",
+    "dg_adjoint_march_mixed",
+    "dg_adjoint_reconstruct_mixed",
+    "dg_adjoint_solve_low_mixed",
+    "dg_awr_from_adjoint_mixed",
+    "dg_element_functional_mixed",
+    "dg_estimate_mixed",
+    "dg_radau_interp_mixed",
 ]

@@ -8,17 +8,26 @@ Usage:
     python -m adjoint_ode_adaptivity_tpu_torch.drivers.dg_adaptive --maxit 30
     python -m adjoint_ode_adaptivity_tpu_torch.drivers.dg_adaptive \\
         --ensemble 1024 --per-member --device-loop
+    python -m adjoint_ode_adaptivity_tpu_torch.drivers.dg_adaptive \\
+        --hp p --k0 4 --n-max 4 --tol 1e-9
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is present; it
 never carries on on the CPU. ``--device cpu`` allows only ``--engine
 torch``. With ``--ensemble`` the engine defaults to ``cuda`` on the card
-(the DG slab kernel, one launch per iteration, float32) and switches to
-``torch``, saying so, where the kernel cannot run the study (an ODE without
-a device functor, an explicit ``--x64``); an explicit ``--engine cuda``
-there raises instead. Float64 (``--x64``) is on by default for the single
-run and the torch engine. ``--hp`` (ROADMAP queue 1 item 12), ``--dp``
-(item 14) and ``--plot`` (item 15) are not ported yet and raise;
-``--smooth-theta``, ``--n-max`` and ``--newton-iters`` belong to ``--hp``.
+(the DG slab kernel, or with ``--hp`` the hp kernel, one launch per
+iteration, float32) and switches to ``torch``, saying so, where the kernel
+cannot run the study (an ODE without a device functor, an explicit
+``--x64``); an explicit ``--engine cuda`` there raises instead. Float64
+(``--x64``) is on by default for the single run and the torch engine.
+
+``--hp {h,p,hp,smooth}`` runs the hp-adaptive loop on the mixed per-element
+order solvers (``--order`` the starting order, ``--n-max`` the p cap,
+``--smooth-theta`` the smooth mode's decay threshold, ``--newton-iters`` a
+fixed Newton count): one run, the ensemble-mean signal with ``--ensemble``,
+or one partition and order vector per member with ``--per-member``. The
+single run takes the torch engine; ``--engine cuda`` needs ``--ensemble``.
+``--dp`` (ROADMAP queue 1 item 14) and ``--plot`` (item 15) are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -89,11 +98,21 @@ def main(argv=None):
              "argmax, freezes at --tol independently) — the reference's one-adaptive-job-"
              "per-IC farm (Submit_schedule_frontera)",
     )
-    p.add_argument("--hp", choices=["h", "p", "hp", "smooth"], default=None,
-                   help="hp-adaptive loop: not ported yet (ROADMAP queue 1 item 12)")
-    p.add_argument("--smooth-theta", type=float, default=0.3, help="--hp smooth only")
-    p.add_argument("--newton-iters", type=int, default=None, help="--hp only")
-    p.add_argument("--n-max", type=int, default=4, help="--hp only")
+    p.add_argument(
+        "--hp", choices=["h", "p", "hp", "smooth"], default=None,
+        help="hp-adaptive loop on the mixed per-element-order solvers (dg_march.m's latent "
+             "Ns-vector capability): raise the ORDER at the argmax element ('p'), bisect it "
+             "('h' — children inherit the order), p-until-saturated-then-h ('hp'), or decide "
+             "p-vs-h from the element's modal decay ('smooth' — see --smooth-theta); --order "
+             "sets the starting order, --n-max the p cap",
+    )
+    p.add_argument("--smooth-theta", type=float, default=0.3,
+                   help="--hp smooth only: p-refine when the argmax element's top Legendre mode "
+                        "holds at most this fraction of the modal energy, else bisect")
+    p.add_argument("--newton-iters", type=int, default=None,
+                   help="--hp only: fixed Newton iteration count (default: to tolerance; the "
+                        "cuda engine's default is 8)")
+    p.add_argument("--n-max", type=int, default=4, help="--hp only: maximum per-element order")
     p.add_argument(
         "--device-loop", action="store_true",
         help="run a fixed trip of maxit+1 iterations with the stopping test as a device "
@@ -102,12 +121,14 @@ def main(argv=None):
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    for flag, item in (("hp", 12), ("dp", 14), ("plot", 15)):
+    for flag, item in (("dp", 14), ("plot", 15)):
         if getattr(args, flag):
             p.error(f"--{flag} is not ported yet (ROADMAP queue 1 item {item})")
     device = torch.device(args.device)
     if args.engine == "cuda" and (device.type != "cuda" or args.x64):
         p.error("--engine cuda requires --device cuda and float32 (no --x64)")
+    if args.hp is not None and args.engine == "cuda" and args.ensemble <= 0:
+        p.error("--hp --engine cuda requires --ensemble (the kernel runs an ensemble)")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device}: no CUDA device is available "
@@ -135,6 +156,9 @@ def main(argv=None):
             print(f"{r.j_coarse - j_exact:.10e}")
         print("Adj-W Res")
         print(f"{r.est_total:.10e}")
+
+    if args.hp is not None:
+        return _hp_main(args, ode, device, j_exact)
 
     if args.ensemble > 0:
         engine = args.engine or _default_engine(args, ode, device)
@@ -182,6 +206,64 @@ def main(argv=None):
     )
     print(f"finished after {len(history)} iterations, "
           f"K={len(history[-1].times) - 1} elements")
+    return history
+
+
+def _hp_main(args, ode, device, j_exact):
+    """The ``--hp`` branch: the single run (torch engine, float64 unless
+    ``--no-x64``), the ensemble-mean signal or the per-member study."""
+    from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
+
+    engine = "torch"
+    if args.ensemble > 0:
+        engine = args.engine or _default_engine(args, ode, device)
+    x64 = engine == "torch" if args.x64 is None else args.x64
+    dtype = torch.float64 if x64 else torch.float32
+    hp_y0 = args.y0
+    if args.ensemble > 0:
+        rng = np.random.default_rng(args.seed)
+        hp_y0 = rng.uniform(args.y0 / 2.0, 2.0 * args.y0, args.ensemble).astype(
+            np.float64 if x64 else np.float32)
+    common = dict(f_u=ode.f_u, k0=args.k0, n0=args.order, n_max=args.n_max, mode=args.hp,
+                  tol=args.tol, maxit=args.maxit, adjoint_mode=args.adjoint,
+                  newton_iters=args.newton_iters, engine=engine, ode=ode,
+                  smooth_theta=args.smooth_theta, checkpoint_dir=args.checkpoint_dir,
+                  device_loop=args.device_loop, dtype=dtype, device=device)
+    if args.ensemble > 0 and args.per_member:
+        # every member its own partition AND order vector
+        history = hp_loop.run_adaptive_dg_hp_per_member(ode.f, hp_y0, (args.t0, args.t1),
+                                                        **common)
+        for it, r in enumerate(history):
+            print(
+                f"-- it {it} K=[{r.n_active.min()}..{r.n_active.max()}]"
+                f" max order={r.ns.max()}"
+                f" mean |est|={np.abs(r.est_total).mean():.10e}"
+                f" refining={r.n_refining}/{args.ensemble}"
+            )
+        print(f"finished after {len(history)} iterations "
+              f"(per-member hp, B={args.ensemble}, mode={args.hp})")
+        return history
+
+    # the exact-J comparison only makes sense for a single IC (the
+    # ensemble's mean J is not the scalar y0's functional)
+    hp_j_exact = j_exact if args.ensemble == 0 else None
+
+    def hp_callback(r):
+        print(f"-- it with K={len(r.ns)} ns={r.ns.tolist()}")
+        print("JuH-Juh")
+        print(f"{r.effectivity_gap:.10e}")
+        if hp_j_exact is not None:
+            print("JuH-Ju")
+            print(f"{r.j_coarse - hp_j_exact:.10e}")
+        print("Adj-W Res")
+        print(f"{r.est_total:.10e}")
+
+    history = hp_loop.run_adaptive_dg_hp(ode.f, hp_y0, (args.t0, args.t1),
+                                         callback=hp_callback, **common)
+    last = history[-1]
+    print(f"finished after {len(history)} iterations "
+          f"(mode={args.hp}, K={len(last.ns)}, "
+          f"orders {last.ns.min()}..{last.ns.max()})")
     return history
 
 

@@ -1,6 +1,6 @@
 """Time marching (L1): one-step FD rules and marches, LSRK4(5)
 coefficients, the eager DG advection march, and the DG-in-time slab
-marches (single and batched)."""
+marches (single, batched and mixed-order)."""
 
 from adjoint_ode_adaptivity_tpu_torch.march.advec import (
     AdvecOperators,
@@ -18,6 +18,12 @@ from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import (
     dg_march_batched,
     ge_solve_rows,
     solve_small,
+)
+from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import (
+    MixedDGTimeOperators,
+    dg_march_mixed,
+    dg_time_operators_mixed,
+    gauss_solve,
 )
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import (
     DGMarchResult,
@@ -64,4 +70,8 @@ __all__ = [
     "dg_adjoint_march_batched",
     "dg_element_functional_batched",
     "dg_estimate_batched",
+    "MixedDGTimeOperators",
+    "dg_time_operators_mixed",
+    "dg_march_mixed",
+    "gauss_solve",
 ]

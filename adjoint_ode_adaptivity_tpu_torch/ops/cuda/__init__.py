@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (the DG advection, FD and DG-in-time hot
-loops), and their loader.
+"""Hand-written CUDA kernels (the DG advection, FD, DG-in-time and hp
+DG-in-time hot loops), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
 them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
@@ -80,7 +80,10 @@ class KernelLibrary:
         lib.fd_estimate_per_member.restype = i
         lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 8 + [p] * 6
         lib.dg_estimate_ensemble.restype = i
-        for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string"):
+        lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 9 + [p] * 8
+        lib.dg_estimate_hp_per_member.restype = i
+        for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
+                     "dg_slab_mixed_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

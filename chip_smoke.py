@@ -59,6 +59,27 @@ raises, and the script exits non-zero; nothing is caught.
    (libm and fast), 9(e) and 9(c), and of the B=1024 ensemble and per-member
    studies (bench.py's k0 4, maxit 10, tol 0, 8 Newton steps) with each
    engine.
+12. The hp kernel (csrc/dg_slab_mixed.cu) against its plain version,
+   float32, in both adjoint modes: (a) bench.py's hp shape (B=512, seed 5,
+   per-member partitions over K=15 slabs with zero-width tails, orders 1..3,
+   stack np_max 6, 8 Newton steps); (b) B=4096, seed 6; (c) np_max 8 at
+   B=1024; (d) t*sin(u) and gaussian_mixture at B=4096; (e) uniform orders
+   1..3 against the DG slab kernel on the same Gauss rule. Tails contribute
+   exactly 0.
+13. The hp paths through their entry points: the main path ``drivers.
+   dg_adaptive.main(["--hp", "hp", "--ensemble", "512", "--seed", "5",
+   "--per-member", "--device-loop", ...])`` (bench.py's hp study) with the
+   kernel's launch count, every iteration replayed through the plain
+   version (float32) and the torch engine (float64), decisions compared
+   where the top-two margin clears the float32 bound; the same with
+   ``--adjoint reconstruct``; the shared-partition ensemble signal; and the
+   float64 single run ``--hp p --k0 4 --n-max 4 --tol 1e-9`` on the card
+   against ``--device cpu``.
+14. CUDA-event times of the hp kernel and its plain version at 12(a) and
+   12(b) in each adjoint mode, and of the B=512 and B=4096 per-member hp
+   studies with each engine; a torch.profiler trace of one B=512 study (the
+   device's busy share, the kernel's share of it, the host's launches,
+   synchronisations and copies).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -85,6 +106,7 @@ SOURCES = {
     "fd_ensemble_vec": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "fd_estimate_per_member": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "dg_estimate_ensemble": f"{PACKAGE}/csrc/dg_slab.cu",
+    "dg_estimate_hp_per_member": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981",
@@ -93,6 +115,7 @@ TPU_KERNELS = {
     "fd_ensemble_vec": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201",
     "fd_estimate_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:357",
     "dg_estimate_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab.py:92",
+    "dg_estimate_hp_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab_mixed.py:99",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -106,6 +129,14 @@ EPS32 = 2.0**-23
 DG_SLAB = dict(b=16_384, k=16, t1=2.0, newton_iters=5, seed=1)
 DG_SLAB_BIG = dict(b=102_400, seed=3)
 DG_STUDY = dict(b=1024, k0=4, maxit=10, tol=0.0, newton_iters=8, seed=2)
+# the JAX package's hp benchmark (bench.py:853-1006): the per-member hp study
+# at B = 512 (y0 ~ U(0.5, 2) seed 5) and B = 4096 (seed 6), k0 4, orders
+# 1..3 (stack n_max 5, np_max 6), maxit 10, tol 0, 8 Newton steps, sin u on [0, 2]
+HP_STUDY = dict(b=512, seed=5, k0=4, n_max=3, fo=2, maxit=10, newton_iters=8, t1=2.0)
+HP_BIG = dict(b=4096, seed=6)
+HP_K = HP_STUDY["k0"] + HP_STUDY["maxit"] + 1
+HP_ARGV = ["--hp", "hp", "--ensemble", "512", "--seed", "5", "--k0", "4", "--order", "1",
+           "--n-max", "3", "--maxit", "10", "--tol", "0", "--newton-iters", "8"]
 # one H100 SXM at its full power limit (NVIDIA data sheet, dense FP32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1017,6 +1048,14 @@ def phase10(device, errs):
     return launches
 
 
+def solve_ops(m):
+    """FP32 operations of one m×m solve by elimination (a division per row)
+    and back substitution, the least count, whatever the kernel runs (Cramer
+    for m ≤ 4 costs more, and the bound does not charge that choice)."""
+    elim = sum((m - c - 1) * (1 + 2 * (m - c - 1) + 2) for c in range(m))
+    return elim + sum(2 * (m - i - 1) + 1 for i in range(m))
+
+
 def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False):
     """Least time on the card for one D1 call: the larger of bytes (times
     and y0 read once, u, v and err written once) over 3.35 TB/s and FP32
@@ -1027,16 +1066,6 @@ def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False):
     sweep (Nq_a points of 2Na² + 2Na + 2Np + 4, the assembly, one Na×Na
     solve and vᵀres)."""
     np_, na = n + 1, n + 2
-
-    def det_ops(m):
-        return 1 if m == 1 else 3 if m == 2 else m * (det_ops(m - 1) + 2)
-
-    def solve_ops(m):
-        if m <= 4:
-            return (m + 1) * det_ops(m) + m
-        elim = sum((m - c - 1) * (1 + 2 * (m - c - 1) + 2) for c in range(m))
-        return elim + sum(2 * (m - i - 1) + 1 for i in range(m))
-
     fwd = newton_iters * (nqp * (2 * np_ * np_ + 4 * np_ + 4) + 4 * np_ * np_ + 3 * np_ + 1
                           + solve_ops(np_))
     adj = (2 * na * np_ + nqa * (2 * na * na + 2 * na + 2 * np_ + 4) + 2 * na * na + na + 1
@@ -1088,6 +1117,366 @@ def dg_times(device, cases):
                   f"{ms_cuda / its:.3f} ms per iteration); engine torch {ms_torch:.1f} ms (one "
                   f"run); speed-up {ms_torch / ms_cuda:.1f}x")
     return out["9(a) libm"]
+
+
+# ------------------------------------------------------------ hp DG-in-time
+
+
+def hp_inputs(device, b, k, n_user, seed, uniform=None):
+    """y0 ~ U(0.5, 2) from ``default_rng(seed)`` (the driver's and bench.py's
+    draw), then per-member partitions of [0, 2] with 2..k live slabs whose
+    interior nodes lie on a 2⁻¹⁰ grid (distinct, exact in float32),
+    zero-width tails at t = 2, and orders 1..n_user (or ``uniform`` on every
+    slab)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    y0 = rng.uniform(0.5, 2.0, b)
+    t = np.full((b, k + 1), HP_STUDY["t1"])
+    ns = np.full((b, k), uniform or 1, np.int64)
+    for m, n_act in enumerate(rng.integers(2, k + 1, b)):
+        inner = np.sort(rng.choice(np.arange(1, 2048), n_act - 1, replace=False)) / 1024
+        t[m, : n_act + 1] = np.concatenate([[0.0], inner, [HP_STUDY["t1"]]])
+        if uniform is None:
+            ns[m, :n_act] = rng.integers(1, n_user + 1, n_act)
+    return (torch.tensor(t, dtype=torch.float32, device=device), torch.tensor(ns, device=device),
+            torch.tensor(y0, dtype=torch.float32, device=device))
+
+
+def hp_kernel(ode, n_user, fo, k, mode, device):
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
+        dg_adjoint_interp_mixed,
+        dg_radau_interp_mixed,
+    )
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mixed
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    mops = dg_time_operators_mixed(n_user + fo)
+    return hm.make_cuda_dg_estimate_hp_per_member(
+        ode, mops, dg_adjoint_interp_mixed(mops), k, n_max_user=n_user, fine_offset=fo,
+        newton_iters=HP_STUDY["newton_iters"], adjoint_mode=mode,
+        rad=dg_radau_interp_mixed(mops), device=device)
+
+
+def hp_case(label, device, errs, ode="du/dt=sin(u)", n_user=HP_STUDY["n_max"], fo=HP_STUDY["fo"],
+            b=HP_STUDY["b"], k=HP_K, seed=HP_STUDY["seed"], mode="solve", uniform=None):
+    """One phase-12 comparison: H1 against its plain version on the card."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    times, ns, y0 = hp_inputs(device, b, k, n_user, seed, uniform)
+    run = hp_kernel(ode, n_user, fo, k, mode, device)
+    got = run(times, ns, y0)
+    torch.cuda.synchronize()
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
+    tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
+    e = {}
+    for name, g, w in zip(("u_c", "u_f", "v"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), f"{label}: {name}"
+        e[name] = float((g - w).abs().max())
+    bounds = {"u_c": tol["u"], "u_f": tol["u"], "v": tol["v"]}
+    d_err = (got[3] - want[3]).abs().double()
+    tail = times[:, :-1] == HP_STUDY["t1"]  # the trailing zero-width slabs
+    assert bool(tail.any()) and bool((got[3][tail] == 0).all()), f"{label}: a tail contributed"
+    # the err bound is per element: report the worst share of it, and how
+    # many elements an err of 0 would fail
+    share = float((d_err / tol["err"].clamp_min(1e-300)).max())
+    teeth = int((want[3].abs() > tol["err"]).sum())
+    say("12", f"{label}: {ode} n_max_user {n_user} fo {fo} (np_max {run.plan.mops.np_max}) K={k} "
+              f"B={b} {mode} | " + " ".join(f"{x} {e[x]:.3e} (tol {bounds[x]:.3e})" for x in e)
+        + f" err {float(d_err.max()):.3e} (per-element tol <= {float(tol['err'].max()):.3e}, worst "
+          f"{share:.2%} of it); max|err| {float(want[3].abs().max()):.3e}, above its tol on "
+          f"{teeth} elements; {int(tail.sum())} tail slabs, each contribution exactly 0")
+    assert all(e[x] <= bounds[x] for x in e) and bool((d_err <= tol["err"]).all()), (
+        f"{label}: the hp kernel disagrees")
+    assert teeth > 0, f"{label}: the err bound cannot tell an err of 0 from the plain version's"
+    e["err"] = float(d_err.max())
+    errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], *e.values())
+    return run, (times, ns, y0), got, tol
+
+
+def phase12(device, errs):
+    """The hp kernel against its plain version on the card, float32, both
+    adjoint modes; at uniform orders against D1."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    cases = {}
+    for mode in ("solve", "reconstruct"):
+        cases["a", mode] = hp_case("(a) bench shape", device, errs, mode=mode)
+        cases["b", mode] = hp_case("(b)", device, errs, b=HP_BIG["b"], seed=HP_BIG["seed"],
+                                   mode=mode)
+        hp_case("(c) np_max 8", device, errs, n_user=5, b=1024, seed=7, mode=mode)
+        for ode in ("du/dt=t*sin(u)", "gaussian_mixture"):
+            hp_case(f"(d) {ode}", device, errs, ode=ode, b=HP_BIG["b"], seed=8, mode=mode)
+    # (e) uniform orders: H1 is D1 at order n on the same Gauss rule
+    n_gq = 3 * (HP_STUDY["n_max"] + HP_STUDY["fo"]) + 6
+    for n in (1, 2, 3):
+        run, (times, ns, y0), got, tol = hp_case(f"(e) uniform order {n}", device, errs,
+                                                 seed=10 + n, uniform=n)
+        d1 = ds.make_cuda_dg_estimate_ensemble(
+            "du/dt=sin(u)", dg_time_operators(n, n_gq), dg_time_operators(n + 1, n_gq), HP_K,
+            HP_STUDY["newton_iters"], device=device)(times, y0)
+        torch.cuda.synchronize()
+        d_err = (got[3] - d1[2]).abs().double()
+        e = (float((got[0][..., : n + 1] - d1[0]).abs().max()),
+             float((got[2][..., : n + 2] - d1[1]).abs().max()), float(d_err.max()))
+        pads = (float(got[0][..., n + 1:].abs().max()), float(got[2][..., n + 2:].abs().max()))
+        say("12", f"(e) order {n}: H1 vs D1 (same Gauss rule) u {e[0]:.3e} (tol {tol['u']:.3e}) "
+                  f"v {e[1]:.3e} (tol {tol['v']:.3e}) err {e[2]:.3e} (per-element tol, worst "
+                  f"{float((d_err / tol['err'].clamp_min(1e-300)).max()):.2%} of it); padded "
+                  f"nodes max |u| {pads[0]:.1e} |v| {pads[1]:.1e}")
+        assert e[0] <= tol["u"] and e[1] <= tol["v"] and bool((d_err <= tol["err"]).all())
+        assert max(pads) == 0
+    hp_refusals(cases["a", "solve"])
+    return cases
+
+
+def hp_refusals(case):
+    """The hp wrapper on the card refuses what the kernel does not take."""
+    import torch
+
+    run, (times, ns, y0), _, _ = case
+    for bad, exc in ((lambda: run(times.double(), ns, y0.double()), TypeError),
+                     (lambda: run(times, ns, torch.cat([y0, y0])[::2]), ValueError)):
+        try:
+            bad()  # float64, then a non-contiguous operand
+        except exc:
+            continue
+        raise AssertionError("the hp wrapper took an input it must refuse")
+    say("12", "float64 and non-contiguous inputs raise; no plain-version fallback on the card")
+
+
+def hp_replay(hist, mode, device, errs):
+    """Every iteration's partitions and orders of a per-member study through
+    the plain version (float32, held to H1's per-element bound) and the
+    torch engine (float64, decisions only): the p/h decisions of members
+    whose top-two |err| margin clears 4x the member's largest bound."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import dg_estimate_mixed
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    plan = hp_kernel(sin, HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, mode, device).plan
+    y32 = np.random.default_rng(HP_STUDY["seed"]).uniform(0.5, 2.0, HP_STUDY["b"]).astype(
+        np.float32)
+    y0, y64 = (torch.tensor(y32, dtype=d, device=device) for d in (torch.float32, torch.float64))
+    out = dict(decided=0, agree=0, decided64=0, agree64=0, err=0.0, share=0.0, tol=0.0)
+    for r in hist:
+        times = torch.tensor(r.times, dtype=torch.float32, device=device)
+        ns = torch.tensor(r.ns, dtype=torch.int64, device=device)
+        plain = hm.dg_estimate_hp_per_member_plain(times, ns, y0, plan)
+        tol = hm.hp_kernel_tolerance(times, ns, y0, plain, plan)["err"]
+        err_k = torch.tensor(r.err, dtype=torch.float32, device=device)
+        d_err = (err_k - plain[3]).abs().double()
+        assert bool((d_err <= tol).all()), (float(d_err.max()), float(tol.max()))
+        out["err"], out["tol"] = max(out["err"], float(d_err.max())), max(out["tol"],
+                                                                          float(tol.max()))
+        out["share"] = max(out["share"], float((d_err / tol.clamp_min(1e-300)).max()))
+        err64 = dg_estimate_mixed(plan.mops, plan.interp, sin.f, times.double(), ns, y64,
+                                  fine_offset=HP_STUDY["fo"], adjoint_mode=mode, rad=plan.rad,
+                                  f_u=sin.f_u, newton_iters=HP_STUDY["newton_iters"])[3]
+        noise = tol.amax(dim=1)
+        for key, (d, a) in (("", dg_decisions(err_k, plain[3], noise)),
+                            ("64", dg_decisions(err_k.double(), err64, noise))):
+            out["decided" + key] += d
+            out["agree" + key] += a
+    errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], out["err"])
+    assert out["decided"] > 0, "no decision of the study clears the float32 bound"
+    assert out["agree"] == out["decided"] and out["agree64"] == out["decided64"], out
+    return out
+
+
+def phase13(device, errs):
+    """The hp paths through their entry points."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import dg_adaptive
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    b, its = HP_STUDY["b"], HP_STUDY["maxit"] + 1
+    launches = None
+    for mode in ("solve", "reconstruct"):
+        argv = HP_ARGV + ["--per-member", "--device-loop", "--adjoint", mode]
+        hm.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = dg_adaptive.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = hm.dg_estimate_hp_per_member.launches
+        last = hist[-1]
+        say("13", f"{'main path ' if launches is None else ''}dg_adaptive {' '.join(argv)}: "
+                  f"{len(hist)} iterations, K {hist[0].n_active.max()} -> [{last.n_active.min()}.."
+                  f"{last.n_active.max()}], max order {last.ns.max()}, {last.n_refining} of {b} "
+                  f"refining, mean |est| {np.abs(hist[0].est_total).mean():.3e} -> "
+                  f"{np.abs(last.est_total).mean():.3e}, wall {wall:.3f} s, H1 launches {n_launch}")
+        assert n_launch == its and len(hist) == its, (n_launch, len(hist))
+        for r in hist:
+            assert np.all(np.isfinite(r.err)) and np.all(np.isfinite(r.j_coarse))
+        if launches is None:
+            launches = {"dg_estimate_hp_per_member": n_launch}
+        rep = hp_replay(hist, mode, device, errs)
+        say("13", f"replay ({mode}) of {len(hist)} iterations through the plain version: max|d err| "
+                  f"{rep['err']:.3e} (per-element tol <= {rep['tol']:.3e}, worst "
+                  f"{rep['share']:.2%} of it); decisions with a top-two margin > 4x the member's "
+                  f"largest err bound: {rep['decided']} of {len(hist) * b} member-iterations, "
+                  f"kernel and plain agree on {rep['agree']}; against the float64 torch engine "
+                  f"{rep['decided64']} clear it, agreement on {rep['agree64']}")
+
+    hm.reset_launch_counts()
+    ens = dg_adaptive.main(HP_ARGV)
+    torch.cuda.synchronize()
+    say("13", f"dg_adaptive {' '.join(HP_ARGV)} (shared partition, cuda engine): {len(ens)} "
+              f"iterations, K {len(ens[0].ns)} -> {len(ens[-1].ns)}, orders "
+              f"{ens[-1].ns.min()}..{ens[-1].ns.max()}, mean Adj-W Res {ens[0].est_total:+.4e} -> "
+              f"{ens[-1].est_total:+.4e}, H1 launches {hm.dg_estimate_hp_per_member.launches}")
+    assert len(ens) == its and hm.dg_estimate_hp_per_member.launches == its
+    assert all(np.isfinite(r.est_total) and np.all(np.isfinite(r.u)) for r in ens)
+
+    argv = ["--hp", "p", "--k0", "4", "--order", "1", "--n-max", "4", "--tol", "1e-9"]
+    with redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        card = dg_adaptive.main(argv)
+        wall = time.perf_counter() - t0
+        cpu = dg_adaptive.main(argv + ["--device", "cpu"])
+    assert len(card) == len(cpu)
+    diff = 0.0
+    for a, c in zip(card, cpu):
+        assert np.array_equal(a.times, c.times) and np.array_equal(a.ns, c.ns)
+        for f in ("u", "v", "err"):
+            diff = max(diff, float(np.max(np.abs(getattr(a, f) - getattr(c, f)))))
+        for f in ("j_coarse", "j_fine", "est_total"):
+            diff = max(diff, abs(getattr(a, f) - getattr(c, f)))
+    say("13", f"dg_adaptive {' '.join(argv)} (float64 on the card): {len(card)} iterations, "
+              f"orders {card[-1].ns.tolist()}, est {card[0].est_total:.4e} -> "
+              f"{card[-1].est_total:.4e}, wall {wall:.2f} s; equal partitions and orders to "
+              f"--device cpu, max value difference {diff:.3e} (limit 1e-12)")
+    assert diff <= 1e-12 and abs(card[-1].est_total) < 1e-9
+    return launches
+
+
+def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode):
+    """Least time on the card for one H1 call: the larger of bytes (times,
+    ns and y0 read once; u_c, u_f, v (B, K, np_max) and err written once)
+    over 3.35 TB/s and FP32 operations over 67 TFLOP/s, counted as in
+    dg_slab_bound at each LIVE (positive-width) member-element's own orders
+    — coarse p = n+1 nodes, fine n+fo+1, adjoint n+2 (its system n+1 nodes
+    in the reconstruct mode, plus the Radau lift) — not the padded np_max,
+    so the bound does not depend on the padding. A Newton step at p nodes:
+    Nq points of 2p² + 5p + 4, the assembly 4p² + 3p, one p×p solve and
+    the update."""
+    import numpy as np
+
+    t, n = times.double().cpu().numpy(), ns.cpu().numpy()
+    b, k = n.shape
+    n = n[np.diff(t, axis=1) > 0]
+    solve = np.vectorize(solve_ops)
+
+    def march(p):
+        return newton_iters * (nq * (2 * p * p + 5 * p + 4) + 4 * p * p + 4 * p + solve(p))
+
+    pc, pf, pa = n + 1, n + fo + 1, n + 2
+    ps = pa if adjoint_mode == "solve" else pc
+    adj = (2 * pa * pc + nq * (2 * pc + 4 + 2 * pa + ps + 2 * ps * ps) + 2 * ps * ps + 2 * ps
+           + solve(ps) + pa * (2 * pa + 6))
+    if adjoint_mode == "reconstruct":
+        adj = adj + 2 * pa * pc + 2 * pa * pa
+    n_ops = float(np.sum(march(pc) + march(pf) + adj))
+    n_bytes = 4 * (b * (k + 1) + b * k + b + 3 * b * k * np_max + b * k)
+    return bound(n_bytes, n_ops)
+
+
+def hp_times(device, cases):
+    """Phase 14: CUDA events, one warm-up, median of 5, H1 and its plain
+    version at 12(a) and 12(b) in each adjoint mode; the B = 512 and 4096
+    per-member studies (device loop) with each engine. Returns (kernel ms,
+    plain ms, bound) at 12(a) solve for the kernel line."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    out = {}
+    for key in (("a", "solve"), ("a", "reconstruct"), ("b", "solve"), ("b", "reconstruct")):
+        run, (times, ns, y0), _, _ = cases[key]
+        plan = run.plan
+        ms = cuda_ms(lambda: run(times, ns, y0), runs=5)
+        plain_ms = cuda_ms(lambda: hm.dg_estimate_hp_per_member_plain(times, ns, y0, plan), runs=5)
+        b_ms, b_by = dg_hp_bound(times, ns, plan.newton_iters, plan.fine_offset,
+                                 plan.mops.rq.shape[0], plan.mops.np_max, plan.adjoint_mode)
+        b = y0.shape[0]
+        say("14", f"dg_estimate_hp_per_member 12({key[0]}) {key[1]} B={b} K={HP_K}: kernel "
+                  f"{ms:.4f} ms = {b * HP_K / (ms / 1e3):.4e} member-elements/s; plain "
+                  f"{plain_ms:.3f} ms; kernel speed-up {plain_ms / ms:.1f}x; bound {b_ms:.6f} ms "
+                  f"({b_by}), kernel at {b_ms / ms:.2%} of it")
+        out[key] = (ms, plain_ms, (b_ms, b_by))
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    kw = dict(f_u=sin.f_u, k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"], mode="hp", tol=0.0,
+              maxit=HP_STUDY["maxit"], newton_iters=HP_STUDY["newton_iters"], ode=sin,
+              device_loop=True, dtype=torch.float32, device=device)
+    its = HP_STUDY["maxit"] + 1
+    for b, seed in ((HP_STUDY["b"], HP_STUDY["seed"]), (HP_BIG["b"], HP_BIG["seed"])):
+        y0s = np.random.default_rng(seed).uniform(0.5, 2.0, b).astype(np.float32)
+
+        def study(engine, y0s=y0s):
+            hp_loop.run_adaptive_dg_hp_per_member(sin.f, y0s, (0.0, HP_STUDY["t1"]),
+                                                  engine=engine, **kw)
+
+        ms_cuda = cuda_ms(lambda: study("cuda"), runs=5)
+        ms_torch = cuda_ms(lambda: study("torch"), runs=1, warmup=0)
+        say("14", f"run_adaptive_dg_hp_per_member B={b} k0 {HP_STUDY['k0']} n_max "
+                  f"{HP_STUDY['n_max']} maxit {HP_STUDY['maxit']} (device loop, float32): engine "
+                  f"cuda {ms_cuda:.3f} ms (median of 5; {ms_cuda / its:.3f} ms per iteration); "
+                  f"engine torch {ms_torch:.1f} ms (one run); speed-up {ms_torch / ms_cuda:.1f}x")
+        if b == HP_STUDY["b"]:
+            study_trace(lambda: study("cuda"), "hp_kernel")
+    return out["a", "solve"]
+
+
+def study_trace(run, kernel):
+    """One warm run of ``run`` under torch.profiler: the wall under the
+    profiler, the device time summed over the kernels it ran, the device's
+    busy share of the wall, ``kernel``'s share of the device time, and the
+    host's stream synchronisations and copies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if us is None else us) / 1e3
+
+    total = sum(dev_ms(e) for e in events)
+    mine = sum(dev_ms(e) for e in events if kernel in e.key)
+    n_mine = sum(e.count for e in events if kernel in e.key)
+    calls = {k: sum(e.count for e in events if e.key == k)
+             for k in ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
+    say("14", f"torch.profiler over one warm study: wall {wall:.3f} ms under the profiler, device "
+              f"busy {total:.3f} ms ({total / wall:.1%} of the wall, idle {1 - total / wall:.1%}); "
+              f"{kernel} {mine:.3f} ms in {n_mine} launches ({mine / max(total, 1e-12):.1%} of the "
+              f"device time); host calls {calls}")
 
 
 def instance_name(mangled: str) -> str:
@@ -1171,7 +1560,12 @@ def main() -> int:
     launches.update(phase10(device, errs))
     times["dg_estimate_ensemble"] = dg_times(device, cases)
 
-    bounds = {**dg_bounds(), **fd_bounds()}
+    hp_cases = phase12(device, errs)
+    launches.update(phase13(device, errs))
+    hp_ms, hp_plain_ms, hp_bound = hp_times(device, hp_cases)
+    times["dg_estimate_hp_per_member"] = (hp_ms, hp_plain_ms)
+
+    bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],

@@ -25,16 +25,26 @@ carries it through the K elements: u within 8·K·κ_p·ε·max|u|, v within
 weight with a difference of O(max|u|) values, is local (a state shift
 carried in through the inflow cancels in the residual to O(h·f_u)): within
 8·κ_a·Na·ε·max|u|·max|v|.
+
+The hp kernel: ops/cuda/dg_slab_mixed.hp_kernel_tolerance — u and v as
+above with κ the largest condition number over the padded stack's orders,
+err per element within 8·ε of the sum of the magnitudes of its products.
 """
 import numpy as np
 import pytest
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
+    dg_adjoint_interp_mixed,
+    dg_radau_interp_mixed,
+)
 from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mixed
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
 pytestmark = pytest.mark.cuda
@@ -208,3 +218,52 @@ def test_dg_slab_kernel_refusals_raise(device):
         run(times.double(), torch.ones(8, dtype=torch.float64, device=device))
     with pytest.raises(RuntimeError, match="dg_estimate_ensemble failed"):
         run(times, torch.ones(0, device=device))  # an empty grid: the launch is refused
+
+
+@pytest.mark.parametrize("ode,n_user,fo,mode", [
+    ("du/dt=sin(u)", 3, 2, "solve"), ("du/dt=sin(u)", 3, 2, "reconstruct"),
+    ("du/dt=sin(u)", 5, 2, "solve"), ("gaussian_mixture", 2, 1, "reconstruct"),
+])
+def test_hp_kernel_matches_its_plain_version(device, ode, n_user, fo, mode):
+    rng = np.random.default_rng(n_user)
+    k, b = 12, 3000
+    # per-member partitions on a 2^-10 grid (distinct float32 nodes) with
+    # zero-width tails, random orders
+    t = np.full((b, k + 1), 2.0)
+    ns = np.ones((b, k), np.int64)
+    for m, n_act in enumerate(rng.integers(2, k, b)):
+        inner = np.sort(rng.choice(np.arange(1, 2048), n_act - 1, replace=False)) / 1024
+        t[m, : n_act + 1] = np.concatenate([[0.0], inner, [2.0]])
+        ns[m, :n_act] = rng.integers(1, n_user + 1, n_act)
+    times = torch.tensor(t, dtype=torch.float32, device=device)
+    ns = torch.tensor(ns, device=device)
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    mops = dg_time_operators_mixed(n_user + fo)
+    run = hm.make_cuda_dg_estimate_hp_per_member(
+        ode, mops, dg_adjoint_interp_mixed(mops), k, n_max_user=n_user, fine_offset=fo,
+        adjoint_mode=mode, rad=dg_radau_interp_mixed(mops), device=device)
+    before = hm.dg_estimate_hp_per_member.launches
+    got = run(times, ns, y0)
+    torch.cuda.synchronize()
+    assert hm.dg_estimate_hp_per_member.launches == before + 1
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
+    tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
+    for g, w, bound in zip(got, want, (tol["u"], tol["u"], tol["v"], tol["err"])):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs().double() <= bound).all())
+    assert bool((got[3][times[:, :-1] == 2.0] == 0).all())  # the tails contribute exactly 0
+
+
+def test_hp_kernel_refusals_raise(device):
+    mops = dg_time_operators_mixed(4)
+    run = hm.make_cuda_dg_estimate_hp_per_member("du/dt=sin(u)", mops,
+                                                 dg_adjoint_interp_mixed(mops), 4, n_max_user=2,
+                                                 device=device)
+    times = torch.linspace(0.0, 2.0, 5, device=device).expand(8, 5).contiguous()
+    ns = torch.ones((8, 4), dtype=torch.int32, device=device)
+    with pytest.raises(TypeError):
+        run(times.double(), ns, torch.ones(8, dtype=torch.float64, device=device))
+    with pytest.raises(ValueError):  # not contiguous
+        run(times, ns, torch.ones(16, device=device)[::2])
+    with pytest.raises(RuntimeError, match="dg_estimate_hp_per_member failed"):
+        run(times[:0], ns[:0], torch.ones(0, device=device))  # an empty grid: the launch is refused

@@ -200,12 +200,12 @@ def test_driver_prints_the_jax_drivers_lines(argv):
 
 
 def test_driver_refuses_what_is_not_ported(capsys):
-    for argv in (["--hp", "p"], ["--dp", "--ensemble", "8"], ["--plot"],
+    for argv in (["--dp", "--ensemble", "8"], ["--plot"],
                  ["--device", "cpu", "--ensemble", "8", "--engine", "cuda"],
                  ["--ensemble", "8", "--engine", "cuda", "--x64"]):
         with pytest.raises(SystemExit):
             dg_adaptive.main(argv)
-    assert "not ported yet (ROADMAP queue 1 item 12)" in capsys.readouterr().err
+    assert "not ported yet (ROADMAP queue 1 item 14)" in capsys.readouterr().err
     args = dg_adaptive.argparse.Namespace(x64=None)
     cuda = torch.device("cuda")
     assert dg_adaptive._default_engine(args, SIN, cuda) == "cuda"
