@@ -14,7 +14,11 @@ residual, Radau reconstruction, the batched ensemble pipeline, the
 single-run, ensemble-signal and per-member adaptive loops, and the
 ``dg_adaptive`` driver. The fourth is its hp strand: the mixed
 per-element-order march and adjoint, the p/h/hp/smooth refinement loops
-(single run, ensemble signal, per member) and ``dg_adaptive --hp``.
+(single run, ensemble signal, per member) and ``dg_adaptive --hp``. The
+fifth is the NN strand: ResNets as time integrators trained through the
+solver (per-step or shared residual blocks, Adam as optax computes it), the
+adjoint-weighted refinement signal deciding where a layer (time step) or a
+neuron goes, and the ``train_resnet_ode`` driver with its five methods.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
@@ -28,15 +32,22 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
   mixed-order)
 - ``ops.cuda``   the hand-written CUDA kernels, their plain-PyTorch
   versions and the entry points that mirror ``ops/pallas/dg_rhs.py``,
-  ``ops/pallas/fd_ensemble.py``, ``ops/pallas/dg_slab.py`` and
-  ``ops/pallas/dg_slab_mixed.py``
+  ``ops/pallas/fd_ensemble.py``, ``ops/pallas/dg_slab.py``,
+  ``ops/pallas/dg_slab_mixed.py``, ``ops/pallas/train_fused.py`` and
+  ``ops/pallas/train_dense_fused.py``
 - ``adapt``      the FD time-grid loops, the DG h-adaptive loop and the
   DG-in-time loops and their hp loops (``engine="torch"`` or ``"cuda"``),
   and the refinement policies
-- ``drivers``    the ``fd_adaptive``, ``advec_dg`` and ``dg_adaptive``
-  command lines
+- ``models``     residual blocks as update rules (flax parameter names) and
+  depth/width surgery
+- ``train``      losses, RK4 truth, train steps (torch and cuda engines),
+  Adam, the padded adaptive trainer, the refinement signal, metrics,
+  checkpoints
+- ``drivers``    the ``fd_adaptive``, ``advec_dg``, ``dg_adaptive`` and
+  ``train_resnet_ode`` command lines
 - ``interop``    carries JAX-package state across (discretization, operator
-  bundle, mixed-order operator stack, gaussian-mixture constants)
+  bundle, mixed-order operator stack, gaussian-mixture constants, flax
+  parameters, optax Adam moments)
 
 This package imports torch and NumPy, never jax.
 """

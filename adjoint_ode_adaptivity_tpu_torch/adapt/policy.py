@@ -6,8 +6,8 @@ grid length: active nodes ``0..n_active``, padding repeating the final time
 so that its steps have zero width (exact identities downstream). They work
 on the last axis and accept leading member axes, so one call refines every
 member of a per-member study. ``torch.argmax`` returns the first maximum,
-as ``jnp.argmax`` does. The plateau and width-vs-depth triggers wait for
-the NN strand.
+as ``jnp.argmax`` does. The NN strand's triggers are here too: the
+plateau test on a loss window and the width-vs-depth test.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ __all__ = [
     "bisect_refine_padded_masked",
     "coarsen_merge",
     "coarsen_merge_padded",
+    "plateau_detect",
+    "should_refine_depth",
 ]
 
 
@@ -131,3 +133,39 @@ def coarsen_merge(times: torch.Tensor, err_steps: torch.Tensor, coarsen_tol: flo
     if float(pair_sums[k]) >= coarsen_tol:
         return times
     return torch.cat([times[: k + 1], times[k + 2 :]])
+
+
+def plateau_detect(loss_hist: torch.Tensor, min_loss, ref_tol: float = 5e-5):
+    """Quadratic-fit plateau test on the log-loss window: refine when |c2|
+    and |c1| of the degree-2 least-squares fit of log(loss) against the epoch
+    index are below ``ref_tol`` and the window's mean is a new floor
+    (Main_no_matrix_detect_complex.py:274-282). The fit is ``jnp.polyfit``'s:
+    the Vandermonde columns scaled to unit norm, an SVD least-squares solve
+    with rcond = n·eps, the scale divided back out. Returns (refine,
+    new_min_loss)."""
+    n = loss_hist.shape[0]
+    x = torch.arange(n, dtype=loss_hist.dtype, device=loss_hist.device)
+    lhs = torch.stack([x**2, x, torch.ones_like(x)], dim=1)
+    scale = torch.sqrt(torch.sum(lhs * lhs, dim=0))
+    rcond = n * torch.finfo(loss_hist.dtype).eps
+    coeffs = _lstsq_svd(lhs / scale, torch.log(loss_hist), rcond) / scale
+    flat = (torch.abs(coeffs[0]) < ref_tol) & (torch.abs(coeffs[1]) < ref_tol)
+    mean_loss = torch.mean(loss_hist)
+    min_loss = torch.as_tensor(min_loss, dtype=loss_hist.dtype, device=loss_hist.device)
+    refine = flat & (min_loss > mean_loss)
+    return refine, torch.where(refine, mean_loss, min_loss)
+
+
+def _lstsq_svd(a: torch.Tensor, b: torch.Tensor, rcond: float) -> torch.Tensor:
+    """Minimum-norm least squares through the SVD, singular values below
+    rcond·s_max dropped (``jnp.linalg.lstsq``)."""
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    keep = (s > 0) & (s >= rcond * s[0])
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
+    return vh.T @ (s_inv * (u.T @ b))
+
+
+def should_refine_depth(loss_hist: torch.Tensor, rel_tol: float = 0.1) -> torch.Tensor:
+    """Depth (vs width) trigger: the relative loss improvement over the
+    window is below ``rel_tol`` (Main_width_ref.py:487-500)."""
+    return (loss_hist[0] - loss_hist[-1]) / loss_hist[0] < rel_tol

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels (the DG advection, FD, DG-in-time and hp
-DG-in-time hot loops), and their loader.
+DG-in-time hot loops, and the two fused training epochs), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
 them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
@@ -82,8 +82,13 @@ class KernelLibrary:
         lib.dg_estimate_ensemble.restype = i
         lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 9 + [p] * 8
         lib.dg_estimate_hp_per_member.restype = i
+        lib.resblock_epoch_grad.argtypes = [i] * 4 + [p] * 6 + [d] * 2 + [p] * 6
+        lib.resblock_epoch_grad.restype = i
+        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 3 + [p] * 5 + [d] + [p] * 6
+        lib.dense_epoch_grad.restype = i
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
-                     "dg_slab_mixed_error_string"):
+                     "dg_slab_mixed_error_string", "train_fused_error_string",
+                     "train_dense_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

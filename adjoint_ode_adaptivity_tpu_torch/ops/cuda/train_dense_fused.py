@@ -1,0 +1,398 @@
+"""The fused training epoch of the shared-parameter Dense chain on
+hand-written CUDA.
+
+Counterpart of the JAX package's ``ops/pallas/train_dense_fused.py``. One
+kernel entry, **T2** :func:`dense_epoch_grad` (csrc/train_dense_fused.cu),
+replaces ``_epoch_kernel`` (train_dense_fused.py:136): for B members, the
+S-step Euler march of ``ResNetBlock(sizes)`` with ONE parameter set,
+
+  z_1 = u·w_1 + b_1,  a_l = relu(a_{l−1} W_l + b_l),  f = a_L·w_out + b_out,
+  u_{n+1} = u_n + dt_n·f,
+
+the terminal MSE, and the backward sweep that recomputes the chain from the
+stored scalar trajectory at each step:
+
+  df = dt·g, ∂W_out += a_Lᵀdf, ∂b_out += Σdf, da_L = df ⊗ w_out,
+  dz_l = da_l·1[z_l>0], ∂W_l += a_{l−1}ᵀdz_l, ∂b_l += Σdz_l,
+  da_{l−1} = dz_l W_lᵀ, g_n = g + Σ_i dz1_i·w1_i.
+
+Zero-dt steps are exact identities with gradients that are exactly 0. The
+hidden products are the kernel's own FP32 FMAs (IEEE float32, no TF32, no
+library call). The TPU kernel's opt-in ``mxu_dtype=bfloat16`` mode is not
+ported.
+
+Parameters are the flax pytree ``{'Dense_i': {'kernel', 'bias'}}``. The
+kernel takes them flattened into one float32 vector (:func:`pack_dense`,
+hidden widths padded to multiples of 4 with zeros, which relu keeps inert in
+both passes) plus each hidden matrix transposed. A CUDA float32 tensor
+launches the kernel or raises; a CPU tensor takes the plain version,
+:func:`dense_epoch_grad_plain`, the same sweep in eager torch in the inputs'
+dtype. Nothing falls back from the kernel. The wrapper counts its launches
+in ``.launches``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_fused import EPS32, WARP, _check
+
+__all__ = [
+    "pad4",
+    "dense_layout",
+    "pack_dense",
+    "unpack_dense",
+    "dense_block_members",
+    "dense_epoch_grad",
+    "dense_epoch_grad_plain",
+    "dense_kernel_tolerance",
+    "reset_launch_counts",
+    "make_cuda_dense_epoch_grad",
+]
+
+MAX_LAYERS = 8  # hidden layers the kernel takes (csrc kMaxLayers)
+SMEM_BYTES = 200 * 1024  # activation tiles a block may hold
+CALIBRATION = 16  # dense_kernel_tolerance's factor on the float32 sweep's deviations
+
+
+def pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def dense_layout(sizes: Sequence[int]) -> list:
+    """Offsets into the flat parameter (and gradient) vector, hidden widths
+    padded to P_l = pad4(H_l): [w1 (P1), b1 (P1)], then per hidden matrix
+    l = 1..L−1 [W_l (P_{l−1}·P_l, row-major), b_l (P_l)], then [w_out
+    (P_L), b_out (1)]. Returns a list of (name, offset, shape) with the
+    padded shapes; the total is the last offset plus its size."""
+    p = [pad4(s) for s in sizes]
+    out, off = [], 0
+    shapes = [("Dense_0/kernel", (p[0],)), ("Dense_0/bias", (p[0],))]
+    for l in range(1, len(sizes)):
+        shapes += [(f"Dense_{l}/kernel", (p[l - 1], p[l])), (f"Dense_{l}/bias", (p[l],))]
+    shapes += [(f"Dense_{len(sizes)}/kernel", (p[-1],)), (f"Dense_{len(sizes)}/bias", (1,))]
+    for name, shape in shapes:
+        out.append((name, off, shape))
+        off += math.prod(shape)
+    return out
+
+
+def _total(layout) -> int:
+    name, off, shape = layout[-1]
+    return off + math.prod(shape)
+
+
+def _flatten(tree: dict, sizes: tuple, device=None, dtype=torch.float32) -> torch.Tensor:
+    """A Dense-chain pytree (parameters or gradients) as the flat vector of
+    :func:`dense_layout`, padding exactly zero."""
+    n = len(sizes)
+    layout = dense_layout(sizes)
+    flat = torch.zeros(_total(layout), dtype=dtype, device=device)
+    for name, off, shape in layout:
+        layer, leaf = name.split("/")
+        x = tree[layer][leaf].to(device=device, dtype=dtype)
+        if leaf == "kernel" and int(layer.split("_")[1]) in (0, n):
+            x = x.reshape(-1)
+        view = flat[off: off + math.prod(shape)].view(shape)
+        view[tuple(slice(0, s) for s in x.shape)] = x
+    return flat
+
+
+def pack_dense(params: dict, sizes: Sequence[int], device=None):
+    """(theta, theta_t): the flat float32 parameter vector of
+    :func:`dense_layout`, and each hidden matrix W_l transposed (P_l ×
+    P_{l−1}), concatenated (a placeholder of one zero when there is none)."""
+    sizes = tuple(sizes)
+    theta = _flatten(params, sizes, device)
+    parts_t = [theta[off: off + math.prod(shape)].view(shape).T.reshape(-1)
+               for name, off, shape in dense_layout(sizes)
+               if name.endswith("kernel") and len(shape) == 2]
+    theta_t = (torch.cat(parts_t) if parts_t
+               else torch.zeros(1, dtype=torch.float32, device=device)).contiguous()
+    return theta, theta_t
+
+
+def unpack_dense(flat: torch.Tensor, sizes: Sequence[int]) -> dict:
+    """The flat gradient vector as the flax pytree (padding dropped)."""
+    sizes = tuple(sizes)
+    n = len(sizes)
+    out: dict = {}
+    for name, off, shape in dense_layout(sizes):
+        layer, leaf = name.split("/")
+        i = int(layer.split("_")[1])
+        x = flat[off: off + math.prod(shape)].view(shape)
+        if leaf == "kernel":
+            if i == 0:
+                x = x[: sizes[0]][None, :]
+            elif i == n:
+                x = x[: sizes[-1]][:, None]
+            else:
+                x = x[: sizes[i - 1], : sizes[i]]
+        else:
+            x = x[: (sizes[i] if i < n else 1)]
+        out.setdefault(layer, {})[leaf] = x
+    return out
+
+
+def dense_block_members(sizes: Sequence[int]) -> int:
+    """Members per block: the largest of 64, 32, 16 whose activation tiles
+    (BM × Σ_l P_l floats) fit in :data:`SMEM_BYTES`."""
+    width = sum(pad4(s) for s in sizes) + 3
+    for bm in (64, 32, 16):
+        if bm * width * 4 <= SMEM_BYTES:
+            return bm
+    raise ValueError(f"hidden widths {tuple(sizes)} need more shared memory than a block has")
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _layers(params: dict, n: int, dtype):
+    return [(params[f"Dense_{i}"]["kernel"].to(dtype), params[f"Dense_{i}"]["bias"].to(dtype))
+            for i in range(n + 1)]
+
+
+def _tree(leaves) -> dict:
+    return {f"Dense_{i}": {"kernel": k, "bias": bb} for i, (k, bb) in enumerate(leaves)}
+
+
+def _chain(lay, u):
+    """Pre-activations and activations of every hidden layer at the states
+    ``u`` (B,), and f (B,)."""
+    z = u[:, None] * lay[0][0][0][None, :] + lay[0][1]
+    zs, acts = [z], [torch.relu(z)]
+    for k, bb in lay[1:-1]:
+        z = acts[-1] @ k + bb
+        zs.append(z)
+        acts.append(torch.relu(z))
+    return zs, acts, acts[-1] @ lay[-1][0][:, 0] + lay[-1][1][0]
+
+
+def _march(lay, dt, u0s):
+    traj = [u0s]
+    for s in range(dt.shape[0]):
+        traj.append(traj[-1] + dt[s] * _chain(lay, traj[-1])[2])
+    return traj
+
+
+def _backward_step(lay, dt_s, g, u, acts, masks, grads):
+    """One step of the reverse sweep at the states ``u`` with the relu masks
+    ``masks`` (one per hidden layer): adds the step's contributions to
+    ``grads`` and returns (the cotangent one step back, the cotangents of
+    every hidden layer's activations)."""
+    n = len(acts)
+    df = dt_s * g
+    grads[n][0] += (acts[-1] * df[:, None]).sum(0)[:, None]
+    grads[n][1] += df.sum(0, keepdim=True)
+    da = df[:, None] * lay[n][0][:, 0][None, :]
+    das = [None] * n
+    for i in range(n - 1, -1, -1):
+        das[i] = da
+        dz = da * masks[i]
+        a_prev = acts[i - 1] if i > 0 else u[:, None]
+        grads[i][0] += a_prev.T @ dz
+        grads[i][1] += dz.sum(0)
+        if i > 0:
+            da = dz @ lay[i][0].T
+    return g + dz @ lay[0][0][0], das
+
+
+def dense_epoch_grad_plain(params: dict, sizes: Sequence[int], dt, u0s, trues):
+    """T2's plain version: (loss, grads pytree) of the terminal-MSE epoch
+    (mean over members) in the dtype of ``u0s``: the forward march, then
+    the backward sweep recomputing the chain from the stored states."""
+    dtype = u0s.dtype
+    lay = _layers(params, len(sizes), dtype)
+    dt = dt.to(dtype)
+    traj = _march(lay, dt, u0s)
+    inv_b = 1.0 / u0s.shape[0]
+    e = traj[-1] - trues.to(dtype)
+    g = 2.0 * e * inv_b
+    grads = [[torch.zeros_like(k), torch.zeros_like(bb)] for k, bb in lay]
+    for s in range(dt.shape[0] - 1, -1, -1):
+        zs, acts, _ = _chain(lay, traj[s])
+        g, _ = _backward_step(lay, dt[s], g, traj[s], acts, [(z > 0).to(dtype) for z in zs],
+                              grads)
+    return (e * e * inv_b).sum(), _tree(grads)
+
+
+def _jacobian(lay, masks):
+    """∂f/∂u (B,) of the chain with the relu masks ``masks``."""
+    da = lay[-1][0][:, 0][None, :]
+    for i in range(len(masks) - 1, 0, -1):
+        da = (da * masks[i]) @ lay[i][0].T
+    return (da * masks[0]) @ lay[0][0][0]
+
+
+def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
+                           block_members: int | None = None):
+    """Per-entry bounds within which a float32 evaluation of T2 lies from the
+    float64 plain version, calibrated by a float32 evaluation of the same
+    sweep in eager torch (IEEE float32 products, another summation order):
+
+    - the float64 and float32 sweeps run in lockstep, the float32 one with
+      the float64 relu masks, so that its deviation is rounding alone; ρ is
+      its largest deviation over all gradient entries, each relative to
+      the entry's scale Σ|c|, the summed magnitudes of its (step, member)
+      contributions c;
+    - a relu whose float64 argument lies within CALIBRATION times the
+      float32 sweep's largest deviation of that member's arguments in that
+      layer at that step may switch in another evaluation: its whole
+      contribution is charged, and the charge φ is carried by magnitudes to
+      the lower layers and, through the cotangent, to the earlier steps by
+      the signed step derivative |1 + dt·J| (J = ∂f/∂u), as a perturbation
+      is;
+    - each entry's bound is (CALIBRATION·ρ + k_red·ε)·Σ|c| + 2φ, with k_red
+      the kernel's reduction (``block_members`` members per block and
+      step, then the S steps, then the blocks).
+
+    The loss: CALIBRATION times the float32 sweep's largest terminal-state
+    deviation δ, through Σ(2|e|δ + δ²)/B, plus its reduction. An entry no
+    contribution reaches (a dead neuron, a zero-dt step) has bound 0: the
+    kernel must give exactly 0 there. Returns ``loss`` (float), ``grads``
+    and ``scale`` (pytrees of bounds and of Σ|c|) and ``rho``."""
+    f64, f32 = torch.float64, torch.float32
+    sizes = tuple(sizes)
+    n, b = len(sizes), u0s.shape[0]
+    bm = block_members or dense_block_members(sizes)
+    inv_b = 1.0 / b
+    lay, lay32 = _layers(params, n, f64), _layers(params, n, f32)
+    dt64, dt32 = dt.to(f64), dt.to(f32)
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")  # IEEE float32, no TF32
+    try:
+        traj, traj32 = _march(lay, dt64, u0s.to(f64)), _march(lay32, dt32, u0s.to(f32))
+        e = traj[-1] - trues.to(f64)
+        g, g32 = 2.0 * e * inv_b, 2.0 * (traj32[-1] - trues.to(f32)) * inv_b
+        zeros = lambda ls: [[torch.zeros_like(k), torch.zeros_like(bb)] for k, bb in ls]  # noqa: E731
+        grads, grads32, scale, phi = zeros(lay), zeros(lay32), zeros(lay), zeros(lay)
+        phi_g = torch.zeros_like(g)
+        for s in range(dt.shape[0] - 1, -1, -1):
+            zs, acts, _ = _chain(lay, traj[s])
+            zs32, acts32, _ = _chain(lay32, traj32[s])
+            masks = [(z > 0).to(f64) for z in zs]
+            flags = [(z.abs() <= CALIBRATION * (z32.to(f64) - z).abs().amax(1, keepdim=True))
+                     .to(f64) for z, z32 in zip(zs, zs32)]
+            g32, _ = _backward_step(lay32, dt32[s], g32, traj32[s], acts32,
+                                    [m.to(f32) for m in masks], grads32)
+            g_next, das = _backward_step(lay, dt64[s], g, traj[s], acts, masks, grads)
+            dfm, phi_df = (dt64[s] * g).abs(), dt64[s].abs() * phi_g
+            am = acts[-1].abs()
+            scale[n][0] += (am.T @ dfm)[:, None]
+            scale[n][1] += dfm.sum(0, keepdim=True)
+            phi[n][0] += (am.T @ phi_df)[:, None]
+            phi[n][1] += phi_df.sum(0, keepdim=True)
+            ko = lay[n][0][:, 0].abs()[None, :]
+            pa = phi_df[:, None] * ko  # carried charge on da (entries)
+            pb = torch.zeros_like(pa)  # this step's switches alone (the cotangent)
+            for i in range(n - 1, -1, -1):
+                live = torch.clamp(masks[i] + flags[i], max=1.0)
+                switch = (das[i].abs() + pa) * flags[i]
+                pa, pb = pa * live + switch, pb * live + switch
+                a_prev = (acts[i - 1] if i > 0 else traj[s][:, None]).abs()
+                dzm = das[i].abs() * masks[i]
+                scale[i][0] += a_prev.T @ dzm
+                scale[i][1] += dzm.sum(0)
+                phi[i][0] += a_prev.T @ pa
+                phi[i][1] += pa.sum(0)
+                k = lay[i][0].abs()
+                pa, pb = (pa @ k.T, pb @ k.T) if i > 0 else (pa, pb @ k[0])
+            phi_g = (1.0 + dt64[s] * _jacobian(lay, masks)).abs() * phi_g + pb
+            g = g_next
+        rho = 0.0
+        for gl, gl32, ml in zip(grads, grads32, scale):
+            for x, y, m in zip(gl, gl32, ml):
+                if bool((m > 0).any()):
+                    rho = max(rho, float(((y.to(f64) - x).abs()[m > 0] / m[m > 0]).max()))
+        delta = CALIBRATION * float((traj32[-1].to(f64) - traj[-1]).abs().max())
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    n_blocks = -(-b // bm)
+    k_red = (bm + dt.shape[0] + n_blocks + 2) * EPS32
+    k_loss = (math.ceil(b / WARP) + 7) * EPS32
+    bound = [[(CALIBRATION * rho + k_red) * m + 2 * c for m, c in zip(ml, cl)]
+             for ml, cl in zip(scale, phi)]
+    loss_bound = float(inv_b * (2 * e.abs() * delta + delta * delta).sum()
+                       + k_loss * inv_b * (e * e).sum())
+    return {"loss": loss_bound, "grads": _tree(bound), "scale": _tree(scale), "rho": rho}
+
+
+# ------------------------------------------------------------------ wrapper
+
+
+def dense_epoch_grad(theta, theta_t, sizes: Sequence[int], dt, u0s, trues):
+    """T2: (loss, flat gradient vector) for the packed parameters
+    (:func:`pack_dense`), ``dt`` (S,), ``u0s`` and ``trues`` (B,); the loss
+    is the mean over members. One call of the C entry (the march-and-sweep
+    kernel, one block per :func:`dense_block_members` members, then a
+    fixed-order reduction of the blocks' partial gradients)."""
+    sizes = tuple(int(s) for s in sizes)
+    if not 1 <= len(sizes) <= MAX_LAYERS:
+        raise ValueError(f"the kernel takes 1..{MAX_LAYERS} hidden layers, got {len(sizes)}")
+    if u0s.dim() != 1:
+        raise ValueError(f"u0s must be (B,), got {tuple(u0s.shape)}")
+    b, s_steps, dev = u0s.shape[0], dt.shape[0], u0s.device
+    layout = dense_layout(sizes)
+    _check("theta", theta, (_total(layout),), torch.float32, dev)
+    _check("dt", dt, (s_steps,), torch.float32, dev)
+    _check("u0s", u0s, (b,), torch.float32, dev)
+    _check("trues", trues, (b,), torch.float32, dev)
+    if dev.type != "cuda":
+        return _plain_flat(theta, sizes, dt, u0s, trues)
+    bm = dense_block_members(sizes)
+    n_blocks = -(-b // bm)
+    lib = load_library()
+    widths = np.array([pad4(s) for s in sizes], dtype=np.int32)
+    traj = torch.empty((s_steps + 1, b), dtype=torch.float32, device=dev)
+    loss_m = torch.empty((b,), dtype=torch.float32, device=dev)
+    part = torch.zeros((n_blocks, theta.numel()), dtype=torch.float32, device=dev)
+    loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    grads = torch.empty_like(theta)
+    code = lib.lib.dense_epoch_grad(
+        len(sizes), widths.ctypes.data, bm, s_steps, b, theta.data_ptr(), theta_t.data_ptr(),
+        dt.data_ptr(), u0s.data_ptr(), trues.data_ptr(), 1.0 / b, traj.data_ptr(),
+        loss_m.data_ptr(), part.data_ptr(), loss.data_ptr(), grads.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    dense_epoch_grad.launches += 1
+    lib.check(code, "dense_epoch_grad", lib.lib.train_dense_error_string)
+    return loss[0], grads
+
+
+dense_epoch_grad.launches = 0
+
+
+def _plain_flat(theta, sizes, dt, u0s, trues):
+    loss, grads = dense_epoch_grad_plain(unpack_dense(theta, sizes), sizes, dt, u0s, trues)
+    return loss, _flatten(grads, sizes, theta.device, loss.dtype)
+
+
+def reset_launch_counts() -> None:
+    dense_epoch_grad.launches = 0
+
+
+# -------------------------------------------------------------- entry point
+
+
+def make_cuda_dense_epoch_grad(n_steps: int, sizes: Sequence[int], device="cuda"):
+    """``run(params, dt, u0s, trues) -> (loss, grads)``: value and gradient of
+    the terminal-MSE epoch loss of a shared-parameter ``ResNetBlock(sizes)``
+    over B members in one call of T2, with
+    ``make_pallas_dense_epoch_grad``'s contract (train_dense_fused.py:
+    236-286): float32, dt (S,), any B ≥ 1."""
+    sizes = tuple(int(s) for s in sizes)
+    device = require_device(device)
+    dense_block_members(sizes)
+
+    def run(params, dt, u0s, trues):
+        f32 = lambda x: torch.as_tensor(x).to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
+        if dt.shape[0] != n_steps:
+            raise ValueError(f"dt has {dt.shape[0]} steps, expected {n_steps}")
+        theta, theta_t = pack_dense(params, sizes, device)
+        loss, flat = dense_epoch_grad(theta, theta_t, sizes, f32(dt), f32(u0s), f32(trues))
+        return loss, unpack_dense(flat, sizes)
+
+    return run

@@ -81,6 +81,30 @@ raises, and the script exits non-zero; nothing is caught.
    device's busy share, the kernel's share of it, the host's launches,
    synchronisations and copies).
 
+15. The fused training kernel T1 (csrc/train_fused.cu) against its plain
+   version in float64, each gradient entry held to its own float32 bound:
+   (a) bench.py's shape (S=10, F=500, B=8192, dt 0.1, ICs ~ U(0.5, 2) seed 11,
+   targets sin u at t=1); (b) masked at capacity 500 with n_active varying
+   per step, inactive gradients exactly 0; (c) the mixed loss with full
+   trajectory targets and a ramp weight; (d) 0/1 member weights; (e) zero-dt
+   padded steps, exact identities with gradients exactly 0; (f) S=48. Every
+   case twice: bit-identical.
+16. The fused Dense-chain kernel T2 (csrc/train_dense_fused.cu) against its
+   plain version likewise at (100, 500), B=8192 (seed 13), S=10 and S=100
+   (bench.py:1183-1200), and with zero-dt steps.
+17. The NN path through its entry point: ``drivers.train_resnet_ode.main(
+   ["--method", "variable_params", "--width", "500", "--n-train", "8192",
+   "--epochs", "50", "--maxit", "3"])`` with T1's launch count, its first
+   outer iteration replayed through ``--train-engine torch`` on the card and
+   the insertion decision compared where its margin clears the tolerance;
+   ``--method recurrent --hidden 100,500 --n-train 8192`` with T2's launch
+   count; ``width``, ``new_loss`` and ``detect`` at n-train 1024 (every T1
+   variant through the driver).
+18. CUDA-event times of T1 and T2 and of their plain versions at 15(a) and
+   16; epochs/s of a full train step (kernel + Adam) with each engine; the
+   same hidden-chain GEMMs through torch.matmul in IEEE FP32 as T2's
+   yardstick.
+
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -107,6 +131,8 @@ SOURCES = {
     "fd_estimate_per_member": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "dg_estimate_ensemble": f"{PACKAGE}/csrc/dg_slab.cu",
     "dg_estimate_hp_per_member": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
+    "resblock_epoch_grad": f"{PACKAGE}/csrc/train_fused.cu",
+    "dense_epoch_grad": f"{PACKAGE}/csrc/train_dense_fused.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981",
@@ -116,6 +142,8 @@ TPU_KERNELS = {
     "fd_estimate_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:357",
     "dg_estimate_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab.py:92",
     "dg_estimate_hp_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab_mixed.py:99",
+    "resblock_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_fused.py:107",
+    "dense_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_dense_fused.py:136",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -137,6 +165,16 @@ HP_BIG = dict(b=4096, seed=6)
 HP_K = HP_STUDY["k0"] + HP_STUDY["maxit"] + 1
 HP_ARGV = ["--hp", "hp", "--ensemble", "512", "--seed", "5", "--k0", "4", "--order", "1",
            "--n-max", "3", "--maxit", "10", "--tol", "0", "--newton-iters", "8"]
+# the JAX package's training benchmarks: the per-step ResBlockSimple epoch
+# (bench.py:1028-1042) and the shared Dense chain (bench.py:1183-1200)
+NN_T1 = dict(s=10, f=500, b=8192, dt=0.1, seed=11, init_seed=7)
+NN_T2 = dict(sizes=(100, 500), b=8192, steps=(10, 100), seed=13, init_seed=3)
+NN_ARGV = ["--method", "variable_params", "--width", "500", "--n-train", "8192", "--epochs",
+           "50", "--maxit", "3"]
+NN_REC_ARGV = ["--method", "recurrent", "--hidden", "100,500", "--n-train", "8192", "--epochs", "2",
+               "--maxit", "1"]
+NN_VARIANT_ARGV = ["--width", "64", "--n-train", "1000", "--epochs", "10", "--maxit", "1"]
+NN_DRIFT = 1e-3  # torch vs cuda engine: per-epoch loss drift over one outer iteration
 # one H100 SXM at its full power limit (NVIDIA data sheet, dense FP32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -1447,7 +1485,7 @@ def hp_times(device, cases):
     return out["a", "solve"]
 
 
-def study_trace(run, kernel):
+def study_trace(run, kernel, phase="14"):
     """One warm run of ``run`` under torch.profiler: the wall under the
     profiler, the device time summed over the kernels it ran, the device's
     busy share of the wall, ``kernel``'s share of the device time, and the
@@ -1473,10 +1511,493 @@ def study_trace(run, kernel):
     n_mine = sum(e.count for e in events if kernel in e.key)
     calls = {k: sum(e.count for e in events if e.key == k)
              for k in ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
-    say("14", f"torch.profiler over one warm study: wall {wall:.3f} ms under the profiler, device "
+    say(phase, f"torch.profiler over one warm run: wall {wall:.3f} ms under the profiler, device "
               f"busy {total:.3f} ms ({total / wall:.1%} of the wall, idle {1 - total / wall:.1%}); "
               f"{kernel} {mine:.3f} ms in {n_mine} launches ({mine / max(total, 1e-12):.1%} of the "
               f"device time); host calls {calls}")
+
+
+# ------------------------------------------------------------------ NN strand
+
+
+def nn_t1_inputs(device, s=None, f=None, b=None, seed=None, perturb=0.0):
+    """bench.py's T1 inputs: one ResBlockSimple(F) draw stacked S times
+    (``perturb`` adds per-step noise), dt 0.1, ICs ~ U(0.5, 2), targets the
+    exact sin u solution at t = 1."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    s, f, b = s or NN_T1["s"], f or NN_T1["f"], b or NN_T1["b"]
+    seed = NN_T1["seed"] if seed is None else seed
+    gen = torch.Generator().manual_seed(NN_T1["init_seed"])
+    one = ResBlockSimple(f).init_params(gen)
+    stacked = {k: torch.stack([v] * s) + perturb * torch.randn((s,) + v.shape, generator=gen)
+               for k, v in one.items()}
+    u0 = torch.tensor(np.random.default_rng(seed).uniform(0.5, 2.0, b), dtype=torch.float32,
+                      device=device)
+    sin = odes.get_ode("du/dt=sin(u)")
+    return (tf.pack_params(stacked, s, f).to(device),
+            torch.full((s,), NN_T1["dt"], dtype=torch.float32, device=device), u0,
+            sin.exact_fwd(1.0, u0).to(torch.float32))
+
+
+def leaf_teeth(label, leaves):
+    """Assert, for each (name, reference, bound) leaf, that most of its
+    entries with a nonzero bound have |reference| above it (a wrong or zero
+    leaf cannot pass). Returns the smallest such share over the leaves."""
+    least = 1.0
+    for name, ref, bnd in leaves:
+        live = int((bnd > 0).sum())
+        above = int((ref.abs() > bnd).sum())
+        assert 2 * above > live > 0, (f"{label}: {above} of {live} entries of {name} above "
+                                      f"their bound: it cannot tell a wrong gradient")
+        least = min(least, above / live)
+    return least
+
+
+def t1_case(label, device, errs, packed, dt, u0, tg, phase="15", **kw):
+    """One T1 comparison: T1 twice (bit-identical), against its plain
+    version in float64, each gradient entry within its own float32 bound,
+    most entries of each leaf above it, inactive and zero-dt entries exactly
+    0. The recorded error is at the wrapper's scale (divided by Σw when
+    weighted)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    inv_b = 1.0 if kw.get("weights") is not None else 1.0 / u0.shape[0]
+    loss, g = tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    loss2, g2 = tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g2) and torch.equal(loss, loss2), f"{label}: a repeat call differs"
+    d64 = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+           for k, v in kw.items()}
+    l64, g64 = tf.resblock_epoch_grad_plain(packed.double(), dt.double(), u0.double(),
+                                            tg.double(), inv_b=inv_b, **d64)
+    tol = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    d = (g.double() - g64).abs()
+    share = float((d / tol["grads"].clamp_min(1e-300)).max())
+    teeth = int((g64.abs() > tol["grads"]).sum())
+    zero = tol["grads"] == 0
+    s_steps, f = packed.shape[1:]
+    say(phase, f"{label}: S={s_steps} F={f} B={u0.shape[0]} | loss {float(loss):.6e} (float64 "
+               f"{float(l64):.6e}, tol {tol['loss']:.2e}); grads max|d| {float(d.max()):.3e}, "
+               f"worst {share:.2%} of its entry's bound (bounds {float(tol['grads'].max()):.2e} "
+               f"max); {teeth} of {g.numel()} entries above their bound; {int(zero.sum())} "
+               f"entries with bound 0 (a neuron no member activates, inactive or zero-dt) "
+               f"exactly 0; repeat call bit-identical")
+    assert abs(float(loss) - float(l64)) <= tol["loss"], f"{label}: loss"
+    assert bool((d <= tol["grads"]).all()), f"{label}: T1 disagrees with its plain version"
+    least = leaf_teeth(label, [(name, g64[i], tol["grads"][i])
+                               for i, name in enumerate(("bias", "weights1", "weights2"))])
+    say(phase, f"{label}: each leaf has at least {least:.1%} of its nonzero-bound entries above "
+               f"their bound")
+    assert bool((g[zero] == 0).all()), f"{label}: an inactive or zero-dt entry is not 0"
+    live = 1.0 if kw.get("weights") is None else float(kw["weights"].sum())
+    errs["resblock_epoch_grad"] = max(errs["resblock_epoch_grad"], float(d.max()) / live,
+                                      abs(float(loss) - float(l64)) / live)
+    return loss, g
+
+
+def phase15(device, errs):
+    """T1 against its plain version on the card, cases (a)-(f)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.train.losses import mixed_ramp_weight
+
+    packed, dt, u0, tr = nn_t1_inputs(device)
+    _, g_a = t1_case("(a) bench shape", device, errs, packed, dt, u0, tr)
+    s, f = NN_T1["s"], NN_T1["f"]
+    na = torch.tensor([500, 17, 250, 499, 1, 100, 333, 64, 500, 7][:s], dtype=torch.int32,
+                      device=device).clamp(max=f)
+    pk_b, *_ = nn_t1_inputs(device, perturb=0.05)
+    t1_case("(b) masked, capacity 500", device, errs, pk_b, dt, u0, tr, n_active=na)
+    nodes = torch.arange(s + 1, device=device, dtype=torch.float64) * NN_T1["dt"]
+    from adjoint_ode_adaptivity_tpu_torch import odes
+
+    traj = odes.get_ode("du/dt=sin(u)").exact_fwd(nodes[:, None], u0.double()[None, :])
+    t1_case("(c) mixed loss, ramp 10^-1", device, errs, pk_b, dt, u0,
+            traj.to(torch.float32).contiguous(), mixed=True, ramp_weight=mixed_ramp_weight(29))
+    w = torch.tensor(np.random.default_rng(12).uniform(size=u0.shape[0]) < 0.7,
+                     dtype=torch.float32, device=device)
+    t1_case("(d) 0/1 member weights", device, errs, pk_b, dt, u0, tr, weights=w)
+    pad = 4
+    pk_e = torch.cat([packed, packed[:, :1].repeat(1, pad, 1)], dim=1).contiguous()
+    dt_e = torch.cat([dt, torch.zeros(pad, device=device)])
+    _, g_e = t1_case("(e) 4 zero-dt padded steps", device, errs, pk_e, dt_e, u0, tr)
+    assert torch.equal(g_e[:, :s], g_a) and not g_e[:, s:].any(), "(e): padding changed T1"
+    say("15", "(e) the live steps' gradients are bit-identical to (a)'s, the padded ones 0")
+    pk_f, dt_f, u0_f, tr_f = nn_t1_inputs(device, s=48 if f >= 100 else 2 * s, perturb=0.05)
+    t1_case("(f) S=48", device, errs, pk_f, dt_f * 0.25, u0_f, tr_f)
+    return packed, dt, u0, tr
+
+
+def nn_t2_inputs(device, s_steps):
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.models import ResNetBlock
+
+    sizes, b = NN_T2["sizes"], NN_T2["b"]
+    params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(NN_T2["init_seed"]),
+                                            device=device)
+    u0 = torch.tensor(np.random.default_rng(NN_T2["seed"]).uniform(0.5, 2.0, b),
+                      dtype=torch.float32, device=device)
+    tr = odes.get_ode("du/dt=sin(u)").exact_fwd(1.0, u0).to(torch.float32)
+    return params, torch.full((s_steps,), 1.0 / s_steps, dtype=torch.float32, device=device), u0, tr
+
+
+def t2_case(label, device, errs, params, dt, u0, tr, phase="16"):
+    """One T2 comparison: T2 twice (bit-identical), against its plain
+    version in float64, each gradient entry within its own calibrated
+    float32 bound (dead and zero-dt entries, bound 0, exactly), most
+    entries of each leaf above it."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+
+    sizes = NN_T2["sizes"]
+    theta, theta_t = td.pack_dense(params, sizes, device)
+    loss, flat = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    loss2, flat2 = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    torch.cuda.synchronize()
+    assert torch.equal(flat, flat2) and torch.equal(loss, loss2), f"{label}: a repeat call differs"
+    got = td.unpack_dense(flat, sizes)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr)
+    worst, share, teeth, live, n = 0.0, 0.0, 0, 0, 0
+    for k in g64:
+        for q in g64[k]:
+            bnd = tol["grads"][k][q]
+            d = (got[k][q].double() - g64[k][q]).abs()
+            assert bool((d <= bnd).all()), f"{label}: T2 disagrees with its plain version at {k}/{q}"
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d / bnd.clamp_min(1e-300)).max()))
+            teeth += int((g64[k][q].abs() > bnd).sum())
+            live += int((bnd > 0).sum())
+            n += d.numel()
+    least = leaf_teeth(label, [(f"{k}/{q}", g64[k][q], tol["grads"][k][q])
+                               for k in g64 for q in g64[k]])
+    say(phase, f"{label}: sizes {sizes} S={dt.shape[0]} B={u0.shape[0]} | loss {float(loss):.6e} "
+               f"(float64 {float(l64):.6e}, tol {tol['loss']:.2e}); grads max|d| {worst:.3e}, "
+               f"worst {share:.2%} of its entry's bound (rho {tol['rho']:.2e}); {teeth} of "
+               f"{live} nonzero-bound entries above their bound, each leaf at least "
+               f"{least:.1%}; {n - live} entries with bound 0 exactly 0; repeat call "
+               f"bit-identical")
+    assert abs(float(loss) - float(l64)) <= tol["loss"], f"{label}: loss"
+    errs["dense_epoch_grad"] = max(errs["dense_epoch_grad"], worst, abs(float(loss) - float(l64)))
+    return got
+
+
+def phase16(device, errs):
+    """T2 against its plain version on the card at bench.py's shapes."""
+    import torch
+
+    for s_steps in NN_T2["steps"]:
+        t2_case(f"S={s_steps}", device, errs, *nn_t2_inputs(device, s_steps))
+    params, dt, u0, tr = nn_t2_inputs(device, 10)
+    dt_z = torch.cat([dt, torch.zeros(3, device=device)])
+    got_z = t2_case("S=10 + 3 zero-dt steps", device, errs, params, dt_z, u0, tr)
+    got = t2_case("S=10 again (against the padded run)", device, errs, params, dt, u0, tr)
+    for k in got:
+        for q in got[k]:
+            assert torch.equal(got[k][q], got_z[k][q]), "zero-dt steps changed T2"
+    say("16", "the zero-dt steps leave T2's gradients bit-identical")
+
+
+def nn_main(argv):
+    """``train_resnet_ode.main(argv)`` with its output captured; returns
+    (state, times, printed lines, JSONL records, recorded signals, wall s)."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import train_resnet_ode as drv
+
+    out_dir = ROOT / "build" / "nn_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "metrics.jsonl"
+    path.unlink(missing_ok=True)
+    signals, orig = [], drv.ensemble_refinement_signal
+
+    def record(*a, **k):
+        r = orig(*a, **k)
+        signals.append(r.double().cpu())
+        return r
+
+    drv.ensemble_refinement_signal = record
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with redirect_stdout(buf):
+            state, times = drv.main(argv + ["--jsonl", str(path), "--quiet"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        drv.ensemble_refinement_signal = orig
+    recs = [json.loads(x) for x in path.read_text().splitlines()]
+    return state, times, buf.getvalue().splitlines(), recs, signals, wall
+
+
+def replay_check(label, recs, recs_t, a, b, epochs):
+    """The cuda run's first ``epochs`` epochs against the torch engine's
+    replay: per-epoch loss and error within NN_DRIFT (relative), the
+    refinement signals likewise, and the same insertion wherever the
+    signal's top-two margin clears twice the drift."""
+    import math
+
+    import torch
+
+    drift = max(abs(x["Loss"] - y["Loss"]) / abs(y["Loss"]) for x, y in zip(recs, recs_t))
+    drift_e = max(abs(x["Error"] - y["Error"]) / abs(y["Error"]) for x, y in zip(recs, recs_t))
+    top = torch.sort(b, descending=True).values
+    margin = float(top[0] - top[1]) if len(top) > 1 else math.inf
+    decided = margin > 2 * NN_DRIFT * float(top[0])
+    say("17", f"{label}: over {epochs} epochs the loss drifts by at most {drift:.3e} relative, "
+              f"the error by {drift_e:.3e} (limit {NN_DRIFT}); signals {a.tolist()} vs "
+              f"{b.tolist()}, top-two margin {margin:.3e} -> insertion at "
+              f"{int(torch.argmax(a)) + 1} and {int(torch.argmax(b)) + 1}"
+              f"{' (decided)' if decided else ' (inside the drift)'}")
+    assert len(recs_t) == epochs and drift <= NN_DRIFT and drift_e <= NN_DRIFT, label
+    assert float((a - b).abs().max()) <= 2 * NN_DRIFT * float(b.abs().max()), label
+    assert not decided or int(torch.argmax(a)) == int(torch.argmax(b)), f"{label}: insertions differ"
+
+
+def phase17(device, errs):
+    """The NN path through its entry point, and every T1 variant and T2
+    through the driver."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import train_resnet_ode as drv
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+    from adjoint_ode_adaptivity_tpu_torch.train.data import make_batches, rk4_truth
+    from adjoint_ode_adaptivity_tpu_torch.tree import tree_map
+
+    tf.reset_launch_counts()
+    td.reset_launch_counts()
+    state, times, lines, recs, sig, wall = nn_main(NN_ARGV)
+    n_t1, n_t2 = tf.resblock_epoch_grad.launches, td.dense_epoch_grad.launches
+    args = drv.build_parser().parse_args(NN_ARGV)
+    epochs, its = args.epochs, args.maxit + 1
+    say("17", f"main path train_resnet_ode {' '.join(NN_ARGV)}: {len(recs)} epochs, loss "
+              f"{recs[0]['Loss']:.4e} -> {recs[-1]['Loss']:.4e}, error {recs[0]['Error']:.4e} -> "
+              f"{recs[-1]['Error']:.4e}; " + "; ".join(x for x in lines if x.startswith("outer"))
+        + f"; wall {wall:.2f} s ({len(recs) / wall:.1f} epochs/s with signals and logging); "
+          f"T1 launches {n_t1}, T2 launches {n_t2}")
+    assert n_t1 == epochs * its and n_t2 == 0 and len(recs) == epochs * its
+    assert all(math.isfinite(r["Loss"]) and math.isfinite(r["Error"]) for r in recs)
+    assert len(times) == args.n_steps + its + 1
+    assert state.params["bias"].shape[0] == len(times) - 1
+    launches = {"resblock_epoch_grad": n_t1}
+
+    # the first outer iteration again through the torch engine on the card
+    tf.reset_launch_counts()
+    _, _, lines_t, recs_t, sig_t, wall_t = nn_main(NN_ARGV[:-1] + ["0", "--train-engine", "torch"])
+    assert tf.resblock_epoch_grad.launches == 0 and len(recs_t) == epochs
+    p1, u0_train, _ = drv.initial_draws(args, device)
+    tr = rk4_truth(drv._ode(args).f, u0_train, (0.0, args.t1), n_sub=256)
+    stacked = tree_map(lambda x: torch.stack([x] * args.n_steps), p1)
+    packed = tf.pack_params(stacked, args.n_steps, args.width)
+    dt = torch.diff(torch.tensor(np.linspace(0.0, args.t1, args.n_steps + 1), dtype=torch.float32,
+                                 device=device))
+    tol0 = tf.resblock_kernel_tolerance(packed, dt, u0_train, tr, inv_b=1.0 / u0_train.shape[0])
+    d0 = abs(recs[0]["Loss"] - recs_t[0]["Loss"])
+    say("17", f"replay of outer iteration 0 with --train-engine torch ({wall_t:.2f} s): epoch-0 "
+              f"loss differs by {d0:.3e} (T1's bound {tol0['loss']:.3e})")
+    assert d0 <= 2 * tol0["loss"]
+    replay_check("variable_params", recs, recs_t, sig[0], sig_t[0], epochs)
+
+    # T1 at the main path's own shapes: its first call (S=2, the initial
+    # draws) and the last depth it trained at (S=5: the trained parameters
+    # of the final net's first five steps, with their dt)
+    t1_case("main path's first call", device, errs, packed, dt, u0_train, tr, phase="17")
+    n_last = len(times) - 2
+    p_last = tf.pack_params(tree_map(lambda x: x[:n_last].contiguous(), state.params), n_last,
+                            args.width)
+    t1_case(f"main path's trained first {n_last} steps", device, errs, p_last,
+            torch.diff(times)[:n_last].to(torch.float32).contiguous(), u0_train, tr, phase="17")
+
+    argv_r = NN_REC_ARGV
+    rec = drv.build_parser().parse_args(argv_r)
+    td.reset_launch_counts()
+    tf.reset_launch_counts()
+    _, times_r, lines_r, recs_r, sig_r, wall_r = nn_main(argv_r)
+    n_t2 = td.dense_epoch_grad.launches
+    n_batch = rec.n_train // max(8, rec.n_train // 16)
+    say("17", f"train_resnet_ode {' '.join(argv_r)}: {len(recs_r)} epochs of {n_batch} "
+              f"minibatches (B={max(8, rec.n_train // 16)}), loss {recs_r[0]['Loss']:.4e} -> {recs_r[-1]['Loss']:.4e}; "
+              + "; ".join(x for x in lines_r if x.startswith("outer"))
+              + f"; wall {wall_r:.2f} s; T2 launches {n_t2}, T1 {tf.resblock_epoch_grad.launches}")
+    assert n_t2 == n_batch * rec.epochs * (rec.maxit + 1)
+    assert tf.resblock_epoch_grad.launches == 0 and len(recs_r) == rec.epochs * (rec.maxit + 1)
+    assert all(math.isfinite(r["Loss"]) for r in recs_r) and len(times_r) == rec.n_steps + rec.maxit + 2
+    launches["dense_epoch_grad"] = n_t2
+
+    # T2 on the recurrent run's first minibatch, and its first outer
+    # iteration again through the torch engine
+    assert tuple(drv.hidden_sizes(rec)) == NN_T2["sizes"]
+    p1_r, u0_r, _ = drv.initial_draws(rec, device)
+    tr_r = rk4_truth(drv._ode(rec).f, u0_r, (0.0, rec.t1), n_sub=256)
+    batch = max(8, rec.n_train // 16)
+    u0_b, tr_b = make_batches(u0_r, tr_r, batch, perm=drv.torch_draws().permutation(0, rec.n_train))
+    dt_r = torch.diff(torch.tensor(np.linspace(0.0, rec.t1, rec.n_steps + 1), dtype=torch.float32,
+                                   device=device))
+    t2_case("recurrent run's first minibatch", device, errs, p1_r, dt_r, u0_b[0].contiguous(),
+            tr_b[0].contiguous(), phase="17")
+    td.reset_launch_counts()
+    _, _, _, recs_rt, sig_rt, wall_rt = nn_main(argv_r[:-1] + ["0", "--train-engine", "torch"])
+    assert td.dense_epoch_grad.launches == 0 and len(recs_rt) == rec.epochs
+    say("17", f"replay of the recurrent run's outer iteration 0 with --train-engine torch "
+              f"({wall_rt:.2f} s)")
+    replay_check("recurrent", recs_r, recs_rt, sig_r[0], sig_rt[0], rec.epochs)
+
+    for method, extra in (("width", ["--depth-rel-tol", "0"]), ("new_loss", []),
+                          ("detect", [])):
+        argv = ["--method", method] + NN_VARIANT_ARGV + extra
+        tf.reset_launch_counts()
+        _, times_m, lines_m, recs_m, _, wall_m = nn_main(argv)
+        n1 = tf.resblock_epoch_grad.launches
+        say("17", f"train_resnet_ode {' '.join(argv)}: {len(recs_m)} epochs, loss "
+                  f"{recs_m[0]['Loss']:.4e} -> {recs_m[-1]['Loss']:.4e}; "
+                  + "; ".join(x for x in lines_m if x.startswith("outer"))
+                  + f"; wall {wall_m:.2f} s; T1 launches {n1}")
+        assert n1 == len(recs_m) > 0 and all(math.isfinite(r["Loss"]) for r in recs_m)
+    return launches
+
+
+def t1_bound(s_steps, f, b, active=None):
+    """Least time for one T1 call: bytes (the parameters, dt, ICs and targets
+    read once, the gradients and loss written once) over 3.35 TB/s, against
+    the FP32 operations the function needs per member, step and active
+    neuron (an FMA counts 2): 5 in the forward (sub, mul, max, FMA), 3 to
+    recompute d, s and the relu test once in the backward, and 8 for ds and
+    the updates of ∂w2, ∂w1, ∂b and the cotangent. The kernel recomputes
+    d, s and the test a second time (its gradient pass); that is not
+    counted."""
+    active = s_steps * f if active is None else active
+    n_bytes = 4 * (3 * s_steps * f * 2 + s_steps + 2 * b + 1)
+    n_ops = 16 * b * active
+    return (*bound(n_bytes, n_ops), n_ops)
+
+
+def t2_bound(s_steps, sizes, b):
+    """Least time for one T2 call: its inputs and gradients once, against
+    its FP32 operations per member and step: 8·Σ H_{l−1}H_l for the four
+    hidden products (forward, recompute, ∂W, ∂a) plus ~12·H_1 + 14·H_L
+    for the scalar layers, the relus and the reductions."""
+    hh = sum(a * c for a, c in zip(sizes[:-1], sizes[1:]))
+    n_params = 2 * sizes[0] + hh + sum(sizes[1:]) + sizes[-1] + 1
+    n_bytes = 4 * (2 * n_params + hh + s_steps + 2 * b + 1)
+    n_ops = b * s_steps * (8 * hh + 12 * sizes[0] + 14 * sizes[-1])
+    return (*bound(n_bytes, n_ops), n_ops)
+
+
+def epoch_loop(device, epochs=20):
+    """The main path's steady state under torch.profiler: ``epochs`` epochs
+    of what the driver does per epoch at its first outer iteration (the
+    cuda train step, T1 + Adam; the test-set evaluation; the two host
+    reads that logging makes), at the main path's shapes."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import train_resnet_ode as drv
+    from adjoint_ode_adaptivity_tpu_torch.train import loop
+    from adjoint_ode_adaptivity_tpu_torch.train.data import rk4_truth
+    from adjoint_ode_adaptivity_tpu_torch.tree import tree_map
+
+    args = drv.build_parser().parse_args(NN_ARGV)
+    p1, u0, u0_test = drv.initial_draws(args, device)
+    ode = drv._ode(args)
+    tr, tr_test = (rk4_truth(ode.f, x, (0.0, args.t1), n_sub=256) for x in (u0, u0_test))
+    dt = torch.full((args.n_steps,), args.t1 / args.n_steps, device=device)
+    net = drv.make_net(args, args.width)
+    tx = loop.Adam(args.lr)
+    step = loop.make_per_step_train_step_fused(tx, args.n_steps, args.width, device=device)
+    state = [loop.create_train_state(tree_map(lambda x: torch.stack([x] * args.n_steps), p1), tx)]
+
+    def run():
+        for _ in range(epochs):
+            state[0], loss = step(state[0], dt, u0, tr)
+            err = loop.evaluate(net, state[0].params, dt, u0_test, tr_test)
+            float(loss), float(err)
+
+    study_trace(run, "resblock", phase="18")
+
+
+def nn_times(device, t1_inputs):
+    """Phase 18: CUDA-event times (one warm-up, median of 5) of T1 and T2
+    and their float32 plain versions at 15(a) and 16; epochs/s of one full
+    train step (kernel + Adam, and autograd + Adam); the hidden-chain GEMMs
+    of one T2 call through torch.matmul in IEEE FP32 (a yardstick only)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple, ResNetBlock
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+    from adjoint_ode_adaptivity_tpu_torch.train import loop
+
+    packed, dt, u0, tr = t1_inputs
+    s, f, b = NN_T1["s"], NN_T1["f"], NN_T1["b"]
+    inv_b = 1.0 / b
+    ms1 = cuda_ms(lambda: tf.resblock_epoch_grad(packed, dt, u0, tr, inv_b=inv_b), runs=5)
+    pms1 = cuda_ms(lambda: tf.resblock_epoch_grad_plain(packed, dt, u0, tr, inv_b=inv_b), runs=5)
+    b1 = t1_bound(s, f, b)
+    params = tf.unpack_grads(packed, s, f)
+    ptx = loop.Adam(1e-3)
+    steps = {"cuda": loop.make_per_step_train_step_fused(ptx, s, f, device=device),
+             "torch": loop.make_per_step_train_step(ResBlockSimple(f), ptx)}
+    rate1 = {}
+    for eng, step in steps.items():
+        st = loop.create_train_state(params, ptx)
+        rate1[eng] = 1e3 / cuda_ms(lambda: step(st, dt, u0, tr), runs=5)
+    epoch_loop(device)
+    say("18", f"resblock_epoch_grad 15(a) S={s} F={f} B={b}: kernel {ms1:.4f} ms; plain "
+              f"{pms1:.3f} ms; speed-up {pms1 / ms1:.1f}x; bound {b1[0]:.5f} ms ({b1[1]}), "
+              f"kernel at {b1[0] / ms1:.2%} of it; train step (+ Adam) {rate1['cuda']:.1f} "
+              f"epochs/s with the cuda engine, {rate1['torch']:.1f} with torch")
+    out = {"resblock_epoch_grad": (ms1, pms1, b1)}
+    sizes = NN_T2["sizes"]
+    for s2 in NN_T2["steps"]:
+        p2, dt2, u2, tr2 = nn_t2_inputs(device, s2)
+        theta, theta_t = td.pack_dense(p2, sizes, device)
+        ms2 = cuda_ms(lambda: td.dense_epoch_grad(theta, theta_t, sizes, dt2, u2, tr2), runs=5)
+        pms2 = cuda_ms(lambda: td.dense_epoch_grad_plain(p2, sizes, dt2, u2, tr2), runs=3)
+        b2 = t2_bound(s2, sizes, u2.shape[0])
+        a = torch.rand((u2.shape[0], sizes[0]), device=device)
+        w = torch.rand(sizes, device=device)
+        dz = torch.rand((u2.shape[0], sizes[1]), device=device)
+
+        def gemms():
+            for _ in range(s2):
+                a @ w, a @ w, a.T @ dz, dz @ w.T  # forward, recompute, ∂W, ∂a
+
+        gms = cuda_ms(gemms, runs=5)
+        st_rate = {}
+        for eng in ("cuda", "torch"):
+            step = (loop.make_shared_train_step_fused(ptx, dt2, sizes, device=device)
+                    if eng == "cuda" else loop.make_shared_train_step(ResNetBlock(sizes), ptx, dt2))
+            st = loop.create_train_state(p2, ptx)
+            st_rate[eng] = 1e3 / cuda_ms(lambda: step(st, u2, tr2), runs=3)
+        say("18", f"dense_epoch_grad {sizes} S={s2} B={u2.shape[0]}: kernel {ms2:.3f} ms "
+                  f"({b2[2] / (ms2 / 1e3) / 1e12:.2f} TFLOP/s of its FP32 operations); plain "
+                  f"{pms2:.3f} ms; bound {b2[0]:.4f} ms ({b2[1]}), kernel at {b2[0] / ms2:.2%} of "
+                  f"it; the same hidden-chain GEMMs through torch.matmul (FP32, TF32 off) "
+                  f"{gms:.3f} ms; train step (+ Adam) {st_rate['cuda']:.2f} epochs/s cuda, "
+                  f"{st_rate['torch']:.2f} torch")
+        if s2 == NN_T2["steps"][0]:
+            out["dense_epoch_grad"] = (ms2, pms2, b2)
+    return out
 
 
 def instance_name(mangled: str) -> str:
@@ -1565,8 +2086,18 @@ def main() -> int:
     hp_ms, hp_plain_ms, hp_bound = hp_times(device, hp_cases)
     times["dg_estimate_hp_per_member"] = (hp_ms, hp_plain_ms)
 
-    bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound}
+    t1_in = phase15(device, errs)
+    phase16(device, errs)
+    launches.update(phase17(device, errs))
+    nn = nn_times(device, t1_in)
+    for name, (ms, plain_ms, _) in nn.items():
+        times[name] = (ms, plain_ms)
+
+    bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
+              **{name: v[2][:2] for name, v in nn.items()}}
     # no single PyTorch call computes any of these pipelines: library_ms is null
+    # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
+    # a yardstick; they are not the same function)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": TPU_KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],

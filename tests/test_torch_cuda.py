@@ -29,6 +29,17 @@ carried in through the inflow cancels in the residual to O(h·f_u)): within
 The hp kernel: ops/cuda/dg_slab_mixed.hp_kernel_tolerance — u and v as
 above with κ the largest condition number over the padded stack's orders,
 err per element within 8·ε of the sum of the magnitudes of its products.
+
+The training kernels: each gradient entry against its own bound, against
+the plain version in float64. T1's (ops/cuda/train_fused.
+resblock_kernel_tolerance) is the first-order float32 error of every member
+contribution plus the reduction, computed in float64; T2's (ops/cuda/
+train_dense_fused.dense_kernel_tolerance) is 16 times the largest relative
+deviation of a float32 evaluation in eager torch, times each entry's summed
+contribution magnitudes, plus the reduction and a charge for any relu within
+reach of a switch. Most entries of every leaf must exceed their bound, a
+repeat call must be bit-identical, and inactive neurons, dead neurons and
+zero-dt steps exactly 0.
 """
 import numpy as np
 import pytest
@@ -46,6 +57,9 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple, ResNetBlock
 
 pytestmark = pytest.mark.cuda
 A = 2 * np.pi
@@ -267,3 +281,115 @@ def test_hp_kernel_refusals_raise(device):
         run(times, ns, torch.ones(16, device=device)[::2])
     with pytest.raises(RuntimeError, match="dg_estimate_hp_per_member failed"):
         run(times[:0], ns[:0], torch.ones(0, device=device))  # an empty grid: the launch is refused
+
+
+def _most_above(leaves):
+    """Most entries of each (reference, bound) leaf with a nonzero bound lie
+    above it: a wrong or zero leaf cannot pass."""
+    for ref, bnd in leaves:
+        live = int((bnd > 0).sum())
+        assert 2 * int((ref.abs() > bnd).sum()) > live > 0
+
+
+@pytest.mark.parametrize("variant", ["plain", "masked", "mixed", "weighted"])
+def test_resblock_epoch_kernel_matches_its_plain_version(device, variant):
+    s_steps, f, b = 6, 120, 3000
+    gen = torch.Generator().manual_seed(7)
+    ps = [ResBlockSimple(f).init_params(gen) for _ in range(s_steps)]
+    packed = tf.pack_params({k: torch.stack([q[k] for q in ps]) for k in ps[0]}, s_steps,
+                            f).to(device)
+    rng = np.random.default_rng(8)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
+    dt[-1] = 0.0  # a padded step: exact identity, zero gradients
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
+    tg = (torch.stack([torch.sin(u0 * (1 + 0.1 * n)) for n in range(s_steps + 1)])
+          if variant == "mixed" else torch.sin(u0) + 0.3)
+    kw = {"mixed": variant == "mixed"}
+    if variant == "masked":
+        kw["n_active"] = torch.tensor([120, 3, 60, 117, 1, 50], dtype=torch.int32, device=device)
+    if variant == "mixed":
+        kw["ramp_weight"] = 0.7
+    if variant == "weighted":
+        kw["weights"] = torch.tensor(rng.uniform(size=b) < 0.6, dtype=torch.float32,
+                                     device=device)
+    inv_b = 1.0 if variant == "weighted" else 1.0 / b
+    before = tf.resblock_epoch_grad.launches
+    loss, g = tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    loss2, g2 = tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    torch.cuda.synchronize()
+    assert tf.resblock_epoch_grad.launches == before + 2
+    assert torch.equal(g, g2) and torch.equal(loss, loss2)
+    d64 = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+           for k, v in kw.items()}
+    l64, g64 = tf.resblock_epoch_grad_plain(packed.double(), dt.double(), u0.double(),
+                                            tg.double(), inv_b=inv_b, **d64)
+    tol = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b, **kw)
+    assert abs(float(loss) - float(l64)) <= tol["loss"]
+    assert bool(((g.double() - g64).abs() <= tol["grads"]).all())
+    assert int((g64.abs() > tol["grads"]).sum()) > s_steps * f
+    _most_above([(g64[i], tol["grads"][i]) for i in range(3)])
+    assert not g[:, -1].any()
+    if variant == "masked":
+        for n, na in enumerate(kw["n_active"].tolist()):
+            assert not g[:, n, na:].any()
+
+
+@pytest.mark.parametrize("sizes,b", [((100, 500), 1000), ((8, 16), 50), ((12,), 33),
+                                     ((3, 6, 5), 70)])
+def test_dense_epoch_kernel_matches_its_plain_version(device, sizes, b):
+    s_steps = 5
+    params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(9), device=device)
+    rng = np.random.default_rng(10)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
+    dt[2] = 0.0
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
+    tr = torch.sin(u0) + 0.3
+    theta, theta_t = td.pack_dense(params, sizes, device)
+    before = td.dense_epoch_grad.launches
+    loss, flat = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    loss2, flat2 = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    torch.cuda.synchronize()
+    assert td.dense_epoch_grad.launches == before + 2
+    assert torch.equal(flat, flat2) and torch.equal(loss, loss2)
+    got = td.unpack_dense(flat, sizes)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr)
+    assert abs(float(loss) - float(l64)) <= tol["loss"]
+    for k in g64:
+        for q in g64[k]:
+            bnd = tol["grads"][k][q]
+            assert bool(((got[k][q].double() - g64[k][q]).abs() <= bnd).all()), (k, q)
+    _most_above([(g64[k][q], tol["grads"][k][q]) for k in g64 for q in g64[k]])
+
+
+@pytest.mark.parametrize("method", ["variable_params", "recurrent"])
+def test_driver_trains_through_the_kernel_at_any_batch(device, method):
+    """1000 members (not a multiple of 128; the recurrent minibatch is 62,
+    not a multiple of 8): every epoch still launches T1 or T2."""
+    from adjoint_ode_adaptivity_tpu_torch.drivers import train_resnet_ode as drv
+
+    argv = ["--method", method, "--width", "32", "--hidden", "8,16", "--n-train", "1000",
+            "--epochs", "3", "--maxit", "0", "--quiet"]
+    tf.reset_launch_counts()
+    td.reset_launch_counts()
+    drv.main(argv)
+    if method == "recurrent":
+        assert td.dense_epoch_grad.launches == 3 * (1000 // 62) and tf.resblock_epoch_grad.launches == 0
+    else:
+        assert tf.resblock_epoch_grad.launches == 3 and td.dense_epoch_grad.launches == 0
+
+
+def test_training_kernels_refuse_what_they_do_not_take(device):
+    packed = torch.zeros((3, 2, 4), device=device)
+    dt = torch.full((2,), 0.1, device=device)
+    u0 = torch.zeros(8, device=device)
+    with pytest.raises(ValueError, match="float32"):
+        tf.resblock_epoch_grad(packed.double(), dt, u0, u0, inv_b=0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.resblock_epoch_grad(packed, dt, torch.zeros(16, device=device)[::2], u0, inv_b=0.125)
+    theta, theta_t = td.pack_dense(ResNetBlock((4,)).init_params(device=device), (4,), device)
+    with pytest.raises(ValueError, match="hidden layers"):
+        td.dense_epoch_grad(theta, theta_t, (4,) * 9, dt, u0, u0)
+    with pytest.raises(ValueError):
+        td.dense_block_members((20000,))

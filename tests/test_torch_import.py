@@ -19,7 +19,10 @@ for mod in ("odes", "functionals", "march.fd", "adjoint.discrete", "adjoint.esti
             "adapt.policy", "adapt.fd_loop", "ops.fast_trig", "ops.cuda.fd_ensemble",
             "drivers.fd_adaptive", "march.dg_time", "adjoint.dg_time", "march.dg_batched",
             "ops.cuda.dg_slab", "adapt.dg_loop", "drivers.dg_adaptive", "march.dg_mixed",
-            "adjoint.dg_mixed", "ops.cuda.dg_slab_mixed", "adapt.hp_loop"):
+            "adjoint.dg_mixed", "ops.cuda.dg_slab_mixed", "adapt.hp_loop", "models",
+            "models.blocks", "models.surgery", "train", "train.loop", "train.adaptive",
+            "train.data", "train.losses", "train.metrics", "train.checkpoint", "tree",
+            "ops.cuda.train_fused", "ops.cuda.train_dense_fused", "drivers.train_resnet_ode"):
     assert "adjoint_ode_adaptivity_tpu_torch." + mod in names, (mod, names)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "adjoint_ode_adaptivity_tpu.")) or m == "adjoint_ode_adaptivity_tpu")
 assert not bad, bad
@@ -33,4 +36,24 @@ def test_port_never_imports_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 35
+    assert int(proc.stdout.strip()) >= 48
+
+
+def test_package_data_ships_every_included_source():
+    # every `#include "..."` in csrc/ must name a file that the package-data
+    # globs of pyproject.toml ship, or an installed copy cannot build
+    import fnmatch
+    import re
+    import tomllib
+
+    conf = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"]["adjoint_ode_adaptivity_tpu_torch"]
+    csrc = REPO / "adjoint_ode_adaptivity_tpu_torch" / "csrc"
+    shipped = {f"csrc/{p.name}" for p in csrc.iterdir()
+               if any(fnmatch.fnmatch(f"csrc/{p.name}", g) for g in globs)}
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    assert {f"csrc/{p.name}" for p in sources} <= shipped
+    includes = {m for p in sources for m in re.findall(r'#include "([^"]+)"', p.read_text())}
+    assert {"odes.cuh", "small_solve.cuh"} <= includes
+    for name in includes:
+        assert f"csrc/{name}" in shipped, name
