@@ -1,6 +1,7 @@
 """Discrete adjoints and adjoint-weighted error estimates (L2, eager torch):
 the one-step FD marches, the DG advection march and the DG-in-time slabs
-(uniform and mixed per-element orders)."""
+(uniform and mixed per-element orders), and revolve (binomial
+checkpointing behind autograd)."""
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     AdvecAdjointResult,
@@ -38,6 +39,11 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.discrete import (
     adjoint_march_linearized,
     adjoint_march_per_step,
 )
+from adjoint_ode_adaptivity_tpu_torch.adjoint.revolve_vjp import (
+    checkpointed_advec_march,
+    checkpointed_march,
+    execute_revolve,
+)
 from adjoint_ode_adaptivity_tpu_torch.adjoint.estimate import (
     coarse_indicator,
     error_estimate,
@@ -58,6 +64,9 @@ __all__ = [
     "residual",
     "error_estimate",
     "coarse_indicator",
+    "checkpointed_march",
+    "checkpointed_advec_march",
+    "execute_revolve",
     "AdvecAdjointResult",
     "advec_adjoint_march",
     "advec_fwd_adj_estimate",

@@ -1,9 +1,9 @@
 """Spatial DG advection demo — the utils/One_code.mlx Advec1D driver.
 
 Marches u_t + a·u_x = 0 on [0, 2π] (u0 = sin x, inflow BC −sin(a·t)) with
-the LSRK4(5) DG march; reports the error vs the exact solution and
-(optionally) the fwd+adjoint error estimate, or runs the goal-oriented
-h-adaptive loop.
+the LSRK4(5) DG march, optionally slope-limited after every step; reports
+the error vs the exact solution and (optionally) the fwd+adjoint error
+estimate, or runs the goal-oriented h-adaptive loop.
 
 Usage:
     python -m adjoint_ode_adaptivity_tpu_torch.drivers.advec_dg --k 10 --order 2
@@ -11,7 +11,8 @@ Usage:
 
 ``--device`` defaults to ``cuda`` and raises when no GPU is present; it
 never carries on on the CPU. ``--device cpu`` allows only ``--kernel
-torch``. Slope limiting (the JAX driver's ``--limiter``) is not ported yet.
+torch``; so does ``--limiter n|1`` (the CUDA march has no limiter, as the
+JAX driver's Pallas march has none).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ def main(argv=None):
     p.add_argument("--a", type=float, default=2 * np.pi)
     p.add_argument("--final-time", type=float, default=2.0)
     p.add_argument("--cfl", type=float, default=0.75)
+    p.add_argument("--limiter", choices=["none", "n", "1"], default="none")
     p.add_argument("--estimate", action="store_true", help="run fwd+adjoint AWR")
     p.add_argument(
         "--adapt", action="store_true",
@@ -50,6 +52,8 @@ def main(argv=None):
     device = torch.device(args.device)
     if args.kernel == "cuda" and (device.type != "cuda" or args.x64):
         p.error("--kernel cuda requires --device cuda and float32 (no --x64)")
+    if args.kernel == "cuda" and args.limiter != "none":
+        p.error("--kernel cuda requires --limiter none")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {args.device}: no CUDA device is available "
@@ -96,6 +100,15 @@ def main(argv=None):
     dt, n_steps = cfl_dt(disc, args.a, args.cfl, args.final_time)
     print(f"K={args.k} N={args.order} dt={dt:.3e} steps={n_steps}")
 
+    post = None
+    if args.limiter != "none":
+        from adjoint_ode_adaptivity_tpu_torch.march.burgers import (
+            burgers_operators,
+            limiter_fn,
+        )
+
+        post = limiter_fn(burgers_operators(disc, dtype, device), args.limiter)
+
     if args.kernel == "cuda":
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
             make_cuda_advec_march,
@@ -103,7 +116,7 @@ def main(argv=None):
 
         u = make_cuda_advec_march(disc, args.a, dt, n_steps, device)(u0, 0.0)
     else:
-        u = advec_march(ops, u0, dt, n_steps)
+        u = advec_march(ops, u0, dt, n_steps, post_stage=post)
     exact = np.sin(disc.x - args.a * args.final_time)
     err = float(np.max(np.abs(u.cpu().numpy() - exact)))
     print(f"max |u - exact| at T={args.final_time}: {err:.6e}")

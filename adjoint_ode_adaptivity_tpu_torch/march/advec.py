@@ -133,12 +133,17 @@ def lsrk_stages(ops: AdvecOperators, u, t: float, dt: float, inflow: bool = True
 
 
 def advec_march(
-    ops: AdvecOperators, u0: torch.Tensor, dt: float, n_steps: int, t0: float = 0.0
+    ops: AdvecOperators, u0: torch.Tensor, dt: float, n_steps: int, t0: float = 0.0,
+    *, post_stage=None,
 ) -> torch.Tensor:
     """March ``n_steps`` LSRK4(5) steps from ``t0``; returns the final state.
-    (The JAX march's ``post_stage`` limiter hook arrives with the limiter
-    port; its ``save_every`` stack has no caller.)"""
+
+    ``post_stage`` (e.g. a slope limiter ``u -> u``) is applied after each
+    full RK step, as the JAX march applies it. (The JAX march's
+    ``save_every`` stack has no caller.)"""
     u = u0
     for n in range(n_steps):
         u = lsrk_stages(ops, u, t0 + n * dt, dt)
+        if post_stage is not None:
+            u = post_stage(u)
     return u

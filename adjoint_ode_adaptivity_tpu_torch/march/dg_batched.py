@@ -21,8 +21,8 @@ B initial conditions and/or time partitions are marched together.
 The right-hand side ``f(u, t)`` must be elementwise; ``f_u`` is its
 u-derivative (derived from ``f`` when ``None``). The implicit-function-
 theorem marches (``make_dg_slab_solver_batched``,
-``dg_march_batched_differentiable``) wait for the NN strand (ROADMAP queue 1
-item 13).
+``dg_march_batched_differentiable``) are not ported yet (ROADMAP queue 1
+item [8a]).
 """
 from __future__ import annotations
 

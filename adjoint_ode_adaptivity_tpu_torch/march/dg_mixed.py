@@ -29,8 +29,8 @@ solution is the constant ``u_prev`` at every order, the Newton initial
 guess, so padded partitions compose with mixed orders.
 
 The implicit-function-theorem march (``make_dg_slab_solver_mixed``,
-``dg_march_mixed_differentiable``) waits for the NN strand (ROADMAP queue 1
-item 13).
+``dg_march_mixed_differentiable``) is not ported yet (ROADMAP queue 1 item
+[8a]).
 """
 from __future__ import annotations
 

@@ -25,8 +25,8 @@ M̃ = h/2·Φᵀ(w ⊙ f(u_q)), dR/dU = A + h/2·Φᵀdiag(w⊙f'(u_q))Φ) and
   the port's CUDA tests assert (TF32 off).
 
 The implicit-function-theorem marches (``make_dg_slab_solver``,
-``dg_march_differentiable``) wait for the NN strand (ROADMAP queue 1 item
-13).
+``dg_march_differentiable``) are not ported yet (ROADMAP queue 1 item
+[8a]).
 """
 from __future__ import annotations
 

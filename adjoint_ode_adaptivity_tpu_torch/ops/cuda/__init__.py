@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels (the DG advection, FD, DG-in-time and hp
-DG-in-time hot loops, and the two fused training epochs), and their loader.
+DG-in-time hot loops, the two fused training epochs and the limited Burgers
+march), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
 them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
@@ -86,9 +87,12 @@ class KernelLibrary:
         lib.resblock_epoch_grad.restype = i
         lib.dense_epoch_grad.argtypes = [i, p] + [i] * 3 + [p] * 5 + [d] + [p] * 6
         lib.dense_epoch_grad.restype = i
+        for name in ("burgers_march_f32", "burgers_march_f64"):
+            getattr(lib, name).argtypes = [i] * 5 + [p] * 8
+            getattr(lib, name).restype = i
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",
-                     "train_dense_error_string"):
+                     "train_dense_error_string", "burgers_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

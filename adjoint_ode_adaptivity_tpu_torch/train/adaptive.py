@@ -54,7 +54,9 @@ def ensemble_refinement_signal(step_fn: Callable, params_stacked, dt: torch.Tens
     u = forward_march_per_step(step_fn, u0s[:, None], dt, params_stacked)[..., 0]
     u_f = interp_to_fine(u, dt, dt_f)  # (N·rf + 1, B)
     k_vec = torch.zeros_like(u_f)
-    k_vec[-1] = torch.sign(u_f[-1] - trues)
+    d = u_f[-1] - trues
+    # d|d|/dd is +1 at a tie, as jax.grad(jnp.abs) gives (torch.sign gives 0)
+    k_vec[-1] = torch.where(d >= 0, 1.0, -1.0).to(u_f.dtype)
     v = adjoint_march_per_step(step_fn, u_f[..., None], dt_f, k_vec[..., None], fine)
     res = residual(step_fn, u_f[..., None], dt_f, params_stacked=fine)
     return torch.mean(coarse_indicator((res * v)[..., 0], rf, "block"), dim=1)

@@ -104,6 +104,26 @@ raises, and the script exits non-zero; nothing is caught.
    16; epochs/s of a full train step (kernel + Adam) with each engine; the
    same hidden-chain GEMMs through torch.matmul in IEEE FP32 as T2's
    yardstick.
+19. The Burgers kernel B1 (csrc/burgers.cu) against its plain version:
+   (a) bench.py's row (K=10^4, N=2, B=8, dt = 0.3·x_min, 2048 steps, ICs
+   (0.5 + 0.05 j)·sin x, ΠN) in float64 to 1e-12·|plain| + 1e-13, and in
+   float32 per entry to 8·n_steps·ε₃₂·max|u0|, with ΠN's final-state masks
+   compared; (b) B=1 through make_cuda_burgers_march_single; (c) a graded
+   mesh N=4, K=48, B=8, all three limiters, both types.
+20. The Burgers path through its entry points: the main path ``drivers.
+   burgers_dg.main(["--kernel", "cuda"])`` (K=48, N=4, T=1.5, 7,500 steps
+   across the shock) with B1's launch count and the post-shock properties
+   (finite, within the initial range up to 5e-2, Σ cell averages·h
+   conserved to float32 roundoff); ``--kernel torch`` in float64 on the
+   card, and B1 in float64 against it; ``advec_dg --limiter n`` and ``1``
+   on the card against ``--device cpu``.
+21. Revolve: ``revolve_advec_estimate`` at K=10^4, 2048 steps, unit 128,
+   4 snaps against the stored pipeline, with K1/K2's launch counts; at
+   bench.py's row (K=10^5, 16,384 steps, unit 128, 16 snaps) timed against
+   the stored pipeline (CUDA events, median of 5); at 81,920 steps, where
+   the stored pipeline raises MemoryError (98.3 GB), with its peak memory.
+22. CUDA-event times of B1 at 19(a) and at B=1 (median of 5), beside its
+   bound and its plain version's one run.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -133,9 +153,12 @@ SOURCES = {
     "dg_estimate_hp_per_member": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
     "resblock_epoch_grad": f"{PACKAGE}/csrc/train_fused.cu",
     "dense_epoch_grad": f"{PACKAGE}/csrc/train_dense_fused.cu",
+    "burgers_march": f"{PACKAGE}/csrc/burgers.cu",
 }
 TPU_KERNELS = {
-    "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981",
+    "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
+                 "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1017 (_fwd_grid_kernel_b, "
+                 "revolve's advance)",
     "adj_est_stored": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1108",
     "fd_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:61",
     "fd_ensemble_vec": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201",
@@ -144,6 +167,7 @@ TPU_KERNELS = {
     "dg_estimate_hp_per_member": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab_mixed.py:99",
     "resblock_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_fused.py:107",
     "dense_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_dense_fused.py:136",
+    "burgers_march": "adjoint_ode_adaptivity_tpu/ops/pallas/burgers.py:57 (_kernel)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -174,6 +198,9 @@ NN_ARGV = ["--method", "variable_params", "--width", "500", "--n-train", "8192",
 NN_REC_ARGV = ["--method", "recurrent", "--hidden", "100,500", "--n-train", "8192", "--epochs", "2",
                "--maxit", "1"]
 NN_VARIANT_ARGV = ["--width", "64", "--n-train", "1000", "--epochs", "10", "--maxit", "1"]
+# bench.py:420-473's Burgers row: the headline mesh, B = 8, 2048 steps,
+# dt = 0.3·x_min, ΠN limiter
+BURGERS = dict(n_order=2, k=10_000, b=8, n_steps=2048, cfl=0.3)
 NN_DRIFT = 1e-3  # torch vs cuda engine: per-epoch loss drift over one outer iteration
 # one H100 SXM at its full power limit (NVIDIA data sheet, dense FP32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -2000,6 +2027,403 @@ def nn_times(device, t1_inputs):
     return out
 
 
+# ------------------------------------------------------------ Burgers strand
+
+
+def burgers_ics(disc, b, device, dtype):
+    """bench.py:435-441's batched ICs (0.5 + 0.05·j)·sin x, (Np, B, K)."""
+    import numpy as np
+    import torch
+
+    u0 = np.stack([(0.5 + 0.05 * j) * np.sin(disc.x) for j in range(b)], axis=1)
+    return torch.tensor(u0, dtype=dtype, device=device)
+
+
+def b1_double(label, u0, n_steps, tab, errs):
+    """B1 against its plain version in float64, each entry within
+    test_pallas.py:629's 1e-12·|plain| + 1e-13 (the same tables, another
+    order of operations). Returns the plain version's output."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    got = cb.burgers_march(u0, n_steps, tab)
+    want = cb.burgers_march_plain(u0, n_steps, tab)
+    d = (got - want).abs()
+    bound = 1e-12 * want.abs() + 1e-13
+    worst, above = float((d / bound).max()), int((d > bound).sum())
+    say("19", f"{label} float64: max|kernel - plain| {float(d.max()):.3e}, worst entry at "
+              f"{worst:.3%} of its bound (1e-12·|plain| + 1e-13), {above} of {d.numel()} "
+              f"entries above")
+    assert bool(torch.isfinite(got).all()) and above == 0, f"{label}: B1 disagrees in float64"
+    errs["burgers_march"] = max(errs["burgers_march"], float(d.max()))
+    return got
+
+
+def spread(cells, reach=10):
+    """Each (B, K) entry's sum over the elements within ``reach`` of it
+    (periodic): how far a changed cell reaches in one step (2 elements a
+    stage, through the flux and the limiter's neighbour averages)."""
+    import torch
+
+    ext = torch.cat([cells[:, -reach:], cells, cells[:, :reach]], dim=1)
+    width = 2 * reach + 1
+    return width * torch.nn.functional.avg_pool1d(ext[:, None], width, stride=1)[:, 0]
+
+
+def b1_lockstep(label, u0, n_steps, tab, errs):
+    """B1 held to its plain version step by step: every step, both start
+    from the plain version's state. Each entry of the kernel's step must lie
+    within the step's roundoff — float64: 1e-12·|plain| + 1e-13; float32:
+    5·(Np + 2)·ε₃₂·max|u0| (each of the 5 stages rounds the update and, in a
+    limited cell, the Np-term cell average and the limited value) — plus,
+    within 10 elements of a cell whose ΠN margin in that step lies within
+    8·ε·max|u0| of ε₀ (so that roundoff may decide it either way), twice
+    the sum of those cells' limiting changes |limited − v| (a decision taken
+    the other way moves its cell by that change, and the later stages of
+    the step carry it to the neighbours at a CFL fraction a stage). The
+    troubled-cell test at ε₀ = 1e-8 sits below float32 roundoff near
+    extrema, so float32 has such cells.
+    Returns the plain version's final state and its summed time (CUDA
+    events, ms)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    f64 = u0.dtype == torch.float64
+    eps = 2.0**-52 if f64 else EPS32
+    scale = float(u0.abs().max())
+    band = 8 * eps * scale
+    step_tol = 5 * (tab.np_ + 2) * eps * scale
+    u, worst, above, n_near, allow, plain_ms = u0, 0.0, 0, 0, 0.0, 0.0
+    for _ in range(n_steps):
+        got = cb.burgers_march(u, 1, tab)
+        near = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
+
+        def observe(v, limited, margin, near=near):
+            if tab.limiter == "n":
+                change = (limited - v).abs().amax(dim=0)
+                hit = (margin - cb.EPS0).abs() <= band
+                torch.maximum(near, torch.where(hit, change, torch.zeros_like(change)), out=near)
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = cb.burgers_march_plain(u, 1, tab, observe)
+        end.record()
+        bound = (1e-12 * want.abs() + 1e-13 if f64 else step_tol) + 2 * spread(near)
+        d = (got - want).abs()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        worst = max(worst, float((d / bound).max()))
+        above += int((d > bound).sum())
+        n_near += int((near > 0).sum())
+        allow = max(allow, float(near.max()))
+        errs["burgers_march"] = max(errs["burgers_march"], float(d.max()))
+        u = want
+    say("19", f"{label} {'float64' if f64 else 'float32'} step by step ({n_steps} steps): worst "
+              f"entry at {worst:.3%} of its bound (roundoff "
+              f"{'1e-12·|plain| + 1e-13' if f64 else f'{step_tol:.3e}'} per step), {above} "
+              f"entries above; {n_near} cell-steps with ΠN's margin within {band:.1e} of ε₀, "
+              f"largest limiting change there {allow:.3e}")
+    assert above == 0 and bool(torch.isfinite(u).all()), f"{label}: B1 disagrees step by step"
+    return u, plain_ms
+
+
+def b1_free(label, got, want, n_steps, tab, u0, errs):
+    """The free-running kernel against the free-running plain version in
+    float32: each entry within n_steps times the per-step roundoff."""
+    d = float((got - want).abs().max())
+    bound = n_steps * 5 * (tab.np_ + 2) * EPS32 * float(u0.abs().max())
+    say("19", f"{label} float32 free-running: max|kernel - plain| {d:.3e} (bound {bound:.3e})")
+    assert d <= bound, f"{label}: free-running B1 leaves its plain version"
+    errs["burgers_march"] = max(errs["burgers_march"], d)
+
+
+def burgers_props(label, u, u0, disc, n_steps, eps):
+    """After the shock: finite, within the initial range up to 5e-2
+    (tests/test_burgers.py's allowance), and Σ cell averages·h conserved
+    to roundoff: each stage rounds every node to ε/2 of max|u|, so the total
+    moves by at most 5·n_steps·(ε/2)·max|u|·(b − a)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.operators import mass_matrix
+
+    w = torch.tensor(np.sum(mass_matrix(disc.v), axis=0)[:, None] * disc.jac, dtype=torch.float64,
+                     device=u.device)
+    total0, total = float(torch.sum(w * u0.double())), float(torch.sum(w * u.double()))
+    cons = 5 * n_steps * eps / 2 * float(u0.abs().max()) * 2 * np.pi
+    lo, hi = float(u0.min()) - 5e-2, float(u0.max()) + 5e-2
+    say("20", f"{label}: finite {bool(torch.isfinite(u).all())}, range [{float(u.min()):+.4f}, "
+              f"{float(u.max()):+.4f}] within [{lo:+.4f}, {hi:+.4f}], Σ avg·h {total:+.9f} vs "
+              f"{total0:+.9f} (drift {abs(total - total0):.3e}, bound {cons:.3e})")
+    assert bool(torch.isfinite(u).all()) and lo <= float(u.min()) and float(u.max()) <= hi
+    assert abs(total - total0) <= cons, f"{label}: not conserved"
+
+
+def phase19(device, errs):
+    """B1 (csrc/burgers.cu) against its plain version on the card."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    n, k, b, n_steps = (BURGERS[x] for x in ("n_order", "k", "b", "n_steps"))
+    disc = startup_1d(n, 0.0, 2 * np.pi, k)
+    dt = BURGERS["cfl"] * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    tab = cb.burgers_tables(disc, dt, "n", device)
+    label = f"(a) bench row K={k} N={n} B={b} steps={n_steps} dt={dt:.4e} limiter n"
+    b1_double(label, burgers_ics(disc, b, device, torch.float64), n_steps, tab, errs)
+    u0 = burgers_ics(disc, b, device, torch.float32)
+    want, plain_ms = b1_lockstep(label, u0, n_steps, tab, errs)
+    b1_free(label, cb.burgers_march(u0, n_steps, tab), want, n_steps, tab, u0, errs)
+    # (b) B = 1 through the single entry point, against the plain run's member 0
+    single = cb.make_cuda_burgers_march_single(disc, dt, n_steps, "n", device)
+    b1_free("(b) B=1 (make_cuda_burgers_march_single)", single(u0[:, 0]), want[:, 0], n_steps,
+            tab, u0[:, :1], errs)
+    # (c) the graded mesh, all three limiters, both types
+    g = mesh(4, 48, graded=True)
+    for lim in ("n", "1", "none"):
+        tab_g = cb.burgers_tables(g, 5e-5, lim, device)
+        lab = f"(c) graded K=48 N=4 B=8 steps=64 limiter {lim}"
+        b1_double(lab, burgers_ics(g, 8, device, torch.float64), 64, tab_g, errs)
+        b1_lockstep(lab, burgers_ics(g, 8, device, torch.float32), 64, tab_g, errs)
+    # (d) the shock run (burgers_dg's defaults) in float64, step by step over
+    # t in [1.4, 1.45] (the shock forms at t = 1) from the kernel's state
+    d = startup_1d(4, 0.0, 2 * np.pi, 48)
+    tab_d = cb.burgers_tables(d, 2e-4, "n", device)
+    u = torch.tensor(0.5 + np.sin(d.x)[:, None, :], dtype=torch.float64, device=device)
+    u = cb.burgers_march(u, 7000, tab_d)
+    b1_lockstep("(d) shock run K=48 N=4 dt=2e-4 from t=1.4", u, 250, tab_d, errs)
+    return plain_ms, (disc, dt)
+
+
+def phase20(device, errs):
+    """The Burgers path through its entry points."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import advec_dg, burgers_dg
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    cb.reset_launch_counts()
+    t0 = time.perf_counter()
+    u = burgers_dg.main(["--kernel", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cb.burgers_march.launches
+    disc = startup_1d(4, 0.0, 2 * np.pi, 48)
+    n_steps = int(round(1.5 / 2e-4))
+    say("20", f"main path burgers_dg --kernel cuda (K=48 N=4 T=1.5 dt=2e-4, {n_steps} steps, "
+              f"float32): wall {wall:.3f} s, burgers_march launches {launches}")
+    assert launches == 1, launches
+    u0 = torch.tensor(0.5 + np.sin(disc.x), dtype=torch.float64, device=device)
+    burgers_props("shock run, B1 float32", u, u0.float(), disc, n_steps, EPS32)
+
+    t0 = time.perf_counter()
+    u64 = burgers_dg.main(["--kernel", "torch"])
+    torch.cuda.synchronize()
+    wall64 = time.perf_counter() - t0
+    assert cb.burgers_march.launches == 1 and u64.dtype == torch.float64
+    burgers_props("shock run, --kernel torch float64 on the card", u64, u0, disc, n_steps,
+                  2.0**-52)
+    tab = cb.burgers_tables(disc, 2e-4, "n", device)
+    k64 = cb.burgers_march(u0[:, None, :].contiguous(), n_steps, tab)[:, 0]
+    d64 = float((k64 - u64).abs().max())
+    say("20", f"--kernel torch float64: wall {wall64:.2f} s; after the shock, B1 float64 vs it "
+              f"max|d| {d64:.3e} (bound 1e-10) and B1 float32 vs it "
+              f"{float((u.double() - u64).abs().max()):.3e} (in float32 roundoff decides the "
+              f"troubled-cell test differently; 19(d) holds B1 step by step)")
+    # two float64 implementations of the same march (equal at 1e-12 on the
+    # CPU, tests/test_torch_burgers.py) after 7,500 steps through the shock
+    assert d64 <= 1e-10, "B1 float64 leaves the eager float64 march"
+    errs["burgers_march"] = max(errs["burgers_march"], d64)
+
+    # advec_dg limits after every step: float64 on the card against the
+    # CPU (float32 would compare two roundings of the troubled-cell test)
+    for lim in ("n", "1"):
+        err32 = advec_dg.main(["--kernel", "torch", "--limiter", lim])
+        err = advec_dg.main(["--kernel", "torch", "--limiter", lim, "--x64"])
+        err_cpu = advec_dg.main(["--kernel", "torch", "--limiter", lim, "--x64", "--device", "cpu"])
+        say("20", f"advec_dg --kernel torch --limiter {lim} on the card: max error {err32:.6e} "
+                  f"(float32), {err:.12e} (float64); --device cpu float64 {err_cpu:.12e}")
+        assert np.isfinite(err32) and abs(err - err_cpu) <= 1e-10 * err_cpu
+    return launches, wall
+
+
+REVOLVE_CHECK = dict(k=10_000, n_steps=2048, unit=128, snaps=4)
+# bench.py:1501-1560: K = 10^5, N = 2, dt 0.5·(0.75/a)·x_min, sin x, 16,384
+# steps, unit 128, 16 snaps; then a step count whose stored trajectory
+# (98.3 GB) passes the card's memory
+REVOLVE_BENCH = dict(k=100_000, n_steps=16_384, unit=128, snaps=16)
+REVOLVE_BEYOND = 81_920
+
+
+def revolve_case(disc, n_steps, unit, snaps, device):
+    """``revolve_advec_estimate`` on ``disc`` at bench.py's CFL step, with
+    its inputs: u0 = sin x and the cotangent of J = ∫u(T), float32."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.revolve_vjp import revolve_advec_estimate
+
+    dt = cfl_step(disc)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    return revolve_advec_estimate(disc, A, dt, n_steps, unit, snaps, device=device), u0, lam, dt
+
+
+def phase21(device, errs):
+    """Revolve on the card: revolve_advec_estimate against the stored
+    pipeline, timed; and a run the stored pipeline cannot make."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import make_cuda_fwd_adj_estimate_single
+
+    def compare(label, got, want, n_steps, np_, lam):
+        tol = tolerances(n_steps, np_, want[0], lam)
+        e = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        eta_bound = 1e-4 * want[2].abs() + 1e-9  # tests/test_revolve_pipeline.py
+        eta_above = int(((got[2] - want[2]).abs() > eta_bound).sum())
+        say("21", f"{label}: revolve vs stored u_final {e[0]:.3e} (tol {tol['u']:.3e}) lam0 "
+                  f"{e[1]:.3e} (tol {tol['lam']:.3e}) eta {e[2]:.3e} (max|eta| "
+                  f"{float(want[2].abs().max()):.3e}; {eta_above} entries above 1e-4·|eta| + 1e-9)")
+        assert e[0] <= tol["u"] and e[1] <= tol["lam"] and eta_above == 0, label
+
+    c = REVOLVE_CHECK
+    disc = mesh(2, c["k"], graded=False)
+    rev, u0, lam, dt = revolve_case(disc, c["n_steps"], c["unit"], c["snaps"], device)
+    dg_rhs.reset_launch_counts()
+    got = rev(u0, 0.0, lam)
+    torch.cuda.synchronize()
+    st = rev.revolve_stats
+    launches = {"fwd_march": dg_rhs.fwd_march.launches,
+                "adj_est_stored": dg_rhs.adj_est_stored.launches}
+    say("21", f"(a) revolve_advec_estimate K={c['k']} N=2 steps={c['n_steps']} unit={c['unit']} "
+              f"snaps={c['snaps']}: stats {st}; wrapper launches {launches}")
+    assert launches == {"fwd_march": st["forward_units"] + st["n_units"],
+                        "adj_est_stored": st["n_units"]}, launches
+    assert st["max_slots"] <= c["snaps"]
+    want = make_cuda_fwd_adj_estimate_single(disc, A, dt, c["n_steps"], device)(u0, 0.0, lam)
+    compare("(a)", got, want, c["n_steps"], disc.np_, lam)
+
+    c = REVOLVE_BENCH
+    disc = mesh(2, c["k"], graded=False)
+    rev, u0, lam, dt = revolve_case(disc, c["n_steps"], c["unit"], c["snaps"], device)
+    stored = make_cuda_fwd_adj_estimate_single(disc, A, dt, c["n_steps"], device)
+    out = {}
+    torch.cuda.empty_cache()
+    ms_stored = cuda_ms(lambda: out.update(s=stored(u0, 0.0, lam)), runs=5)
+    ms_rev = cuda_ms(lambda: out.update(r=rev(u0, 0.0, lam)), runs=5)
+    st = rev.revolve_stats
+    dof_steps = disc.np_ * c["k"] * 2 * c["n_steps"]
+    traj_gb = c["n_steps"] * disc.np_ * c["k"] * 4 / 1e9
+    say("21", f"(b) bench.py's revolve row K={c['k']} steps={c['n_steps']} unit={c['unit']} "
+              f"snaps={c['snaps']}: revolve {ms_rev:.1f} ms ({dof_steps / ms_rev * 1e3:.4e} "
+              f"fwd+adjoint DoF-steps/s; forward units {st['forward_units']} of {st['n_units']}, "
+              f"recompute {st['forward_units'] / st['n_units']:.2f}x); stored pipeline "
+              f"{ms_stored:.1f} ms ({traj_gb:.1f} GB trajectory); revolve/stored "
+              f"{ms_rev / ms_stored:.3f} (median of 5 each)")
+    compare("(b)", out["r"], out["s"], c["n_steps"], disc.np_, lam)
+    out.clear()
+    # one advance alone: K1 with no trajectory over one unit from a host t0
+    # (the TPU's _fwd_grid_kernel_b, dg_rhs.py:1017), and its plain version
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0b = u0[:, None, :].contiguous()
+    ms_adv = cuda_ms(lambda: dg_rhs.fwd_march(u0b, 0.5, c["unit"], ops), runs=5)
+    plain_adv = cuda_ms(lambda: out.update(p=dg_rhs.fwd_march_plain(u0b, 0.5, c["unit"], ops)[1]),
+                        runs=3, warmup=0)
+    e_adv = float((dg_rhs.fwd_march(u0b, 0.5, c["unit"], ops)[1] - out.pop("p")).abs().max())
+    tol_adv = 8 * c["unit"] * EPS32 * float(u0.abs().max())
+    adv_bound = march_bound(2, c["k"], c["unit"])
+    say("21", f"(b) one advance (K1, no trajectory, {c['unit']} steps from t0 = 0.5, K={c['k']}): "
+              f"kernel {ms_adv:.3f} ms (median of 5), plain {plain_adv:.1f} ms (median of 3), "
+              f"bound {adv_bound[0]:.5f} ms ({adv_bound[1]}); max|kernel - plain| {e_adv:.3e} "
+              f"(tol {tol_adv:.3e})")
+    assert e_adv <= tol_adv
+    errs["fwd_march"] = max(errs["fwd_march"], e_adv)
+    torch.cuda.empty_cache()
+
+    n_big = REVOLVE_BEYOND
+    big = make_cuda_fwd_adj_estimate_single(disc, A, dt, n_big, device)
+    try:
+        big(u0, 0.0, lam)
+    except MemoryError as exc:
+        say("21", f"(c) stored pipeline at {n_big} steps: MemoryError: {exc}")
+    else:
+        raise AssertionError(f"the stored pipeline ran {n_big} steps: nothing beyond memory shown")
+    rev_big = revolve_case(disc, n_big, c["unit"], c["snaps"], device)[0]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ms_big = cuda_ms(lambda: out.update(b=rev_big(u0, 0.0, lam)), runs=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    state = disc.np_ * c["k"] * 4
+    bound = (c["snaps"] + c["unit"] + 16) * state
+    st = rev_big.revolve_stats
+    uf, lam0, eta = out["b"]
+    say("21", f"(c) revolve at {n_big} steps ({n_big * state / 1e9:.1f} GB if stored): "
+              f"{ms_big:.1f} ms, stats {st}; peak device memory above the inputs "
+              f"{peak / 1e6:.1f} MB (bound (snaps + unit + 16)·state = {bound / 1e6:.1f} MB); "
+              f"Σeta {float(eta.sum()):+.6e}, J {float(torch.sum(lam * uf)):+.6e}")
+    assert st["max_slots"] <= c["snaps"] and peak <= bound
+    for x in (uf, lam0, eta):
+        assert bool(torch.isfinite(x).all())
+    return {"revolve_ms": ms_rev, "stored_ms": ms_stored, "beyond_ms": ms_big,
+            "advance": (ms_adv, plain_adv, adv_bound, e_adv)}
+
+
+def burgers_stage_ops(np_, limiter="n"):
+    """FP32 operations of one B1 stage per element (an FMA counts 2),
+    counted from csrc/burgers.cu: phase A — the flux values f (2·Np), the
+    face speeds and LLF fluxes (34), the volume product (2·Np²), rx (Np),
+    the two lift columns (4·Np), the r and u updates (4·Np), the cell
+    average (2·Np); phase B (ΠN) — the slope of the linear part (2·Np + 2),
+    the neighbour differences and their scaling (4), three minmods (27),
+    the endpoint reconstructions and the troubled test (10), the limited
+    nodes and the select (3·Np)."""
+    a = 2 * np_ * np_ + 13 * np_ + 34
+    return a if limiter == "none" else a + 5 * np_ + 43
+
+
+def burgers_bound(n_order, k, b, n_steps):
+    """B1 at the bench row: u0 and the geometry rows read once, u written
+    once (float32), 5 stages of burgers_stage_ops per element and member."""
+    np_ = n_order + 1
+    return bound(4 * (2 * np_ * b * k + (4 + np_) * k), 5 * n_steps * b * k * burgers_stage_ops(np_))
+
+
+def burgers_times(device, plain_ms, bench):
+    """Phase 22: CUDA-event times of B1 (one warm-up, median of 5) at the
+    bench row and at B = 1, beside the bound; the plain version's time is
+    the sum of its steps in 19(a)'s step-by-step run (one run: it is
+    host-bound, ~60 small launches a stage, ~20 s)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    disc, dt = bench
+    n, k, b, n_steps = (BURGERS[x] for x in ("n_order", "k", "b", "n_steps"))
+    tab = cb.burgers_tables(disc, dt, "n", device)
+    u0 = burgers_ics(disc, b, device, torch.float32)
+    ms = cuda_ms(lambda: cb.burgers_march(u0, n_steps, tab), runs=5)
+    u1 = u0[:, :1].contiguous()
+    ms1 = cuda_ms(lambda: cb.burgers_march(u1, n_steps, tab), runs=5)
+    b_ms, b_by = burgers_bound(n, k, b, n_steps)
+    b1_ms, _ = burgers_bound(n, k, 1, n_steps)
+    dofs = b * (n + 1) * k * n_steps
+    say("22", f"burgers_march K={k} N={n} B={b} steps={n_steps}: kernel {ms:.3f} ms "
+              f"({dofs / ms * 1e3:.4e} DoF-steps/s, one launch); plain {plain_ms:.1f} ms (19(a)'s "
+              f"step-by-step run, its {n_steps} steps summed); "
+              f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / ms:.3%} of it; B=1 kernel "
+              f"{ms1:.3f} ms (bound {b1_ms:.5f} ms)")
+    return ms, (b_ms, b_by)
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -2093,8 +2517,13 @@ def main() -> int:
     for name, (ms, plain_ms, _) in nn.items():
         times[name] = (ms, plain_ms)
 
+    plain_b1, bench_b1 = phase19(device, errs)
+    launches["burgers_march"], _ = phase20(device, errs)
+    phase21(device, errs)
+    b1_ms, b1_bound = burgers_times(device, plain_b1, bench_b1)
+    times["burgers_march"] = (b1_ms, plain_b1)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
-              **{name: v[2][:2] for name, v in nn.items()}}
+              **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

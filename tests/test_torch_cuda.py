@@ -40,6 +40,14 @@ contribution magnitudes, plus the reduction and a charge for any relu within
 reach of a switch. Most entries of every leaf must exceed their bound, a
 repeat call must be bit-identical, and inactive neurons, dead neurons and
 zero-dt steps exactly 0.
+
+The Burgers kernel B1: in float64 each entry within 1e-12·|plain| + 1e-13
+(test_pallas.py:629's tolerance); in float32, before any shock, within
+8·n_steps·ε·max|u0| (the troubled-cell test at ε₀ = 1e-8 lies below float32
+roundoff near extrema, so the two may limit different cells by amounts far
+below that). The revolve composition against the stored pipeline: u and λ
+within float32 roundoff, η within 1e-4·|η| + 1e-9
+(tests/test_revolve_pipeline.py).
 """
 import numpy as np
 import pytest
@@ -393,3 +401,58 @@ def test_training_kernels_refuse_what_they_do_not_take(device):
         td.dense_epoch_grad(theta, theta_t, (4,) * 9, dt, u0, u0)
     with pytest.raises(ValueError):
         td.dense_block_members((20000,))
+
+
+# ---------------------------------------------------------------- Burgers B1
+
+
+@pytest.mark.parametrize("limiter", ["n", "1", "none"])
+@pytest.mark.parametrize("n_order,k,graded", [(2, 64, False), (4, 48, True), (7, 20, True)])
+def test_burgers_kernel_matches_its_plain_version(device, limiter, n_order, k, graded):
+    """float64: each entry within 1e-12·|plain| + 1e-13 (test_pallas.py:629);
+    float32, before the shock: within 8·n_steps·ε₃₂·max|u0|. One launch each."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k, vx=vx)
+    tab = cb.burgers_tables(disc, 5e-5, limiter, device)
+    u0 = np.stack([(0.5 + 0.05 * j) * np.sin(disc.x) for j in range(8)], axis=1)
+    for dtype in (torch.float64, torch.float32):
+        x = torch.tensor(u0, dtype=dtype, device=device)
+        before = cb.burgers_march.launches
+        got = cb.burgers_march(x, 32, tab)
+        torch.cuda.synchronize()
+        assert cb.burgers_march.launches == before + 1
+        want = cb.burgers_march_plain(x, 32, tab)
+        bound = (1e-12 * want.abs() + 1e-13 if dtype == torch.float64
+                 else 8 * 32 * EPS32 * float(x.abs().max()))
+        assert bool(((got - want).abs() <= bound).all())
+
+
+def test_burgers_kernel_refusals_raise(device):
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, 16)
+    tab = cb.burgers_tables(disc, 1e-3, "n", device)
+    with pytest.raises(TypeError):
+        cb.burgers_march(torch.zeros((3, 1, 16), dtype=torch.float16, device=device), 4, tab)
+    with pytest.raises(ValueError):  # not contiguous
+        cb.burgers_march(torch.zeros((3, 16, 2), device=device).transpose(1, 2), 4, tab)
+    with pytest.raises(ValueError):  # on the CPU, operands on the card
+        cb.burgers_march(torch.zeros((3, 1, 16)), 4, tab)
+
+
+def test_revolve_estimate_on_the_card_matches_the_stored_pipeline(device):
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.revolve_vjp import revolve_advec_estimate
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, 64)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    rev = revolve_advec_estimate(disc, A, 2e-4, 64, unit_steps=8, snaps=3, device=device)
+    got = rev(u0, 0.0, lam)
+    want = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, 2e-4, 64, device)(u0, 0.0, lam)
+    tol = 8 * 64 * EPS32
+    assert float((got[0] - want[0]).abs().max()) <= tol
+    assert float((got[1] - want[1]).abs().max()) <= tol * float(lam.abs().max())
+    assert bool(((got[2] - want[2]).abs() <= 1e-4 * want[2].abs() + 1e-9).all())
+    assert rev.revolve_stats["max_slots"] <= 3

@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 
 _SCRIPT = """
@@ -22,8 +24,16 @@ for mod in ("odes", "functionals", "march.fd", "adjoint.discrete", "adjoint.esti
             "adjoint.dg_mixed", "ops.cuda.dg_slab_mixed", "adapt.hp_loop", "models",
             "models.blocks", "models.surgery", "train", "train.loop", "train.adaptive",
             "train.data", "train.losses", "train.metrics", "train.checkpoint", "tree",
-            "ops.cuda.train_fused", "ops.cuda.train_dense_fused", "drivers.train_resnet_ode"):
+            "ops.cuda.train_fused", "ops.cuda.train_dense_fused", "drivers.train_resnet_ode",
+            "ops.limiters", "march.burgers", "ops.cuda.burgers", "drivers.burgers_dg",
+            "adjoint.checkpointing", "adjoint.revolve_vjp"):
     assert "adjoint_ode_adaptivity_tpu_torch." + mod in names, (mod, names)
+# the revolve planner loads the checkout's native/librevolve.so, never the
+# JAX package's installed copy under adjoint_ode_adaptivity_tpu/_native
+from adjoint_ode_adaptivity_tpu_torch.adjoint.checkpointing import plan_schedule
+assert plan_schedule(10, 3)
+maps = open("/proc/self/maps").read()
+assert "adjoint_ode_adaptivity_tpu/_native" not in maps
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "adjoint_ode_adaptivity_tpu.")) or m == "adjoint_ode_adaptivity_tpu")
 assert not bad, bad
 print(len(names))
@@ -36,7 +46,21 @@ def test_port_never_imports_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 48
+    assert int(proc.stdout.strip()) >= 54
+
+
+@pytest.mark.parametrize("module", ["ops.cuda.dg_rhs", "ops.cuda.burgers", "march", "adjoint",
+                                    "adjoint.revolve_vjp", "drivers.burgers_dg"])
+def test_each_entry_module_imports_first(module):
+    """Imported first in a fresh interpreter, each module loads: the
+    packages ``march`` and ``adjoint`` import each other's modules, so an
+    import order that none of the other tests takes can meet a partly
+    initialised module."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import adjoint_ode_adaptivity_tpu_torch.{module}"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_package_data_ships_every_included_source():

@@ -214,3 +214,46 @@ def test_refinement_signal_matches_the_jax_driver(kind):
                                          torch.from_numpy(u0s), torch.from_numpy(trues))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-16)
     assert got.shape == (s,) and float(got.min()) > 0
+
+
+def test_refinement_signal_at_a_tie_takes_the_jax_cotangent():
+    """One member sits exactly on its target (its own terminal value, in
+    each framework): d|u_N − true|/du_N is +1 there, as jax.grad(jnp.abs)
+    gives, so that member still weighs in the mean signal."""
+    from adjoint_ode_adaptivity_tpu.adjoint import interp_to_fine as j_interp
+    from adjoint_ode_adaptivity_tpu.adjoint import refine_all as j_refine
+    from adjoint_ode_adaptivity_tpu.march.fd import forward_march_per_step as j_fwd
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.estimate import interp_to_fine, refine_all
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march_per_step
+
+    s, rf, tie = 3, 4, 5
+    rng = np.random.default_rng(21)
+    dt = rng.uniform(0.2, 0.4, s)
+    u0s, trues = rng.uniform(-3, 3, 24), rng.uniform(-1, 1, 24)
+    p = jm.ResBlockSimple(12).init(jax.random.PRNGKey(2), jnp.ones(1), 0.0, 0.1)["params"]
+    jp = {k: np.stack([np.asarray(v) + 0.05 * n for n in range(s)]).astype(np.float32)
+          for k, v in p.items()}
+    net, port_net = jm.ResBlockSimple(12), models.ResBlockSimple(12)
+    pp = interop.resblock_params_from_numpy(jp)
+
+    def j_step(u, t, d, q):
+        return net.apply({"params": q}, u, t, d)
+
+    def j_terminal(u0):
+        u = j_fwd(j_step, jnp.atleast_1d(u0), jnp.asarray(dt), jp)
+        return j_interp(jnp.squeeze(u), jnp.asarray(dt), j_refine(jnp.asarray(dt), rf))[-1]
+
+    step = lambda u, t, d, q: port_net(q, u, t, d)  # noqa: E731
+    dt_t = torch.from_numpy(dt)
+    with torch.no_grad():
+        u = forward_march_per_step(step, torch.from_numpy(u0s)[:, None], dt_t, pp)[..., 0]
+        u_fin = interp_to_fine(u, dt_t, refine_all(dt_t, rf))[-1]
+    trues_t, trues_j = trues.copy(), trues.copy()
+    trues_t[tie] = float(u_fin[tie])
+    trues_j[tie] = float(jax.vmap(j_terminal)(jnp.asarray(u0s))[tie])
+    want = jd._ensemble_refinement_signal(net, jp, jnp.asarray(dt), rf, jnp.asarray(u0s),
+                                          jnp.asarray(trues_j))
+    with torch.no_grad():
+        got = ensemble_refinement_signal(step, pp, dt_t, rf, torch.from_numpy(u0s),
+                                         torch.from_numpy(trues_t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-16)
