@@ -12,7 +12,9 @@ estimate. Operator construction is host-side float64 NumPy per iteration.
 
 Engines: ``"torch"`` runs the eager path (adjoint/advec.py) in ``dtype`` on
 ``device``; ``"cuda"`` runs the hand-written kernels (ops/cuda/dg_rhs.py),
-float32 only, and needs a CUDA ``device``.
+float32 only, and needs a CUDA ``device``: the stored-trajectory pipeline
+while the trajectory fits in the card's free memory, the recompute pipeline
+past it (:func:`choose_storage`).
 """
 from __future__ import annotations
 
@@ -28,10 +30,10 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import (
     terminal_integral_cotangent,
 )
 from adjoint_ode_adaptivity_tpu_torch.march.advec import advec_operators
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import pick_chunk, require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import startup_1d
 
-__all__ = ["AdvecAdaptResult", "run_adaptive_advec"]
+__all__ = ["AdvecAdaptResult", "choose_storage", "run_adaptive_advec"]
 
 CHECKPOINT_FILE = "advec_adapt.pt"
 
@@ -41,14 +43,39 @@ class _EstimateResult(NamedTuple):
     eta: torch.Tensor
 
 
+# device states beside the stored trajectory: the kernels' work buffers
+# (4 + 8), u_final, λ0 and η, with room to spare
+STORED_EXTRA_STATES = 16
+
+
+def choose_storage(n_steps: int, np_: int, b: int, k: int, free_bytes: int) -> tuple[bool, int]:
+    """``(store, segment)`` for one estimate of n_steps steps on (Np, B, K)
+    float32 states with ``free_bytes`` of device memory free: the stored
+    trajectory when it fits, else the recompute pipeline, as the JAX loop
+    falls back from its stored pipeline when a stored segment no longer
+    fits (its adapt/advec_loop.py ``_build_pallas_pipeline``; the TPU's
+    scoped-VMEM model is replaced by the card's free memory). The segment
+    is ``pick_chunk(n_steps)``."""
+    state_bytes = 4 * np_ * b * k
+    store = (n_steps + STORED_EXTRA_STATES) * state_bytes <= free_bytes
+    return store, pick_chunk(n_steps)
+
+
+def _free_device_bytes(device) -> int:
+    return torch.cuda.mem_get_info(device)[0]
+
+
 def _cuda_estimate(disc, a, dt, n_steps, u0_fn, device) -> _EstimateResult:
     """One fwd+adjoint+estimate solve through the CUDA kernels (float32,
-    B = 1) on the loop's non-uniform mesh."""
+    B = 1) on the loop's non-uniform mesh; stored or recompute by the card's
+    free memory (:func:`choose_storage`), which give the same bits."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
         make_cuda_fwd_adj_estimate_single,
     )
 
-    run = make_cuda_fwd_adj_estimate_single(disc, a, dt, n_steps, device)
+    store, segment = choose_storage(n_steps, disc.np_, 1, disc.k, _free_device_bytes(device))
+    run = make_cuda_fwd_adj_estimate_single(disc, a, dt, n_steps, device,
+                                            store_trajectory=store, segment=segment)
     u0 = torch.as_tensor(u0_fn(disc.x), dtype=torch.float32, device=device)
     lam = terminal_integral_cotangent(disc, torch.float32, device)
     uf, _lam0, eta = run(u0.contiguous(), 0.0, lam)

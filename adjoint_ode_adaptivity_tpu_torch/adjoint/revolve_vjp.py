@@ -273,7 +273,8 @@ def revolve_advec_estimate(
     schedule = plan_schedule(n_units, snaps)
     plan_stats = simulate_schedule(n_units, snaps, schedule)
     march = make_cuda_advec_march(disc, a, dt, unit_steps, device)
-    pipe = make_cuda_fwd_adj_estimate_single(disc, a, dt, unit_steps, device)
+    pipe = make_cuda_fwd_adj_estimate_single(disc, a, dt, unit_steps, device,
+                                             store_trajectory=True)
     unit_dt = unit_steps * dt
 
     def run(u0, t0, lam_end):

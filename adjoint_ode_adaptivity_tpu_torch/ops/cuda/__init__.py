@@ -1,6 +1,6 @@
-"""Hand-written CUDA kernels (the DG advection, FD, DG-in-time and hp
-DG-in-time hot loops, the two fused training epochs and the limited Burgers
-march), and their loader.
+"""Hand-written CUDA kernels (the DG advection pipelines — stored, recompute
+and element-tiled —, the FD, DG-in-time and hp DG-in-time hot loops, the two
+fused training epochs and the limited Burgers march), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
 them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
@@ -69,10 +69,18 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.dg_fwd_march.argtypes = [i, i, i, i, d, d, d] + [p] * 11
+        lib.dg_fwd_march.argtypes = [i] * 5 + [d] * 3 + [p] * 11
         lib.dg_fwd_march.restype = i
         lib.dg_adj_est_stored.argtypes = [i, i, i, i, d, d, d] + [p] * 15
         lib.dg_adj_est_stored.restype = i
+        lib.dg_adj_est_recompute.argtypes = [i] * 5 + [d] * 3 + [p] * 16
+        lib.dg_adj_est_recompute.restype = i
+        lib.dg_adj_march.argtypes = [i] * 4 + [p] * 10
+        lib.dg_adj_march.restype = i
+        lib.dg_tiled_fwd.argtypes = [i] * 6 + [d] * 3 + [p] * 10
+        lib.dg_tiled_fwd.restype = i
+        lib.dg_tiled_rev.argtypes = [i] * 6 + [d] * 3 + [p] * 12
+        lib.dg_tiled_rev.restype = i
         lib.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
         lib.fd_ensemble.restype = i
         lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
@@ -92,7 +100,8 @@ class KernelLibrary:
             getattr(lib, name).restype = i
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",
-                     "train_dense_error_string", "burgers_error_string"):
+                     "train_dense_error_string", "burgers_error_string",
+                     "dg_tiled_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

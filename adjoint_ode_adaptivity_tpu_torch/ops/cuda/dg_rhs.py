@@ -1,25 +1,48 @@
-"""The DG-advection fwd + adjoint + estimate pipeline on hand-written CUDA.
+"""The DG-advection fwd + adjoint + estimate pipelines on hand-written CUDA.
 
-Counterpart of the JAX package's ``ops/pallas/dg_rhs.py`` stored-trajectory
-pipeline (``_make_stored_run``). Two kernels (csrc/dg_rhs.cu):
+Counterpart of the JAX package's ``ops/pallas/dg_rhs.py``: the
+stored-trajectory pipeline (``_make_stored_run``), the recompute pipeline
+(``make_pallas_fwd_adj_estimate_grid_batched(store_trajectory=False)``) and
+the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
 
 - **K1** :func:`fwd_march` — n_steps LSRK4(5) steps from ``u0`` at ``t0``;
   optionally stores every entry state u_n in ``traj[n]``. Replaces
   ``_fwd_traj_grid_kernel_b`` (dg_rhs.py:981), and with no trajectory
   ``_fwd_grid_kernel_b`` (:1017) and ``_forward_kernel`` (:270).
+  :func:`fwd_march_ckpt` is K1 storing only every ``segment``-th entry
+  state, the checkpoints: ``_fwd_ckpt_grid_kernel_b`` (:880) and, at B = 1,
+  ``_fwd_ckpt_grid_kernel`` (:510).
 - **K2** :func:`adj_est_stored` — for n = n_steps−1 … 0: two dt/2 steps from
   u_n, η += Σ_nodes λ·(u_{n+1} − half2), then two dt/2 transpose steps.
   Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108).
+- **K2r** :func:`adj_est_recompute` — per segment in reverse, recompute the
+  segment's states from its checkpoint into a (segment + 1)-state scratch
+  with K1's stage kernel, then K2's sweep over it. Replaces
+  ``_adj_est_grid_kernel_b`` (:908) and, at B = 1, ``_adj_est_grid_kernel``
+  (:538) and ``_adj_estimate_kernel`` (:384). The pipeline takes 30
+  launches a step (K1's 5, K2r's 25) against the stored pipeline's 25, for
+  n_steps/segment + segment + 1 states of memory against n_steps.
+- **KA** :func:`adj_march` — the pure transpose march λ0 = (Lᵀ)ⁿ λN with the
+  full-dt tables, no residual, no estimate. Replaces ``_adjoint_kernel``
+  (:335).
 
 Each wrapper takes (Np, B, K) states. A CUDA float32 tensor launches the
 kernel or raises; a CPU tensor takes the kernel's plain PyTorch version
-(:func:`fwd_march_plain`, :func:`adj_est_stored_plain`), which accepts
+(:func:`fwd_march_plain`, :func:`adj_est_stored_plain`,
+:func:`adj_est_recompute_plain`, :func:`adj_march_plain`), which accepts
 float32 and float64. Nothing falls back from the kernel to the plain
 version. Each wrapper counts its kernel launches in ``.launches``.
 
+Every step's time is t0 + n·dt with n the global step, in the kernels and in
+the plain versions alike, so the recompute pipeline reproduces the stored
+one bit for bit: the recomputed states are K1's trajectory and K2r's sweep
+is K2's.
+
 Geometry is always per element (rx, fscale_left, fscale_right), so graded
-meshes need no special path. The step size is folded into the coefficient
-tables on the host (see :class:`StepTables`), separately for dt and dt/2.
+meshes need no special path; the unbatched entry points keep the JAX
+package's uniform-mesh contract (``_check_uniform``). The step size is
+folded into the coefficient tables on the host (see :class:`StepTables`),
+separately for dt and dt/2.
 """
 from __future__ import annotations
 
@@ -30,7 +53,7 @@ import numpy as np
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B, RK4C
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, pick_chunk, require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
 
 __all__ = [
@@ -39,12 +62,20 @@ __all__ = [
     "kernel_ops",
     "fwd_march",
     "fwd_march_plain",
+    "fwd_march_ckpt",
     "adj_est_stored",
     "adj_est_stored_plain",
+    "adj_est_recompute",
+    "adj_est_recompute_plain",
+    "adj_march",
+    "adj_march_plain",
     "reset_launch_counts",
     "make_cuda_fwd_adj_estimate_grid_batched",
     "make_cuda_fwd_adj_estimate_single",
     "make_cuda_advec_march",
+    "make_cuda_advec_adjoint",
+    "make_cuda_fwd_adj_estimate",
+    "make_cuda_fwd_adj_estimate_grid",
 ]
 
 MIN_NP, MAX_NP = 2, 8
@@ -98,6 +129,7 @@ def kernel_ops(disc: Discretization1D, a: float, dt: float, device) -> KernelOps
     flux, alpha = 1, inflow BC −sin(a·t), as the TPU kernels)."""
     if not MIN_NP <= disc.np_ <= MAX_NP:
         raise ValueError(f"Np={disc.np_}: the kernels take {MIN_NP} <= Np <= {MAX_NP}")
+    device = require_device(device)
     geom = [
         torch.as_tensor(np.ascontiguousarray(g), dtype=torch.float64, device=device)
         for g in (disc.rx[0, :], disc.fscale[0, :], disc.fscale[1, :])
@@ -170,36 +202,71 @@ def _step_t_plain(lu, tab: StepTables, ops: KernelOps):
     return lu
 
 
-def fwd_march_plain(u0, t0: float, n_steps: int, ops: KernelOps,
-                    store_trajectory: bool = False):
-    """K1's plain version: ``(traj or None, u_final)``."""
-    traj = (
-        torch.empty((n_steps, *u0.shape), dtype=u0.dtype, device=u0.device)
-        if store_trajectory
+def _fwd_steps_plain(u0, t0: float, n_first: int, n_count: int, ops: KernelOps,
+                     store_every: int | None):
+    """Steps n_first … n_first + n_count − 1 from ``u0``: ``(store, u)``, store
+    holding the entry state of every store_every-th step (None: nothing)."""
+    store = (
+        torch.empty((n_count // store_every, *u0.shape), dtype=u0.dtype, device=u0.device)
+        if store_every
         else None
     )
     u = u0
-    for n in range(n_steps):
-        if traj is not None:
-            traj[n] = u
-        u = _step_plain(u, t0 + n * ops.dt, ops.full, ops)
-    return traj, u
+    for n in range(n_count):
+        if store is not None and n % store_every == 0:
+            store[n // store_every] = u
+        u = _step_plain(u, t0 + (n_first + n) * ops.dt, ops.full, ops)
+    return store, u
 
 
-def adj_est_stored_plain(traj, u_final, lam_end, t0: float, ops: KernelOps):
-    """K2's plain version: ``(lam0, eta)`` with eta (B, K)."""
-    n_steps = traj.shape[0]
+def _rev_steps_plain(traj, u_end, lu, eta, t0: float, n_first: int, ops: KernelOps):
+    """K2's sweep over the steps of ``traj`` (global indices from n_first;
+    u_end the state after the last): ``(lu, eta)``."""
+    n_count = traj.shape[0]
     h = ops.dt / 2.0
-    lu = lam_end
-    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
-    for n in reversed(range(n_steps)):
-        t_n = t0 + n * ops.dt
-        u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
+    for n in reversed(range(n_count)):
+        t_n = t0 + (n_first + n) * ops.dt
+        u_np1 = u_end if n == n_count - 1 else traj[n + 1]
         half = _step_plain(traj[n], t_n, ops.half, ops)
         half2 = _step_plain(half, t_n + h, ops.half, ops)
         eta = eta + torch.sum(lu * (u_np1 - half2), dim=0)
         lu = _step_t_plain(_step_t_plain(lu, ops.half, ops), ops.half, ops)
     return lu, eta
+
+
+def fwd_march_plain(u0, t0: float, n_steps: int, ops: KernelOps,
+                    store_trajectory: bool = False, checkpoint_every: int | None = None):
+    """K1's plain version: ``(traj or None, u_final)``; with
+    ``checkpoint_every`` the first slot holds the checkpoints, the entry
+    state of every checkpoint_every-th step (K1's checkpoint mode)."""
+    every = checkpoint_every or (1 if store_trajectory else None)
+    return _fwd_steps_plain(u0, t0, 0, n_steps, ops, every)
+
+
+def adj_est_stored_plain(traj, u_final, lam_end, t0: float, ops: KernelOps):
+    """K2's plain version: ``(lam0, eta)`` with eta (B, K)."""
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    return _rev_steps_plain(traj, u_final, lam_end, eta, t0, 0, ops)
+
+
+def adj_est_recompute_plain(ckpts, lam_end, t0: float, segment: int, ops: KernelOps):
+    """K2r's plain version: ``(lam0, eta)`` from the checkpoints (n_seg, Np,
+    B, K); each segment recomputed, then swept, as K2 sweeps the stored
+    trajectory."""
+    lu = lam_end
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    for si in reversed(range(ckpts.shape[0])):
+        traj, u_end = _fwd_steps_plain(ckpts[si], t0, si * segment, segment, ops, 1)
+        lu, eta = _rev_steps_plain(traj, u_end, lu, eta, t0, si * segment, ops)
+    return lu, eta
+
+
+def adj_march_plain(lam_end, n_steps: int, ops: KernelOps):
+    """KA's plain version: λ0 = (Lᵀ)^n_steps λ_end with the full-dt tables."""
+    lu = lam_end
+    for _ in range(n_steps):
+        lu = _step_t_plain(lu, ops.full, ops)
+    return lu
 
 
 # ------------------------------------------------------------------ wrappers
@@ -257,18 +324,47 @@ def fwd_march(u0: torch.Tensor, t0: float, n_steps: int, ops: KernelOps,
                 f"of {total / 2**30:.2f} GiB free on {u0.device}"
             )
         traj = torch.empty((n_steps, *u0.shape), dtype=torch.float32, device=u0.device)
+    u_final = _k1_launch(lib, u0, t0, n_steps, traj, 1, ops)
+    fwd_march.launches += 1
+    return traj, u_final
+
+
+def _k1_launch(lib, u0, t0, n_steps: int, store, store_every: int, ops: KernelOps):
+    """One dg_fwd_march call; returns u_final."""
+    b, size = u0.shape[1], u0.numel()
     u_final = torch.empty_like(u0)
     work = torch.empty((4, size), dtype=torch.float32, device=u0.device)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_fwd_march(
-        ops.np_, b, ops.k, n_steps, float(t0), ops.dt, ops.a,
+        ops.np_, b, ops.k, n_steps, store_every, float(t0), ops.dt, ops.a,
         _RK.ctypes.data, ops.full.packed.ctypes.data,
-        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(traj), _ptr(u_final),
+        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(store), _ptr(u_final),
         _ptr(work[0]), _ptr(work[2]), _stream(u0.device),
     )
-    fwd_march.launches += 1
     lib.check(code, "dg_fwd_march")
-    return traj, u_final
+    return u_final
+
+
+def _check_segment(n_steps: int, segment: int) -> None:
+    if segment < 1 or n_steps % segment:
+        raise ValueError(f"n_steps={n_steps} not a multiple of segment={segment}")
+
+
+def fwd_march_ckpt(u0: torch.Tensor, t0: float, n_steps: int, segment: int,
+                   ops: KernelOps):
+    """K1 in checkpoint mode: march n_steps steps storing the entry state of
+    every ``segment``-th step. Returns ``(ckpts, u_final)``, ckpts
+    (n_steps/segment, Np, B, K)."""
+    _check_segment(n_steps, segment)
+    if u0.dim() != 3:
+        raise ValueError(f"u0 must be (Np, B, K), got {tuple(u0.shape)}")
+    if not _check("u0", u0, (ops.np_, u0.shape[1], ops.k), ops):
+        return fwd_march_plain(u0, float(t0), n_steps, ops, checkpoint_every=segment)
+    lib = load_library()
+    ckpts = torch.empty((n_steps // segment, *u0.shape), dtype=torch.float32, device=u0.device)
+    u_final = _k1_launch(lib, u0, t0, n_steps, ckpts, segment, ops)
+    fwd_march_ckpt.launches += 1
+    return ckpts, u_final
 
 
 def adj_est_stored(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
@@ -303,52 +399,144 @@ def adj_est_stored(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Ten
     return lam0, eta
 
 
-fwd_march.launches = 0
-adj_est_stored.launches = 0
+def adj_est_recompute(ckpts: torch.Tensor, lam_end: torch.Tensor, t0: float,
+                      segment: int, ops: KernelOps):
+    """K2r: the reverse sweep from K1's checkpoints, each segment recomputed
+    into a (segment + 1)-state scratch first. Returns ``(lam0, eta)``, eta
+    (B, K)."""
+    if ckpts.dim() != 4:
+        raise ValueError(f"ckpts must be (n_segments, Np, B, K), got {tuple(ckpts.shape)}")
+    n_seg, _, b, _ = ckpts.shape
+    state = (ops.np_, b, ops.k)
+    on_cuda = _check("ckpts", ckpts, (n_seg, *state), ops)
+    _check("lam_end", lam_end, state, ops)
+    if segment < 1:
+        raise ValueError(f"segment={segment} must be >= 1")
+    if not on_cuda:
+        return adj_est_recompute_plain(ckpts, lam_end, float(t0), segment, ops)
+    lib = load_library()
+    size = lam_end.numel()
+    lam0 = torch.empty_like(lam_end)
+    eta = torch.zeros((b, ops.k), dtype=torch.float32, device=ckpts.device)
+    scratch = torch.empty((segment + 1, size), dtype=torch.float32, device=ckpts.device)
+    work = torch.empty((8, size), dtype=torch.float32, device=ckpts.device)
+    rx, fsl, fsr = ops.geom32
+    code = lib.lib.dg_adj_est_recompute(
+        ops.np_, b, ops.k, n_seg * segment, segment, float(t0), ops.dt, ops.a,
+        _RK.ctypes.data, ops.full.packed.ctypes.data, ops.half.packed.ctypes.data,
+        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(ckpts), _ptr(lam_end), _ptr(lam0),
+        _ptr(eta), _ptr(scratch), _ptr(work[0]), _ptr(work[2]), _ptr(work[4]),
+        _ptr(work[6]), _stream(ckpts.device),
+    )
+    adj_est_recompute.launches += 1
+    lib.check(code, "dg_adj_est_recompute")
+    return lam0, eta
+
+
+def adj_march(lam_end: torch.Tensor, n_steps: int, ops: KernelOps):
+    """KA: λ0 = (Lᵀ)^n_steps λ_end on (Np, B, K), the coarse (step-dt)
+    transpose with no residual."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps={n_steps} must be >= 1")
+    if lam_end.dim() != 3:
+        raise ValueError(f"lam_end must be (Np, B, K), got {tuple(lam_end.shape)}")
+    b = lam_end.shape[1]
+    if not _check("lam_end", lam_end, (ops.np_, b, ops.k), ops):
+        return adj_march_plain(lam_end, n_steps, ops)
+    lib = load_library()
+    lam0 = torch.empty_like(lam_end)
+    work = torch.empty((4, lam_end.numel()), dtype=torch.float32, device=lam_end.device)
+    rx, fsl, fsr = ops.geom32
+    code = lib.lib.dg_adj_march(
+        ops.np_, b, ops.k, n_steps, _RK.ctypes.data, ops.full.packed.ctypes.data,
+        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(lam_end), _ptr(lam0), _ptr(work[0]),
+        _ptr(work[2]), _stream(lam_end.device),
+    )
+    adj_march.launches += 1
+    lib.check(code, "dg_adj_march")
+    return lam0
+
+
+_WRAPPERS = (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute, adj_march)
 
 
 def reset_launch_counts() -> None:
-    fwd_march.launches = 0
-    adj_est_stored.launches = 0
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+reset_launch_counts()
 
 
 # -------------------------------------------------------------- entry points
 
 
+def _check_uniform(disc: Discretization1D) -> None:
+    """The unbatched entry points keep the JAX package's uniform-mesh
+    contract (its dg_rhs.py ``_check_uniform``, the same 1e-7 relative
+    test of every rx and fscale against element 0's)."""
+    rx0 = float(disc.rx[0, 0])
+    uniform = np.allclose(disc.rx, rx0, rtol=1e-7, atol=0.0) and np.allclose(
+        disc.fscale, rx0, rtol=1e-7, atol=0.0
+    )
+    if not uniform:
+        raise ValueError("the unbatched DG entry points require a uniform mesh")
+
+
 def make_cuda_fwd_adj_estimate_grid_batched(
     disc: Discretization1D, a: float, dt: float, n_steps: int, batch: int = 8,
-    device="cuda",
+    device="cuda", *, store_trajectory: bool = False, segment: int | None = None,
 ):
-    """Batched stored-trajectory pipeline: ``run(u0, t0, lam_end) ->
-    (u_final, lam0, eta)`` with ``u0/lam_end``: (Np, B, K), ``eta``: (B, K) —
-    ``batch`` independent copies of the unbatched pipeline. The trajectory
-    (n_steps·Np·B·K·4 bytes) lives in device memory."""
+    """Batched pipeline: ``run(u0, t0, lam_end) -> (u_final, lam0, eta)`` with
+    ``u0/lam_end``: (Np, B, K), ``eta``: (B, K) — ``batch`` independent
+    copies of the unbatched pipeline.
+
+    ``store_trajectory=False`` (the JAX factory's default) keeps one
+    checkpoint per ``segment`` steps (default ``pick_chunk(n_steps)``) and
+    recomputes each segment in reverse (K1 checkpoints + K2r):
+    (n_steps/segment + segment + 1)·Np·B·K·4 bytes. ``True`` stores every
+    coarse state (K1 + K2): n_steps·Np·B·K·4 bytes of device memory, one
+    LSRK step-equivalent less per step. The two give the same bits."""
     ops = kernel_ops(disc, a, dt, device)
     state = (disc.np_, batch, disc.k)
+    segment = pick_chunk(n_steps) if segment is None else segment
+    _check_segment(n_steps, segment)
 
     def run(u0, t0, lam_end):
         if tuple(u0.shape) != state or tuple(lam_end.shape) != state:
             raise ValueError(f"u0/lam_end must be {state}")
-        traj, u_final = fwd_march(u0, t0, n_steps, ops, store_trajectory=True)
-        lam0, eta = adj_est_stored(traj, u_final, lam_end, t0, ops)
+        if store_trajectory:
+            traj, u_final = fwd_march(u0, t0, n_steps, ops, store_trajectory=True)
+            lam0, eta = adj_est_stored(traj, u_final, lam_end, t0, ops)
+        else:
+            ckpts, u_final = fwd_march_ckpt(u0, t0, n_steps, segment, ops)
+            lam0, eta = adj_est_recompute(ckpts, lam_end, t0, segment, ops)
         return u_final, lam0, eta
 
     return run
 
 
-def make_cuda_fwd_adj_estimate_single(
-    disc: Discretization1D, a: float, dt: float, n_steps: int, device="cuda"
-):
-    """Single-state pipeline, ``run(u0, t0, lam_end) -> (u_final, lam0, eta)``
-    with ``u0/lam_end``: (Np, K) and ``eta``: (K,) — the batched pipeline
-    at B = 1 (the TPU's blocked-sublane layout has no counterpart here)."""
-    inner = make_cuda_fwd_adj_estimate_grid_batched(disc, a, dt, n_steps, 1, device)
+def _single(inner):
+    """(Np, K) states through a B = 1 batched ``inner``."""
 
     def run(u0, t0, lam_end):
         uf, lam0, eta = inner(u0[:, None, :], t0, lam_end[:, None, :])
         return uf[:, 0, :], lam0[:, 0, :], eta[0]
 
     return run
+
+
+def make_cuda_fwd_adj_estimate_single(
+    disc: Discretization1D, a: float, dt: float, n_steps: int, device="cuda", *,
+    store_trajectory: bool = True, segment: int | None = None,
+):
+    """Single-state pipeline, ``run(u0, t0, lam_end) -> (u_final, lam0, eta)``
+    with ``u0/lam_end``: (Np, K) and ``eta``: (K,) — the batched pipeline
+    at B = 1 (the TPU's blocked-sublane layout has no counterpart here),
+    storing the trajectory unless ``store_trajectory=False``."""
+    return _single(make_cuda_fwd_adj_estimate_grid_batched(
+        disc, a, dt, n_steps, 1, device, store_trajectory=store_trajectory,
+        segment=segment))
 
 
 def make_cuda_advec_march(
@@ -363,3 +551,53 @@ def make_cuda_advec_march(
         return u[:, 0, :]
 
     return march
+
+
+def make_cuda_advec_adjoint(
+    disc: Discretization1D, a: float, dt: float, steps_per_call: int = 256, device="cuda"
+):
+    """``adjoint(lam_end, n_calls) -> lam0`` on (Np, K): the exact transpose
+    of ``n_calls · steps_per_call`` homogeneous forward steps (KA at B = 1,
+    one kernel call for all of them). Uniform meshes, as
+    ``make_pallas_advec_adjoint``."""
+    _check_uniform(disc)
+    ops = kernel_ops(disc, a, dt, device)
+
+    def adjoint(lam_end, n_calls: int):
+        lam = adj_march(lam_end[:, None, :].contiguous(), n_calls * steps_per_call, ops)
+        return lam[:, 0, :]
+
+    return adjoint
+
+
+def make_cuda_fwd_adj_estimate(
+    disc: Discretization1D, a: float, dt: float, segment: int = 32, device="cuda"
+):
+    """``run(u0, t0, n_segments, lam_end) -> (u_final, lam0, eta)`` on (Np, K),
+    eta (K,): the recompute pipeline at B = 1 over n_segments·segment steps,
+    one checkpoint per segment (``make_pallas_fwd_adj_estimate``). Uniform
+    meshes."""
+    _check_uniform(disc)
+    ops = kernel_ops(disc, a, dt, device)
+
+    def run(u0, t0, n_segments: int, lam_end):
+        n_steps = n_segments * segment
+        ckpts, uf = fwd_march_ckpt(u0[:, None, :].contiguous(), t0, n_steps, segment, ops)
+        lam0, eta = adj_est_recompute(ckpts, lam_end[:, None, :].contiguous(), t0,
+                                      segment, ops)
+        return uf[:, 0, :], lam0[:, 0, :], eta[0]
+
+    return run
+
+
+def make_cuda_fwd_adj_estimate_grid(
+    disc: Discretization1D, a: float, dt: float, segment: int = 32, n_segments: int = 64,
+    device="cuda",
+):
+    """``run(u0, t0, lam_end) -> (u_final, lam0, eta)`` for exactly
+    n_segments·segment steps (``make_pallas_fwd_adj_estimate_grid``): the
+    recompute pipeline at B = 1. Uniform meshes."""
+    _check_uniform(disc)
+    return _single(make_cuda_fwd_adj_estimate_grid_batched(
+        disc, a, dt, n_segments * segment, 1, device, store_trajectory=False,
+        segment=segment))

@@ -1,0 +1,325 @@
+"""The element-tiled DG-advection pipeline on hand-written CUDA: ``seg``
+LSRK steps per launch, each CTA owning a tile of elements with a ghost ring.
+
+Counterpart of the JAX package's ``ops/pallas/dg_tiled.py``
+(``make_pallas_fwd_adj_estimate_tiled`` and ``_tiled_grid``) with the
+per-segment kernels of ``ops/pallas/dg_sharded.py``. Two kernels
+(csrc/dg_tiled.cu):
+
+- **KT1** :func:`tiled_fwd_seg` — per segment, one launch: every CTA loads
+  its tile's window [lo − W, hi + W) into shared memory and advances
+  ``segment`` steps there, writing the exact local entry states into a
+  global (n_steps, Np, K) trajectory (K2's layout, K1's values) and its
+  local exit state. Replaces ``_fwd_seg_kernel`` (dg_sharded.py:83) and
+  ``_fwd_seg_grid_kernel`` (dg_tiled.py:282).
+- **KT2** :func:`tiled_rev_seg` — per segment in reverse, one launch: the
+  same tile for λ; per step the dt/2·dt/2 step doubling from the stored
+  u_n, η += Σ_nodes λ·(u_{n+1} − half2) on the local elements, and two dt/2
+  transposes. Replaces ``_rev_seg_kernel`` (dg_sharded.py:107) and
+  ``_rev_seg_grid_kernel`` (dg_tiled.py:314).
+
+Ghost rule (dg_sharded.py:18-25, copied with :func:`ghost_width`): the flux
+couples ±1 element per stage, so a window's edges degrade one element a
+stage. The forward loses 5·seg elements a segment; λ loses 10 a step; the
+half steps read u_n exact ±10 elements around each local element, and here
+u_n comes from the global trajectory, exact everywhere. W ≥ 10·seg + 10
+keeps every local element exact: the outputs do not depend on the tiling,
+and each local element computes what K1 and K2 compute, with the same
+arithmetic (csrc/dg_stage.cuh), so the two pipelines agree bit for bit.
+
+Tiles. A JAX chunk (K/chunks elements; K/(8·chunks) lanes of the grid
+variant) can pass what one CTA's shared memory holds: KT2 keeps
+(4·Np + 3)·(L + 2W) floats. :func:`tile_plan` splits each chunk into equal
+CTA tiles whose window fits ``SMEM_BUDGET`` (two CTAs an SM); the ghost
+recompute costs 2W/L. The grid variant's chunk-major layout and
+sublane-rolled ghosts (dg_tiled.py:224-258, :534-557) exist for the TPU's
+(8, M) blocked layout and have no Hopper counterpart: both factories run
+KT1/KT2 on the (Np, K) state, and differ only in the validation they keep
+from their JAX factories.
+
+A CUDA float32 tensor launches the kernel or raises; a CPU tensor takes the
+plain version (:func:`tiled_fwd_seg_plain`, :func:`tiled_rev_seg_plain`,
+:func:`tiled_plain`): the same tiles and windows with explicit ghost rings,
+so the halo logic is tested on the CPU, in float32 or float64.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
+    _RK,
+    KernelOps,
+    _check,
+    _check_uniform,
+    _ptr,
+    _step_plain,
+    _step_t_plain,
+    _stream,
+    kernel_ops,
+)
+from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
+
+__all__ = [
+    "SMEM_BUDGET",
+    "MAX_SEGMENT",
+    "ghost_width",
+    "TilePlan",
+    "tile_plan",
+    "tiled_fwd_seg",
+    "tiled_fwd_seg_plain",
+    "tiled_rev_seg",
+    "tiled_rev_seg_plain",
+    "tiled_plain",
+    "reset_launch_counts",
+    "make_cuda_fwd_adj_estimate_tiled",
+    "make_cuda_fwd_adj_estimate_tiled_grid",
+]
+
+SMEM_BUDGET = 96 * 1024  # bytes of shared memory one CTA's window may take
+MAX_SEGMENT = 64  # csrc/dg_tiled.cu's kMaxSeg: the inflow table rides the launch
+
+
+def ghost_width(segment: int, l_local: int) -> int:
+    """Required ghost width for ``segment`` steps between exchanges, rounded
+    up so the extended local block (L + 2W) tiles 8 sublanes (the JAX
+    package's dg_sharded.py ``ghost_width``, whose rounding the TPU layout
+    needs; any W ≥ 10·seg + 10 is exact here)."""
+    w = 10 * segment + 10
+    while (l_local + 2 * w) % 8:
+        w += 1
+    return w
+
+
+class TilePlan(NamedTuple):
+    segment: int
+    ghost: int  # W, elements on each side of a tile
+    tile: int  # L, local elements per CTA (the last tile may be shorter)
+    n_tiles: int
+
+
+def tile_plan(k: int, np_: int, segment: int, ghost: int, chunk: int,
+              tile: int | None = None) -> TilePlan:
+    """The CTA tiling of K elements: each ``chunk`` split into the fewest
+    equal tiles whose KT2 window, (4·Np + 3)·(L + 2W) floats, fits
+    :data:`SMEM_BUDGET` (``tile`` forces L)."""
+    if not 1 <= segment <= MAX_SEGMENT:
+        raise ValueError(f"segment={segment}: the tiled kernels take 1..{MAX_SEGMENT}")
+    if tile is None:
+        l_max = SMEM_BUDGET // ((4 * np_ + 3) * 4) - 2 * ghost
+        if l_max < 1:
+            raise ValueError(
+                f"ghost width {ghost} at Np={np_}: a window passes the "
+                f"{SMEM_BUDGET}-byte shared-memory budget — use a smaller segment"
+            )
+        per_chunk = -(-chunk // l_max)
+        tile = -(-chunk // per_chunk)
+    if tile < 1:
+        raise ValueError(f"tile={tile} must be >= 1")
+    return TilePlan(segment, ghost, tile, -(-k // tile))
+
+
+def _window(plan: TilePlan, ops: KernelOps, t: int):
+    """Tile t's local range [lo, hi), window [w0, w1), and the window's
+    geometry as a mesh of its own (first element inflow, last outflow: the
+    domain's ends, or a ghost edge that never reaches [lo, hi))."""
+    lo = t * plan.tile
+    hi = min(lo + plan.tile, ops.k)
+    w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
+    wops = ops._replace(k=w1 - w0, rx=ops.rx[w0:w1], fsl=ops.fsl[w0:w1], fsr=ops.fsr[w0:w1])
+    return lo, hi, w0, w1, wops
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def tiled_fwd_seg_plain(u0, t0: float, n_segments: int, plan: TilePlan, ops: KernelOps):
+    """KT1's plain version: ``(traj, u_final)`` with traj (n_steps, Np, K)."""
+    seg = plan.segment
+    traj = torch.empty((n_segments * seg, *u0.shape), dtype=u0.dtype, device=u0.device)
+    u = u0
+    for si in range(n_segments):
+        u_next = torch.empty_like(u)
+        for t in range(plan.n_tiles):
+            lo, hi, w0, w1, wops = _window(plan, ops, t)
+            uw = u[:, None, w0:w1]
+            for n in range(seg):
+                traj[si * seg + n, :, lo:hi] = uw[:, 0, lo - w0:hi - w0]
+                uw = _step_plain(uw, t0 + (si * seg + n) * ops.dt, ops.full, wops)
+            u_next[:, lo:hi] = uw[:, 0, lo - w0:hi - w0]
+        u = u_next
+    return traj, u
+
+
+def tiled_rev_seg_plain(traj, u_final, lam_end, t0: float, plan: TilePlan, ops: KernelOps):
+    """KT2's plain version: ``(lam0, eta)`` with eta (K,)."""
+    seg, n_steps = plan.segment, traj.shape[0]
+    h = ops.dt / 2.0
+    lam = lam_end
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    for si in reversed(range(n_steps // seg)):
+        lam_next = torch.empty_like(lam)
+        for t in range(plan.n_tiles):
+            lo, hi, w0, w1, wops = _window(plan, ops, t)
+            loc = slice(lo - w0, hi - w0)
+            lw = lam[:, None, w0:w1]
+            e_loc = eta[lo:hi]
+            for n in reversed(range(si * seg, (si + 1) * seg)):
+                t_n = t0 + n * ops.dt
+                u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
+                half = _step_plain(traj[n][:, None, w0:w1], t_n, ops.half, wops)
+                half2 = _step_plain(half, t_n + h, ops.half, wops)
+                e_loc = e_loc + torch.sum(lw[:, 0, loc] * (u_np1[:, lo:hi] - half2[:, 0, loc]), dim=0)
+                lw = _step_t_plain(_step_t_plain(lw, ops.half, wops), ops.half, wops)
+            lam_next[:, lo:hi] = lw[:, 0, loc]
+            eta[lo:hi] = e_loc
+        lam = lam_next
+    return lam, eta
+
+
+def tiled_plain(u0, t0: float, lam_end, n_segments: int, plan: TilePlan, ops: KernelOps):
+    """The whole tiled pipeline in plain PyTorch: ``(u_final, lam0, eta)``."""
+    traj, u_final = tiled_fwd_seg_plain(u0, t0, n_segments, plan, ops)
+    lam0, eta = tiled_rev_seg_plain(traj, u_final, lam_end, t0, plan, ops)
+    return u_final, lam0, eta
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
+                  ops: KernelOps):
+    """KT1 over n_segments segments (one launch each) from the (Np, K) state
+    ``u0``. Returns ``(traj, u_final)``, traj (n_segments·segment, Np, K)."""
+    if n_segments < 1:
+        raise ValueError(f"n_segments={n_segments} must be >= 1")
+    if not _check("u0", u0, (ops.np_, ops.k), ops):
+        return tiled_fwd_seg_plain(u0, float(t0), n_segments, plan, ops)
+    lib = load_library()
+    size = u0.numel()
+    traj = torch.empty((n_segments * plan.segment, *u0.shape), dtype=torch.float32,
+                       device=u0.device)
+    u_final = torch.empty_like(u0)
+    ubuf = torch.empty((2, size), dtype=torch.float32, device=u0.device)
+    rx, fsl, fsr = ops.geom32
+    code = lib.lib.dg_tiled_fwd(
+        ops.np_, ops.k, n_segments, plan.segment, plan.tile, plan.ghost, float(t0),
+        ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data, _ptr(rx),
+        _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(traj), _ptr(u_final), _ptr(ubuf),
+        _stream(u0.device),
+    )
+    tiled_fwd_seg.launches += 1
+    lib.check(code, "dg_tiled_fwd", lib.lib.dg_tiled_error_string)
+    return traj, u_final
+
+
+def tiled_rev_seg(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
+                  t0: float, plan: TilePlan, ops: KernelOps):
+    """KT2 over the segments of ``traj`` in reverse (one launch each).
+    Returns ``(lam0, eta)``, eta (K,)."""
+    state = (ops.np_, ops.k)
+    if traj.dim() != 3 or traj.shape[0] % plan.segment or traj.shape[0] == 0:
+        raise ValueError(f"traj must be (n_segments·{plan.segment}, Np, K), got "
+                         f"{tuple(traj.shape)}")
+    on_cuda = _check("traj", traj, (traj.shape[0], *state), ops)
+    _check("u_final", u_final, state, ops)
+    _check("lam_end", lam_end, state, ops)
+    if not on_cuda:
+        return tiled_rev_seg_plain(traj, u_final, lam_end, float(t0), plan, ops)
+    lib = load_library()
+    lam0 = torch.empty_like(lam_end)
+    eta = torch.zeros((ops.k,), dtype=torch.float32, device=traj.device)
+    lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
+    rx, fsl, fsr = ops.geom32
+    code = lib.lib.dg_tiled_rev(
+        ops.np_, ops.k, traj.shape[0] // plan.segment, plan.segment, plan.tile,
+        plan.ghost, float(t0), ops.dt, ops.a, _RK.ctypes.data,
+        ops.half.packed.ctypes.data, _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(traj),
+        _ptr(u_final), _ptr(lam_end), _ptr(lam0), _ptr(eta), _ptr(lbuf),
+        _stream(traj.device),
+    )
+    tiled_rev_seg.launches += 1
+    lib.check(code, "dg_tiled_rev", lib.lib.dg_tiled_error_string)
+    return lam0, eta
+
+
+def reset_launch_counts() -> None:
+    tiled_fwd_seg.launches = 0
+    tiled_rev_seg.launches = 0
+
+
+reset_launch_counts()
+
+
+# -------------------------------------------------------------- entry points
+
+
+def _pipeline(disc, a, dt, plan: TilePlan, n_segments: int, device):
+    ops = kernel_ops(disc, a, dt, device)
+
+    def run(u0, t0, lam_end):
+        traj, u_final = tiled_fwd_seg(u0, t0, n_segments, plan, ops)
+        lam0, eta = tiled_rev_seg(traj, u_final, lam_end, t0, plan, ops)
+        return u_final, lam0, eta
+
+    run.n_steps = plan.segment * n_segments
+    run.ghost = plan.ghost
+    run.plan = plan
+    return run
+
+
+def make_cuda_fwd_adj_estimate_tiled(
+    disc: Discretization1D, a: float, dt: float, *, segment: int = 8,
+    n_segments: int = 64, chunks: int = 8, device="cuda",
+):
+    """Element-tiled fwd + stored-trajectory reverse + estimate for a single
+    state: ``run(u0, t0, lam_end) -> (u_final, lam0, eta)`` on (Np, K), eta
+    (K,), with ``run.n_steps``, ``run.ghost`` (W) and ``run.plan``. The
+    validation is ``make_pallas_fwd_adj_estimate_tiled``'s: K divisible by
+    ``chunks``, an even chunk width of at least the ghost width, a uniform
+    mesh. Each chunk is split into CTA tiles by :func:`tile_plan`."""
+    k = disc.k
+    if k % chunks:
+        raise ValueError(f"K={k} not divisible by chunks={chunks}")
+    l_loc = k // chunks
+    if l_loc % 2:
+        raise ValueError(f"chunk width {l_loc} must be even (8-sublane tiling)")
+    w = ghost_width(segment, l_loc)
+    if w > l_loc:
+        raise ValueError(
+            f"ghost width {w} exceeds chunk width {l_loc} — use fewer chunks "
+            f"or a smaller segment"
+        )
+    _check_uniform(disc)
+    plan = tile_plan(k, disc.np_, segment, w, l_loc)
+    return _pipeline(disc, a, dt, plan, n_segments, device)
+
+
+def make_cuda_fwd_adj_estimate_tiled_grid(
+    disc: Discretization1D, a: float, dt: float, *, segment: int = 8,
+    n_segments: int = 64, chunks: int = 8, device="cuda",
+):
+    """The grid-streamed variant's contract
+    (``make_pallas_fwd_adj_estimate_tiled_grid``): K % 8 == 0, (K/8) %
+    chunks == 0, W = 10·segment + 10 ≤ the chunk's lane count K/(8·chunks);
+    uniform meshes. It runs the same KT1/KT2 as
+    :func:`make_cuda_fwd_adj_estimate_tiled`, each lane-chunk's K/(8·chunks)
+    elements the unit that :func:`tile_plan` splits."""
+    k = disc.k
+    if k % 8:
+        raise ValueError(f"K={k} must be divisible by 8 (blocked layout)")
+    m = k // 8
+    if m % chunks:
+        raise ValueError(f"lane count M={m} not divisible by chunks={chunks}")
+    lm = m // chunks
+    w = 10 * segment + 10
+    if w > lm:
+        raise ValueError(
+            f"ghost width {w} exceeds chunk lane width {lm} — use fewer "
+            f"chunks or a smaller segment"
+        )
+    _check_uniform(disc)
+    plan = tile_plan(k, disc.np_, segment, w, lm)
+    return _pipeline(disc, a, dt, plan, n_segments, device)

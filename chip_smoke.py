@@ -124,6 +124,28 @@ raises, and the script exits non-zero; nothing is caught.
    the stored pipeline raises MemoryError (98.3 GB), with its peak memory.
 22. CUDA-event times of B1 at 19(a) and at B=1 (median of 5), beside its
    bound and its plain version's one run.
+23. The recompute pipeline (csrc/dg_rhs.cu: K1's checkpoint mode, K2r) and
+   the pure adjoint march KA: (a) each against its plain version on a graded
+   mesh and at N=7, and K2r against K2 bit for bit; (b) the main path, the
+   advec_dg adaptive study with no free memory reported, so that the loop
+   takes the recompute pipeline, with the kernels' launch counts and the
+   stored study's history bit for bit; (c) bench.py's batched row (K=10^4,
+   N=2, B=8, 2048 steps, segment 4) recompute against stored in the same
+   call, bit-equal, both timed in turns, each kernel and its plain version
+   timed;
+   (d) make_cuda_advec_adjoint (KA) at B=1 against its plain version, with
+   its launch count, and the two unbatched estimates against the stored
+   single pipeline.
+24. The element-tiled pipeline (csrc/dg_tiled.cu: KT1, KT2): (a) against its
+   plain version (the same tiles and ghost windows) at K=640; (b) bench.py's
+   rows (K=10^5, segment 8, chunks 4, 256 steps; K=10^6, segment 16, chunks
+   25, 64 steps) through both tiled factories, bit-equal to the stored
+   pipeline, timed in turns with it, the main path's launch count from the K=10^6
+   tiled_grid run; (c) KT1 and KT2 alone at K=10^6 against K1's and K2's
+   plain versions, timed.
+25. The unbatched recompute pipeline at phase 21(c)'s row past memory
+   (K=10^5, 81,920 steps, segment 256): time, peak device memory, and u,
+   λ0 and η against revolve's from 21(c).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -154,6 +176,11 @@ SOURCES = {
     "resblock_epoch_grad": f"{PACKAGE}/csrc/train_fused.cu",
     "dense_epoch_grad": f"{PACKAGE}/csrc/train_dense_fused.cu",
     "burgers_march": f"{PACKAGE}/csrc/burgers.cu",
+    "fwd_march_ckpt": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_est_recompute": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_march": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "tiled_fwd_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
+    "tiled_rev_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -168,6 +195,18 @@ TPU_KERNELS = {
     "resblock_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_fused.py:107",
     "dense_epoch_grad": "adjoint_ode_adaptivity_tpu/ops/pallas/train_dense_fused.py:136",
     "burgers_march": "adjoint_ode_adaptivity_tpu/ops/pallas/burgers.py:57 (_kernel)",
+    "fwd_march_ckpt": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:880 (_fwd_ckpt_grid_kernel_b); "
+                      "at B = 1 adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:510 "
+                      "(_fwd_ckpt_grid_kernel)",
+    "adj_est_recompute": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:908 (_adj_est_grid_kernel_b); "
+                         "at B = 1 adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:538 "
+                         "(_adj_est_grid_kernel) and adjoint_ode_adaptivity_tpu/ops/pallas/"
+                         "dg_rhs.py:384 (_adj_estimate_kernel)",
+    "adj_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:335 (_adjoint_kernel)",
+    "tiled_fwd_seg": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_sharded.py:83 (_fwd_seg_kernel); "
+                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:282 (_fwd_seg_grid_kernel)",
+    "tiled_rev_seg": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_sharded.py:107 (_rev_seg_kernel); "
+                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:314 (_rev_seg_grid_kernel)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -227,6 +266,18 @@ def cuda_ms(fn, runs: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(fns: dict, runs: int = 5) -> dict:
+    """CUDA-event times of several versions of one computation, taken in
+    turns (A, B, …, B, A): each version's median of ``runs`` twice, once on
+    each side, so a drift of the card's clock or neighbours during the
+    window falls on every version alike. Returns name -> (first, second)."""
+    order = list(fns) + list(reversed(list(fns)))
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(cuda_ms(fns[name], runs=runs))
+    return {name: tuple(t) for name, t in times.items()}
 
 
 def mesh(n_order, k, graded):
@@ -420,7 +471,8 @@ def phase4(device, errs):
     ops = dg_rhs.kernel_ops(disc, A, dt, device)
     u0 = phased_states(disc, b, device, torch.float32)
     lam = batched_cotangent(disc, b, device, torch.float32)
-    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, b, device)
+    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, b, device,
+                                                         store_trajectory=True)
     out = {}
 
     def pipeline():
@@ -2374,7 +2426,8 @@ def phase21(device, errs):
     for x in (uf, lam0, eta):
         assert bool(torch.isfinite(x).all())
     return {"revolve_ms": ms_rev, "stored_ms": ms_stored, "beyond_ms": ms_big,
-            "advance": (ms_adv, plain_adv, adv_bound, e_adv)}
+            "advance": (ms_adv, plain_adv, adv_bound, e_adv),
+            "beyond": (out["b"], peak, u0, lam, dt)}
 
 
 def burgers_stage_ops(np_, limiter="n"):
@@ -2422,6 +2475,361 @@ def burgers_times(device, plain_ms, bench):
               f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / ms:.3%} of it; B=1 kernel "
               f"{ms1:.3f} ms (bound {b1_ms:.5f} ms)")
     return ms, (b_ms, b_by)
+
+
+# ------------------------------------------- recompute, unbatched and tiled
+
+
+# bench.py's batched row as tools/tpu_smoke.py:143-161 runs it with the
+# recompute pipeline: K = 10^4, N = 2, B = 8, 2048 steps, segment 4
+RECOMPUTE = dict(k=10_000, n_steps=2048, b=8, segment=4)
+# bench.py:1374-1378's element-tiled rows: (K, segment, chunks, steps)
+TILED_ROWS = ((100_000, 8, 4, 256), (1_000_000, 16, 25, 64))
+# phase 21's row past memory through the unbatched recompute pipeline; the
+# segment keeps checkpoints plus scratch at (320 + 257)·Np·K·4 B = 0.69 GB
+BEYOND_SEGMENT = 256
+
+
+def advec_bounds(np_, cols, n_steps, n_ckpt=0):
+    """Least times of the advection kernels over n_steps on ``cols`` = B·K
+    columns (stage_ops per column and stage; inputs read once, outputs
+    written once): K1 in checkpoint mode (u0, the geometry, n_ckpt states,
+    u_final), K2r (the checkpoints, λ_end, λ0, η, the geometry; the
+    recompute's 5 stages, K2's 20 and the η sum per step), KA (λ_end, λ0,
+    5 transposed stages a step), KT1 (K1 with the whole trajectory) and
+    KT2 (K2: the trajectory, u_final, λ_end, λ0, η)."""
+    state, geom, stage = 4 * np_ * cols, 3 * 4 * cols, stage_ops(np_)
+    return {
+        "fwd_march_ckpt": bound(2 * state + geom + n_ckpt * state, n_steps * 5 * stage * cols),
+        "adj_est_recompute": bound(n_ckpt * state + 2 * state + geom + 4 * cols,
+                                   n_steps * (25 * stage + 3 * np_) * cols),
+        "adj_march": bound(2 * state + geom, n_steps * 5 * stage * cols),
+        "tiled_fwd_seg": bound(2 * state + geom + n_steps * state, n_steps * 5 * stage * cols),
+        "tiled_rev_seg": bound(n_steps * state + 3 * state + geom + 4 * cols,
+                               n_steps * (20 * stage + 3 * np_) * cols),
+    }
+
+
+def recompute_check(label, disc, b, n_steps, segment, device, errs):
+    """K1 in checkpoint mode, K2r and KA against their plain versions on
+    the same inputs, and K2r against K2 bit for bit."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    dt = cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = phased_states(disc, b, device, torch.float32)
+    lam = batched_cotangent(disc, b, device, torch.float32)
+    ckpts, uf = dg_rhs.fwd_march_ckpt(u0, 0.0, n_steps, segment, ops)
+    lam0, eta = dg_rhs.adj_est_recompute(ckpts, lam, 0.0, segment, ops)
+    lam_a = dg_rhs.adj_march(lam, n_steps, ops)
+    traj, uf_s = dg_rhs.fwd_march(u0, 0.0, n_steps, ops, store_trajectory=True)
+    lam0_s, eta_s = dg_rhs.adj_est_stored(traj, uf_s, lam, 0.0, ops)
+    torch.cuda.synchronize()
+    ck_p, uf_p = dg_rhs.fwd_march_plain(u0, 0.0, n_steps, ops, checkpoint_every=segment)
+    lam0_p, eta_p = dg_rhs.adj_est_recompute_plain(ckpts, lam, 0.0, segment, ops)
+    lam_ap = dg_rhs.adj_march_plain(lam, n_steps, ops)
+    tol = tolerances(n_steps, disc.np_, uf_p, lam)
+    e = {"ckpt": max(float((ckpts - ck_p).abs().max()), float((uf - uf_p).abs().max())),
+         "lam0": float((lam0 - lam0_p).abs().max()), "eta": float((eta - eta_p).abs().max()),
+         "adj": float((lam_a - lam_ap).abs().max())}
+    bits = [bool(torch.equal(x, y)) for x, y in
+            ((ckpts, traj[::segment]), (uf, uf_s), (lam0, lam0_s), (eta, eta_s))]
+    say("23", f"{label}: Np={disc.np_} K={disc.k} B={b} steps={n_steps} segment={segment} | "
+              f"K1 ckpt {e['ckpt']:.3e} (tol {tol['u']:.3e}) | K2r lam0 {e['lam0']:.3e} "
+              f"(tol {tol['lam']:.3e}) eta {e['eta']:.3e} (tol {tol['eta']:.3e}) | KA "
+              f"{e['adj']:.3e} (tol {tol['lam']:.3e}) | bit-equal to K1/K2 (ckpts, u, lam0, eta): "
+              f"{bits}")
+    assert e["ckpt"] <= tol["u"], f"{label}: K1's checkpoint mode disagrees"
+    assert e["lam0"] <= tol["lam"] and e["eta"] <= tol["eta"], f"{label}: K2r disagrees"
+    assert e["adj"] <= tol["lam"], f"{label}: KA disagrees"
+    assert all(bits), f"{label}: the recompute pipeline is not the stored one"
+    errs["fwd_march_ckpt"] = max(errs["fwd_march_ckpt"], e["ckpt"])
+    errs["adj_est_recompute"] = max(errs["adj_est_recompute"], e["lam0"], e["eta"])
+    errs["adj_march"] = max(errs["adj_march"], e["adj"])
+
+
+def phase23(device, errs):
+    """The recompute pipeline and the unbatched entry points on the card."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adapt import advec_loop
+    from adjoint_ode_adaptivity_tpu_torch.drivers import advec_dg
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    recompute_check("(a) graded", mesh(2, 24, graded=True), 8, 64, 4, device, errs)
+    recompute_check("(a) N=7", mesh(7, 24, graded=False), 8, 64, 16, device, errs)
+
+    # (b) the main path: the adaptive study through its driver with the
+    # card's free memory reported as 0, so the loop takes the recompute
+    # pipeline; its history must be the stored study's, bit for bit
+    argv = ["--adapt", "--kernel", "cuda", "--k", "512", "--order", "2",
+            "--final-time", "0.25", "--maxit", "4"]
+    hist_s = advec_dg.main(argv)
+    free = advec_loop._free_device_bytes
+    advec_loop._free_device_bytes = lambda device: 0
+    try:
+        dg_rhs.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist_r = advec_dg.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: getattr(dg_rhs, name).launches for name in
+                    ("fwd_march", "adj_est_stored", "fwd_march_ckpt", "adj_est_recompute")}
+    finally:
+        advec_loop._free_device_bytes = free
+    same = all(np.array_equal(a.vx, b.vx) and np.array_equal(a.eta, b.eta)
+               and a.j_value == b.j_value for a, b in zip(hist_s, hist_r))
+    say("23", f"(b) main path advec_dg {' '.join(argv)} with no free memory reported: "
+              f"{len(hist_r)} iterations, wall {wall:.3f} s, wrapper launches {launches}; "
+              f"history (vertices, eta, J) bit-equal to the stored study's: {same}")
+    assert launches == {"fwd_march": 0, "adj_est_stored": 0, "fwd_march_ckpt": len(hist_r),
+                        "adj_est_recompute": len(hist_r)}, launches
+    assert same and len(hist_r) == len(hist_s)
+
+    # (c) bench.py's batched row: the recompute pipeline against the stored
+    # one in the same call (the same stage kernels at the same times: u, λ0
+    # and η bit-equal), both timed; each kernel alone and its plain version
+    c = RECOMPUTE
+    disc = mesh(2, c["k"], graded=False)
+    dt = cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = phased_states(disc, c["b"], device, torch.float32)
+    lam = batched_cotangent(disc, c["b"], device, torch.float32)
+    rec = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, c["n_steps"], c["b"], device,
+                                                         segment=c["segment"])
+    sto = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, c["n_steps"], c["b"], device,
+                                                         store_trajectory=True)
+    out = {}
+    turns = in_turns({"stored": lambda: out.update(s=sto(u0, 0.0, lam)),
+                      "recompute": lambda: out.update(r=rec(u0, 0.0, lam))})
+    ms_sto, ms_rec = (statistics.mean(turns[name]) for name in ("stored", "recompute"))
+    bits = [bool(torch.equal(x, y)) for x, y in zip(out["r"], out["s"])]
+    diffs = [float((x - y).abs().max()) for x, y in zip(out["r"], out["s"])]
+    n_seg = c["n_steps"] // c["segment"]
+    dofs = c["b"] * disc.np_ * c["k"] * 2 * c["n_steps"]
+    say("23", f"(c) bench row K={c['k']} N=2 B={c['b']} steps={c['n_steps']} segment={c['segment']}: "
+              f"recompute {ms_rec:.3f} ms ({dofs / ms_rec * 1e3:.4e} fwd+adjoint DoF-steps/s, "
+              f"{30 * c['n_steps']} CUDA launches, {(n_seg + c['segment'] + 1) * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB of states); "
+              f"stored {ms_sto:.3f} ms ({25 * c['n_steps']} launches, "
+              f"{c['n_steps'] * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB); recompute/stored "
+              f"{ms_rec / ms_sto:.3f} (in turns stored, recompute, recompute, stored, median of 5 "
+              f"each: stored {turns['stored'][0]:.3f} / {turns['stored'][1]:.3f}, recompute "
+              f"{turns['recompute'][0]:.3f} / {turns['recompute'][1]:.3f} ms); u_final, lam0, eta "
+              f"bit-equal: {bits} (max |d| {diffs})")
+    assert all(bits), "the recompute pipeline is not the stored one at the bench row"
+    ms_k1 = cuda_ms(lambda: out.update(k1=dg_rhs.fwd_march_ckpt(u0, 0.0, c["n_steps"], c["segment"], ops)),
+                    runs=5)
+    ckpts, uf = out.pop("k1")
+    ms_k2r = cuda_ms(lambda: out.update(k2=dg_rhs.adj_est_recompute(ckpts, lam, 0.0, c["segment"], ops)),
+                     runs=5)
+    plain_k1 = cuda_ms(lambda: out.update(p1=dg_rhs.fwd_march_plain(
+        u0, 0.0, c["n_steps"], ops, checkpoint_every=c["segment"])), runs=1, warmup=0)
+    plain_k2r = cuda_ms(lambda: out.update(p2=dg_rhs.adj_est_recompute_plain(
+        ckpts, lam, 0.0, c["segment"], ops)), runs=1, warmup=0)
+    tol = tolerances(c["n_steps"], disc.np_, out["p1"][1], lam)
+    e1 = max(float((ckpts - out["p1"][0]).abs().max()), float((uf - out["p1"][1]).abs().max()))
+    e2 = [float((x - y).abs().max()) for x, y in zip(out["k2"], out["p2"])]
+    say("23", f"(c) K1 checkpoint mode {ms_k1:.3f} ms, K2r {ms_k2r:.3f} ms (median of 5); plain "
+              f"{plain_k1:.1f} / {plain_k2r:.1f} ms (one run each); kernel vs plain: ckpts+u "
+              f"{e1:.3e} (tol {tol['u']:.3e}), lam0 {e2[0]:.3e} (tol {tol['lam']:.3e}), eta "
+              f"{e2[1]:.3e} (tol {tol['eta']:.3e})")
+    assert e1 <= tol["u"] and e2[0] <= tol["lam"] and e2[1] <= tol["eta"]
+    errs["fwd_march_ckpt"] = max(errs["fwd_march_ckpt"], e1)
+    errs["adj_est_recompute"] = max(errs["adj_est_recompute"], *e2)
+    out.clear()
+
+    # (d) the unbatched entry points at B = 1 on the bench mesh: the pure
+    # adjoint march (KA) against its plain version, timed, with its launch
+    # count; the two unbatched estimates against the stored single pipeline
+    u1 = u0[:, 0].contiguous()
+    lam1 = lam[:, 0].contiguous()
+    adjoint = dg_rhs.make_cuda_advec_adjoint(disc, A, dt, steps_per_call=256, device=device)
+    dg_rhs.reset_launch_counts()
+    lam_a = adjoint(lam1, c["n_steps"] // 256)
+    torch.cuda.synchronize()
+    ka_launches = dg_rhs.adj_march.launches
+    ms_ka = cuda_ms(lambda: adjoint(lam1, c["n_steps"] // 256), runs=5)
+    ka_ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    plain_ka = cuda_ms(lambda: out.update(pa=dg_rhs.adj_march_plain(lam1[:, None], c["n_steps"], ka_ops)),
+                       runs=1, warmup=0)
+    e_ka = float((lam_a - out.pop("pa")[:, 0]).abs().max())
+    tol_ka = 8 * c["n_steps"] * EPS32 * float(lam1.abs().max())
+    say("23", f"(d) make_cuda_advec_adjoint K={c['k']} B=1 steps={c['n_steps']}: KA {ms_ka:.3f} ms "
+              f"(median of 5, {5 * c['n_steps']} CUDA launches), plain {plain_ka:.1f} ms (one run); "
+              f"max|kernel - plain| {e_ka:.3e} (tol {tol_ka:.3e}); wrapper launches {ka_launches}")
+    assert ka_launches == 1 and e_ka <= tol_ka
+    errs["adj_march"] = max(errs["adj_march"], e_ka)
+    single = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, c["n_steps"], device)(u1, 0.0, lam1)
+    chunked = dg_rhs.make_cuda_fwd_adj_estimate(disc, A, dt, segment=32, device=device)(
+        u1, 0.0, c["n_steps"] // 32, lam1)
+    grid = dg_rhs.make_cuda_fwd_adj_estimate_grid(disc, A, dt, segment=32,
+                                                  n_segments=c["n_steps"] // 32, device=device)(
+        u1, 0.0, lam1)
+    same = [bool(torch.equal(x, y)) for got in (chunked, grid) for x, y in zip(got, single)]
+    say("23", f"(d) make_cuda_fwd_adj_estimate and _grid (segment 32) against the stored single "
+              f"pipeline: u_final, lam0, eta bit-equal {same}")
+    assert all(same)
+    bounds = advec_bounds(disc.np_, c["b"] * c["k"], c["n_steps"], n_seg)
+    bounds["adj_march"] = advec_bounds(disc.np_, c["k"], c["n_steps"])["adj_march"]
+    launches = {"fwd_march_ckpt": launches["fwd_march_ckpt"],
+                "adj_est_recompute": launches["adj_est_recompute"], "adj_march": ka_launches}
+    times = {"fwd_march_ckpt": (ms_k1, plain_k1), "adj_est_recompute": (ms_k2r, plain_k2r),
+             "adj_march": (ms_ka, plain_ka)}
+    return launches, times, {k: bounds[k] for k in times}
+
+
+def phase24(device, errs):
+    """The element-tiled pipeline at bench.py's rows against the stored one."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
+
+    # (a) KT1/KT2 against their plain version (the same tiles and windows)
+    # at a small shape, tiles narrower than a chunk
+    disc = startup_1d(2, 0.0, 2 * np.pi, 640)
+    dt = cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    plan = dg_tiled.tile_plan(640, disc.np_, 2, 30, 160, tile=50)
+    traj, uf = dg_tiled.tiled_fwd_seg(u0, 0.0, 4, plan, ops)
+    lam0, eta = dg_tiled.tiled_rev_seg(traj, uf, lam, 0.0, plan, ops)
+    torch.cuda.synchronize()
+    traj_p, uf_p = dg_tiled.tiled_fwd_seg_plain(u0, 0.0, 4, plan, ops)
+    lam0_p, eta_p = dg_tiled.tiled_rev_seg_plain(traj, uf, lam, 0.0, plan, ops)
+    tol = tolerances(8, disc.np_, uf_p, lam)
+    e = [float((x - y).abs().max()) for x, y in ((traj, traj_p), (uf, uf_p), (lam0, lam0_p), (eta, eta_p))]
+    say("24", f"(a) K=640 N=2 segment 2, {plan.n_tiles} tiles of {plan.tile} + 2x{plan.ghost} "
+              f"ghosts, 8 steps: KT1 traj {e[0]:.3e} u_final {e[1]:.3e} (tol {tol['u']:.3e}) | KT2 "
+              f"lam0 {e[2]:.3e} (tol {tol['lam']:.3e}) eta {e[3]:.3e} (tol {tol['eta']:.3e})")
+    assert max(e[:2]) <= tol["u"] and e[2] <= tol["lam"] and e[3] <= tol["eta"]
+    errs["tiled_fwd_seg"] = max(errs["tiled_fwd_seg"], *e[:2])
+    errs["tiled_rev_seg"] = max(errs["tiled_rev_seg"], *e[2:])
+
+    # (b) the rows, both factories against the stored K1/K2 pipeline: every
+    # local element runs K1's/K2's arithmetic at the same times, so u_final,
+    # lam0 and eta are expected bit-equal (bound 0 per entry)
+    launches, times, bounds, plans = {}, {}, {}, {}
+    for k, seg, chunks, n_steps in TILED_ROWS:
+        disc = startup_1d(2, 0.0, 2 * np.pi, k)
+        dt = cfl_step(disc)
+        ops = dg_rhs.kernel_ops(disc, A, dt, device)
+        u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+        lam = terminal_integral_cotangent(disc, torch.float32, device)
+        stored = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, n_steps, device)
+        runs = {name: make(disc, A, dt, segment=seg, n_segments=n_steps // seg, chunks=chunks,
+                           device=device)
+                for name, make in (("tiled_grid", dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid),
+                                   ("tiled", dg_tiled.make_cuda_fwd_adj_estimate_tiled))}
+        out = {}
+        if k == TILED_ROWS[-1][0]:  # the main path's count: tiled_grid at K = 10^6
+            dg_tiled.reset_launch_counts()
+            runs["tiled_grid"](u0, 0.0, lam)
+            torch.cuda.synchronize()
+            launches = {"tiled_fwd_seg": dg_tiled.tiled_fwd_seg.launches,
+                        "tiled_rev_seg": dg_tiled.tiled_rev_seg.launches}
+            assert launches == {"tiled_fwd_seg": 1, "tiled_rev_seg": 1}, launches
+        turns = in_turns({"stored": lambda: out.update(stored=stored(u0, 0.0, lam)),
+                          **{name: (lambda name=name: out.update({name: runs[name](u0, 0.0, lam)}))
+                             for name in runs}})
+        ms_sto = statistics.mean(turns["stored"])
+        for name, run in runs.items():
+            p = plans[name] = run.plan
+            ms = statistics.mean(turns[name])
+            d = [float((x - y).abs().max()) for x, y in zip(out[name], out["stored"])]
+            say("24", f"(b) {name} K={k} N=2 segment={seg} chunks={chunks} steps={n_steps}: "
+                      f"{p.n_tiles} CTA tiles of {p.tile} + 2x{p.ghost} ghosts (ghost overhead "
+                      f"2W/L = {2 * p.ghost / p.tile:.1%}); {ms:.3f} ms ({2 * n_steps // seg} CUDA "
+                      f"launches) against the stored pipeline's {ms_sto:.3f} ms ({25 * n_steps} "
+                      f"launches), tiled/stored {ms / ms_sto:.3f} (in turns stored, tiled_grid, "
+                      f"tiled, tiled, tiled_grid, stored, median of 5 each: {name} "
+                      f"{turns[name][0]:.3f} / {turns[name][1]:.3f}, stored {turns['stored'][0]:.3f} "
+                      f"/ {turns['stored'][1]:.3f} ms); max|tiled - stored| u_final {d[0]:.3e} lam0 "
+                      f"{d[1]:.3e} eta {d[2]:.3e} (bound 0: bit-equal expected)")
+            assert d == [0.0, 0.0, 0.0], f"{name} K={k}: not the stored pipeline's bits"
+        for x in out["stored"]:
+            assert bool(torch.isfinite(x).all())
+        if k == TILED_ROWS[-1][0]:
+            # each kernel alone at the main path's row (tiled_grid's tiles),
+            # and the plain version of the same function (K1's and K2's: the
+            # tiling is exact)
+            p = plans["tiled_grid"]
+            ms_kt1 = cuda_ms(lambda: out.update(k1=dg_tiled.tiled_fwd_seg(
+                u0, 0.0, n_steps // seg, p, ops)), runs=5)
+            traj, uf = out.pop("k1")
+            ms_kt2 = cuda_ms(lambda: out.update(k2=dg_tiled.tiled_rev_seg(
+                traj, uf, lam, 0.0, p, ops)), runs=5)
+            plain1 = cuda_ms(lambda: out.update(p1=dg_rhs.fwd_march_plain(
+                u0[:, None], 0.0, n_steps, ops, True)), runs=1, warmup=0)
+            traj_p, uf_p = out.pop("p1")
+            plain2 = cuda_ms(lambda: out.update(p2=dg_rhs.adj_est_stored_plain(
+                traj[:, :, None], uf[:, None], lam[:, None], 0.0, ops)), runs=1, warmup=0)
+            tol = tolerances(n_steps, disc.np_, uf_p, lam)
+            e1 = max(float((traj - traj_p[:, :, 0]).abs().max()), float((uf - uf_p[:, 0]).abs().max()))
+            lam0_p, eta_p = out.pop("p2")
+            e2 = [float((out["k2"][0] - lam0_p[:, 0]).abs().max()),
+                  float((out["k2"][1] - eta_p[0]).abs().max())]
+            say("24", f"(c) K={k} segment={seg}: KT1 {ms_kt1:.3f} ms, KT2 {ms_kt2:.3f} ms (median "
+                      f"of 5); plain (K1's and K2's plain versions) {plain1:.1f} / {plain2:.1f} ms "
+                      f"(one run each); kernel vs plain: traj+u {e1:.3e} (tol {tol['u']:.3e}), lam0 "
+                      f"{e2[0]:.3e} (tol {tol['lam']:.3e}), eta {e2[1]:.3e} (tol {tol['eta']:.3e})")
+            assert e1 <= tol["u"] and e2[0] <= tol["lam"] and e2[1] <= tol["eta"]
+            errs["tiled_fwd_seg"] = max(errs["tiled_fwd_seg"], e1)
+            errs["tiled_rev_seg"] = max(errs["tiled_rev_seg"], *e2)
+            times = {"tiled_fwd_seg": (ms_kt1, plain1), "tiled_rev_seg": (ms_kt2, plain2)}
+            b = advec_bounds(disc.np_, k, n_steps)
+            bounds = {name: b[name] for name in times}
+        del out
+        torch.cuda.empty_cache()
+    return launches, times, bounds
+
+
+def phase25(device, beyond):
+    """The unbatched recompute pipeline past the card's memory, beside
+    revolve's run of phase 21(c) on the same inputs."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    (uf_r, lam0_r, eta_r), peak_rev, u0, lam, dt = beyond
+    k, n_steps, seg = REVOLVE_BENCH["k"], REVOLVE_BEYOND, BEYOND_SEGMENT
+    disc = mesh(2, k, graded=False)
+    assert abs(cfl_step(disc) - dt) == 0.0
+    run = dg_rhs.make_cuda_fwd_adj_estimate_grid(disc, A, dt, segment=seg,
+                                                 n_segments=n_steps // seg, device=device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {}
+    ms = cuda_ms(lambda: out.update(r=run(u0, 0.0, lam)), runs=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    uf, lam0, eta = out["r"]
+    state = disc.np_ * k * 4
+    tol = tolerances(n_steps, disc.np_, uf_r, lam)
+    d = [float((x - y).abs().max()) for x, y in ((uf, uf_r), (lam0, lam0_r), (eta, eta_r))]
+    eta_bound = 1e-4 * eta_r.abs() + 1e-9  # tests/test_revolve_pipeline.py
+    eta_above = int(((eta - eta_r).abs() > eta_bound).sum())
+    dofs = disc.np_ * k * 2 * n_steps
+    say("25", f"make_cuda_fwd_adj_estimate_grid K={k} N=2 steps={n_steps} segment={seg} "
+              f"({n_steps * state / 1e9:.1f} GB if stored): {ms:.1f} ms ({dofs / ms * 1e3:.4e} "
+              f"fwd+adjoint DoF-steps/s, {30 * n_steps} CUDA launches); peak device memory above "
+              f"the inputs {peak / 1e6:.1f} MB (checkpoints + scratch "
+              f"{(n_steps // seg + seg + 1) * state / 1e6:.1f} MB) against revolve's "
+              f"{peak_rev / 1e6:.1f} MB in phase 21(c); against revolve: u_final {d[0]:.3e} (tol "
+              f"{tol['u']:.3e}) lam0 {d[1]:.3e} (tol {tol['lam']:.3e}) eta {d[2]:.3e} (max|eta| "
+              f"{float(eta_r.abs().max()):.3e}; {eta_above} entries above 1e-4·|eta| + 1e-9); "
+              f"Σeta {float(eta.sum()):+.6e} (revolve {float(eta_r.sum()):+.6e})")
+    assert d[0] <= tol["u"] and d[1] <= tol["lam"] and eta_above == 0
+    assert peak <= (n_steps // seg + seg + 1 + 16) * state
+    for x in (uf, lam0, eta):
+        assert bool(torch.isfinite(x).all())
+    return ms
 
 
 def instance_name(mangled: str) -> str:
@@ -2519,11 +2927,18 @@ def main() -> int:
 
     plain_b1, bench_b1 = phase19(device, errs)
     launches["burgers_march"], _ = phase20(device, errs)
-    phase21(device, errs)
+    rev = phase21(device, errs)
     b1_ms, b1_bound = burgers_times(device, plain_b1, bench_b1)
     times["burgers_march"] = (b1_ms, plain_b1)
+
+    rc_launches, rc_times, rc_bounds = phase23(device, errs)
+    tl_launches, tl_times, tl_bounds = phase24(device, errs)
+    phase25(device, rev["beyond"])
+    launches.update(rc_launches, **tl_launches)
+    times.update(rc_times, **tl_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
-              **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound}
+              **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
+              **rc_bounds, **tl_bounds}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

@@ -48,6 +48,11 @@ roundoff near extrema, so the two may limit different cells by amounts far
 below that). The revolve composition against the stored pipeline: u and λ
 within float32 roundoff, η within 1e-4·|η| + 1e-9
 (tests/test_revolve_pipeline.py).
+
+The recompute (K1's checkpoint mode, K2r) and tiled (KT1, KT2) pipelines run
+csrc/dg_stage.cuh's arithmetic, every rounding explicit, at the same times
+t0 + n·dt as K1 and K2: their outputs are held to the stored pipeline's bits,
+and to their plain versions by the bounds above.
 """
 import numpy as np
 import pytest
@@ -456,3 +461,93 @@ def test_revolve_estimate_on_the_card_matches_the_stored_pipeline(device):
     assert float((got[1] - want[1]).abs().max()) <= tol * float(lam.abs().max())
     assert bool(((got[2] - want[2]).abs() <= 1e-4 * want[2].abs() + 1e-9).all())
     assert rev.revolve_stats["max_slots"] <= 3
+
+
+@pytest.mark.parametrize("n_order,k,b,graded,segment", [(2, 24, 8, True, 4), (7, 24, 8, False, 16),
+                                                         (3, 50, 1, True, 8)])
+def test_recompute_kernels_reproduce_the_stored_pipeline(device, n_order, k, b, graded, segment):
+    """K1's checkpoint mode and K2r run the same stage kernels at the same
+    times as K1 and K2: checkpoints, u, λ0 and η bit-equal; K2r and KA
+    against their plain versions within the float32 bounds above."""
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k, vx=vx)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    dt, n_steps = 0.5 * (0.75 / A) * xmin, 32
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.stack([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    lam = lam[:, None, :].expand(disc.np_, b, k).contiguous()
+    traj, uf = dg_rhs.fwd_march(u0, 0.1, n_steps, ops, store_trajectory=True)
+    lam0, eta = dg_rhs.adj_est_stored(traj, uf, lam, 0.1, ops)
+    before = (dg_rhs.fwd_march_ckpt.launches, dg_rhs.adj_est_recompute.launches,
+              dg_rhs.adj_march.launches)
+    ckpts, uf_c = dg_rhs.fwd_march_ckpt(u0, 0.1, n_steps, segment, ops)
+    lam0_r, eta_r = dg_rhs.adj_est_recompute(ckpts, lam, 0.1, segment, ops)
+    lam_a = dg_rhs.adj_march(lam, n_steps, ops)
+    torch.cuda.synchronize()
+    assert (dg_rhs.fwd_march_ckpt.launches, dg_rhs.adj_est_recompute.launches,
+            dg_rhs.adj_march.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(ckpts, traj[::segment]) and torch.equal(uf_c, uf)
+    assert torch.equal(lam0_r, lam0) and torch.equal(eta_r, eta)
+    lam0_p, eta_p = dg_rhs.adj_est_recompute_plain(ckpts, lam, 0.1, segment, ops)
+    lam_ap = dg_rhs.adj_march_plain(lam, n_steps, ops)
+    tol_l = 8 * n_steps * EPS32 * float(lam0_p.abs().max())
+    tol_e = 8 * n_steps * disc.np_ * EPS32 * float(lam.abs().max()) * float(uf.abs().max())
+    assert float((lam0_r - lam0_p).abs().max()) <= tol_l
+    assert float((eta_r - eta_p).abs().max()) <= tol_e
+    assert float((lam_a - lam_ap).abs().max()) <= 8 * n_steps * EPS32 * float(lam.abs().max())
+
+
+@pytest.mark.parametrize("k,segment,chunks,grid", [(640, 2, 4, False), (2048, 2, 8, True),
+                                                   (20_000, 8, 4, True)])
+def test_tiled_kernels_reproduce_the_stored_pipeline(device, k, segment, chunks, grid):
+    """KT1/KT2 compute every local element with K1/K2's arithmetic at the
+    same times: u, λ0 and η bit-equal to the stored pipeline; and within the
+    float32 bounds of their plain version at the smallest shape."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, k)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    dt, n_seg = 0.5 * (0.75 / A) * xmin, 4
+    make = (dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid if grid
+            else dg_tiled.make_cuda_fwd_adj_estimate_tiled)
+    run = make(disc, A, dt, segment=segment, n_segments=n_seg, chunks=chunks, device=device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    before = (dg_tiled.tiled_fwd_seg.launches, dg_tiled.tiled_rev_seg.launches)
+    got = run(u0, 0.0, lam)
+    torch.cuda.synchronize()
+    assert (dg_tiled.tiled_fwd_seg.launches, dg_tiled.tiled_rev_seg.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, run.n_steps, device)(u0, 0.0, lam)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if k == 640:
+        ops = dg_rhs.kernel_ops(disc, A, dt, device)
+        plain = dg_tiled.tiled_plain(u0, 0.0, lam, n_seg, run.plan, ops)
+        n = run.n_steps
+        tol = (8 * n * EPS32, 8 * n * EPS32 * float(lam.abs().max()),
+               8 * n * disc.np_ * EPS32 * float(lam.abs().max()))
+        for g, p, t in zip(got, plain, tol):
+            assert float((g - p).abs().max()) <= t
+
+
+def test_new_advection_kernels_refuse_what_they_do_not_take(device):
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, 64)
+    ops = dg_rhs.kernel_ops(disc, A, 1e-3, device)
+    u64 = torch.zeros((3, 1, 64), dtype=torch.float64, device=device)
+    with pytest.raises(TypeError):
+        dg_rhs.fwd_march_ckpt(u64, 0.0, 8, 4, ops)
+    with pytest.raises(TypeError):
+        dg_rhs.adj_march(u64, 8, ops)
+    with pytest.raises(ValueError):  # on the CPU, operands on the card
+        dg_rhs.adj_est_recompute(torch.zeros((2, 3, 1, 64)), torch.zeros((3, 1, 64)), 0.0, 4, ops)
+    plan = dg_tiled.tile_plan(64, 3, 1, 20, 64)
+    with pytest.raises(TypeError):
+        dg_tiled.tiled_fwd_seg(u64[:, 0], 0.0, 2, plan, ops)
+    with pytest.raises(ValueError):  # not contiguous
+        dg_tiled.tiled_fwd_seg(torch.zeros((64, 3), device=device).T, 0.0, 2, plan, ops)

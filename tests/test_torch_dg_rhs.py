@@ -50,7 +50,8 @@ def test_plain_pipeline_matches_xla_f64(n_order, k, graded, dt):
     u0 = _phased(disc, b, seed=n_order)
     lam = terminal_integral_cotangent(disc, torch.float64, "cpu")
     lam_b = lam[:, None, :].expand(disc.np_, b, k).contiguous()
-    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, b, "cpu")
+    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, b, "cpu",
+                                                         store_trajectory=True)
     uf, lam0, eta = run(torch.tensor(u0), 0.05, lam_b)
     assert eta.shape == (b, k)
     ops = advec_operators(disc_j, a=A, dtype=jnp.float64)
@@ -82,7 +83,8 @@ def test_plain_pipeline_matches_pallas_interpret_f32():
         jnp.broadcast_to(lam_j[:, None, :], (disc.np_, b, disc.k)),
     )
     lam = terminal_integral_cotangent(disc, torch.float32, "cpu")
-    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, seg * nseg, b, "cpu")
+    run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, seg * nseg, b, "cpu",
+                                                         store_trajectory=True)
     got = run(torch.tensor(u0), 0.0, lam[:, None, :].expand(disc.np_, b, disc.k).contiguous())
     for g, w, rtol, atol in zip(got, want, (2e-4, 2e-3, 5e-3), (1e-6, 2e-5, 1e-7)):
         assert g.dtype == torch.float32

@@ -26,7 +26,7 @@ for mod in ("odes", "functionals", "march.fd", "adjoint.discrete", "adjoint.esti
             "train.data", "train.losses", "train.metrics", "train.checkpoint", "tree",
             "ops.cuda.train_fused", "ops.cuda.train_dense_fused", "drivers.train_resnet_ode",
             "ops.limiters", "march.burgers", "ops.cuda.burgers", "drivers.burgers_dg",
-            "adjoint.checkpointing", "adjoint.revolve_vjp"):
+            "adjoint.checkpointing", "adjoint.revolve_vjp", "ops.cuda.dg_tiled"):
     assert "adjoint_ode_adaptivity_tpu_torch." + mod in names, (mod, names)
 # the revolve planner loads the checkout's native/librevolve.so, never the
 # JAX package's installed copy under adjoint_ode_adaptivity_tpu/_native
@@ -46,11 +46,12 @@ def test_port_never_imports_jax():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 54
+    assert int(proc.stdout.strip()) >= 55
 
 
 @pytest.mark.parametrize("module", ["ops.cuda.dg_rhs", "ops.cuda.burgers", "march", "adjoint",
-                                    "adjoint.revolve_vjp", "drivers.burgers_dg"])
+                                    "adjoint.revolve_vjp", "drivers.burgers_dg",
+                                    "ops.cuda.dg_tiled", "adapt.advec_loop"])
 def test_each_entry_module_imports_first(module):
     """Imported first in a fresh interpreter, each module loads: the
     packages ``march`` and ``adjoint`` import each other's modules, so an
@@ -78,6 +79,6 @@ def test_package_data_ships_every_included_source():
     sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
     assert {f"csrc/{p.name}" for p in sources} <= shipped
     includes = {m for p in sources for m in re.findall(r'#include "([^"]+)"', p.read_text())}
-    assert {"odes.cuh", "small_solve.cuh"} <= includes
+    assert {"odes.cuh", "small_solve.cuh", "dg_stage.cuh"} <= includes
     for name in includes:
         assert f"csrc/{name}" in shipped, name
