@@ -271,8 +271,8 @@ int set_smem(Kernel kernel, long bytes) {
 
 template <int NP>
 int tiled_fwd_impl(int nk, int n_segments, int seg, int tile_l, int ghost,
-                   double t0, double dt, double a, const double* rk,
-                   const float* tables, Geom g, const float* u0, float* traj,
+                   int seg_first, double t0, double dt, double a,
+                   const double* rk, const float* tables, Geom g, const float* u0, float* traj,
                    float* u_final, float* ubuf, cudaStream_t stream) {
   const StepTables tab = pack_tables(NP, tables);
   const RkCoef coef = rk_coef(rk);
@@ -285,7 +285,8 @@ int tiled_fwd_impl(int nk, int n_segments, int seg, int tile_l, int ghost,
   for (int si = 0; si < n_segments; ++si) {
     Inflow inflow{};
     for (int n = 0; n < seg; ++n) {
-      const double tn = t0 + static_cast<double>(static_cast<long>(si) * seg + n) * dt;
+      const double tn =
+          t0 + static_cast<double>(static_cast<long>(seg_first + si) * seg + n) * dt;
       for (int s = 0; s < 5; ++s) inflow.v[5 * n + s] = dg_inflow(a, tn, rk[10 + s], dt);
     }
     float* u_nxt = si == n_segments - 1 ? u_final : ubuf + (si % 2) * size;
@@ -301,8 +302,8 @@ int tiled_fwd_impl(int nk, int n_segments, int seg, int tile_l, int ghost,
 
 template <int NP>
 int tiled_rev_impl(int nk, int n_segments, int seg, int tile_l, int ghost,
-                   double t0, double dt, double a, const double* rk,
-                   const float* half_tables, Geom g, const float* traj,
+                   int seg_first, double t0, double dt, double a,
+                   const double* rk, const float* half_tables, Geom g, const float* traj,
                    const float* u_final, const float* lam_end, float* lam0,
                    float* eta, float* lbuf, cudaStream_t stream) {
   const StepTables half = pack_tables(NP, half_tables);
@@ -317,7 +318,8 @@ int tiled_rev_impl(int nk, int n_segments, int seg, int tile_l, int ghost,
   for (int si = n_segments - 1, j = 0; si >= 0; --si, ++j) {
     Inflow inflow{};
     for (int n = 0; n < seg; ++n) {
-      const double tn = t0 + static_cast<double>(static_cast<long>(si) * seg + n) * dt;
+      const double tn =
+          t0 + static_cast<double>(static_cast<long>(seg_first + si) * seg + n) * dt;
       for (int hs = 0; hs < 2; ++hs) {
         const double th = tn + hs * h;
         for (int s = 0; s < 5; ++s) inflow.v[10 * n + 5 * hs + s] = dg_inflow(a, th, rk[10 + s], h);
@@ -342,30 +344,33 @@ extern "C" {
 
 // Returns 0 on success, a cudaError_t code after a failed launch or
 // attribute call, -1 for an unsupported Np, -2 for a segment past kMaxSeg.
-// traj: (n_segments·seg, Np, K); ubuf: 2·Np·K floats.
+// traj: (n_segments·seg, Np, K); ubuf: 2·Np·K floats. Segment si of the call
+// is the march's segment seg_first + si: its step n starts at
+// t0 + ((seg_first + si)·seg + n)·dt (the global step, whoever calls).
 int dg_tiled_fwd(int np, int nk, int n_segments, int seg, int tile_l,
-                 int ghost, double t0, double dt, double a, const double* rk,
-                 const float* tables, const float* rx, const float* fsl,
+                 int ghost, int seg_first, double t0, double dt, double a,
+                 const double* rk, const float* tables, const float* rx, const float* fsl,
                  const float* fsr, const float* u0, float* traj,
                  float* u_final, float* ubuf, void* stream) {
   if (seg < 1 || seg > kMaxSeg) return -2;
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, tiled_fwd_impl<NP>(nk, n_segments, seg, tile_l, ghost, t0,
-                                       dt, a, rk, tables, g, u0, traj, u_final,
+  AOA_NP_SWITCH(np, tiled_fwd_impl<NP>(nk, n_segments, seg, tile_l, ghost,
+                                       seg_first, t0, dt, a, rk, tables, g, u0, traj, u_final,
                                        ubuf, static_cast<cudaStream_t>(stream)))
 }
 
-// eta (K,) zeroed by the caller; lbuf: 2·Np·K floats; half_tables for dt/2.
+// eta (K,) holds the η carried in (zero for a whole sweep), accumulated in
+// place; lbuf: 2·Np·K floats; half_tables for dt/2; seg_first as above.
 int dg_tiled_rev(int np, int nk, int n_segments, int seg, int tile_l,
-                 int ghost, double t0, double dt, double a, const double* rk,
-                 const float* half_tables, const float* rx, const float* fsl,
+                 int ghost, int seg_first, double t0, double dt, double a,
+                 const double* rk, const float* half_tables, const float* rx, const float* fsl,
                  const float* fsr, const float* traj, const float* u_final,
                  const float* lam_end, float* lam0, float* eta, float* lbuf,
                  void* stream) {
   if (seg < 1 || seg > kMaxSeg) return -2;
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, tiled_rev_impl<NP>(nk, n_segments, seg, tile_l, ghost, t0,
-                                       dt, a, rk, half_tables, g, traj, u_final,
+  AOA_NP_SWITCH(np, tiled_rev_impl<NP>(nk, n_segments, seg, tile_l, ghost,
+                                       seg_first, t0, dt, a, rk, half_tables, g, traj, u_final,
                                        lam_end, lam0, eta, lbuf,
                                        static_cast<cudaStream_t>(stream)))
 }

@@ -1,6 +1,7 @@
-"""Hand-written CUDA kernels (the DG advection pipelines — stored, recompute
-and element-tiled —, the FD, DG-in-time and hp DG-in-time hot loops, the two
-fused training epochs and the limited Burgers march), and their loader.
+"""Hand-written CUDA kernels (the DG advection pipelines — stored, recompute,
+element-tiled, element-sharded and the MXU layout —, the FD, DG-in-time and
+hp DG-in-time hot loops, the two fused training epochs and the limited
+Burgers march), and their loader.
 
 The sources live in the package's ``csrc/``. :func:`load_library` compiles
 them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
@@ -23,7 +24,31 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["pick_chunk", "load_library", "KernelLibrary", "require_device"]
+__all__ = [
+    "pick_chunk",
+    "load_library",
+    "KernelLibrary",
+    "require_device",
+    "make_cuda_fwd_adj_estimate_grid_mxu",
+    "make_cuda_fwd_adj_estimate_sharded_blocked",
+    "make_cuda_fwd_adj_estimate_tiled_grid_sharded",
+]
+
+# entry points of the kernel modules exported here, each loaded on first use
+# (the kernel modules import this one)
+_ENTRY_POINTS = {
+    "make_cuda_fwd_adj_estimate_grid_mxu": "dg_mxu",
+    "make_cuda_fwd_adj_estimate_sharded_blocked": "dg_sharded",
+    "make_cuda_fwd_adj_estimate_tiled_grid_sharded": "dg_sharded",
+}
+
+
+def __getattr__(name):
+    if name in _ENTRY_POINTS:
+        import importlib
+
+        return getattr(importlib.import_module(f"{__name__}.{_ENTRY_POINTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -77,10 +102,14 @@ class KernelLibrary:
         lib.dg_adj_est_recompute.restype = i
         lib.dg_adj_march.argtypes = [i] * 4 + [p] * 10
         lib.dg_adj_march.restype = i
-        lib.dg_tiled_fwd.argtypes = [i] * 6 + [d] * 3 + [p] * 10
+        lib.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
         lib.dg_tiled_fwd.restype = i
-        lib.dg_tiled_rev.argtypes = [i] * 6 + [d] * 3 + [p] * 12
+        lib.dg_tiled_rev.argtypes = [i] * 7 + [d] * 3 + [p] * 12
         lib.dg_tiled_rev.restype = i
+        lib.dg_mxu_fwd.argtypes = [i] * 4 + [p] * 9
+        lib.dg_mxu_fwd.restype = i
+        lib.dg_mxu_rev.argtypes = [i] * 4 + [p] * 13
+        lib.dg_mxu_rev.restype = i
         lib.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
         lib.fd_ensemble.restype = i
         lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
@@ -101,7 +130,7 @@ class KernelLibrary:
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",
                      "train_dense_error_string", "burgers_error_string",
-                     "dg_tiled_error_string"):
+                     "dg_tiled_error_string", "dg_mxu_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

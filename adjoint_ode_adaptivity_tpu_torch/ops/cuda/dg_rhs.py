@@ -275,10 +275,15 @@ def adj_march_plain(lam_end, n_steps: int, ops: KernelOps):
 def _check(name: str, x: torch.Tensor, shape, ops: KernelOps) -> bool:
     """Validate an operand; True when it lies on a CUDA device (kernel
     path), False on the CPU (plain path). Raises on anything else."""
+    return _check_on(name, x, shape, ops.rx.device)
+
+
+def _check_on(name: str, x: torch.Tensor, shape, device: torch.device) -> bool:
+    """:func:`_check` against the device of the kernel operands."""
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if x.device != ops.rx.device:
-        raise ValueError(f"{name} on {x.device}, kernel operands on {ops.rx.device}")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, kernel operands on {device}")
     if x.device.type == "cpu":
         if x.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"{name}: dtype {x.dtype}; plain path takes float32/64")

@@ -135,30 +135,36 @@ def _window(plan: TilePlan, ops: KernelOps, t: int):
 # ------------------------------------------------------------ plain versions
 
 
-def tiled_fwd_seg_plain(u0, t0: float, n_segments: int, plan: TilePlan, ops: KernelOps):
+def tiled_fwd_seg_plain(u0, t0: float, n_segments: int, plan: TilePlan, ops: KernelOps,
+                        first_segment: int = 0):
     """KT1's plain version: ``(traj, u_final)`` with traj (n_steps, Np, K)."""
     seg = plan.segment
     traj = torch.empty((n_segments * seg, *u0.shape), dtype=u0.dtype, device=u0.device)
     u = u0
     for si in range(n_segments):
         u_next = torch.empty_like(u)
+        n0 = (first_segment + si) * seg
         for t in range(plan.n_tiles):
             lo, hi, w0, w1, wops = _window(plan, ops, t)
             uw = u[:, None, w0:w1]
             for n in range(seg):
                 traj[si * seg + n, :, lo:hi] = uw[:, 0, lo - w0:hi - w0]
-                uw = _step_plain(uw, t0 + (si * seg + n) * ops.dt, ops.full, wops)
+                uw = _step_plain(uw, t0 + (n0 + n) * ops.dt, ops.full, wops)
             u_next[:, lo:hi] = uw[:, 0, lo - w0:hi - w0]
         u = u_next
     return traj, u
 
 
-def tiled_rev_seg_plain(traj, u_final, lam_end, t0: float, plan: TilePlan, ops: KernelOps):
-    """KT2's plain version: ``(lam0, eta)`` with eta (K,)."""
+def tiled_rev_seg_plain(traj, u_final, lam_end, t0: float, plan: TilePlan, ops: KernelOps,
+                        first_segment: int = 0, eta=None):
+    """KT2's plain version: ``(lam0, eta)`` with eta (K,), accumulated onto
+    a copy of ``eta`` (default zeros)."""
     seg, n_steps = plan.segment, traj.shape[0]
     h = ops.dt / 2.0
     lam = lam_end
-    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    eta = (torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+           if eta is None else eta.clone())
+    n_first = first_segment * seg
     for si in reversed(range(n_steps // seg)):
         lam_next = torch.empty_like(lam)
         for t in range(plan.n_tiles):
@@ -167,7 +173,7 @@ def tiled_rev_seg_plain(traj, u_final, lam_end, t0: float, plan: TilePlan, ops: 
             lw = lam[:, None, w0:w1]
             e_loc = eta[lo:hi]
             for n in reversed(range(si * seg, (si + 1) * seg)):
-                t_n = t0 + n * ops.dt
+                t_n = t0 + (n_first + n) * ops.dt
                 u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
                 half = _step_plain(traj[n][:, None, w0:w1], t_n, ops.half, wops)
                 half2 = _step_plain(half, t_n + h, ops.half, wops)
@@ -190,13 +196,16 @@ def tiled_plain(u0, t0: float, lam_end, n_segments: int, plan: TilePlan, ops: Ke
 
 
 def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
-                  ops: KernelOps):
+                  ops: KernelOps, first_segment: int = 0):
     """KT1 over n_segments segments (one launch each) from the (Np, K) state
-    ``u0``. Returns ``(traj, u_final)``, traj (n_segments·segment, Np, K)."""
-    if n_segments < 1:
-        raise ValueError(f"n_segments={n_segments} must be >= 1")
+    ``u0``. Returns ``(traj, u_final)``, traj (n_segments·segment, Np, K).
+    The call's segments are the march's ``first_segment`` onwards: step n of
+    its segment si starts at t0 + ((first_segment + si)·segment + n)·dt."""
+    if n_segments < 1 or first_segment < 0:
+        raise ValueError(f"n_segments={n_segments} must be >= 1, first_segment="
+                         f"{first_segment} >= 0")
     if not _check("u0", u0, (ops.np_, ops.k), ops):
-        return tiled_fwd_seg_plain(u0, float(t0), n_segments, plan, ops)
+        return tiled_fwd_seg_plain(u0, float(t0), n_segments, plan, ops, first_segment)
     lib = load_library()
     size = u0.numel()
     traj = torch.empty((n_segments * plan.segment, *u0.shape), dtype=torch.float32,
@@ -205,8 +214,8 @@ def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
     ubuf = torch.empty((2, size), dtype=torch.float32, device=u0.device)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_tiled_fwd(
-        ops.np_, ops.k, n_segments, plan.segment, plan.tile, plan.ghost, float(t0),
-        ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data, _ptr(rx),
+        ops.np_, ops.k, n_segments, plan.segment, plan.tile, plan.ghost, first_segment,
+        float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data, _ptr(rx),
         _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(traj), _ptr(u_final), _ptr(ubuf),
         _stream(u0.device),
     )
@@ -216,26 +225,35 @@ def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
 
 
 def tiled_rev_seg(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
-                  t0: float, plan: TilePlan, ops: KernelOps):
-    """KT2 over the segments of ``traj`` in reverse (one launch each).
-    Returns ``(lam0, eta)``, eta (K,)."""
+                  t0: float, plan: TilePlan, ops: KernelOps, first_segment: int = 0,
+                  eta: torch.Tensor | None = None):
+    """KT2 over the segments of ``traj`` in reverse (one launch each), the
+    march's segments ``first_segment`` onwards (as :func:`tiled_fwd_seg`).
+    Returns ``(lam0, eta)``, eta (K,): the η carried in (``eta``, default
+    zeros) plus this sweep's, summed in place as a whole sweep sums it."""
     state = (ops.np_, ops.k)
     if traj.dim() != 3 or traj.shape[0] % plan.segment or traj.shape[0] == 0:
         raise ValueError(f"traj must be (n_segments·{plan.segment}, Np, K), got "
                          f"{tuple(traj.shape)}")
+    if first_segment < 0:
+        raise ValueError(f"first_segment={first_segment} must be >= 0")
     on_cuda = _check("traj", traj, (traj.shape[0], *state), ops)
     _check("u_final", u_final, state, ops)
     _check("lam_end", lam_end, state, ops)
+    if eta is not None:
+        _check("eta", eta, (ops.k,), ops)
     if not on_cuda:
-        return tiled_rev_seg_plain(traj, u_final, lam_end, float(t0), plan, ops)
+        return tiled_rev_seg_plain(traj, u_final, lam_end, float(t0), plan, ops,
+                                   first_segment, eta)
     lib = load_library()
     lam0 = torch.empty_like(lam_end)
-    eta = torch.zeros((ops.k,), dtype=torch.float32, device=traj.device)
+    eta = (torch.zeros((ops.k,), dtype=torch.float32, device=traj.device) if eta is None
+           else eta.clone())
     lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_tiled_rev(
         ops.np_, ops.k, traj.shape[0] // plan.segment, plan.segment, plan.tile,
-        plan.ghost, float(t0), ops.dt, ops.a, _RK.ctypes.data,
+        plan.ghost, first_segment, float(t0), ops.dt, ops.a, _RK.ctypes.data,
         ops.half.packed.ctypes.data, _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(traj),
         _ptr(u_final), _ptr(lam_end), _ptr(lam0), _ptr(eta), _ptr(lbuf),
         _stream(traj.device),

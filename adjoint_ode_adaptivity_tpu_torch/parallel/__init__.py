@@ -1,0 +1,46 @@
+"""Multi-rank scale-out over ``torch.distributed``: rank grids and the
+element-sharded DG advection (the JAX package's ``parallel/``: meshes,
+``dg_shard``). The kernel pipelines over the same grids are
+``ops.cuda.dg_sharded``'s. The ensemble and pipeline-parallel modules are
+not ported yet (ROADMAP item 14)."""
+
+from adjoint_ode_adaptivity_tpu_torch.parallel.dg_shard import (
+    advec_fwd_adj_estimate_sharded,
+    advec_march_sharded,
+    advec_rhs_local,
+    local_operators,
+)
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
+    RankGrid,
+    all_reduce_sum,
+    exchange,
+    make_rank_grid,
+    replicate,
+    shard_along,
+)
+
+__all__ = [
+    "RankGrid",
+    "make_rank_grid",
+    "shard_along",
+    "replicate",
+    "exchange",
+    "all_reduce_sum",
+    "local_operators",
+    "advec_rhs_local",
+    "advec_march_sharded",
+    "advec_fwd_adj_estimate_sharded",
+    "make_cuda_fwd_adj_estimate_sharded_blocked",
+    "make_cuda_fwd_adj_estimate_tiled_grid_sharded",
+]
+
+
+def __getattr__(name):
+    # the kernel pipelines over rank grids live with the kernels; exported
+    # here too, loaded on first use (ops.cuda.dg_sharded imports this package)
+    if name in ("make_cuda_fwd_adj_estimate_sharded_blocked",
+                "make_cuda_fwd_adj_estimate_tiled_grid_sharded"):
+        from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_sharded
+
+        return getattr(dg_sharded, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

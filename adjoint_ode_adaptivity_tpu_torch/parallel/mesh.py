@@ -1,0 +1,176 @@
+"""Rank grids: the process-group counterpart of the JAX package's device
+meshes (``parallel/mesh.py``: ``make_mesh``, ``shard_along``,
+``replicate``).
+
+A JAX mesh lays devices out along named axes and ``shard_map`` runs one
+program per device; here each process is one rank of a
+``torch.distributed`` process group, and a :class:`RankGrid` names the
+group's ranks along axes (row-major, as ``make_mesh`` reshapes its device
+list). The axes keep the JAX package's names: ``data`` (the IC/seed
+ensemble), ``model`` (hidden width) and ``space`` (the DG element axis,
+parallel/dg_shard.py and ops/cuda/dg_sharded.py).
+
+- :func:`shard_along` is this rank's contiguous slice of an array, the
+  block that ``P(..., axis)`` gives the device at this rank's position.
+- :func:`replicate` broadcasts tensors from one rank (the identity at
+  world 1).
+- :func:`exchange` sends a block to each neighbour along an axis and
+  receives theirs: the non-periodic form of ``lax.ppermute`` over the ring
+  that the DG halos use (the global boundary ranks have no neighbour
+  outside and receive nothing).
+- :func:`all_reduce_sum` is ``lax.psum``.
+
+Backends: ``nccl`` where each rank has a card of its own; ``gloo``
+otherwise (NCCL refuses two ranks on one device, and a host with one card
+runs its ranks on it together). Under gloo, CUDA tensors are staged through
+host memory (the DG halos are Np·W floats). Without a process group the
+grid has one rank and every exchange and reduction is the identity, as a
+1-device mesh makes ``ppermute`` the identity.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "RankGrid",
+    "make_rank_grid",
+    "shard_along",
+    "replicate",
+    "exchange",
+    "all_reduce_sum",
+]
+
+
+class RankGrid(NamedTuple):
+    """This process's place in a process group laid out along named axes."""
+
+    names: tuple[str, ...]
+    sizes: tuple[int, ...]
+    rank: int  # this process's rank in ``group``
+    group: Any  # a torch.distributed ProcessGroup, or None at world 1
+    backend: str | None
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.names, self.sizes))
+
+    def axis_size(self, axis: str) -> int:
+        return self.sizes[self._axis(axis)]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+        return int(np.unravel_index(self.rank, self.sizes)[self._axis(axis)])
+
+    def neighbour(self, axis: str, offset: int) -> int | None:
+        """The group rank ``offset`` steps along ``axis``, or None past the
+        grid's edge."""
+        coords = list(np.unravel_index(self.rank, self.sizes))
+        i = self._axis(axis)
+        coords[i] += offset
+        if not 0 <= coords[i] < self.sizes[i]:
+            return None
+        return int(np.ravel_multi_index(coords, self.sizes))
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.names:
+            raise KeyError(f"axis {axis!r} not in the grid's axes {self.names}")
+        return self.names.index(axis)
+
+
+def make_rank_grid(axes: dict[str, int] | None = None, group=None) -> RankGrid:
+    """The grid of ``group`` (default: the default process group, or one
+    rank when none is initialised) along ``axes`` {name: size}; one size may
+    be −1 (inferred). Default: every rank on one ``space`` axis. The sizes
+    must multiply to the group's size: every rank has a place."""
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        backend = dist.get_backend(group)
+    else:
+        if group is not None:
+            raise ValueError("a process group was given but torch.distributed is not initialised")
+        world, rank, backend = 1, 0, None
+    if axes is None:
+        axes = {"space": world}
+    names, sizes = tuple(axes), list(axes.values())
+    if sizes.count(-1) > 1:
+        raise ValueError(f"at most one axis size may be -1: {axes}")
+    if -1 in sizes:
+        known = int(np.prod([s for s in sizes if s != -1]))
+        sizes[sizes.index(-1)] = world // known
+    if int(np.prod(sizes)) != world or min(sizes) < 1:
+        raise ValueError(f"grid {dict(zip(names, sizes))} needs {int(np.prod(sizes))} ranks, "
+                         f"the group has {world}")
+    return RankGrid(names, tuple(int(s) for s in sizes), rank, group, backend)
+
+
+def shard_along(x: torch.Tensor, grid: RankGrid, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's contiguous block of ``x`` along ``dim`` (a view)."""
+    d = grid.axis_size(axis)
+    if x.shape[dim] % d:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split over {d} ranks")
+    share = x.shape[dim] // d
+    return x.narrow(dim, grid.axis_index(axis) * share, share)
+
+
+def _staged(x: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    """The tensor that the backend takes: host memory under gloo."""
+    return x.detach().cpu() if grid.backend == "gloo" else x.detach()
+
+
+def _global(grid: RankGrid, group_rank: int) -> int:
+    return group_rank if grid.group is None else dist.get_global_rank(grid.group, group_rank)
+
+
+def replicate(x, grid: RankGrid, src: int = 0):
+    """Every rank gets rank ``src``'s tensors: a tensor, or a list, tuple or
+    dict of tensors (the identity at world 1)."""
+    if grid.world == 1:
+        return x
+    if isinstance(x, dict):
+        return {k: replicate(v, grid, src) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(replicate(v, grid, src) for v in x)
+    buf = _staged(x, grid).contiguous().clone()
+    dist.broadcast(buf, _global(grid, src), group=grid.group)
+    return buf.to(x.device)
+
+
+def exchange(to_prev: torch.Tensor, to_next: torch.Tensor, grid: RankGrid, axis: str):
+    """Send ``to_prev`` to the previous rank along ``axis`` and ``to_next``
+    to the next; return ``(from_prev, from_next)``, what the previous rank
+    sent as its ``to_next`` and the next as its ``to_prev`` (same shapes),
+    None where there is no neighbour. Every rank of the grid must call it."""
+    prev, nxt = grid.neighbour(axis, -1), grid.neighbour(axis, +1)
+    if prev is None and nxt is None:
+        return None, None
+    ops, recvs = [], {}
+    for peer, out, key, like in ((prev, to_prev, "prev", to_next), (nxt, to_next, "next", to_prev)):
+        if peer is None:
+            continue
+        recvs[key] = torch.empty_like(_staged(like, grid), memory_format=torch.contiguous_format)
+        peer = _global(grid, peer)
+        ops.append(dist.P2POp(dist.isend, _staged(out, grid).contiguous(), peer, grid.group))
+        ops.append(dist.P2POp(dist.irecv, recvs[key], peer, grid.group))
+    # one batch: under NCCL, sends and receives posted one by one would wait
+    # on each other across the ranks
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    device = to_prev.device
+    return tuple(recvs[key].to(device) if key in recvs else None for key in ("prev", "next"))
+
+
+def all_reduce_sum(x: torch.Tensor, grid: RankGrid) -> torch.Tensor:
+    """Σ of ``x`` over every rank of the grid (``lax.psum``)."""
+    if grid.world == 1:
+        return x
+    buf = _staged(x, grid).contiguous().clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=grid.group)
+    return buf.to(x.device)

@@ -146,6 +146,21 @@ raises, and the script exits non-zero; nothing is caught.
 25. The unbatched recompute pipeline at phase 21(c)'s row past memory
    (K=10^5, 81,920 steps, segment 256): time, peak device memory, and u,
    λ0 and η against revolve's from 21(c).
+26. The MXU-layout pipeline (csrc/dg_mxu.cu: KM1, KM2) at Np 2, 3 and 8
+   (tests/test_pallas_mxu.py's steps, B=8): against its plain version (the
+   same float32 operations in the same order), and against the stored K1/K2
+   pipeline on the same inputs at tests/test_pallas_mxu.py's tolerances.
+27. KM1+KM2 against K1+K2 timed in turns at BASELINE.md:61's row (N=7,
+   K=10^4, B=8, segment 2, 256 steps; the main path's launch count, each KM
+   kernel and its plain version timed) and at the headline row (N=2, 2048
+   steps), with the ratio KM/K1K2 on its own line.
+28. The element-sharded pipelines (ops/cuda/dg_sharded.py over KT1/KT2) at
+   phase 24(b)'s K=10^6 row (segment 16, 64 steps): both factories at world
+   1 in this process and at world 2 in two spawned ranks (gloo, both on
+   cuda:0), u_final, λ0 and η bit-equal to the single-process tiled
+   pipeline, J within its summation bound of Σλu, times beside the tiled
+   pipeline's; parallel/dg_shard.py's pipeline at world 2 in float64
+   (K=10^4, N=2, 64 steps) against the single-device estimate at 1e-10.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -181,6 +196,8 @@ SOURCES = {
     "adj_march": f"{PACKAGE}/csrc/dg_rhs.cu",
     "tiled_fwd_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
     "tiled_rev_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
+    "mxu_fwd_traj": f"{PACKAGE}/csrc/dg_mxu.cu",
+    "mxu_adj_est": f"{PACKAGE}/csrc/dg_mxu.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -204,9 +221,17 @@ TPU_KERNELS = {
                          "dg_rhs.py:384 (_adj_estimate_kernel)",
     "adj_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:335 (_adjoint_kernel)",
     "tiled_fwd_seg": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_sharded.py:83 (_fwd_seg_kernel); "
-                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:282 (_fwd_seg_grid_kernel)",
+                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:282 (_fwd_seg_grid_kernel); "
+                     "per rank on the sharded paths adjoint_ode_adaptivity_tpu/ops/pallas/"
+                     "dg_sharded.py:165 and adjoint_ode_adaptivity_tpu/ops/pallas/"
+                     "dg_tiled_sharded.py:67",
     "tiled_rev_seg": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_sharded.py:107 (_rev_seg_kernel); "
-                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:314 (_rev_seg_grid_kernel)",
+                     "adjoint_ode_adaptivity_tpu/ops/pallas/dg_tiled.py:314 (_rev_seg_grid_kernel); "
+                     "per rank on the sharded paths adjoint_ode_adaptivity_tpu/ops/pallas/"
+                     "dg_sharded.py:165 and adjoint_ode_adaptivity_tpu/ops/pallas/"
+                     "dg_tiled_sharded.py:67",
+    "mxu_fwd_traj": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:151 (_fwd_traj_kernel_m)",
+    "mxu_adj_est": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:179 (_adj_est_kernel_m)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -2832,6 +2857,342 @@ def phase25(device, beyond):
     return ms
 
 
+# ---------------------------------------- the MXU layout and the sharded pipelines
+
+
+# phase 26's cases: (N, K, dt, segment) at tests/test_pallas_mxu.py's steps, Np 2, 3, 8
+MXU_CASES = ((1, 24, 2e-4, 4), (2, 64, 2e-4, 4), (7, 24, 5e-5, 4))
+# BASELINE.md:61's row (the TPU's MXU measurement: N=7, K=10^4, seg 2, 256
+# steps) and the headline row (N=2, K=10^4, 2048 steps), B = 8: (N, segment, steps)
+MXU_ROWS = ((7, 2, 256), (2, 4, 2048))
+# phase 24(b)'s K = 10^6 row for the sharded pipelines, and dg_shard's float64 row
+SHARDED = dict(k=1_000_000, segment=16, n_steps=64, chunks=25, world=2)
+SHARD_F64 = dict(k=10_000, n_steps=64, segment=16)
+
+
+def mxu_run(disc, dt, segment, n_steps, device):
+    """The MXU entry point and the stored K1/K2 pipeline on bench.py's
+    batched ICs at B = 8."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    km = dg_mxu.make_cuda_fwd_adj_estimate_grid_mxu(disc, A, dt, segment=segment,
+                                                    n_segments=n_steps // segment, batch=8,
+                                                    device=device)
+    k12 = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n_steps, 8, device,
+                                                         store_trajectory=True)
+    u0 = phased_states(disc, 8, device, torch.float32)
+    lam = batched_cotangent(disc, 8, device, torch.float32)
+    return km, k12, u0, lam
+
+
+def phase26(device, errs):
+    """KM1/KM2 against their plain version, and against the stored K1/K2
+    pipeline on the same inputs at tests/test_pallas_mxu.py's tolerances."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+
+    for n_order, k, dt, seg in MXU_CASES:
+        disc = mesh(n_order, k, graded=False)
+        n_steps = 4 * seg
+        km, k12, u0, lam = mxu_run(disc, dt, seg, n_steps, device)
+        got = km(u0, 0.1, lam)
+        torch.cuda.synchronize()
+        flat = (disc.np_, 8 * k)
+        traj_p, uf_p = dg_mxu.km_fwd_traj_plain(u0.reshape(flat), 0.1, km.ops)
+        lam0_p, eta_p = dg_mxu.km_adj_est_plain(traj_p, uf_p, lam.reshape(flat), 0.1, km.ops)
+        tol = tolerances(n_steps, disc.np_, uf_p, lam)
+        e = [float((g.reshape(p.shape) - p).abs().max()) for g, p in zip(got, (uf_p, lam0_p, eta_p))]
+        bits = [bool(torch.equal(g.reshape(p.shape), p)) for g, p in zip(got, (uf_p, lam0_p, eta_p))]
+        want = k12(u0, 0.1, lam)
+        jax_tol = ((2e-4, 1e-6), (2e-3, 2e-5), (5e-3, 1e-7))  # tests/test_pallas_mxu.py:51-61
+        excess = [float(((g - w).abs() - (atol + rtol * w.abs())).max())
+                  for g, w, (rtol, atol) in zip(got, want, jax_tol)]
+        d = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        say("26", f"N={n_order} (Np={disc.np_}) K={k} B=8 dt={dt:g} segment={seg} steps={n_steps}: "
+                  f"KM1 u_final {e[0]:.3e} (tol {tol['u']:.3e}) | KM2 lam0 {e[1]:.3e} (tol "
+                  f"{tol['lam']:.3e}) eta {e[2]:.3e} (tol {tol['eta']:.3e}) | bit-equal to the "
+                  f"plain version (u, lam0, eta) {bits} | against K1/K2 max|d| u {d[0]:.3e} lam0 "
+                  f"{d[1]:.3e} eta {d[2]:.3e} (max|eta| {float(want[2].abs().max()):.3e}), largest "
+                  f"excess over rtol/atol (2e-4/1e-6, 2e-3/2e-5, 5e-3/1e-7) {max(excess):.3e}")
+        assert e[0] <= tol["u"] and e[1] <= tol["lam"] and e[2] <= tol["eta"], "KM vs plain"
+        assert max(excess) <= 0.0, "KM vs K1/K2 past tests/test_pallas_mxu.py's tolerances"
+        for x in got:
+            assert bool(torch.isfinite(x).all())
+        errs["mxu_fwd_traj"] = max(errs["mxu_fwd_traj"], e[0])
+        errs["mxu_adj_est"] = max(errs["mxu_adj_est"], *e[1:])
+
+
+def mxu_bounds(np_, cols, n_steps):
+    """KM1: u0 read, the trajectory and u_final written, 5 stages a step;
+    KM2: the trajectory, u_final and λ_end read, λ0 and η written, 20
+    stages a step and the η sum (stage_ops per column and stage, as K1/K2)."""
+    state, stage = 4 * np_ * cols, stage_ops(np_)
+    return {
+        "mxu_fwd_traj": bound(state + n_steps * state + state, n_steps * 5 * stage * cols),
+        "mxu_adj_est": bound(n_steps * state + 3 * state + 4 * cols,
+                             n_steps * (20 * stage + 3 * np_) * cols),
+    }
+
+
+def phase27(device, errs):
+    """KM1+KM2 against K1+K2, timed in turns at BASELINE.md:61's row and at
+    the headline row; each KM kernel alone and its plain version at the
+    first."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+
+    launches, times, bounds = {}, {}, {}
+    for n_order, seg, n_steps in MXU_ROWS:
+        disc = mesh(n_order, 10_000, graded=False)
+        dt = cfl_step(disc)
+        km, k12, u0, lam = mxu_run(disc, dt, seg, n_steps, device)
+        out = {}
+        if n_order == MXU_ROWS[0][0]:  # the main path's count: one call of the entry point
+            dg_mxu.reset_launch_counts()
+            out["km"] = km(u0, 0.0, lam)
+            torch.cuda.synchronize()
+            launches = {"mxu_fwd_traj": dg_mxu.km_fwd_traj.launches,
+                        "mxu_adj_est": dg_mxu.km_adj_est.launches}
+            assert launches == {"mxu_fwd_traj": 1, "mxu_adj_est": 1}, launches
+        turns = in_turns({"K1+K2": lambda: out.update(k12=k12(u0, 0.0, lam)),
+                          "KM1+KM2": lambda: out.update(km=km(u0, 0.0, lam))})
+        ms_k12, ms_km = (statistics.mean(turns[name]) for name in ("K1+K2", "KM1+KM2"))
+        d = [float((g - w).abs().max()) for g, w in zip(out["km"], out["k12"])]
+        dofs = 8 * disc.np_ * 10_000 * 2 * n_steps
+        say("27", f"N={n_order} K=10000 B=8 segment={seg} steps={n_steps}: KM1+KM2 {ms_km:.3f} ms "
+                  f"({dofs / ms_km * 1e3:.4e} fwd+adjoint DoF-steps/s), K1+K2 {ms_k12:.3f} ms "
+                  f"({dofs / ms_k12 * 1e3:.4e}), both {25 * n_steps} CUDA launches (in turns K1+K2, "
+                  f"KM1+KM2, KM1+KM2, K1+K2, median of 5 each: KM {turns['KM1+KM2'][0]:.3f} / "
+                  f"{turns['KM1+KM2'][1]:.3f}, K1K2 {turns['K1+K2'][0]:.3f} / "
+                  f"{turns['K1+K2'][1]:.3f} ms); max|KM - K1K2| u {d[0]:.3e} lam0 {d[1]:.3e} eta "
+                  f"{d[2]:.3e}")
+        say("27", f"KM/K1K2 at N={n_order}: {ms_km / ms_k12:.3f}")
+        for x in out["km"]:
+            assert bool(torch.isfinite(x).all())
+        if n_order == MXU_ROWS[0][0]:
+            flat = (disc.np_, 8 * 10_000)
+            ops = km.ops
+            ms1 = cuda_ms(lambda: out.update(k1=dg_mxu.km_fwd_traj(u0.reshape(flat), 0.0, ops)), 5)
+            traj, uf = out.pop("k1")
+            ms2 = cuda_ms(lambda: out.update(k2=dg_mxu.km_adj_est(traj, uf, lam.reshape(flat),
+                                                                  0.0, ops)), 5)
+            p1 = cuda_ms(lambda: out.update(p1=dg_mxu.km_fwd_traj_plain(u0.reshape(flat), 0.0, ops)),
+                         runs=1, warmup=0)
+            p2 = cuda_ms(lambda: out.update(p2=dg_mxu.km_adj_est_plain(traj, uf, lam.reshape(flat),
+                                                                       0.0, ops)), runs=1, warmup=0)
+            tol = tolerances(n_steps, disc.np_, out["p1"][1], lam)
+            e1 = max(float((traj - out["p1"][0]).abs().max()), float((uf - out["p1"][1]).abs().max()))
+            e2 = [float((x - y).abs().max()) for x, y in zip(out["k2"], out["p2"])]
+            bounds = mxu_bounds(disc.np_, 8 * 10_000, n_steps)
+            say("27", f"N={n_order}: KM1 {ms1:.3f} ms, KM2 {ms2:.3f} ms (median of 5; bounds "
+                      f"{bounds['mxu_fwd_traj'][0]:.4f} / {bounds['mxu_adj_est'][0]:.4f} ms, "
+                      f"{bounds['mxu_fwd_traj'][1]} / {bounds['mxu_adj_est'][1]}); plain "
+                      f"{p1:.1f} / {p2:.1f} ms (one run each); kernel vs plain traj+u {e1:.3e} "
+                      f"(tol {tol['u']:.3e}) lam0 {e2[0]:.3e} (tol {tol['lam']:.3e}) eta "
+                      f"{e2[1]:.3e} (tol {tol['eta']:.3e})")
+            assert e1 <= tol["u"] and e2[0] <= tol["lam"] and e2[1] <= tol["eta"]
+            errs["mxu_fwd_traj"] = max(errs["mxu_fwd_traj"], e1)
+            errs["mxu_adj_est"] = max(errs["mxu_adj_est"], *e2)
+            times = {"mxu_fwd_traj": (ms1, p1), "mxu_adj_est": (ms2, p2)}
+        del out
+        torch.cuda.empty_cache()
+    return launches, times, bounds
+
+
+def sharded_inputs(device, dtype):
+    """Phase 24(b)'s K = 10^6 row: u0 = sin x, J = ∫u(T), the CFL step."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, SHARDED["k"])
+    u0 = torch.tensor(np.sin(disc.x), dtype=dtype, device=device)
+    return disc, cfl_step(disc), u0, terminal_integral_cotangent(disc, dtype, device)
+
+
+def sharded_factories(grid, device):
+    """Both sharded factories on this rank's share: {name: run()}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_sharded
+    from adjoint_ode_adaptivity_tpu_torch.parallel import shard_along
+
+    c = SHARDED
+    disc, dt, u0, lam = sharded_inputs(device, torch.float32)
+    u_loc = shard_along(u0, grid, "space", 1).contiguous()
+    lam_loc = shard_along(lam, grid, "space", 1).contiguous()
+    kw = dict(segment=c["segment"], n_segments=c["n_steps"] // c["segment"], device=device)
+    runs = {
+        "sharded_blocked": dg_sharded.make_cuda_fwd_adj_estimate_sharded_blocked(
+            disc, A, dt, grid, **kw),
+        "tiled_grid_sharded": dg_sharded.make_cuda_fwd_adj_estimate_tiled_grid_sharded(
+            disc, A, dt, grid, chunks=c["chunks"], **kw),
+    }
+    return {name: (lambda run=run: run(u_loc, 0.0, lam_loc)) for name, run in runs.items()}
+
+
+def shard_f64(grid, device):
+    """parallel/dg_shard.py's pipeline in float64 on this rank's share."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.march.advec import advec_operators
+    from adjoint_ode_adaptivity_tpu_torch.parallel import advec_fwd_adj_estimate_sharded, shard_along
+
+    c = SHARD_F64
+    disc = mesh(2, c["k"], graded=False)
+    ops = advec_operators(disc, a=A, dtype=torch.float64, device=device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float64, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float64, device)
+    t0 = time.perf_counter()
+    res = advec_fwd_adj_estimate_sharded(
+        ops, grid, shard_along(u0, grid, "space", 1), shard_along(lam, grid, "space", 1),
+        cfl_step(disc), c["n_steps"], segment=c["segment"])
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_rank(rank, world, store, out_dir):
+    """One rank of phase 28 (torch.multiprocessing.spawn): gloo over a
+    FileStore, every rank on cuda:0; its outputs go to out_dir/rank{r}.pt."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        grid = make_rank_grid({"space": world})
+        device = torch.device("cuda", 0)
+        runs = {}
+        for name, run in sharded_factories(grid, device).items():
+            run()  # warm-up; then one run on the host clock (the ring goes through the host)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            runs[name] = ([x.cpu() for x in res], (time.perf_counter() - t0) * 1e3)
+        f64, f64_ms = shard_f64(grid, device)
+        torch.save({"runs": runs, "f64": [x.cpu() for x in f64], "f64_ms": f64_ms},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase28(device):
+    """The sharded pipelines on the card: world 1 in this process, world 2
+    in two spawned ranks (gloo, both on cuda:0), bit-equal to the
+    single-process tiled pipeline; dg_shard in float64 against the
+    single-device estimate."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import advec_fwd_adj_estimate
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.march.advec import advec_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    c = SHARDED
+    n_seg = c["n_steps"] // c["segment"]
+    disc, dt, u0, lam = sharded_inputs(device, torch.float32)
+    tiled = dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid(
+        disc, A, dt, segment=c["segment"], n_segments=n_seg, chunks=c["chunks"], device=device)
+    want = tiled(u0, 0.0, lam)
+    prod = (lam.double() * want[0].double())
+    j_ref, j_abs = float(prod.sum()), float(prod.abs().sum())
+
+    def check(world, name, got, timing):
+        same = [bool(torch.equal(g.to(device), w)) for g, w in zip(got[:3], want)]
+        line = (f"world {world} {name} K={c['k']} N=2 segment={c['segment']} steps={c['n_steps']}: "
+                f"{timing}; u_final, lam0, eta bit-equal {same}")
+        if len(got) == 4:
+            share = c["k"] // world
+            j_bound = (disc.np_ * share + world) * EPS32 * j_abs
+            line += (f"; J {float(got[3]):+.9e} vs Σλu {j_ref:+.9e} (|d| "
+                     f"{abs(float(got[3]) - j_ref):.3e}, bound (Np·L + D)·ε·Σ|λu| {j_bound:.3e})")
+            assert abs(float(got[3]) - j_ref) <= j_bound, name
+        say("28", line)
+        assert all(same), f"world {world} {name}: not the single-process tiled pipeline's bits"
+
+    runs = sharded_factories(make_rank_grid(), device)
+    dg_tiled.reset_launch_counts()
+    out = {name: run() for name, run in runs.items()}
+    torch.cuda.synchronize()
+    say("28", f"world 1 launches (one run of each factory): KT1 {dg_tiled.tiled_fwd_seg.launches}, "
+              f"KT2 {dg_tiled.tiled_rev_seg.launches} (one per segment and run)")
+    assert dg_tiled.tiled_fwd_seg.launches == dg_tiled.tiled_rev_seg.launches == 2 * n_seg
+    turns = in_turns({"tiled": lambda: out.update(tiled=tiled(u0, 0.0, lam)),
+                      **{name: (lambda name=name: out.update({name: runs[name]()})) for name in runs}})
+    ms_tiled = statistics.mean(turns["tiled"])
+    for name in runs:
+        ms = statistics.mean(turns[name])
+        check(1, name, out[name], f"{ms:.3f} ms against the single-process tiled pipeline's "
+                                  f"{ms_tiled:.3f} ms, sharded/tiled {ms / ms_tiled:.3f} (in turns "
+                                  f"tiled, {', '.join(runs)} and back, median of 5 each: {name} "
+                                  f"{turns[name][0]:.3f} / {turns[name][1]:.3f}, tiled "
+                                  f"{turns['tiled'][0]:.3f} / {turns['tiled'][1]:.3f} ms)")
+
+    world = c["world"]
+    tmp = ROOT / "build" / f"chip_smoke_ranks.{time.time_ns()}"
+    tmp.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(world, str(tmp / "store"), str(tmp)), nprocs=world, join=True)
+        wall = time.perf_counter() - t0
+        parts = [torch.load(tmp / f"rank{r}.pt") for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("28", f"world {world}: two ranks spawned (gloo over a FileStore, both on cuda:0), "
+              f"wall {wall:.1f} s")
+    for name in parts[0]["runs"]:
+        res = [p["runs"][name][0] for p in parts]
+        got = [torch.cat([r[i] for r in res], dim=-1) for i in range(3)]
+        if len(res[0]) == 4:
+            js = [float(r[3]) for r in res]
+            assert js[0] == js[1], js
+            got.append(res[0][3])
+        check(world, name, got, f"{max(p['runs'][name][1] for p in parts):.3f} ms on the slower "
+                                f"rank (host clock, one warm run; the two ranks share the card)")
+
+    s = SHARD_F64
+    disc = mesh(2, s["k"], graded=False)
+    ops = advec_operators(disc, a=A, dtype=torch.float64, device=device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float64, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float64, device)
+    t0 = time.perf_counter()
+    ref = advec_fwd_adj_estimate(ops, disc, u0, cfl_step(disc), s["n_steps"], segment=s["segment"],
+                                 lam_end=lam)
+    torch.cuda.synchronize()
+    ms_ref = (time.perf_counter() - t0) * 1e3
+    got = [torch.cat([p["f64"][i] for p in parts], dim=-1).to(device) for i in range(3)]
+    rel = []
+    for g, w in zip(got, ref[:3]):
+        floor = 1e-12 * float(w.abs().max())  # an entry near 0 keeps the largest's roundoff
+        rel.append(float(((g - w).abs() - floor).clamp(min=0).div(w.abs()).nan_to_num().max()))
+    # J = Σλu cancels to ~0 here: its error is held against Σ|λ·u|
+    dj = abs(float(parts[0]["f64"][3]) - float(ref.j_value)) / float((lam * ref.u_final).abs().sum())
+    say("28", f"dg_shard float64 world {world} K={s['k']} N=2 steps={s['n_steps']} segment "
+              f"{s['segment']}: {max(p['f64_ms'] for p in parts):.1f} ms per rank against the "
+              f"single-device estimate's {ms_ref:.1f} ms; relative error past a 1e-12·max floor "
+              f"u_final {rel[0]:.3e} lam0 {rel[1]:.3e} eta {rel[2]:.3e}, J {dj:.3e} of Σ|λu| (limit 1e-10)")
+    assert max(rel) <= 1e-10 and dj <= 1e-10
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -2934,11 +3295,14 @@ def main() -> int:
     rc_launches, rc_times, rc_bounds = phase23(device, errs)
     tl_launches, tl_times, tl_bounds = phase24(device, errs)
     phase25(device, rev["beyond"])
-    launches.update(rc_launches, **tl_launches)
-    times.update(rc_times, **tl_times)
+    phase26(device, errs)
+    km_launches, km_times, km_bounds = phase27(device, errs)
+    phase28(device)
+    launches.update(rc_launches, **tl_launches, **km_launches)
+    times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
               **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
-              **rc_bounds, **tl_bounds}
+              **rc_bounds, **tl_bounds, **km_bounds}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

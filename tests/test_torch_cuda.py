@@ -551,3 +551,66 @@ def test_new_advection_kernels_refuse_what_they_do_not_take(device):
         dg_tiled.tiled_fwd_seg(u64[:, 0], 0.0, 2, plan, ops)
     with pytest.raises(ValueError):  # not contiguous
         dg_tiled.tiled_fwd_seg(torch.zeros((64, 3), device=device).T, 0.0, 2, plan, ops)
+
+
+@pytest.mark.parametrize("n_order,k,dt,segment", [(1, 24, 2e-4, 4), (2, 64, 2e-4, 4),
+                                                  (7, 24, 5e-5, 2), (7, 1000, 5e-5, 2)])
+def test_mxu_kernels_match_their_plain_version(device, n_order, k, dt, segment):
+    """KM1/KM2 against their plain version (the same float32 operations in
+    the same order): bit-equal expected, held to the bounds above; and
+    against the stored K1/K2 pipeline at tests/test_pallas_mxu.py's
+    tolerances, at its steps (KM forms the stage times in float32 as the TPU
+    kernel, K1/K2 in double: at the CFL step, where η reaches 1e-4 at Np =
+    2, the two η differ by ~2e-7, past that file's atol 1e-7)."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    b, n_seg = 8, 4
+    run = dg_mxu.make_cuda_fwd_adj_estimate_grid_mxu(disc, A, dt, segment=segment,
+                                                     n_segments=n_seg, batch=b, device=device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.stack([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    lam = lam[:, None, :].expand(disc.np_, b, k).contiguous()
+    before = (dg_mxu.km_fwd_traj.launches, dg_mxu.km_adj_est.launches)
+    got = run(u0, 0.1, lam)
+    torch.cuda.synchronize()
+    assert (dg_mxu.km_fwd_traj.launches, dg_mxu.km_adj_est.launches) == (
+        before[0] + 1, before[1] + 1)
+    flat = (disc.np_, b * k)
+    traj_p, uf_p = dg_mxu.km_fwd_traj_plain(u0.reshape(flat), 0.1, run.ops)
+    lam0_p, eta_p = dg_mxu.km_adj_est_plain(traj_p, uf_p, lam.reshape(flat), 0.1, run.ops)
+    n = run.n_steps
+    tol = (8 * n * EPS32 * float(uf_p.abs().max()), 8 * n * EPS32 * float(lam.abs().max()),
+           8 * n * disc.np_ * EPS32 * float(lam.abs().max()) * float(uf_p.abs().max()))
+    for g, p, t in zip(got, (uf_p, lam0_p, eta_p), tol):
+        assert float((g.reshape(p.shape) - p).abs().max()) <= t
+    want = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(
+        disc, A, dt, n, b, device, store_trajectory=True)(u0, 0.1, lam)
+    for g, w, (rtol, atol) in zip(got, want, ((2e-4, 1e-6), (2e-3, 2e-5), (5e-3, 1e-7))):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+def test_sharded_pipelines_at_one_rank_are_the_tiled_bits(device):
+    """No process group: both sharded factories run KT1/KT2 per segment on
+    the whole mesh and give the single-process tiled pipeline's bits."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_sharded, dg_tiled
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, 4096)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    dt = 0.5 * (0.75 / A) * xmin
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    want = dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid(
+        disc, A, dt, segment=4, n_segments=4, chunks=4, device=device)(u0, 0.0, lam)
+    grid = make_rank_grid()
+    before = dg_tiled.tiled_fwd_seg.launches, dg_tiled.tiled_rev_seg.launches
+    for make in (dg_sharded.make_cuda_fwd_adj_estimate_sharded_blocked,
+                 dg_sharded.make_cuda_fwd_adj_estimate_tiled_grid_sharded):
+        got = make(disc, A, dt, grid, segment=4, n_segments=4, device=device)(u0, 0.0, lam)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (dg_tiled.tiled_fwd_seg.launches - before[0],
+            dg_tiled.tiled_rev_seg.launches - before[1]) == (8, 8)
