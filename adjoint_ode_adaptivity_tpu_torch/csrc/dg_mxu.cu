@@ -56,8 +56,10 @@
 
 namespace {
 
+using aoa_dg::RkCoef;
 using aoa_dg::StepTables;
 using aoa_dg::pack_tables;
+using aoa_dg::rk_coef;
 
 constexpr int kThreads = 128;
 constexpr int kPerThread = 2;
@@ -222,20 +224,6 @@ km_stage_t(const float* __restrict__ lu_in, const float* __restrict__ lr_in,
   }
 }
 
-struct Rk {
-  float a[5];
-  float b[5];
-};
-
-Rk rk_coef(const double* rk) {
-  Rk c{};
-  for (int s = 0; s < 5; ++s) {
-    c.a[s] = static_cast<float>(rk[s]);
-    c.b[s] = static_cast<float>(rk[5 + s]);
-  }
-  return c;
-}
-
 inline int launch_error() { return static_cast<int>(cudaGetLastError()); }
 
 template <int NP>
@@ -243,7 +231,7 @@ int fwd_impl(int n, int nk, int n_steps, const double* rk, const float* tables,
              const float* inflow, const float* u0, float* traj, float* u_final,
              float* ubuf, float* rbuf, cudaStream_t stream) {
   const StepTables tab = pack_tables(NP, tables);
-  const Rk c = rk_coef(rk);
+  const RkCoef c = rk_coef(rk);
   const long size = static_cast<long>(NP) * n;
   const int blocks = (n + kTile - 1) / kTile;
   const float* u_cur = u0;
@@ -274,7 +262,7 @@ int rev_impl(int n, int nk, int n_steps, const double* rk,
              float* eta, float* ubuf, float* rbuf, float* lubuf, float* lrbuf,
              cudaStream_t stream) {
   const StepTables half = pack_tables(NP, half_tables);
-  const Rk c = rk_coef(rk);
+  const RkCoef c = rk_coef(rk);
   const long size = static_cast<long>(NP) * n;
   const int blocks = (n + kTile - 1) / kTile;
   const float* lu = lam_end;

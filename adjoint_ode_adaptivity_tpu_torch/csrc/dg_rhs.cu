@@ -11,46 +11,77 @@
 // K2  dg_adj_est_stored     replaces dg_rhs.py:1108 (_adj_est_grid_kernel_b_stored).
 // K2r dg_adj_est_recompute  replaces dg_rhs.py:908 (_adj_est_grid_kernel_b) and,
 //                           at B = 1, :538 (_adj_est_grid_kernel) and :384
-//                           (_adj_estimate_kernel): per segment in reverse, the
-//                           segment's segment + 1 states recomputed from its
-//                           checkpoint into a scratch of (segment + 1)·Np·B·K
-//                           floats with K1's stage kernel, then K2's sweep
-//                           over the scratch, λ and η carried across segments.
+//                           (_adj_estimate_kernel): per checkpoint segment in
+//                           reverse, the segment's segment + 1 states
+//                           recomputed from its checkpoint into a scratch of
+//                           (segment + 1)·Np·B·K floats, then K2's sweep over
+//                           the scratch, λ and η carried across segments.
 // KA  dg_adj_march          replaces dg_rhs.py:335 (_adjoint_kernel): the pure
 //                           coarse transpose march λ0 = (Lᵀ)ⁿ λN, full-dt tables.
 //
-// State layout (Np, B, K) float32, element axis K contiguous: thread c owns
-// column c = b·K + k and holds its Np nodes in registers, so neighbouring
-// threads read neighbouring elements (coalesced). Geometry is always per
-// element (rx, fscale_left, fscale_right as (K,) vectors): the adaptive loop's
-// meshes are graded, the uniform mesh is the special case. The per-element
-// arithmetic is csrc/dg_stage.cuh's, shared with the tiled kernels.
+// State layout (Np, B, K) float32, element axis K contiguous. Geometry is
+// always per element (rx, fscale_left, fscale_right as (K,) vectors): the
+// adaptive loop's meshes are graded, the uniform mesh is the special case.
+// The per-element arithmetic is csrc/dg_stage.cuh's, shared with the tiled
+// kernels, every rounding explicit.
 //
-// Sync across elements: every LSRK stage needs the neighbours' face traces
-// (u[Np-1] of element k-1, u[0] of element k+1) at the stage's INPUT state.
-// Blocks run in no order on Hopper, so each stage is one launch that reads
-// read-only input buffers and writes separate output buffers (ping-pong); the
-// launch boundary is the grid-wide sync. The host loops below drive all
-// launches of one phase from one C call. The transpose stage needs the
-// neighbours' lifted cotangents; each thread recomputes them from the
-// neighbours' (λu, λr) columns instead of a second launch.
+// K1 and KA: one launch per LSRK stage. Thread c owns column c = b·K + k and
+// holds its Np nodes in registers; every stage reads the neighbours' face
+// traces at the stage's INPUT state, and blocks run in no order, so each
+// stage reads read-only buffers and writes separate ones (ping-pong): the
+// launch boundary is the grid-wide sync. What bounds them on the H100: the
+// launches, 5 a step, each moving ~4·Np·B·K·4 bytes.
 //
-// What bounds it on the H100: launches. One time step costs 5 launches in K1,
-// 20 in K2 (two dt/2 steps + two dt/2 transpose steps), 25 in K2r (K2's 20
-// plus the recompute's 5) and 5 in KA, so the headline pipeline (2048 steps)
-// issues 51,200 launches (61,440 with recomputation), each moving only
-// ~4·Np·B·K·4 bytes (1.9 MB at K=10^4, Np=3, B=8, computed from the shapes).
-// Next come bytes; the arithmetic (≈2·Np² FLOP per node and stage) is far
-// below either. PERF.md holds the measured split (host enqueue vs device).
-// csrc/dg_tiled.cu fuses `seg` steps per launch with ghost halos.
+// K2 and K2r: the reverse sweep fused over s_f steps per launch. One CTA per
+// (tile, member): blockIdx.x the tile of L local elements [lo, hi),
+// blockIdx.y the member b; the CTA's window [lo − W, hi + W), clipped to
+// [0, K), of member b's row, one thread per window element. Each thread keeps
+// its element's u, r, λu, λr, rx, fsl, fsr, the η it accumulates and the
+// trajectory entries u_n, u_{n+1} and the prefetched u_{n−1} in registers
+// for the whole launch. Only face values cross elements: per stage each
+// thread posts two floats (forward: u[0], u[Np−1]; transposed: its own
+// lifted contributions fsl·Σ ll·w and fsr·Σ lr·w) into a double-buffered
+// trace array in shared memory, passes one __syncthreads, and reads its
+// neighbours'. The owner's contributions are the products lsrk_stage_t
+// recomputes from a neighbour's column, so the bits do not move.
 //
-// Stage time t + c_s·dt with t = t0 + n·dt (n the global step) is formed on
-// the host in double; the inflow value −sin(a·t_s) reaches element 0 only
-// (frozen to zero in the transpose). Because every loop forms the time from
-// the global step, the recompute reproduces the stored trajectory bit for
-// bit, and K2r's λ0 and η are K2's. The residual accumulation
-// η += Σ_nodes λ·(u_{n+1} − half2) is fused into the last half-step stage,
-// in float32 as the TPU kernel does.
+// Ghost rule (ops/pallas/dg_sharded.py:18-25): the flux couples ±1 element a
+// stage and the window's ends are wrong (the first element takes the inflow
+// value, the last has no right face: exact at the domain's ends, harmless at
+// a ghost edge). Per step the half steps run 10 stages from u_n, read exact
+// from the trajectory, and λ's 10 transposed stages lose 10 elements a side,
+// so W ≥ 10·s_f keeps every local element exact; the plan takes the repo's
+// W = 10·s_f + 10. λ crosses launches through global ping-pong buffers, from
+// which the neighbouring tiles read their ghosts: the launch boundary is the
+// only grid sync, once per s_f steps. η is loaded at a launch's start,
+// accumulated η += Σ λ·(u_{n+1} − half2) in K2's order n = N−1 … 0 with
+// __fadd_rn, and stored at its end; λ0 and η are written by local elements
+// only. Stage times and inflow values are the host's double expression of the
+// global step, passed per launch (FusedInflow), so a local element computes
+// K2's bits, whatever the tiling. K2r recomputes each checkpoint segment
+// with launches of s_f forward steps (5 stages each, the same windows) that
+// write the exact local entry states into the scratch, then runs K2's
+// reverse over it: ~2 launches per s_f steps instead of 25 per step.
+//
+// What bounds K2 and K2r on the H100 now: issue. A stage is ~60
+// instructions a warp (2·Np² + 9·Np + 4 FP32 operations an element, the
+// rest the trace exchange, the barrier and indexing), so a launch lasts as
+// long as its busiest SM takes to issue its warps' stages; the ghosts add
+// 2W/L of recomputed work and each launch ~4 µs of start and tail. The
+// wrappers pick s_f, the CTA size (512 or 1024 threads) and the tile count
+// that balance the SMs under that model (ops/cuda/dg_rhs.py stored_plan).
+// Device memory sees the trajectory once per window (1 + 2W/L of its
+// bytes) and λ and η once per launch. PERF.md holds the measured times.
+//
+// Alternatives weighed. A cooperative kernel with grid.sync() per stage
+// still syncs 20 times a step across the whole card (40,960 times at the
+// headline); a CUDA graph of the per-stage loop still runs 40,960 kernels,
+// each round-tripping the state through device memory. A thread-block-
+// cluster halo through distributed shared memory would drop the ghost
+// recompute inside a cluster; it is not measured.
+//
+// The inflow value −sin(a·t_s) reaches element 0 only (frozen to zero in the
+// transpose).
 
 #include <cuda_runtime.h>
 
@@ -59,24 +90,24 @@
 namespace {
 
 using aoa_dg::Geom;
+using aoa_dg::RkCoef;
 using aoa_dg::StepTables;
 using aoa_dg::dg_inflow;
 using aoa_dg::pack_tables;
+using aoa_dg::rk_coef;
 
 constexpr int kThreads = 256;
 
 // One forward LSRK stage: r = a_s·r_in + dt·rhs(u_in), u_out = u_in + b_s·r.
 // r_in == nullptr means a_s = 0 (stage 0); r_out == nullptr drops r (stage 4,
 // where r never crosses the step boundary). traj_out != nullptr stores the
-// stage input (the step's entry state). eta != nullptr fuses the residual
-// accumulation η += Σ_i lam_i·(u_next_i − u_out_i) and skips the u/r writes.
+// stage input (the step's entry state).
 template <int NP>
 __global__ void __launch_bounds__(kThreads)
 lsrk_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
            float* __restrict__ u_out, float* __restrict__ r_out,
-           float* __restrict__ traj_out, const float* __restrict__ lam,
-           const float* __restrict__ u_next, float* __restrict__ eta, Geom g,
-           StepTables tab, float a_s, float b_s, float uin, int nb, int nk) {
+           float* __restrict__ traj_out, Geom g, StepTables tab, float a_s,
+           float b_s, float uin, int nb, int nk) {
   const int bk = nb * nk;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= bk) return;
@@ -98,20 +129,10 @@ lsrk_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
   const float right = outflow ? 0.f : u_in[c + 1];
   aoa_dg::stage_fwd<NP>(u, left, right, outflow, g.rx[k], g.fsl[k], g.fsr[k],
                         tab, r_in != nullptr, a_s, b_s, r, un);
-  if (eta != nullptr) {
-    float l[NP], nx[NP];
 #pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      l[i] = lam[i * bk + c];
-      nx[i] = u_next[i * bk + c];
-    }
-    eta[c] = __fadd_rn(eta[c], aoa_dg::residual_dot<NP>(l, nx, un));
-  } else {
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      u_out[i * bk + c] = un[i];
-      if (r_out != nullptr) r_out[i * bk + c] = r[i];
-    }
+  for (int i = 0; i < NP; ++i) {
+    u_out[i * bk + c] = un[i];
+    if (r_out != nullptr) r_out[i * bk + c] = r[i];
   }
 }
 
@@ -193,9 +214,9 @@ int fwd_steps(int nb, int nk, long n_first, int n_count, double t0, double dt,
                       ? store + (n / store_every) * size
                       : nullptr;
       lsrk_stage<NP><<<blocks, kThreads, 0, stream>>>(
-          u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt, tr, nullptr, nullptr,
-          nullptr, g, tab, static_cast<float>(rk[s]),
-          static_cast<float>(rk[5 + s]), dg_inflow(a, tn, rk[10 + s], dt), nb, nk);
+          u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt, tr, g, tab,
+          static_cast<float>(rk[s]), static_cast<float>(rk[5 + s]),
+          dg_inflow(a, tn, rk[10 + s], dt), nb, nk);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       u_cur = u_nxt;
@@ -232,49 +253,6 @@ int transposed_steps(int nb, int nk, int steps, const double* rk,
   return 0;
 }
 
-// The reverse sweep over steps n_first + n_count − 1 … n_first: for each, two
-// dt/2 steps from traj[n] (relative to n_first) whose last stage accumulates
-// η += Σ λ·(u_{n+1} − half2) with the λ carried in (u_{n+1} = traj[n + 1], or
-// u_end for the last step), then two dt/2 transposed steps.
-template <int NP>
-int rev_steps(int nb, int nk, long n_first, int n_count, double t0, double dt,
-              double a, const double* rk, const StepTables& half, Geom g,
-              const float* traj, const float* u_end, const float** lu, long* jt,
-              long total_t, float* lam0, float* eta, float* ubuf, float* rbuf,
-              float* lubuf, float* lrbuf, cudaStream_t stream) {
-  const long size = static_cast<long>(NP) * nb * nk;
-  const int blocks = (nb * nk + kThreads - 1) / kThreads;
-  const double h = dt / 2;
-  for (int n = n_count - 1; n >= 0; --n) {
-    const double tn = t0 + static_cast<double>(n_first + n) * dt;
-    const float* u_np1 = n == n_count - 1 ? u_end : traj + (n + 1) * size;
-    const float* u_cur = traj + n * size;
-    const float* r_cur = nullptr;
-    for (int hs = 0; hs < 2; ++hs) {
-      const double th = tn + hs * h;
-      for (int s = 0; s < 5; ++s) {
-        const int jj = 5 * hs + s;
-        const bool last = jj == 9;
-        float* u_nxt = last ? nullptr : ubuf + (jj % 2) * size;
-        float* r_nxt = s == 4 ? nullptr : rbuf + (jj % 2) * size;
-        lsrk_stage<NP><<<blocks, kThreads, 0, stream>>>(
-            u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt, nullptr,
-            last ? *lu : nullptr, last ? u_np1 : nullptr, last ? eta : nullptr,
-            g, half, static_cast<float>(rk[s]), static_cast<float>(rk[5 + s]),
-            dg_inflow(a, th, rk[10 + s], h), nb, nk);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-        u_cur = u_nxt;
-        r_cur = r_nxt;
-      }
-    }
-    const int err = transposed_steps<NP>(nb, nk, 2, rk, half, g, lu, jt, total_t,
-                                         lam0, lubuf, lrbuf, stream);
-    if (err != 0) return err;
-  }
-  return 0;
-}
-
 template <int NP>
 int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
                    double dt, double a, const double* rk, const float* tables,
@@ -284,49 +262,6 @@ int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
   const int err = fwd_steps<NP>(nb, nk, 0, n_steps, t0, dt, a, rk, tab, g, u0,
                                 store, store_every, u_final, ubuf, rbuf, stream);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
-}
-
-template <int NP>
-int adj_est_stored_impl(int nb, int nk, int n_steps, double t0, double dt,
-                        double a, const double* rk, const float* half_tables,
-                        Geom g, const float* traj, const float* u_final,
-                        const float* lam_end, float* lam0, float* eta,
-                        float* ubuf, float* rbuf, float* lubuf, float* lrbuf,
-                        cudaStream_t stream) {
-  const StepTables half = pack_tables(NP, half_tables);
-  const float* lu = lam_end;
-  long jt = 0;
-  const int err = rev_steps<NP>(nb, nk, 0, n_steps, t0, dt, a, rk, half, g, traj,
-                                u_final, &lu, &jt, 10L * n_steps, lam0, eta, ubuf,
-                                rbuf, lubuf, lrbuf, stream);
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
-}
-
-template <int NP>
-int adj_est_recompute_impl(int nb, int nk, int n_steps, int segment, double t0,
-                           double dt, double a, const double* rk,
-                           const float* tables, const float* half_tables,
-                           Geom g, const float* ckpt, const float* lam_end,
-                           float* lam0, float* eta, float* scratch, float* ubuf,
-                           float* rbuf, float* lubuf, float* lrbuf,
-                           cudaStream_t stream) {
-  const StepTables full = pack_tables(NP, tables);
-  const StepTables half = pack_tables(NP, half_tables);
-  const long size = static_cast<long>(NP) * nb * nk;
-  const float* lu = lam_end;
-  long jt = 0;
-  for (int si = n_steps / segment - 1; si >= 0; --si) {
-    const long n_first = static_cast<long>(si) * segment;
-    float* u_end = scratch + segment * size;
-    int err = fwd_steps<NP>(nb, nk, n_first, segment, t0, dt, a, rk, full, g,
-                            ckpt + si * size, scratch, 1, u_end, ubuf, rbuf, stream);
-    if (err != 0) return err;
-    err = rev_steps<NP>(nb, nk, n_first, segment, t0, dt, a, rk, half, g, scratch,
-                        u_end, &lu, &jt, 10L * n_steps, lam0, eta, ubuf, rbuf,
-                        lubuf, lrbuf, stream);
-    if (err != 0) return err;
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NP>
@@ -340,6 +275,351 @@ int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
   const int err = transposed_steps<NP>(nb, nk, n_steps, rk, full, g, &lu, &jt,
                                        5L * n_steps, lam0, lubuf, lrbuf, stream);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------- K2, K2r: fused over s_f steps
+
+constexpr int kMaxFused = 16;  // steps per launch: the inflow table rides the launch
+
+// The inflow value of every stage of a launch, formed on the host: 5 a step
+// forward, 10 a step (two dt/2 steps) in the reverse.
+struct FusedInflow {
+  float v[10 * kMaxFused];
+};
+
+// The launch plan the wrapper picks: s_f steps a launch, L local elements a
+// tile, W ghosts a side, and the CTA size the kernels are built for.
+struct FusedPlan {
+  int seg, tile_l, ghost, threads;
+};
+
+// The double-buffered face traces: stage j posts into buffer j % 2. A thread
+// overwrites a buffer two stages after posting into it, past the barrier of
+// the stage between, which every reader of the old values had reached.
+template <int T>
+struct Traces {
+  float lo[2][T];  // forward u[0]; transposed fsl·Σ ll·w
+  float hi[2][T];  // forward u[Np−1]; transposed fsr·Σ lr·w
+};
+
+// This thread's element in its CTA's window: k = w0 + threadIdx.x of member
+// blockIdx.y; ``active`` inside the clipped window, ``local`` in [lo, hi).
+struct Elem {
+  int k;
+  long c;
+  bool active, local, first, last;
+};
+
+__device__ __forceinline__ Elem elem_of(int nk, int tile_l, int ghost) {
+  const int lo = blockIdx.x * tile_l;
+  const int hi = min(lo + tile_l, nk);
+  const int w0 = max(lo - ghost, 0);
+  const int e = min(hi + ghost, nk) - w0;
+  Elem el;
+  el.k = w0 + static_cast<int>(threadIdx.x);
+  el.c = static_cast<long>(blockIdx.y) * nk + el.k;
+  el.active = static_cast<int>(threadIdx.x) < e;
+  el.local = el.k >= lo && el.k < hi;
+  el.first = threadIdx.x == 0;
+  el.last = static_cast<int>(threadIdx.x) == e - 1;
+  return el;
+}
+
+template <int NP>
+__device__ __forceinline__ void load_col(const float* __restrict__ x, long c,
+                                         long bk, float* v) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) v[i] = x[i * bk + c];
+}
+
+template <int NP>
+__device__ __forceinline__ void store_col(float* x, long c, long bk,
+                                          const float* v) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) x[i * bk + c] = v[i];
+}
+
+// One forward stage of the window: post the faces, one barrier, update.
+template <int NP, int T>
+__device__ __forceinline__ void window_fwd(Traces<T>& tr, int buf, const Elem& el,
+                                           float* u, float* r, float* un, float rx,
+                                           float fsl, float fsr,
+                                           const StepTables& tab, int s,
+                                           const RkCoef& rk, float uin) {
+  const int e = threadIdx.x;
+  tr.lo[buf][e] = u[0];
+  tr.hi[buf][e] = u[NP - 1];
+  __syncthreads();
+  if (el.active) {
+    const float left = el.first ? uin : tr.hi[buf][e - 1];
+    const float right = el.last ? 0.f : tr.lo[buf][e + 1];
+    aoa_dg::stage_fwd<NP>(u, left, right, el.last, rx, fsl, fsr, tab, s > 0,
+                          rk.a[s], rk.b[s], r, un);
+  }
+}
+
+// K2r's recompute: ``steps`` forward steps of the window from u_in; the
+// local entry state of step n goes to store[n] for n >= store_first and the
+// exit state to store[steps]. u_in may be store[0] (then store_first = 1).
+template <int NP, int T>
+__global__ void __launch_bounds__(T)
+fwd_fused(const float* u_in, float* store, Geom g,
+          const __grid_constant__ StepTables full, RkCoef rk,
+          const __grid_constant__ FusedInflow inflow, int nk, int tile_l,
+          int ghost, int steps, int store_first) {
+  __shared__ Traces<T> tr;
+  const Elem el = elem_of(nk, tile_l, ghost);
+  const long bk = static_cast<long>(gridDim.y) * nk;
+  const long size = NP * bk;
+  float u[NP] = {}, r[NP] = {}, un[NP] = {};
+  float rx = 0.f, fsl = 0.f, fsr = 0.f;
+  if (el.active) {
+    rx = g.rx[el.k];
+    fsl = g.fsl[el.k];
+    fsr = g.fsr[el.k];
+    load_col<NP>(u_in, el.c, bk, u);
+  }
+  int buf = 0;
+  for (int n = 0; n < steps; ++n) {
+    if (el.local && n >= store_first) store_col<NP>(store + n * size, el.c, bk, u);
+#pragma unroll
+    for (int s = 0; s < 5; ++s, buf ^= 1) {
+      window_fwd<NP, T>(tr, buf, el, u, r, un, rx, fsl, fsr, full, s, rk,
+                        inflow.v[5 * n + s]);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) u[i] = un[i];
+    }
+  }
+  if (el.local) store_col<NP>(store + steps * size, el.c, bk, u);
+}
+
+// K2's reverse over ``steps`` steps: traj[0 .. steps − 1] their entry states,
+// u_top the state after the last. For n = steps − 1 … 0: two dt/2 steps from
+// traj[n] whose last stage adds Σ λ·(u_{n+1} − half2) to η on the local
+// elements, then two dt/2 transposed steps of λ. λ from lam_in (whole
+// window), local λ to lam_out; eta (B, K) accumulated in place.
+template <int NP, int T>
+__global__ void __launch_bounds__(T)
+rev_fused(const float* __restrict__ traj, const float* __restrict__ u_top,
+          const float* __restrict__ lam_in, float* __restrict__ lam_out,
+          float* __restrict__ eta, Geom g, const __grid_constant__ StepTables half,
+          RkCoef rk, const __grid_constant__ FusedInflow inflow, int nk,
+          int tile_l, int ghost, int steps) {
+  __shared__ Traces<T> tr;
+  const Elem el = elem_of(nk, tile_l, ghost);
+  const int e = threadIdx.x;
+  const long bk = static_cast<long>(gridDim.y) * nk;
+  const long size = NP * bk;
+  float lu[NP] = {}, lr[NP] = {}, cur[NP] = {}, nxt[NP] = {}, unp1[NP] = {};
+  float rx = 0.f, fsl = 0.f, fsr = 0.f, acc = 0.f;
+  if (el.active) {
+    rx = g.rx[el.k];
+    fsl = g.fsl[el.k];
+    fsr = g.fsr[el.k];
+    load_col<NP>(lam_in, el.c, bk, lu);
+    load_col<NP>(traj + (steps - 1) * size, el.c, bk, cur);
+    if (el.local) {
+      load_col<NP>(u_top, el.c, bk, unp1);
+      acc = eta[el.c];
+    }
+  }
+  // 20 stages a step: stage j of each ten posts into buffer j & 1
+  for (int n = steps - 1; n >= 0; --n) {
+    // the next entry state is loaded while this step's 20 stages run
+    if (el.active && n > 0) load_col<NP>(traj + (n - 1) * size, el.c, bk, nxt);
+    float u[NP], r[NP] = {}, un[NP] = {};
+#pragma unroll
+    for (int i = 0; i < NP; ++i) u[i] = cur[i];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      window_fwd<NP, T>(tr, j & 1, el, u, r, un, rx, fsl, fsr, half, j % 5, rk,
+                        inflow.v[10 * n + j]);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) u[i] = un[i];
+    }
+    if (el.local) acc = __fadd_rn(acc, aoa_dg::residual_dot<NP>(lu, unp1, un));
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      const int s = 4 - j % 5;
+      const int buf = j & 1;
+      float w[NP], s0, s1;
+      aoa_dg::stage_w<NP>(lu, lr, s < 4, rk.b[s], w);
+      aoa_dg::faces_t<NP>(w, el.last, fsl, fsr, half, &s0, &s1);
+      tr.lo[buf][e] = s0;
+      tr.hi[buf][e] = s1;
+      __syncthreads();
+      if (el.active) {
+        const float p0 = el.last ? 0.f : tr.lo[buf][e + 1];
+        const float p1 = el.first ? 0.f : tr.hi[buf][e - 1];
+        float lu_new[NP];
+        aoa_dg::stage_t<NP>(lu, w, s0, s1, p0, p1, rx, half, rk.a[s], lu_new, lr);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) lu[i] = lu_new[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      unp1[i] = cur[i];
+      cur[i] = nxt[i];
+    }
+  }
+  if (el.local) {
+    store_col<NP>(lam_out, el.c, bk, lu);
+    eta[el.c] = acc;
+  }
+}
+
+// Threads a CTA runs: its widest window, in whole warps.
+int fused_block(int nk, const FusedPlan& p) {
+  const int e = nk < p.tile_l + 2 * p.ghost ? nk : p.tile_l + 2 * p.ghost;
+  return (e + 31) / 32 * 32;
+}
+
+// The reverse over global steps n_first .. n_first + n_count − 1, whose entry
+// states are traj[0 .. n_count − 1] and u_end the state after them, in
+// launches of s_f steps from the top (the last launch takes the remainder).
+// λ rides *lam through the ping-pong lbuf (2·Np·B·K floats); *j counts the
+// reverse launches of the whole call, whose last (j == total − 1) writes
+// lam0.
+template <int NP, int T>
+int rev_range(int nb, int nk, long n_first, int n_count, double t0, double dt,
+              double a, const double* rk, const StepTables& half, Geom g,
+              const FusedPlan& p, const float* traj, const float* u_end,
+              const float** lam, int* j, int total, float* lam0, float* eta,
+              float* lbuf, cudaStream_t stream) {
+  const long size = static_cast<long>(NP) * nb * nk;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, nb);
+  const int block = fused_block(nk, p);
+  const RkCoef coef = rk_coef(rk);
+  const double h = dt / 2;
+  for (int hi = n_count; hi > 0; hi -= p.seg) {
+    const int lo = hi > p.seg ? hi - p.seg : 0;
+    FusedInflow inflow{};
+    for (int n = 0; n < hi - lo; ++n) {
+      const double tn = t0 + static_cast<double>(n_first + lo + n) * dt;
+      for (int hs = 0; hs < 2; ++hs) {
+        const double th = tn + hs * h;
+        for (int s = 0; s < 5; ++s) inflow.v[10 * n + 5 * hs + s] = dg_inflow(a, th, rk[10 + s], h);
+      }
+    }
+    float* out = *j == total - 1 ? lam0 : lbuf + (*j % 2) * size;
+    rev_fused<NP, T><<<grid, block, 0, stream>>>(
+        traj + lo * size, hi == n_count ? u_end : traj + hi * size, *lam, out,
+        eta, g, half, coef, inflow, nk, p.tile_l, p.ghost, hi - lo);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *lam = out;
+    ++*j;
+  }
+  return 0;
+}
+
+template <int NP, int T>
+int adj_est_stored_impl(int nb, int nk, int n_steps, double t0, double dt,
+                        double a, const double* rk, const float* half_tables,
+                        Geom g, const FusedPlan& p, const float* traj,
+                        const float* u_final, const float* lam_end, float* lam0,
+                        float* eta, float* lbuf, int* launches,
+                        cudaStream_t stream) {
+  const StepTables half = pack_tables(NP, half_tables);
+  const float* lam = lam_end;
+  const int total = (n_steps + p.seg - 1) / p.seg;
+  const int err = rev_range<NP, T>(nb, nk, 0, n_steps, t0, dt, a, rk, half, g, p,
+                                   traj, u_final, &lam, launches, total, lam0, eta,
+                                   lbuf, stream);
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+template <int NP, int T>
+int adj_est_recompute_impl(int nb, int nk, int n_steps, int segment, double t0,
+                           double dt, double a, const double* rk,
+                           const float* tables, const float* half_tables,
+                           Geom g, const FusedPlan& p, const float* ckpt,
+                           const float* lam_end, float* lam0, float* eta,
+                           float* scratch, float* lbuf, int* launches,
+                           cudaStream_t stream) {
+  const StepTables full = pack_tables(NP, tables);
+  const StepTables half = pack_tables(NP, half_tables);
+  const RkCoef coef = rk_coef(rk);
+  const long size = static_cast<long>(NP) * nb * nk;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, nb);
+  const int block = fused_block(nk, p);
+  const int per_seg = (segment + p.seg - 1) / p.seg;
+  const int total = n_steps / segment * per_seg;
+  const float* lam = lam_end;
+  int j = 0;
+  for (int si = n_steps / segment - 1; si >= 0; --si) {
+    const long n_first = static_cast<long>(si) * segment;
+    for (int lo = 0; lo < segment; lo += p.seg) {
+      const int steps = segment - lo < p.seg ? segment - lo : p.seg;
+      FusedInflow inflow{};
+      for (int n = 0; n < steps; ++n) {
+        const double tn = t0 + static_cast<double>(n_first + lo + n) * dt;
+        for (int s = 0; s < 5; ++s) inflow.v[5 * n + s] = dg_inflow(a, tn, rk[10 + s], dt);
+      }
+      const float* src = lo == 0 ? ckpt + si * size : scratch + lo * size;
+      fwd_fused<NP, T><<<grid, block, 0, stream>>>(
+          src, scratch + lo * size, g, full, coef, inflow, nk, p.tile_l, p.ghost,
+          steps, lo == 0 ? 0 : 1);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ++*launches;
+    }
+    const int err = rev_range<NP, T>(nb, nk, n_first, segment, t0, dt, a, rk, half,
+                                     g, p, scratch, scratch + segment * size, &lam,
+                                     &j, total, lam0, eta, lbuf, stream);
+    if (err != 0) return err;
+  }
+  *launches += j;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -3 unless the plan is one the kernels take: 1 <= s_f <= kMaxFused, the
+// ghost rule W >= 10·s_f + 10, a CTA size the kernels are built for and a
+// window that fits it.
+int check_plan(int nk, const FusedPlan& p) {
+  if (p.seg < 1 || p.seg > kMaxFused || p.tile_l < 1 || p.ghost < 10 * p.seg + 10) return -3;
+  if (p.threads != 512 && p.threads != 1024) return -3;
+  return fused_block(nk, p) <= p.threads ? 0 : -3;
+}
+
+}  // namespace
+
+// The CTA size picks the kernels' instance: __launch_bounds__(T) sets the
+// register budget (128 a thread at 512, 64 at 1024).
+#define AOA_FUSED_SWITCH(p, CALL)                 \
+  switch ((p).threads) {                          \
+    case 512: { constexpr int T = 512; return CALL; }   \
+    case 1024: { constexpr int T = 1024; return CALL; } \
+    default: return -3;                           \
+  }
+
+namespace {
+
+template <int NP>
+int adj_est_stored_np(int nb, int nk, int n_steps, double t0, double dt,
+                      double a, const double* rk, const float* half_tables,
+                      Geom g, const FusedPlan& p, const float* traj,
+                      const float* u_final, const float* lam_end, float* lam0,
+                      float* eta, float* lbuf, int* launches,
+                      cudaStream_t stream) {
+  AOA_FUSED_SWITCH(p, (adj_est_stored_impl<NP, T>(
+                          nb, nk, n_steps, t0, dt, a, rk, half_tables, g, p, traj,
+                          u_final, lam_end, lam0, eta, lbuf, launches, stream)))
+}
+
+template <int NP>
+int adj_est_recompute_np(int nb, int nk, int n_steps, int segment, double t0,
+                         double dt, double a, const double* rk,
+                         const float* tables, const float* half_tables, Geom g,
+                         const FusedPlan& p, const float* ckpt,
+                         const float* lam_end, float* lam0, float* eta,
+                         float* scratch, float* lbuf, int* launches,
+                         cudaStream_t stream) {
+  AOA_FUSED_SWITCH(p, (adj_est_recompute_impl<NP, T>(
+                          nb, nk, n_steps, segment, t0, dt, a, rk, tables,
+                          half_tables, g, p, ckpt, lam_end, lam0, eta, scratch,
+                          lbuf, launches, stream)))
 }
 
 }  // namespace
@@ -361,37 +641,47 @@ int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every,
                                        rbuf, static_cast<cudaStream_t>(stream)))
 }
 
-// eta must be zeroed by the caller; ubuf, rbuf, lubuf, lrbuf hold 2·Np·B·K
-// floats each. half_tables are folded for the step dt/2.
-int dg_adj_est_stored(int np, int nb, int nk, int n_steps, double t0,
-                      double dt, double a, const double* rk,
-                      const float* half_tables, const float* rx,
-                      const float* fsl, const float* fsr, const float* traj,
-                      const float* u_final, const float* lam_end, float* lam0,
-                      float* eta, float* ubuf, float* rbuf, float* lubuf,
-                      float* lrbuf, void* stream) {
+// K2 with the plan (seg = s_f, tile_l = L, ghost = W, threads): eta zeroed
+// by the caller; lbuf holds 2·Np·B·K floats; half_tables are folded for the
+// step dt/2. *launches receives the CUDA launches issued. -3: a plan the
+// kernels do not take.
+int dg_adj_est_stored(int np, int nb, int nk, int n_steps, int seg, int tile_l,
+                      int ghost, int threads, double t0, double dt, double a,
+                      const double* rk, const float* half_tables,
+                      const float* rx, const float* fsl, const float* fsr,
+                      const float* traj, const float* u_final,
+                      const float* lam_end, float* lam0, float* eta,
+                      float* lbuf, int* launches, void* stream) {
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, adj_est_stored_impl<NP>(
-                        nb, nk, n_steps, t0, dt, a, rk, half_tables, g, traj,
-                        u_final, lam_end, lam0, eta, ubuf, rbuf, lubuf, lrbuf,
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (check_plan(nk, p) != 0) return -3;
+  AOA_NP_SWITCH(np, adj_est_stored_np<NP>(
+                        nb, nk, n_steps, t0, dt, a, rk, half_tables, g, p, traj,
+                        u_final, lam_end, lam0, eta, lbuf, launches,
                         static_cast<cudaStream_t>(stream)))
 }
 
-// ckpt: (n_steps / segment, Np, B, K), K1's checkpoints; scratch holds
-// (segment + 1)·Np·B·K floats; eta zeroed by the caller; the buffers as for
-// dg_adj_est_stored. tables: step dt (the recompute), half_tables: dt/2.
+// K2r: ckpt (n_steps / segment, Np, B, K), K1's checkpoints; scratch holds
+// (segment + 1)·Np·B·K floats; eta zeroed by the caller; lbuf, the plan and
+// *launches as for dg_adj_est_stored. tables: step dt (the recompute),
+// half_tables: dt/2.
 int dg_adj_est_recompute(int np, int nb, int nk, int n_steps, int segment,
-                         double t0, double dt, double a, const double* rk,
+                         int seg, int tile_l, int ghost, int threads, double t0,
+                         double dt, double a, const double* rk,
                          const float* tables, const float* half_tables,
                          const float* rx, const float* fsl, const float* fsr,
                          const float* ckpt, const float* lam_end, float* lam0,
-                         float* eta, float* scratch, float* ubuf, float* rbuf,
-                         float* lubuf, float* lrbuf, void* stream) {
+                         float* eta, float* scratch, float* lbuf,
+                         int* launches, void* stream) {
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, adj_est_recompute_impl<NP>(
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (check_plan(nk, p) != 0 || segment < 1 || n_steps % segment != 0) return -3;
+  AOA_NP_SWITCH(np, adj_est_recompute_np<NP>(
                         nb, nk, n_steps, segment, t0, dt, a, rk, tables,
-                        half_tables, g, ckpt, lam_end, lam0, eta, scratch, ubuf,
-                        rbuf, lubuf, lrbuf, static_cast<cudaStream_t>(stream)))
+                        half_tables, g, p, ckpt, lam_end, lam0, eta, scratch,
+                        lbuf, launches, static_cast<cudaStream_t>(stream)))
 }
 
 // λ0 = (Lᵀ)^n_steps λ_end with the step-dt tables; lubuf and lrbuf hold
@@ -408,6 +698,9 @@ int dg_adj_march(int np, int nb, int nk, int n_steps, const double* rk,
 
 const char* dg_error_string(int code) {
   if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 8)";
+  if (code == -3)
+    return "fused plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 or "
+           "1024 threads holding the window; n_steps a multiple of segment)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,9 +1,11 @@
 // The per-element arithmetic of one DG-advection LSRK stage, forward and
-// transposed, shared by csrc/dg_rhs.cu (K1, K2, K2r, KA: one launch per
-// stage) and csrc/dg_tiled.cu (KT1, KT2: one launch per segment, the stages
-// in shared memory). Every rounding is explicit (fmaf, __fmul_rn, __fadd_rn,
-// __fsub_rn), so the compiler contracts nothing differently in the two
-// files: an element whose inputs agree gets the same bits from both.
+// transposed, shared by csrc/dg_rhs.cu (K1, KA: one launch per stage; K2,
+// K2r: s_f steps a launch, the state in registers) and csrc/dg_tiled.cu
+// (KT1, KT2: one launch per segment, the stages in shared memory); the RK
+// coefficients serve csrc/dg_mxu.cu too. Every rounding is explicit (fmaf,
+// __fmul_rn, __fadd_rn, __fsub_rn), so the compiler contracts nothing
+// differently in the two files: an element whose inputs agree gets the same
+// bits from both.
 //
 // Folded tables (per step size, folded on the host in float32, passed by
 // value): drc = −a·dt·Dr, ll = −a/2·dt·LIFT[:,0], lr = +a/2·dt·LIFT[:,1].
@@ -37,6 +39,22 @@ inline StepTables pack_tables(int np, const float* host) {
   for (int i = 0; i < np; ++i) t.ll[i] = host[np * np + i];
   for (int i = 0; i < np; ++i) t.lr[i] = host[np * np + np + i];
   return t;
+}
+
+// The LSRK4(5) coefficients a_s, b_s in float32, from the host's double
+// table rk = RK4A[0..4], RK4B[0..4], RK4C[0..4].
+struct RkCoef {
+  float a[5];
+  float b[5];
+};
+
+inline RkCoef rk_coef(const double* rk) {
+  RkCoef c{};
+  for (int s = 0; s < 5; ++s) {
+    c.a[s] = static_cast<float>(rk[s]);
+    c.b[s] = static_cast<float>(rk[5 + s]);
+  }
+  return c;
 }
 
 // The inflow value of stage s of a step of size h that starts at t = t0 +

@@ -45,9 +45,11 @@
 namespace {
 
 using aoa_dg::Geom;
+using aoa_dg::RkCoef;
 using aoa_dg::StepTables;
 using aoa_dg::dg_inflow;
 using aoa_dg::pack_tables;
+using aoa_dg::rk_coef;
 
 constexpr int kThreads = 256;
 constexpr int kMaxSeg = 64;
@@ -56,11 +58,6 @@ constexpr int kMaxSeg = 64;
 // step forward, 10 per step (two dt/2 steps) in the reverse.
 struct Inflow {
   float v[10 * kMaxSeg];
-};
-
-struct RkCoef {
-  float a[5];
-  float b[5];
 };
 
 struct Tile {
@@ -248,15 +245,6 @@ tiled_rev_seg(const float* __restrict__ traj, const float* __restrict__ u_end,
     for (int i = 0; i < NP; ++i) lam_out[i * nk + k] = slu[i * t.st + k - t.w0];
     eta[k] = seta[k - t.w0];
   }
-}
-
-RkCoef rk_coef(const double* rk) {
-  RkCoef c{};
-  for (int s = 0; s < 5; ++s) {
-    c.a[s] = static_cast<float>(rk[s]);
-    c.b[s] = static_cast<float>(rk[5 + s]);
-  }
-  return c;
 }
 
 template <typename Kernel>

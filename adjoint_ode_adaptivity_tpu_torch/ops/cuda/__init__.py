@@ -96,9 +96,9 @@ class KernelLibrary:
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.dg_fwd_march.argtypes = [i] * 5 + [d] * 3 + [p] * 11
         lib.dg_fwd_march.restype = i
-        lib.dg_adj_est_stored.argtypes = [i, i, i, i, d, d, d] + [p] * 15
+        lib.dg_adj_est_stored.argtypes = [i] * 8 + [d] * 3 + [p] * 13
         lib.dg_adj_est_stored.restype = i
-        lib.dg_adj_est_recompute.argtypes = [i] * 5 + [d] * 3 + [p] * 16
+        lib.dg_adj_est_recompute.argtypes = [i] * 9 + [d] * 3 + [p] * 14
         lib.dg_adj_est_recompute.restype = i
         lib.dg_adj_march.argtypes = [i] * 4 + [p] * 10
         lib.dg_adj_march.restype = i

@@ -14,14 +14,18 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   ``_fwd_ckpt_grid_kernel`` (:510).
 - **K2** :func:`adj_est_stored` — for n = n_steps−1 … 0: two dt/2 steps from
   u_n, η += Σ_nodes λ·(u_{n+1} − half2), then two dt/2 transpose steps.
-  Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108).
-- **K2r** :func:`adj_est_recompute` — per segment in reverse, recompute the
-  segment's states from its checkpoint into a (segment + 1)-state scratch
-  with K1's stage kernel, then K2's sweep over it. Replaces
-  ``_adj_est_grid_kernel_b`` (:908) and, at B = 1, ``_adj_est_grid_kernel``
-  (:538) and ``_adj_estimate_kernel`` (:384). The pipeline takes 30
-  launches a step (K1's 5, K2r's 25) against the stored pipeline's 25, for
-  n_steps/segment + segment + 1 states of memory against n_steps.
+  Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108). Fused over
+  s_f steps a launch (:func:`stored_plan`): one CTA per (tile, member), a
+  window of L local elements and W = 10·s_f + 10 ghosts a side, the state in
+  registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA launches.
+- **K2r** :func:`adj_est_recompute` — per checkpoint segment in reverse,
+  recompute the segment's states from its checkpoint into a (segment +
+  1)-state scratch with launches of s_f forward steps on the same windows,
+  then K2's fused sweep over it. Replaces ``_adj_est_grid_kernel_b`` (:908)
+  and, at B = 1, ``_adj_est_grid_kernel`` (:538) and
+  ``_adj_estimate_kernel`` (:384). 2·⌈segment/s_f⌉ CUDA launches a segment
+  (:func:`recompute_plan`), for n_steps/segment + segment + 1 states of
+  memory against the stored pipeline's n_steps.
 - **KA** :func:`adj_march` — the pure transpose march λ0 = (Lᵀ)ⁿ λN with the
   full-dt tables, no residual, no estimate. Replaces ``_adjoint_kernel``
   (:335).
@@ -31,7 +35,11 @@ kernel or raises; a CPU tensor takes the kernel's plain PyTorch version
 (:func:`fwd_march_plain`, :func:`adj_est_stored_plain`,
 :func:`adj_est_recompute_plain`, :func:`adj_march_plain`), which accepts
 float32 and float64. Nothing falls back from the kernel to the plain
-version. Each wrapper counts its kernel launches in ``.launches``.
+version. Each wrapper counts its kernel launches in ``.launches``; K2's and
+K2r's also keep the CUDA launches of their last call in ``.cuda_launches``.
+:func:`adj_est_stored_fused_plain` and :func:`adj_est_recompute_fused_plain`
+emulate K2's and K2r's launch schedule (tiles, ghost windows, s_f,
+remainders) in plain PyTorch, so the halo logic is tested on the CPU.
 
 Every step's time is t0 + n·dt with n the global step, in the kernels and in
 the plain versions alike, so the recompute pipeline reproduces the stored
@@ -46,6 +54,8 @@ separately for dt and dt/2.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -63,10 +73,16 @@ __all__ = [
     "fwd_march",
     "fwd_march_plain",
     "fwd_march_ckpt",
+    "FusedPlan",
+    "fused_plan",
+    "stored_plan",
+    "recompute_plan",
     "adj_est_stored",
     "adj_est_stored_plain",
+    "adj_est_stored_fused_plain",
     "adj_est_recompute",
     "adj_est_recompute_plain",
+    "adj_est_recompute_fused_plain",
     "adj_march",
     "adj_march_plain",
     "reset_launch_counts",
@@ -80,6 +96,9 @@ __all__ = [
 
 MIN_NP, MAX_NP = 2, 8
 _RK = np.ascontiguousarray(np.concatenate([RK4A, RK4B, RK4C]), dtype=np.float64)
+MAX_FUSED = 16  # csrc/dg_rhs.cu's kMaxFused: the inflow table rides the launch
+FUSED_STEPS = 4  # s_f the wrappers aim for
+FUSED_THREADS = (512, 1024)  # the CTA sizes K2/K2r are built for
 
 
 class StepTables(NamedTuple):
@@ -269,6 +288,190 @@ def adj_march_plain(lam_end, n_steps: int, ops: KernelOps):
     return lu
 
 
+# --------------------------------------------------- K2/K2r's launch plan
+
+
+class FusedPlan(NamedTuple):
+    """K2's and K2r's launch schedule: ``segment`` (s_f) steps a launch; CTA
+    tiles of ``tile`` (L) local elements, the last ragged, each with a
+    window of ``ghost`` (W) elements a side clipped to [0, K); CTAs built for
+    ``threads``, one thread a window element."""
+
+    segment: int
+    ghost: int
+    tile: int
+    n_tiles: int
+    threads: int
+
+
+def fused_plan(k: int, steps: int = FUSED_STEPS, threads: int = 512) -> FusedPlan:
+    """The plan of ``steps`` steps a launch on CTAs of ``threads`` (512 or
+    1024) for K elements: W = 10·steps + 10 (the ghost rule of the JAX
+    package's dg_sharded.py:18-25, which keeps every local element exact),
+    L = threads − 2W."""
+    if not 1 <= steps <= MAX_FUSED:
+        raise ValueError(f"steps={steps}: K2/K2r fuse 1..{MAX_FUSED} steps a launch")
+    if threads not in FUSED_THREADS:
+        raise ValueError(f"threads={threads}: K2/K2r are built for {FUSED_THREADS}")
+    ghost = 10 * steps + 10
+    tile = threads - 2 * ghost
+    if tile < 1:
+        raise ValueError(f"{steps} steps need {2 * ghost} ghost elements, past a "
+                         f"{threads}-thread window")
+    return FusedPlan(steps, ghost, tile, -(-k // tile), threads)
+
+
+# The plans' cost model, fitted to chip_smoke.py phase 29's four headline
+# plans on an NVIDIA H100 (700 W): a stage issues ~60 instructions a warp, so
+# a launch lasts as long as its busiest SM needs to issue its warps' stages
+# (0.139 µs a step for each warp the SM holds over the launch, at Np = 3),
+# plus ~3.74 µs a launch of start, window loads and wave tail. Below 16 warps
+# an SM (one 512-thread CTA, the least occupancy measured) the stage's
+# dependent chain and barrier are taken to set the pace instead of issue.
+STEP_WARP_US = 0.139
+LAUNCH_US = 3.74
+MIN_WARPS = 16
+H100_SMS = 132
+FUSED_CANDIDATE_STEPS = (4, 8)
+
+
+def _fused_cost(k: int, b: int, n_steps: int, launches: int, plan: FusedPlan, sms: int) -> float:
+    """Modelled µs of ``launches`` launches over n_steps steps: the warps of
+    the busiest SM (CTAs dealt round-robin; at least MIN_WARPS) times the
+    steps, plus the launches."""
+    warps = -(-plan.n_tiles * b // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32)
+    return n_steps * max(warps, MIN_WARPS) * STEP_WARP_US + launches * LAUNCH_US
+
+
+def _balanced_plan(k: int, b: int, np_: int, n_steps: int, sms: int, steps_options,
+                   launches_of) -> FusedPlan:
+    """The cheapest plan under :func:`_fused_cost` over s_f in
+    ``steps_options``, 512- or 1024-thread CTAs (1024 only where the kernel
+    holds its registers at 64 a thread without spilling: Np ≤ 6, per nvcc
+    -Xptxas -v) and every tile count from the fewest a CTA holds to one
+    more CTA per SM (each tile count's L = ⌈K/tiles⌉); a tie goes to the
+    plan found first, the fewest tiles and s_f = 4."""
+    best = None
+    for steps in steps_options:
+        for threads in FUSED_THREADS if np_ <= 6 else FUSED_THREADS[:1]:
+            widest = fused_plan(k, steps, threads)
+            n_min = -(-k // widest.tile)
+            for n_t in range(n_min, n_min + -(-sms // b) + 1):
+                tile = -(-k // n_t)
+                plan = widest._replace(tile=tile, n_tiles=-(-k // tile))
+                cost = _fused_cost(k, b, n_steps, launches_of(steps), plan, sms)
+                if best is None or cost < best[0]:
+                    best = (cost, plan)
+    return best[1]
+
+
+# the search costs ~1 ms of host time at B = 1: once per shape
+@functools.lru_cache(maxsize=256)
+def stored_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> FusedPlan:
+    """K2's plan for K elements, B members, Np nodes and n_steps steps on a
+    card of ``sms`` SMs: s_f ∈ {4, 8} (at most n_steps), 512- or 1024-thread
+    CTAs and the tile count that minimise the modelled time (see
+    :data:`STEP_WARP_US`): ⌈n_steps/s_f⌉ launches. A thread holds its
+    element's ~9·Np + 20 values in registers (42 at Np = 3 and 512 threads,
+    103 at Np = 8) and posts 16 bytes of traces a stage, 8 or 16 KB of shared
+    memory a CTA: registers, not shared memory, limit the CTA. At the
+    headline (K = 10⁴, B = 8, Np = 3, 2048 steps) it takes s_f = 8 on 16
+    tiles of 625 + 2·90 ghosts, 128 CTAs of 1024 threads, one an SM."""
+    options = sorted({min(s, n_steps) for s in FUSED_CANDIDATE_STEPS})
+    return _balanced_plan(k, b, np_, n_steps, sms, options, lambda s: -(-n_steps // s))
+
+
+@functools.lru_cache(maxsize=256)
+def recompute_plan(k: int, b: int, np_: int, segment: int, n_steps: int,
+                   sms: int = H100_SMS) -> FusedPlan:
+    """K2r's plan: a checkpoint segment in ⌈segment/c⌉ launches of equal
+    length for c ∈ {4, 8} each way, s_f = ⌈segment/⌈segment/c⌉⌉ (segment 1:
+    1; 4: 4; 13: 4, 4, 4, 1 or 7, 6; 64: 4 or 8), 2·⌈segment/s_f⌉ launches a
+    segment; the rest as :func:`stored_plan`, the recompute's 5 stages a step
+    counted as a quarter of the reverse's 20."""
+    options = sorted({-(-segment // -(-segment // c)) for c in FUSED_CANDIDATE_STEPS})
+    n_seg = n_steps // segment
+    return _balanced_plan(k, b, np_, n_steps + n_steps // 4, sms, options,
+                          lambda s: 2 * n_seg * -(-segment // s))
+
+
+def _window(plan, ops: KernelOps, t: int):
+    """Tile t's local range [lo, hi), window [w0, w1), and the window's
+    geometry as a mesh of its own (first element inflow, last outflow: the
+    domain's ends, or a ghost edge that never reaches [lo, hi))."""
+    lo = t * plan.tile
+    hi = min(lo + plan.tile, ops.k)
+    w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
+    wops = ops._replace(k=w1 - w0, rx=ops.rx[w0:w1], fsl=ops.fsl[w0:w1], fsr=ops.fsr[w0:w1])
+    return lo, hi, w0, w1, wops
+
+
+def _rev_fused_plain(traj, u_end, lam, eta, t0: float, n_first: int, ops: KernelOps,
+                     plan: FusedPlan):
+    """K2's launches over the steps of ``traj`` (global indices from
+    n_first; u_end the state after the last), s_f steps each from the top,
+    every tile on its own window: ``(lam, eta)``."""
+    n_count = traj.shape[0]
+    h = ops.dt / 2.0
+    eta = eta.clone()
+    for hi_n in range(n_count, 0, -plan.segment):
+        lo_n = max(hi_n - plan.segment, 0)
+        lam_next = torch.empty_like(lam)
+        for t in range(plan.n_tiles):
+            lo, hi, w0, w1, wops = _window(plan, ops, t)
+            loc = slice(lo - w0, hi - w0)
+            lw = lam[:, :, w0:w1]
+            e_loc = eta[:, lo:hi]
+            for n in reversed(range(lo_n, hi_n)):
+                t_n = t0 + (n_first + n) * ops.dt
+                u_np1 = u_end if n == n_count - 1 else traj[n + 1]
+                half = _step_plain(traj[n][:, :, w0:w1], t_n, ops.half, wops)
+                half2 = _step_plain(half, t_n + h, ops.half, wops)
+                e_loc = e_loc + torch.sum(lw[:, :, loc] * (u_np1[:, :, lo:hi] - half2[:, :, loc]),
+                                          dim=0)
+                lw = _step_t_plain(_step_t_plain(lw, ops.half, wops), ops.half, wops)
+            lam_next[:, :, lo:hi] = lw[:, :, loc]
+            eta[:, lo:hi] = e_loc
+        lam = lam_next
+    return lam, eta
+
+
+def adj_est_stored_fused_plain(traj, u_final, lam_end, t0: float, ops: KernelOps,
+                               plan: FusedPlan):
+    """K2's launch schedule in plain PyTorch (any ghost width, so a narrow
+    one can be shown to reach the local elements): ``(lam0, eta)``."""
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    return _rev_fused_plain(traj, u_final, lam_end, eta, float(t0), 0, ops, plan)
+
+
+def adj_est_recompute_fused_plain(ckpts, lam_end, t0: float, segment: int, ops: KernelOps,
+                                  plan: FusedPlan):
+    """K2r's launch schedule in plain PyTorch: per checkpoint segment in
+    reverse, launches of s_f forward steps write each tile's local entry
+    states into the scratch, then K2's launches sweep it."""
+    lam = lam_end
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    for si in reversed(range(ckpts.shape[0])):
+        scratch = torch.empty((segment + 1, *lam_end.shape), dtype=ckpts.dtype,
+                              device=ckpts.device)
+        for lo_n in range(0, segment, plan.segment):
+            steps = min(plan.segment, segment - lo_n)
+            src = ckpts[si] if lo_n == 0 else scratch[lo_n]
+            for t in range(plan.n_tiles):
+                lo, hi, w0, w1, wops = _window(plan, ops, t)
+                loc = slice(lo - w0, hi - w0)
+                uw = src[:, :, w0:w1]
+                for n in range(steps):
+                    if lo_n == 0 or n > 0:
+                        scratch[lo_n + n][:, :, lo:hi] = uw[:, :, loc]
+                    uw = _step_plain(uw, float(t0) + (si * segment + lo_n + n) * ops.dt,
+                                     ops.full, wops)
+                scratch[lo_n + steps][:, :, lo:hi] = uw[:, :, loc]
+        lam, eta = _rev_fused_plain(scratch[:segment], scratch[segment], lam, eta, float(t0),
+                                    si * segment, ops, plan)
+    return lam, eta
+
+
 # ------------------------------------------------------------------ wrappers
 
 
@@ -375,7 +578,9 @@ def fwd_march_ckpt(u0: torch.Tensor, t0: float, n_steps: int, segment: int,
 def adj_est_stored(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
                    t0: float, ops: KernelOps):
     """K2: reverse sweep over a stored trajectory with the fine (dt/2)²
-    transpose. Returns ``(lam0, eta)``, eta (B, K)."""
+    transpose. Returns ``(lam0, eta)``, eta (B, K). On the card it runs
+    :func:`stored_plan`'s schedule for the card's SM count: ⌈n_steps/s_f⌉
+    launches of the fused kernel."""
     if traj.dim() != 4:
         raise ValueError(f"traj must be (n_steps, Np, B, K), got {tuple(traj.shape)}")
     n_steps, _, b, _ = traj.shape
@@ -386,29 +591,51 @@ def adj_est_stored(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Ten
     _check("lam_end", lam_end, state, ops)
     if not on_cuda:
         return adj_est_stored_plain(traj, u_final, lam_end, float(t0), ops)
+    adj_est_stored.launches += 1
+    plan = stored_plan(ops.k, b, ops.np_, n_steps, _sm_count(traj.device))
+    lam0, eta, adj_est_stored.cuda_launches = _k2_launch(traj, u_final, lam_end, t0, ops, plan)
+    return lam0, eta
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_grid(b: int) -> None:
+    if not 1 <= b <= 65_535:
+        raise ValueError(f"B={b}: the fused kernels take 1 <= B <= 65535 (grid y)")
+
+
+def _k2_launch(traj, u_final, lam_end, t0, ops: KernelOps, plan: FusedPlan):
+    """One dg_adj_est_stored call with ``plan``: ``(lam0, eta, CUDA
+    launches)``. The wrapper counts its launches; this does not."""
+    n_steps, _, b, _ = traj.shape
+    _check_grid(b)
     lib = load_library()
-    size = u_final.numel()
     lam0 = torch.empty_like(lam_end)
     eta = torch.zeros((b, ops.k), dtype=torch.float32, device=traj.device)
-    work = torch.empty((8, size), dtype=torch.float32, device=traj.device)
+    lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
+    launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_adj_est_stored(
-        ops.np_, b, ops.k, n_steps, float(t0), ops.dt, ops.a,
-        _RK.ctypes.data, ops.half.packed.ctypes.data,
+        ops.np_, b, ops.k, n_steps, plan.segment, plan.tile, plan.ghost, plan.threads,
+        float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.half.packed.ctypes.data,
         _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(traj), _ptr(u_final), _ptr(lam_end),
-        _ptr(lam0), _ptr(eta), _ptr(work[0]), _ptr(work[2]), _ptr(work[4]),
-        _ptr(work[6]), _stream(traj.device),
+        _ptr(lam0), _ptr(eta), _ptr(lbuf[0]), ctypes.addressof(launches),
+        _stream(traj.device),
     )
-    adj_est_stored.launches += 1
     lib.check(code, "dg_adj_est_stored")
-    return lam0, eta
+    return lam0, eta, launches.value
 
 
 def adj_est_recompute(ckpts: torch.Tensor, lam_end: torch.Tensor, t0: float,
                       segment: int, ops: KernelOps):
     """K2r: the reverse sweep from K1's checkpoints, each segment recomputed
     into a (segment + 1)-state scratch first. Returns ``(lam0, eta)``, eta
-    (B, K)."""
+    (B, K). On the card it runs :func:`recompute_plan`'s schedule for the
+    card's SM count: 2·⌈segment/s_f⌉ launches of the fused kernels a
+    checkpoint segment."""
     if ckpts.dim() != 4:
         raise ValueError(f"ckpts must be (n_segments, Np, B, K), got {tuple(ckpts.shape)}")
     n_seg, _, b, _ = ckpts.shape
@@ -419,23 +646,36 @@ def adj_est_recompute(ckpts: torch.Tensor, lam_end: torch.Tensor, t0: float,
         raise ValueError(f"segment={segment} must be >= 1")
     if not on_cuda:
         return adj_est_recompute_plain(ckpts, lam_end, float(t0), segment, ops)
+    adj_est_recompute.launches += 1
+    plan = recompute_plan(ops.k, b, ops.np_, segment, n_seg * segment,
+                          _sm_count(ckpts.device))
+    lam0, eta, adj_est_recompute.cuda_launches = _k2r_launch(
+        ckpts, lam_end, t0, segment, ops, plan)
+    return lam0, eta
+
+
+def _k2r_launch(ckpts, lam_end, t0, segment: int, ops: KernelOps, plan: FusedPlan):
+    """One dg_adj_est_recompute call with ``plan``: ``(lam0, eta, CUDA
+    launches)``. The wrapper counts its launches; this does not."""
+    n_seg, _, b, _ = ckpts.shape
+    _check_grid(b)
     lib = load_library()
     size = lam_end.numel()
     lam0 = torch.empty_like(lam_end)
     eta = torch.zeros((b, ops.k), dtype=torch.float32, device=ckpts.device)
     scratch = torch.empty((segment + 1, size), dtype=torch.float32, device=ckpts.device)
-    work = torch.empty((8, size), dtype=torch.float32, device=ckpts.device)
+    lbuf = torch.empty((2, size), dtype=torch.float32, device=ckpts.device)
+    launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_adj_est_recompute(
-        ops.np_, b, ops.k, n_seg * segment, segment, float(t0), ops.dt, ops.a,
-        _RK.ctypes.data, ops.full.packed.ctypes.data, ops.half.packed.ctypes.data,
-        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(ckpts), _ptr(lam_end), _ptr(lam0),
-        _ptr(eta), _ptr(scratch), _ptr(work[0]), _ptr(work[2]), _ptr(work[4]),
-        _ptr(work[6]), _stream(ckpts.device),
+        ops.np_, b, ops.k, n_seg * segment, segment, plan.segment, plan.tile, plan.ghost,
+        plan.threads, float(t0), ops.dt, ops.a, _RK.ctypes.data,
+        ops.full.packed.ctypes.data, ops.half.packed.ctypes.data, _ptr(rx), _ptr(fsl),
+        _ptr(fsr), _ptr(ckpts), _ptr(lam_end), _ptr(lam0), _ptr(eta), _ptr(scratch),
+        _ptr(lbuf[0]), ctypes.addressof(launches), _stream(ckpts.device),
     )
-    adj_est_recompute.launches += 1
     lib.check(code, "dg_adj_est_recompute")
-    return lam0, eta
+    return lam0, eta, launches.value
 
 
 def adj_march(lam_end: torch.Tensor, n_steps: int, ops: KernelOps):
@@ -468,6 +708,7 @@ _WRAPPERS = (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute, adj_m
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+    adj_est_stored.cuda_launches = adj_est_recompute.cuda_launches = 0
 
 
 reset_launch_counts()

@@ -58,6 +58,7 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
     _step_plain,
     _step_t_plain,
     _stream,
+    _window,
     kernel_ops,
 )
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
@@ -119,17 +120,6 @@ def tile_plan(k: int, np_: int, segment: int, ghost: int, chunk: int,
     if tile < 1:
         raise ValueError(f"tile={tile} must be >= 1")
     return TilePlan(segment, ghost, tile, -(-k // tile))
-
-
-def _window(plan: TilePlan, ops: KernelOps, t: int):
-    """Tile t's local range [lo, hi), window [w0, w1), and the window's
-    geometry as a mesh of its own (first element inflow, last outflow: the
-    domain's ends, or a ghost edge that never reaches [lo, hi))."""
-    lo = t * plan.tile
-    hi = min(lo + plan.tile, ops.k)
-    w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
-    wops = ops._replace(k=w1 - w0, rx=ops.rx[w0:w1], fsl=ops.fsl[w0:w1], fsr=ops.fsr[w0:w1])
-    return lo, hi, w0, w1, wops
 
 
 # ------------------------------------------------------------ plain versions

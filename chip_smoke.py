@@ -162,6 +162,16 @@ raises, and the script exits non-zero; nothing is caught.
    pipeline's; parallel/dg_shard.py's pipeline at world 2 in float64
    (K=10^4, N=2, 64 steps) against the single-device estimate at 1e-10.
 
+29. K2 and K2r fused over s_f steps a launch (csrc/dg_rhs.cu): (a) K2 at
+   the headline on the wrappers' SM-balanced plan and four widest-window
+   plans (s_f 4 and 8, 512- and 1024-thread CTAs) in turns, bit-equal, with
+   CUDA launches a call, the plans' cost model and the share of the bound;
+   (b) K2r at bench.py's batched row with segments 4 and 64, K2's bits; (c)
+   phase 24's rows at B=1: K1 + K2 against KT1 + KT2 and K2 against KT2 in
+   turns, bit-equal, and (a)'s plans there; (d) (a)'s plans at K=512, B=1,
+   2048 steps; the registers and spills that ptxas reported for the fused
+   kernels.
+
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -526,7 +536,7 @@ def phase4(device, errs):
     errs["adj_est_stored"] = max(errs["adj_est_stored"], e[1], e[2])
 
     dof_steps = b * disc.np_ * k * 2 * n_steps
-    cuda_launches = 25 * n_steps
+    cuda_launches = 5 * n_steps + dg_rhs.adj_est_stored.cuda_launches
     say("4", f"K={k} N={n_order} steps={n_steps} B={b} dt={dt:.6e}: kernel pipeline "
              f"{t_pipe:.3f} ms (median of 5) = {dof_steps / (t_pipe / 1e3):.4e} "
              f"fwd+adjoint DoF-steps/s [{cuda_launches} CUDA launches, "
@@ -2637,8 +2647,8 @@ def phase23(device, errs):
     dofs = c["b"] * disc.np_ * c["k"] * 2 * c["n_steps"]
     say("23", f"(c) bench row K={c['k']} N=2 B={c['b']} steps={c['n_steps']} segment={c['segment']}: "
               f"recompute {ms_rec:.3f} ms ({dofs / ms_rec * 1e3:.4e} fwd+adjoint DoF-steps/s, "
-              f"{30 * c['n_steps']} CUDA launches, {(n_seg + c['segment'] + 1) * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB of states); "
-              f"stored {ms_sto:.3f} ms ({25 * c['n_steps']} launches, "
+              f"{5 * c['n_steps'] + dg_rhs.adj_est_recompute.cuda_launches} CUDA launches, {(n_seg + c['segment'] + 1) * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB of states); "
+              f"stored {ms_sto:.3f} ms ({5 * c['n_steps'] + dg_rhs.adj_est_stored.cuda_launches} launches, "
               f"{c['n_steps'] * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB); recompute/stored "
               f"{ms_rec / ms_sto:.3f} (in turns stored, recompute, recompute, stored, median of 5 "
               f"each: stored {turns['stored'][0]:.3f} / {turns['stored'][1]:.3f}, recompute "
@@ -2771,7 +2781,8 @@ def phase24(device, errs):
             say("24", f"(b) {name} K={k} N=2 segment={seg} chunks={chunks} steps={n_steps}: "
                       f"{p.n_tiles} CTA tiles of {p.tile} + 2x{p.ghost} ghosts (ghost overhead "
                       f"2W/L = {2 * p.ghost / p.tile:.1%}); {ms:.3f} ms ({2 * n_steps // seg} CUDA "
-                      f"launches) against the stored pipeline's {ms_sto:.3f} ms ({25 * n_steps} "
+                      f"launches) against the stored pipeline's {ms_sto:.3f} ms "
+                      f"({5 * n_steps + dg_rhs.adj_est_stored.cuda_launches} "
                       f"launches), tiled/stored {ms / ms_sto:.3f} (in turns stored, tiled_grid, "
                       f"tiled, tiled, tiled_grid, stored, median of 5 each: {name} "
                       f"{turns[name][0]:.3f} / {turns[name][1]:.3f}, stored {turns['stored'][0]:.3f} "
@@ -2843,7 +2854,7 @@ def phase25(device, beyond):
     dofs = disc.np_ * k * 2 * n_steps
     say("25", f"make_cuda_fwd_adj_estimate_grid K={k} N=2 steps={n_steps} segment={seg} "
               f"({n_steps * state / 1e9:.1f} GB if stored): {ms:.1f} ms ({dofs / ms * 1e3:.4e} "
-              f"fwd+adjoint DoF-steps/s, {30 * n_steps} CUDA launches); peak device memory above "
+              f"fwd+adjoint DoF-steps/s, {5 * n_steps + dg_rhs.adj_est_recompute.cuda_launches} CUDA launches); peak device memory above "
               f"the inputs {peak / 1e6:.1f} MB (checkpoints + scratch "
               f"{(n_steps // seg + seg + 1) * state / 1e6:.1f} MB) against revolve's "
               f"{peak_rev / 1e6:.1f} MB in phase 21(c); against revolve: u_final {d[0]:.3e} (tol "
@@ -2943,7 +2954,7 @@ def phase27(device, errs):
     first."""
     import torch
 
-    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
 
     launches, times, bounds = {}, {}, {}
     for n_order, seg, n_steps in MXU_ROWS:
@@ -2965,7 +2976,8 @@ def phase27(device, errs):
         dofs = 8 * disc.np_ * 10_000 * 2 * n_steps
         say("27", f"N={n_order} K=10000 B=8 segment={seg} steps={n_steps}: KM1+KM2 {ms_km:.3f} ms "
                   f"({dofs / ms_km * 1e3:.4e} fwd+adjoint DoF-steps/s), K1+K2 {ms_k12:.3f} ms "
-                  f"({dofs / ms_k12 * 1e3:.4e}), both {25 * n_steps} CUDA launches (in turns K1+K2, "
+                  f"({dofs / ms_k12 * 1e3:.4e}); CUDA launches KM {25 * n_steps}, K1+K2 "
+                  f"{5 * n_steps + dg_rhs.adj_est_stored.cuda_launches} (in turns K1+K2, "
                   f"KM1+KM2, KM1+KM2, K1+K2, median of 5 each: KM {turns['KM1+KM2'][0]:.3f} / "
                   f"{turns['KM1+KM2'][1]:.3f}, K1K2 {turns['K1+K2'][0]:.3f} / "
                   f"{turns['K1+K2'][1]:.3f} ms); max|KM - K1K2| u {d[0]:.3e} lam0 {d[1]:.3e} eta "
@@ -3193,6 +3205,177 @@ def phase28(device):
     assert max(rel) <= 1e-10 and dj <= 1e-10
 
 
+# K2's widest-window plans (s_f, threads) measured beside the wrappers'
+# SM-balanced choice at the headline and at a small mesh (the adaptive
+# study's K = 512, B = 1), each with the plans' cost model's time
+FUSED_PLANS = ((4, 512), (8, 512), (4, 1024), (8, 1024))
+FUSED_SMALL = dict(k=512, b=1, n_steps=2048)
+# bench.py's batched row with checkpoint segments 4 (tools/tpu_smoke.py:143-161)
+# and 64 (the adaptive loop's pick_chunk at 2048 steps)
+FUSED_SEGMENTS = (4, 64)
+
+
+def fused_registers(log: str) -> list:
+    """Registers and spills that ``nvcc -Xptxas -v`` reported for the fused
+    K2/K2r kernels (rev_fused, fwd_fused), one string an instance."""
+    import re
+
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"(rev_fused|fwd_fused)ILi(\d)ELi(\d+)E", ln)
+            name = f"{m.group(1)}<Np={m.group(2)}, {m.group(3)}>" if m else None
+            spill = ""
+        elif name and "spill" in ln:
+            spill = ln.split(",", 1)[1].strip()
+        elif name and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used ', 1)[1].split(',')[0]}, {spill}")
+            name = None
+    return sorted(out)
+
+
+def k2_plans(label, traj, uf, lam, ops, sms):
+    """K2 on the wrappers' plan and on FUSED_PLANS' widest windows, timed in
+    turns on the same (n_steps, Np, B, K) trajectory, each beside the plans'
+    cost model; every plan gives the wrappers' plan's bits. Returns the
+    wrappers' plan's mean time."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    n_steps, np_, b, k = traj.shape
+    plans = {"wrappers' plan": dg_rhs.stored_plan(k, b, np_, n_steps, sms),
+             **{f"s_f={st} {th} threads widest": dg_rhs.fused_plan(k, st, th)
+                for st, th in FUSED_PLANS}}
+    out, counts = {}, {}
+
+    def k2_on(key, plan):
+        def run():
+            lam0, eta, counts[key] = dg_rhs._k2_launch(traj, uf, lam, 0.0, ops, plan)
+            out[key] = (lam0, eta)
+
+        return run
+
+    turns = in_turns({key: k2_on(key, plan) for key, plan in plans.items()})
+    ref = out["wrappers' plan"]
+    bound = advec_bounds(np_, b * k, n_steps)["tiled_rev_seg"][0]
+    for key, plan in plans.items():
+        ms = statistics.mean(turns[key])
+        model = dg_rhs._fused_cost(k, b, n_steps, counts[key], plan, sms) / 1e3
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out[key], ref))
+        say("29", f"{label} K={k} B={b} steps={n_steps} K2 {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads, {plan.n_tiles}x{b} CTAs, "
+                  f"ghost 2W/L {2 * plan.ghost / plan.tile:.1%}; {ms:.3f} ms (model {model:.3f}; "
+                  f"in turns, median of 5 each: {turns[key][0]:.3f} / {turns[key][1]:.3f}), "
+                  f"{counts[key]} CUDA launches, {bound / ms:.2%} of the {bound:.4f} ms bound; bits "
+                  f"equal to the wrappers' plan: {same}")
+        assert same and counts[key] == -(-n_steps // plan.segment)
+    return statistics.mean(turns["wrappers' plan"])
+
+
+def phase29(device, lib):
+    """K2 and K2r fused over s_f steps a launch: their times, CUDA launches
+    and bound shares at the headline and at bench.py's batched row (segments
+    4 and 64), the widest-window plans beside the wrappers' choice at every
+    row, the stored pipeline against KT1 + KT2 at phase 24's rows, and the
+    kernels' registers and spills."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
+
+    regs = fused_registers(lib.build_log)
+    say("29", f"ptxas -v for the fused kernels ({len(regs)} instances): {'; '.join(regs)}")
+    assert regs, "no fused kernel instance in the build log"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # (a) the headline: K2 on each plan in turns, then through its wrapper
+    n_order, k, n_steps, b = (HEADLINE[x] for x in ("n_order", "k", "n_steps", "batch"))
+    disc = mesh(n_order, k, graded=False)
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    u0 = phased_states(disc, b, device, torch.float32)
+    lam = batched_cotangent(disc, b, device, torch.float32)
+    traj, uf = dg_rhs.fwd_march(u0, 0.0, n_steps, ops, store_trajectory=True)
+    k2_plans("(a) headline", traj, uf, lam, ops, sms)
+    out = {}
+    ms_k2 = cuda_ms(lambda: out.update(k2=dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops)), 5)
+    bound_k2 = dg_bounds()["adj_est_stored"][0]
+    say("29", f"(a) adj_est_stored at the headline on {sms} SMs: {ms_k2:.3f} ms (median of 5), "
+              f"{dg_rhs.adj_est_stored.cuda_launches} CUDA launches a call (was 20 a step: "
+              f"{20 * n_steps}), {bound_k2 / ms_k2:.2%} of its {bound_k2:.3f} ms bound")
+    assert dg_rhs.adj_est_stored.cuda_launches == -(-n_steps // dg_rhs.stored_plan(
+        k, b, disc.np_, n_steps, sms).segment)
+
+    # (b) bench.py's batched row through the recompute pipeline's kernel,
+    # segments 4 and 64; K2's bits
+    for segment in FUSED_SEGMENTS:
+        ckpts = traj[::segment].contiguous()
+        ms = cuda_ms(lambda: out.update(k2r=dg_rhs.adj_est_recompute(ckpts, lam, 0.0, segment, ops)), 5)
+        n_cuda = dg_rhs.adj_est_recompute.cuda_launches
+        plan = dg_rhs.recompute_plan(k, b, disc.np_, segment, n_steps, sms)
+        bound = advec_bounds(disc.np_, b * k, n_steps, n_steps // segment)["adj_est_recompute"][0]
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out["k2r"], out["k2"]))
+        say("29", f"(b) bench row K2r segment {segment}: {ms:.3f} ms (median of 5), {n_cuda} CUDA "
+                  f"launches a call (s_f={plan.segment}, {plan.n_tiles}x{b} CTAs of {plan.tile} + "
+                  f"2x{plan.ghost}; was 25 a step: {25 * n_steps}), {bound / ms:.2%} of the "
+                  f"{bound:.3f} ms bound; lam0, eta bit-equal to K2: {same}")
+        assert same and n_cuda <= 2 * -(-n_steps // plan.segment)
+    del traj, uf, out, ckpts
+    torch.cuda.empty_cache()
+
+    # (c) phase 24's rows at B = 1 on a uniform mesh: the stored pipeline
+    # (K1 + fused K2) against KT1 + KT2 in turns, K2 against KT2 alone, and
+    # K2's plans on KT1's trajectory
+    for k, seg, chunks, n_steps in TILED_ROWS:
+        disc = startup_1d(2, 0.0, 2 * np.pi, k)
+        dt = cfl_step(disc)
+        ops = dg_rhs.kernel_ops(disc, A, dt, device)
+        u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+        lam = terminal_integral_cotangent(disc, torch.float32, device)
+        stored = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, n_steps, device)
+        tiled = dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid(
+            disc, A, dt, segment=seg, n_segments=n_steps // seg, chunks=chunks, device=device)
+        out = {}
+        turns = in_turns({"K1+K2": lambda: out.update(s=stored(u0, 0.0, lam)),
+                          "KT1+KT2": lambda: out.update(t=tiled(u0, 0.0, lam))})
+        same = [bool(torch.equal(x, y)) for x, y in zip(out["s"], out["t"])]
+        traj, uf = dg_tiled.tiled_fwd_seg(u0, 0.0, n_steps // seg, tiled.plan, ops)
+        t3, u3, l3 = traj[:, :, None], uf[:, None], lam[:, None]
+        alone = in_turns({"K2": lambda: out.update(k2=dg_rhs.adj_est_stored(t3, u3, l3, 0.0, ops)),
+                          "KT2": lambda: out.update(kt2=dg_tiled.tiled_rev_seg(
+                              traj, uf, lam, 0.0, tiled.plan, ops))})
+        same += [bool(torch.equal(out["k2"][0][:, 0], out["kt2"][0])),
+                 bool(torch.equal(out["k2"][1][0], out["kt2"][1]))]
+        ms = {name: statistics.mean(t) for name, t in {**turns, **alone}.items()}
+        plan = dg_rhs.stored_plan(k, 1, disc.np_, n_steps, sms)
+        bound = advec_bounds(disc.np_, k, n_steps)["tiled_rev_seg"][0]
+        say("29", f"(c) K={k} N=2 B=1 steps={n_steps}: K1+K2 {ms['K1+K2']:.3f} ms against KT1+KT2 "
+                  f"{ms['KT1+KT2']:.3f} ms (ratio {ms['K1+K2'] / ms['KT1+KT2']:.3f}; in turns, median "
+                  f"of 5 each: {turns['K1+K2'][0]:.3f} / {turns['K1+K2'][1]:.3f}, "
+                  f"{turns['KT1+KT2'][0]:.3f} / {turns['KT1+KT2'][1]:.3f}); K2 alone {ms['K2']:.3f} ms "
+                  f"({alone['K2'][0]:.3f} / {alone['K2'][1]:.3f}; "
+                  f"{dg_rhs.adj_est_stored.cuda_launches} CUDA launches, {plan.n_tiles} CTAs of "
+                  f"{plan.tile} + 2x{plan.ghost}, {bound / ms['K2']:.2%} of the {bound:.3f} ms bound) "
+                  f"against KT2 {ms['KT2']:.3f} ms ({n_steps // seg} launches, {tiled.plan.n_tiles} "
+                  f"CTAs of {tiled.plan.tile} + 2x{tiled.plan.ghost}; {bound / ms['KT2']:.2%}); "
+                  f"u_final, lam0, eta and K2 vs KT2 bit-equal: {same}")
+        assert all(same), f"K={k}: the fused K2 is not the tiled pipeline's bits"
+        k2_plans("(c)", t3, u3, l3, ops, sms)
+        del out, traj, uf, t3
+        torch.cuda.empty_cache()
+
+    # (d) a small mesh (the adaptive study's K, B = 1): the plans' floor
+    c = FUSED_SMALL
+    disc = mesh(n_order, c["k"], graded=False)
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    u0 = phased_states(disc, c["b"], device, torch.float32)
+    traj, uf = dg_rhs.fwd_march(u0, 0.0, c["n_steps"], ops, store_trajectory=True)
+    k2_plans("(d) small mesh", traj, uf, batched_cotangent(disc, c["b"], device, torch.float32),
+             ops, sms)
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -3298,6 +3481,7 @@ def main() -> int:
     phase26(device, errs)
     km_launches, km_times, km_bounds = phase27(device, errs)
     phase28(device)
+    phase29(device, lib)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -534,6 +534,98 @@ def test_tiled_kernels_reproduce_the_stored_pipeline(device, k, segment, chunks,
             assert float((g - p).abs().max()) <= t
 
 
+# (n_order, K, B, graded, n_steps, segment): Np 2, 3 and 8; B 1, 3 and 8; K
+# below one 412-element tile, a whole number of tiles and ragged; n_steps not
+# a multiple of s_f = 4; checkpoint segments 1, 4, 13 and 64
+FUSED_CASES = [
+    (1, 24, 1, False, 13, 1),
+    (1, 1236, 1, False, 13, 13),
+    (2, 1000, 3, True, 13, 13),
+    (2, 2000, 8, False, 64, 4),
+    (2, 2000, 8, True, 128, 64),
+    (2, 5000, 1, False, 20, 4),
+    (7, 500, 3, True, 9, 1),
+    (7, 300, 8, False, 16, 4),
+]
+
+
+@pytest.mark.parametrize("n_order,k,b,graded,n_steps,segment", FUSED_CASES)
+def test_fused_reverse_kernels(device, n_order, k, b, graded, n_steps, segment):
+    """K2 and K2r fused over s_f steps a launch: (λ0, η) within
+    chip_smoke.py's tolerances of their plain versions; K2r K2's bits; at B
+    = 1 on a uniform mesh the KT1/KT2 pipeline's bits; ⌈n_steps/s_f⌉ CUDA
+    launches for K2 and 2·⌈segment/s_f⌉ a checkpoint segment for K2r, at
+    most 2·⌈n_steps/s_f⌉."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
+
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k, vx=vx)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    dt = 0.5 * (0.75 / A) * xmin
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.stack([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    lam = lam[:, None, :].expand(disc.np_, b, k).contiguous()
+    traj, uf = dg_rhs.fwd_march(u0, 0.1, n_steps, ops, store_trajectory=True)
+    before = (dg_rhs.adj_est_stored.launches, dg_rhs.adj_est_recompute.launches)
+    lam0, eta = dg_rhs.adj_est_stored(traj, uf, lam, 0.1, ops)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    s_f = dg_rhs.stored_plan(k, b, disc.np_, n_steps, sms).segment
+    assert dg_rhs.adj_est_stored.cuda_launches == -(-n_steps // s_f)
+    ckpts = traj[::segment].contiguous()
+    lam0_r, eta_r = dg_rhs.adj_est_recompute(ckpts, lam, 0.1, segment, ops)
+    torch.cuda.synchronize()
+    s_r = dg_rhs.recompute_plan(k, b, disc.np_, segment, n_steps, sms).segment
+    n_r = dg_rhs.adj_est_recompute.cuda_launches
+    assert n_r == 2 * (n_steps // segment) * -(-segment // s_r) <= 2 * -(-n_steps // s_r)
+    assert (dg_rhs.adj_est_stored.launches, dg_rhs.adj_est_recompute.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(lam0_r, lam0) and torch.equal(eta_r, eta)
+    lam0_p, eta_p = dg_rhs.adj_est_stored_plain(traj, uf, lam, 0.1, ops)
+    eps, lmax, umax = EPS32, float(lam.abs().max()), float(uf.abs().max())
+    assert float((lam0 - lam0_p).abs().max()) <= 8 * n_steps * eps * lmax
+    assert float((eta - eta_p).abs().max()) <= 8 * n_steps * disc.np_ * eps * umax * lmax
+    lam0_rp, eta_rp = dg_rhs.adj_est_recompute_plain(ckpts, lam, 0.1, segment, ops)
+    assert float((lam0_r - lam0_rp).abs().max()) <= 8 * n_steps * eps * lmax
+    assert float((eta_r - eta_rp).abs().max()) <= 8 * n_steps * disc.np_ * eps * umax * lmax
+    if b == 1 and not graded:
+        seg_kt = max(d for d in (1, 2, 4) if n_steps % d == 0)
+        plan = dg_tiled.tile_plan(k, disc.np_, seg_kt, 10 * seg_kt + 10, k)
+        traj_kt, uf_kt = dg_tiled.tiled_fwd_seg(u0[:, 0].contiguous(), 0.1, n_steps // seg_kt,
+                                                plan, ops)
+        lam0_kt, eta_kt = dg_tiled.tiled_rev_seg(traj_kt, uf_kt, lam[:, 0].contiguous(), 0.1,
+                                                 plan, ops)
+        assert torch.equal(uf_kt, uf[:, 0]) and torch.equal(traj_kt, traj[:, :, 0])
+        assert torch.equal(lam0_kt, lam0[:, 0]) and torch.equal(eta_kt, eta[0])
+
+
+def test_fused_reverse_plans_agree(device):
+    """Other plans (s_f 1, 8 and 16 on 512 and 1024 threads, narrow tiles)
+    give the same bits: the tiling does not show."""
+    disc = startup_1d(2, 0.0, 2 * np.pi, 3000)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_rhs.kernel_ops(disc, A, 0.5 * (0.75 / A) * xmin, device)
+    u0 = torch.tensor(np.stack([np.sin(disc.x + p) for p in (0.0, 1.0)], 1),
+                      dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    lam = lam[:, None, :].expand(3, 2, 3000).contiguous()
+    traj, uf = dg_rhs.fwd_march(u0, 0.0, 24, ops, store_trajectory=True)
+    want = dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops)
+    for steps, threads, tiles in ((8, 512, None), (8, 1024, None), (1, 512, None),
+                                  (16, 1024, None), (4, 512, 40)):
+        plan = dg_rhs.fused_plan(3000, steps, threads)
+        if tiles:
+            plan = plan._replace(tile=75, n_tiles=tiles)
+        got = dg_rhs._k2_launch(traj, uf, lam, 0.0, ops, plan)
+        assert got[2] == -(-24 // steps)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = dg_rhs._k2r_launch(traj[::8].contiguous(), lam, 0.0, 8, ops, plan)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_new_advection_kernels_refuse_what_they_do_not_take(device):
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
 
@@ -546,6 +638,11 @@ def test_new_advection_kernels_refuse_what_they_do_not_take(device):
         dg_rhs.adj_march(u64, 8, ops)
     with pytest.raises(ValueError):  # on the CPU, operands on the card
         dg_rhs.adj_est_recompute(torch.zeros((2, 3, 1, 64)), torch.zeros((3, 1, 64)), 0.0, 4, ops)
+    traj = torch.zeros((4, 3, 1, 64), device=device)
+    with pytest.raises(RuntimeError, match="fused plan"):  # ghosts under 10·s_f + 10
+        dg_rhs._k2_launch(traj, traj[0], traj[0], 0.0, ops, dg_rhs.FusedPlan(4, 49, 100, 1, 512))
+    with pytest.raises(ValueError, match="B=70000"):
+        dg_rhs._check_grid(70_000)
     plan = dg_tiled.tile_plan(64, 3, 1, 20, 64)
     with pytest.raises(TypeError):
         dg_tiled.tiled_fwd_seg(u64[:, 0], 0.0, 2, plan, ops)
