@@ -7,15 +7,17 @@
 //                           :270 (_forward_kernel, B = 1); storing every
 //                           segment-th entry state it is the checkpointing
 //                           forward :880 (_fwd_ckpt_grid_kernel_b) and, at
-//                           B = 1, :510 (_fwd_ckpt_grid_kernel).
+//                           B = 1, :510 (_fwd_ckpt_grid_kernel). One kernel,
+//                           fwd_fused, s_f steps a launch in every mode.
 // K2  dg_adj_est_stored     replaces dg_rhs.py:1108 (_adj_est_grid_kernel_b_stored).
 // K2r dg_adj_est_recompute  replaces dg_rhs.py:908 (_adj_est_grid_kernel_b) and,
 //                           at B = 1, :538 (_adj_est_grid_kernel) and :384
 //                           (_adj_estimate_kernel): per checkpoint segment in
 //                           reverse, the segment's segment + 1 states
-//                           recomputed from its checkpoint into a scratch of
-//                           (segment + 1)·Np·B·K floats, then K2's sweep over
-//                           the scratch, λ and η carried across segments.
+//                           recomputed from its checkpoint by K1's kernel into
+//                           a scratch of (segment + 1)·Np·B·K floats, then
+//                           K2's sweep over the scratch, λ and η carried
+//                           across segments.
 // KA  dg_adj_march          replaces dg_rhs.py:335 (_adjoint_kernel): the pure
 //                           coarse transpose march λ0 = (Lᵀ)ⁿ λN, full-dt tables.
 //
@@ -25,60 +27,69 @@
 // The per-element arithmetic is csrc/dg_stage.cuh's, shared with the tiled
 // kernels, every rounding explicit.
 //
-// K1 and KA: one launch per LSRK stage. Thread c owns column c = b·K + k and
-// holds its Np nodes in registers; every stage reads the neighbours' face
-// traces at the stage's INPUT state, and blocks run in no order, so each
-// stage reads read-only buffers and writes separate ones (ping-pong): the
-// launch boundary is the grid-wide sync. What bounds them on the H100: the
-// launches, 5 a step, each moving ~4·Np·B·K·4 bytes.
+// KA: one launch per LSRK stage. Thread c owns column c = b·K + k and holds
+// its Np nodes in registers; every stage reads the neighbours' columns at
+// the stage's INPUT state, and blocks run in no order, so each stage reads
+// read-only buffers and writes separate ones (ping-pong): the launch
+// boundary is the grid-wide sync. What bounds it on the H100: the launches,
+// 5 a step, each moving ~4·Np·B·K·4 bytes.
 //
-// K2 and K2r: the reverse sweep fused over s_f steps per launch. One CTA per
-// (tile, member): blockIdx.x the tile of L local elements [lo, hi),
-// blockIdx.y the member b; the CTA's window [lo − W, hi + W), clipped to
-// [0, K), of member b's row, one thread per window element. Each thread keeps
-// its element's u, r, λu, λr, rx, fsl, fsr, the η it accumulates and the
-// trajectory entries u_n, u_{n+1} and the prefetched u_{n−1} in registers
+// K1, K2 and K2r: fused over s_f steps per launch. One CTA per (tile,
+// member): blockIdx.x the tile of L local elements [lo, hi), blockIdx.y the
+// member b; the CTA's window [lo − W, hi + W), clipped to [0, K), of member
+// b's row, one thread per window element. Each thread keeps its element's u,
+// r, rx, fsl, fsr (and in the reverse λu, λr, the η it accumulates and the
+// trajectory entries u_n, u_{n+1} and the prefetched u_{n−1}) in registers
 // for the whole launch. Only face values cross elements: per stage each
 // thread posts two floats (forward: u[0], u[Np−1]; transposed: its own
 // lifted contributions fsl·Σ ll·w and fsr·Σ lr·w) into a double-buffered
 // trace array in shared memory, passes one __syncthreads, and reads its
-// neighbours'. The owner's contributions are the products lsrk_stage_t
-// recomputes from a neighbour's column, so the bits do not move.
+// neighbours'. The transposed owner's contributions are the products
+// lsrk_stage_t recomputes from a neighbour's column, so the bits do not
+// move.
 //
-// Ghost rule (ops/pallas/dg_sharded.py:18-25): the flux couples ±1 element a
-// stage and the window's ends are wrong (the first element takes the inflow
-// value, the last has no right face: exact at the domain's ends, harmless at
-// a ghost edge). Per step the half steps run 10 stages from u_n, read exact
-// from the trajectory, and λ's 10 transposed stages lose 10 elements a side,
-// so W ≥ 10·s_f keeps every local element exact; the plan takes the repo's
-// W = 10·s_f + 10. λ crosses launches through global ping-pong buffers, from
-// which the neighbouring tiles read their ghosts: the launch boundary is the
-// only grid sync, once per s_f steps. η is loaded at a launch's start,
-// accumulated η += Σ λ·(u_{n+1} − half2) in K2's order n = N−1 … 0 with
-// __fadd_rn, and stored at its end; λ0 and η are written by local elements
-// only. Stage times and inflow values are the host's double expression of the
-// global step, passed per launch (FusedInflow), so a local element computes
-// K2's bits, whatever the tiling. K2r recomputes each checkpoint segment
-// with launches of s_f forward steps (5 stages each, the same windows) that
-// write the exact local entry states into the scratch, then runs K2's
-// reverse over it: ~2 launches per s_f steps instead of 25 per step.
+// Ghost rules (ops/pallas/dg_sharded.py:18-25): the flux couples ±1 element
+// a stage (both faces: the error of a window's end spreads both ways) and
+// the window's ends are wrong (the first element takes the inflow value, the
+// last has no right face: exact at the domain's ends, harmless at a ghost
+// edge). K1's s_f steps run 5·s_f stages, so W ≥ 5·s_f keeps every local
+// element exact, and where one tile holds the whole mesh there are no
+// ghosts. In the reverse the half steps run 10 stages a step from u_n, read
+// exact from the trajectory, and λ's 10 transposed stages lose 10 elements a
+// side, so W ≥ 10·s_f; K2's plan takes the repo's W = 10·s_f + 10. The
+// state (K1's u, the reverse's λ) crosses launches through global ping-pong
+// buffers, from which the neighbouring tiles read their ghosts: the launch
+// boundary is the only grid sync, once per s_f steps. K1 stores the local
+// entry state of every store_every-th global step (1: the trajectory;
+// segment: the checkpoints; none: revolve's advance and the plain march),
+// whatever s_f, and its last launch writes u_final. K2's η is loaded at a
+// launch's start, accumulated η += Σ λ·(u_{n+1} − half2) in K2's order n =
+// N−1 … 0 with __fadd_rn, and stored at its end; λ0 and η are written by
+// local elements only. Stage times and inflow values are the host's double
+// expression of the global step, passed per launch (FusedInflow), so a local
+// element computes the per-stage kernels' bits, whatever the tiling. K2r
+// recomputes each checkpoint segment with K1's kernel (the same windows)
+// into the scratch, then runs K2's reverse over it.
 //
-// What bounds K2 and K2r on the H100 now: issue. A stage is ~60
+// What bounds K1, K2 and K2r on the H100 now: issue. A stage is ~60
 // instructions a warp (2·Np² + 9·Np + 4 FP32 operations an element, the
 // rest the trace exchange, the barrier and indexing), so a launch lasts as
 // long as its busiest SM takes to issue its warps' stages; the ghosts add
 // 2W/L of recomputed work and each launch ~4 µs of start and tail. The
 // wrappers pick s_f, the CTA size (512 or 1024 threads) and the tile count
-// that balance the SMs under that model (ops/cuda/dg_rhs.py stored_plan).
-// Device memory sees the trajectory once per window (1 + 2W/L of its
-// bytes) and λ and η once per launch. PERF.md holds the measured times.
+// that balance the SMs under that model (ops/cuda/dg_rhs.py forward_plan,
+// stored_plan, recompute_plan). Device memory sees K1's stores once (the
+// trajectory at the headline: 1.97 GB, 0.59 ms at 3.35 TB/s, issued beside
+// the stages), the trajectory once per window in the reverse (1 + 2W/L of
+// its bytes) and the carried state once per launch. PERF.md holds the
+// measured times.
 //
 // Alternatives weighed. A cooperative kernel with grid.sync() per stage
-// still syncs 20 times a step across the whole card (40,960 times at the
-// headline); a CUDA graph of the per-stage loop still runs 40,960 kernels,
-// each round-tripping the state through device memory. A thread-block-
-// cluster halo through distributed shared memory would drop the ghost
-// recompute inside a cluster; it is not measured.
+// still syncs 5 (K1) or 20 (K2) times a step across the whole card; a CUDA
+// graph of a per-stage loop still runs a kernel a stage, each round-tripping
+// the state through device memory. A thread-block-cluster halo through
+// distributed shared memory would drop the ghost recompute inside a
+// cluster; it is not measured.
 //
 // The inflow value −sin(a·t_s) reaches element 0 only (frozen to zero in the
 // transpose).
@@ -97,44 +108,6 @@ using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
 
 constexpr int kThreads = 256;
-
-// One forward LSRK stage: r = a_s·r_in + dt·rhs(u_in), u_out = u_in + b_s·r.
-// r_in == nullptr means a_s = 0 (stage 0); r_out == nullptr drops r (stage 4,
-// where r never crosses the step boundary). traj_out != nullptr stores the
-// stage input (the step's entry state).
-template <int NP>
-__global__ void __launch_bounds__(kThreads)
-lsrk_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
-           float* __restrict__ u_out, float* __restrict__ r_out,
-           float* __restrict__ traj_out, Geom g, StepTables tab, float a_s,
-           float b_s, float uin, int nb, int nk) {
-  const int bk = nb * nk;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= bk) return;
-  const int k = c % nk;
-
-  float u[NP], r[NP], un[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) u[i] = u_in[i * bk + c];
-  if (traj_out != nullptr) {
-#pragma unroll
-    for (int i = 0; i < NP; ++i) traj_out[i * bk + c] = u[i];
-  }
-  if (r_in != nullptr) {
-#pragma unroll
-    for (int i = 0; i < NP; ++i) r[i] = r_in[i * bk + c];
-  }
-  const bool outflow = k == nk - 1;
-  const float left = k > 0 ? u_in[(NP - 1) * bk + c - 1] : uin;
-  const float right = outflow ? 0.f : u_in[c + 1];
-  aoa_dg::stage_fwd<NP>(u, left, right, outflow, g.rx[k], g.fsl[k], g.fsr[k],
-                        tab, r_in != nullptr, a_s, b_s, r, un);
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    u_out[i * bk + c] = un[i];
-    if (r_out != nullptr) r_out[i * bk + c] = r[i];
-  }
-}
 
 // w = b_s·λu + λr of column c (λr == nullptr: zero).
 template <int NP>
@@ -189,43 +162,6 @@ lsrk_stage_t(const float* __restrict__ lu_in, const float* __restrict__ lr_in,
   }
 }
 
-// Forward steps n_first .. n_first + n_count − 1 (global indices) from u0,
-// the state at n_first. With ``store``, the entry state of every
-// store_every-th step goes to store[n / store_every] (1: the trajectory;
-// segment: the checkpoints). The last stage writes u_last. ubuf and rbuf
-// hold 2·Np·B·K floats each. rk: RK4A[0..4], RK4B[0..4], RK4C[0..4].
-template <int NP>
-int fwd_steps(int nb, int nk, long n_first, int n_count, double t0, double dt,
-              double a, const double* rk, const StepTables& tab, Geom g,
-              const float* u0, float* store, int store_every, float* u_last,
-              float* ubuf, float* rbuf, cudaStream_t stream) {
-  const long size = static_cast<long>(NP) * nb * nk;
-  const int blocks = (nb * nk + kThreads - 1) / kThreads;
-  const float* u_cur = u0;
-  const float* r_cur = nullptr;
-  const long total = 5L * n_count;
-  long j = 0;
-  for (int n = 0; n < n_count; ++n) {
-    const double tn = t0 + static_cast<double>(n_first + n) * dt;
-    for (int s = 0; s < 5; ++s, ++j) {
-      float* u_nxt = j == total - 1 ? u_last : ubuf + (j % 2) * size;
-      float* r_nxt = s == 4 ? nullptr : rbuf + (j % 2) * size;
-      float* tr = (s == 0 && store != nullptr && n % store_every == 0)
-                      ? store + (n / store_every) * size
-                      : nullptr;
-      lsrk_stage<NP><<<blocks, kThreads, 0, stream>>>(
-          u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt, tr, g, tab,
-          static_cast<float>(rk[s]), static_cast<float>(rk[5 + s]),
-          dg_inflow(a, tn, rk[10 + s], dt), nb, nk);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      u_cur = u_nxt;
-      r_cur = r_nxt;
-    }
-  }
-  return 0;
-}
-
 // ``steps`` transposed steps with the tables ``tab``: λ rides *lu (updated to
 // the last output); jt counts transposed stages over the whole sweep, whose
 // last (jt == total_t − 1) writes lam0. lubuf and lrbuf: 2·Np·B·K floats each.
@@ -254,17 +190,6 @@ int transposed_steps(int nb, int nk, int steps, const double* rk,
 }
 
 template <int NP>
-int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
-                   double dt, double a, const double* rk, const float* tables,
-                   Geom g, const float* u0, float* store, float* u_final,
-                   float* ubuf, float* rbuf, cudaStream_t stream) {
-  const StepTables tab = pack_tables(NP, tables);
-  const int err = fwd_steps<NP>(nb, nk, 0, n_steps, t0, dt, a, rk, tab, g, u0,
-                                store, store_every, u_final, ubuf, rbuf, stream);
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
-}
-
-template <int NP>
 int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
                    const float* tables, Geom g, const float* lam_end,
                    float* lam0, float* lubuf, float* lrbuf,
@@ -277,15 +202,30 @@ int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------- K2, K2r: fused over s_f steps
+// --------------------------------------- K1, K2, K2r: fused over s_f steps
 
-constexpr int kMaxFused = 16;  // steps per launch: the inflow table rides the launch
+// Steps per launch: the inflow table rides the launch, 10 values a reverse
+// step (two dt/2 steps) and 5 a forward step.
+constexpr int kMaxFused = 16;
+constexpr int kMaxFwdFused = 32;
 
-// The inflow value of every stage of a launch, formed on the host: 5 a step
-// forward, 10 a step (two dt/2 steps) in the reverse.
+// The inflow value of every stage of a launch, formed on the host.
 struct FusedInflow {
   float v[10 * kMaxFused];
 };
+static_assert(5 * kMaxFwdFused <= 10 * kMaxFused, "K1's launch outgrows its inflow table");
+
+// The forward launch's table: stage s of its n-th step, global step
+// n_first + n, at t0 + (n_first + n)·dt (the host's double expression).
+FusedInflow fwd_inflow(double t0, double dt, double a, const double* rk,
+                       long n_first, int steps) {
+  FusedInflow f{};
+  for (int n = 0; n < steps; ++n) {
+    const double tn = t0 + static_cast<double>(n_first + n) * dt;
+    for (int s = 0; s < 5; ++s) f.v[5 * n + s] = dg_inflow(a, tn, rk[10 + s], dt);
+  }
+  return f;
+}
 
 // The launch plan the wrapper picks: s_f steps a launch, L local elements a
 // tile, W ghosts a side, and the CTA size the kernels are built for.
@@ -358,19 +298,24 @@ __device__ __forceinline__ void window_fwd(Traces<T>& tr, int buf, const Elem& e
   }
 }
 
-// K2r's recompute: ``steps`` forward steps of the window from u_in; the
-// local entry state of step n goes to store[n] for n >= store_first and the
-// exit state to store[steps]. u_in may be store[0] (then store_first = 1).
+// K1 and K2r's recompute: ``steps`` forward steps of the window from u_in,
+// numbered n0 .. n0 + steps − 1 (K1: the global step; K2r: the step within
+// its checkpoint segment). The local entry state of step n goes to
+// store[n / store_every] where n % store_every == 0 and n >= store_from
+// (store == nullptr: none), the local exit state to u_out. u_in may lie in
+// store: K2r starts a launch from the scratch slot that the launch before
+// wrote, and store_from skips it.
 template <int NP, int T>
 __global__ void __launch_bounds__(T)
-fwd_fused(const float* u_in, float* store, Geom g,
+fwd_fused(const float* u_in, float* store, float* u_out, Geom g,
           const __grid_constant__ StepTables full, RkCoef rk,
           const __grid_constant__ FusedInflow inflow, int nk, int tile_l,
-          int ghost, int steps, int store_first) {
+          int ghost, int steps, int n0, int store_every, int store_from) {
   __shared__ Traces<T> tr;
   const Elem el = elem_of(nk, tile_l, ghost);
   const long bk = static_cast<long>(gridDim.y) * nk;
   const long size = NP * bk;
+  const bool stores = store != nullptr && el.local;
   float u[NP] = {}, r[NP] = {}, un[NP] = {};
   float rx = 0.f, fsl = 0.f, fsr = 0.f;
   if (el.active) {
@@ -380,17 +325,18 @@ fwd_fused(const float* u_in, float* store, Geom g,
     load_col<NP>(u_in, el.c, bk, u);
   }
   int buf = 0;
-  for (int n = 0; n < steps; ++n) {
-    if (el.local && n >= store_first) store_col<NP>(store + n * size, el.c, bk, u);
+  for (int n = n0; n < n0 + steps; ++n) {
+    if (stores && n >= store_from && n % store_every == 0)
+      store_col<NP>(store + (n / store_every) * size, el.c, bk, u);
 #pragma unroll
     for (int s = 0; s < 5; ++s, buf ^= 1) {
       window_fwd<NP, T>(tr, buf, el, u, r, un, rx, fsl, fsr, full, s, rk,
-                        inflow.v[5 * n + s]);
+                        inflow.v[5 * (n - n0) + s]);
 #pragma unroll
       for (int i = 0; i < NP; ++i) u[i] = un[i];
     }
   }
-  if (el.local) store_col<NP>(store + steps * size, el.c, bk, u);
+  if (el.local) store_col<NP>(u_out, el.c, bk, u);
 }
 
 // K2's reverse over ``steps`` steps: traj[0 .. steps − 1] their entry states,
@@ -514,6 +460,37 @@ int rev_range(int nb, int nk, long n_first, int n_count, double t0, double dt,
   return 0;
 }
 
+// K1: n_steps forward steps from u0 at t0 in launches of s_f steps (the
+// last takes the remainder), the entry state of every store_every-th step to
+// store (nullptr: none). The state crosses launches through the ping-pong
+// ubuf (2·Np·B·K floats), from which the neighbouring tiles read their
+// ghosts; the last launch writes u_final. *launches counts the launches.
+template <int NP, int T>
+int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
+                   double dt, double a, const double* rk, const float* tables,
+                   Geom g, const FusedPlan& p, const float* u0, float* store,
+                   float* u_final, float* ubuf, int* launches,
+                   cudaStream_t stream) {
+  const StepTables full = pack_tables(NP, tables);
+  const RkCoef coef = rk_coef(rk);
+  const long size = static_cast<long>(NP) * nb * nk;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, nb);
+  const int block = fused_block(nk, p);
+  const float* cur = u0;
+  for (int lo = 0; lo < n_steps; lo += p.seg) {
+    const int steps = n_steps - lo < p.seg ? n_steps - lo : p.seg;
+    float* out = lo + steps == n_steps ? u_final : ubuf + (*launches % 2) * size;
+    fwd_fused<NP, T><<<grid, block, 0, stream>>>(
+        cur, store, out, g, full, coef, fwd_inflow(t0, dt, a, rk, lo, steps), nk,
+        p.tile_l, p.ghost, steps, lo, store_every, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+    cur = out;
+  }
+  return 0;
+}
+
 template <int NP, int T>
 int adj_est_stored_impl(int nb, int nk, int n_steps, double t0, double dt,
                         double a, const double* rk, const float* half_tables,
@@ -552,15 +529,11 @@ int adj_est_recompute_impl(int nb, int nk, int n_steps, int segment, double t0,
     const long n_first = static_cast<long>(si) * segment;
     for (int lo = 0; lo < segment; lo += p.seg) {
       const int steps = segment - lo < p.seg ? segment - lo : p.seg;
-      FusedInflow inflow{};
-      for (int n = 0; n < steps; ++n) {
-        const double tn = t0 + static_cast<double>(n_first + lo + n) * dt;
-        for (int s = 0; s < 5; ++s) inflow.v[5 * n + s] = dg_inflow(a, tn, rk[10 + s], dt);
-      }
       const float* src = lo == 0 ? ckpt + si * size : scratch + lo * size;
       fwd_fused<NP, T><<<grid, block, 0, stream>>>(
-          src, scratch + lo * size, g, full, coef, inflow, nk, p.tile_l, p.ghost,
-          steps, lo == 0 ? 0 : 1);
+          src, scratch, scratch + (lo + steps) * size, g, full, coef,
+          fwd_inflow(t0, dt, a, rk, n_first + lo, steps), nk, p.tile_l, p.ghost,
+          steps, lo, 1, lo == 0 ? 0 : lo + 1);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       ++*launches;
@@ -583,6 +556,17 @@ int check_plan(int nk, const FusedPlan& p) {
   return fused_block(nk, p) <= p.threads ? 0 : -3;
 }
 
+// -4 unless K1 takes the plan: 1 <= s_f <= kMaxFwdFused, the forward ghost
+// rule W >= 5·s_f (a forward stage couples ±1 element) unless one tile
+// holds the whole mesh (no ghosts), a CTA size the kernel is built for and a
+// window that fits it.
+int check_fwd_plan(int nk, const FusedPlan& p) {
+  if (p.seg < 1 || p.seg > kMaxFwdFused || p.tile_l < 1 || p.ghost < 0) return -4;
+  if (p.ghost < 5 * p.seg && p.tile_l < nk) return -4;
+  if (p.threads != 512 && p.threads != 1024) return -4;
+  return fused_block(nk, p) <= p.threads ? 0 : -4;
+}
+
 }  // namespace
 
 // The CTA size picks the kernels' instance: __launch_bounds__(T) sets the
@@ -595,6 +579,17 @@ int check_plan(int nk, const FusedPlan& p) {
   }
 
 namespace {
+
+template <int NP>
+int fwd_march_np(int nb, int nk, int n_steps, int store_every, double t0,
+                 double dt, double a, const double* rk, const float* tables,
+                 Geom g, const FusedPlan& p, const float* u0, float* store,
+                 float* u_final, float* ubuf, int* launches,
+                 cudaStream_t stream) {
+  AOA_FUSED_SWITCH(p, (fwd_march_impl<NP, T>(nb, nk, n_steps, store_every, t0,
+                                             dt, a, rk, tables, g, p, u0, store,
+                                             u_final, ubuf, launches, stream)))
+}
 
 template <int NP>
 int adj_est_stored_np(int nb, int nk, int n_steps, double t0, double dt,
@@ -626,19 +621,25 @@ int adj_est_recompute_np(int nb, int nk, int n_steps, int segment, double t0,
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1 for
-// an unsupported Np. Buffers: ubuf and rbuf hold 2·Np·B·K floats each.
-// store (optional) receives the entry state of every store_every-th step:
-// (n_steps / store_every, Np, B, K).
-int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every,
-                 double t0, double dt, double a, const double* rk,
-                 const float* tables, const float* rx, const float* fsl,
-                 const float* fsr, const float* u0, float* store,
-                 float* u_final, float* ubuf, float* rbuf, void* stream) {
+// K1 with the plan (seg = s_f, tile_l = L, ghost = W, threads). Returns 0
+// on success, a cudaError_t code after a failed launch, -1 for an
+// unsupported Np, -4 for a plan K1 does not take. ubuf holds 2·Np·B·K
+// floats. store (optional) receives the entry state of every
+// store_every-th step: (⌈n_steps / store_every⌉, Np, B, K). *launches
+// receives the CUDA launches issued.
+int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every, int seg,
+                 int tile_l, int ghost, int threads, double t0, double dt,
+                 double a, const double* rk, const float* tables,
+                 const float* rx, const float* fsl, const float* fsr,
+                 const float* u0, float* store, float* u_final, float* ubuf,
+                 int* launches, void* stream) {
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, fwd_march_impl<NP>(nb, nk, n_steps, store_every, t0, dt, a,
-                                       rk, tables, g, u0, store, u_final, ubuf,
-                                       rbuf, static_cast<cudaStream_t>(stream)))
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (check_fwd_plan(nk, p) != 0 || n_steps < 1 || store_every < 1) return -4;
+  AOA_NP_SWITCH(np, fwd_march_np<NP>(nb, nk, n_steps, store_every, t0, dt, a, rk,
+                                     tables, g, p, u0, store, u_final, ubuf,
+                                     launches, static_cast<cudaStream_t>(stream)))
 }
 
 // K2 with the plan (seg = s_f, tile_l = L, ghost = W, threads): eta zeroed
@@ -701,6 +702,10 @@ const char* dg_error_string(int code) {
   if (code == -3)
     return "fused plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 or "
            "1024 threads holding the window; n_steps a multiple of segment)";
+  if (code == -4)
+    return "K1 plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
+           "holds the mesh, 512 or 1024 threads holding the window; n_steps and "
+           "store_every >= 1)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,5 +1,5 @@
 // The per-element arithmetic of one DG-advection LSRK stage, forward and
-// transposed, shared by csrc/dg_rhs.cu (K1, KA: one launch per stage; K2,
+// transposed, shared by csrc/dg_rhs.cu (KA: one launch per stage; K1, K2,
 // K2r: s_f steps a launch, the state in registers) and csrc/dg_tiled.cu
 // (KT1, KT2: one launch per segment, the stages in shared memory); the RK
 // coefficients serve csrc/dg_mxu.cu too. Every rounding is explicit (fmaf,

@@ -94,7 +94,7 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.dg_fwd_march.argtypes = [i] * 5 + [d] * 3 + [p] * 11
+        lib.dg_fwd_march.argtypes = [i] * 9 + [d] * 3 + [p] * 11
         lib.dg_fwd_march.restype = i
         lib.dg_adj_est_stored.argtypes = [i] * 8 + [d] * 3 + [p] * 13
         lib.dg_adj_est_stored.restype = i

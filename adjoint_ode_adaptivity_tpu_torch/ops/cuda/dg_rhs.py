@@ -11,7 +11,11 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   ``_fwd_grid_kernel_b`` (:1017) and ``_forward_kernel`` (:270).
   :func:`fwd_march_ckpt` is K1 storing only every ``segment``-th entry
   state, the checkpoints: ``_fwd_ckpt_grid_kernel_b`` (:880) and, at B = 1,
-  ``_fwd_ckpt_grid_kernel`` (:510).
+  ``_fwd_ckpt_grid_kernel`` (:510). Fused over s_f steps a launch in every
+  mode (:func:`forward_plan`): one CTA per (tile, member), a window of L
+  local elements and W = 5·s_f ghosts a side (none where one tile holds the
+  mesh), the state in registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA
+  launches.
 - **K2** :func:`adj_est_stored` — for n = n_steps−1 … 0: two dt/2 steps from
   u_n, η += Σ_nodes λ·(u_{n+1} − half2), then two dt/2 transpose steps.
   Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108). Fused over
@@ -20,7 +24,7 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA launches.
 - **K2r** :func:`adj_est_recompute` — per checkpoint segment in reverse,
   recompute the segment's states from its checkpoint into a (segment +
-  1)-state scratch with launches of s_f forward steps on the same windows,
+  1)-state scratch with K1's kernel, s_f steps a launch on K2's windows,
   then K2's fused sweep over it. Replaces ``_adj_est_grid_kernel_b`` (:908)
   and, at B = 1, ``_adj_est_grid_kernel`` (:538) and
   ``_adj_estimate_kernel`` (:384). 2·⌈segment/s_f⌉ CUDA launches a segment
@@ -35,10 +39,11 @@ kernel or raises; a CPU tensor takes the kernel's plain PyTorch version
 (:func:`fwd_march_plain`, :func:`adj_est_stored_plain`,
 :func:`adj_est_recompute_plain`, :func:`adj_march_plain`), which accepts
 float32 and float64. Nothing falls back from the kernel to the plain
-version. Each wrapper counts its kernel launches in ``.launches``; K2's and
-K2r's also keep the CUDA launches of their last call in ``.cuda_launches``.
+version. Each wrapper counts its kernel launches in ``.launches``; K1's,
+K2's and K2r's also keep the CUDA launches of their last call in
+``.cuda_launches``. :func:`fwd_march_fused_plain`,
 :func:`adj_est_stored_fused_plain` and :func:`adj_est_recompute_fused_plain`
-emulate K2's and K2r's launch schedule (tiles, ghost windows, s_f,
+emulate K1's, K2's and K2r's launch schedules (tiles, ghost windows, s_f,
 remainders) in plain PyTorch, so the halo logic is tested on the CPU.
 
 Every step's time is t0 + n·dt with n the global step, in the kernels and in
@@ -73,8 +78,11 @@ __all__ = [
     "fwd_march",
     "fwd_march_plain",
     "fwd_march_ckpt",
+    "fwd_march_fused_plain",
     "FusedPlan",
     "fused_plan",
+    "fwd_fused_plan",
+    "forward_plan",
     "stored_plan",
     "recompute_plan",
     "adj_est_stored",
@@ -97,8 +105,9 @@ __all__ = [
 MIN_NP, MAX_NP = 2, 8
 _RK = np.ascontiguousarray(np.concatenate([RK4A, RK4B, RK4C]), dtype=np.float64)
 MAX_FUSED = 16  # csrc/dg_rhs.cu's kMaxFused: the inflow table rides the launch
+MAX_FWD_FUSED = 32  # its kMaxFwdFused: 5 inflow values a forward step in the same table
 FUSED_STEPS = 4  # s_f the wrappers aim for
-FUSED_THREADS = (512, 1024)  # the CTA sizes K2/K2r are built for
+FUSED_THREADS = (512, 1024)  # the CTA sizes K1/K2/K2r are built for
 
 
 class StepTables(NamedTuple):
@@ -221,15 +230,19 @@ def _step_t_plain(lu, tab: StepTables, ops: KernelOps):
     return lu
 
 
+def _new_store(u0, n_count: int, store_every: int | None):
+    """Room for the entry state of every store_every-th of n_count steps,
+    ⌈n_count/store_every⌉ states like ``u0`` (None: no store)."""
+    if not store_every:
+        return None
+    return torch.empty((-(-n_count // store_every), *u0.shape), dtype=u0.dtype, device=u0.device)
+
+
 def _fwd_steps_plain(u0, t0: float, n_first: int, n_count: int, ops: KernelOps,
                      store_every: int | None):
     """Steps n_first … n_first + n_count − 1 from ``u0``: ``(store, u)``, store
     holding the entry state of every store_every-th step (None: nothing)."""
-    store = (
-        torch.empty((n_count // store_every, *u0.shape), dtype=u0.dtype, device=u0.device)
-        if store_every
-        else None
-    )
+    store = _new_store(u0, n_count, store_every)
     u = u0
     for n in range(n_count):
         if store is not None and n % store_every == 0:
@@ -288,14 +301,14 @@ def adj_march_plain(lam_end, n_steps: int, ops: KernelOps):
     return lu
 
 
-# --------------------------------------------------- K2/K2r's launch plan
+# ------------------------------------------------ K1/K2/K2r's launch plans
 
 
 class FusedPlan(NamedTuple):
-    """K2's and K2r's launch schedule: ``segment`` (s_f) steps a launch; CTA
-    tiles of ``tile`` (L) local elements, the last ragged, each with a
-    window of ``ghost`` (W) elements a side clipped to [0, K); CTAs built for
-    ``threads``, one thread a window element."""
+    """K1's, K2's and K2r's launch schedule: ``segment`` (s_f) steps a
+    launch; CTA tiles of ``tile`` (L) local elements, the last ragged, each
+    with a window of ``ghost`` (W) elements a side clipped to [0, K); CTAs
+    built for ``threads``, one thread a window element."""
 
     segment: int
     ghost: int
@@ -304,20 +317,38 @@ class FusedPlan(NamedTuple):
     threads: int
 
 
+def _check_threads(threads: int) -> None:
+    if threads not in FUSED_THREADS:
+        raise ValueError(f"threads={threads}: the fused kernels are built for {FUSED_THREADS}")
+
+
 def fused_plan(k: int, steps: int = FUSED_STEPS, threads: int = 512) -> FusedPlan:
-    """The plan of ``steps`` steps a launch on CTAs of ``threads`` (512 or
-    1024) for K elements: W = 10·steps + 10 (the ghost rule of the JAX
-    package's dg_sharded.py:18-25, which keeps every local element exact),
-    L = threads − 2W."""
+    """K2's and K2r's plan of ``steps`` steps a launch on CTAs of ``threads``
+    (512 or 1024) for K elements: W = 10·steps + 10 (the ghost rule of the
+    JAX package's dg_sharded.py:18-25, which keeps every local element
+    exact), L = threads − 2W."""
     if not 1 <= steps <= MAX_FUSED:
         raise ValueError(f"steps={steps}: K2/K2r fuse 1..{MAX_FUSED} steps a launch")
-    if threads not in FUSED_THREADS:
-        raise ValueError(f"threads={threads}: K2/K2r are built for {FUSED_THREADS}")
+    _check_threads(threads)
     ghost = 10 * steps + 10
     tile = threads - 2 * ghost
     if tile < 1:
         raise ValueError(f"{steps} steps need {2 * ghost} ghost elements, past a "
                          f"{threads}-thread window")
+    return FusedPlan(steps, ghost, tile, -(-k // tile), threads)
+
+
+def fwd_fused_plan(k: int, steps: int, threads: int = 512) -> FusedPlan:
+    """K1's widest plan of ``steps`` steps a launch on CTAs of ``threads``:
+    W = 5·steps (a forward step runs 5 stages, each coupling ±1 element, so
+    the window's wrong ends reach 5·steps elements in), L = threads − 2W.
+    :func:`forward_plan` also takes a single tile with no ghosts where the
+    mesh fits one CTA."""
+    if not 1 <= steps <= MAX_FWD_FUSED:
+        raise ValueError(f"steps={steps}: K1 fuses 1..{MAX_FWD_FUSED} steps a launch")
+    _check_threads(threads)
+    ghost = 5 * steps
+    tile = threads - 2 * ghost
     return FusedPlan(steps, ghost, tile, -(-k // tile), threads)
 
 
@@ -328,41 +359,92 @@ def fused_plan(k: int, steps: int = FUSED_STEPS, threads: int = 512) -> FusedPla
 # plus ~3.74 µs a launch of start, window loads and wave tail. Below 16 warps
 # an SM (one 512-thread CTA, the least occupancy measured) the stage's
 # dependent chain and barrier are taken to set the pace instead of issue.
+# K1's step, 5 stages against the reverse's 20, costs FWD_STEP_WARP_US:
+# fitted to chip_smoke.py phase 30's first run (20 plans at the four rows
+# K1 serves, 0.038-0.050 µs; the trajectory's stores cost the most).
 STEP_WARP_US = 0.139
+FWD_STEP_WARP_US = 0.044
 LAUNCH_US = 3.74
 MIN_WARPS = 16
 H100_SMS = 132
 FUSED_CANDIDATE_STEPS = (4, 8)
+FWD_CANDIDATE_STEPS = (4, 8, 16, 32)
 
 
-def _fused_cost(k: int, b: int, n_steps: int, launches: int, plan: FusedPlan, sms: int) -> float:
+def _fused_cost(k: int, b: int, n_steps: int, launches: int, plan: FusedPlan, sms: int,
+                step_warp_us: float = STEP_WARP_US) -> float:
     """Modelled µs of ``launches`` launches over n_steps steps: the warps of
     the busiest SM (CTAs dealt round-robin; at least MIN_WARPS) times the
     steps, plus the launches."""
     warps = -(-plan.n_tiles * b // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32)
-    return n_steps * max(warps, MIN_WARPS) * STEP_WARP_US + launches * LAUNCH_US
+    return n_steps * max(warps, MIN_WARPS) * step_warp_us + launches * LAUNCH_US
+
+
+def _tilings(k: int, b: int, sms: int, widest: FusedPlan):
+    """``widest`` cut into every tile count from the fewest a CTA holds to
+    one more CTA per SM (each tile count's L = ⌈K/tiles⌉)."""
+    n_min = -(-k // widest.tile)
+    for n_t in range(n_min, n_min + -(-sms // b) + 1):
+        tile = -(-k // n_t)
+        yield widest._replace(tile=tile, n_tiles=-(-k // tile))
+
+
+def _cheapest(plans, cost_of) -> FusedPlan:
+    """The plan of least modelled cost; a tie goes to the plan found first."""
+    best = None
+    for plan in plans:
+        cost = cost_of(plan)
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    return best[1]
 
 
 def _balanced_plan(k: int, b: int, np_: int, n_steps: int, sms: int, steps_options,
                    launches_of) -> FusedPlan:
-    """The cheapest plan under :func:`_fused_cost` over s_f in
-    ``steps_options``, 512- or 1024-thread CTAs (1024 only where the kernel
-    holds its registers at 64 a thread without spilling: Np ≤ 6, per nvcc
-    -Xptxas -v) and every tile count from the fewest a CTA holds to one
-    more CTA per SM (each tile count's L = ⌈K/tiles⌉); a tie goes to the
-    plan found first, the fewest tiles and s_f = 4."""
-    best = None
-    for steps in steps_options:
-        for threads in FUSED_THREADS if np_ <= 6 else FUSED_THREADS[:1]:
-            widest = fused_plan(k, steps, threads)
-            n_min = -(-k // widest.tile)
-            for n_t in range(n_min, n_min + -(-sms // b) + 1):
-                tile = -(-k // n_t)
-                plan = widest._replace(tile=tile, n_tiles=-(-k // tile))
-                cost = _fused_cost(k, b, n_steps, launches_of(steps), plan, sms)
-                if best is None or cost < best[0]:
-                    best = (cost, plan)
-    return best[1]
+    """K2's or K2r's cheapest plan under :func:`_fused_cost` over s_f in
+    ``steps_options``, 512- or 1024-thread CTAs (1024 only where the reverse
+    kernel holds its registers at 64 a thread without spilling: Np ≤ 6, per
+    nvcc -Xptxas -v) and every tiling (:func:`_tilings`); a tie goes to the
+    fewest tiles and s_f = 4."""
+    plans = (plan for steps in steps_options
+             for threads in (FUSED_THREADS if np_ <= 6 else FUSED_THREADS[:1])
+             for plan in _tilings(k, b, sms, fused_plan(k, steps, threads)))
+    return _cheapest(plans, lambda plan: _fused_cost(k, b, n_steps, launches_of(plan.segment),
+                                                     plan, sms))
+
+
+def _fwd_cost(k: int, b: int, np_: int, n_steps: int, store_every: int | None,
+              plan: FusedPlan, sms: int) -> float:
+    """K1's modelled µs on ``plan``: the issue time of :func:`_fused_cost`
+    at FWD_STEP_WARP_US a step, or the bytes K1 must move (u0, u_final and
+    the stored states) at 3.35 TB/s where those take longer, plus the
+    launches."""
+    launches = -(-n_steps // plan.segment)
+    issue = _fused_cost(k, b, n_steps, 0, plan, sms, FWD_STEP_WARP_US)
+    states = 2 + (-(-n_steps // store_every) if store_every else 0)
+    return max(issue, states * np_ * b * k * 4 / 3.35e6) + launches * LAUNCH_US
+
+
+# the search costs ~1 ms of host time at B = 1: once per shape
+@functools.lru_cache(maxsize=256)
+def forward_plan(k: int, b: int, np_: int, n_steps: int, store_every: int | None = None,
+                 sms: int = H100_SMS) -> FusedPlan:
+    """K1's plan for K elements, B members, Np nodes and n_steps steps,
+    storing every store_every-th entry state (None: none), on a card of
+    ``sms`` SMs: s_f ∈ {4, 8, 16, 32} (at most n_steps), 512- or
+    1024-thread CTAs (the forward kernel holds its registers at 64 a thread
+    at every Np) and, for each, one tile with no ghosts where the mesh fits
+    the CTA and every tiling of W = 5·s_f (:func:`_tilings`), whichever
+    minimises :func:`_fwd_cost`: ⌈n_steps/s_f⌉ launches. A tie goes to the
+    first found: the fewest steps, 512 threads, one tile."""
+    def plans():
+        for steps in sorted({min(s, n_steps) for s in FWD_CANDIDATE_STEPS}):
+            for threads in FUSED_THREADS:
+                if k <= threads:
+                    yield FusedPlan(steps, 0, k, 1, threads)
+                yield from _tilings(k, b, sms, fwd_fused_plan(k, steps, threads))
+
+    return _cheapest(plans(), lambda plan: _fwd_cost(k, b, np_, n_steps, store_every, plan, sms))
 
 
 # the search costs ~1 ms of host time at B = 1: once per shape
@@ -444,31 +526,47 @@ def adj_est_stored_fused_plain(traj, u_final, lam_end, t0: float, ops: KernelOps
     return _rev_fused_plain(traj, u_final, lam_end, eta, float(t0), 0, ops, plan)
 
 
+def _fwd_fused_plain(u0, t0: float, n_first: int, n_count: int, ops: KernelOps,
+                     plan: FusedPlan, store_every: int | None):
+    """K1's launches over steps n_first … n_first + n_count − 1 from ``u0``,
+    s_f steps each, every tile on its own window: ``(store, u)`` as
+    :func:`_fwd_steps_plain`, the store index counted from n_first."""
+    store = _new_store(u0, n_count, store_every)
+    u = u0
+    for lo_n in range(0, n_count, plan.segment):
+        nxt = torch.empty_like(u)
+        for t in range(plan.n_tiles):
+            lo, hi, w0, w1, wops = _window(plan, ops, t)
+            loc = slice(lo - w0, hi - w0)
+            uw = u[:, :, w0:w1]
+            for n in range(lo_n, min(lo_n + plan.segment, n_count)):
+                if store is not None and n % store_every == 0:
+                    store[n // store_every][:, :, lo:hi] = uw[:, :, loc]
+                uw = _step_plain(uw, t0 + (n_first + n) * ops.dt, ops.full, wops)
+            nxt[:, :, lo:hi] = uw[:, :, loc]
+        u = nxt
+    return store, u
+
+
+def fwd_march_fused_plain(u0, t0: float, n_steps: int, ops: KernelOps, plan: FusedPlan,
+                          store_every: int | None = None):
+    """K1's launch schedule in plain PyTorch (any ghost width, so a narrow
+    one can be shown to reach the local elements): ``(store or None,
+    u_final)``, store holding the entry state of every store_every-th step,
+    ⌈n_steps/store_every⌉ of them."""
+    return _fwd_fused_plain(u0, float(t0), 0, n_steps, ops, plan, store_every)
+
+
 def adj_est_recompute_fused_plain(ckpts, lam_end, t0: float, segment: int, ops: KernelOps,
                                   plan: FusedPlan):
     """K2r's launch schedule in plain PyTorch: per checkpoint segment in
-    reverse, launches of s_f forward steps write each tile's local entry
-    states into the scratch, then K2's launches sweep it."""
+    reverse, K1's launches write each tile's local states into the scratch,
+    then K2's launches sweep it."""
     lam = lam_end
     eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
     for si in reversed(range(ckpts.shape[0])):
-        scratch = torch.empty((segment + 1, *lam_end.shape), dtype=ckpts.dtype,
-                              device=ckpts.device)
-        for lo_n in range(0, segment, plan.segment):
-            steps = min(plan.segment, segment - lo_n)
-            src = ckpts[si] if lo_n == 0 else scratch[lo_n]
-            for t in range(plan.n_tiles):
-                lo, hi, w0, w1, wops = _window(plan, ops, t)
-                loc = slice(lo - w0, hi - w0)
-                uw = src[:, :, w0:w1]
-                for n in range(steps):
-                    if lo_n == 0 or n > 0:
-                        scratch[lo_n + n][:, :, lo:hi] = uw[:, :, loc]
-                    uw = _step_plain(uw, float(t0) + (si * segment + lo_n + n) * ops.dt,
-                                     ops.full, wops)
-                scratch[lo_n + steps][:, :, lo:hi] = uw[:, :, loc]
-        lam, eta = _rev_fused_plain(scratch[:segment], scratch[segment], lam, eta, float(t0),
-                                    si * segment, ops, plan)
+        traj, u_end = _fwd_fused_plain(ckpts[si], float(t0), si * segment, segment, ops, plan, 1)
+        lam, eta = _rev_fused_plain(traj, u_end, lam, eta, float(t0), si * segment, ops, plan)
     return lam, eta
 
 
@@ -511,7 +609,9 @@ def _stream(device):
 def fwd_march(u0: torch.Tensor, t0: float, n_steps: int, ops: KernelOps,
               store_trajectory: bool = False):
     """K1: march (Np, B, K) ``u0`` n_steps steps from ``t0``.
-    Returns ``(traj, u_final)``; traj is (n_steps, Np, B, K) or None."""
+    Returns ``(traj, u_final)``; traj is (n_steps, Np, B, K) or None. On the
+    card it runs :func:`forward_plan`'s schedule for the card's SM count:
+    ⌈n_steps/s_f⌉ launches of the fused kernel."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     if u0.dim() != 3:
@@ -532,25 +632,33 @@ def fwd_march(u0: torch.Tensor, t0: float, n_steps: int, ops: KernelOps,
                 f"of {total / 2**30:.2f} GiB free on {u0.device}"
             )
         traj = torch.empty((n_steps, *u0.shape), dtype=torch.float32, device=u0.device)
-    u_final = _k1_launch(lib, u0, t0, n_steps, traj, 1, ops)
+    u_final, fwd_march.cuda_launches = _k1_launch(lib, u0, t0, n_steps, traj, 1, ops)
     fwd_march.launches += 1
     return traj, u_final
 
 
-def _k1_launch(lib, u0, t0, n_steps: int, store, store_every: int, ops: KernelOps):
-    """One dg_fwd_march call; returns u_final."""
-    b, size = u0.shape[1], u0.numel()
+def _k1_launch(lib, u0, t0, n_steps: int, store, store_every: int, ops: KernelOps,
+               plan: FusedPlan | None = None):
+    """One dg_fwd_march call with ``plan`` (default :func:`forward_plan`'s):
+    ``(u_final, CUDA launches)``. The wrapper counts its launches; this does
+    not."""
+    b = u0.shape[1]
+    _check_grid(b)
+    if plan is None:
+        plan = forward_plan(ops.k, b, ops.np_, n_steps, store_every if store is not None else None,
+                            _sm_count(u0.device))
     u_final = torch.empty_like(u0)
-    work = torch.empty((4, size), dtype=torch.float32, device=u0.device)
+    ubuf = torch.empty((2, u0.numel()), dtype=torch.float32, device=u0.device)
+    launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_fwd_march(
-        ops.np_, b, ops.k, n_steps, store_every, float(t0), ops.dt, ops.a,
-        _RK.ctypes.data, ops.full.packed.ctypes.data,
-        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(store), _ptr(u_final),
-        _ptr(work[0]), _ptr(work[2]), _stream(u0.device),
+        ops.np_, b, ops.k, n_steps, store_every, plan.segment, plan.tile, plan.ghost,
+        plan.threads, float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data,
+        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(store), _ptr(u_final), _ptr(ubuf[0]),
+        ctypes.addressof(launches), _stream(u0.device),
     )
     lib.check(code, "dg_fwd_march")
-    return u_final
+    return u_final, launches.value
 
 
 def _check_segment(n_steps: int, segment: int) -> None:
@@ -562,7 +670,8 @@ def fwd_march_ckpt(u0: torch.Tensor, t0: float, n_steps: int, segment: int,
                    ops: KernelOps):
     """K1 in checkpoint mode: march n_steps steps storing the entry state of
     every ``segment``-th step. Returns ``(ckpts, u_final)``, ckpts
-    (n_steps/segment, Np, B, K)."""
+    (n_steps/segment, Np, B, K). On the card :func:`forward_plan`'s schedule,
+    as :func:`fwd_march`; any s_f serves any segment."""
     _check_segment(n_steps, segment)
     if u0.dim() != 3:
         raise ValueError(f"u0 must be (Np, B, K), got {tuple(u0.shape)}")
@@ -570,7 +679,7 @@ def fwd_march_ckpt(u0: torch.Tensor, t0: float, n_steps: int, segment: int,
         return fwd_march_plain(u0, float(t0), n_steps, ops, checkpoint_every=segment)
     lib = load_library()
     ckpts = torch.empty((n_steps // segment, *u0.shape), dtype=torch.float32, device=u0.device)
-    u_final = _k1_launch(lib, u0, t0, n_steps, ckpts, segment, ops)
+    u_final, fwd_march_ckpt.cuda_launches = _k1_launch(lib, u0, t0, n_steps, ckpts, segment, ops)
     fwd_march_ckpt.launches += 1
     return ckpts, u_final
 
@@ -708,7 +817,8 @@ _WRAPPERS = (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute, adj_m
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
-    adj_est_stored.cuda_launches = adj_est_recompute.cuda_launches = 0
+    for fn in (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute):
+        fn.cuda_launches = 0
 
 
 reset_launch_counts()

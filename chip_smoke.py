@@ -101,9 +101,9 @@ raises, and the script exits non-zero; nothing is caught.
    count; ``width``, ``new_loss`` and ``detect`` at n-train 1024 (every T1
    variant through the driver).
 18. CUDA-event times of T1 and T2 and of their plain versions at 15(a) and
-   16; epochs/s of a full train step (kernel + Adam) with each engine; the
-   same hidden-chain GEMMs through torch.matmul in IEEE FP32 as T2's
-   yardstick.
+   16, and of T2 at its path's minibatch (B=512, 2 steps); epochs/s of a
+   full train step (kernel + Adam) with each engine; the same hidden-chain
+   GEMMs through torch.matmul in IEEE FP32 as T2's yardstick.
 19. The Burgers kernel B1 (csrc/burgers.cu) against its plain version:
    (a) bench.py's row (K=10^4, N=2, B=8, dt = 0.3·x_min, 2048 steps, ICs
    (0.5 + 0.05 j)·sin x, ΠN) in float64 to 1e-12·|plain| + 1e-13, and in
@@ -171,6 +171,16 @@ raises, and the script exits non-zero; nothing is caught.
    turns, bit-equal, and (a)'s plans there; (d) (a)'s plans at K=512, B=1,
    2048 steps; the registers and spills that ptxas reported for the fused
    kernels.
+30. K1 fused over s_f steps a launch (csrc/dg_rhs.cu fwd_fused) at the four
+   rows it serves: (a) the trajectory at the headline; (b) the checkpoints
+   at bench.py's batched row, segments 4 and 64; (c) revolve's advance (K=10^5,
+   B=1, one 128-step unit from t0 = 0.5, no store); (d) the advec_dg march
+   (K=512, B=1, 5,462 steps, no store). At each, the wrappers' plan beside
+   four widest-window plans (s_f 8, 16 and 32 on 512- and 1024-thread CTAs)
+   and the wrapper itself, timed in turns, each with the plans' cost model,
+   its CUDA launches and its share of K1's bound; every plan's stored states
+   and u_final the wrapper's bits (a gate); and the registers and spills
+   that ptxas reported for fwd_fused.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -212,7 +222,8 @@ SOURCES = {
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
                  "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1017 (_fwd_grid_kernel_b, "
-                 "revolve's advance)",
+                 "revolve's advance) and, at B = 1, adjoint_ode_adaptivity_tpu/ops/pallas/"
+                 "dg_rhs.py:270 (_forward_kernel, the advec_dg march)",
     "adj_est_stored": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1108",
     "fd_ensemble": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:61",
     "fd_ensemble_vec": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201",
@@ -536,11 +547,13 @@ def phase4(device, errs):
     errs["adj_est_stored"] = max(errs["adj_est_stored"], e[1], e[2])
 
     dof_steps = b * disc.np_ * k * 2 * n_steps
-    cuda_launches = 5 * n_steps + dg_rhs.adj_est_stored.cuda_launches
+    k1_launches, k2_launches = dg_rhs.fwd_march.cuda_launches, dg_rhs.adj_est_stored.cuda_launches
+    cuda_launches = k1_launches + k2_launches
     say("4", f"K={k} N={n_order} steps={n_steps} B={b} dt={dt:.6e}: kernel pipeline "
              f"{t_pipe:.3f} ms (median of 5) = {dof_steps / (t_pipe / 1e3):.4e} "
              f"fwd+adjoint DoF-steps/s [{cuda_launches} CUDA launches, "
-             f"{t_pipe * 1e3 / cuda_launches:.2f} us each]; K1 {t_k1:.3f} ms, K2 {t_k2:.3f} ms")
+             f"{t_pipe * 1e3 / cuda_launches:.2f} us each]; K1 {t_k1:.3f} ms ({k1_launches} "
+             f"CUDA launches), K2 {t_k2:.3f} ms ({k2_launches}); K1/K2 {t_k1 / t_k2:.3f}")
     say("4", f"plain PyTorch pipeline {t_p1 + t_p2:.3f} ms (fwd {t_p1:.3f} + adj {t_p2:.3f}, "
              f"median of 3) = {dof_steps / ((t_p1 + t_p2) / 1e3):.4e} DoF-steps/s; "
              f"kernel speed-up {(t_p1 + t_p2) / t_pipe:.2f}x")
@@ -582,8 +595,9 @@ def march_times(device, errs):
     tol = 8 * n_steps * EPS32 * float(out["p"].abs().max())
     b_ms, b_by = march_bound(n_order, k, n_steps)
     say("4", f"K1 as the advec_dg march (_forward_kernel, dg_rhs.py:270) K={k} N={n_order} "
-             f"B=1 steps={n_steps}: kernel {ms:.3f} ms (median of 5, {5 * n_steps} CUDA "
-             f"launches); plain {plain_ms:.3f} ms (median of 3); bound {b_ms:.5f} ms ({b_by}); "
+             f"B=1 steps={n_steps}: kernel {ms:.3f} ms (median of 5, "
+             f"{dg_rhs.fwd_march.cuda_launches} CUDA launches); plain {plain_ms:.3f} ms "
+             f"(median of 3); bound {b_ms:.5f} ms ({b_by}); "
              f"max|kernel - plain| {e:.3e} (tol {tol:.3e})")
     assert e <= tol, "K1 at B = 1 disagrees with its plain version"
     errs["fwd_march"] = max(errs["fwd_march"], e)
@@ -2111,6 +2125,16 @@ def nn_times(device, t1_inputs):
                   f"{st_rate['torch']:.2f} torch")
         if s2 == NN_T2["steps"][0]:
             out["dense_epoch_grad"] = (ms2, pms2, b2)
+    # T2 at its path's own shape: the recurrent driver (NN_REC_ARGV) trains
+    # minibatches of n_train/16 = 512 members at its starting depth of 2 steps
+    p2, dt2, u2, tr2 = nn_t2_inputs(device, 2)
+    theta, theta_t = td.pack_dense(p2, sizes, device)
+    u5, tr5 = u2[:512].contiguous(), tr2[:512].contiguous()
+    ms5 = cuda_ms(lambda: td.dense_epoch_grad(theta, theta_t, sizes, dt2, u5, tr5), runs=5)
+    b5 = t2_bound(2, sizes, 512)
+    say("18", f"dense_epoch_grad {sizes} S=2 B=512 (the recurrent driver's minibatch and "
+              f"starting depth): kernel {ms5:.4f} ms; bound {b5[0]:.5f} ms ({b5[1]}), kernel at "
+              f"{b5[0] / ms5:.2%} of it")
     return out
 
 
@@ -2428,7 +2452,8 @@ def phase21(device, errs):
     tol_adv = 8 * c["unit"] * EPS32 * float(u0.abs().max())
     adv_bound = march_bound(2, c["k"], c["unit"])
     say("21", f"(b) one advance (K1, no trajectory, {c['unit']} steps from t0 = 0.5, K={c['k']}): "
-              f"kernel {ms_adv:.3f} ms (median of 5), plain {plain_adv:.1f} ms (median of 3), "
+              f"kernel {ms_adv:.3f} ms (median of 5, {dg_rhs.fwd_march.cuda_launches} CUDA "
+              f"launches), plain {plain_adv:.1f} ms (median of 3), "
               f"bound {adv_bound[0]:.5f} ms ({adv_bound[1]}); max|kernel - plain| {e_adv:.3e} "
               f"(tol {tol_adv:.3e})")
     assert e_adv <= tol_adv
@@ -2647,8 +2672,10 @@ def phase23(device, errs):
     dofs = c["b"] * disc.np_ * c["k"] * 2 * c["n_steps"]
     say("23", f"(c) bench row K={c['k']} N=2 B={c['b']} steps={c['n_steps']} segment={c['segment']}: "
               f"recompute {ms_rec:.3f} ms ({dofs / ms_rec * 1e3:.4e} fwd+adjoint DoF-steps/s, "
-              f"{5 * c['n_steps'] + dg_rhs.adj_est_recompute.cuda_launches} CUDA launches, {(n_seg + c['segment'] + 1) * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB of states); "
-              f"stored {ms_sto:.3f} ms ({5 * c['n_steps'] + dg_rhs.adj_est_stored.cuda_launches} launches, "
+              f"{dg_rhs.fwd_march_ckpt.cuda_launches + dg_rhs.adj_est_recompute.cuda_launches} "
+              f"CUDA launches, {(n_seg + c['segment'] + 1) * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} "
+              f"MB of states); stored {ms_sto:.3f} ms "
+              f"({dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} launches, "
               f"{c['n_steps'] * 4 * disc.np_ * c['b'] * c['k'] / 1e6:.1f} MB); recompute/stored "
               f"{ms_rec / ms_sto:.3f} (in turns stored, recompute, recompute, stored, median of 5 "
               f"each: stored {turns['stored'][0]:.3f} / {turns['stored'][1]:.3f}, recompute "
@@ -2667,7 +2694,8 @@ def phase23(device, errs):
     tol = tolerances(c["n_steps"], disc.np_, out["p1"][1], lam)
     e1 = max(float((ckpts - out["p1"][0]).abs().max()), float((uf - out["p1"][1]).abs().max()))
     e2 = [float((x - y).abs().max()) for x, y in zip(out["k2"], out["p2"])]
-    say("23", f"(c) K1 checkpoint mode {ms_k1:.3f} ms, K2r {ms_k2r:.3f} ms (median of 5); plain "
+    say("23", f"(c) K1 checkpoint mode {ms_k1:.3f} ms ({dg_rhs.fwd_march_ckpt.cuda_launches} CUDA "
+              f"launches), K2r {ms_k2r:.3f} ms (median of 5); plain "
               f"{plain_k1:.1f} / {plain_k2r:.1f} ms (one run each); kernel vs plain: ckpts+u "
               f"{e1:.3e} (tol {tol['u']:.3e}), lam0 {e2[0]:.3e} (tol {tol['lam']:.3e}), eta "
               f"{e2[1]:.3e} (tol {tol['eta']:.3e})")
@@ -2782,7 +2810,7 @@ def phase24(device, errs):
                       f"{p.n_tiles} CTA tiles of {p.tile} + 2x{p.ghost} ghosts (ghost overhead "
                       f"2W/L = {2 * p.ghost / p.tile:.1%}); {ms:.3f} ms ({2 * n_steps // seg} CUDA "
                       f"launches) against the stored pipeline's {ms_sto:.3f} ms "
-                      f"({5 * n_steps + dg_rhs.adj_est_stored.cuda_launches} "
+                      f"({dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} "
                       f"launches), tiled/stored {ms / ms_sto:.3f} (in turns stored, tiled_grid, "
                       f"tiled, tiled, tiled_grid, stored, median of 5 each: {name} "
                       f"{turns[name][0]:.3f} / {turns[name][1]:.3f}, stored {turns['stored'][0]:.3f} "
@@ -2854,7 +2882,7 @@ def phase25(device, beyond):
     dofs = disc.np_ * k * 2 * n_steps
     say("25", f"make_cuda_fwd_adj_estimate_grid K={k} N=2 steps={n_steps} segment={seg} "
               f"({n_steps * state / 1e9:.1f} GB if stored): {ms:.1f} ms ({dofs / ms * 1e3:.4e} "
-              f"fwd+adjoint DoF-steps/s, {5 * n_steps + dg_rhs.adj_est_recompute.cuda_launches} CUDA launches); peak device memory above "
+              f"fwd+adjoint DoF-steps/s, {dg_rhs.fwd_march_ckpt.cuda_launches + dg_rhs.adj_est_recompute.cuda_launches} CUDA launches); peak device memory above "
               f"the inputs {peak / 1e6:.1f} MB (checkpoints + scratch "
               f"{(n_steps // seg + seg + 1) * state / 1e6:.1f} MB) against revolve's "
               f"{peak_rev / 1e6:.1f} MB in phase 21(c); against revolve: u_final {d[0]:.3e} (tol "
@@ -2977,7 +3005,7 @@ def phase27(device, errs):
         say("27", f"N={n_order} K=10000 B=8 segment={seg} steps={n_steps}: KM1+KM2 {ms_km:.3f} ms "
                   f"({dofs / ms_km * 1e3:.4e} fwd+adjoint DoF-steps/s), K1+K2 {ms_k12:.3f} ms "
                   f"({dofs / ms_k12 * 1e3:.4e}); CUDA launches KM {25 * n_steps}, K1+K2 "
-                  f"{5 * n_steps + dg_rhs.adj_est_stored.cuda_launches} (in turns K1+K2, "
+                  f"{dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} (in turns K1+K2, "
                   f"KM1+KM2, KM1+KM2, K1+K2, median of 5 each: KM {turns['KM1+KM2'][0]:.3f} / "
                   f"{turns['KM1+KM2'][1]:.3f}, K1K2 {turns['K1+K2'][0]:.3f} / "
                   f"{turns['K1+K2'][1]:.3f} ms); max|KM - K1K2| u {d[0]:.3e} lam0 {d[1]:.3e} eta "
@@ -3376,6 +3404,120 @@ def phase29(device, lib):
              ops, sms)
 
 
+# K1's widest-window plans (s_f, threads) measured beside the wrappers' choice
+# at the four rows it serves, each with the plans' cost model
+FWD_PLANS = ((8, 512), (16, 512), (16, 1024), (32, 1024))
+# revolve's advance at bench.py's revolve row: one 128-step unit from a host t0
+FWD_ADVANCE = dict(k=REVOLVE_BENCH["k"], n_steps=REVOLVE_BENCH["unit"], t0=0.5)
+
+
+def k1_bound(np_, b, k, n_steps, n_stored):
+    """K1's least time: u0 read and u_final written once, the geometry read
+    once, n_stored states written; 5 stages a step (see dg_bounds)."""
+    state = 4 * np_ * b * k
+    return bound((2 + n_stored) * state + 3 * 4 * k, n_steps * 5 * stage_ops(np_) * b * k)
+
+
+def k1_plans(label, u0, t0, n_steps, store_every, ops, sms):
+    """K1 through its wrapper, on the wrappers' plan and on FWD_PLANS'
+    widest windows, timed in turns on the same (Np, B, K) u0, each beside the
+    plans' cost model and K1's bound; every plan's stored states and u_final
+    are the wrapper's bits. Returns the wrapper's mean ms."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, load_library
+
+    np_, b, k = u0.shape
+    plans = {"wrappers' plan": dg_rhs.forward_plan(k, b, np_, n_steps, store_every, sms),
+             **{f"s_f={min(st, n_steps)} {th} threads widest":
+                dg_rhs.fwd_fused_plan(k, min(st, n_steps), th) for st, th in FWD_PLANS}}
+    slots = -(-n_steps // store_every) if store_every else 0
+    lib = load_library()
+    out, counts = {}, {}
+
+    def wrapper():
+        out.pop("wrapper", None)  # the last call's states go before the next allocates
+        if store_every is None:
+            out["wrapper"] = dg_rhs.fwd_march(u0, t0, n_steps, ops)
+        elif store_every == 1:
+            out["wrapper"] = dg_rhs.fwd_march(u0, t0, n_steps, ops, store_trajectory=True)
+        else:
+            out["wrapper"] = dg_rhs.fwd_march_ckpt(u0, t0, n_steps, store_every, ops)
+
+    def k1_on(key, plan):
+        store = torch.empty((slots, *u0.shape), device=u0.device) if store_every else None
+
+        def run():
+            uf, counts[key] = dg_rhs._k1_launch(lib, u0, t0, n_steps, store, store_every or 1,
+                                                ops, plan)
+            out[key] = (store, uf)
+
+        return run
+
+    turns = in_turns({"wrapper": wrapper, **{key: k1_on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = (dg_rhs.fwd_march if store_every in (None, 1)
+                         else dg_rhs.fwd_march_ckpt).cuda_launches
+    ref = out["wrapper"]
+    b_ms, b_by = k1_bound(np_, b, k, n_steps, slots)
+    for key, plan in {"wrapper": plans["wrappers' plan"], **plans}.items():
+        ms = statistics.mean(turns[key])
+        model = dg_rhs._fwd_cost(k, b, np_, n_steps, store_every, plan, sms) / 1e3
+        same = torch.equal(out[key][1], ref[1]) and (
+            store_every is None or torch.equal(out[key][0], ref[0]))
+        say("30", f"{label} K={k} B={b} Np={np_} steps={n_steps} store_every={store_every} K1 "
+                  f"{key}: s_f={plan.segment} W={plan.ghost} L={plan.tile} {plan.threads} "
+                  f"threads, {plan.n_tiles}x{b} CTAs, ghost 2W/L {2 * plan.ghost / plan.tile:.1%}; "
+                  f"{ms:.4f} ms (model {model:.4f}; in turns, median of 5 each: "
+                  f"{turns[key][0]:.4f} / {turns[key][1]:.4f}), {counts[key]} CUDA launches, "
+                  f"{b_ms / ms:.2%} of the {b_ms:.5f} ms bound ({b_by}); stored states and "
+                  f"u_final bit-equal to the wrapper's: {same}")
+        assert same and counts[key] == -(-n_steps // plan.segment), key
+    return statistics.mean(turns["wrapper"])
+
+
+def phase30(device, lib):
+    """K1 fused over s_f steps a launch at the four rows it serves: its
+    plans, times, CUDA launches and bound shares, the plans' bits, and the
+    kernel's registers and spills."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.advec import cfl_dt
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    regs = [r for r in fused_registers(lib.build_log) if r.startswith("fwd_fused")]
+    say("30", f"ptxas -v for K1's kernel ({len(regs)} instances): {'; '.join(regs)}")
+    assert regs, "no fwd_fused instance in the build log"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # (a) the trajectory at the headline, (b) the checkpoints at bench.py's
+    # batched row (the same shapes), segments 4 and 64
+    n_order, k, n_steps, b = (HEADLINE[x] for x in ("n_order", "k", "n_steps", "batch"))
+    disc = mesh(n_order, k, graded=False)
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    u0 = phased_states(disc, b, device, torch.float32)
+    for label, every in (("(a) headline trajectory", 1),
+                         *((f"(b) bench row checkpoints segment {seg}", seg)
+                           for seg in FUSED_SEGMENTS)):
+        k1_plans(label, u0, 0.0, n_steps, every, ops, sms)
+        torch.cuda.empty_cache()
+
+    # (c) revolve's advance: one unit at K = 10^5, B = 1, from a host t0
+    c = FWD_ADVANCE
+    disc = mesh(2, c["k"], graded=False)
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    u1 = torch.tensor(np.sin(disc.x)[:, None, :], dtype=torch.float32, device=device)
+    k1_plans("(c) revolve's advance", u1, c["t0"], c["n_steps"], None, ops, sms)
+
+    # (d) the advec_dg march (--kernel cuda --k 512: N = 2, T = 2, cfl 0.75)
+    disc = startup_1d(2, 0.0, 2 * np.pi, 512)
+    dt, n_march = cfl_dt(disc, A, 0.75, 2.0)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u1 = torch.tensor(np.sin(disc.x)[:, None, :], dtype=torch.float32, device=device)
+    k1_plans("(d) advec_dg march", u1, 0.0, n_march, None, ops, sms)
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -3482,6 +3624,7 @@ def main() -> int:
     km_launches, km_times, km_bounds = phase27(device, errs)
     phase28(device)
     phase29(device, lib)
+    phase30(device, lib)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -626,6 +626,100 @@ def test_fused_reverse_plans_agree(device):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# (n_order, K, B, graded, n_steps, segment): Np 2, 3 and 8; B 1, 3 and 8;
+# uniform and graded; K in one CTA with no ghosts, in whole and in ragged
+# tiles; n_steps not a multiple of the plan's s_f; checkpoint segments 1, 3,
+# 13 and 64, none a multiple of s_f
+FWD_CASES = [
+    (1, 24, 1, False, 13, 13),
+    (1, 5000, 1, False, 21, 3),
+    (2, 1000, 3, True, 26, 13),
+    (2, 10_000, 8, False, 200, 1),
+    (2, 3000, 8, True, 192, 64),
+    (7, 500, 3, True, 9, 3),
+    (7, 2000, 8, False, 39, 13),
+    (7, 900, 1, True, 17, 1),
+]
+# other plans of K1 (s_f, threads, narrow tile or None): every one gives the
+# wrappers' plan's bits
+FWD_OTHER_PLANS = ((1, 512, None), (3, 1024, None), (8, 512, 70), (32, 1024, None), (32, 512, None))
+
+
+@pytest.mark.parametrize("n_order,k,b,graded,n_steps,segment", FWD_CASES)
+def test_fused_forward_kernel(device, n_order, k, b, graded, n_steps, segment):
+    """K1 fused over s_f steps a launch in its three modes (trajectory,
+    checkpoints, no store): within the float32 bounds above of its plain
+    version; the three modes, and every other plan, the same bits;
+    checkpoints the trajectory's every segment-th state, and any store_every
+    whether it divides n_steps or not; ⌈n_steps/s_f⌉ CUDA launches; K2r from
+    the checkpoints K2's bits; at B = 1 on a uniform mesh KT1's bits."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled, load_library
+
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k, vx=vx)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_rhs.kernel_ops(disc, A, 0.5 * (0.75 / A) * xmin, device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.stack([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    before = (dg_rhs.fwd_march.launches, dg_rhs.fwd_march_ckpt.launches)
+    traj, uf = dg_rhs.fwd_march(u0, 0.1, n_steps, ops, store_trajectory=True)
+    plan = dg_rhs.forward_plan(k, b, disc.np_, n_steps, 1, sms)
+    assert dg_rhs.fwd_march.cuda_launches == -(-n_steps // plan.segment)
+    none, uf_n = dg_rhs.fwd_march(u0, 0.1, n_steps, ops)
+    plan_n = dg_rhs.forward_plan(k, b, disc.np_, n_steps, None, sms)
+    assert dg_rhs.fwd_march.cuda_launches == -(-n_steps // plan_n.segment)
+    ckpts, uf_c = dg_rhs.fwd_march_ckpt(u0, 0.1, n_steps, segment, ops)
+    plan_c = dg_rhs.forward_plan(k, b, disc.np_, n_steps, segment, sms)
+    assert dg_rhs.fwd_march_ckpt.cuda_launches == -(-n_steps // plan_c.segment)
+    torch.cuda.synchronize()
+    assert (dg_rhs.fwd_march.launches, dg_rhs.fwd_march_ckpt.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert none is None and torch.equal(uf_n, uf) and torch.equal(uf_c, uf)
+    assert torch.equal(ckpts, traj[::segment])
+    traj_p, uf_p = dg_rhs.fwd_march_plain(u0, 0.1, n_steps, ops, True)
+    tol_u = 8 * n_steps * EPS32 * float(uf_p.abs().max())
+    assert float((traj - traj_p).abs().max()) <= tol_u
+    assert float((uf - uf_p).abs().max()) <= tol_u
+    lib = load_library()
+    for steps, threads, tile in FWD_OTHER_PLANS:
+        other = dg_rhs.fwd_fused_plan(k, min(steps, n_steps), threads)
+        if tile:
+            other = other._replace(tile=tile, n_tiles=-(-k // tile))
+        every = 3 if steps == 8 else 1
+        store = torch.empty((-(-n_steps // every), *u0.shape), device=device)
+        got, n_cuda = dg_rhs._k1_launch(lib, u0, 0.1, n_steps, store, every, ops, other)
+        assert n_cuda == -(-n_steps // other.segment)
+        assert torch.equal(got, uf) and torch.equal(store, traj[::every])
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    lam = lam[:, None, :].expand(disc.np_, b, k).contiguous()
+    lam0, eta = dg_rhs.adj_est_stored(traj, uf, lam, 0.1, ops)
+    lam0_r, eta_r = dg_rhs.adj_est_recompute(ckpts, lam, 0.1, segment, ops)
+    assert torch.equal(lam0_r, lam0) and torch.equal(eta_r, eta)
+    if b == 1 and not graded:
+        seg_kt = max(d for d in (1, 3, 7) if n_steps % d == 0)
+        kt = dg_tiled.tile_plan(k, disc.np_, seg_kt, 10 * seg_kt + 10, k)
+        traj_kt, uf_kt = dg_tiled.tiled_fwd_seg(u0[:, 0].contiguous(), 0.1, n_steps // seg_kt,
+                                                kt, ops)
+        assert torch.equal(uf_kt, uf[:, 0]) and torch.equal(traj_kt, traj[:, :, 0])
+
+
+def test_fused_forward_refuses_what_it_does_not_take(device):
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+
+    disc = startup_1d(2, 0.0, 2 * np.pi, 600)
+    ops = dg_rhs.kernel_ops(disc, A, 1e-3, device)
+    u0 = torch.zeros((3, 1, 600), device=device)
+    lib = load_library()
+    FP = dg_rhs.FusedPlan
+    for plan in (FP(4, 19, 100, 6, 512),  # ghosts under 5·s_f on a tiled mesh
+                 FP(33, 0, 600, 1, 1024),  # past the inflow table
+                 FP(4, 0, 600, 1, 512)):  # a window past the CTA
+        with pytest.raises(RuntimeError, match="K1 plan"):
+            dg_rhs._k1_launch(lib, u0, 0.0, 8, None, 1, ops, plan)
+
+
 def test_new_advection_kernels_refuse_what_they_do_not_take(device):
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
 
