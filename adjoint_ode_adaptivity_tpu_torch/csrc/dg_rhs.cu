@@ -19,7 +19,8 @@
 //                           K2's sweep over the scratch, λ and η carried
 //                           across segments.
 // KA  dg_adj_march          replaces dg_rhs.py:335 (_adjoint_kernel): the pure
-//                           coarse transpose march λ0 = (Lᵀ)ⁿ λN, full-dt tables.
+//                           coarse transpose march λ0 = (Lᵀ)ⁿ λN, full-dt tables;
+//                           one kernel, adj_fused, s_f steps a launch.
 //
 // State layout (Np, B, K) float32, element axis K contiguous. Geometry is
 // always per element (rx, fscale_left, fscale_right as (K,) vectors): the
@@ -27,26 +28,19 @@
 // The per-element arithmetic is csrc/dg_stage.cuh's, shared with the tiled
 // kernels, every rounding explicit.
 //
-// KA: one launch per LSRK stage. Thread c owns column c = b·K + k and holds
-// its Np nodes in registers; every stage reads the neighbours' columns at
-// the stage's INPUT state, and blocks run in no order, so each stage reads
-// read-only buffers and writes separate ones (ping-pong): the launch
-// boundary is the grid-wide sync. What bounds it on the H100: the launches,
-// 5 a step, each moving ~4·Np·B·K·4 bytes.
-//
-// K1, K2 and K2r: fused over s_f steps per launch. One CTA per (tile,
+// K1, K2, K2r and KA: fused over s_f steps per launch. One CTA per (tile,
 // member): blockIdx.x the tile of L local elements [lo, hi), blockIdx.y the
 // member b; the CTA's window [lo − W, hi + W), clipped to [0, K), of member
 // b's row, one thread per window element. Each thread keeps its element's u,
 // r, rx, fsl, fsr (and in the reverse λu, λr, the η it accumulates and the
-// trajectory entries u_n, u_{n+1} and the prefetched u_{n−1}) in registers
-// for the whole launch. Only face values cross elements: per stage each
-// thread posts two floats (forward: u[0], u[Np−1]; transposed: its own
+// trajectory entries u_n, u_{n+1} and the prefetched u_{n−1}; KA λu and
+// λr) in registers for the whole launch. Only face values cross elements:
+// per stage each thread posts two floats (forward: u[0], u[Np−1]; transposed: its own
 // lifted contributions fsl·Σ ll·w and fsr·Σ lr·w) into a double-buffered
 // trace array in shared memory, passes one __syncthreads, and reads its
-// neighbours'. The transposed owner's contributions are the products
-// lsrk_stage_t recomputes from a neighbour's column, so the bits do not
-// move.
+// neighbours'. The transposed owner's contributions are the products a
+// stage-per-launch transposed kernel recomputes from a neighbour's column,
+// so a fused launch gives a stage-per-launch march's bits.
 //
 // Ghost rules (ops/pallas/dg_sharded.py:18-25): the flux couples ±1 element
 // a stage (both faces: the error of a window's end spreads both ways) and
@@ -54,7 +48,9 @@
 // last has no right face: exact at the domain's ends, harmless at a ghost
 // edge). K1's s_f steps run 5·s_f stages, so W ≥ 5·s_f keeps every local
 // element exact, and where one tile holds the whole mesh there are no
-// ghosts. In the reverse the half steps run 10 stages a step from u_n, read
+// ghosts. KA's transposed stages couple ±1 element the same way (each
+// element reads both neighbours' lifted faces), 5 a step: W ≥ 5·s_f too. In
+// the reverse the half steps run 10 stages a step from u_n, read
 // exact from the trajectory, and λ's 10 transposed stages lose 10 elements a
 // side, so W ≥ 10·s_f; K2's plan takes the repo's W = 10·s_f + 10. The
 // state (K1's u, the reverse's λ) crosses launches through global ping-pong
@@ -71,22 +67,22 @@
 // recomputes each checkpoint segment with K1's kernel (the same windows)
 // into the scratch, then runs K2's reverse over it.
 //
-// What bounds K1, K2 and K2r on the H100 now: issue. A stage is ~60
+// What bounds K1, K2, K2r and KA on the H100 now: issue. A stage is ~60
 // instructions a warp (2·Np² + 9·Np + 4 FP32 operations an element, the
 // rest the trace exchange, the barrier and indexing), so a launch lasts as
 // long as its busiest SM takes to issue its warps' stages; the ghosts add
 // 2W/L of recomputed work and each launch ~4 µs of start and tail. The
 // wrappers pick s_f, the CTA size (512 or 1024 threads) and the tile count
 // that balance the SMs under that model (ops/cuda/dg_rhs.py forward_plan,
-// stored_plan, recompute_plan). Device memory sees K1's stores once (the
-// trajectory at the headline: 1.97 GB, 0.59 ms at 3.35 TB/s, issued beside
+// adjoint_plan, stored_plan, recompute_plan). Device memory sees K1's
+// stores once (the trajectory at the headline: 1.97 GB, 0.59 ms at 3.35 TB/s, issued beside
 // the stages), the trajectory once per window in the reverse (1 + 2W/L of
 // its bytes) and the carried state once per launch. PERF.md holds the
 // measured times.
 //
 // Alternatives weighed. A cooperative kernel with grid.sync() per stage
-// still syncs 5 (K1) or 20 (K2) times a step across the whole card; a CUDA
-// graph of a per-stage loop still runs a kernel a stage, each round-tripping
+// still syncs 5 (K1, KA) or 20 (K2) times a step across the whole card; a
+// CUDA graph of a per-stage loop still runs a kernel a stage, each round-tripping
 // the state through device memory. A thread-block-cluster halo through
 // distributed shared memory would drop the ghost recompute inside a
 // cluster; it is not measured.
@@ -107,102 +103,7 @@ using aoa_dg::dg_inflow;
 using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
 
-constexpr int kThreads = 256;
-
-// w = b_s·λu + λr of column c (λr == nullptr: zero).
-template <int NP>
-__device__ __forceinline__ void column_w(const float* __restrict__ lu,
-                                         const float* __restrict__ lr, int c,
-                                         int bk, float b_s, float* w) {
-  float l[NP], r[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    l[i] = lu[i * bk + c];
-    r[i] = lr != nullptr ? lr[i * bk + c] : 0.f;
-  }
-  aoa_dg::stage_w<NP>(l, r, lr != nullptr, b_s, w);
-}
-
-// One transpose stage (stages run 4..0): w = b_s·λu + λr; λr_out = a_s·w;
-// λu_out = λu + dt·Rᵀw, the neighbours' lifted faces recomputed from their
-// columns (the transpose of the ±1 element shift is the ∓1 shift).
-template <int NP>
-__global__ void __launch_bounds__(kThreads)
-lsrk_stage_t(const float* __restrict__ lu_in, const float* __restrict__ lr_in,
-             float* __restrict__ lu_out, float* __restrict__ lr_out, Geom g,
-             StepTables tab, float a_s, float b_s, int nb, int nk) {
-  const int bk = nb * nk;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= bk) return;
-  const int k = c % nk;
-
-  float w[NP], lu[NP], lu_new[NP], lr_new[NP];
-  column_w<NP>(lu_in, lr_in, c, bk, b_s, w);
-#pragma unroll
-  for (int i = 0; i < NP; ++i) lu[i] = lu_in[i * bk + c];
-  float s0, s1;
-  aoa_dg::faces_t<NP>(w, k == nk - 1, g.fsl[k], g.fsr[k], tab, &s0, &s1);
-  float p0 = 0.f;
-  float p1 = 0.f;
-  if (k < nk - 1) {
-    float wn[NP];
-    column_w<NP>(lu_in, lr_in, c + 1, bk, b_s, wn);
-    p0 = __fmul_rn(g.fsl[k + 1], aoa_dg::lifted<NP>(tab.ll, wn));
-  }
-  if (k > 0) {  // element k−1 is never the outflow element
-    float wp[NP];
-    column_w<NP>(lu_in, lr_in, c - 1, bk, b_s, wp);
-    p1 = __fmul_rn(g.fsr[k - 1], aoa_dg::lifted<NP>(tab.lr, wp));
-  }
-  aoa_dg::stage_t<NP>(lu, w, s0, s1, p0, p1, g.rx[k], tab, a_s, lu_new, lr_new);
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    lu_out[j * bk + c] = lu_new[j];
-    if (lr_out != nullptr) lr_out[j * bk + c] = lr_new[j];
-  }
-}
-
-// ``steps`` transposed steps with the tables ``tab``: λ rides *lu (updated to
-// the last output); jt counts transposed stages over the whole sweep, whose
-// last (jt == total_t − 1) writes lam0. lubuf and lrbuf: 2·Np·B·K floats each.
-template <int NP>
-int transposed_steps(int nb, int nk, int steps, const double* rk,
-                     const StepTables& tab, Geom g, const float** lu, long* jt,
-                     long total_t, float* lam0, float* lubuf, float* lrbuf,
-                     cudaStream_t stream) {
-  const long size = static_cast<long>(NP) * nb * nk;
-  const int blocks = (nb * nk + kThreads - 1) / kThreads;
-  const float* lr_cur = nullptr;
-  for (int hs = 0; hs < steps; ++hs) {
-    for (int s = 4; s >= 0; --s, ++*jt) {
-      float* lu_nxt = *jt == total_t - 1 ? lam0 : lubuf + (*jt % 2) * size;
-      float* lr_nxt = s == 0 ? nullptr : lrbuf + (*jt % 2) * size;
-      lsrk_stage_t<NP><<<blocks, kThreads, 0, stream>>>(
-          *lu, s == 4 ? nullptr : lr_cur, lu_nxt, lr_nxt, g, tab,
-          static_cast<float>(rk[s]), static_cast<float>(rk[5 + s]), nb, nk);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      *lu = lu_nxt;
-      lr_cur = lr_nxt;
-    }
-  }
-  return 0;
-}
-
-template <int NP>
-int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
-                   const float* tables, Geom g, const float* lam_end,
-                   float* lam0, float* lubuf, float* lrbuf,
-                   cudaStream_t stream) {
-  const StepTables full = pack_tables(NP, tables);
-  const float* lu = lam_end;
-  long jt = 0;
-  const int err = transposed_steps<NP>(nb, nk, n_steps, rk, full, g, &lu, &jt,
-                                       5L * n_steps, lam0, lubuf, lrbuf, stream);
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
-}
-
-// --------------------------------------- K1, K2, K2r: fused over s_f steps
+// ----------------------------------- K1, K2, K2r, KA: fused over s_f steps
 
 // Steps per launch: the inflow table rides the launch, 10 values a reverse
 // step (two dt/2 steps) and 5 a forward step.
@@ -415,6 +316,50 @@ rev_fused(const float* __restrict__ traj, const float* __restrict__ u_top,
   }
 }
 
+// KA over ``steps`` steps of the window with the full-step tables: λ from
+// lam_in (whole window), local λ to lam_out. Each step is 5 transposed
+// stages (s = 4 … 0): w = b_s·λu + λr, post the own lifted faces, one
+// barrier, λu += the transposed stage, λr = a_s·w.
+template <int NP, int T>
+__global__ void __launch_bounds__(T)
+adj_fused(const float* __restrict__ lam_in, float* __restrict__ lam_out, Geom g,
+          const __grid_constant__ StepTables full, RkCoef rk, int nk, int tile_l,
+          int ghost, int steps) {
+  __shared__ Traces<T> tr;
+  const Elem el = elem_of(nk, tile_l, ghost);
+  const int e = threadIdx.x;
+  const long bk = static_cast<long>(gridDim.y) * nk;
+  float lu[NP] = {}, lr[NP] = {};
+  float rx = 0.f, fsl = 0.f, fsr = 0.f;
+  if (el.active) {
+    rx = g.rx[el.k];
+    fsl = g.fsl[el.k];
+    fsr = g.fsr[el.k];
+    load_col<NP>(lam_in, el.c, bk, lu);
+  }
+  int buf = 0;
+  for (int n = 0; n < steps; ++n) {
+#pragma unroll
+    for (int s = 4; s >= 0; --s, buf ^= 1) {
+      float w[NP], s0, s1;
+      aoa_dg::stage_w<NP>(lu, lr, s < 4, rk.b[s], w);
+      aoa_dg::faces_t<NP>(w, el.last, fsl, fsr, full, &s0, &s1);
+      tr.lo[buf][e] = s0;
+      tr.hi[buf][e] = s1;
+      __syncthreads();
+      if (el.active) {
+        const float p0 = el.last ? 0.f : tr.lo[buf][e + 1];
+        const float p1 = el.first ? 0.f : tr.hi[buf][e - 1];
+        float lu_new[NP];
+        aoa_dg::stage_t<NP>(lu, w, s0, s1, p0, p1, rx, full, rk.a[s], lu_new, lr);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) lu[i] = lu_new[i];
+      }
+    }
+  }
+  if (el.local) store_col<NP>(lam_out, el.c, bk, lu);
+}
+
 // Threads a CTA runs: its widest window, in whole warps.
 int fused_block(int nk, const FusedPlan& p) {
   const int e = nk < p.tile_l + 2 * p.ghost ? nk : p.tile_l + 2 * p.ghost;
@@ -483,6 +428,34 @@ int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
     fwd_fused<NP, T><<<grid, block, 0, stream>>>(
         cur, store, out, g, full, coef, fwd_inflow(t0, dt, a, rk, lo, steps), nk,
         p.tile_l, p.ghost, steps, lo, store_every, 0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launches;
+    cur = out;
+  }
+  return 0;
+}
+
+// KA: n_steps transposed steps from lam_end in launches of s_f steps (the
+// last takes the remainder). λ crosses launches through the ping-pong lbuf
+// (2·Np·B·K floats), from which the neighbouring tiles read their ghosts;
+// the last launch writes lam0. *launches counts the launches.
+template <int NP, int T>
+int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
+                   const float* tables, Geom g, const FusedPlan& p,
+                   const float* lam_end, float* lam0, float* lbuf, int* launches,
+                   cudaStream_t stream) {
+  const StepTables full = pack_tables(NP, tables);
+  const RkCoef coef = rk_coef(rk);
+  const long size = static_cast<long>(NP) * nb * nk;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, nb);
+  const int block = fused_block(nk, p);
+  const float* cur = lam_end;
+  for (int lo = 0; lo < n_steps; lo += p.seg) {
+    const int steps = n_steps - lo < p.seg ? n_steps - lo : p.seg;
+    float* out = lo + steps == n_steps ? lam0 : lbuf + (*launches % 2) * size;
+    adj_fused<NP, T><<<grid, block, 0, stream>>>(cur, out, g, full, coef, nk,
+                                                 p.tile_l, p.ghost, steps);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
@@ -567,6 +540,12 @@ int check_fwd_plan(int nk, const FusedPlan& p) {
   return fused_block(nk, p) <= p.threads ? 0 : -4;
 }
 
+// -5 unless KA takes the plan: K1's rules (a transposed stage couples ±1
+// element as a forward stage does), with s_f ≤ kMaxFwdFused.
+int check_adj_plan(int nk, const FusedPlan& p) {
+  return check_fwd_plan(nk, p) == 0 ? 0 : -5;
+}
+
 }  // namespace
 
 // The CTA size picks the kernels' instance: __launch_bounds__(T) sets the
@@ -615,6 +594,15 @@ int adj_est_recompute_np(int nb, int nk, int n_steps, int segment, double t0,
                           nb, nk, n_steps, segment, t0, dt, a, rk, tables,
                           half_tables, g, p, ckpt, lam_end, lam0, eta, scratch,
                           lbuf, launches, stream)))
+}
+
+template <int NP>
+int adj_march_np(int nb, int nk, int n_steps, const double* rk,
+                 const float* tables, Geom g, const FusedPlan& p,
+                 const float* lam_end, float* lam0, float* lbuf, int* launches,
+                 cudaStream_t stream) {
+  AOA_FUSED_SWITCH(p, (adj_march_impl<NP, T>(nb, nk, n_steps, rk, tables, g, p,
+                                             lam_end, lam0, lbuf, launches, stream)))
 }
 
 }  // namespace
@@ -685,16 +673,21 @@ int dg_adj_est_recompute(int np, int nb, int nk, int n_steps, int segment,
                         lbuf, launches, static_cast<cudaStream_t>(stream)))
 }
 
-// λ0 = (Lᵀ)^n_steps λ_end with the step-dt tables; lubuf and lrbuf hold
-// 2·Np·B·K floats each.
-int dg_adj_march(int np, int nb, int nk, int n_steps, const double* rk,
-                 const float* tables, const float* rx, const float* fsl,
-                 const float* fsr, const float* lam_end, float* lam0,
-                 float* lubuf, float* lrbuf, void* stream) {
+// KA with the plan (seg = s_f, tile_l = L, ghost = W, threads): λ0 =
+// (Lᵀ)^n_steps λ_end with the step-dt tables; lbuf holds 2·Np·B·K floats.
+// *launches receives the CUDA launches issued. -5: a plan KA does not take.
+int dg_adj_march(int np, int nb, int nk, int n_steps, int seg, int tile_l,
+                 int ghost, int threads, const double* rk, const float* tables,
+                 const float* rx, const float* fsl, const float* fsr,
+                 const float* lam_end, float* lam0, float* lbuf, int* launches,
+                 void* stream) {
   const Geom g{rx, fsl, fsr};
-  AOA_NP_SWITCH(np, adj_march_impl<NP>(nb, nk, n_steps, rk, tables, g, lam_end,
-                                       lam0, lubuf, lrbuf,
-                                       static_cast<cudaStream_t>(stream)))
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (check_adj_plan(nk, p) != 0 || n_steps < 1) return -5;
+  AOA_NP_SWITCH(np, adj_march_np<NP>(nb, nk, n_steps, rk, tables, g, p, lam_end,
+                                     lam0, lbuf, launches,
+                                     static_cast<cudaStream_t>(stream)))
 }
 
 const char* dg_error_string(int code) {
@@ -706,6 +699,9 @@ const char* dg_error_string(int code) {
     return "K1 plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
            "holds the mesh, 512 or 1024 threads holding the window; n_steps and "
            "store_every >= 1)";
+  if (code == -5)
+    return "KA plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
+           "holds the mesh, 512 or 1024 threads holding the window; n_steps >= 1)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -16,27 +16,51 @@
 // arrive padded to multiples of 4 with zero weights and biases, which relu
 // keeps exactly inert in both passes.
 //
-// Design for this card: one block of 256 threads per tile of BM members
-// (BM = 64, 32 or 16, the largest whose activation tiles fit: BM·Σ_l P_l
-// floats of dynamic shared memory, 154 KB at (100, 500) and BM = 64, so
-// B = 8192 gives 128 blocks). Every layer's activations of the current step
-// stay in shared memory; the backward pass overwrites a_l with dz_l in place
-// (a_l > 0 ⇔ z_l > 0). The hidden products are written by hand: IEEE FP32
-// FMAs, no TF32, no tensor cores, no library call. A thread owns a
-// (BM/16) × 4 output tile of a row product (W_l, or W_lᵀ, which the wrapper
-// passes transposed, streamed from L2 as float4 rows, coalesced across the
-// 16 column threads), or a 4 × 4 tile of a weight gradient aᵀdz summed over
-// the block's members from shared memory. The TPU kernel carries the
-// gradients across its sequential grid; blocks here run in parallel, so each
-// block adds its sums into its own row of a partial-gradient buffer (one
-// owner per entry, L2-resident: 128 × 205 KB at (100, 500)), and a second
-// launch sums the rows in block order: deterministic, bit-identical on a
-// repeat call.
+// Design for this card: a thread-block cluster of C CTAs (C = 1, 2, 4, 8) for
+// each tile of BM members (BM = 16, 32, 64), 256 threads a CTA. Below,
+// layer 0 is the first hidden layer (a_1 above) and layer l ≥ 1 has the
+// matrix W_l (P_{l−1} × P_l) in front of it. CTA r of a cluster owns the
+// column slice J_r = [r·jw_l, (r+1)·jw_l) ∩ [0, P_l) of every layer l ≥ 1
+// (jw_l = P_l/C rounded up to 4):
+//
+// - at launch it copies W_l[:, J_r], b_l[J_r], w_out[J_r] (and w_1, b_1,
+//   which every CTA needs) into its own shared memory with cp.async, once;
+//   no weight is read from L2 or device memory again for the whole epoch;
+// - forward and recompute: every CTA forms a_0 itself (BM·P_0 elementwise
+//   operations), then a_l[:, J_r] = relu(a_{l−1} W_l[:, J_r] + b_l[J_r]);
+//   for a layer below the last, a cluster barrier, then each CTA gathers the
+//   other ranks' slices of a_l from their shared memory (DSMEM,
+//   map_shared_rank), so every CTA holds the whole a_l. The last layer stays
+//   split: f is C partial dots a_L[:, J_r]·w_out[J_r], summed in rank order
+//   after a cluster barrier, so every CTA carries the same bits of u;
+// - backward: dz_l[:, J_r] stays in its CTA; ∂W_l[:, J_r] += a_{l−1}ᵀ
+//   dz_l[:, J_r] and ∂b_l[J_r] are this CTA's entries; da_{l−1} is formed as
+//   one BM × P_{l−1} partial product dz_l[:, J_r] W_l[:, J_r]ᵀ per CTA, and
+//   after a cluster barrier each CTA sums the C partials in rank order over
+//   DSMEM for the columns it owns of layer l−1 (for layer 0: all of them, in
+//   every CTA). The fixed order keeps two calls bit-identical;
+// - every product is IEEE FP32 FMAs on shared-memory operands, a 4 × 4
+//   register tile of outputs a thread, 16-byte loads; no tensor cores, no
+//   TF32, no library call. The partial product reads rows of the W_l slice
+//   4 apart in different lanes; its row stride sw ≡ 4 (mod 8) floats keeps
+//   the 16-byte loads of a quarter warp on distinct banks;
+// - gradients: each entry has exactly one owner in a tile (CTA r the entries
+//   of its slices, rank 0 w_1, b_1 and b_out), which adds its per-step sums
+//   into the tile's row of a partial-gradient buffer (L2-resident); a second
+//   launch sums the rows in tile order: deterministic. Each CTA keeps its
+//   own copy of the tile's scalar trajectory (C · (S+1) · B floats in all),
+//   so no CTA reads device memory another wrote during the launch.
+//
 // What bounds it on the H100: FP32 operations, 4·2·B·S·Σ H_{l−1}H_l for the
-// hidden products (forward, recompute, ∂W, ∂a); the weight tiles are
-// re-read from L2 by every block at every step.
+// hidden products (forward, recompute, ∂W, ∂a). The cluster splits each
+// tile's products over C SMs, so a small B still fills the card (B = 512:
+// 16 tiles × 8 = 128 CTAs), and the weights live in shared memory, not L2.
+// The wrapper picks (BM, C) (ops/cuda/train_dense_fused.py dense_plan).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -45,207 +69,377 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
+int pad4(int n) { return (n + 3) / 4 * 4; }
+
 struct DenseLayout {
-  int L;                       // hidden layers
+  int L, bm, C;
   int P[kMaxLayers];           // padded widths
+  int jw[kMaxLayers];          // columns a rank owns of layer l (layer 0: all)
+  int sw[kMaxLayers];          // row stride of the W_l slice in shared memory
+  int ld[kMaxLayers];          // row stride of layer l's activations in shared memory
   int off_k[kMaxLayers + 1];   // theta: w_1, W_1..W_{L−1}, w_out
   int off_b[kMaxLayers + 1];   // theta: b_1, b_2..b_L, b_out
-  int off_t[kMaxLayers];       // theta_t: W_l transposed (P_l × P_{l−1})
-  int act_off[kMaxLayers];     // shared memory: a_l (BM × P_l)
-  int total;                   // floats in theta (and in a gradient row)
-  int smem_floats;
+  int s_w[kMaxLayers];         // shared memory (floats): W_l[:, J_r]
+  int s_b[kMaxLayers];         // b_l[J_r]
+  int s_act[kMaxLayers];       // a_l, then dz_l: whole for l < L−1, the slice for L−1
+  int s_w1, s_b1, s_wo, s_dpart, s_vec;
+  int total, row, smem_floats;
 };
 
-// C (BM × N) from A (BM × K, shared) times W (K × N, global, row-major):
-// MODE 0 writes relu(AW + bias); MODE 1 writes AW where C > 0, else 0.
-template <int BM, int MODE>
-__device__ void row_product(const float* A, int K, const float* __restrict__ W, int N,
-                            const float* __restrict__ bias, float* C) {
-  constexpr int RM = BM / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int c0 = 0; c0 < N; c0 += 64) {
-    const int j = c0 + tx * 4;
-    if (j >= N) continue;
-    float acc[RM][4];
+// The columns [j0, j0 + n) of layer l that rank r owns.
+struct Slice {
+  int j0, n;
+};
+
+__device__ __forceinline__ Slice slice_of(const DenseLayout& lay, int l, int r) {
+  if (l == 0) return {0, lay.P[0]};
+  const int j0 = r * lay.jw[l];
+  const int left = lay.P[l] - j0;
+  return {j0, left < 0 ? 0 : (left < lay.jw[l] ? left : lay.jw[l])};
+}
+
+// The column of layer l's activation buffer where rank r's slice starts:
+// layers below the last hold every column, the last only the slice.
+__device__ __forceinline__ int slice_col(const DenseLayout& lay, int l, int r) {
+  return l < lay.L - 1 ? slice_of(lay, l, r).j0 : 0;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// n floats (a multiple of 4, 16-byte aligned at both ends) to shared memory.
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// out (bm × n, row stride ldo) = relu(A W + bias): A (bm × K, row stride K),
+// W (K × n, row stride ldw), bias (n). 4 × 4 outputs a thread, k ascending.
+__device__ __forceinline__ void fwd_product(const float* A, int K, const float* W, int ldw,
+                                            int n, const float* bias, float* out, int ldo,
+                                            int bm) {
+  const int nct = n / 4;
+  const int ntile = (bm / 4) * nct;
+  for (int t = threadIdx.x; t < ntile; t += kThreads) {
+    const int m0 = (t / nct) * 4, j0 = (t % nct) * 4;
+    float acc[4][4] = {};
+#pragma unroll 2
+    for (int k = 0; k < K; k += 4) {
+      float4 a[4], w[4];
 #pragma unroll
-    for (int r = 0; r < RM; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(W + static_cast<size_t>(k) * N + j));
+      for (int r = 0; r < 4; ++r) a[r] = ld4(A + (m0 + r) * K + k);
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const float a = A[(ty * RM + r) * K + k];
-        acc[r][0] = fmaf(a, w.x, acc[r][0]);
-        acc[r][1] = fmaf(a, w.y, acc[r][1]);
-        acc[r][2] = fmaf(a, w.z, acc[r][2]);
-        acc[r][3] = fmaf(a, w.w, acc[r][3]);
-      }
+      for (int kk = 0; kk < 4; ++kk) w[kk] = ld4(W + (k + kk) * ldw + j0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float av = comp(a[r], kk);
+          acc[r][0] = fmaf(av, w[kk].x, acc[r][0]);
+          acc[r][1] = fmaf(av, w[kk].y, acc[r][1]);
+          acc[r][2] = fmaf(av, w[kk].z, acc[r][2]);
+          acc[r][3] = fmaf(av, w[kk].w, acc[r][3]);
+        }
     }
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      float* o = C + (ty * RM + r) * N + j;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (MODE == 0) {
-          o[q] = fmaxf(acc[r][q] + bias[j + q], 0.f);
-        } else {
-          o[q] = o[q] > 0.f ? acc[r][q] : 0.f;
-        }
-      }
+    for (int r = 0; r < 4; ++r) {
+      float4 o;
+      o.x = fmaxf(acc[r][0] + bias[j0], 0.f);
+      o.y = fmaxf(acc[r][1] + bias[j0 + 1], 0.f);
+      o.z = fmaxf(acc[r][2] + bias[j0 + 2], 0.f);
+      o.w = fmaxf(acc[r][3] + bias[j0 + 3], 0.f);
+      *reinterpret_cast<float4*>(out + (m0 + r) * ldo + j0) = o;
     }
   }
 }
 
-// part[i·N + j] += Σ_m A[m][i]·D[m][j], A (BM × K) and D (BM × N) in shared.
-template <int BM>
-__device__ void weight_grad(const float* A, int K, const float* D, int N, float* part) {
-  const int ntj = N / 4, nt = (K / 4) * ntj;
-  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
-    const int i0 = (t / ntj) * 4, j0 = (t % ntj) * 4;
+// part[i·ldp + j] += Σ_m A[m][i]·D[m][j] (m ascending): A (bm × K, row stride
+// K), D (bm × n, row stride ldd), part in device memory. 4 × 4 a thread.
+__device__ __forceinline__ void weight_grad(const float* A, int K, const float* D, int ldd,
+                                            int n, float* part, int ldp, int bm) {
+  const int nct = n / 4;
+  const int ntile = (K / 4) * nct;
+  for (int t = threadIdx.x; t < ntile; t += kThreads) {
+    const int i0 = (t / nct) * 4, j0 = (t % nct) * 4;
     float acc[4][4] = {};
-    for (int m = 0; m < BM; ++m) {
-      const float4 a = *reinterpret_cast<const float4*>(A + m * K + i0);
-      const float4 d = *reinterpret_cast<const float4*>(D + m * N + j0);
-      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll 2
+    for (int m = 0; m < bm; ++m) {
+      const float4 a = ld4(A + m * K + i0);
+      const float4 d = ld4(D + m * ldd + j0);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r) {
+        const float av = comp(a, r);
+        acc[r][0] = fmaf(av, d.x, acc[r][0]);
+        acc[r][1] = fmaf(av, d.y, acc[r][1]);
+        acc[r][2] = fmaf(av, d.z, acc[r][2]);
+        acc[r][3] = fmaf(av, d.w, acc[r][3]);
+      }
+    }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], dv[q], acc[r][q]);
+    for (int r = 0; r < 4; ++r) {
+      float4* p = reinterpret_cast<float4*>(part + (i0 + r) * ldp + j0);
+      float4 v = *p;
+      v.x += acc[r][0];
+      v.y += acc[r][1];
+      v.z += acc[r][2];
+      v.w += acc[r][3];
+      *p = v;
+    }
+  }
+}
+
+// E (bm × K, row stride K) = D Wᵀ over this rank's n columns: E[m][i] =
+// Σ_j D[m][j]·W[i][j] (j ascending), D (bm × n, row stride ldd), W (K × n,
+// row stride ldw). A thread takes members m0..m0+3 and rows i, i + K/4,
+// i + K/2, i + 3K/4, so neighbouring lanes read neighbouring rows of W.
+__device__ __forceinline__ void partial_product(const float* D, int ldd, int n,
+                                                const float* W, int ldw, int K, float* E,
+                                                int bm) {
+  const int kq = K / 4;
+  const int ntile = (bm / 4) * kq;
+  for (int t = threadIdx.x; t < ntile; t += kThreads) {
+    const int m0 = (t / kq) * 4, i = t % kq;
+    float acc[4][4] = {};
+#pragma unroll 2
+    for (int j = 0; j < n; j += 4) {
+      float4 d[4], w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[r] = ld4(D + (m0 + r) * ldd + j);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[q] = ld4(W + (i + q * kq) * ldw + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float dv = comp(d[r], jj);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(dv, comp(w[q], jj), acc[r][q]);
+        }
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) part[(i0 + r) * N + j0 + q] += acc[r][q];
+      for (int q = 0; q < 4; ++q) E[(m0 + r) * K + i + q * kq] = acc[r][q];
   }
 }
 
-// part[j] += Σ_m X[m][j]·(wm ? wm[m] : 1), X (BM × N) in shared.
-template <int BM>
-__device__ void column_sum(const float* X, int N, const float* wm, float* part) {
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    float s = 0.f;
-    for (int m = 0; m < BM; ++m) s = wm ? fmaf(X[m * N + j], wm[m], s) : s + X[m * N + j];
-    part[j] += s;
-  }
-}
-
-// out[m] = Σ_j X[m][j]·v[j]: 256/BM consecutive lanes per member.
-template <int BM>
-__device__ void row_dot(const float* X, int N, const float* __restrict__ v, float* out) {
-  constexpr int G = kThreads / BM;
-  const int m = threadIdx.x / G, lg = threadIdx.x % G;
+// out[m] = Σ_j X[m][j]·v[j] over n columns: 256/bm consecutive lanes per
+// member, a fixed shuffle tree.
+__device__ __forceinline__ void row_dot(const float* X, int ldx, int n, const float* v,
+                                        float* out, int bm) {
+  const int g = kThreads / bm;
+  const int m = threadIdx.x / g, lg = threadIdx.x % g;
   float s = 0.f;
-  for (int j = lg; j < N; j += G) s = fmaf(X[m * N + j], v[j], s);
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off, G);
+  for (int j = lg; j < n; j += g) s = fmaf(X[m * ldx + j], v[j], s);
+  for (int off = g / 2; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off, g);
   if (lg == 0) out[m] = s;
 }
 
-// The chain at the states su (BM): a_1..a_L into shared memory.
-template <int BM>
-__device__ void chain(const DenseLayout& lay, const float* __restrict__ theta, const float* su,
-                      float* const* act) {
-  const int p0 = lay.P[0];
-  const float* w1 = theta + lay.off_k[0];
-  const float* b1 = theta + lay.off_b[0];
-  for (int idx = threadIdx.x; idx < BM * p0; idx += blockDim.x) {
+// The chain at the states su (bm): a_0 .. a_{L−1} into shared memory, each
+// layer below the last whole in every CTA, the last as this rank's slice.
+__device__ __forceinline__ void chain(const DenseLayout& lay, int rank,
+                                      cg::cluster_group& cluster, const float* sm,
+                                      const float* su, float* const* act) {
+  const int p0 = lay.P[0], bm = lay.bm;
+  const float* w1 = sm + lay.s_w1;
+  const float* b1 = sm + lay.s_b1;
+  for (int idx = threadIdx.x; idx < bm * p0; idx += kThreads) {
     const int m = idx / p0, j = idx % p0;
     act[0][idx] = fmaxf(fmaf(su[m], w1[j], b1[j]), 0.f);
   }
   __syncthreads();
   for (int l = 1; l < lay.L; ++l) {
-    row_product<BM, 0>(act[l - 1], lay.P[l - 1], theta + lay.off_k[l], lay.P[l],
-                       theta + lay.off_b[l], act[l]);
+    const Slice s = slice_of(lay, l, rank);
+    fwd_product(act[l - 1], lay.P[l - 1], sm + lay.s_w[l], lay.sw[l], s.n, sm + lay.s_b[l],
+                act[l] + slice_col(lay, l, rank), lay.ld[l], bm);
+    if (l < lay.L - 1) {
+      cluster.sync();  // every rank's slice of a_l is written
+      const int p = lay.P[l];
+      for (int q = 0; q < lay.C; ++q) {
+        if (q == rank) continue;
+        const Slice sq = slice_of(lay, l, q);
+        const float* src = cluster.map_shared_rank(act[l], q);
+        const int nq = sq.n / 4;
+        for (int idx = threadIdx.x; idx < bm * nq; idx += kThreads) {
+          const int o = (idx / nq) * p + sq.j0 + 4 * (idx % nq);
+          *reinterpret_cast<float4*>(act[l] + o) = ld4(src + o);
+        }
+      }
+    }
     __syncthreads();
   }
 }
 
-template <int BM>
 __global__ void __launch_bounds__(kThreads)
-dense_epoch_kernel(DenseLayout lay, int S, int B, const float* __restrict__ theta,
-                   const float* __restrict__ theta_t, const float* __restrict__ dt,
-                   const float* __restrict__ u0, const float* __restrict__ tgt, float inv_b,
-                   float* __restrict__ traj, float* __restrict__ loss_m,
-                   float* __restrict__ part_all) {
+dense_cluster_kernel(DenseLayout lay, int S, int B, const float* __restrict__ theta,
+                     const float* __restrict__ dt, const float* __restrict__ u0,
+                     const float* __restrict__ tgt, float inv_b, float* traj,
+                     float* __restrict__ loss_m, float* __restrict__ part_all) {
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* act[kMaxLayers];
-  for (int l = 0; l < lay.L; ++l) act[l] = sm + lay.act_off[l];
-  float* su = sm + lay.smem_floats - 3 * BM;  // states
-  float* sg = su + BM;                        // cotangents g
-  float* sf = sg + BM;                        // f, then df, then Σ dz_1·w_1
-  const int L = lay.L, tid = threadIdx.x, m0 = blockIdx.x * BM;
-  float* part = part_all + static_cast<size_t>(blockIdx.x) * lay.total;
-  const float* wo = theta + lay.off_k[L];
-  const float bo = theta[lay.off_b[L]];
-  const int pl = lay.P[L - 1];
+  const int L = lay.L, bm = lay.bm, C = lay.C, tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / C;
+  const int m0 = tile * bm;
+  float* part = part_all + static_cast<size_t>(tile) * lay.row;
+  float* my_traj = traj + static_cast<size_t>(rank) * (S + 1) * B;
+  const Slice last = slice_of(lay, L - 1, rank);
 
-  for (int m = tid; m < BM; m += kThreads) {
+  // the weights this CTA uses, into shared memory once
+  load_vec(sm + lay.s_w1, theta + lay.off_k[0], lay.P[0]);
+  load_vec(sm + lay.s_b1, theta + lay.off_b[0], lay.P[0]);
+  load_vec(sm + lay.s_wo, theta + lay.off_k[L] + last.j0, last.n);
+  for (int l = 1; l < L; ++l) {
+    const Slice s = slice_of(lay, l, rank);
+    const int nq = s.n / 4;
+    for (int idx = tid; idx < lay.P[l - 1] * nq; idx += kThreads) {
+      const int i = idx / nq, j = 4 * (idx % nq);
+      cp_async16(sm + lay.s_w[l] + i * lay.sw[l] + j,
+                 theta + lay.off_k[l] + i * lay.P[l] + s.j0 + j);
+    }
+    load_vec(sm + lay.s_b[l], theta + lay.off_b[l] + s.j0, s.n);
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  const float bo = theta[lay.off_b[L]];
+  float* act[kMaxLayers];
+  for (int l = 0; l < L; ++l) act[l] = sm + lay.s_act[l];
+  const float* wo = sm + lay.s_wo;
+  const float* w1 = sm + lay.s_w1;
+  float* dpart = sm + lay.s_dpart;
+  float* su = sm + lay.s_vec;  // states
+  float* sg = su + bm;         // cotangents g
+  float* sf = sg + bm;         // df
+  float* fpart = sf + bm;      // the partial dots of f, by step parity (2·bm)
+  float* gpart = fpart + 2 * bm;
+  for (int m = tid; m < bm; m += kThreads) {
     const bool ok = m0 + m < B;
     su[m] = ok ? u0[m0 + m] : 0.f;
-    if (ok) traj[m0 + m] = su[m];
+    if (ok) my_traj[m0 + m] = su[m];
   }
-  __syncthreads();
+  cluster.sync();  // the cluster runs and every CTA's weights have landed
+
   for (int n = 0; n < S; ++n) {
-    chain<BM>(lay, theta, su, act);
-    row_dot<BM>(act[L - 1], pl, wo, sf);
-    __syncthreads();
-    for (int m = tid; m < BM; m += kThreads) {
-      su[m] = fmaf(dt[n], sf[m] + bo, su[m]);
-      if (m0 + m < B) traj[static_cast<size_t>(n + 1) * B + m0 + m] = su[m];
+    chain(lay, rank, cluster, sm, su, act);
+    float* fp = fpart + (n & 1) * bm;  // read by the other ranks until step n + 1's barrier
+    row_dot(act[L - 1], lay.ld[L - 1], last.n, wo, fp, bm);
+    cluster.sync();
+    for (int m = tid; m < bm; m += kThreads) {
+      float f = *cluster.map_shared_rank(fp + m, 0);
+      for (int q = 1; q < C; ++q) f += *cluster.map_shared_rank(fp + m, q);
+      su[m] = fmaf(dt[n], f + bo, su[m]);
+      if (m0 + m < B) my_traj[static_cast<size_t>(n + 1) * B + m0 + m] = su[m];
     }
     __syncthreads();
   }
-  for (int m = tid; m < BM; m += kThreads) {
+  for (int m = tid; m < bm; m += kThreads) {
     const bool ok = m0 + m < B;
     const float e = ok ? su[m] - tgt[m0 + m] : 0.f;
-    if (ok) loss_m[m0 + m] = e * e * inv_b;
+    if (ok && rank == 0) loss_m[m0 + m] = e * e * inv_b;
     sg[m] = 2.f * e * inv_b;
   }
   __syncthreads();
+
+  bool dpart_read = false;  // the other ranks may still read dpart
   for (int n = S - 1; n >= 0; --n) {
-    for (int m = tid; m < BM; m += kThreads)
-      su[m] = m0 + m < B ? traj[static_cast<size_t>(n) * B + m0 + m] : 0.f;
+    for (int m = tid; m < bm; m += kThreads)
+      su[m] = m0 + m < B ? my_traj[static_cast<size_t>(n) * B + m0 + m] : 0.f;
     __syncthreads();
-    chain<BM>(lay, theta, su, act);
-    for (int m = tid; m < BM; m += kThreads) sf[m] = dt[n] * sg[m];
+    chain(lay, rank, cluster, sm, su, act);
+    for (int m = tid; m < bm; m += kThreads) sf[m] = dt[n] * sg[m];
     __syncthreads();
-    column_sum<BM>(act[L - 1], pl, sf, part + lay.off_k[L]);
-    if (tid == 0) {
-      float s = 0.f;
-      for (int m = 0; m < BM; ++m) s += sf[m];
-      part[lay.off_b[L]] += s;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BM * pl; idx += kThreads) {
-      const int m = idx / pl, j = idx % pl;
-      act[L - 1][idx] = act[L - 1][idx] > 0.f ? sf[m] * wo[j] : 0.f;
+    {  // the output layer: ∂w_out[J], ∂b_out, then dz_{L−1} in place
+      float* a = act[L - 1];
+      const int ld = lay.ld[L - 1];
+      for (int j = tid; j < last.n; j += kThreads) {
+        float s = 0.f;
+        for (int m = 0; m < bm; ++m) s = fmaf(a[m * ld + j], sf[m], s);
+        part[lay.off_k[L] + last.j0 + j] += s;
+        const float w = wo[j];
+        for (int m = 0; m < bm; ++m) a[m * ld + j] = a[m * ld + j] > 0.f ? sf[m] * w : 0.f;
+      }
+      if (rank == 0 && tid == 0) {
+        float s = 0.f;
+        for (int m = 0; m < bm; ++m) s += sf[m];
+        part[lay.off_b[L]] += s;
+      }
     }
     __syncthreads();
     for (int l = L - 1; l >= 1; --l) {
-      weight_grad<BM>(act[l - 1], lay.P[l - 1], act[l], lay.P[l], part + lay.off_k[l]);
-      column_sum<BM>(act[l], lay.P[l], nullptr, part + lay.off_b[l]);
-      __syncthreads();
-      row_product<BM, 1>(act[l], lay.P[l], theta_t + lay.off_t[l], lay.P[l - 1], nullptr,
-                         act[l - 1]);
+      const Slice s = slice_of(lay, l, rank);
+      const float* dz = act[l] + slice_col(lay, l, rank);
+      const int ldz = lay.ld[l];
+      weight_grad(act[l - 1], lay.P[l - 1], dz, ldz, s.n, part + lay.off_k[l] + s.j0, lay.P[l],
+                  bm);
+      for (int j = tid; j < s.n; j += kThreads) {
+        float c = 0.f;
+        for (int m = 0; m < bm; ++m) c += dz[m * ldz + j];
+        part[lay.off_b[l] + s.j0 + j] += c;
+      }
+      if (dpart_read) cluster.sync();  // every rank has read the last partials
+      partial_product(dz, ldz, s.n, sm + lay.s_w[l], lay.sw[l], lay.P[l - 1], dpart, bm);
+      dpart_read = true;
+      cluster.sync();
+      // da_{l−1} over the columns this rank owns, the C partials in rank
+      // order, times the relu mask of a_{l−1}: dz_{l−1} in place
+      const Slice t = slice_of(lay, l - 1, rank);
+      const int k = lay.P[l - 1], nq = t.n / 4;
+      for (int idx = tid; idx < bm * nq; idx += kThreads) {
+        const int o = (idx / nq) * k + t.j0 + 4 * (idx % nq);
+        float4 v = ld4(cluster.map_shared_rank(dpart, 0) + o);
+        for (int q = 1; q < C; ++q) {
+          const float4 x = ld4(cluster.map_shared_rank(dpart, q) + o);
+          v.x += x.x;
+          v.y += x.y;
+          v.z += x.z;
+          v.w += x.w;
+        }
+        float4* a = reinterpret_cast<float4*>(act[l - 1] + o);
+        const float4 av = *a;
+        *a = make_float4(av.x > 0.f ? v.x : 0.f, av.y > 0.f ? v.y : 0.f,
+                         av.z > 0.f ? v.z : 0.f, av.w > 0.f ? v.w : 0.f);
+      }
       __syncthreads();
     }
-    column_sum<BM>(act[0], lay.P[0], su, part + lay.off_k[0]);
-    column_sum<BM>(act[0], lay.P[0], nullptr, part + lay.off_b[0]);
-    row_dot<BM>(act[0], lay.P[0], theta + lay.off_k[0], sf);
+    const int p0 = lay.P[0];
+    if (rank == 0) {
+      for (int i = tid; i < p0; i += kThreads) {
+        float sw = 0.f, sb = 0.f;
+        for (int m = 0; m < bm; ++m) {
+          const float d = act[0][m * p0 + i];
+          sw = fmaf(d, su[m], sw);
+          sb += d;
+        }
+        part[lay.off_k[0] + i] += sw;
+        part[lay.off_b[0] + i] += sb;
+      }
+    }
+    row_dot(act[0], p0, p0, w1, gpart, bm);
     __syncthreads();
-    for (int m = tid; m < BM; m += kThreads) sg[m] = sg[m] + sf[m];
+    for (int m = tid; m < bm; m += kThreads) sg[m] = sg[m] + gpart[m];
     __syncthreads();
   }
+  cluster.sync();  // no CTA leaves while another may read its shared memory
 }
 
-// grads[p] = Σ_c part[c][p] in block order; one warp sums the loss terms.
-__global__ void dense_reduce_kernel(int n_blocks, int total, const float* __restrict__ part,
-                                    float* __restrict__ grads, int B,
-                                    const float* __restrict__ loss_m, float* __restrict__ loss) {
+// grads[p] = Σ_t part[t·row + p] in tile order; one warp sums the loss terms.
+__global__ void dense_reduce_kernel(int n_tiles, int total, int row,
+                                    const float* __restrict__ part, float* __restrict__ grads,
+                                    int B, const float* __restrict__ loss_m,
+                                    float* __restrict__ loss) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < total) {
     float s = 0.f;
-    for (int c = 0; c < n_blocks; ++c) s += part[static_cast<size_t>(c) * total + p];
+    for (int t = 0; t < n_tiles; ++t) s += part[static_cast<size_t>(t) * row + p];
     grads[p] = s;
   }
   if (blockIdx.x == 0 && threadIdx.x < 32) {
@@ -257,18 +451,61 @@ __global__ void dense_reduce_kernel(int n_blocks, int total, const float* __rest
   }
 }
 
-template <int BM>
-int launch(const DenseLayout& lay, int S, int B, const float* theta, const float* theta_t,
-           const float* dt, const float* u0, const float* tgt, float inv_b, float* traj,
-           float* loss_m, float* part, cudaStream_t s) {
-  const int bytes = lay.smem_floats * static_cast<int>(sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(dense_epoch_kernel<BM>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dense_epoch_kernel<BM><<<(B + BM - 1) / BM, kThreads, bytes, s>>>(
-      lay, S, B, theta, theta_t, dt, u0, tgt, inv_b, traj, loss_m, part);
-  e = cudaGetLastError();
-  return e == cudaSuccess ? 0 : static_cast<int>(e);
+// The layout of theta and of a CTA's shared memory; 0, or the entry's error
+// code. Shared-memory regions start on 16 bytes.
+int make_layout(int L, const int* widths, int bm, int C, DenseLayout* lay) {
+  if (L < 1 || L > kMaxLayers) return -2;
+  if (bm != 16 && bm != 32 && bm != 64) return -4;
+  if ((C != 1 && C != 2 && C != 4 && C != 8) || (L == 1 && C != 1)) return -6;
+  *lay = DenseLayout{};
+  lay->L = L;
+  lay->bm = bm;
+  lay->C = C;
+  for (int l = 0; l < L; ++l) {
+    if (widths[l] < 4 || widths[l] % 4) return -3;
+    lay->P[l] = widths[l];
+  }
+  const int* P = lay->P;
+  int off = 2 * P[0];
+  lay->off_k[0] = 0;
+  lay->off_b[0] = P[0];
+  for (int l = 1; l < L; ++l) {
+    lay->off_k[l] = off;
+    off += P[l - 1] * P[l];
+    lay->off_b[l] = off;
+    off += P[l];
+  }
+  lay->off_k[L] = off;
+  off += P[L - 1];
+  lay->off_b[L] = off;
+  lay->total = off + 1;
+  lay->row = pad4(lay->total);
+  int f = 0;
+  auto take = [&f](int n) {
+    const int o = f;
+    f += pad4(n);
+    return o;
+  };
+  lay->s_w1 = take(P[0]);
+  lay->s_b1 = take(P[0]);
+  lay->jw[0] = P[0];
+  for (int l = 1; l < L; ++l) {
+    lay->jw[l] = pad4((P[l] + C - 1) / C);
+    lay->sw[l] = lay->jw[l] % 8 == 0 ? lay->jw[l] + 4 : lay->jw[l];
+    lay->s_w[l] = take(P[l - 1] * lay->sw[l]);
+    lay->s_b[l] = take(lay->jw[l]);
+  }
+  lay->s_wo = take(lay->jw[L - 1]);
+  int low = 0;
+  for (int l = 0; l < L; ++l) {
+    lay->ld[l] = l < L - 1 ? P[l] : lay->jw[l];
+    lay->s_act[l] = take(bm * lay->ld[l]);
+    if (l < L - 1 && P[l] > low) low = P[l];
+  }
+  lay->s_dpart = take(bm * low);
+  lay->s_vec = take(6 * bm);
+  lay->smem_floats = f;
+  return f * static_cast<int>(sizeof(float)) > kMaxSmem ? -5 : 0;
 }
 
 }  // namespace
@@ -277,56 +514,42 @@ extern "C" {
 
 // Return 0 on success, -2 for a layer count outside 1..8 or an empty shape,
 // -3 for a width that is not a positive multiple of 4, -4 for a member tile
-// other than 16, 32, 64, -5 when the tiles exceed the block's shared memory,
-// or the cudaError_t of a refused launch. part (n_blocks × total) must be
-// zero; traj (S+1, B) and loss_m (B) are scratch.
-int dense_epoch_grad(int L, const int* widths, int bm, int S, int B, const float* theta,
-                     const float* theta_t, const float* dt, const float* u0, const float* tgt,
+// other than 16, 32, 64, -5 when a CTA's share exceeds its shared memory,
+// -6 for a cluster size other than 1, 2, 4, 8 (1 for a single hidden layer),
+// or the cudaError_t of a refused launch. part (⌈B/bm⌉ × pad4(total)) must
+// be zero; traj (cluster, S+1, B) and loss_m (B) are scratch.
+int dense_epoch_grad(int L, const int* widths, int bm, int cluster, int S, int B,
+                     const float* theta, const float* dt, const float* u0, const float* tgt,
                      double inv_b, float* traj, float* loss_m, float* part, float* loss,
                      float* grads, void* stream) {
-  if (L < 1 || L > kMaxLayers || S < 1 || B < 1) return -2;
-  DenseLayout lay{};
-  lay.L = L;
-  for (int l = 0; l < L; ++l) {
-    if (widths[l] < 4 || widths[l] % 4) return -3;
-    lay.P[l] = widths[l];
-  }
-  if (bm != 16 && bm != 32 && bm != 64) return -4;
-  int off = 0, t = 0, a = 0;
-  lay.off_k[0] = 0;
-  lay.off_b[0] = lay.P[0];
-  off = 2 * lay.P[0];
-  for (int l = 1; l < L; ++l) {
-    lay.off_k[l] = off;
-    off += lay.P[l - 1] * lay.P[l];
-    lay.off_b[l] = off;
-    off += lay.P[l];
-    lay.off_t[l] = t;
-    t += lay.P[l] * lay.P[l - 1];
-  }
-  lay.off_k[L] = off;
-  off += lay.P[L - 1];
-  lay.off_b[L] = off;
-  lay.total = off + 1;
-  for (int l = 0; l < L; ++l) {
-    lay.act_off[l] = a;
-    a += bm * lay.P[l];
-  }
-  lay.smem_floats = a + 3 * bm;
-  if (lay.smem_floats * static_cast<int>(sizeof(float)) > kMaxSmem) return -5;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float ib = static_cast<float>(inv_b);
-  int code = 0;
-  switch (bm) {
-    case 16: code = launch<16>(lay, S, B, theta, theta_t, dt, u0, tgt, ib, traj, loss_m, part, s); break;
-    case 32: code = launch<32>(lay, S, B, theta, theta_t, dt, u0, tgt, ib, traj, loss_m, part, s); break;
-    default: code = launch<64>(lay, S, B, theta, theta_t, dt, u0, tgt, ib, traj, loss_m, part, s); break;
-  }
+  if (S < 1 || B < 1) return -2;
+  DenseLayout lay;
+  const int code = make_layout(L, widths, bm, cluster, &lay);
   if (code != 0) return code;
-  const int n_blocks = (B + bm - 1) / bm;
-  dense_reduce_kernel<<<(lay.total + 255) / 256, 256, 0, s>>>(n_blocks, lay.total, part, grads, B,
-                                                              loss_m, loss);
-  const cudaError_t e = cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bytes = lay.smem_floats * static_cast<int>(sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(dense_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_tiles = (B + bm - 1) / bm;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_tiles * cluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, dense_cluster_kernel, lay, S, B, theta, dt, u0, tgt,
+                         static_cast<float>(inv_b), traj, loss_m, part);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dense_reduce_kernel<<<(lay.total + 255) / 256, 256, 0, s>>>(n_tiles, lay.total, lay.row, part,
+                                                              grads, B, loss_m, loss);
+  e = cudaGetLastError();
   return e == cudaSuccess ? 0 : static_cast<int>(e);
 }
 
@@ -334,7 +557,8 @@ const char* train_dense_error_string(int code) {
   if (code == -2) return "hidden layer count outside 1..8, or an empty shape";
   if (code == -3) return "a padded hidden width is not a positive multiple of 4";
   if (code == -4) return "member tile must be 16, 32 or 64";
-  if (code == -5) return "activation tiles exceed the block's shared memory";
+  if (code == -5) return "a CTA's weights and activations exceed its shared memory";
+  if (code == -6) return "cluster size must be 1, 2, 4 or 8 (1 for a single hidden layer)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

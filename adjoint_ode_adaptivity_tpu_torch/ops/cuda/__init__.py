@@ -100,7 +100,7 @@ class KernelLibrary:
         lib.dg_adj_est_stored.restype = i
         lib.dg_adj_est_recompute.argtypes = [i] * 9 + [d] * 3 + [p] * 14
         lib.dg_adj_est_recompute.restype = i
-        lib.dg_adj_march.argtypes = [i] * 4 + [p] * 10
+        lib.dg_adj_march.argtypes = [i] * 8 + [p] * 10
         lib.dg_adj_march.restype = i
         lib.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
         lib.dg_tiled_fwd.restype = i
@@ -122,7 +122,7 @@ class KernelLibrary:
         lib.dg_estimate_hp_per_member.restype = i
         lib.resblock_epoch_grad.argtypes = [i] * 4 + [p] * 6 + [d] * 2 + [p] * 6
         lib.resblock_epoch_grad.restype = i
-        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 3 + [p] * 5 + [d] + [p] * 6
+        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 4 + [p] * 4 + [d] + [p] * 6
         lib.dense_epoch_grad.restype = i
         for name in ("burgers_march_f32", "burgers_march_f64"):
             getattr(lib, name).argtypes = [i] * 5 + [p] * 8

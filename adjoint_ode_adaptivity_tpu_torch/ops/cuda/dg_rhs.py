@@ -32,18 +32,20 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   memory against the stored pipeline's n_steps.
 - **KA** :func:`adj_march` — the pure transpose march λ0 = (Lᵀ)ⁿ λN with the
   full-dt tables, no residual, no estimate. Replaces ``_adjoint_kernel``
-  (:335).
+  (:335). Fused over s_f steps a launch on K1's windows (:func:`adjoint_plan`:
+  W = 5·s_f, none where one tile holds the mesh): ⌈n_steps/s_f⌉ CUDA
+  launches.
 
 Each wrapper takes (Np, B, K) states. A CUDA float32 tensor launches the
 kernel or raises; a CPU tensor takes the kernel's plain PyTorch version
 (:func:`fwd_march_plain`, :func:`adj_est_stored_plain`,
 :func:`adj_est_recompute_plain`, :func:`adj_march_plain`), which accepts
 float32 and float64. Nothing falls back from the kernel to the plain
-version. Each wrapper counts its kernel launches in ``.launches``; K1's,
-K2's and K2r's also keep the CUDA launches of their last call in
-``.cuda_launches``. :func:`fwd_march_fused_plain`,
-:func:`adj_est_stored_fused_plain` and :func:`adj_est_recompute_fused_plain`
-emulate K1's, K2's and K2r's launch schedules (tiles, ghost windows, s_f,
+version. Each wrapper counts its kernel launches in ``.launches`` and keeps
+the CUDA launches of its last call in ``.cuda_launches``.
+:func:`fwd_march_fused_plain`, :func:`adj_est_stored_fused_plain`,
+:func:`adj_est_recompute_fused_plain` and :func:`adj_march_fused_plain`
+emulate K1's, K2's, K2r's and KA's launch schedules (tiles, ghost windows, s_f,
 remainders) in plain PyTorch, so the halo logic is tested on the CPU.
 
 Every step's time is t0 + n·dt with n the global step, in the kernels and in
@@ -91,8 +93,10 @@ __all__ = [
     "adj_est_recompute",
     "adj_est_recompute_plain",
     "adj_est_recompute_fused_plain",
+    "adjoint_plan",
     "adj_march",
     "adj_march_plain",
+    "adj_march_fused_plain",
     "reset_launch_counts",
     "make_cuda_fwd_adj_estimate_grid_batched",
     "make_cuda_fwd_adj_estimate_single",
@@ -107,7 +111,7 @@ _RK = np.ascontiguousarray(np.concatenate([RK4A, RK4B, RK4C]), dtype=np.float64)
 MAX_FUSED = 16  # csrc/dg_rhs.cu's kMaxFused: the inflow table rides the launch
 MAX_FWD_FUSED = 32  # its kMaxFwdFused: 5 inflow values a forward step in the same table
 FUSED_STEPS = 4  # s_f the wrappers aim for
-FUSED_THREADS = (512, 1024)  # the CTA sizes K1/K2/K2r are built for
+FUSED_THREADS = (512, 1024)  # the CTA sizes K1/K2/K2r/KA are built for
 
 
 class StepTables(NamedTuple):
@@ -305,7 +309,7 @@ def adj_march_plain(lam_end, n_steps: int, ops: KernelOps):
 
 
 class FusedPlan(NamedTuple):
-    """K1's, K2's and K2r's launch schedule: ``segment`` (s_f) steps a
+    """K1's, K2's, K2r's and KA's launch schedule: ``segment`` (s_f) steps a
     launch; CTA tiles of ``tile`` (L) local elements, the last ragged, each
     with a window of ``ghost`` (W) elements a side clipped to [0, K); CTAs
     built for ``threads``, one thread a window element."""
@@ -339,11 +343,12 @@ def fused_plan(k: int, steps: int = FUSED_STEPS, threads: int = 512) -> FusedPla
 
 
 def fwd_fused_plan(k: int, steps: int, threads: int = 512) -> FusedPlan:
-    """K1's widest plan of ``steps`` steps a launch on CTAs of ``threads``:
-    W = 5·steps (a forward step runs 5 stages, each coupling ±1 element, so
-    the window's wrong ends reach 5·steps elements in), L = threads − 2W.
-    :func:`forward_plan` also takes a single tile with no ghosts where the
-    mesh fits one CTA."""
+    """K1's (and KA's) widest plan of ``steps`` steps a launch on CTAs of
+    ``threads``: W = 5·steps (a forward step runs 5 stages, each coupling ±1
+    element, so the window's wrong ends reach 5·steps elements in; KA's 5
+    transposed stages a step likewise), L = threads − 2W.
+    :func:`forward_plan` and :func:`adjoint_plan` also take a single tile
+    with no ghosts where the mesh fits one CTA."""
     if not 1 <= steps <= MAX_FWD_FUSED:
         raise ValueError(f"steps={steps}: K1 fuses 1..{MAX_FWD_FUSED} steps a launch")
     _check_threads(threads)
@@ -361,9 +366,13 @@ def fwd_fused_plan(k: int, steps: int, threads: int = 512) -> FusedPlan:
 # dependent chain and barrier are taken to set the pace instead of issue.
 # K1's step, 5 stages against the reverse's 20, costs FWD_STEP_WARP_US:
 # fitted to chip_smoke.py phase 30's first run (20 plans at the four rows
-# K1 serves, 0.038-0.050 µs; the trajectory's stores cost the most).
+# K1 serves, 0.038-0.050 µs; the trajectory's stores cost the most). KA's
+# step, 5 transposed stages, costs ADJ_STEP_WARP_US: fitted to chip_smoke.py
+# phase 31's first run (five plans at K = 10⁴, B = 1, 2048 steps, 0.030-0.038
+# µs, their mean).
 STEP_WARP_US = 0.139
 FWD_STEP_WARP_US = 0.044
+ADJ_STEP_WARP_US = 0.034
 LAUNCH_US = 3.74
 MIN_WARPS = 16
 H100_SMS = 132
@@ -425,26 +434,43 @@ def _fwd_cost(k: int, b: int, np_: int, n_steps: int, store_every: int | None,
     return max(issue, states * np_ * b * k * 4 / 3.35e6) + launches * LAUNCH_US
 
 
+def _window_plans(k: int, b: int, n_steps: int, sms: int):
+    """K1's and KA's candidate plans: s_f ∈ {4, 8, 16, 32} (at most
+    n_steps), 512- or 1024-thread CTAs and, for each, one tile with no
+    ghosts where the mesh fits the CTA and every tiling of W = 5·s_f
+    (:func:`_tilings`), in that order."""
+    for steps in sorted({min(s, n_steps) for s in FWD_CANDIDATE_STEPS}):
+        for threads in FUSED_THREADS:
+            if k <= threads:
+                yield FusedPlan(steps, 0, k, 1, threads)
+            yield from _tilings(k, b, sms, fwd_fused_plan(k, steps, threads))
+
+
 # the search costs ~1 ms of host time at B = 1: once per shape
 @functools.lru_cache(maxsize=256)
 def forward_plan(k: int, b: int, np_: int, n_steps: int, store_every: int | None = None,
                  sms: int = H100_SMS) -> FusedPlan:
     """K1's plan for K elements, B members, Np nodes and n_steps steps,
     storing every store_every-th entry state (None: none), on a card of
-    ``sms`` SMs: s_f ∈ {4, 8, 16, 32} (at most n_steps), 512- or
-    1024-thread CTAs (the forward kernel holds its registers at 64 a thread
-    at every Np) and, for each, one tile with no ghosts where the mesh fits
-    the CTA and every tiling of W = 5·s_f (:func:`_tilings`), whichever
-    minimises :func:`_fwd_cost`: ⌈n_steps/s_f⌉ launches. A tie goes to the
-    first found: the fewest steps, 512 threads, one tile."""
-    def plans():
-        for steps in sorted({min(s, n_steps) for s in FWD_CANDIDATE_STEPS}):
-            for threads in FUSED_THREADS:
-                if k <= threads:
-                    yield FusedPlan(steps, 0, k, 1, threads)
-                yield from _tilings(k, b, sms, fwd_fused_plan(k, steps, threads))
+    ``sms`` SMs: of :func:`_window_plans` (the forward kernel holds its
+    registers at 64 a thread at every Np, so 1024 threads serve every Np),
+    whichever minimises :func:`_fwd_cost`: ⌈n_steps/s_f⌉ launches. A tie
+    goes to the first found: the fewest steps, 512 threads, one tile."""
+    return _cheapest(_window_plans(k, b, n_steps, sms),
+                     lambda plan: _fwd_cost(k, b, np_, n_steps, store_every, plan, sms))
 
-    return _cheapest(plans(), lambda plan: _fwd_cost(k, b, np_, n_steps, store_every, plan, sms))
+
+@functools.lru_cache(maxsize=256)
+def adjoint_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> FusedPlan:
+    """KA's plan: :func:`forward_plan`'s search over :func:`_window_plans`
+    (5 transposed stages a step couple ±1 element each, so W = 5·s_f as
+    K1's), under :func:`_fused_cost` at :data:`ADJ_STEP_WARP_US` a step with
+    ⌈n_steps/s_f⌉ launches; KA stores nothing. A thread holds λu, λr and its
+    geometry, 2·Np + 3 values, so 1024 threads serve every Np. A tie goes to
+    the first found."""
+    return _cheapest(_window_plans(k, b, n_steps, sms),
+                     lambda plan: _fused_cost(k, b, n_steps, -(-n_steps // plan.segment), plan,
+                                              sms, ADJ_STEP_WARP_US))
 
 
 # the search costs ~1 ms of host time at B = 1: once per shape
@@ -555,6 +581,23 @@ def fwd_march_fused_plain(u0, t0: float, n_steps: int, ops: KernelOps, plan: Fus
     u_final)``, store holding the entry state of every store_every-th step,
     ⌈n_steps/store_every⌉ of them."""
     return _fwd_fused_plain(u0, float(t0), 0, n_steps, ops, plan, store_every)
+
+
+def adj_march_fused_plain(lam_end, n_steps: int, ops: KernelOps, plan: FusedPlan):
+    """KA's launch schedule in plain PyTorch: s_f steps a launch (the last
+    takes the remainder), every tile on its own window (any ghost width, so
+    a narrow one can be shown to reach the local elements): λ0."""
+    lam = lam_end
+    for lo_n in range(0, n_steps, plan.segment):
+        nxt = torch.empty_like(lam)
+        for t in range(plan.n_tiles):
+            lo, hi, w0, w1, wops = _window(plan, ops, t)
+            lw = lam[:, :, w0:w1]
+            for _ in range(lo_n, min(lo_n + plan.segment, n_steps)):
+                lw = _step_t_plain(lw, ops.full, wops)
+            nxt[:, :, lo:hi] = lw[:, :, lo - w0:hi - w0]
+        lam = nxt
+    return lam
 
 
 def adj_est_recompute_fused_plain(ckpts, lam_end, t0: float, segment: int, ops: KernelOps,
@@ -789,7 +832,9 @@ def _k2r_launch(ckpts, lam_end, t0, segment: int, ops: KernelOps, plan: FusedPla
 
 def adj_march(lam_end: torch.Tensor, n_steps: int, ops: KernelOps):
     """KA: λ0 = (Lᵀ)^n_steps λ_end on (Np, B, K), the coarse (step-dt)
-    transpose with no residual."""
+    transpose with no residual. On the card it runs :func:`adjoint_plan`'s
+    schedule for the card's SM count: ⌈n_steps/s_f⌉ launches of the fused
+    kernel."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps} must be >= 1")
     if lam_end.dim() != 3:
@@ -797,18 +842,30 @@ def adj_march(lam_end: torch.Tensor, n_steps: int, ops: KernelOps):
     b = lam_end.shape[1]
     if not _check("lam_end", lam_end, (ops.np_, b, ops.k), ops):
         return adj_march_plain(lam_end, n_steps, ops)
+    plan = adjoint_plan(ops.k, b, ops.np_, n_steps, _sm_count(lam_end.device))
+    lam0, adj_march.cuda_launches = _ka_launch(lam_end, n_steps, ops, plan)
+    adj_march.launches += 1
+    return lam0
+
+
+def _ka_launch(lam_end, n_steps: int, ops: KernelOps, plan: FusedPlan):
+    """One dg_adj_march call with ``plan``: ``(lam0, CUDA launches)``. The
+    wrapper counts its launches; this does not."""
+    b = lam_end.shape[1]
+    _check_grid(b)
     lib = load_library()
     lam0 = torch.empty_like(lam_end)
-    work = torch.empty((4, lam_end.numel()), dtype=torch.float32, device=lam_end.device)
+    lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=lam_end.device)
+    launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_adj_march(
-        ops.np_, b, ops.k, n_steps, _RK.ctypes.data, ops.full.packed.ctypes.data,
-        _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(lam_end), _ptr(lam0), _ptr(work[0]),
-        _ptr(work[2]), _stream(lam_end.device),
+        ops.np_, b, ops.k, n_steps, plan.segment, plan.tile, plan.ghost, plan.threads,
+        _RK.ctypes.data, ops.full.packed.ctypes.data, _ptr(rx), _ptr(fsl), _ptr(fsr),
+        _ptr(lam_end), _ptr(lam0), _ptr(lbuf[0]), ctypes.addressof(launches),
+        _stream(lam_end.device),
     )
-    adj_march.launches += 1
     lib.check(code, "dg_adj_march")
-    return lam0
+    return lam0, launches.value
 
 
 _WRAPPERS = (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute, adj_march)
@@ -817,7 +874,6 @@ _WRAPPERS = (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute, adj_m
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
-    for fn in (fwd_march, fwd_march_ckpt, adj_est_stored, adj_est_recompute):
         fn.cuda_launches = 0
 
 
@@ -914,7 +970,7 @@ def make_cuda_advec_adjoint(
 ):
     """``adjoint(lam_end, n_calls) -> lam0`` on (Np, K): the exact transpose
     of ``n_calls · steps_per_call`` homogeneous forward steps (KA at B = 1,
-    one kernel call for all of them). Uniform meshes, as
+    one wrapper call for all of them). Uniform meshes, as
     ``make_pallas_advec_adjoint``."""
     _check_uniform(disc)
     ops = kernel_ops(disc, a, dt, device)

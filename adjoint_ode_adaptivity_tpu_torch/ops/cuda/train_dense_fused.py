@@ -21,19 +21,27 @@ hidden products are the kernel's own FP32 FMAs (IEEE float32, no TF32, no
 library call). The TPU kernel's opt-in ``mxu_dtype=bfloat16`` mode is not
 ported.
 
+On the card one thread-block cluster of C CTAs takes each tile of BM
+members: CTA r holds the column slice J_r of every hidden matrix in its
+shared memory for the whole epoch, forms its slice of each layer's
+activations, gathers the rest from the other CTAs' shared memory, and sums
+the cluster's partial products in rank order (csrc/train_dense_fused.cu).
+:func:`dense_plan` picks (BM, C); :func:`dense_epoch_grad_split_plain`
+emulates that split in plain PyTorch.
+
 Parameters are the flax pytree ``{'Dense_i': {'kernel', 'bias'}}``. The
 kernel takes them flattened into one float32 vector (:func:`pack_dense`,
 hidden widths padded to multiples of 4 with zeros, which relu keeps inert in
-both passes) plus each hidden matrix transposed. A CUDA float32 tensor
-launches the kernel or raises; a CPU tensor takes the plain version,
-:func:`dense_epoch_grad_plain`, the same sweep in eager torch in the inputs'
-dtype. Nothing falls back from the kernel. The wrapper counts its launches
-in ``.launches``.
+both passes). A CUDA float32 tensor launches the kernel or raises; a CPU
+tensor takes the plain version, :func:`dense_epoch_grad_plain`, the same
+sweep in eager torch in the inputs' dtype. Nothing falls back from the
+kernel. The wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -47,15 +55,22 @@ __all__ = [
     "pack_dense",
     "unpack_dense",
     "dense_block_members",
+    "DensePlan",
+    "dense_smem_bytes",
+    "dense_plan",
     "dense_epoch_grad",
     "dense_epoch_grad_plain",
+    "dense_epoch_grad_split_plain",
     "dense_kernel_tolerance",
     "reset_launch_counts",
     "make_cuda_dense_epoch_grad",
 ]
 
 MAX_LAYERS = 8  # hidden layers the kernel takes (csrc kMaxLayers)
-SMEM_BYTES = 200 * 1024  # activation tiles a block may hold
+SMEM_BYTES = 227 * 1024  # shared memory a CTA may hold (csrc kMaxSmem)
+TILE_MEMBERS = (64, 32, 16)  # BM, the members of a tile, largest first
+CLUSTER_SIZES = (1, 2, 4, 8)  # C, the CTAs of a tile's cluster, fewest first
+H100_SMS = 132
 CALIBRATION = 16  # dense_kernel_tolerance's factor on the float32 sweep's deviations
 
 
@@ -102,18 +117,9 @@ def _flatten(tree: dict, sizes: tuple, device=None, dtype=torch.float32) -> torc
     return flat
 
 
-def pack_dense(params: dict, sizes: Sequence[int], device=None):
-    """(theta, theta_t): the flat float32 parameter vector of
-    :func:`dense_layout`, and each hidden matrix W_l transposed (P_l ×
-    P_{l−1}), concatenated (a placeholder of one zero when there is none)."""
-    sizes = tuple(sizes)
-    theta = _flatten(params, sizes, device)
-    parts_t = [theta[off: off + math.prod(shape)].view(shape).T.reshape(-1)
-               for name, off, shape in dense_layout(sizes)
-               if name.endswith("kernel") and len(shape) == 2]
-    theta_t = (torch.cat(parts_t) if parts_t
-               else torch.zeros(1, dtype=torch.float32, device=device)).contiguous()
-    return theta, theta_t
+def pack_dense(params: dict, sizes: Sequence[int], device=None) -> torch.Tensor:
+    """theta: the flat float32 parameter vector of :func:`dense_layout`."""
+    return _flatten(params, tuple(sizes), device)
 
 
 def unpack_dense(flat: torch.Tensor, sizes: Sequence[int]) -> dict:
@@ -138,14 +144,83 @@ def unpack_dense(flat: torch.Tensor, sizes: Sequence[int]) -> dict:
     return out
 
 
+def _slice_width(p: int, c: int) -> int:
+    """Columns a rank owns of a layer of padded width p split over c CTAs."""
+    return pad4(-(-p // c))
+
+
+def dense_smem_bytes(sizes: Sequence[int], bm: int, c: int) -> int:
+    """Shared memory one CTA of the kernel needs (csrc make_layout): w_1,
+    b_1; each hidden matrix's column slice (row stride ≡ 4 mod 8) and bias
+    slice; w_out's slice; the activations of every layer but the last whole,
+    the last's slice; one BM × max P partial product; six BM-vectors. Every
+    region starts on 16 bytes."""
+    p = [pad4(x) for x in sizes]
+    jw = [p[0]] + [_slice_width(x, c) for x in p[1:]]
+    sw = [w + 4 if w % 8 == 0 else w for w in jw]
+    floats = 2 * p[0]
+    floats += sum(p[l - 1] * sw[l] + jw[l] for l in range(1, len(p)))
+    floats += jw[-1]
+    floats += sum(bm * x for x in p[:-1]) + bm * jw[-1]
+    floats += bm * max(p[:-1], default=0) + 6 * bm
+    return 4 * floats
+
+
+def _feasible(sizes: tuple):
+    """(BM, C) pairs the kernel takes for ``sizes`` in preference order
+    (largest tile, then fewest CTAs): the CTA fits its shared memory and
+    every rank owns columns of every split layer (one CTA for a single
+    hidden layer, which is not split)."""
+    p = [pad4(x) for x in sizes]
+    for bm in TILE_MEMBERS:
+        for c in CLUSTER_SIZES:
+            if len(p) == 1 and c > 1:
+                continue
+            if any((c - 1) * _slice_width(x, c) >= x for x in p[1:]):
+                continue
+            if dense_smem_bytes(sizes, bm, c) <= SMEM_BYTES:
+                yield bm, c
+
+
 def dense_block_members(sizes: Sequence[int]) -> int:
-    """Members per block: the largest of 64, 32, 16 whose activation tiles
-    (BM × Σ_l P_l floats) fit in :data:`SMEM_BYTES`."""
-    width = sum(pad4(s) for s in sizes) + 3
-    for bm in (64, 32, 16):
-        if bm * width * 4 <= SMEM_BYTES:
-            return bm
-    raise ValueError(f"hidden widths {tuple(sizes)} need more shared memory than a block has")
+    """The largest member tile some cluster size fits; raises where none
+    does (a chain too wide for the card)."""
+    fits = [bm for bm, _ in _feasible(tuple(int(x) for x in sizes))]
+    if not fits:
+        raise ValueError(f"hidden widths {tuple(sizes)} need more shared memory than a CTA has")
+    return fits[0]
+
+
+class DensePlan(NamedTuple):
+    """T2's launch: tiles of ``block_members`` members, each a cluster of
+    ``cluster`` CTAs; ``smem_bytes`` of shared memory a CTA."""
+
+    block_members: int
+    cluster: int
+    n_tiles: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def dense_plan(sizes: tuple, b: int, sms: int = H100_SMS) -> DensePlan:
+    """T2's plan for B members on a card of ``sms`` SMs: the first (BM, C)
+    of :func:`_feasible` (largest tile, then fewest CTAs) whose ⌈B/BM⌉·C
+    CTAs fill the card, that is reach the most CTAs of eight-CTA clusters it
+    can hold at one a SM (8·⌊sms/8⌋, 128 on 132 SMs); where none does, the
+    one with the most CTAs (a tie to the fewest padded members, then the
+    larger tile). At (100, 500): B =
+    512 takes (32, 8), 128 CTAs; B = 8192 takes (64, 2), 256 CTAs (C = 1
+    cannot hold W_1 in shared memory). Cached: no search runs inside a
+    timed call."""
+    sizes = tuple(int(x) for x in sizes)
+    fits = list(_feasible(sizes))
+    if not fits:
+        raise ValueError(f"hidden widths {sizes} need more shared memory than a CTA has")
+    ctas = lambda f: -(-b // f[0]) * f[1]  # noqa: E731
+    fill = 8 * (sms // 8)
+    bm, c = next((f for f in fits if ctas(f) >= fill), None) or max(
+        fits, key=lambda f: (ctas(f), -(-(-b // f[0]) * f[0])))
+    return DensePlan(bm, c, -(-b // bm), dense_smem_bytes(sizes, bm, c))
 
 
 # ------------------------------------------------------------ plain version
@@ -220,6 +295,82 @@ def dense_epoch_grad_plain(params: dict, sizes: Sequence[int], dt, u0s, trues):
     return (e * e * inv_b).sum(), _tree(grads)
 
 
+def _splits(p: int, c: int):
+    """Rank r's columns of a layer of padded width p over c CTAs."""
+    w = _slice_width(p, c)
+    return [slice(min(r * w, p), min((r + 1) * w, p)) for r in range(c)]
+
+
+def _rank_sum(parts):
+    """The cluster's partials summed in rank order."""
+    out = parts[0]
+    for x in parts[1:]:
+        out = out + x
+    return out
+
+
+def dense_epoch_grad_split_plain(params: dict, sizes: Sequence[int], dt, u0s, trues,
+                                 block_members: int, cluster: int):
+    """T2's reduction structure in plain PyTorch, in the dtype of ``u0s``:
+    each tile of ``block_members`` members on its own, every hidden layer
+    but the first split into ``cluster`` column slices (padded widths, as
+    the kernel), f as the slices' partial dots and da_{l−1} as their partial
+    products summed in rank order, each tile's gradients summed over its
+    members and steps, then the tiles summed in order. Returns (loss,
+    grads) as :func:`dense_epoch_grad_plain`."""
+    sizes = tuple(sizes)
+    n, dtype, dev = len(sizes), u0s.dtype, u0s.device
+    theta = _flatten(params, sizes, dev, dtype)
+    lay = [(theta[ok: ok + math.prod(sk)].view(sk), theta[ob: ob + math.prod(sb)])
+           for (_, ok, sk), (_, ob, sb) in zip(*[iter(dense_layout(sizes))] * 2)]
+    lay[0] = (lay[0][0].view(1, -1), lay[0][1])
+    lay[n] = (lay[n][0].view(-1, 1), lay[n][1])
+    cols = [None] + [_splits(k.shape[1], cluster) for k, _ in lay[1:-1]]
+    last = cols[-1] if n > 1 else [slice(0, lay[0][0].shape[1])]
+    dt = dt.to(dtype)
+    b = u0s.shape[0]
+    inv_b = 1.0 / b
+
+    def chain(u):
+        acts = [torch.relu(u[:, None] * lay[0][0][0] + lay[0][1])]
+        for i in range(1, n):
+            k, bb = lay[i]
+            acts.append(torch.cat([torch.relu(acts[-1] @ k[:, j] + bb[j]) for j in cols[i]], 1))
+        f = _rank_sum([acts[-1][:, j] @ lay[n][0][j, 0] for j in last])
+        return acts, f
+
+    loss = torch.zeros((), dtype=dtype, device=dev)
+    total = [[torch.zeros_like(k), torch.zeros_like(bb)] for k, bb in lay]
+    for m0 in range(0, b, block_members):
+        u = u0s[m0:m0 + block_members].to(dtype)
+        traj = [u]
+        for s in range(dt.shape[0]):
+            traj.append(traj[-1] + dt[s] * (chain(traj[-1])[1] + lay[n][1][0]))
+        e = traj[-1] - trues[m0:m0 + block_members].to(dtype)
+        loss = loss + (e * e * inv_b).sum()
+        g = 2.0 * e * inv_b
+        grads = [[torch.zeros_like(k), torch.zeros_like(bb)] for k, bb in lay]
+        for s in range(dt.shape[0] - 1, -1, -1):
+            acts, _ = chain(traj[s])
+            df = dt[s] * g
+            grads[n][0] += (acts[-1] * df[:, None]).sum(0)[:, None]
+            grads[n][1] += df.sum(0, keepdim=True)
+            dz = (acts[-1] > 0).to(dtype) * (df[:, None] * lay[n][0][:, 0])
+            for i in range(n - 1, 0, -1):
+                grads[i][0] += acts[i - 1].T @ dz
+                grads[i][1] += dz.sum(0)
+                da = _rank_sum([dz[:, j] @ lay[i][0][:, j].T for j in cols[i]])
+                dz = (acts[i - 1] > 0).to(dtype) * da
+            grads[0][0] += (traj[s][:, None] * dz).sum(0)[None, :]
+            grads[0][1] += dz.sum(0)
+            g = g + dz @ lay[0][0][0]
+        for acc, gl in zip(total, grads):
+            acc[0] += gl[0]
+            acc[1] += gl[1]
+    flat = _flatten(_tree(total), sizes, dtype=dtype)
+    return loss, unpack_dense(flat, sizes)
+
+
 def _jacobian(lay, masks):
     """∂f/∂u (B,) of the chain with the relu masks ``masks``."""
     da = lay[-1][0][:, 0][None, :]
@@ -229,7 +380,7 @@ def _jacobian(lay, masks):
 
 
 def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
-                           block_members: int | None = None):
+                           block_members: int | None = None, cluster: int | None = None):
     """Per-entry bounds within which a float32 evaluation of T2 lies from the
     float64 plain version, calibrated by a float32 evaluation of the same
     sweep in eager torch (IEEE float32 products, another summation order):
@@ -247,8 +398,16 @@ def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
       the signed step derivative |1 + dt·J| (J = ∂f/∂u), as a perturbation
       is;
     - each entry's bound is (CALIBRATION·ρ + k_red·ε)·Σ|c| + 2φ, with k_red
-      the kernel's reduction (``block_members`` members per block and
-      step, then the S steps, then the blocks).
+      the lengths of the kernel's sums that the float32 sweep does not
+      share: an entry is summed over the ``block_members`` members of a
+      tile, then over the S steps, then over the tiles (BM + S + n_tiles,
+      each sum of m terms within (m − 1)·ε of its magnitudes), and the
+      cluster adds one C-term sum in rank order ahead of it (f's partial
+      dots and each da_{l−1}'s partial products over C column slices, whose
+      relative error, within (C − 1)·ε, every contribution below them
+      carries): k_red = BM + C + S + n_tiles + 2 (the 2 a margin for the
+      final rounding). ``block_members`` and ``cluster`` default to
+      :func:`dense_plan`'s for B members on an H100.
 
     The loss: CALIBRATION times the float32 sweep's largest terminal-state
     deviation δ, through Σ(2|e|δ + δ²)/B, plus its reduction. An entry no
@@ -258,7 +417,9 @@ def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
     f64, f32 = torch.float64, torch.float32
     sizes = tuple(sizes)
     n, b = len(sizes), u0s.shape[0]
-    bm = block_members or dense_block_members(sizes)
+    plan = dense_plan(sizes, b)
+    bm = block_members or plan.block_members
+    c = cluster or plan.cluster
     inv_b = 1.0 / b
     lay, lay32 = _layers(params, n, f64), _layers(params, n, f32)
     dt64, dt32 = dt.to(f64), dt.to(f32)
@@ -311,8 +472,8 @@ def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
         delta = CALIBRATION * float((traj32[-1].to(f64) - traj[-1]).abs().max())
     finally:
         torch.set_float32_matmul_precision(precision)
-    n_blocks = -(-b // bm)
-    k_red = (bm + dt.shape[0] + n_blocks + 2) * EPS32
+    n_tiles = -(-b // bm)
+    k_red = (bm + c + dt.shape[0] + n_tiles + 2) * EPS32
     k_loss = (math.ceil(b / WARP) + 7) * EPS32
     bound = [[(CALIBRATION * rho + k_red) * m + 2 * c for m, c in zip(ml, cl)]
              for ml, cl in zip(scale, phi)]
@@ -324,40 +485,52 @@ def dense_kernel_tolerance(params: dict, sizes: Sequence[int], dt, u0s, trues,
 # ------------------------------------------------------------------ wrapper
 
 
-def dense_epoch_grad(theta, theta_t, sizes: Sequence[int], dt, u0s, trues):
+def dense_epoch_grad(theta, sizes: Sequence[int], dt, u0s, trues):
     """T2: (loss, flat gradient vector) for the packed parameters
     (:func:`pack_dense`), ``dt`` (S,), ``u0s`` and ``trues`` (B,); the loss
-    is the mean over members. One call of the C entry (the march-and-sweep
-    kernel, one block per :func:`dense_block_members` members, then a
-    fixed-order reduction of the blocks' partial gradients)."""
+    is the mean over members. One call of the C entry on :func:`dense_plan`'s
+    plan for the card's SM count: the cluster-launched march-and-sweep
+    kernel, then a fixed-order reduction of the tiles' partial gradients (2
+    CUDA launches)."""
     sizes = tuple(int(s) for s in sizes)
     if not 1 <= len(sizes) <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 1..{MAX_LAYERS} hidden layers, got {len(sizes)}")
     if u0s.dim() != 1:
         raise ValueError(f"u0s must be (B,), got {tuple(u0s.shape)}")
     b, s_steps, dev = u0s.shape[0], dt.shape[0], u0s.device
-    layout = dense_layout(sizes)
-    _check("theta", theta, (_total(layout),), torch.float32, dev)
+    _check("theta", theta, (_total(dense_layout(sizes)),), torch.float32, dev)
     _check("dt", dt, (s_steps,), torch.float32, dev)
     _check("u0s", u0s, (b,), torch.float32, dev)
     _check("trues", trues, (b,), torch.float32, dev)
     if dev.type != "cuda":
         return _plain_flat(theta, sizes, dt, u0s, trues)
-    bm = dense_block_members(sizes)
-    n_blocks = -(-b // bm)
+    plan = dense_plan(sizes, b, _sm_count(dev))
+    out = _t2_launch(theta, sizes, dt, u0s, trues, plan)
+    dense_epoch_grad.launches += 1
+    return out
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _t2_launch(theta, sizes: tuple, dt, u0s, trues, plan: DensePlan):
+    """One call of the C entry with ``plan``: (loss, flat gradients). The
+    wrapper counts its launches; this does not."""
+    b, s_steps, dev = u0s.shape[0], dt.shape[0], u0s.device
     lib = load_library()
     widths = np.array([pad4(s) for s in sizes], dtype=np.int32)
-    traj = torch.empty((s_steps + 1, b), dtype=torch.float32, device=dev)
+    traj = torch.empty((plan.cluster, s_steps + 1, b), dtype=torch.float32, device=dev)
     loss_m = torch.empty((b,), dtype=torch.float32, device=dev)
-    part = torch.zeros((n_blocks, theta.numel()), dtype=torch.float32, device=dev)
+    part = torch.zeros((plan.n_tiles, pad4(theta.numel())), dtype=torch.float32, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
     grads = torch.empty_like(theta)
     code = lib.lib.dense_epoch_grad(
-        len(sizes), widths.ctypes.data, bm, s_steps, b, theta.data_ptr(), theta_t.data_ptr(),
-        dt.data_ptr(), u0s.data_ptr(), trues.data_ptr(), 1.0 / b, traj.data_ptr(),
-        loss_m.data_ptr(), part.data_ptr(), loss.data_ptr(), grads.data_ptr(),
+        len(sizes), widths.ctypes.data, plan.block_members, plan.cluster, s_steps, b,
+        theta.data_ptr(), dt.data_ptr(), u0s.data_ptr(), trues.data_ptr(), 1.0 / b,
+        traj.data_ptr(), loss_m.data_ptr(), part.data_ptr(), loss.data_ptr(), grads.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    dense_epoch_grad.launches += 1
     lib.check(code, "dense_epoch_grad", lib.lib.train_dense_error_string)
     return loss[0], grads
 
@@ -391,8 +564,8 @@ def make_cuda_dense_epoch_grad(n_steps: int, sizes: Sequence[int], device="cuda"
         f32 = lambda x: torch.as_tensor(x).to(device=device, dtype=torch.float32).contiguous()  # noqa: E731
         if dt.shape[0] != n_steps:
             raise ValueError(f"dt has {dt.shape[0]} steps, expected {n_steps}")
-        theta, theta_t = pack_dense(params, sizes, device)
-        loss, flat = dense_epoch_grad(theta, theta_t, sizes, f32(dt), f32(u0s), f32(trues))
+        loss, flat = dense_epoch_grad(pack_dense(params, sizes, device), sizes, f32(dt),
+                                      f32(u0s), f32(trues))
         return loss, unpack_dense(flat, sizes)
 
     return run

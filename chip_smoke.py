@@ -181,6 +181,21 @@ raises, and the script exits non-zero; nothing is caught.
    its CUDA launches and its share of K1's bound; every plan's stored states
    and u_final the wrapper's bits (a gate); and the registers and spills
    that ptxas reported for fwd_fused.
+31. KA fused over s_f steps a launch (csrc/dg_rhs.cu adj_fused) at phase
+   23(d)'s row (K=10^4, N=2, B=1, 2048 steps): the wrapper and its plan
+   beside four widest-window plans (s_f 8, 16 and 32 on 512- and 1024-thread
+   CTAs), timed in turns, each with the plans' cost model, its CUDA launches
+   and its share of KA's bound, every plan λ0 the wrapper's bits (a gate);
+   the registers and spills that ptxas reported for adj_fused.
+32. T2 on its thread-block cluster (csrc/train_dense_fused.cu) at its
+   path's minibatch (B=512, S=2) and at bench.py's (B=8192, S=10): the
+   wrapper's (BM, C) plan beside every other plan the kernel takes, timed
+   in turns, each within dense_kernel_tolerance at its own (BM, C) (a gate);
+   the same hidden-chain GEMMs through torch.matmul in IEEE FP32; the share
+   of t2_bound; a torch.profiler trace of 20 wrapper calls; the registers
+   and spills of the kernel. Then two rows the
+   next redesign needs: T1 at its path's S=2 and S=5 (F=500, B=8192), and
+   B1 alone at burgers_dg's shape (K=48, N=4, B=1, 7,500 steps, ΠN).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -1781,25 +1796,31 @@ def nn_t2_inputs(device, s_steps):
     return params, torch.full((s_steps,), 1.0 / s_steps, dtype=torch.float32, device=device), u0, tr
 
 
-def t2_case(label, device, errs, params, dt, u0, tr, phase="16"):
-    """One T2 comparison: T2 twice (bit-identical), against its plain
-    version in float64, each gradient entry within its own calibrated
-    float32 bound (dead and zero-dt entries, bound 0, exactly), most
-    entries of each leaf above it."""
+def t2_case(label, device, errs, params, dt, u0, tr, phase="16", plan=None):
+    """One T2 comparison: T2 twice (bit-identical; through the wrapper, or
+    on ``plan``), against its plain version in float64, each gradient entry
+    within its own calibrated float32 bound at the plan's (BM, C) (dead and
+    zero-dt entries, bound 0, exactly), most entries of each leaf above
+    it."""
     import torch
 
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
 
     sizes = NN_T2["sizes"]
-    theta, theta_t = td.pack_dense(params, sizes, device)
-    loss, flat = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
-    loss2, flat2 = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    theta = td.pack_dense(params, sizes, device)
+    if plan is None:
+        loss, flat = td.dense_epoch_grad(theta, sizes, dt, u0, tr)
+        loss2, flat2 = td.dense_epoch_grad(theta, sizes, dt, u0, tr)
+        plan = td.dense_plan(sizes, u0.shape[0], td._sm_count(u0.device))
+    else:
+        loss, flat = td._t2_launch(theta, sizes, dt, u0, tr, plan)
+        loss2, flat2 = td._t2_launch(theta, sizes, dt, u0, tr, plan)
     torch.cuda.synchronize()
     assert torch.equal(flat, flat2) and torch.equal(loss, loss2), f"{label}: a repeat call differs"
     got = td.unpack_dense(flat, sizes)
     p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
     l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
-    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr)
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, plan.block_members, plan.cluster)
     worst, share, teeth, live, n = 0.0, 0.0, 0, 0, 0
     for k in g64:
         for q in g64[k]:
@@ -1813,7 +1834,8 @@ def t2_case(label, device, errs, params, dt, u0, tr, phase="16"):
             n += d.numel()
     least = leaf_teeth(label, [(f"{k}/{q}", g64[k][q], tol["grads"][k][q])
                                for k in g64 for q in g64[k]])
-    say(phase, f"{label}: sizes {sizes} S={dt.shape[0]} B={u0.shape[0]} | loss {float(loss):.6e} "
+    say(phase, f"{label}: sizes {sizes} S={dt.shape[0]} B={u0.shape[0]} plan (BM, C) = "
+               f"({plan.block_members}, {plan.cluster}) | loss {float(loss):.6e} "
                f"(float64 {float(l64):.6e}, tol {tol['loss']:.2e}); grads max|d| {worst:.3e}, "
                f"worst {share:.2%} of its entry's bound (rho {tol['rho']:.2e}); {teeth} of "
                f"{live} nonzero-bound entries above their bound, each leaf at least "
@@ -2098,8 +2120,8 @@ def nn_times(device, t1_inputs):
     sizes = NN_T2["sizes"]
     for s2 in NN_T2["steps"]:
         p2, dt2, u2, tr2 = nn_t2_inputs(device, s2)
-        theta, theta_t = td.pack_dense(p2, sizes, device)
-        ms2 = cuda_ms(lambda: td.dense_epoch_grad(theta, theta_t, sizes, dt2, u2, tr2), runs=5)
+        theta = td.pack_dense(p2, sizes, device)
+        ms2 = cuda_ms(lambda: td.dense_epoch_grad(theta, sizes, dt2, u2, tr2), runs=5)
         pms2 = cuda_ms(lambda: td.dense_epoch_grad_plain(p2, sizes, dt2, u2, tr2), runs=3)
         b2 = t2_bound(s2, sizes, u2.shape[0])
         a = torch.rand((u2.shape[0], sizes[0]), device=device)
@@ -2128,9 +2150,9 @@ def nn_times(device, t1_inputs):
     # T2 at its path's own shape: the recurrent driver (NN_REC_ARGV) trains
     # minibatches of n_train/16 = 512 members at its starting depth of 2 steps
     p2, dt2, u2, tr2 = nn_t2_inputs(device, 2)
-    theta, theta_t = td.pack_dense(p2, sizes, device)
+    theta = td.pack_dense(p2, sizes, device)
     u5, tr5 = u2[:512].contiguous(), tr2[:512].contiguous()
-    ms5 = cuda_ms(lambda: td.dense_epoch_grad(theta, theta_t, sizes, dt2, u5, tr5), runs=5)
+    ms5 = cuda_ms(lambda: td.dense_epoch_grad(theta, sizes, dt2, u5, tr5), runs=5)
     b5 = t2_bound(2, sizes, 512)
     say("18", f"dense_epoch_grad {sizes} S=2 B=512 (the recurrent driver's minibatch and "
               f"starting depth): kernel {ms5:.4f} ms; bound {b5[0]:.5f} ms ({b5[1]}), kernel at "
@@ -2720,10 +2742,13 @@ def phase23(device, errs):
                        runs=1, warmup=0)
     e_ka = float((lam_a - out.pop("pa")[:, 0]).abs().max())
     tol_ka = 8 * c["n_steps"] * EPS32 * float(lam1.abs().max())
+    ka_plan = dg_rhs.adjoint_plan(c["k"], 1, disc.np_, c["n_steps"], dg_rhs._sm_count(device))
     say("23", f"(d) make_cuda_advec_adjoint K={c['k']} B=1 steps={c['n_steps']}: KA {ms_ka:.3f} ms "
-              f"(median of 5, {5 * c['n_steps']} CUDA launches), plain {plain_ka:.1f} ms (one run); "
-              f"max|kernel - plain| {e_ka:.3e} (tol {tol_ka:.3e}); wrapper launches {ka_launches}")
+              f"(median of 5, {dg_rhs.adj_march.cuda_launches} CUDA launches), plain "
+              f"{plain_ka:.1f} ms (one run); max|kernel - plain| {e_ka:.3e} (tol {tol_ka:.3e}); "
+              f"wrapper launches {ka_launches}")
     assert ka_launches == 1 and e_ka <= tol_ka
+    assert dg_rhs.adj_march.cuda_launches == -(-c["n_steps"] // ka_plan.segment)
     errs["adj_march"] = max(errs["adj_march"], e_ka)
     single = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, c["n_steps"], device)(u1, 0.0, lam1)
     chunked = dg_rhs.make_cuda_fwd_adj_estimate(disc, A, dt, segment=32, device=device)(
@@ -3245,13 +3270,14 @@ FUSED_SEGMENTS = (4, 64)
 
 def fused_registers(log: str) -> list:
     """Registers and spills that ``nvcc -Xptxas -v`` reported for the fused
-    K2/K2r kernels (rev_fused, fwd_fused), one string an instance."""
+    advection kernels (rev_fused, fwd_fused, adj_fused), one string an
+    instance."""
     import re
 
     out, name = [], None
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"(rev_fused|fwd_fused)ILi(\d)ELi(\d+)E", ln)
+            m = re.search(r"(rev_fused|fwd_fused|adj_fused)ILi(\d)ELi(\d+)E", ln)
             name = f"{m.group(1)}<Np={m.group(2)}, {m.group(3)}>" if m else None
             spill = ""
         elif name and "spill" in ln:
@@ -3518,6 +3544,168 @@ def phase30(device, lib):
     k1_plans("(d) advec_dg march", u1, 0.0, n_march, None, ops, sms)
 
 
+ADJ_PLANS = ((8, 512), (16, 512), (16, 1024), (32, 1024))
+
+
+def phase31(device, lib):
+    """KA fused over s_f steps a launch at phase 23(d)'s row: the wrapper and
+    its plan beside ADJ_PLANS' widest windows, timed in turns, λ0 bit-equal
+    across all of them (a gate), each beside the plans' cost model, its CUDA
+    launches, the per-warp step constant it implies and its share of KA's
+    bound; and the kernel's registers and spills."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    regs = [r for r in fused_registers(lib.build_log) if r.startswith("adj_fused")]
+    say("31", f"ptxas -v for KA's kernel ({len(regs)} instances): {'; '.join(regs)}")
+    assert regs, "no adj_fused instance in the build log"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    k, n_steps = RECOMPUTE["k"], RECOMPUTE["n_steps"]
+    disc = mesh(2, k, graded=False)
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    lam = batched_cotangent(disc, 1, device, torch.float32)
+    np_ = disc.np_
+    plans = {"wrapper's plan": dg_rhs.adjoint_plan(k, 1, np_, n_steps, sms),
+             **{f"s_f={st} {th} threads widest": dg_rhs.fwd_fused_plan(k, st, th)
+                for st, th in ADJ_PLANS}}
+    out, counts = {}, {}
+
+    def wrapper():
+        out["wrapper"] = dg_rhs.adj_march(lam, n_steps, ops)
+
+    def ka_on(key, plan):
+        def run():
+            out[key], counts[key] = dg_rhs._ka_launch(lam, n_steps, ops, plan)
+
+        return run
+
+    turns = in_turns({"wrapper": wrapper, **{key: ka_on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = dg_rhs.adj_march.cuda_launches
+    b_ms, b_by = advec_bounds(np_, k, n_steps)["adj_march"]
+    for key, plan in {"wrapper": plans["wrapper's plan"], **plans}.items():
+        ms = statistics.mean(turns[key])
+        launches = -(-n_steps // plan.segment)
+        model = dg_rhs._fused_cost(k, 1, n_steps, launches, plan, sms, dg_rhs.ADJ_STEP_WARP_US) / 1e3
+        warps = -(-plan.n_tiles // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32)
+        implied = (ms * 1e3 - launches * dg_rhs.LAUNCH_US) / (n_steps * max(warps, dg_rhs.MIN_WARPS))
+        same = torch.equal(out[key], out["wrapper"])
+        say("31", f"KA K={k} B=1 Np={np_} steps={n_steps} {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads, {plan.n_tiles} CTAs, ghost "
+                  f"2W/L {2 * plan.ghost / plan.tile:.1%}; {ms:.4f} ms (model {model:.4f}, "
+                  f"implied {implied:.4f} µs a warp a step; in turns, median of 5 each: "
+                  f"{turns[key][0]:.4f} / {turns[key][1]:.4f}), {counts[key]} CUDA launches, "
+                  f"{b_ms / ms:.2%} of the {b_ms:.5f} ms bound ({b_by}); lam0 bit-equal to the "
+                  f"wrapper's: {same}")
+        assert same and counts[key] == launches, key
+
+
+T2_ROWS = ((512, 2), (8192, 10))  # the recurrent path's minibatch; bench.py's row
+
+
+def cluster_registers(log: str) -> list:
+    """Registers, stack and spills that ptxas reported for T2's kernels."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = next((k for k in ("dense_cluster_kernel", "dense_reduce_kernel") if k in ln), None)
+            frame = ""
+        elif name and "spill" in ln:
+            frame = ln.strip()
+        elif name and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used ', 1)[1].split(',')[0]}, {frame}")
+            name = None
+    return out
+
+
+def phase32(device, lib, errs):
+    """T2 on its thread-block cluster at T2_ROWS: the wrapper and its plan
+    beside every other (BM, C) the kernel takes, timed in turns, each within
+    dense_kernel_tolerance at its own (BM, C) (a gate), the same hidden-chain
+    GEMMs through torch.matmul (FP32, TF32 off) and the share of t2_bound;
+    a torch.profiler trace of 20 wrapper calls (the device's busy share, the
+    cluster kernel's share of it); the kernels' registers; then T1 at its
+    path's S = 2 and 5 and B1 alone at burgers_dg's shape. Returns {row:
+    (wrapper ms, GEMMs ms)}."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    regs = cluster_registers(lib.build_log)
+    say("32", f"ptxas -v for T2's kernels: {'; '.join(regs)}")
+    assert any(r.startswith("dense_cluster_kernel") for r in regs)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sizes = NN_T2["sizes"]
+    rows = {}
+    for b, s_steps in T2_ROWS:
+        params, dt, u0, tr = nn_t2_inputs(device, s_steps)
+        u0, tr = u0[:b].contiguous(), tr[:b].contiguous()
+        theta = td.pack_dense(params, sizes, device)
+        mine = td.dense_plan(sizes, b, sms)
+        plans = {(bm, c): td.DensePlan(bm, c, -(-b // bm), td.dense_smem_bytes(sizes, bm, c))
+                 for bm, c in td._feasible(sizes)}
+        for key, plan in plans.items():
+            t2_case(f"B={b} S={s_steps} plan {key}", device, errs, params, dt, u0, tr, "32", plan)
+        a = torch.rand((b, sizes[0]), device=device)
+        w = torch.rand(sizes, device=device)
+        dz = torch.rand((b, sizes[1]), device=device)
+
+        def gemms():
+            for _ in range(s_steps):
+                a @ w, a @ w, a.T @ dz, dz @ w.T  # forward, recompute, ∂W, ∂a
+
+        def on(plan):
+            return lambda: td._t2_launch(theta, sizes, dt, u0, tr, plan)
+
+        turns = in_turns({"wrapper": lambda: td.dense_epoch_grad(theta, sizes, dt, u0, tr),
+                          **{key: on(plan) for key, plan in plans.items()},
+                          "torch.matmul GEMMs": gemms})
+        b_ms, b_by, n_ops = t2_bound(s_steps, sizes, b)
+        for key in turns:
+            ms = statistics.mean(turns[key])
+            plan = mine if key == "wrapper" else plans.get(key)
+            what = (f"(BM, C) = ({plan.block_members}, {plan.cluster}), {plan.n_tiles} clusters, "
+                    f"{plan.n_tiles * plan.cluster} CTAs of {plan.smem_bytes} B shared memory"
+                    if plan else "the same hidden-chain products, FP32, TF32 off (a yardstick)")
+            say("32", f"T2 {sizes} B={b} S={s_steps} {key}: {what}; {ms:.4f} ms (in turns, median "
+                      f"of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}); "
+                      f"{n_ops / (ms / 1e3) / 1e12:.2f} TFLOP/s, {b_ms / ms:.2%} of the "
+                      f"{b_ms:.5f} ms bound ({b_by})")
+        # where a wrapper call's time goes: 20 calls under torch.profiler
+        study_trace(lambda: [td.dense_epoch_grad(theta, sizes, dt, u0, tr) for _ in range(20)],
+                    "dense_cluster_kernel", phase="32")
+        wrapper_ms = statistics.mean(turns["wrapper"])
+        gemm_ms = statistics.mean(turns["torch.matmul GEMMs"])
+        say("32", f"T2 B={b} S={s_steps}: the wrapper's plan ({mine.block_members}, "
+                  f"{mine.cluster}) at {wrapper_ms / gemm_ms:.3f}x the torch.matmul GEMMs; fastest "
+                  f"plan {min((k for k in turns if k in plans), key=lambda k: statistics.mean(turns[k]))}")
+        rows[(b, s_steps)] = (wrapper_ms, gemm_ms)
+
+    # T1 at the variable_params path's own depths, S = 2 and 5
+    for s_steps in (2, 5):
+        packed, dt, u0, tg = nn_t1_inputs(device, s=s_steps)
+        b, f = u0.shape[0], NN_T1["f"]
+        ms = cuda_ms(lambda: tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=1.0 / b), runs=5)
+        b_ms, b_by, _ = t1_bound(s_steps, f, b)
+        say("32", f"T1 resblock_epoch_grad S={s_steps} F={f} B={b}: {ms:.4f} ms (median of 5), "
+                  f"{b_ms / ms:.2%} of the {b_ms:.5f} ms bound ({b_by})")
+    # B1 alone at burgers_dg's shape (its defaults: K = 48, N = 4, dt 2e-4, T = 1.5, ΠN)
+    disc = startup_1d(4, 0.0, 2 * np.pi, 48)
+    tab = cb.burgers_tables(disc, 2e-4, "n", device)
+    u1 = torch.tensor((0.5 + np.sin(disc.x))[:, None, :], dtype=torch.float32, device=device)
+    before = cb.burgers_march.launches
+    ms = cuda_ms(lambda: cb.burgers_march(u1, 7500, tab), runs=5)
+    b_ms, b_by = burgers_bound(4, 48, 1, 7500)
+    say("32", f"B1 burgers_march K=48 N=4 B=1 steps=7500 (burgers_dg --kernel cuda's shape): "
+              f"{ms:.3f} ms (median of 5, one launch a call: {cb.burgers_march.launches - before} "
+              f"calls), {b_ms / ms:.3%} of the {b_ms:.5f} ms bound ({b_by})")
+    return rows
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -3625,6 +3813,8 @@ def main() -> int:
     phase28(device)
     phase29(device, lib)
     phase30(device, lib)
+    phase31(device, lib)
+    phase32(device, lib, errs)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

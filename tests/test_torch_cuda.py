@@ -347,33 +347,68 @@ def test_resblock_epoch_kernel_matches_its_plain_version(device, variant):
             assert not g[:, n, na:].any()
 
 
-@pytest.mark.parametrize("sizes,b", [((100, 500), 1000), ((8, 16), 50), ((12,), 33),
-                                     ((3, 6, 5), 70)])
-def test_dense_epoch_kernel_matches_its_plain_version(device, sizes, b):
-    s_steps = 5
+@pytest.mark.parametrize("sizes,b,s_steps", [((100, 500), 1000, 5), ((8, 16), 50, 5),
+                                             ((12,), 33, 5), ((3, 6, 5), 70, 5),
+                                             ((100, 500), 512, 2), ((100, 500), 8192, 5),
+                                             ((64,) * 8, 300, 3)])
+def test_dense_epoch_kernel_matches_its_plain_version(device, sizes, b, s_steps):
+    """T2 on its plan (B = 1000 and 300 are not multiples of their tiles):
+    twice, bit-identical, each entry within dense_kernel_tolerance at that
+    plan's (BM, C)."""
     params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(9), device=device)
     rng = np.random.default_rng(10)
     dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
-    dt[2] = 0.0
+    dt[min(2, s_steps - 1)] = 0.0
     u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
     tr = torch.sin(u0) + 0.3
-    theta, theta_t = td.pack_dense(params, sizes, device)
+    theta = td.pack_dense(params, sizes, device)
     before = td.dense_epoch_grad.launches
-    loss, flat = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
-    loss2, flat2 = td.dense_epoch_grad(theta, theta_t, sizes, dt, u0, tr)
+    loss, flat = td.dense_epoch_grad(theta, sizes, dt, u0, tr)
+    loss2, flat2 = td.dense_epoch_grad(theta, sizes, dt, u0, tr)
     torch.cuda.synchronize()
     assert td.dense_epoch_grad.launches == before + 2
     assert torch.equal(flat, flat2) and torch.equal(loss, loss2)
     got = td.unpack_dense(flat, sizes)
     p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
     l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
-    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr)
+    plan = td.dense_plan(sizes, b, torch.cuda.get_device_properties(device).multi_processor_count)
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, plan.block_members, plan.cluster)
     assert abs(float(loss) - float(l64)) <= tol["loss"]
     for k in g64:
         for q in g64[k]:
             bnd = tol["grads"][k][q]
             assert bool(((got[k][q].double() - g64[k][q]).abs() <= bnd).all()), (k, q)
     _most_above([(g64[k][q], tol["grads"][k][q]) for k in g64 for q in g64[k]])
+
+
+@pytest.mark.parametrize("sizes,b", [((100, 500), 200), ((8, 16, 12, 8), 70)])
+def test_dense_epoch_kernel_on_every_plan(device, sizes, b):
+    """T2 on every (BM, C) the kernel takes for these widths: each within
+    dense_kernel_tolerance at its own (BM, C), bit-identical on a repeat."""
+    s_steps = 3
+    params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(4), device=device)
+    rng = np.random.default_rng(5)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
+    tr = torch.sin(u0) + 0.3
+    theta = td.pack_dense(params, sizes, device)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
+    plans = list(td._feasible(sizes))
+    assert len(plans) >= 6
+    for bm, c in plans:
+        plan = td.DensePlan(bm, c, -(-b // bm), td.dense_smem_bytes(sizes, bm, c))
+        loss, flat = td._t2_launch(theta, sizes, dt, u0, tr, plan)
+        loss2, flat2 = td._t2_launch(theta, sizes, dt, u0, tr, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(flat, flat2) and torch.equal(loss, loss2), (bm, c)
+        tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, bm, c)
+        got = td.unpack_dense(flat, sizes)
+        assert abs(float(loss) - float(l64)) <= tol["loss"], (bm, c)
+        for k in g64:
+            for q in g64[k]:
+                d = (got[k][q].double() - g64[k][q]).abs()
+                assert bool((d <= tol["grads"][k][q]).all()), (bm, c, k, q)
 
 
 @pytest.mark.parametrize("method", ["variable_params", "recurrent"])
@@ -401,11 +436,25 @@ def test_training_kernels_refuse_what_they_do_not_take(device):
         tf.resblock_epoch_grad(packed.double(), dt, u0, u0, inv_b=0.125)
     with pytest.raises(ValueError, match="contiguous"):
         tf.resblock_epoch_grad(packed, dt, torch.zeros(16, device=device)[::2], u0, inv_b=0.125)
-    theta, theta_t = td.pack_dense(ResNetBlock((4,)).init_params(device=device), (4,), device)
+    theta = td.pack_dense(ResNetBlock((4,)).init_params(device=device), (4,), device)
     with pytest.raises(ValueError, match="hidden layers"):
-        td.dense_epoch_grad(theta, theta_t, (4,) * 9, dt, u0, u0)
+        td.dense_epoch_grad(theta, (4,) * 9, dt, u0, u0)
     with pytest.raises(ValueError):
         td.dense_block_members((20000,))
+    with pytest.raises(ValueError, match="float32"):
+        td.dense_epoch_grad(theta.double(), (4,), dt, u0, u0)
+    # plans the kernel refuses: a cluster of 16, a split single layer, past
+    # the shared memory, a member tile of 8
+    sizes = (100, 500)
+    theta = td.pack_dense(ResNetBlock(sizes).init_params(device=device), sizes, device)
+    for plan, what in ((td.DensePlan(32, 16, 1, 0), "cluster size"),
+                       (td.DensePlan(64, 1, 1, 0), "shared memory"),
+                       (td.DensePlan(8, 8, 1, 0), "member tile")):
+        with pytest.raises(RuntimeError, match=what):
+            td._t2_launch(theta, sizes, dt, u0, u0, plan)
+    theta4 = td.pack_dense(ResNetBlock((4,)).init_params(device=device), (4,), device)
+    with pytest.raises(RuntimeError, match="cluster size"):
+        td._t2_launch(theta4, (4,), dt, u0, u0, td.DensePlan(16, 2, 1, 0))
 
 
 # ---------------------------------------------------------------- Burgers B1
@@ -718,6 +767,58 @@ def test_fused_forward_refuses_what_it_does_not_take(device):
                  FP(4, 0, 600, 1, 512)):  # a window past the CTA
         with pytest.raises(RuntimeError, match="K1 plan"):
             dg_rhs._k1_launch(lib, u0, 0.0, 8, None, 1, ops, plan)
+
+
+@pytest.mark.parametrize("n_order,k,b,graded,n_steps", [
+    (1, 24, 1, False, 13), (2, 300, 3, True, 37), (2, 10_000, 1, False, 70),
+    (2, 3000, 8, False, 45), (7, 900, 1, True, 19), (7, 2000, 8, True, 13)])
+def test_fused_adjoint_kernel(device, n_order, k, b, graded, n_steps):
+    """KA fused over s_f steps a launch: within the float32 bound above of
+    its plain version (8·n_steps·ε·max|λ_end|); every other plan (narrow and
+    widest windows, s_f 4 to 32, 512 and 1024 threads, one tile with no
+    ghosts where the mesh fits) the same bits; ⌈n_steps/s_f⌉ CUDA launches
+    on each, one wrapper launch counted."""
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k, vx=vx)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_rhs.kernel_ops(disc, A, 0.5 * (0.75 / A) * xmin, device)
+    lam = torch.tensor(np.random.default_rng(k).normal(size=(disc.np_, b, k)),
+                       dtype=torch.float32, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    before = dg_rhs.adj_march.launches
+    lam0 = dg_rhs.adj_march(lam, n_steps, ops)
+    torch.cuda.synchronize()
+    plan = dg_rhs.adjoint_plan(k, b, disc.np_, n_steps, sms)
+    assert dg_rhs.adj_march.launches == before + 1
+    assert dg_rhs.adj_march.cuda_launches == -(-n_steps // plan.segment)
+    want = dg_rhs.adj_march_plain(lam, n_steps, ops)
+    assert float((lam0 - want).abs().max()) <= 8 * n_steps * EPS32 * float(lam.abs().max())
+    others = [dg_rhs.fwd_fused_plan(k, min(st, n_steps), th)
+              for st, th in ((4, 512), (8, 1024), (16, 512), (32, 1024))]
+    others.append(dg_rhs.fwd_fused_plan(k, min(4, n_steps))._replace(tile=50, n_tiles=-(-k // 50)))
+    if k <= 1024:
+        others.append(dg_rhs.FusedPlan(min(32, n_steps), 0, k, 1, 1024))
+    for other in others:
+        got, n_cuda = dg_rhs._ka_launch(lam, n_steps, ops, other)
+        assert n_cuda == -(-n_steps // other.segment), other
+        assert torch.equal(got, lam0), other
+
+
+def test_fused_adjoint_refuses_what_it_does_not_take(device):
+    disc = startup_1d(2, 0.0, 2 * np.pi, 600)
+    ops = dg_rhs.kernel_ops(disc, A, 1e-3, device)
+    lam = torch.zeros((3, 1, 600), device=device)
+    FP = dg_rhs.FusedPlan
+    for plan in (FP(4, 19, 100, 6, 512),  # ghosts under 5·s_f on a tiled mesh
+                 FP(33, 0, 600, 1, 1024),  # past s_f = 32
+                 FP(4, 0, 600, 1, 512),  # a window past the CTA
+                 FP(4, 20, 100, 6, 256)):  # a CTA size the kernel is not built for
+        with pytest.raises(RuntimeError, match="KA plan"):
+            dg_rhs._ka_launch(lam, 8, ops, plan)
+    with pytest.raises(ValueError, match="B=70000"):
+        dg_rhs._ka_launch(torch.zeros((3, 70_000, 1), device=device), 8, ops, FP(4, 0, 1, 1, 512))
+    with pytest.raises(ValueError):
+        dg_rhs.adj_march(lam[:, :, :500].contiguous(), 8, ops)
 
 
 def test_new_advection_kernels_refuse_what_they_do_not_take(device):

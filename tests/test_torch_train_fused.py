@@ -270,15 +270,15 @@ def test_t2_zero_dt_steps_are_inert_and_the_packing_round_trips():
     for k in g0:
         for leaf in g0[k]:
             assert torch.equal(g0[k][leaf], g1[k][leaf])
-    theta, theta_t = td.pack_dense(pt, sizes)
+    theta = td.pack_dense(pt, sizes)
     assert theta.numel() == 2 * 8 + 8 * 16 + 16 + 16 + 1
     back = td.unpack_dense(theta, sizes)
     for k in pt:
         for leaf in pt[k]:
             assert torch.equal(back[k][leaf], pt[k][leaf])
-    np.testing.assert_array_equal(theta_t.view(16, 8).numpy(), p["Dense_1"]["kernel"].T)
+    np.testing.assert_array_equal(theta[16:16 + 128].view(8, 16).numpy(), p["Dense_1"]["kernel"])
     assert td.dense_block_members((100, 500)) == 64
-    lf, flat = td.dense_epoch_grad(theta, theta_t, sizes, torch.from_numpy(dt), *args)
+    lf, flat = td.dense_epoch_grad(theta, sizes, torch.from_numpy(dt), *args)
     gf = td.unpack_dense(flat, sizes)
     assert torch.equal(lf, l0) and torch.equal(gf["Dense_1"]["kernel"], g0["Dense_1"]["kernel"])
 
@@ -328,3 +328,78 @@ def test_t2_bound_holds_for_another_float32_order_and_tells_a_wrong_gradient(siz
     _, g_rest = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0[1:].double(), tr[1:].double())
     assert any(bool(((g_rest[k][q] * (b - 1) / b - g64[k][q]).abs() > tol["grads"][k][q]).any())
                for k in g64 for q in g64[k])
+
+
+@pytest.mark.parametrize("sizes,b,want", [
+    ((100, 500), 512, (32, 8)), ((100, 500), 8192, (64, 2)), ((100, 500), 62, (16, 8)),
+    ((4, 8, 4), 512, (16, 1)), ((4, 8, 4), 8192, (64, 1)),
+    ((64,) * 8, 512, (32, 8)), ((64,) * 8, 8192, (64, 2)), ((12,), 1000, (16, 1))])
+def test_t2_plan_picks_the_tile_and_the_cluster(sizes, b, want):
+    """dense_plan on a 132-SM card: the first (BM, C), largest tile then
+    fewest CTAs, that fills 128 CTAs, else the most CTAs; each CTA within
+    its shared memory (csrc make_layout's sizes), every rank owning columns
+    of every split layer, one CTA for a single hidden layer."""
+    plan = td.dense_plan(sizes, b)
+    assert (plan.block_members, plan.cluster) == want
+    assert plan.n_tiles == -(-b // plan.block_members)
+    assert plan.smem_bytes == td.dense_smem_bytes(sizes, *want) <= td.SMEM_BYTES
+    for p in (td.pad4(x) for x in sizes[1:]):
+        assert (plan.cluster - 1) * td._slice_width(p, plan.cluster) < p
+    if plan.n_tiles * plan.cluster < 128:  # nothing fills the card: the most CTAs
+        assert all(-(-b // bm) * c <= plan.n_tiles * plan.cluster
+                   for bm in td.TILE_MEMBERS for c in td.CLUSTER_SIZES
+                   if (bm, c) in set(td._feasible(tuple(sizes))))
+    # (100, 500)'s W_1 (200 KB) fits no single CTA: the cluster is what holds it
+    assert td.dense_smem_bytes((100, 500), 16, 1) > td.SMEM_BYTES
+    with pytest.raises(ValueError):
+        td.dense_plan((20000,), b)
+
+
+@pytest.mark.parametrize("sizes,b,s,plan", [((100, 500), 96, 2, (32, 8)),
+                                            ((8, 16), 70, 4, (16, 4)),
+                                            ((3, 6, 5), 40, 3, (16, 2)),
+                                            ((16,) * 8, 48, 2, (16, 4))])
+def test_t2_cluster_split_order_stays_within_the_tolerance(sizes, b, s, plan):
+    """A float32 emulation of the kernel's reduction structure (tiles of BM
+    members, every split layer over C column slices, f's partial dots and
+    da's partial products summed in rank order, the tiles in order) lies
+    within dense_kernel_tolerance of the float64 plain version at that
+    (BM, C), entry by entry, most entries of every leaf above their bound,
+    zero-bound entries exactly 0; a zeroed leaf and a tile left out do
+    not."""
+    gen = torch.Generator().manual_seed(7)
+    params = torch_models.ResNetBlock(sizes).init_params(gen)
+    params = {k: {q: v + 0.1 * torch.randn(v.shape, generator=gen) for q, v in d.items()}
+              for k, d in params.items()}
+    rng = np.random.default_rng(8)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s), dtype=torch.float32)
+    dt[1] = 0.0
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32)
+    tr = torch.sin(u0) + 0.3
+    bm, c = plan
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, block_members=bm, cluster=c)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double())
+    l32, g32 = td.dense_epoch_grad_split_plain(params, sizes, dt, u0, tr, bm, c)
+    assert l32.dtype == torch.float32 and abs(float(l32) - float(l64)) <= tol["loss"]
+    for k in g64:
+        for q in g64[k]:
+            bnd = tol["grads"][k][q]
+            assert g32[k][q].shape == g64[k][q].shape
+            assert bool(((g32[k][q].double() - g64[k][q]).abs() <= bnd).all()), (k, q)
+            live = int((bnd > 0).sum())
+            assert 2 * int((g64[k][q].abs() > bnd).sum()) > live > 0, (k, q)
+            assert not g32[k][q][bnd == 0].any()
+    # in float64 the split is the same function as the plain version
+    l_s, g_s = td.dense_epoch_grad_split_plain(p64, sizes, dt.double(), u0.double(),
+                                               tr.double(), bm, c)
+    assert abs(float(l_s) - float(l64)) <= 1e-12 * abs(float(l64))
+    for k in g64:
+        for q in g64[k]:
+            np.testing.assert_allclose(g_s[k][q].numpy(), g64[k][q].numpy(), rtol=1e-10,
+                                       atol=1e-14)
+    # teeth: the first hidden layer's kernel zeroed, and the first tile left out
+    assert bool((g64["Dense_0"]["kernel"].abs() > tol["grads"]["Dense_0"]["kernel"]).any())
+    _, g_rest = td.dense_epoch_grad_split_plain(params, sizes, dt, u0[bm:], tr[bm:], bm, c)
+    assert any(bool(((g_rest[k][q].double() * (b - bm) / b - g64[k][q]).abs()
+                     > tol["grads"][k][q]).any()) for k in g64 for q in g64[k])
