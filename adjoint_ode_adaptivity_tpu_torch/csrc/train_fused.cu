@@ -19,167 +19,332 @@
 // step is an exact identity with zero gradients).
 //
 // Design for this card, not a copy of the TPU's: the TPU kernel carries the
-// gradient sums in one VMEM block across a sequential grid. Blocks here run
-// in parallel and in no order, so the work splits in two launches, both
-// deterministic:
-//   1. resblock_march_kernel, one thread per member: the forward march
-//      (trajectory to a (S+1, B) scratch), the member's loss term, and the
-//      reverse sweep of the cotangent alone (the neuron sum for g_n), which
-//      stores g for every step into a (S, B) scratch. The parameters are read
-//      straight from global memory: every lane of a warp reads the same
-//      address, one transaction, and no table has to fit in shared memory
-//      (the three (S, F) tables reach 60 KB at S = 10, F = 500 and grow by a
-//      step each outer iteration).
-//   2. resblock_grad_kernel, one warp per (step, neuron): the three member
-//      sums of that entry over the stored trajectory and cotangents (lanes
-//      stride over members, then a 5-level shuffle tree), in a fixed order,
-//      so two calls on the same inputs give bit-identical results; one more
-//      warp sums the members' loss terms.
-// What bounds it on the H100: FP32 operations (~16·S·F·B) in a serial chain
-// per member in launch 1, where B = 8192 gives 128 blocks of 64 threads, one
-// or two warps per SM; launch 2 fills the card (S·F warps) and reads the two
-// scratches from L2.
+// gradient sums in one VMEM block across a sequential grid. Here:
+//   1. resblock_tile_kernel, one CTA of 8 warps per tile of BM = 8·MW
+//      members (the plan, ops/cuda/train_fused.resblock_plan, picks MW so
+//      that the tiles fill the card). Each warp owns MW members for the
+//      whole epoch and keeps their states, cotangents and loss terms in
+//      registers; the lanes split the NEURON loop (lane l takes i ≡ l mod
+//      32), so a member's forward sum and its reverse sum (the g_n update)
+//      are lane-partial sums of ⌈F/32⌉ terms joined by a fixed xor-shuffle
+//      tree, and the warp's MW members give independent chains to
+//      interleave. The step's parameters sit in shared memory: all S steps
+//      while they fit (resident), else one step at a time (streamed, a
+//      barrier a step). The tile's trajectory (S+1, BM) and cotangents
+//      times the step, g·dt (S, BM), stay in shared memory. Then every
+//      thread takes (step, neuron) entries and sums their three gradient
+//      contributions over the tile's members in member order, from shared
+//      memory, into one (3, S, F) partial per tile, and thread 0 the
+//      members' loss terms.
+//   2. resblock_reduce_kernel, 32 entries and 8 rows of groups a block: the
+//      tiles' partials in a fixed order (groups of kGroup consecutive tiles
+//      in order, the groups' sums in order), the bias gradient −w1·Σ at the
+//      end.
+// Both orders are fixed, so two calls on the same inputs give bit-identical
+// results. A gradient entry is a sum of BM, then kGroup, then ⌈tiles/kGroup⌉
+// terms: resblock_kernel_tolerance's k_red (ops/cuda/train_fused.py
+// reduce_terms_of).
+// What bounds it on the H100: FP32 operations, ~16·S·F·B (t1_bound in
+// chip_smoke.py): the forward and reverse neuron sums (~5 issue slots a
+// neuron and member each) and the gradient sums (~8), spread over every
+// SM's warps; the partials (n_tiles·3·S·F floats) cross L2 once.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMarchThreads = 64;
-constexpr int kGradThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 8;  // group rows of a reduction block of 32 entries
+constexpr int kGroup = 16;
 constexpr unsigned kFull = 0xffffffffu;
+// shared memory a tile may hold with every step's parameters resident
+constexpr int kResidentBytes = 96 * 1024;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Σ over the warp's lanes by an xor butterfly: every lane ends with the
+// same total (a + b == b + a exactly), in a fixed order.
+__device__ __forceinline__ float lane_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-__global__ void __launch_bounds__(kMarchThreads)
-resblock_march_kernel(int S, int F, int B, int mixed, const float* __restrict__ p,
-                      const float* __restrict__ dt, const float* __restrict__ u0,
-                      const float* __restrict__ tgt, const float* __restrict__ wts,
-                      const int* __restrict__ n_active, float ramp, float inv_b,
-                      float* __restrict__ traj, float* __restrict__ gcot,
-                      float* __restrict__ loss_m) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= B) return;
-  const float* bias = p;
-  const float* w1 = p + S * F;
-  const float* w2 = p + 2 * S * F;
-  float u = u0[m];
-  traj[m] = u;
-  for (int n = 0; n < S; ++n) {
-    const int na = n_active ? min(max(n_active[n], 0), F) : F;
-    const float* bn = bias + n * F;
-    const float* an = w1 + n * F;
-    const float* cn = w2 + n * F;
-    float acc = 0.f;
-    for (int i = 0; i < na; ++i) acc = fmaf(cn[i], fmaxf(an[i] * (u - bn[i]), 0.f), acc);
-    u = fmaf(dt[n], acc, u);
-    traj[(n + 1) * B + m] = u;
-  }
-  const float w = wts ? wts[m] : 1.f;
-  const float c_term = mixed ? dt[S - 1] * 0.5f + ramp : 1.f;
-  const float e = (u - tgt[(mixed ? S * B : 0) + m]) * w;
-  float loss = c_term * e * e * inv_b;
-  float g = 2.f * c_term * e * inv_b;
-  for (int n = S - 1; n >= 0; --n) {
-    gcot[n * B + m] = g;
-    const int na = n_active ? min(max(n_active[n], 0), F) : F;
-    const float* bn = bias + n * F;
-    const float* an = w1 + n * F;
-    const float* cn = w2 + n * F;
-    const float un = traj[n * B + m];
-    const float gdt = g * dt[n];
-    float du = 0.f;
-    for (int i = 0; i < na; ++i) {
-      if (an[i] * (un - bn[i]) > 0.f) du = fmaf(gdt * cn[i], an[i], du);
-    }
-    g = g + du;
-    if (mixed) {
-      const float c_n = 0.5f * ((n > 0 ? dt[n - 1] : 0.f) + dt[n]);
-      const float e_n = (un - tgt[n * B + m]) * w;
-      loss += c_n * e_n * e_n * inv_b;
-      g += 2.f * c_n * e_n * inv_b;
-    }
-  }
-  loss_m[m] = loss;
+struct Args {
+  int S, F, B, mixed, resident;
+  const float* p;  // (3, S, F): bias, w1, w2
+  const float* dt;
+  const float* u0;
+  const float* tgt;
+  const float* wts;
+  const int* n_active;
+  float ramp, inv_b;
+  float* part;       // (tiles, 3, S, F)
+  float* part_loss;  // (tiles,)
+};
+
+__device__ __forceinline__ int active_of(const Args& a, int n) {
+  return a.n_active ? min(max(a.n_active[n], 0), a.F) : a.F;
 }
 
-// grads (3, S, F): bias, w1, w2. Warp S·F sums the members' loss terms.
-__global__ void __launch_bounds__(kGradThreads)
-resblock_grad_kernel(int S, int F, int B, const float* __restrict__ p,
-                     const float* __restrict__ dt, const int* __restrict__ n_active,
-                     const float* __restrict__ traj, const float* __restrict__ gcot,
-                     const float* __restrict__ loss_m, float* __restrict__ grads,
-                     float* __restrict__ loss) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp > S * F) return;  // warp-uniform
-  if (warp == S * F) {
-    float s = 0.f;
-    for (int m = lane; m < B; m += 32) s += loss_m[m];
-    s = warp_sum(s);
-    if (lane == 0) loss[0] = s;
-    return;
+// The step's parameters in shared memory, [b (F), w1 (F), w2 (F)]: resident
+// ones are read in place; streamed ones are copied in behind a barrier
+// (every thread of the CTA calls this for the same n).
+__device__ __forceinline__ const float* step_params(const Args& a, float* sp, int n) {
+  if (a.resident) return sp + 3 * n * a.F;
+  __syncthreads();
+  for (int j = threadIdx.x; j < 3 * a.F; j += kThreads) {
+    const int q = j / a.F;
+    sp[j] = a.p[(q * a.S + n) * a.F + j - q * a.F];
   }
-  const int n = warp / F, i = warp % F;
-  const int idx = n * F + i;
-  const bool active = !n_active || i < n_active[n];
-  const float b = p[idx], a1 = p[S * F + idx], a2 = p[2 * S * F + idx];
-  float gw2 = 0.f, gw1 = 0.f, sds = 0.f;
-  if (active) {
-    const float dtn = dt[n];
-    for (int m = lane; m < B; m += 32) {
-      const float gdt = gcot[n * B + m] * dtn;
-      const float d = traj[n * B + m] - b;
-      const float s = a1 * d;
-      if (s > 0.f) {
-        const float ds = gdt * a2;
-        gw2 = fmaf(gdt, s, gw2);
-        gw1 = fmaf(ds, d, gw1);
-        sds += ds;
+  __syncthreads();
+  return sp;
+}
+
+template <int MW>
+__global__ void __launch_bounds__(kThreads)
+resblock_tile_kernel(const Args a) {
+  constexpr int BM = kWarps * MW;
+  extern __shared__ float sm[];
+  const int S = a.S, F = a.F, B = a.B;
+  float* sp = sm;  // parameters: 3·S·F resident, 3·F streamed
+  float* traj = sp + (a.resident ? 3 * S * F : 3 * F);  // (S+1, BM)
+  float* gcot = traj + (S + 1) * BM;                      // (S, BM) g·dt
+  float* loss_s = gcot + S * BM;                          // (BM,)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * BM;
+  const int bm = min(BM, B - m0);
+  if (a.resident) {
+    for (int j = threadIdx.x; j < 3 * S * F; j += kThreads) {
+      const int n = j / (3 * F), r = j - n * 3 * F, q = r / F;
+      sp[j] = a.p[(q * S + n) * F + r - q * F];
+    }
+    __syncthreads();
+  }
+
+  // the forward march of the warp's members, the neuron sum split over lanes
+  float u[MW];
+#pragma unroll
+  for (int j = 0; j < MW; ++j) {
+    const int m = warp * MW + j;
+    u[j] = m < bm ? a.u0[m0 + m] : 0.f;
+    if (lane == 0) traj[m] = u[j];
+  }
+  for (int n = 0; n < S; ++n) {
+    const float* pn = step_params(a, sp, n);
+    const int na = active_of(a, n);
+    float acc[MW];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) acc[j] = 0.f;
+    for (int i = lane; i < na; i += 32) {
+      const float b = pn[i], w1 = pn[F + i], w2 = pn[2 * F + i];
+#pragma unroll
+      for (int j = 0; j < MW; ++j) acc[j] = fmaf(w2, fmaxf(w1 * (u[j] - b), 0.f), acc[j]);
+    }
+    const float dtn = a.dt[n];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) {
+      u[j] = fmaf(dtn, lane_sum(acc[j]), u[j]);
+      if (lane == 0) traj[(n + 1) * BM + warp * MW + j] = u[j];
+    }
+  }
+  __syncwarp();
+
+  // the loss and the reverse sweep of the cotangent, split likewise
+  float g[MW], loss[MW], w[MW];
+  const float c_term = a.mixed ? a.dt[S - 1] * 0.5f + a.ramp : 1.f;
+#pragma unroll
+  for (int j = 0; j < MW; ++j) {
+    const int m = warp * MW + j;
+    const bool live = m < bm;
+    w[j] = live && a.wts ? a.wts[m0 + m] : 1.f;
+    const float e = live ? (u[j] - a.tgt[(a.mixed ? S * B : 0) + m0 + m]) * w[j] : 0.f;
+    loss[j] = c_term * e * e * a.inv_b;
+    g[j] = 2.f * c_term * e * a.inv_b;
+  }
+  for (int n = S - 1; n >= 0; --n) {
+    const float* pn = step_params(a, sp, n);
+    const int na = active_of(a, n);
+    const float dtn = a.dt[n];
+    float un[MW], gdt[MW], du[MW];
+#pragma unroll
+    for (int j = 0; j < MW; ++j) {
+      un[j] = traj[n * BM + warp * MW + j];
+      gdt[j] = g[j] * dtn;
+      if (lane == 0) gcot[n * BM + warp * MW + j] = gdt[j];
+      du[j] = 0.f;
+    }
+    for (int i = lane; i < na; i += 32) {
+      const float b = pn[i], w1 = pn[F + i], w2 = pn[2 * F + i];
+#pragma unroll
+      for (int j = 0; j < MW; ++j) {
+        if (w1 * (un[j] - b) > 0.f) du[j] = fmaf(gdt[j] * w2, w1, du[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MW; ++j) {
+      g[j] = g[j] + lane_sum(du[j]);
+      if (a.mixed) {
+        const int m = warp * MW + j;
+        const float c_n = 0.5f * ((n > 0 ? a.dt[n - 1] : 0.f) + dtn);
+        const float e_n = m < bm ? (un[j] - a.tgt[n * B + m0 + m]) * w[j] : 0.f;
+        loss[j] += c_n * e_n * e_n * a.inv_b;
+        g[j] += 2.f * c_n * e_n * a.inv_b;
       }
     }
   }
-  gw2 = warp_sum(gw2);
-  gw1 = warp_sum(gw1);
-  sds = warp_sum(sds);
   if (lane == 0) {
-    grads[idx] = active ? -a1 * sds : 0.f;
-    grads[S * F + idx] = gw1;
-    grads[2 * S * F + idx] = gw2;
+#pragma unroll
+    for (int j = 0; j < MW; ++j) loss_s[warp * MW + j] = loss[j];
   }
+  __syncthreads();
+
+  // each (step, neuron) entry summed over the tile's members in order
+  float* part = a.part + static_cast<long>(blockIdx.x) * 3 * S * F;
+  for (int idx = threadIdx.x; idx < S * F; idx += kThreads) {
+    const int n = idx / F, i = idx - n * F;
+    float gw2 = 0.f, gw1 = 0.f, sds = 0.f;
+    if (i < active_of(a, n)) {
+      const float b = a.p[idx], w1 = a.p[S * F + idx], w2 = a.p[2 * S * F + idx];
+      const float* un = traj + n * BM;
+      const float* gn = gcot + n * BM;
+      for (int m = 0; m < bm; ++m) {
+        const float gdt = gn[m];
+        const float d = un[m] - b;
+        const float s = w1 * d;
+        if (s > 0.f) {
+          const float ds = gdt * w2;
+          gw2 = fmaf(gdt, s, gw2);
+          gw1 = fmaf(ds, d, gw1);
+          sds += ds;
+        }
+      }
+    }
+    part[idx] = sds;
+    part[S * F + idx] = gw1;
+    part[2 * S * F + idx] = gw2;
+  }
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int m = 0; m < bm; ++m) s += loss_s[m];
+    a.part_loss[blockIdx.x] = s;
+  }
+}
+
+// grads (3, S, F): bias, w1, w2; entry 3·S·F is the loss. A block takes 32
+// entries (threadIdx.x) and kRows rows (threadIdx.y): row y sums the groups
+// y, y + kRows, … of its entry, each group's kGroup consecutive tiles in
+// order (all kGroup loads in flight), into shared memory; then row 0 sums
+// its entry's groups in order. The order is the two-level one of
+// tiles_sum in ops/cuda/train_fused.py (_tiles_sum).
+__global__ void __launch_bounds__(32 * kRows)
+resblock_reduce_kernel(const Args a, int tiles, float* __restrict__ grads,
+                       float* __restrict__ loss) {
+  extern __shared__ float gs[];  // (groups, 32)
+  const int SF = a.S * a.F;
+  const int groups = (tiles + kGroup - 1) / kGroup;
+  const int x = threadIdx.x, y = threadIdx.y;
+  const int e = blockIdx.x * 32 + x;
+  const bool live = e <= 3 * SF;
+  const bool is_loss = e == 3 * SF;
+  const float* src = is_loss ? a.part_loss : a.part + e;
+  const long stride = is_loss ? 1 : 3L * SF;
+  for (int g = y; g < groups; g += kRows) {
+    float s = 0.f;
+    if (live) {
+      const int t0 = g * kGroup;
+      float v[kGroup];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) v[k] = t0 + k < tiles ? src[(t0 + k) * stride] : 0.f;
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        if (t0 + k < tiles) s += v[k];
+      }
+    }
+    gs[g * 32 + x] = s;
+  }
+  __syncthreads();
+  if (y != 0 || !live) return;
+  float total = 0.f;
+  for (int g = 0; g < groups; ++g) total += gs[g * 32 + x];
+  if (is_loss) {
+    loss[0] = total;
+  } else if (e >= SF) {
+    grads[e] = total;
+  } else {
+    const int n = e / a.F;
+    grads[e] = e - n * a.F < active_of(a, n) ? -a.p[SF + e] * total : 0.f;
+  }
+}
+
+template <int MW>
+int launch_tiles(const Args& a, int tiles, int smem, cudaStream_t s) {
+  static int opted_in = 48 * 1024;  // the dynamic shared memory allowed so far
+  if (smem > opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        resblock_tile_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = smem;
+  }
+  resblock_tile_kernel<MW><<<tiles, kThreads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Return 0 on success, -2 for an empty shape, or the cudaError_t of a
-// refused launch. traj (S+1, B), gcot (S, B) and loss_m (B) are scratch;
-// weights and n_active may be null; targets are (B) or, mixed, (S+1, B).
-int resblock_epoch_grad(int S, int F, int B, int mixed, const float* p, const float* dt,
-                        const float* u0, const float* tgt, const float* wts,
-                        const int* n_active, double ramp, double inv_b, float* traj,
-                        float* gcot, float* loss_m, float* loss, float* grads, void* stream) {
+// Shared memory of a tile of block_members members, in bytes; *resident
+// says whether every step's parameters fit (else they stream a step at a
+// time).
+int resblock_tile_smem(int S, int F, int block_members, int* resident) {
+  const long rest = (2L * S + 2) * block_members;
+  const long all = 4 * (3L * S * F + rest);
+  *resident = all <= kResidentBytes;
+  return static_cast<int>(*resident ? all : 4 * (3L * F + rest));
+}
+
+// Return 0 on success, -2 for an empty shape, -4 for a member tile the
+// kernel is not built for (8, 16, 32 or 64), -5 for a shape past the shared
+// memory, or the cudaError_t of a refused launch. part ((B/block_members
+// rounded up)·3·S·F floats) and part_loss (as many) are scratch; weights
+// and n_active may be null; targets are (B) or, mixed, (S+1, B).
+int resblock_epoch_grad(int S, int F, int B, int mixed, int block_members,
+                        const float* p, const float* dt, const float* u0,
+                        const float* tgt, const float* wts, const int* n_active,
+                        double ramp, double inv_b, float* part, float* part_loss,
+                        float* loss, float* grads, void* stream) {
   if (S < 1 || F < 1 || B < 1) return -2;
+  int resident = 0;
+  const int smem = resblock_tile_smem(S, F, block_members, &resident);
+  if (smem > 227 * 1024) return -5;
+  const Args a{S, F, B, mixed, resident, p, dt, u0, tgt, wts, n_active,
+               static_cast<float>(ramp), static_cast<float>(inv_b), part, part_loss};
+  const int tiles = (B + block_members - 1) / block_members;
+  const int groups = (tiles + kGroup - 1) / kGroup;
+  if (groups * 32 * 4 > 48 * 1024) return -5;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  resblock_march_kernel<<<(B + kMarchThreads - 1) / kMarchThreads, kMarchThreads, 0, s>>>(
-      S, F, B, mixed, p, dt, u0, tgt, wts, n_active, static_cast<float>(ramp),
-      static_cast<float>(inv_b), traj, gcot, loss_m);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long warps = static_cast<long>(S) * F + 1;
-  const int per_block = kGradThreads / 32;
-  resblock_grad_kernel<<<static_cast<int>((warps + per_block - 1) / per_block), kGradThreads, 0,
-                         s>>>(S, F, B, p, dt, n_active, traj, gcot, loss_m, grads, loss);
-  e = cudaGetLastError();
-  return e == cudaSuccess ? 0 : static_cast<int>(e);
+  int code;
+  switch (block_members) {
+    case 8: code = launch_tiles<1>(a, tiles, smem, s); break;
+    case 16: code = launch_tiles<2>(a, tiles, smem, s); break;
+    case 32: code = launch_tiles<4>(a, tiles, smem, s); break;
+    case 64: code = launch_tiles<8>(a, tiles, smem, s); break;
+    default: return -4;
+  }
+  if (code != 0) return code;
+  const long entries = 3L * S * F + 1;
+  resblock_reduce_kernel<<<static_cast<int>((entries + 31) / 32), dim3(32, kRows),
+                           groups * 32 * 4, s>>>(a, tiles, grads, loss);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* train_fused_error_string(int code) {
   if (code == -2) return "empty shape (S, F and B must be >= 1)";
+  if (code == -4) return "member tile (the kernel takes 8, 16, 32 or 64 members a tile)";
+  if (code == -5)
+    return "past the shared memory (the member tile's trajectory and cotangents, or "
+           "more than 6,144 tiles for the reduction's groups of 16)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

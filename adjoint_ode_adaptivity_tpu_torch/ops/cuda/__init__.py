@@ -120,12 +120,12 @@ class KernelLibrary:
         lib.dg_estimate_ensemble.restype = i
         lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 9 + [p] * 8
         lib.dg_estimate_hp_per_member.restype = i
-        lib.resblock_epoch_grad.argtypes = [i] * 4 + [p] * 6 + [d] * 2 + [p] * 6
+        lib.resblock_epoch_grad.argtypes = [i] * 5 + [p] * 6 + [d] * 2 + [p] * 5
         lib.resblock_epoch_grad.restype = i
         lib.dense_epoch_grad.argtypes = [i, p] + [i] * 4 + [p] * 4 + [d] + [p] * 6
         lib.dense_epoch_grad.restype = i
         for name in ("burgers_march_f32", "burgers_march_f64"):
-            getattr(lib, name).argtypes = [i] * 5 + [p] * 8
+            getattr(lib, name).argtypes = [i] * 9 + [p] * 7
             getattr(lib, name).restype = i
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",

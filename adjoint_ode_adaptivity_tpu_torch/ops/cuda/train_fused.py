@@ -27,10 +27,19 @@ float32 tensor launches the kernel or raises; a CPU tensor takes the plain
 version, :func:`resblock_epoch_grad_plain`, the same sweep in eager torch in
 the inputs' dtype. Nothing falls back from the kernel. The wrapper counts its
 launches in ``.launches``. Adam stays outside (train/loop.py), as in JAX.
+
+On the card T1 is two launches: one CTA of 8 warps per tile of BM members,
+the lanes of a warp splitting the neuron loop, each tile's gradient
+contributions summed over its members in member order into a partial; then
+a fixed-order reduction of the tiles' partials. :func:`resblock_plan` picks
+BM; :func:`resblock_epoch_grad_split_plain` runs that summation order in
+plain float32, and :func:`reduce_terms_of` gives the order's length to
+:func:`resblock_kernel_tolerance`.
 """
 from __future__ import annotations
 
-import math
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,13 +50,44 @@ __all__ = [
     "unpack_grads",
     "resblock_epoch_grad",
     "resblock_epoch_grad_plain",
+    "resblock_epoch_grad_split_plain",
     "resblock_kernel_tolerance",
+    "ResblockPlan",
+    "resblock_plan",
+    "reduce_terms_of",
     "reset_launch_counts",
     "make_cuda_resblock_epoch_grad",
 ]
 
 EPS32 = 2.0**-23
 WARP = 32
+H100_SMS = 132
+TILE_MEMBERS = (64, 32, 16, 8)  # 8 warps of 8, 4, 2 or 1 members
+GROUP = 16  # the reduction's group of consecutive tiles (csrc/train_fused.cu kGroup)
+
+
+class ResblockPlan(NamedTuple):
+    """T1's launch shape: tiles of ``block_members`` members (the last
+    ragged), one CTA of 8 warps each."""
+
+    block_members: int
+    n_tiles: int
+
+
+@functools.lru_cache(maxsize=64)
+def resblock_plan(b: int, sms: int = H100_SMS) -> ResblockPlan:
+    """T1's tile for B members on a card of ``sms`` SMs: the largest of
+    64, 32, 16, 8 members whose tiles give at least 3/4 of a CTA an SM (at
+    B = 8192: 64, 128 tiles), else 8. It depends on B alone, so zero-dt
+    padded steps leave the live steps' bits as they were."""
+    bm = next((m for m in TILE_MEMBERS if 4 * -(-b // m) >= 3 * sms), TILE_MEMBERS[-1])
+    return ResblockPlan(bm, -(-b // bm))
+
+
+def reduce_terms_of(plan: ResblockPlan) -> int:
+    """The length of T1's member reduction: a tile's members in order, then
+    groups of GROUP tiles in order, then the groups in order."""
+    return plan.block_members + min(plan.n_tiles, GROUP) + -(-plan.n_tiles // GROUP)
 
 
 def pack_params(params: dict, n_steps: int, features: int) -> torch.Tensor:
@@ -203,8 +243,9 @@ def resblock_kernel_tolerance(packed, dt, u0s, targets, weights=None, n_active=N
       reverse sweep (every rounding of the state, the activations, the
       neuron sums over F and the cotangent, and a full switch of any relu
       whose argument lies within its own error of 0), and k_red·ε the
-      reduction over members: ``reduce_terms`` (default: the kernel's, B/32
-      members per lane then a 5-level warp tree) plus 2;
+      reduction over members: ``reduce_terms`` (default: the kernel's,
+      :func:`reduce_terms_of` its plan for B on the inputs' card, or on a
+      132-SM card for CPU inputs) plus 2;
     - the loss likewise over its per-member terms.
 
     The factor 2 covers the second-order terms. Inactive neurons and zero-dt
@@ -214,7 +255,8 @@ def resblock_kernel_tolerance(packed, dt, u0s, targets, weights=None, n_active=N
     f64 = torch.float64
     b = u0s.shape[0]
     if reduce_terms is None:
-        reduce_terms = math.ceil(b / WARP) + 5
+        sms = _sm_count(u0s.device) if u0s.device.type == "cuda" else H100_SMS
+        reduce_terms = reduce_terms_of(resblock_plan(b, sms))
     k = (reduce_terms + 2) * EPS32
     _, _, eloss, egrads, mags, loss_m = _sweep(
         packed.to(f64), dt.to(f64), u0s.to(f64), targets.to(f64),
@@ -224,11 +266,123 @@ def resblock_kernel_tolerance(packed, dt, u0s, targets, weights=None, n_active=N
             "grads": 2 * (egrads + k * mags), "scale": mags}
 
 
+def _fma(a, b, c):
+    """float32 a·b + c rounded once (the product is exact in float64; the
+    sum rounds there, then to float32: a double rounding that an FMA does
+    not make, far below any bound here)."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def _lane_sum(v):
+    """Σ over the lane axis 0 of (32, ...) by the kernel's xor butterfly."""
+    lanes = torch.arange(WARP, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[lanes ^ off]
+    return v[0]
+
+
+def _tiles_sum(x):
+    """Σ over axis 0 (tiles) in the reduction's order: groups of GROUP
+    consecutive tiles in order, then the groups in order."""
+    total = torch.zeros_like(x[0])
+    for t0 in range(0, x.shape[0], GROUP):
+        s = torch.zeros_like(x[0])
+        for t in range(t0, min(t0 + GROUP, x.shape[0])):
+            s = s + x[t]
+        total = total + s
+    return total
+
+
+def resblock_epoch_grad_split_plain(packed, dt, u0s, targets, weights=None, n_active=None,
+                                    ramp_weight=None, *, inv_b: float, mixed: bool = False,
+                                    plan: ResblockPlan | None = None):
+    """T1's summation order in plain float32: (loss, grads (3, S, F)). A
+    member's neuron sums split over 32 lanes (lane l takes i ≡ l mod 32, in
+    order) joined by the xor butterfly; each tile of ``plan`` (default
+    :func:`resblock_plan`) sums its members' gradient contributions in
+    member order; the tiles' partials are reduced in groups of GROUP. Each
+    product, sum and FMA rounds to float32 as on the card (an FMA through
+    :func:`_fma`), so this shows that the order stays within
+    :func:`resblock_kernel_tolerance` at :func:`reduce_terms_of` the plan."""
+    f32 = torch.float32
+    bias, w1, w2 = (x.to(f32) for x in packed)
+    s_steps, f = bias.shape
+    b = u0s.shape[0]
+    plan = plan or resblock_plan(b)
+    bm, n_tiles = plan.block_members, plan.n_tiles
+    dev = u0s.device
+    dt = dt.to(f32)
+    na = (torch.full((s_steps,), f, device=dev) if n_active is None
+          else n_active.to(dev).clamp(0, f))
+    rounds = -(-f // WARP)  # neurons a lane takes
+    idx = torch.arange(WARP * rounds, device=dev).view(rounds, WARP)  # [j, l] = i
+    pad = lambda x: torch.cat([x, x.new_zeros(WARP * rounds - f)])  # noqa: E731
+    w = torch.ones(b, dtype=f32, device=dev) if weights is None else weights.to(f32)
+
+    u, traj = u0s.to(f32), [u0s.to(f32)]
+    for n in range(s_steps):
+        bn, an, cn = pad(bias[n]), pad(w1[n]), pad(w2[n])
+        acc = torch.zeros((WARP, b), dtype=f32, device=dev)
+        for j in range(rounds):
+            i = idx[j]
+            term = torch.clamp_min(an[i][:, None] * (u[None, :] - bn[i][:, None]), 0.0)
+            acc = torch.where((i < na[n])[:, None], _fma(cn[i][:, None], term, acc), acc)
+        u = _fma(dt[n], _lane_sum(acc), u)
+        traj.append(u)
+
+    tgt = targets.to(f32)
+    c_term = dt[s_steps - 1] * 0.5 + float(ramp_weight) if mixed else torch.tensor(1.0)
+    e = (u - (tgt[s_steps] if mixed else tgt)) * w
+    loss_m = c_term * e * e * inv_b
+    g = 2.0 * c_term * e * inv_b
+    gcot = [None] * s_steps
+    for n in range(s_steps - 1, -1, -1):
+        gcot[n] = g
+        bn, an, cn = pad(bias[n]), pad(w1[n]), pad(w2[n])
+        gdt = g * dt[n]
+        du = torch.zeros((WARP, b), dtype=f32, device=dev)
+        for j in range(rounds):
+            i = idx[j]
+            live = (i < na[n])[:, None] & (an[i][:, None] * (traj[n][None, :] - bn[i][:, None]) > 0)
+            du = torch.where(live, _fma(gdt[None, :] * cn[i][:, None], an[i][:, None], du), du)
+        g = g + _lane_sum(du)
+        if mixed:
+            c_n = 0.5 * ((dt[n - 1] if n > 0 else 0.0) + dt[n])
+            e_n = (traj[n] - tgt[n]) * w
+            loss_m = loss_m + c_n * e_n * e_n * inv_b
+            g = g + 2.0 * c_n * e_n * inv_b
+
+    # the tiles' partials: members in order, (tiles, S, F) at a time
+    member = torch.arange(n_tiles, device=dev)[:, None] * bm  # (tiles, 1)
+    ut = torch.stack(traj[:s_steps]).T  # (B, S)
+    gt = torch.stack(gcot).T
+    active = (torch.arange(f, device=dev)[None, :] < na[:, None])  # (S, F)
+    parts = torch.zeros((3, n_tiles, s_steps, f), dtype=f32, device=dev)
+    loss_t = torch.zeros(n_tiles, dtype=f32, device=dev)
+    for m in range(bm):
+        gm = (member + m).clamp(max=b - 1)
+        valid = (member + m < b)[:, :, None]  # (tiles, 1, 1)
+        gdt = gt[gm] * dt  # (tiles, 1, S)
+        d = ut[gm].transpose(1, 2) - bias[None]  # (tiles, S, F)
+        sv = w1[None] * d
+        gdt = gdt.transpose(1, 2)  # (tiles, S, 1)
+        live = valid & active[None] & (sv > 0)
+        ds = gdt * w2[None]
+        parts[2] = torch.where(live, _fma(gdt, sv, parts[2]), parts[2])
+        parts[1] = torch.where(live, _fma(ds, d, parts[1]), parts[1])
+        parts[0] = torch.where(live, parts[0] + ds, parts[0])
+        loss_t = torch.where(valid[:, 0, 0], loss_t + loss_m[gm[:, 0]], loss_t)
+    sums = _tiles_sum(parts.transpose(0, 1))  # (3, S, F)
+    grads = torch.stack([torch.where(active, -w1 * sums[0], torch.zeros_like(w1)),
+                         sums[1], sums[2]])
+    return _tiles_sum(loss_t), grads
+
+
 # ------------------------------------------------------------------ wrapper
 
 
 def _check(name, x, shape, dtype, device):
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -237,13 +391,18 @@ def _check(name, x, shape, dtype, device):
                          f"{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def resblock_epoch_grad(packed, dt, u0s, targets, weights=None, n_active=None, ramp_weight=None,
                         *, inv_b: float, mixed: bool = False):
     """T1: (loss, grads (3, S, F)) for ``packed`` (3, S, F), ``dt`` (S,),
     ``u0s`` (B,), ``targets`` (B,) or, ``mixed``, (S+1, B), optional 0/1
     ``weights`` (B,) and int ``n_active`` (S,); the loss and gradients
-    carry ``inv_b``. One call of the C entry (a march-and-sweep kernel, one
-    thread per member, then a reduction kernel, one warp per parameter)."""
+    carry ``inv_b``. On the card one call of the C entry on
+    :func:`resblock_plan`'s tiles: the tile kernel, then the reduction."""
     if u0s.dim() != 1 or packed.dim() != 3 or packed.shape[0] != 3:
         raise ValueError(f"u0s must be (B,) and packed (3, S, F); got {tuple(u0s.shape)}, "
                          f"{tuple(packed.shape)}")
@@ -264,26 +423,38 @@ def resblock_epoch_grad(packed, dt, u0s, targets, weights=None, n_active=None, r
     if dev.type != "cuda":
         return resblock_epoch_grad_plain(packed, dt, u0s, targets, weights, n_active,
                                          ramp_weight, inv_b=inv_b, mixed=mixed)
-    lib = load_library()
-    na = None if n_active is None else n_active.to(torch.int32).contiguous()
-    loss = torch.empty((1,), dtype=torch.float32, device=dev)
-    grads = torch.empty((3, s_steps, f), dtype=torch.float32, device=dev)
-    traj = torch.empty((s_steps + 1, b), dtype=torch.float32, device=dev)
-    gcot = torch.empty((s_steps, b), dtype=torch.float32, device=dev)
-    loss_m = torch.empty((b,), dtype=torch.float32, device=dev)
-    null = 0
-    code = lib.lib.resblock_epoch_grad(
-        s_steps, f, b, int(mixed), packed.data_ptr(), dt.data_ptr(), u0s.data_ptr(),
-        targets.data_ptr(), null if weights is None else weights.data_ptr(),
-        null if na is None else na.data_ptr(), float(ramp_weight or 0.0), float(inv_b),
-        traj.data_ptr(), gcot.data_ptr(), loss_m.data_ptr(), loss.data_ptr(), grads.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    plan = resblock_plan(b, _sm_count(dev))
+    out = _t1_launch(packed, dt, u0s, targets, weights, n_active, ramp_weight, inv_b, mixed, plan)
     resblock_epoch_grad.launches += 1
-    lib.check(code, "resblock_epoch_grad", lib.lib.train_fused_error_string)
-    return loss[0], grads
+    return out
 
 
 resblock_epoch_grad.launches = 0
+
+
+def _t1_launch(packed, dt, u0s, targets, weights, n_active, ramp_weight, inv_b: float,
+               mixed: bool, plan: ResblockPlan):
+    """One call of T1's C entry on ``plan`` (checked CUDA inputs): (loss,
+    grads), views of one buffer that also holds the tiles' partials (one
+    allocation a call). The wrapper counts its calls; this does not."""
+    lib = load_library()
+    (_, s_steps, f), b, dev = packed.shape, u0s.shape[0], u0s.device
+    na = None if n_active is None else n_active.to(torch.int32).contiguous()
+    # the current stream's handle without a Stream object (~0.3 µs, not ~5)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index if dev.index is not None
+                                                 else torch.cuda.current_device())
+    n_grads = 3 * s_steps * f
+    # [loss, grads (3·S·F), partials (tiles·3·S·F), partial losses (tiles)]
+    out = torch.empty(((1 + plan.n_tiles) * (1 + n_grads),), dtype=torch.float32, device=dev)
+    at = out.data_ptr()
+    part = at + 4 * (1 + n_grads)
+    code = lib.lib.resblock_epoch_grad(
+        s_steps, f, b, int(mixed), plan.block_members, packed.data_ptr(), dt.data_ptr(),
+        u0s.data_ptr(), targets.data_ptr(), None if weights is None else weights.data_ptr(),
+        None if na is None else na.data_ptr(), float(ramp_weight or 0.0), float(inv_b),
+        part, part + 4 * plan.n_tiles * n_grads, at, at + 4, stream)
+    lib.check(code, "resblock_epoch_grad", lib.lib.train_fused_error_string)
+    return out[0], out[1:1 + n_grads].view(3, s_steps, f)
 
 
 def reset_launch_counts() -> None:

@@ -193,9 +193,25 @@ raises, and the script exits non-zero; nothing is caught.
    in turns, each within dense_kernel_tolerance at its own (BM, C) (a gate);
    the same hidden-chain GEMMs through torch.matmul in IEEE FP32; the share
    of t2_bound; a torch.profiler trace of 20 wrapper calls; the registers
-   and spills of the kernel. Then two rows the
-   next redesign needs: T1 at its path's S=2 and S=5 (F=500, B=8192), and
-   B1 alone at burgers_dg's shape (K=48, N=4, B=1, 7,500 steps, ΠN).
+   and spills of the kernel.
+33. B1 fused over s_f steps a launch (csrc/burgers.cu burgers_fused) and T1
+   split over neurons within a member tile (csrc/train_fused.cu): the
+   registers and spills that ptxas reported for both; (a) B1 at
+   burgers_dg's shape (K=48, N=4, B=1, 7,500 steps, ΠN: one ring CTA) and
+   at bench.py's row (K=10^4, N=2, 2048 steps) at B=8 and B=1: the
+   wrapper and its plan beside the widest plans (s_f 2-16 on 512- and
+   1024-thread CTAs) and the ring where a CTA holds the mesh, timed in
+   turns, each with the plans' cost model, its CUDA launches and its share
+   of B1's bound, every plan's output the wrapper's bits (a gate; in
+   float64 the wrapper is held to the untiled plain version in phase 19);
+   (b) T1 at F=500, B=8192 and S=2, 5 and 10 (the variable_params path's
+   depths and bench.py's): the wrapper beside every member tile the kernel
+   takes (8-64 members), timed in turns, each within
+   resblock_kernel_tolerance at its own tile's reduction (a gate), with its
+   share of t1_bound; (c) 20 back-to-back T1 calls at S=2 on the host clock,
+   on the device alone (queued behind a sleep, CUDA events) and under
+   torch.profiler: the device's busy share of the calls' wall, the host's
+   side, each launch's device time.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -1628,11 +1644,12 @@ def hp_times(device, cases):
     return out["a", "solve"]
 
 
-def study_trace(run, kernel, phase="14"):
+def study_trace(run, kernel, phase="14", also=()):
     """One warm run of ``run`` under torch.profiler: the wall under the
     profiler, the device time summed over the kernels it ran, the device's
-    busy share of the wall, ``kernel``'s share of the device time, and the
-    host's stream synchronisations and copies."""
+    busy share of the wall, ``kernel``'s (and each of ``also``'s) share of
+    the device time, and the host's stream synchronisations and copies.
+    Returns {name: (device ms, launches recorded)} of those kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1650,14 +1667,19 @@ def study_trace(run, kernel, phase="14"):
         return (e.self_cuda_time_total if us is None else us) / 1e3
 
     total = sum(dev_ms(e) for e in events)
-    mine = sum(dev_ms(e) for e in events if kernel in e.key)
-    n_mine = sum(e.count for e in events if kernel in e.key)
+    shares, seen = [], {}
+    for name in (kernel, *also):
+        mine = sum(dev_ms(e) for e in events if name in e.key)
+        n_mine = sum(e.count for e in events if name in e.key)
+        seen[name] = (mine, n_mine)
+        shares.append(f"{name} {mine:.3f} ms in {n_mine} launches "
+                      f"({mine / max(total, 1e-12):.1%} of the device time)")
     calls = {k: sum(e.count for e in events if e.key == k)
              for k in ("cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
     say(phase, f"torch.profiler over one warm run: wall {wall:.3f} ms under the profiler, device "
               f"busy {total:.3f} ms ({total / wall:.1%} of the wall, idle {1 - total / wall:.1%}); "
-              f"{kernel} {mine:.3f} ms in {n_mine} launches ({mine / max(total, 1e-12):.1%} of the "
-              f"device time); host calls {calls}")
+              f"{'; '.join(shares)}; host calls {calls}")
+    return seen
 
 
 # ------------------------------------------------------------------ NN strand
@@ -2546,13 +2568,15 @@ def burgers_times(device, plain_ms, bench):
     tab = cb.burgers_tables(disc, dt, "n", device)
     u0 = burgers_ics(disc, b, device, torch.float32)
     ms = cuda_ms(lambda: cb.burgers_march(u0, n_steps, tab), runs=5)
+    n_cuda = cb.burgers_march.cuda_launches
     u1 = u0[:, :1].contiguous()
     ms1 = cuda_ms(lambda: cb.burgers_march(u1, n_steps, tab), runs=5)
     b_ms, b_by = burgers_bound(n, k, b, n_steps)
     b1_ms, _ = burgers_bound(n, k, 1, n_steps)
     dofs = b * (n + 1) * k * n_steps
     say("22", f"burgers_march K={k} N={n} B={b} steps={n_steps}: kernel {ms:.3f} ms "
-              f"({dofs / ms * 1e3:.4e} DoF-steps/s, one launch); plain {plain_ms:.1f} ms (19(a)'s "
+              f"({dofs / ms * 1e3:.4e} DoF-steps/s, {n_cuda} CUDA launches); plain "
+              f"{plain_ms:.1f} ms (19(a)'s "
               f"step-by-step run, its {n_steps} steps summed); "
               f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / ms:.3%} of it; B=1 kernel "
               f"{ms1:.3f} ms (bound {b1_ms:.5f} ms)")
@@ -3268,24 +3292,38 @@ FUSED_SMALL = dict(k=512, b=1, n_steps=2048)
 FUSED_SEGMENTS = (4, 64)
 
 
-def fused_registers(log: str) -> list:
-    """Registers and spills that ``nvcc -Xptxas -v`` reported for the fused
-    advection kernels (rev_fused, fwd_fused, adj_fused), one string an
-    instance."""
-    import re
-
+def kernel_registers(log: str, names) -> list:
+    """Registers, stack and spills that ``nvcc -Xptxas -v`` reported for the
+    instances of the kernels ``names``, one string an instance, sorted."""
     out, name = [], None
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"(rev_fused|fwd_fused|adj_fused)ILi(\d)ELi(\d+)E", ln)
-            name = f"{m.group(1)}<Np={m.group(2)}, {m.group(3)}>" if m else None
-            spill = ""
+            mangled = ln.split(" for ", 1)[1].strip()
+            name = mangled if any(k in mangled for k in names) else None
+            frame = ""
         elif name and "spill" in ln:
-            spill = ln.split(",", 1)[1].strip()
+            frame = ln.strip()
         elif name and "registers" in ln:
-            out.append(f"{name}: {ln.split('Used ', 1)[1].split(',')[0]}, {spill}")
+            out.append(f"{short_name(name, names)}: {ln.split('Used ', 1)[1].split(',')[0]}, "
+                       f"{frame}")
             name = None
     return sorted(out)
+
+
+def short_name(mangled: str, names) -> str:
+    """A template instance's readable name, e.g. burgers_fused<float, 4,
+    1024> from its mangled one."""
+    import re
+
+    for k in names:
+        m = re.search(rf"{k}I([fd]?)((?:Li\d+E)*)E", mangled)
+        if m:
+            args = ({"f": ["float"], "d": ["double"]}.get(m.group(1), [])
+                    + re.findall(r"Li(\d+)E", m.group(2)))
+            return f"{k}<{', '.join(args)}>"
+        if k in mangled:
+            return k
+    return mangled
 
 
 def k2_plans(label, traj, uf, lam, ops, sms):
@@ -3340,7 +3378,7 @@ def phase29(device, lib):
     from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
 
-    regs = fused_registers(lib.build_log)
+    regs = kernel_registers(lib.build_log, ("rev_fused", "fwd_fused", "adj_fused"))
     say("29", f"ptxas -v for the fused kernels ({len(regs)} instances): {'; '.join(regs)}")
     assert regs, "no fused kernel instance in the build log"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -3512,7 +3550,7 @@ def phase30(device, lib):
     from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 
-    regs = [r for r in fused_registers(lib.build_log) if r.startswith("fwd_fused")]
+    regs = kernel_registers(lib.build_log, ("fwd_fused",))
     say("30", f"ptxas -v for K1's kernel ({len(regs)} instances): {'; '.join(regs)}")
     assert regs, "no fwd_fused instance in the build log"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -3557,7 +3595,7 @@ def phase31(device, lib):
 
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 
-    regs = [r for r in fused_registers(lib.build_log) if r.startswith("adj_fused")]
+    regs = kernel_registers(lib.build_log, ("adj_fused",))
     say("31", f"ptxas -v for KA's kernel ({len(regs)} instances): {'; '.join(regs)}")
     assert regs, "no adj_fused instance in the build log"
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -3603,39 +3641,19 @@ def phase31(device, lib):
 T2_ROWS = ((512, 2), (8192, 10))  # the recurrent path's minibatch; bench.py's row
 
 
-def cluster_registers(log: str) -> list:
-    """Registers, stack and spills that ptxas reported for T2's kernels."""
-    out, name = [], None
-    for ln in log.splitlines():
-        if "Function properties for" in ln:
-            name = next((k for k in ("dense_cluster_kernel", "dense_reduce_kernel") if k in ln), None)
-            frame = ""
-        elif name and "spill" in ln:
-            frame = ln.strip()
-        elif name and "registers" in ln:
-            out.append(f"{name}: {ln.split('Used ', 1)[1].split(',')[0]}, {frame}")
-            name = None
-    return out
-
-
 def phase32(device, lib, errs):
     """T2 on its thread-block cluster at T2_ROWS: the wrapper and its plan
     beside every other (BM, C) the kernel takes, timed in turns, each within
     dense_kernel_tolerance at its own (BM, C) (a gate), the same hidden-chain
     GEMMs through torch.matmul (FP32, TF32 off) and the share of t2_bound;
     a torch.profiler trace of 20 wrapper calls (the device's busy share, the
-    cluster kernel's share of it); the kernels' registers; then T1 at its
-    path's S = 2 and 5 and B1 alone at burgers_dg's shape. Returns {row:
+    cluster kernel's share of it); the kernels' registers. Returns {row:
     (wrapper ms, GEMMs ms)}."""
-    import numpy as np
     import torch
 
-    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
-    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
-    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
 
-    regs = cluster_registers(lib.build_log)
+    regs = kernel_registers(lib.build_log, ("dense_cluster_kernel", "dense_reduce_kernel"))
     say("32", f"ptxas -v for T2's kernels: {'; '.join(regs)}")
     assert any(r.startswith("dense_cluster_kernel") for r in regs)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -3685,24 +3703,184 @@ def phase32(device, lib, errs):
                   f"plan {min((k for k in turns if k in plans), key=lambda k: statistics.mean(turns[k]))}")
         rows[(b, s_steps)] = (wrapper_ms, gemm_ms)
 
-    # T1 at the variable_params path's own depths, S = 2 and 5
-    for s_steps in (2, 5):
-        packed, dt, u0, tg = nn_t1_inputs(device, s=s_steps)
-        b, f = u0.shape[0], NN_T1["f"]
-        ms = cuda_ms(lambda: tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=1.0 / b), runs=5)
-        b_ms, b_by, _ = t1_bound(s_steps, f, b)
-        say("32", f"T1 resblock_epoch_grad S={s_steps} F={f} B={b}: {ms:.4f} ms (median of 5), "
-                  f"{b_ms / ms:.2%} of the {b_ms:.5f} ms bound ({b_by})")
-    # B1 alone at burgers_dg's shape (its defaults: K = 48, N = 4, dt 2e-4, T = 1.5, ΠN)
-    disc = startup_1d(4, 0.0, 2 * np.pi, 48)
-    tab = cb.burgers_tables(disc, 2e-4, "n", device)
-    u1 = torch.tensor((0.5 + np.sin(disc.x))[:, None, :], dtype=torch.float32, device=device)
-    before = cb.burgers_march.launches
-    ms = cuda_ms(lambda: cb.burgers_march(u1, 7500, tab), runs=5)
-    b_ms, b_by = burgers_bound(4, 48, 1, 7500)
-    say("32", f"B1 burgers_march K=48 N=4 B=1 steps=7500 (burgers_dg --kernel cuda's shape): "
-              f"{ms:.3f} ms (median of 5, one launch a call: {cb.burgers_march.launches - before} "
-              f"calls), {b_ms / ms:.3%} of the {b_ms:.5f} ms bound ({b_by})")
+    return rows
+
+
+# B1's rows: burgers_dg's shape (its defaults: K = 48, N = 4, dt 2e-4, T =
+# 1.5, ΠN; u0 = 0.5 + sin x) and bench.py's row at B = 8 and 1
+B1_ROWS = (dict(label="burgers_dg's shape", n_order=4, k=48, b=1, n_steps=7500, dt=2e-4),
+           dict(label="bench row", n_order=2, k=10_000, b=8, n_steps=2048, dt=None),
+           dict(label="bench row", n_order=2, k=10_000, b=1, n_steps=2048, dt=None))
+# B1's widest plans (s_f, threads) timed beside the wrapper's, and the ring
+# where a CTA holds the mesh
+B1_PLANS = ((2, 512), (4, 512), (8, 512), (16, 512), (4, 1024), (8, 1024), (16, 1024))
+T1_STEPS = (2, 5, 10)  # the variable_params path's S = 2-5, bench.py's S = 10
+
+
+def b1_plans(row, device, sms):
+    """B1 through its wrapper, on the wrapper's plan, on B1_PLANS' widest
+    windows and on the ring where a CTA holds the mesh, timed in turns on
+    the same float32 state, each beside the plans' cost model and B1's
+    bound; every plan's output is the wrapper's bits (a gate). Returns the
+    wrapper's mean ms."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    n, k, b, n_steps = row["n_order"], row["k"], row["b"], row["n_steps"]
+    disc = startup_1d(n, 0.0, 2 * np.pi, k)
+    dt = row["dt"] or BURGERS["cfl"] * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    tab = cb.burgers_tables(disc, dt, "n", device)
+    if k == 48:
+        u0 = torch.tensor((0.5 + np.sin(disc.x))[:, None, :], dtype=torch.float32, device=device)
+    else:
+        u0 = burgers_ics(disc, b, device, torch.float32)
+    mine = cb.burgers_plan(k, b, n_steps, "n", False, sms)
+    plans = {}
+    for st, th in B1_PLANS:
+        if th in cb._threads_for(False):
+            plans[f"s_f={min(st, n_steps)} {th} threads widest"] = cb.burgers_fused_plan(
+                k, min(st, n_steps), th)
+    for th in cb._threads_for(False):
+        if k <= th:
+            plans[f"ring {th} threads"] = cb.BurgersPlan(n_steps, 0, k, 1, th)
+            break
+    out, counts = {}, {}
+
+    def wrapper():
+        out["wrapper"] = cb.burgers_march(u0, n_steps, tab)
+
+    def on(key, plan):
+        def run():
+            out[key], counts[key] = cb._b1_launch(u0, n_steps, tab, plan)
+
+        return run
+
+    turns = in_turns({"wrapper": wrapper, **{key: on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = cb.burgers_march.cuda_launches
+    b_ms, b_by = burgers_bound(n, k, b, n_steps)
+    for key, plan in {"wrapper": mine, **plans}.items():
+        ms = statistics.mean(turns[key])
+        model = cb._cost(k, b, n_steps, plan, sms) / 1e3
+        same = torch.equal(out[key], out["wrapper"])
+        ghost = (f"W={plan.ghost} L={plan.tile}, ghost 2W/L {2 * plan.ghost / plan.tile:.1%}"
+                 if not cb.is_ring(k, plan) else "the ring, no ghosts")
+        say("33", f"B1 {row['label']} K={k} N={n} B={b} steps={n_steps} {key}: s_f="
+                  f"{plan.segment} {ghost}, {plan.threads} threads, {plan.n_tiles}x{b} CTAs of "
+                  f"{-(-cb.window_of(k, plan) // 32) * 32}; {ms:.4f} ms (model {model:.4f}; in "
+                  f"turns, median of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}), "
+                  f"{counts[key]} CUDA launches, {b_ms / ms:.3%} of the {b_ms:.5f} ms bound "
+                  f"({b_by}); bit-equal to the wrapper's: {same}")
+        assert same and counts[key] == -(-n_steps // plan.segment), key
+    return statistics.mean(turns["wrapper"])
+
+
+def t1_plans(s_steps, device, errs, sms):
+    """T1 at F = 500, B = 8192 and S steps: the wrapper and every member
+    tile the kernel takes, timed in turns, each within
+    resblock_kernel_tolerance at its own tile's reduction (a gate), beside
+    t1_bound. Returns the wrapper's mean ms."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    packed, dt, u0, tg = nn_t1_inputs(device, s=s_steps)
+    b, f = u0.shape[0], NN_T1["f"]
+    inv_b = 1.0 / b
+    mine = tf.resblock_plan(b, sms)
+    plans = {bm: tf.ResblockPlan(bm, -(-b // bm)) for bm in tf.TILE_MEMBERS}
+    l64, g64 = tf.resblock_epoch_grad_plain(packed.double(), dt.double(), u0.double(),
+                                            tg.double(), inv_b=inv_b)
+    out = {}
+
+    def on(bm, plan):
+        def run():
+            out[bm] = tf._t1_launch(packed, dt, u0, tg, None, None, None, inv_b, False, plan)
+
+        return run
+
+    turns = in_turns({"wrapper": lambda: tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b),
+                      **{bm: on(bm, plan) for bm, plan in plans.items()}})
+    b_ms, b_by, n_ops = t1_bound(s_steps, f, b)
+    for key in turns:
+        plan = mine if key == "wrapper" else plans[key]
+        ms = statistics.mean(turns[key])
+        line = (f"T1 S={s_steps} F={f} B={b} {'wrapper' if key == 'wrapper' else 'tile'} "
+                f"(BM, tiles) = ({plan.block_members}, {plan.n_tiles}): {ms:.4f} ms (in turns, "
+                f"median of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}), "
+                f"{n_ops / (ms / 1e3) / 1e12:.2f} TFLOP/s, {b_ms / ms:.2%} of the {b_ms:.5f} ms "
+                f"bound ({b_by})")
+        if key != "wrapper":
+            loss, g = out[key]
+            tol = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b,
+                                               reduce_terms=tf.reduce_terms_of(plan))
+            d = (g.double() - g64).abs()
+            inside = bool((d <= tol["grads"]).all()) and abs(float(loss) - float(l64)) <= tol["loss"]
+            line += (f"; within resblock_kernel_tolerance at reduce_terms "
+                     f"{tf.reduce_terms_of(plan)}: {inside} (worst "
+                     f"{float((d / tol['grads'].clamp_min(1e-300)).max()):.2%} of its bound)")
+            assert inside, f"T1 tile {key} leaves its tolerance"
+            errs["resblock_epoch_grad"] = max(errs["resblock_epoch_grad"], float(d.max()))
+        say("33", line)
+    return statistics.mean(turns["wrapper"])
+
+
+def phase33(device, lib, errs):
+    """B1 fused over s_f steps a launch and T1 split over neurons within a
+    member tile: the kernels' registers and spills; (a) B1's plans at its
+    rows, in turns, every plan the wrapper's bits (float64 against the
+    untiled plain version: phase 19); (b) T1 at S = 2, 5 and 10 on every
+    member tile, in turns, each within its tolerance; (c) a torch.profiler
+    trace of 20 T1 calls at S = 2. Returns {name: wrapper ms} of the
+    rows."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    regs = kernel_registers(lib.build_log, ("burgers_fused", "resblock_tile_kernel",
+                                            "resblock_reduce_kernel"))
+    say("33", f"ptxas -v for B1's and T1's kernels: {'; '.join(regs)}")
+    assert any("burgers_fused" in r for r in regs) and any("resblock_tile" in r for r in regs)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for row in B1_ROWS:
+        rows[f"B1 {row['label']} B={row['b']}"] = b1_plans(row, device, sms)
+    for s_steps in T1_STEPS:
+        rows[f"T1 S={s_steps}"] = t1_plans(s_steps, device, errs, sms)
+    # where a T1 call's time goes at the path's S = 2: 20 back-to-back calls
+    # on the host clock; the same 20 queued behind a device-side sleep, so
+    # that CUDA events time the device alone; then under torch.profiler for
+    # the split between the two kernels (late in a long process it may
+    # record few or none of the launches)
+    packed, dt, u0, tg = nn_t1_inputs(device, s=2)
+    inv_b = 1.0 / u0.shape[0]
+
+    def calls():
+        for _ in range(20):
+            tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b)
+
+    calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calls()
+    torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / 20 * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)  # ~3 ms: longer than the host takes to queue the calls
+    start.record()
+    calls()
+    end.record()
+    torch.cuda.synchronize()
+    device_ms = start.elapsed_time(end) / 20
+    seen = study_trace(calls, "resblock_tile_kernel", phase="33", also=("resblock_reduce_kernel",))
+    split = "; ".join(f"{k} {ms / n:.4f} ms a launch" for k, (ms, n) in seen.items() if n)
+    say("33", f"T1 S=2 F=500 B=8192, 20 back-to-back wrapper calls: {per_call:.4f} ms a call on "
+              f"the host clock, {device_ms:.4f} ms a call on the device (the calls queued behind "
+              f"a sleep, CUDA events): the device busy {device_ms / per_call:.1%} of the calls' "
+              f"wall, the host's side {per_call - device_ms:.4f} ms a call beyond it; the "
+              f"profiler's split: {split or 'no launch recorded'}")
     return rows
 
 
@@ -3815,6 +3993,7 @@ def main() -> int:
     phase30(device, lib)
     phase31(device, lib)
     phase32(device, lib, errs)
+    phase33(device, lib, errs)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

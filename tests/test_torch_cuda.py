@@ -345,6 +345,21 @@ def test_resblock_epoch_kernel_matches_its_plain_version(device, variant):
     if variant == "masked":
         for n, na in enumerate(kw["n_active"].tolist()):
             assert not g[:, n, na:].any()
+    # every member tile the kernel takes (B = 3000: 47 to 375 tiles, the
+    # last ragged), twice, bit-identical, within the tolerance at its own
+    # tile's reduction
+    for bm in tf.TILE_MEMBERS:
+        plan = tf.ResblockPlan(bm, -(-b // bm))
+        l1, g1 = tf._t1_launch(packed, dt, u0, tg, kw.get("weights"), kw.get("n_active"),
+                               kw.get("ramp_weight"), inv_b, kw["mixed"], plan)
+        l2, g2 = tf._t1_launch(packed, dt, u0, tg, kw.get("weights"), kw.get("n_active"),
+                               kw.get("ramp_weight"), inv_b, kw["mixed"], plan)
+        torch.cuda.synchronize()
+        assert torch.equal(g1, g2) and torch.equal(l1, l2), bm
+        tol_p = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b,
+                                             reduce_terms=tf.reduce_terms_of(plan), **kw)
+        assert abs(float(l1) - float(l64)) <= tol_p["loss"], bm
+        assert bool(((g1.double() - g64).abs() <= tol_p["grads"]).all()), bm
 
 
 @pytest.mark.parametrize("sizes,b,s_steps", [((100, 500), 1000, 5), ((8, 16), 50, 5),
@@ -436,6 +451,11 @@ def test_training_kernels_refuse_what_they_do_not_take(device):
         tf.resblock_epoch_grad(packed.double(), dt, u0, u0, inv_b=0.125)
     with pytest.raises(ValueError, match="contiguous"):
         tf.resblock_epoch_grad(packed, dt, torch.zeros(16, device=device)[::2], u0, inv_b=0.125)
+    # member tiles the kernel is not built for
+    for bm in (12, 128):
+        with pytest.raises(RuntimeError, match="member tile"):
+            tf._t1_launch(packed, dt, u0, u0, None, None, None, 0.125, False,
+                          tf.ResblockPlan(bm, 1))
     theta = td.pack_dense(ResNetBlock((4,)).init_params(device=device), (4,), device)
     with pytest.raises(ValueError, match="hidden layers"):
         td.dense_epoch_grad(theta, (4,) * 9, dt, u0, u0)
@@ -464,7 +484,8 @@ def test_training_kernels_refuse_what_they_do_not_take(device):
 @pytest.mark.parametrize("n_order,k,graded", [(2, 64, False), (4, 48, True), (7, 20, True)])
 def test_burgers_kernel_matches_its_plain_version(device, limiter, n_order, k, graded):
     """float64: each entry within 1e-12·|plain| + 1e-13 (test_pallas.py:629);
-    float32, before the shock: within 8·n_steps·ε₃₂·max|u0|. One launch each."""
+    float32, before the shock: within 8·n_steps·ε₃₂·max|u0|. One wrapper
+    call each; every other plan gives the wrapper's bits."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
 
     vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
@@ -481,6 +502,18 @@ def test_burgers_kernel_matches_its_plain_version(device, limiter, n_order, k, g
         bound = (1e-12 * want.abs() + 1e-13 if dtype == torch.float64
                  else 8 * 32 * EPS32 * float(x.abs().max()))
         assert bool(((got - want).abs() <= bound).all())
+        # several tiles (3, the last ragged, reading across the periodic seam),
+        # one tile wider than the mesh, and the ring in 5-step launches: every
+        # element's arithmetic is the same, so every plan gives the wrapper's
+        # bits, and a repeat call gives them again
+        rule = cb.ghost_rule(limiter)
+        for plan in (cb.BurgersPlan(3, 3 * rule, -(-k // 3), 3, 512),
+                     cb.BurgersPlan(2, 2 * rule, 400, 1, 512),
+                     cb.BurgersPlan(5, 0, k, 1, 512)):
+            for _ in range(2):
+                tiled, n_cuda = cb._b1_launch(x, 32, tab, plan)
+                torch.cuda.synchronize()
+                assert torch.equal(tiled, got) and n_cuda == -(-32 // plan.segment), plan
 
 
 def test_burgers_kernel_refusals_raise(device):
@@ -494,6 +527,15 @@ def test_burgers_kernel_refusals_raise(device):
         cb.burgers_march(torch.zeros((3, 16, 2), device=device).transpose(1, 2), 4, tab)
     with pytest.raises(ValueError):  # on the CPU, operands on the card
         cb.burgers_march(torch.zeros((3, 1, 16)), 4, tab)
+    # plans the kernel refuses: a ghost ring short of 10·s_f, a CTA size it
+    # is not built for, 1024 threads in float64, a window past the CTA
+    u = torch.zeros((3, 2, 16), device=device)
+    for plan, x in ((cb.BurgersPlan(2, 19, 8, 2, 512), u),
+                    (cb.BurgersPlan(1, 10, 8, 2, 256), u),
+                    (cb.BurgersPlan(1, 10, 8, 2, 1024), u.double()),
+                    (cb.BurgersPlan(26, 260, 8, 2, 512), u)):
+        with pytest.raises(RuntimeError, match="plan refused"):
+            cb._b1_launch(x, 4, tab, plan)
 
 
 def test_revolve_estimate_on_the_card_matches_the_stored_pipeline(device):

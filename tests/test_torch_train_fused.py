@@ -403,3 +403,90 @@ def test_t2_cluster_split_order_stays_within_the_tolerance(sizes, b, s, plan):
     _, g_rest = td.dense_epoch_grad_split_plain(params, sizes, dt, u0[bm:], tr[bm:], bm, c)
     assert any(bool(((g_rest[k][q].double() * (b - bm) / b - g64[k][q]).abs()
                      > tol["grads"][k][q]).any()) for k in g64 for q in g64[k])
+
+
+def _t1_split_setup(variant, s_steps=4, f=70, b=300, seed=9):
+    """A per-step net of F = 70 (three lanes' worth of neurons, the last
+    partial), a zero-dt last step, and the variant's extras."""
+    gen = torch.Generator().manual_seed(seed)
+    ps = [torch_models.ResBlockSimple(f).init_params(gen) for _ in range(s_steps)]
+    packed = tf.pack_params({k: torch.stack([q[k] for q in ps]) for k in ps[0]}, s_steps, f)
+    rng = np.random.default_rng(seed)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32)
+    dt[-1] = 0.0
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32)
+    tg = (torch.stack([torch.sin(u0 * (1 + 0.1 * n)) for n in range(s_steps + 1)])
+          if variant == "mixed" else torch.sin(u0) + 0.3)
+    kw = {"mixed": variant == "mixed"}
+    if variant == "masked":
+        kw["n_active"] = torch.tensor([f, 3, 40, f - 1], dtype=torch.int32)
+    if variant == "mixed":
+        kw["ramp_weight"] = 0.7
+    if variant == "weighted":
+        kw["weights"] = torch.tensor(rng.uniform(size=b) < 0.6, dtype=torch.float32)
+    return packed, dt, u0, tg, kw, 1.0 if variant == "weighted" else 1.0 / b
+
+
+@pytest.mark.parametrize("bm", [16, 64])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_t1_split_order_stays_within_the_tolerance(variant, bm):
+    """A float32 emulation of T1's summation order on the card (a member's
+    neuron sums over 32 lanes joined by the xor butterfly, each tile's
+    members in order, the tiles' partials in groups of 16) lies within
+    resblock_kernel_tolerance of the float64 plain version at the plan's
+    reduce_terms_of, entry by entry, with B = 300 a tile count that does not
+    divide it (19 tiles of 16, the last 12; 5 of 64, the last 44); the
+    zero-dt step and the inactive neurons exactly 0; the per-leaf teeth
+    (most entries of every leaf above their bound) hold, and a wrong
+    gradient (one leaf 1 % off, or a tile of members left out) fails."""
+    packed, dt, u0, tg, kw, inv_b = _t1_split_setup(variant)
+    b = u0.shape[0]
+    plan = tf.ResblockPlan(bm, -(-b // bm))
+    assert b % bm
+    l32, g32 = tf.resblock_epoch_grad_split_plain(packed, dt, u0, tg, inv_b=inv_b, plan=plan,
+                                                  **kw)
+    d64 = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+           for k, v in kw.items()}
+    l64, g64 = tf.resblock_epoch_grad_plain(packed.double(), dt.double(), u0.double(),
+                                            tg.double(), inv_b=inv_b, **d64)
+    tol = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b,
+                                       reduce_terms=tf.reduce_terms_of(plan), **kw)
+    assert l32.dtype == torch.float32 and abs(float(l32) - float(l64)) <= tol["loss"]
+    assert bool(((g32.double() - g64).abs() <= tol["grads"]).all())
+    for i in range(3):
+        live = int((tol["grads"][i] > 0).sum())
+        assert 2 * int((g64[i].abs() > tol["grads"][i]).sum()) > live > 0, i
+    assert not g32[:, -1].any() and not g32[tol["grads"] == 0].any()
+    if variant == "masked":
+        for n, na in enumerate(kw["n_active"].tolist()):
+            assert not g32[:, n, na:].any()
+    for i in range(3):
+        wrong = g32.clone()
+        wrong[i] *= 1.01
+        assert not bool(((wrong.double() - g64).abs() <= tol["grads"]).all()), i
+    rest = {k: (v[bm:] if k == "weights" else v) for k, v in kw.items()}
+    tg_rest = tg[:, bm:] if variant == "mixed" else tg[bm:]
+    _, g_rest = tf.resblock_epoch_grad_split_plain(packed, dt, u0[bm:], tg_rest, inv_b=inv_b,
+                                                   plan=tf.ResblockPlan(bm, plan.n_tiles - 1),
+                                                   **rest)
+    assert not bool(((g_rest.double() - g64).abs() <= tol["grads"]).all())
+
+
+def test_t1_plan_and_its_reduction():
+    """resblock_plan on a 132-SM card: the largest member tile whose tiles
+    give 3/4 of a CTA an SM (B = 8192: 64 members, 128 tiles; 3000: 16;
+    1024 and below: 8); the reduction's length BM + min(tiles, 16) +
+    ⌈tiles/16⌉, which at the path's B = 8192 (88) lies below the per-member
+    kernel's ⌈B/32⌉ + 5 (261); the tolerance's default takes it."""
+    P = tf.ResblockPlan
+    assert tf.resblock_plan(8192) == P(64, 128)
+    assert tf.resblock_plan(3000) == P(16, 188)
+    assert tf.resblock_plan(1024) == P(8, 128)
+    assert tf.resblock_plan(77) == P(8, 10)
+    assert tf.reduce_terms_of(P(64, 128)) == 88 < -(-8192 // 32) + 5
+    assert tf.reduce_terms_of(P(8, 10)) == 8 + 10 + 1
+    packed, dt, u0, tg, kw, inv_b = _t1_split_setup("plain")
+    default = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b)
+    explicit = tf.resblock_kernel_tolerance(packed, dt, u0, tg, inv_b=inv_b,
+                                            reduce_terms=tf.reduce_terms_of(tf.resblock_plan(300)))
+    assert torch.equal(default["grads"], explicit["grads"])
