@@ -1,15 +1,16 @@
 // Hand-written Hopper (sm_90a) kernels of the DG-advection pipeline in the
 // MXU layout: the state is ONE (Np, N) array, N = B·K columns (the (B, K)
-// states flattened), and the volume term is a tile product of the (Np, Np)
-// table by an (Np, columns) tile of the state. Plain C interface, bound
-// with ctypes.
+// states flattened), and the volume term is a product of the (Np, Np) table
+// by the state's columns. Plain C interface, bound with ctypes.
 //
 // KM1 dg_mxu_fwd  replaces adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:151
 //                 (_fwd_traj_kernel_m): the LSRK4(5) march storing every
-//                 entry state in a (n_steps, Np, N) trajectory.
+//                 entry state in a (n_steps, Np, N) trajectory. One launch a
+//                 stage (km_stage).
 // KM2 dg_mxu_rev  replaces dg_mxu.py:179 (_adj_est_kernel_m): per step in
 //                 reverse, two dt/2 residual steps from the stored u_n,
 //                 η += Σ_rows λ·(u_{n+1} − half2), two dt/2 transposed steps.
+//                 One launch per s_f steps (km_rev_fused).
 //
 // Arithmetic (dg_mxu.py:106-148). Tables folded as _MxuCfg.tables folds them
 // (rx and dt inside: drc = −a·rx·dt·Dr, liftl/liftr the lift columns times
@@ -31,35 +32,74 @@
 // the host as the TPU kernel forms them (dg_mxu.py:161, :195-196) and passed
 // in a table, one value per stage.
 //
-// Launches. The TPU kernel keeps the whole (Np, N) state in VMEM for
-// `segment` steps per grid point; at the timed row (N = 7, K = 10⁴, B = 8)
-// the state is 2.5 MB, past one CTA's shared memory, and every stage needs
-// the neighbours' traces of the stage's input. So, as K1/K2 (csrc/dg_rhs.cu),
-// each stage is one launch over read-only inputs into separate outputs
-// (ping-pong): 5 launches a step forward, 20 in reverse. A CTA owns kTile
-// columns: it stages drc and its column tile (all Np rows, one halo column
-// each side) in shared memory, and each thread keeps a register tile of
-// Np × kPerThread outputs (columns tid + p·kThreads, conflict-free).
+// KM1: one launch a stage. The TPU kernel keeps the whole (Np, N) state in
+// VMEM for `segment` steps per grid point; at the timed row (N = 7, K = 10⁴,
+// B = 8) the state is 2.5 MB, past one CTA's shared memory, and every stage
+// needs the neighbours' traces of the stage's input. So each stage is one
+// launch over read-only inputs into separate outputs (ping-pong), 5 a step.
+// A CTA owns kTile columns: it stages drc and its column tile (all Np rows,
+// one halo column each side) in shared memory, and each thread keeps a
+// register tile of Np × kPerThread outputs (columns tid + p·kThreads,
+// conflict-free).
 //
-// What bounds it. The least time for the work is set by its operations
-// (2·Np² + 9·Np + 4 per column and stage, against 4·Np·N·4 bytes of state a
-// stage that a fused kernel would not move): at N = 7, K = 10⁴, B = 8 and 256
-// steps, 0.31 ms for KM1 and 1.25 ms for KM2. What bounds these kernels as
-// written is the launch per stage (6,400 launches at that row, each a few µs,
-// the same count as K1/K2) and the state's round trip through device memory
-// every stage, not the tile product of the volume term. PERF.md
-// holds the card's times beside K1/K2's (chip_smoke.py phase 27).
+// KM2: fused over s_f steps a launch on K2's windows (csrc/fused_window.cuh):
+// one CTA per (tile, member), a tile of L local columns [lo, hi) of member
+// b's K with a window of W ghost columns a side clipped to [0, K), one
+// thread per window column. The window's ends are the first/last masks of
+// c % K at a member's ends and wrong (outside the cone) at ghost edges: a
+// coupling is cut wherever the per-stage kernel cuts it. Tiles over the
+// flattened B·K columns, a tile spanning members, measured the same at
+// K = 10⁴ (PERF.md) and were dropped. Each thread keeps its column's λu, λr, the η it accumulates and the
+// trajectory columns u_n, u_{n+1} and the prefetched u_{n−1} in registers for
+// the whole launch. Per stage it posts two floats (the residual's u[0],
+// u[Np−1]; the transposed stage's w0 = liftlᵀw, w1 = liftrᵀw) into a
+// double-buffered trace array in shared memory, passes one __syncthreads and
+// reads its neighbours'. The ghost rule: the 10 residual stages a step start
+// from u_n, read exact from the trajectory, so their wrong edge reaches 10
+// columns in; λ's 10 transposed stages a step couple ±1 column each and are
+// carried through the launch, so after s_f steps the wrong edge has reached
+// 10·s_f columns. W ≥ 10·s_f keeps every local column exact; the plans keep
+// W = 10·s_f + 10 (ROADMAP "Ghost cones"). λ crosses launches through a
+// global ping-pong buffer, from which the neighbouring tiles read their
+// ghosts; η is loaded at a launch's start, accumulated in KM2's order
+// n = N−1 … 0 and stored at its end. Every column computes exactly the
+// per-stage sweep's operations in its order, so every plan gives the plain
+// version's bits.
+//
+// What bounds them. The least time for the work is set by its operations
+// (2·Np² + 9·Np + 4 per column and stage): at N = 7, K = 10⁴, B = 8 and 256
+// steps, 0.31 ms for KM1 and 1.25 ms for KM2. KM1 as written is bound by its
+// launch per stage (1,280 at that row) and the state's round trip through
+// device memory every stage. KM2 fused is bound by issue: a stage is ~2·Np²
+// un-contracted FP32 instructions a column (the bits forbid FMA, so at
+// most half the card's FP32 rate counted in FMA operations), the ghosts add
+// 2W/L of recomputed work, and each launch ~4 µs of start and tail. The plan
+// (ops/cuda/dg_mxu.py km_rev_plan) picks s_f, the CTA size and the tiles.
+// Registers: a thread holds ~9·Np + 20 values (92 at Np = 8), so Np 7-8 run
+// 512-thread CTAs (128 registers a thread) and Np ≤ 6 one instance built for
+// 1024 threads (64 a thread). PERF.md holds the card's times.
 
 #include <cuda_runtime.h>
 
 #include "dg_stage.cuh"
+#include "fused_window.cuh"
 
 namespace {
 
+using aoa_dg::Elem;
+using aoa_dg::FusedInflow;
+using aoa_dg::FusedPlan;
 using aoa_dg::RkCoef;
 using aoa_dg::StepTables;
+using aoa_dg::Traces;
+using aoa_dg::elem_of;
+using aoa_dg::fused_block;
+using aoa_dg::load_col;
 using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
+using aoa_dg::store_col;
+
+// ------------------------------------------------- KM1: one launch a stage
 
 constexpr int kThreads = 128;
 constexpr int kPerThread = 2;
@@ -80,9 +120,8 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ x,
   }
 }
 
-// acc[i][p] = Σ_m d[i][m]·x[m][col p] over m = 0 … Np−1 in order (d row-major,
-// transposed when TRANS: d[m][i]).
-template <int NP, bool TRANS>
+// acc[i][p] = Σ_m d[i][m]·x[m][col p] over m = 0 … Np−1 in order (d row-major).
+template <int NP>
 __device__ __forceinline__ void tile_product(const float* sd,
                                              float (*sx)[kHalo],
                                              float (&acc)[NP][kPerThread]) {
@@ -93,7 +132,7 @@ __device__ __forceinline__ void tile_product(const float* sd,
     for (int p = 0; p < kPerThread; ++p) x[p] = sx[m][threadIdx.x + p * kThreads + 1];
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
-      const float d = TRANS ? sd[m * NP + i] : sd[i * NP + m];
+      const float d = sd[i * NP + m];
 #pragma unroll
       for (int p = 0; p < kPerThread; ++p) {
         acc[i][p] = m == 0 ? __fmul_rn(d, x[p]) : __fadd_rn(acc[i][p], __fmul_rn(d, x[p]));
@@ -105,22 +144,19 @@ __device__ __forceinline__ void tile_product(const float* sd,
 // One forward LSRK stage: r = A_s·r_in + rhs(u_in), u_out = u_in + B_s·r.
 // r_in == nullptr: stage 0 (r = rhs); r_out == nullptr drops r (stage 4).
 // traj_out != nullptr stores the stage input (the step's entry state).
-// eta != nullptr (the last residual stage) accumulates
-// η[c] += Σ_i λ_i·(u_next_i − u_new_i) instead of writing u and r.
 template <int NP>
 __global__ void __launch_bounds__(kThreads)
 km_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
          float* __restrict__ u_out, float* __restrict__ r_out,
-         float* __restrict__ traj_out, const float* __restrict__ lam,
-         const float* __restrict__ u_next, float* __restrict__ eta,
-         StepTables tab, float a_s, float b_s, float uin, int n, int nk) {
+         float* __restrict__ traj_out, StepTables tab, float a_s, float b_s,
+         float uin, int n, int nk) {
   __shared__ float sd[NP * NP];
   __shared__ float su[NP][kHalo];
   const int c0 = blockIdx.x * kTile;
   stage_tile<NP>(u_in, tab, sd, su, c0, n);
   __syncthreads();
   float acc[NP][kPerThread];
-  tile_product<NP, false>(sd, su, acc);
+  tile_product<NP>(sd, su, acc);
 #pragma unroll
   for (int p = 0; p < kPerThread; ++p) {
     const int cc = threadIdx.x + p * kThreads;
@@ -130,7 +166,6 @@ km_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
     const bool last = k == nk - 1;
     const float du_l = __fsub_rn(su[0][cc + 1], k == 0 ? uin : su[NP - 1][cc]);
     const float du_r = last ? 0.f : __fsub_rn(su[NP - 1][cc + 1], su[0][cc + 2]);
-    float un[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const long at = static_cast<long>(i) * n + c;
@@ -138,88 +173,9 @@ km_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
       const float rhs = __fadd_rn(__fadd_rn(acc[i][p], __fmul_rn(tab.ll[i], du_l)),
                                   __fmul_rn(tab.lr[i], du_r));
       const float r = r_in != nullptr ? __fadd_rn(__fmul_rn(a_s, r_in[at]), rhs) : rhs;
-      un[i] = __fadd_rn(u, __fmul_rn(b_s, r));
       if (traj_out != nullptr) traj_out[at] = u;
-      if (eta == nullptr) {
-        u_out[at] = un[i];
-        if (r_out != nullptr) r_out[at] = r;
-      }
-    }
-    if (eta != nullptr) {
-      float e = 0.f;
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const long at = static_cast<long>(i) * n + c;
-        const float t = __fmul_rn(lam[at], __fsub_rn(u_next[at], un[i]));
-        e = i == 0 ? t : __fadd_rn(e, t);
-      }
-      eta[c] = __fadd_rn(eta[c], e);
-    }
-  }
-}
-
-// Σ_i coef[i]·w[i] over i = 0 … Np−1 in order.
-template <int NP>
-__device__ __forceinline__ float row_dot(const float* coef, float (*sw)[kHalo],
-                                         int col) {
-  float s = __fmul_rn(coef[0], sw[0][col]);
-#pragma unroll
-  for (int i = 1; i < NP; ++i) s = __fadd_rn(s, __fmul_rn(coef[i], sw[i][col]));
-  return s;
-}
-
-// One transposed stage (stages run 4 … 0): w = B_s·λu + λr (λr == nullptr:
-// stage 4, λr = 0); λr_out = A_s·w (nullptr: stage 0, dropped);
-// λu_out = (λu + drcᵀw) + the edge rows.
-template <int NP>
-__global__ void __launch_bounds__(kThreads)
-km_stage_t(const float* __restrict__ lu_in, const float* __restrict__ lr_in,
-           float* __restrict__ lu_out, float* __restrict__ lr_out,
-           StepTables tab, float a_s, float b_s, int n, int nk) {
-  __shared__ float sd[NP * NP];
-  __shared__ float sw[NP][kHalo];
-  __shared__ float sw0[kHalo];
-  __shared__ float sw1[kHalo];
-  const int c0 = blockIdx.x * kTile;
-  for (int i = threadIdx.x; i < NP * NP; i += kThreads) sd[i] = tab.drc[i];
-  for (int e = threadIdx.x; e < NP * kHalo; e += kThreads) {
-    const int i = e / kHalo;
-    const int c = c0 + e % kHalo - 1;
-    float w = 0.f;
-    if (c >= 0 && c < n) {
-      const long at = static_cast<long>(i) * n + c;
-      w = __fmul_rn(b_s, lu_in[at]);
-      if (lr_in != nullptr) w = __fadd_rn(w, lr_in[at]);
-    }
-    sw[i][e % kHalo] = w;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < kHalo; e += kThreads) {
-    sw0[e] = row_dot<NP>(tab.ll, sw, e);
-    sw1[e] = row_dot<NP>(tab.lr, sw, e);
-  }
-  __syncthreads();
-  float acc[NP][kPerThread];
-  tile_product<NP, true>(sd, sw, acc);
-#pragma unroll
-  for (int p = 0; p < kPerThread; ++p) {
-    const int cc = threadIdx.x + p * kThreads;
-    const int c = c0 + cc;
-    if (c >= n) continue;
-    const int k = c % nk;
-    const bool first = k == 0;
-    const bool last = k == nk - 1;
-    const float s1 = last ? 0.f : sw1[cc + 1];
-    const float p0 = last ? 0.f : sw0[cc + 2];
-    const float p1 = first ? 0.f : sw1[cc];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const long at = static_cast<long>(j) * n + c;
-      float v = __fadd_rn(lu_in[at], acc[j][p]);
-      if (j == 0) v = __fadd_rn(v, __fsub_rn(sw0[cc + 1], p1));
-      if (j == NP - 1) v = __fadd_rn(v, __fsub_rn(s1, p0));
-      lu_out[at] = v;
-      if (lr_out != nullptr) lr_out[at] = __fmul_rn(a_s, sw[j][cc + 1]);
+      u_out[at] = __fadd_rn(u, __fmul_rn(b_s, r));
+      if (r_out != nullptr) r_out[at] = r;
     }
   }
 }
@@ -244,8 +200,7 @@ int fwd_impl(int n, int nk, int n_steps, const double* rk, const float* tables,
       float* r_nxt = s == 4 ? nullptr : rbuf + (j % 2) * size;
       km_stage<NP><<<blocks, kThreads, 0, stream>>>(
           u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt,
-          s == 0 ? traj + step * size : nullptr, nullptr, nullptr, nullptr, tab,
-          c.a[s], c.b[s], inflow[j], n, nk);
+          s == 0 ? traj + step * size : nullptr, tab, c.a[s], c.b[s], inflow[j], n, nk);
       const int err = launch_error();
       if (err != 0) return err;
       u_cur = u_nxt;
@@ -255,51 +210,206 @@ int fwd_impl(int n, int nk, int n_steps, const double* rk, const float* tables,
   return 0;
 }
 
+// ---------------------------------------- KM2: fused over s_f steps a launch
+
+// The widest Np whose thread holds its registers at 64 (1024-thread CTAs).
+constexpr int kKmMaxNp1024 = 6;
+
+// Σ_i coef[i]·w[i] over i = 0 … Np−1 in order.
 template <int NP>
-int rev_impl(int n, int nk, int n_steps, const double* rk,
-             const float* half_tables, const float* inflow, const float* traj,
-             const float* u_final, const float* lam_end, float* lam0,
-             float* eta, float* ubuf, float* rbuf, float* lubuf, float* lrbuf,
-             cudaStream_t stream) {
-  const StepTables half = pack_tables(NP, half_tables);
-  const RkCoef c = rk_coef(rk);
-  const long size = static_cast<long>(NP) * n;
-  const int blocks = (n + kTile - 1) / kTile;
-  const float* lu = lam_end;
-  const long total_t = 10L * n_steps;
-  long jt = 0;
-  for (int step = n_steps - 1; step >= 0; --step) {
-    const float* u_np1 = step == n_steps - 1 ? u_final : traj + (step + 1) * size;
-    const float* u_cur = traj + step * size;
-    const float* r_cur = nullptr;
-    for (int j = 0; j < 10; ++j) {  // two dt/2 steps; the last stage adds η
-      const int s = j % 5;
-      const bool last = j == 9;
-      float* u_nxt = last ? nullptr : ubuf + (j % 2) * size;
-      float* r_nxt = s == 4 ? nullptr : rbuf + (j % 2) * size;
-      km_stage<NP><<<blocks, kThreads, 0, stream>>>(
-          u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt, nullptr,
-          last ? lu : nullptr, last ? u_np1 : nullptr, last ? eta : nullptr, half,
-          c.a[s], c.b[s], inflow[10L * step + j], n, nk);
-      const int err = launch_error();
-      if (err != 0) return err;
-      u_cur = u_nxt;
-      r_cur = r_nxt;
-    }
-    const float* lr_cur = nullptr;
-    for (int j = 0; j < 10; ++j, ++jt) {  // two dt/2 transposed steps
-      const int s = 4 - j % 5;
-      float* lu_nxt = jt == total_t - 1 ? lam0 : lubuf + (jt % 2) * size;
-      float* lr_nxt = s == 0 ? nullptr : lrbuf + (jt % 2) * size;
-      km_stage_t<NP><<<blocks, kThreads, 0, stream>>>(
-          lu, s == 4 ? nullptr : lr_cur, lu_nxt, lr_nxt, half, c.a[s], c.b[s], n, nk);
-      const int err = launch_error();
-      if (err != 0) return err;
-      lu = lu_nxt;
-      lr_cur = lr_nxt;
+__device__ __forceinline__ float row_dot(const float* coef, const float* w) {
+  float s = __fmul_rn(coef[0], w[0]);
+#pragma unroll
+  for (int i = 1; i < NP; ++i) s = __fadd_rn(s, __fmul_rn(coef[i], w[i]));
+  return s;
+}
+
+// One residual stage of the window: post u[0] and u[Np−1], one barrier,
+// then km_stage's operations on this column (stage 0: r = rhs).
+template <int NP, int T>
+__device__ __forceinline__ void km_window_fwd(Traces<T>& tr, int buf, const Elem& el,
+                                              const float* u, float* r, float* un,
+                                              const StepTables& tab, bool have_r,
+                                              float a_s, float b_s, float uin) {
+  const int e = threadIdx.x;
+  tr.lo[buf][e] = u[0];
+  tr.hi[buf][e] = u[NP - 1];
+  __syncthreads();
+  if (!el.active) return;
+  const float du_l = __fsub_rn(u[0], el.first ? uin : tr.hi[buf][e - 1]);
+  const float du_r = el.last ? 0.f : __fsub_rn(u[NP - 1], tr.lo[buf][e + 1]);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    float acc = __fmul_rn(tab.drc[i * NP], u[0]);
+#pragma unroll
+    for (int m = 1; m < NP; ++m) acc = __fadd_rn(acc, __fmul_rn(tab.drc[i * NP + m], u[m]));
+    const float rhs = __fadd_rn(__fadd_rn(acc, __fmul_rn(tab.ll[i], du_l)),
+                                __fmul_rn(tab.lr[i], du_r));
+    r[i] = have_r ? __fadd_rn(__fmul_rn(a_s, r[i]), rhs) : rhs;
+    un[i] = __fadd_rn(u[i], __fmul_rn(b_s, r[i]));
+  }
+}
+
+// One transposed stage of the window: w = B_s·λu + λr (λr = 0 when
+// !have_lr), post w0 and w1, one barrier, λu += drcᵀw + the edge rows,
+// λr = A_s·w.
+template <int NP, int T>
+__device__ __forceinline__ void km_window_t(Traces<T>& tr, int buf, const Elem& el,
+                                            float* lu, float* lr, const StepTables& tab,
+                                            bool have_lr, float a_s, float b_s) {
+  const int e = threadIdx.x;
+  float w[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float bl = __fmul_rn(b_s, lu[i]);
+    w[i] = have_lr ? __fadd_rn(bl, lr[i]) : bl;
+  }
+  const float w0 = row_dot<NP>(tab.ll, w);
+  const float w1 = row_dot<NP>(tab.lr, w);
+  tr.lo[buf][e] = w0;
+  tr.hi[buf][e] = w1;
+  __syncthreads();
+  if (!el.active) return;
+  const float s1 = el.last ? 0.f : w1;
+  const float p0 = el.last ? 0.f : tr.lo[buf][e + 1];
+  const float p1 = el.first ? 0.f : tr.hi[buf][e - 1];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    float acc = __fmul_rn(tab.drc[j], w[0]);
+#pragma unroll
+    for (int m = 1; m < NP; ++m) acc = __fadd_rn(acc, __fmul_rn(tab.drc[m * NP + j], w[m]));
+    float v = __fadd_rn(lu[j], acc);
+    if (j == 0) v = __fadd_rn(v, __fsub_rn(w0, p1));
+    if (j == NP - 1) v = __fadd_rn(v, __fsub_rn(s1, p0));
+    lu[j] = v;
+    lr[j] = __fmul_rn(a_s, w[j]);
+  }
+}
+
+// KM2's reverse over ``steps`` steps: traj[0 .. steps − 1] their entry
+// states, u_top the state after the last. For s = steps − 1 … 0: two dt/2
+// steps from traj[s] whose result adds Σ λ·(u_{s+1} − half2) to η on the
+// local columns, then two dt/2 transposed steps of λ. λ from lam_in (whole
+// window), local λ to lam_out; eta (N,) accumulated in place. inflow.v[10·s
+// + j]: stage j of step s's two residual half steps. The window's ends are a
+// member's first and last columns (the masks of c % K) or ghost edges.
+template <int NP, int T>
+__global__ void __launch_bounds__(T)
+km_rev_fused(const float* __restrict__ traj, const float* __restrict__ u_top,
+             const float* __restrict__ lam_in, float* __restrict__ lam_out,
+             float* __restrict__ eta, const __grid_constant__ StepTables half,
+             RkCoef rk, const __grid_constant__ FusedInflow inflow, int nk, int tile_l,
+             int ghost, int steps) {
+  __shared__ Traces<T> tr;
+  const Elem el = elem_of(nk, tile_l, ghost);
+  const long n = static_cast<long>(gridDim.y) * nk;
+  const long size = NP * n;
+  float lu[NP] = {}, lr[NP] = {}, cur[NP] = {}, nxt[NP] = {}, unp1[NP] = {};
+  float acc = 0.f;
+  if (el.active) {
+    load_col<NP>(lam_in, el.c, n, lu);
+    load_col<NP>(traj + (steps - 1) * size, el.c, n, cur);
+    if (el.local) {
+      load_col<NP>(u_top, el.c, n, unp1);
+      acc = eta[el.c];
     }
   }
+  // 20 stages a step: stage j of each ten posts into buffer j & 1
+  for (int s = steps - 1; s >= 0; --s) {
+    // the next entry state is loaded while this step's 20 stages run
+    if (el.active && s > 0) load_col<NP>(traj + (s - 1) * size, el.c, n, nxt);
+    float u[NP], r[NP] = {}, un[NP] = {};
+#pragma unroll
+    for (int i = 0; i < NP; ++i) u[i] = cur[i];
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      const int st = j % 5;
+      km_window_fwd<NP, T>(tr, j & 1, el, u, r, un, half, st > 0, rk.a[st], rk.b[st],
+                           inflow.v[10 * s + j]);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) u[i] = un[i];
+    }
+    if (el.local) {
+      float e = 0.f;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const float t = __fmul_rn(lu[i], __fsub_rn(unp1[i], un[i]));
+        e = i == 0 ? t : __fadd_rn(e, t);
+      }
+      acc = __fadd_rn(acc, e);
+    }
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      const int st = 4 - j % 5;
+      km_window_t<NP, T>(tr, j & 1, el, lu, lr, half, st < 4, rk.a[st], rk.b[st]);
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      unp1[i] = cur[i];
+      cur[i] = nxt[i];
+    }
+  }
+  if (el.local) {
+    store_col<NP>(lam_out, el.c, n, lu);
+    eta[el.c] = acc;
+  }
+}
+
+// -3 unless KM2 takes the plan: the reverse's rules (aoa_dg::rev_plan_ok),
+// 1024 threads only at Np ≤ kKmMaxNp1024, n a multiple of K, at most
+// 65,535 members (grid.y).
+int check_rev_plan(int np, int n, int nk, const FusedPlan& p) {
+  if (!aoa_dg::rev_plan_ok(nk, p) || (p.threads == 1024 && np > kKmMaxNp1024)) return -3;
+  return nk >= 1 && n % nk == 0 && n / nk <= 65535 ? 0 : -3;
+}
+
+// KM2: launches of s_f steps from the top (the last takes the remainder).
+// λ rides the ping-pong lbuf (2·Np·N floats), the last launch writes lam0;
+// *launches counts the launches.
+template <int NP, int T>
+int rev_impl(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
+             const float* half_tables, const float* inflow, const float* traj,
+             const float* u_final, const float* lam_end, float* lam0, float* eta,
+             float* lbuf, int* launches, cudaStream_t stream) {
+  const StepTables half = pack_tables(NP, half_tables);
+  const RkCoef coef = rk_coef(rk);
+  const long size = static_cast<long>(NP) * n;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, n / nk);
+  const int block = fused_block(nk, p);
+  const int total = (n_steps + p.seg - 1) / p.seg;
+  const float* lam = lam_end;
+  for (int hi = n_steps; hi > 0; hi -= p.seg) {
+    const int lo = hi > p.seg ? hi - p.seg : 0;
+    FusedInflow f{};
+    for (int i = 0; i < 10 * (hi - lo); ++i) f.v[i] = inflow[10L * lo + i];
+    float* out = *launches == total - 1 ? lam0 : lbuf + (*launches % 2) * size;
+    km_rev_fused<NP, T><<<grid, block, 0, stream>>>(
+        traj + lo * size, hi == n_steps ? u_final : traj + hi * size, lam, out, eta, half,
+        coef, f, nk, p.tile_l, p.ghost, hi - lo);
+    const int err = launch_error();
+    if (err != 0) return err;
+    ++*launches;
+    lam = out;
+  }
   return 0;
+}
+
+// One instance per Np, built for the widest CTA a plan can pick there:
+// __launch_bounds__(T) sets the register budget, 64 a thread at T = 1024
+// (Np ≤ kKmMaxNp1024) and 128 at T = 512 (Np 7-8); a 512-thread plan at
+// Np ≤ 6 runs on the 1024-thread instance. (A 512-thread instance at Np = 6
+// was built too: ptxas gave it 64 registers and spilled.)
+template <int NP>
+constexpr int kKmThreads = NP <= kKmMaxNp1024 ? 1024 : 512;
+
+template <int NP>
+int rev_np(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
+           const float* half_tables, const float* inflow, const float* traj,
+           const float* u_final, const float* lam_end, float* lam0, float* eta,
+           float* lbuf, int* launches, cudaStream_t stream) {
+  if (p.threads > kKmThreads<NP>) return -3;
+  return rev_impl<NP, kKmThreads<NP>>(n, nk, n_steps, p, rk, half_tables, inflow, traj,
+                                      u_final, lam_end, lam0, eta, lbuf, launches, stream);
 }
 
 }  // namespace
@@ -320,21 +430,30 @@ int dg_mxu_fwd(int np, int n, int nk, int n_steps, const double* rk,
                                  static_cast<cudaStream_t>(stream)))
 }
 
+// KM2 with the plan (seg = s_f, tile_l = L, ghost = W, threads).
 // half_tables for the step dt/2; inflow: 10·n_steps values, stage j of the
 // two residual half steps of step m at 10m + j. eta (n,) zeroed by the
-// caller; ubuf, rbuf, lubuf, lrbuf: 2·Np·n floats each.
-int dg_mxu_rev(int np, int n, int nk, int n_steps, const double* rk,
-               const float* half_tables, const float* inflow, const float* traj,
-               const float* u_final, const float* lam_end, float* lam0,
-               float* eta, float* ubuf, float* rbuf, float* lubuf, float* lrbuf,
-               void* stream) {
-  AOA_NP_SWITCH(np, rev_impl<NP>(n, nk, n_steps, rk, half_tables, inflow, traj,
-                                 u_final, lam_end, lam0, eta, ubuf, rbuf, lubuf,
-                                 lrbuf, static_cast<cudaStream_t>(stream)))
+// caller; lbuf: 2·Np·n floats. *launches receives the CUDA launches issued.
+// -3: a plan the kernel does not take.
+int dg_mxu_rev(int np, int n, int nk, int n_steps, int seg, int tile_l, int ghost,
+               int threads, const double* rk, const float* half_tables,
+               const float* inflow, const float* traj, const float* u_final,
+               const float* lam_end, float* lam0, float* eta, float* lbuf,
+               int* launches, void* stream) {
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (n_steps < 1 || check_rev_plan(np, n, nk, p) != 0) return -3;
+  AOA_NP_SWITCH(np, rev_np<NP>(n, nk, n_steps, p, rk, half_tables, inflow, traj,
+                               u_final, lam_end, lam0, eta, lbuf, launches,
+                               static_cast<cudaStream_t>(stream)))
 }
 
 const char* dg_mxu_error_string(int code) {
   if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 8)";
+  if (code == -3)
+    return "KM2 plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 threads, or "
+           "1024 at Np <= 6, holding the window; n a multiple of K; B <= 65535; "
+           "n_steps >= 1)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -93,27 +93,30 @@
 #include <cuda_runtime.h>
 
 #include "dg_stage.cuh"
+#include "fused_window.cuh"
 
 namespace {
 
+using aoa_dg::Elem;
+using aoa_dg::FusedInflow;
+using aoa_dg::FusedPlan;
 using aoa_dg::Geom;
 using aoa_dg::RkCoef;
 using aoa_dg::StepTables;
+using aoa_dg::Traces;
 using aoa_dg::dg_inflow;
+using aoa_dg::elem_of;
+using aoa_dg::fused_block;
+using aoa_dg::kMaxFused;
+using aoa_dg::load_col;
 using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
+using aoa_dg::store_col;
 
 // ----------------------------------- K1, K2, K2r, KA: fused over s_f steps
 
-// Steps per launch: the inflow table rides the launch, 10 values a reverse
-// step (two dt/2 steps) and 5 a forward step.
-constexpr int kMaxFused = 16;
+// K1's steps per launch: 5 inflow values a forward step in the same table.
 constexpr int kMaxFwdFused = 32;
-
-// The inflow value of every stage of a launch, formed on the host.
-struct FusedInflow {
-  float v[10 * kMaxFused];
-};
 static_assert(5 * kMaxFwdFused <= 10 * kMaxFused, "K1's launch outgrows its inflow table");
 
 // The forward launch's table: stage s of its n-th step, global step
@@ -126,58 +129,6 @@ FusedInflow fwd_inflow(double t0, double dt, double a, const double* rk,
     for (int s = 0; s < 5; ++s) f.v[5 * n + s] = dg_inflow(a, tn, rk[10 + s], dt);
   }
   return f;
-}
-
-// The launch plan the wrapper picks: s_f steps a launch, L local elements a
-// tile, W ghosts a side, and the CTA size the kernels are built for.
-struct FusedPlan {
-  int seg, tile_l, ghost, threads;
-};
-
-// The double-buffered face traces: stage j posts into buffer j % 2. A thread
-// overwrites a buffer two stages after posting into it, past the barrier of
-// the stage between, which every reader of the old values had reached.
-template <int T>
-struct Traces {
-  float lo[2][T];  // forward u[0]; transposed fsl·Σ ll·w
-  float hi[2][T];  // forward u[Np−1]; transposed fsr·Σ lr·w
-};
-
-// This thread's element in its CTA's window: k = w0 + threadIdx.x of member
-// blockIdx.y; ``active`` inside the clipped window, ``local`` in [lo, hi).
-struct Elem {
-  int k;
-  long c;
-  bool active, local, first, last;
-};
-
-__device__ __forceinline__ Elem elem_of(int nk, int tile_l, int ghost) {
-  const int lo = blockIdx.x * tile_l;
-  const int hi = min(lo + tile_l, nk);
-  const int w0 = max(lo - ghost, 0);
-  const int e = min(hi + ghost, nk) - w0;
-  Elem el;
-  el.k = w0 + static_cast<int>(threadIdx.x);
-  el.c = static_cast<long>(blockIdx.y) * nk + el.k;
-  el.active = static_cast<int>(threadIdx.x) < e;
-  el.local = el.k >= lo && el.k < hi;
-  el.first = threadIdx.x == 0;
-  el.last = static_cast<int>(threadIdx.x) == e - 1;
-  return el;
-}
-
-template <int NP>
-__device__ __forceinline__ void load_col(const float* __restrict__ x, long c,
-                                         long bk, float* v) {
-#pragma unroll
-  for (int i = 0; i < NP; ++i) v[i] = x[i * bk + c];
-}
-
-template <int NP>
-__device__ __forceinline__ void store_col(float* x, long c, long bk,
-                                          const float* v) {
-#pragma unroll
-  for (int i = 0; i < NP; ++i) x[i * bk + c] = v[i];
 }
 
 // One forward stage of the window: post the faces, one barrier, update.
@@ -360,12 +311,6 @@ adj_fused(const float* __restrict__ lam_in, float* __restrict__ lam_out, Geom g,
   if (el.local) store_col<NP>(lam_out, el.c, bk, lu);
 }
 
-// Threads a CTA runs: its widest window, in whole warps.
-int fused_block(int nk, const FusedPlan& p) {
-  const int e = nk < p.tile_l + 2 * p.ghost ? nk : p.tile_l + 2 * p.ghost;
-  return (e + 31) / 32 * 32;
-}
-
 // The reverse over global steps n_first .. n_first + n_count − 1, whose entry
 // states are traj[0 .. n_count − 1] and u_end the state after them, in
 // launches of s_f steps from the top (the last launch takes the remainder).
@@ -520,13 +465,9 @@ int adj_est_recompute_impl(int nb, int nk, int n_steps, int segment, double t0,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -3 unless the plan is one the kernels take: 1 <= s_f <= kMaxFused, the
-// ghost rule W >= 10·s_f + 10, a CTA size the kernels are built for and a
-// window that fits it.
+// -3 unless the plan is one the reverse kernels take (aoa_dg::rev_plan_ok).
 int check_plan(int nk, const FusedPlan& p) {
-  if (p.seg < 1 || p.seg > kMaxFused || p.tile_l < 1 || p.ghost < 10 * p.seg + 10) return -3;
-  if (p.threads != 512 && p.threads != 1024) return -3;
-  return fused_block(nk, p) <= p.threads ? 0 : -3;
+  return aoa_dg::rev_plan_ok(nk, p) ? 0 : -3;
 }
 
 // -4 unless K1 takes the plan: 1 <= s_f <= kMaxFwdFused, the forward ghost

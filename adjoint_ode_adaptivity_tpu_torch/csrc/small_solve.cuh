@@ -1,8 +1,9 @@
-// Per-thread solves of tiny dense systems held in registers, shared by the
-// DG-in-time slab kernels (dg_slab.cu, dg_slab_mixed.cu): unrolled Cramer
-// (cofactor expansion) for N ≤ 4, unrolled Gaussian elimination with
+// Per-thread solves of tiny dense systems held in registers, for the
+// DG-in-time slab kernels: solve (dg_slab.cu, D1) is unrolled Cramer
+// (cofactor expansion) for N ≤ 4 and unrolled Gaussian elimination with
 // partial pivoting by selects (no branches, the warp stays converged) for
-// N = 5..8 — march/dg_batched.py solve_small's arithmetic.
+// N = 5..8 — march/dg_batched.py solve_small's arithmetic; solve_nopivot
+// (dg_slab_mixed.cu, H1) is march/dg_mixed.py gauss_solve's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,6 +85,32 @@ __device__ __forceinline__ void solve(float (&a)[N][N], float (&b)[N], float (&x
       for (int j = i + 1; j < N; ++j) acc = acc - a[i][j] * x[j];
       x[i] = acc / a[i][i];
     }
+  }
+}
+
+// x = A⁻¹ b by Gaussian elimination without pivoting, each pivot's
+// reciprocal taken once (march/dg_mixed.py gauss_solve's arithmetic: the
+// padding identity keeps padded pivots 1 and the live slab pivots stay away
+// from zero); A and b overwritten.
+template <int N>
+__device__ __forceinline__ void solve_nopivot(float (&a)[N][N], float (&b)[N], float (&x)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float inv = 1.f / a[k][k];
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const float m = a[i][k] * inv;
+#pragma unroll
+      for (int c = k + 1; c < N; ++c) a[i][c] = a[i][c] - m * a[k][c];
+      b[i] = b[i] - m * b[k];
+    }
+  }
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) {
+    float acc = b[i];
+#pragma unroll
+    for (int j = i + 1; j < N; ++j) acc = acc - a[i][j] * x[j];
+    x[i] = acc / a[i][i];
   }
 }
 

@@ -108,7 +108,7 @@ class KernelLibrary:
         lib.dg_tiled_rev.restype = i
         lib.dg_mxu_fwd.argtypes = [i] * 4 + [p] * 9
         lib.dg_mxu_fwd.restype = i
-        lib.dg_mxu_rev.argtypes = [i] * 4 + [p] * 13
+        lib.dg_mxu_rev.argtypes = [i] * 8 + [p] * 11
         lib.dg_mxu_rev.restype = i
         lib.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
         lib.fd_ensemble.restype = i
@@ -118,7 +118,7 @@ class KernelLibrary:
         lib.fd_estimate_per_member.restype = i
         lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 8 + [p] * 6
         lib.dg_estimate_ensemble.restype = i
-        lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 9 + [p] * 8
+        lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 11 + [p] * 8
         lib.dg_estimate_hp_per_member.restype = i
         lib.resblock_epoch_grad.argtypes = [i] * 5 + [p] * 6 + [d] * 2 + [p] * 5
         lib.resblock_epoch_grad.restype = i

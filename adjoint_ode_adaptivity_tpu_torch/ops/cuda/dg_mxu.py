@@ -12,11 +12,14 @@ Counterpart of the JAX package's ``ops/pallas/dg_mxu.py``
   u_n, η += Σ_rows λ·(u_{n+1} − half2), two dt/2 transposed steps. Replaces
   ``_adj_est_kernel_m`` (dg_mxu.py:179).
 
-Both launch once a stage, as K1/K2 (5 a step forward, 20 in reverse): the
-launches and the state's round trip through device memory every stage bound
-them, far above the operations bound of the work; the volume product is
-staged per CTA in shared memory with a register tile of outputs per thread
-(csrc/dg_mxu.cu).
+KM1 launches once a stage (5 a step): the launches and the state's round
+trip through device memory every stage bound it, far above the operations
+bound of the work. KM2 is fused over s_f steps a launch (``km_rev_fused``,
+on K2's windows): one CTA per (tile, member), L local columns and W = 10·s_f
++ 10 ghost columns a side, one thread a column, λ and the residual state in
+registers, one barrier a stage; :func:`km_rev_plan` picks s_f, the CTA size
+and the tiles; ⌈n_steps/s_f⌉ CUDA launches.
+:func:`km_adj_est_fused_plain` runs the same schedule in plain PyTorch.
 
 Arithmetic. The tables fold rx and dt as ``_MxuCfg.tables`` does (dg_mxu.py:
 74-82): the scalar −a·rx·dt is formed in double, rounded to float32, and
@@ -36,10 +39,13 @@ float32 arithmetic (both IEEE, round to nearest).
 
 A CUDA float32 tensor launches the kernel or raises; a CPU tensor takes the
 plain version (float32 or float64). Each wrapper counts its kernel calls in
-``.launches``.
+``.launches``; ``km_adj_est.cuda_launches`` holds the last call's CUDA
+launches.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -48,12 +54,17 @@ import torch
 from adjoint_ode_adaptivity_tpu_torch.march.lsrk import RK4A, RK4B, RK4C
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
+    FUSED_CANDIDATE_STEPS,
+    H100_SMS,
     MAX_NP,
     MIN_NP,
     _RK,
+    FusedPlan,
+    _balanced_plan,
     _check_on,
     _check_uniform,
     _ptr,
+    _sm_count,
     _stream,
 )
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
@@ -66,6 +77,8 @@ __all__ = [
     "km_fwd_traj_plain",
     "km_adj_est",
     "km_adj_est_plain",
+    "km_adj_est_fused_plain",
+    "km_rev_plan",
     "reset_launch_counts",
     "make_cuda_fwd_adj_estimate_grid_mxu",
 ]
@@ -252,25 +265,103 @@ def km_fwd_traj_plain(u0, t0: float, ops: MxuOps):
     return traj, u
 
 
-def km_adj_est_plain(traj, u_final, lam_end, t0: float, ops: MxuOps):
-    """KM2's plain version: ``(lam0, eta)``, eta (N,)."""
+def _rev_step_plain(u_n, u_np1, lu, eta, inflow_n, tabs, coef, first, last):
+    """One reverse step of KM2 on (Np, columns): two dt/2 steps from u_n, η
+    += Σ_rows λ·(u_{n+1} − half2), then two dt/2 transposed steps of λ.
+    Returns ``(lu, eta)``."""
+    half = _march_plain(u_n, inflow_n[:5], tabs, coef, first, last)
+    half2 = _march_plain(half, inflow_n[5:], tabs, coef, first, last)
+    eta = eta + _row_dot(lu, u_np1 - half2)
+    for _ in range(2):
+        lr = None
+        for s in (4, 3, 2, 1, 0):
+            lu, lr = _stage_t_plain(lu, lr, s, tabs, coef, first, last)
+    return lu, eta
+
+
+def _rev_operands(lam_end, t0: float, ops: MxuOps):
     dtype, device = lam_end.dtype, lam_end.device
     inflow = torch.as_tensor(rev_inflow(t0, ops), dtype=dtype, device=device)
-    tabs, coef = _tabs(ops.half, dtype), _coef(dtype, device)
-    first, last = _masks(ops, device)
+    return inflow, _tabs(ops.half, dtype), _coef(dtype, device)
+
+
+def km_adj_est_plain(traj, u_final, lam_end, t0: float, ops: MxuOps):
+    """KM2's plain version: ``(lam0, eta)``, eta (N,)."""
+    inflow, tabs, coef = _rev_operands(lam_end, t0, ops)
+    first, last = _masks(ops, lam_end.device)
     n_steps = traj.shape[0]
     lu = lam_end
-    eta = torch.zeros(lam_end.shape[1:], dtype=dtype, device=device)
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
     for n in reversed(range(n_steps)):
         u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
-        half = _march_plain(traj[n], inflow[n, :5], tabs, coef, first, last)
-        half2 = _march_plain(half, inflow[n, 5:], tabs, coef, first, last)
-        eta = eta + _row_dot(lu, u_np1 - half2)
-        for _ in range(2):
-            lr = None
-            for s in (4, 3, 2, 1, 0):
-                lu, lr = _stage_t_plain(lu, lr, s, tabs, coef, first, last)
+        lu, eta = _rev_step_plain(traj[n], u_np1, lu, eta, inflow[n], tabs, coef, first, last)
     return lu, eta
+
+
+# ------------------------------------------------------------ KM2's plans
+
+
+# KM2's step, 20 stages of ~2·Np² + 9·Np + 4 un-contracted FP32 operations a
+# column (no FMA: the bits), costs KM_STEP_WARP_US × (2·Np² + 9·Np + 4) µs for
+# each warp an SM holds over a launch, under dg_rhs's model (_fused_cost;
+# LAUNCH_US a launch, at least MIN_WARPS warps an SM). Fitted to
+# chip_smoke.py phase 34's first run on an NVIDIA H100 80GB HBM3 at 700 W:
+# the mean over the 13 plans it timed at the two MXU rows (Np = 8:
+# 0.00309-0.00384; Np = 3: 0.00330-0.00377 a unit).
+KM_STEP_WARP_US = 0.00355
+
+
+def km_step_warp_us(np_: int) -> float:
+    """µs a KM2 step costs each warp an SM holds, at Np rows."""
+    return KM_STEP_WARP_US * (2 * np_ * np_ + 9 * np_ + 4)
+
+
+# the search costs ~1 ms of host time: once per shape
+@functools.lru_cache(maxsize=256)
+def km_rev_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> FusedPlan:
+    """KM2's plan for K columns a member, B members, Np rows and n_steps
+    steps on a card of ``sms`` SMs: K2's windows (dg_rhs.fused_plan, W =
+    10·s_f + 10, one CTA per (tile, member)) and search (dg_rhs
+    _balanced_plan: s_f ∈ {4, 8} at most n_steps, 512 threads at Np ≥ 7,
+    1024 too below, every tiling) under :func:`km_step_warp_us`;
+    ⌈n_steps/s_f⌉ launches."""
+    options = sorted({min(s, n_steps) for s in FUSED_CANDIDATE_STEPS})
+    return _balanced_plan(k, b, np_, n_steps, sms, options, lambda s: -(-n_steps // s),
+                          km_step_warp_us(np_))
+
+
+def km_adj_est_fused_plain(traj, u_final, lam_end, t0: float, ops: MxuOps, plan: FusedPlan):
+    """KM2's launch schedule in plain PyTorch: s_f steps a launch from the
+    top (the last takes the remainder), every (tile, member) on its own
+    window, whose ends count as a member's first and last columns, λ carried
+    across launches, η accumulated per column in the step order. Any ghost
+    width, so a narrow one can be shown to reach the local columns. Returns
+    ``(lam0, eta)``."""
+    inflow, tabs, coef = _rev_operands(lam_end, t0, ops)
+    n_steps = traj.shape[0]
+    lam = lam_end
+    eta = torch.zeros(lam_end.shape[1:], dtype=lam_end.dtype, device=lam_end.device)
+    for hi_n in range(n_steps, 0, -plan.segment):
+        lo_n = max(hi_n - plan.segment, 0)
+        lam_next = torch.empty_like(lam)
+        for c0 in range(0, ops.n, ops.k):
+            for t in range(plan.n_tiles):
+                lo, hi = t * plan.tile, min((t + 1) * plan.tile, ops.k)
+                w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
+                win, glo = slice(c0 + w0, c0 + w1), slice(c0 + lo, c0 + hi)
+                loc = slice(lo - w0, hi - w0)
+                first = torch.zeros(w1 - w0, dtype=torch.bool, device=lam.device)
+                last = first.clone()
+                first[0] = last[-1] = True
+                lw, e = lam[:, win], eta[win]
+                for n in reversed(range(lo_n, hi_n)):
+                    u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
+                    lw, e = _rev_step_plain(traj[n][:, win], u_np1[:, win], lw, e, inflow[n],
+                                            tabs, coef, first, last)
+                lam_next[:, glo] = lw[:, loc]
+                eta[glo] = e[loc]
+        lam = lam_next
+    return lam, eta
 
 
 # ------------------------------------------------------------------ wrappers
@@ -307,7 +398,9 @@ def km_fwd_traj(u0: torch.Tensor, t0: float, ops: MxuOps):
 def km_adj_est(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor, t0: float,
                ops: MxuOps):
     """KM2: the reverse sweep over KM1's trajectory with the fine (dt/2)²
-    transpose. Returns ``(lam0, eta)``, eta (N,)."""
+    transpose. Returns ``(lam0, eta)``, eta (N,). On the card it runs
+    :func:`km_rev_plan`'s schedule for the card's SM count: ⌈n_steps/s_f⌉
+    launches of the fused kernel."""
     state = (ops.np_, ops.n)
     n_steps = ops.segment * ops.n_segments
     on_cuda = _check_on("traj", traj, (n_steps, *state), ops.device)
@@ -315,24 +408,35 @@ def km_adj_est(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
     _check_on("lam_end", lam_end, state, ops.device)
     if not on_cuda:
         return km_adj_est_plain(traj, u_final, lam_end, float(t0), ops)
+    plan = km_rev_plan(ops.k, ops.b, ops.np_, n_steps, _sm_count(traj.device))
+    km_adj_est.launches += 1
+    lam0, eta, km_adj_est.cuda_launches = _km2_launch(traj, u_final, lam_end, t0, ops, plan)
+    return lam0, eta
+
+
+def _km2_launch(traj, u_final, lam_end, t0, ops: MxuOps, plan: FusedPlan):
+    """One dg_mxu_rev call with ``plan``: ``(lam0, eta, CUDA launches)``.
+    The wrapper counts its launches; this does not."""
     lib = load_library()
     inflow = rev_inflow(float(t0), ops)
     lam0 = torch.empty_like(lam_end)
     eta = torch.zeros((ops.n,), dtype=torch.float32, device=traj.device)
-    work = torch.empty((8, lam_end.numel()), dtype=torch.float32, device=traj.device)
+    lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
+    launches = ctypes.c_int(0)
     code = lib.lib.dg_mxu_rev(
-        ops.np_, ops.n, ops.k, n_steps, _RK.ctypes.data, ops.half.packed.ctypes.data,
-        inflow.ctypes.data, _ptr(traj), _ptr(u_final), _ptr(lam_end), _ptr(lam0), _ptr(eta),
-        _ptr(work[0]), _ptr(work[2]), _ptr(work[4]), _ptr(work[6]), _stream(traj.device),
+        ops.np_, ops.n, ops.k, traj.shape[0], plan.segment, plan.tile, plan.ghost, plan.threads,
+        _RK.ctypes.data, ops.half.packed.ctypes.data, inflow.ctypes.data,
+        _ptr(traj), _ptr(u_final), _ptr(lam_end), _ptr(lam0), _ptr(eta), _ptr(lbuf[0]),
+        ctypes.addressof(launches), _stream(traj.device),
     )
-    km_adj_est.launches += 1
     lib.check(code, "dg_mxu_rev", lib.lib.dg_mxu_error_string)
-    return lam0, eta
+    return lam0, eta, launches.value
 
 
 def reset_launch_counts() -> None:
     km_fwd_traj.launches = 0
     km_adj_est.launches = 0
+    km_adj_est.cuda_launches = 0
 
 
 reset_launch_counts()

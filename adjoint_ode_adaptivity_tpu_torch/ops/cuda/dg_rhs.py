@@ -409,17 +409,17 @@ def _cheapest(plans, cost_of) -> FusedPlan:
 
 
 def _balanced_plan(k: int, b: int, np_: int, n_steps: int, sms: int, steps_options,
-                   launches_of) -> FusedPlan:
-    """K2's or K2r's cheapest plan under :func:`_fused_cost` over s_f in
-    ``steps_options``, 512- or 1024-thread CTAs (1024 only where the reverse
-    kernel holds its registers at 64 a thread without spilling: Np ≤ 6, per
-    nvcc -Xptxas -v) and every tiling (:func:`_tilings`); a tie goes to the
-    fewest tiles and s_f = 4."""
+                   launches_of, step_warp_us: float = STEP_WARP_US) -> FusedPlan:
+    """K2's, K2r's or KM2's cheapest plan under :func:`_fused_cost` at
+    ``step_warp_us`` over s_f in ``steps_options``, 512- or 1024-thread CTAs
+    (1024 only where the reverse kernel holds its registers at 64 a thread
+    without spilling: Np ≤ 6, per nvcc -Xptxas -v) and every tiling
+    (:func:`_tilings`); a tie goes to the fewest tiles and s_f = 4."""
     plans = (plan for steps in steps_options
              for threads in (FUSED_THREADS if np_ <= 6 else FUSED_THREADS[:1])
              for plan in _tilings(k, b, sms, fused_plan(k, steps, threads)))
     return _cheapest(plans, lambda plan: _fused_cost(k, b, n_steps, launches_of(plan.segment),
-                                                     plan, sms))
+                                                     plan, sms, step_warp_us))
 
 
 def _fwd_cost(k: int, b: int, np_: int, n_steps: int, store_every: int | None,

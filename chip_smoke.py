@@ -65,7 +65,8 @@ raises, and the script exits non-zero; nothing is caught.
    stack np_max 6, 8 Newton steps); (b) B=4096, seed 6; (c) np_max 8 at
    B=1024; (d) t*sin(u) and gaussian_mixture at B=4096; (e) uniform orders
    1..3 against the DG slab kernel on the same Gauss rule. Tails contribute
-   exactly 0.
+   exactly 0. u_c, u_f, v and err are each held to their per-element bound
+   (ops/cuda/dg_slab_mixed.hp_kernel_tolerance).
 13. The hp paths through their entry points: the main path ``drivers.
    dg_adaptive.main(["--hp", "hp", "--ensemble", "512", "--seed", "5",
    "--per-member", "--device-loop", ...])`` (bench.py's hp study) with the
@@ -212,6 +213,22 @@ raises, and the script exits non-zero; nothing is caught.
    on the device alone (queued behind a sleep, CUDA events) and under
    torch.profiler: the device's busy share of the calls' wall, the host's
    side, each launch's device time.
+34. KM2 fused over s_f steps a launch (csrc/dg_mxu.cu km_rev_fused) and H1
+   with G lanes a member (csrc/dg_slab_mixed.cu): the registers and spills
+   that ptxas reported for both (no km_rev_fused instance may spill); (a)
+   KM2 at phase 26's meshes (B=8, 13 steps) on every plan km_rev_plan
+   searches and on narrow tiles, bit-equal to km_adj_est_plain; (b) at both
+   MXU_ROWS the wrapper beside each (s_f, CTA size) at its cheapest tiling,
+   timed in turns, each with its CUDA
+   launches, the cost model and the KM_STEP_WARP_US it implies, and its
+   share of the bound, every plan the wrapper's bits and the wrapper the
+   plain version's (a gate); (c) KM1+KM2 against K1+K2 at both rows in
+   turns; (d) H1 at 12(a) and 12(b) (B=512 and 4096) in both adjoint modes
+   on G = 1, 4, 8, 16, 32 lanes and 64-, 128- and 256-thread CTAs, timed in
+   turns beside the wrapper, each within hp_kernel_tolerance and
+   bit-identical on a repeat (a gate), with its share of the bound; (e)
+   phase 14's B=512 hp study in turns on hp_plan's launch and on one lane a
+   member, and its torch.profiler trace.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -1369,29 +1386,40 @@ def hp_case(label, device, errs, ode="du/dt=sin(u)", n_user=HP_STUDY["n_max"], f
     torch.cuda.synchronize()
     want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
     tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
-    e = {}
-    for name, g, w in zip(("u_c", "u_f", "v"), got, want):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all()), f"{label}: {name}"
-        e[name] = float((g - w).abs().max())
-    bounds = {"u_c": tol["u"], "u_f": tol["u"], "v": tol["v"]}
-    d_err = (got[3] - want[3]).abs().double()
+    e, share = hp_shares(got, want, tol)
     tail = times[:, :-1] == HP_STUDY["t1"]  # the trailing zero-width slabs
     assert bool(tail.any()) and bool((got[3][tail] == 0).all()), f"{label}: a tail contributed"
-    # the err bound is per element: report the worst share of it, and how
-    # many elements an err of 0 would fail
-    share = float((d_err / tol["err"].clamp_min(1e-300)).max())
-    teeth = int((want[3].abs() > tol["err"]).sum())
+    # every bound is per element: how many elements a zero output would fail
+    live = ~tail
+    teeth = {name: int((w.abs().amax(dim=-1)[live] > tol[name][..., 0][live]).sum())
+             for name, w in zip(("u_c", "u_f", "v"), want)}
+    teeth["err"] = int((want[3].abs() > tol["err"]).sum())
     say("12", f"{label}: {ode} n_max_user {n_user} fo {fo} (np_max {run.plan.mops.np_max}) K={k} "
-              f"B={b} {mode} | " + " ".join(f"{x} {e[x]:.3e} (tol {bounds[x]:.3e})" for x in e)
-        + f" err {float(d_err.max()):.3e} (per-element tol <= {float(tol['err'].max()):.3e}, worst "
-          f"{share:.2%} of it); max|err| {float(want[3].abs().max()):.3e}, above its tol on "
-          f"{teeth} elements; {int(tail.sum())} tail slabs, each contribution exactly 0")
-    assert all(e[x] <= bounds[x] for x in e) and bool((d_err <= tol["err"]).all()), (
-        f"{label}: the hp kernel disagrees")
-    assert teeth > 0, f"{label}: the err bound cannot tell an err of 0 from the plain version's"
-    e["err"] = float(d_err.max())
+              f"B={b} {mode}, {hm.hp_plan(b, run.plan.mops.np_max, run.plan.mops.rq.shape[0])} | "
+              + " ".join(f"{x} {e[x]:.3e} (per-element tol <= {float(tol[x].max()):.3e}, worst "
+                         f"{share[x]:.2%} of it)" for x in e)
+        + f"; max|err| {float(want[3].abs().max()):.3e}; elements above their bound of "
+          f"{int(live.sum())} live: {teeth}; {int(tail.sum())} tail slabs, each contribution "
+          f"exactly 0")
+    assert max(share.values()) <= 1.0, f"{label}: the hp kernel disagrees"
+    assert teeth["err"] > 0, f"{label}: the err bound cannot tell an err of 0 from the plain version's"
     errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], *e.values())
     return run, (times, ns, y0), got, tol
+
+
+def hp_shares(got, want, tol):
+    """Per output (u_c, u_f, v, err): max|kernel − plain| and its worst
+    share of hp_kernel_tolerance's per-element bound (a bound of 0 takes
+    only an exact 0)."""
+    import torch
+
+    e, share = {}, {}
+    for name, g, w in zip(("u_c", "u_f", "v", "err"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        d = (g - w).abs().double()
+        e[name] = float(d.max())
+        share[name] = float((d / tol[name]).nan_to_num(0.0, posinf=float("inf")).max())
+    return e, share
 
 
 def phase12(device, errs):
@@ -1423,11 +1451,14 @@ def phase12(device, errs):
         e = (float((got[0][..., : n + 1] - d1[0]).abs().max()),
              float((got[2][..., : n + 2] - d1[1]).abs().max()), float(d_err.max()))
         pads = (float(got[0][..., n + 1:].abs().max()), float(got[2][..., n + 2:].abs().max()))
-        say("12", f"(e) order {n}: H1 vs D1 (same Gauss rule) u {e[0]:.3e} (tol {tol['u']:.3e}) "
-                  f"v {e[1]:.3e} (tol {tol['v']:.3e}) err {e[2]:.3e} (per-element tol, worst "
+        ok_u = bool(((got[0][..., : n + 1] - d1[0]).abs() <= tol["u_c"]).all())
+        ok_v = bool(((got[2][..., : n + 2] - d1[1]).abs() <= tol["v"]).all())
+        say("12", f"(e) order {n}: H1 vs D1 (same Gauss rule) u {e[0]:.3e} (per-element tol <= "
+                  f"{float(tol['u_c'].max()):.3e}) v {e[1]:.3e} (per-element tol <= "
+                  f"{float(tol['v'].max()):.3e}) err {e[2]:.3e} (per-element tol, worst "
                   f"{float((d_err / tol['err'].clamp_min(1e-300)).max()):.2%} of it); padded "
                   f"nodes max |u| {pads[0]:.1e} |v| {pads[1]:.1e}")
-        assert e[0] <= tol["u"] and e[1] <= tol["v"] and bool((d_err <= tol["err"]).all())
+        assert ok_u and ok_v and bool((d_err <= tol["err"]).all())
         assert max(pads) == 0
     hp_refusals(cases["a", "solve"])
     return cases
@@ -1599,11 +1630,6 @@ def hp_times(device, cases):
     version at 12(a) and 12(b) in each adjoint mode; the B = 512 and 4096
     per-member studies (device loop) with each engine. Returns (kernel ms,
     plain ms, bound) at 12(a) solve for the kernel line."""
-    import numpy as np
-    import torch
-
-    from adjoint_ode_adaptivity_tpu_torch import odes
-    from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
 
     out = {}
@@ -1615,24 +1641,17 @@ def hp_times(device, cases):
         b_ms, b_by = dg_hp_bound(times, ns, plan.newton_iters, plan.fine_offset,
                                  plan.mops.rq.shape[0], plan.mops.np_max, plan.adjoint_mode)
         b = y0.shape[0]
-        say("14", f"dg_estimate_hp_per_member 12({key[0]}) {key[1]} B={b} K={HP_K}: kernel "
+        launch = hm.hp_plan(b, plan.mops.np_max, plan.mops.rq.shape[0])
+        say("14", f"dg_estimate_hp_per_member 12({key[0]}) {key[1]} B={b} K={HP_K} on "
+                  f"{launch.lanes} lanes a member, {launch.threads}-thread CTAs: kernel "
                   f"{ms:.4f} ms = {b * HP_K / (ms / 1e3):.4e} member-elements/s; plain "
                   f"{plain_ms:.3f} ms; kernel speed-up {plain_ms / ms:.1f}x; bound {b_ms:.6f} ms "
                   f"({b_by}), kernel at {b_ms / ms:.2%} of it")
         out[key] = (ms, plain_ms, (b_ms, b_by))
 
-    sin = odes.get_ode("du/dt=sin(u)")
-    kw = dict(f_u=sin.f_u, k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"], mode="hp", tol=0.0,
-              maxit=HP_STUDY["maxit"], newton_iters=HP_STUDY["newton_iters"], ode=sin,
-              device_loop=True, dtype=torch.float32, device=device)
     its = HP_STUDY["maxit"] + 1
     for b, seed in ((HP_STUDY["b"], HP_STUDY["seed"]), (HP_BIG["b"], HP_BIG["seed"])):
-        y0s = np.random.default_rng(seed).uniform(0.5, 2.0, b).astype(np.float32)
-
-        def study(engine, y0s=y0s):
-            hp_loop.run_adaptive_dg_hp_per_member(sin.f, y0s, (0.0, HP_STUDY["t1"]),
-                                                  engine=engine, **kw)
-
+        study = hp_study(device, b, seed)
         ms_cuda = cuda_ms(lambda: study("cuda"), runs=5)
         ms_torch = cuda_ms(lambda: study("torch"), runs=1, warmup=0)
         say("14", f"run_adaptive_dg_hp_per_member B={b} k0 {HP_STUDY['k0']} n_max "
@@ -1642,6 +1661,28 @@ def hp_times(device, cases):
         if b == HP_STUDY["b"]:
             study_trace(lambda: study("cuda"), "hp_kernel")
     return out["a", "solve"]
+
+
+def hp_study(device, b, seed):
+    """``study(engine)``: bench.py's per-member hp study (device loop,
+    float32) at B members, y0 ~ U(0.5, 2) from ``default_rng(seed)``."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    kw = dict(f_u=sin.f_u, k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"], mode="hp", tol=0.0,
+              maxit=HP_STUDY["maxit"], newton_iters=HP_STUDY["newton_iters"], ode=sin,
+              device_loop=True, dtype=torch.float32, device=device)
+    y0s = np.random.default_rng(seed).uniform(0.5, 2.0, b).astype(np.float32)
+
+    def study(engine):
+        hp_loop.run_adaptive_dg_hp_per_member(sin.f, y0s, (0.0, HP_STUDY["t1"]), engine=engine,
+                                              **kw)
+
+    return study
 
 
 def study_trace(run, kernel, phase="14", also=()):
@@ -3053,7 +3094,9 @@ def phase27(device, errs):
         dofs = 8 * disc.np_ * 10_000 * 2 * n_steps
         say("27", f"N={n_order} K=10000 B=8 segment={seg} steps={n_steps}: KM1+KM2 {ms_km:.3f} ms "
                   f"({dofs / ms_km * 1e3:.4e} fwd+adjoint DoF-steps/s), K1+K2 {ms_k12:.3f} ms "
-                  f"({dofs / ms_k12 * 1e3:.4e}); CUDA launches KM {25 * n_steps}, K1+K2 "
+                  f"({dofs / ms_k12 * 1e3:.4e}); CUDA launches KM "
+                  f"{5 * n_steps + dg_mxu.km_adj_est.cuda_launches} (KM1 {5 * n_steps}, KM2 "
+                  f"{dg_mxu.km_adj_est.cuda_launches}), K1+K2 "
                   f"{dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} (in turns K1+K2, "
                   f"KM1+KM2, KM1+KM2, K1+K2, median of 5 each: KM {turns['KM1+KM2'][0]:.3f} / "
                   f"{turns['KM1+KM2'][1]:.3f}, K1K2 {turns['K1+K2'][0]:.3f} / "
@@ -3884,6 +3927,238 @@ def phase33(device, lib, errs):
     return rows
 
 
+# KM2's small shapes (phase 26's meshes, B = 8, a step 10x the CFL-free
+# 2e-4 so that η sits above roundoff) held to the plain version's bits on
+# every plan, with narrow tiles so that windows cut members
+KM2_SMALL = ((1, 24, 2e-3), (2, 64, 2e-3), (7, 24, 5e-4))
+HP_LANES = (1, 4, 8, 16, 32)  # 1: one lane a member, the design H1 replaced
+
+
+def km2_candidates(k, b, np_, n_steps, sms):
+    """The wrapper's plan and, for each (s_f, CTA size) that km_rev_plan
+    searches, the tiling its cost model rates cheapest there."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    plans = {"wrapper's plan": dg_mxu.km_rev_plan(k, b, np_, n_steps, sms)}
+    for st in sorted({min(x, n_steps) for x in dg_rhs.FUSED_CANDIDATE_STEPS}):
+        for th in dg_rhs.FUSED_THREADS if np_ <= 6 else dg_rhs.FUSED_THREADS[:1]:
+            plans[f"s_f={st} {th} threads"] = dg_rhs._cheapest(
+                dg_rhs._tilings(k, b, sms, dg_rhs.fused_plan(k, st, th)),
+                lambda plan: dg_rhs._fused_cost(k, b, n_steps, -(-n_steps // plan.segment), plan,
+                                                sms, dg_mxu.km_step_warp_us(np_)))
+    return plans
+
+
+def km2_plans(n_order, seg, n_steps, device, sms, errs):
+    """KM2 through its wrapper and on every plan of km2_candidates at one
+    MXU row (K = 10^4, B = 8), timed in turns on KM1's trajectory, each with
+    its CUDA launches, the cost model (and the KM_STEP_WARP_US it implies)
+    and its share of mxu_bounds; every plan's output the wrapper's bits, and
+    the wrapper's the plain version's (a gate). Returns the wrapper's mean
+    ms."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    disc = mesh(n_order, 10_000, graded=False)
+    km, _, u0, lam = mxu_run(disc, cfl_step(disc), seg, n_steps, device)
+    ops = km.ops
+    flat = (disc.np_, ops.n)
+    lam = lam.reshape(flat)
+    traj, uf = dg_mxu.km_fwd_traj(u0.reshape(flat), 0.0, ops)
+    plans = km2_candidates(ops.k, ops.b, disc.np_, n_steps, sms)
+    out, counts = {}, {}
+
+    def on(key, plan):
+        def run():
+            *out[key], counts[key] = dg_mxu._km2_launch(traj, uf, lam, 0.0, ops, plan)
+
+        return run
+
+    def wrapper():
+        out["wrapper"] = dg_mxu.km_adj_est(traj, uf, lam, 0.0, ops)
+
+    turns = in_turns({"wrapper": wrapper, **{key: on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = dg_mxu.km_adj_est.cuda_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dg_mxu.km_adj_est_plain(traj, uf, lam, 0.0, ops)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    bits = all(bool(torch.equal(x, y)) for x, y in zip(out["wrapper"], want))
+    errs["mxu_adj_est"] = max(errs["mxu_adj_est"], *(float((x - y).abs().max())
+                                                    for x, y in zip(out["wrapper"], want)))
+    b_ms, b_by = mxu_bounds(disc.np_, ops.n, n_steps)["mxu_adj_est"]
+    for key, plan in {"wrapper": plans["wrapper's plan"], **plans}.items():
+        ms = statistics.mean(turns[key])
+        warps = max(-(-plan.n_tiles * ops.b // sms) * -(-min(plan.tile + 2 * plan.ghost, ops.k)
+                                                         // 32), dg_rhs.MIN_WARPS)
+        model = dg_rhs._fused_cost(ops.k, ops.b, n_steps, counts[key], plan, sms,
+                                   dg_mxu.km_step_warp_us(disc.np_))
+        implied = ((ms * 1e3 - counts[key] * dg_rhs.LAUNCH_US)
+                   / (n_steps * warps * (2 * disc.np_ ** 2 + 9 * disc.np_ + 4)))
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out[key], out["wrapper"]))
+        say("34", f"KM2 N={n_order} K=10000 B=8 steps={n_steps} {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads ({plan.n_tiles}x{ops.b} "
+                  f"CTAs, {warps} warps on the busiest SM); {ms:.4f} ms (model "
+                  f"{model / 1e3:.4f}, implied KM_STEP_WARP_US {implied:.5f}; in turns, median of 5 each: "
+                  f"{turns[key][0]:.4f} / {turns[key][1]:.4f}), {counts[key]} CUDA launches, "
+                  f"{b_ms / ms:.2%} of the {b_ms:.4f} ms bound ({b_by}); bits equal to the "
+                  f"wrapper's: {same}")
+        assert same and counts[key] == -(-n_steps // plan.segment), key
+    say("34", f"KM2 N={n_order}: the wrapper's lam0 and eta bit-equal to km_adj_est_plain (float32, "
+              f"{plain_s:.2f} s on the host clock): {bits}")
+    assert bits, f"KM2 at N={n_order}: not the plain version's bits"
+    del traj, uf, out
+    torch.cuda.empty_cache()
+    return statistics.mean(turns["wrapper"])
+
+
+def km2_small(device, sms):
+    """KM2 at KM2_SMALL's shapes (B = 8, 13 steps) on every candidate plan
+    and on narrow tiles (L = 5 and 10), each bit-equal to
+    km_adj_est_plain."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    n_plans = 0
+    for n_order, k, dt in KM2_SMALL:
+        disc = mesh(n_order, k, graded=False)
+        ops = dg_mxu.mxu_ops(disc, A, dt, 13, 1, 8, device)
+        phases = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+        u0 = torch.tensor(np.concatenate([np.sin(disc.x + q) for q in phases], 1),
+                          dtype=torch.float32, device=device)
+        lam = terminal_integral_cotangent(disc, torch.float32, device).repeat(1, 8).contiguous()
+        traj, uf = dg_mxu.km_fwd_traj(u0, 0.1, ops)
+        want = dg_mxu.km_adj_est_plain(traj, uf, lam, 0.1, ops)
+        plans = list(km2_candidates(k, 8, disc.np_, 13, sms).values())
+        plans += [dg_rhs.fused_plan(k, 4, 512)._replace(tile=t, n_tiles=-(-k // t)) for t in (5, 10)]
+        for plan in plans:
+            got = dg_mxu._km2_launch(traj, uf, lam, 0.1, ops, plan)
+            assert all(bool(torch.equal(x, y)) for x, y in zip(got[:2], want)), (n_order, plan)
+            assert got[2] == -(-13 // plan.segment)
+            n_plans += 1
+        eta_max = float(want[1].abs().max())
+        say("34", f"KM2 N={n_order} (Np={disc.np_}) K={k} B=8 13 steps: lam0 and eta bit-equal to "
+                  f"km_adj_est_plain on {len(plans)} plans (max|eta| {eta_max:.3e})")
+    return n_plans
+
+
+def h1_launches(label, case, device, errs):
+    """H1 on every (lanes, CTA size) the kernel takes that hp_plan searches
+    or HP_LANES lists, timed in turns beside the wrapper, each within
+    hp_kernel_tolerance (worst share per output), bit-identical on a repeat,
+    with its share of dg_hp_bound. Returns {(lanes, threads): ms}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    run, (times, ns, y0), _, tol = case
+    plan = run.plan
+    b = y0.shape[0]
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, plan)
+    launches = {(g, th): hm.HpLaunch(g, th) for g in HP_LANES for th in hm.CTA_THREADS}
+    out = {}
+
+    def on(key, launch):
+        def go():
+            out[key] = hm._h1_launch(times, ns, y0, plan, launch)
+
+        return go
+
+    turns = in_turns({"wrapper": lambda: run(times, ns, y0),
+                      **{key: on(key, launch) for key, launch in launches.items()}})
+    b_ms, b_by = dg_hp_bound(times, ns, plan.newton_iters, plan.fine_offset, plan.mops.rq.shape[0],
+                             plan.mops.np_max, plan.adjoint_mode)
+    mine = hm.hp_plan(b, plan.mops.np_max, plan.mops.rq.shape[0])
+    rows = {}
+    for key, launch in launches.items():
+        ms = statistics.mean(turns[key])
+        first = out[key]
+        again = hm._h1_launch(times, ns, y0, plan, launch)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(first, again))
+        e, share = hp_shares(first, want, tol)
+        errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], *e.values())
+        say("34", f"H1 {label} B={b} {plan.adjoint_mode} G={launch.lanes} {launch.threads} threads"
+                  f"{' (the wrapper plan)' if launch == mine else ''}: {ms:.4f} ms (in turns, median "
+                  f"of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}), {b_ms / ms:.3%} of the "
+                  f"{b_ms:.6f} ms bound ({b_by}); worst share of the per-element tolerance "
+                  + " ".join(f"{x} {share[x]:.2%}" for x in share)
+                  + f"; a repeat bit-identical: {same}")
+        assert same and max(share.values()) <= 1.0, (label, key)
+        rows[key] = ms
+    say("34", f"H1 {label} B={b} {plan.adjoint_mode}: the wrapper ({mine}) "
+              f"{statistics.mean(turns['wrapper']):.4f} ms; fastest "
+              f"{min(rows, key=rows.get)} {min(rows.values()):.4f} ms")
+    return rows
+
+
+def phase34(device, lib, errs, hp_cases):
+    """KM2 fused over s_f steps a launch and H1 with G lanes a member: the
+    kernels' registers and spills (a gate: no km_rev_fused instance
+    spills); (a) KM2 at KM2_SMALL's shapes on every plan, bit-equal to the
+    plain version; (b) at both MXU_ROWS on every plan, in turns; (c) KM1+KM2
+    against K1+K2 at both rows, in turns; (d) H1 at 12(a) and 12(b) in both
+    adjoint modes on every G and CTA size, in turns; (e) the B = 512 hp
+    study (phase 14's) in turns on hp_plan's launch and on one lane a
+    member, and its trace."""
+    from unittest import mock
+
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    regs = kernel_registers(lib.build_log, ("km_rev_fused", "hp_kernel"))
+    say("34", f"ptxas -v for KM2's and H1's kernels ({len(regs)} instances): {'; '.join(regs)}")
+    km_regs = [r for r in regs if "km_rev_fused" in r]
+    assert km_regs and all("0 bytes spill stores, 0 bytes spill loads" in r for r in km_regs), (
+        "a km_rev_fused instance spills")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_small = km2_small(device, sms)
+    say("34", f"(a) KM2 bit-equal to its plain version on {n_small} (shape, plan) cases")
+    rows = {}
+    for n_order, seg, n_steps in MXU_ROWS:
+        rows[f"KM2 N={n_order}"] = km2_plans(n_order, seg, n_steps, device, sms, errs)
+    for n_order, seg, n_steps in MXU_ROWS:
+        disc = mesh(n_order, 10_000, graded=False)
+        km, k12, u0, lam = mxu_run(disc, cfl_step(disc), seg, n_steps, device)
+        out = {}
+        turns = in_turns({"K1+K2": lambda: out.update(k12=k12(u0, 0.0, lam)),
+                          "KM1+KM2": lambda: out.update(km=km(u0, 0.0, lam))})
+        ms = {name: statistics.mean(t) for name, t in turns.items()}
+        d = [float((g - w).abs().max()) for g, w in zip(out["km"], out["k12"])]
+        say("34", f"(c) KM/K1K2 at N={n_order} in turns: {ms['KM1+KM2'] / ms['K1+K2']:.3f} (KM1+KM2 "
+                  f"{ms['KM1+KM2']:.3f} ms, {turns['KM1+KM2'][0]:.3f} / {turns['KM1+KM2'][1]:.3f}; "
+                  f"K1+K2 {ms['K1+K2']:.3f} ms, {turns['K1+K2'][0]:.3f} / {turns['K1+K2'][1]:.3f}; "
+                  f"KM2 {dg_mxu.km_adj_est.cuda_launches} CUDA launches); max|KM - K1K2| u "
+                  f"{d[0]:.3e} lam0 {d[1]:.3e} eta {d[2]:.3e}")
+        del out, km, k12
+        torch.cuda.empty_cache()
+    for key in (("a", "solve"), ("a", "reconstruct"), ("b", "solve"), ("b", "reconstruct")):
+        h1 = h1_launches(f"12({key[0]})", hp_cases[key], device, errs)
+        rows[f"H1 12({key[0]}) {key[1]}"] = min(h1.values())
+    study = hp_study(device, HP_STUDY["b"], HP_STUDY["seed"])
+
+    def one_lane():
+        with mock.patch.object(hm, "hp_plan", lambda b, np_max, nq: hm.HpLaunch(1, 128)):
+            study("cuda")
+
+    turns = in_turns({"hp_plan": lambda: study("cuda"), "one lane a member": one_lane}, runs=3)
+    its = HP_STUDY["maxit"] + 1
+    say("34", f"(e) the hp study B={HP_STUDY['b']} (device loop, {its} iterations) in turns, median "
+              f"of 3 each: on hp_plan's launch {statistics.mean(turns['hp_plan']):.3f} ms "
+              f"({turns['hp_plan'][0]:.3f} / {turns['hp_plan'][1]:.3f}), on one lane a member "
+              f"{statistics.mean(turns['one lane a member']):.3f} ms "
+              f"({turns['one lane a member'][0]:.3f} / {turns['one lane a member'][1]:.3f})")
+    study_trace(lambda: study("cuda"), "hp_kernel", phase="34")
+    return rows
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -3994,6 +4269,7 @@ def main() -> int:
     phase31(device, lib)
     phase32(device, lib, errs)
     phase33(device, lib, errs)
+    phase34(device, lib, errs, hp_cases)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -26,9 +26,10 @@ weight with a difference of O(max|u|) values, is local (a state shift
 carried in through the inflow cancels in the residual to O(h·f_u)): within
 8·κ_a·Na·ε·max|u|·max|v|.
 
-The hp kernel: ops/cuda/dg_slab_mixed.hp_kernel_tolerance — u and v as
-above with κ the largest condition number over the padded stack's orders,
-err per element within 8·ε of the sum of the magnitudes of its products.
+The hp kernel: ops/cuda/dg_slab_mixed.hp_kernel_tolerance — every bound per
+member and element: u and v within 8·ε of their element's system's
+|J⁻¹|·(the magnitudes of its terms), carried by the inflow of the elements
+before it, err within 8·ε of the sum of the magnitudes of its products.
 
 The training kernels: each gradient entry against its own bound, against
 the plain version in float64. T1's (ops/cuda/train_fused.
@@ -247,11 +248,15 @@ def test_dg_slab_kernel_refusals_raise(device):
         run(times, torch.ones(0, device=device))  # an empty grid: the launch is refused
 
 
+@pytest.mark.parametrize("lanes", [1, 4, 8, 16, 32])
 @pytest.mark.parametrize("ode,n_user,fo,mode", [
     ("du/dt=sin(u)", 3, 2, "solve"), ("du/dt=sin(u)", 3, 2, "reconstruct"),
     ("du/dt=sin(u)", 5, 2, "solve"), ("gaussian_mixture", 2, 1, "reconstruct"),
 ])
-def test_hp_kernel_matches_its_plain_version(device, ode, n_user, fo, mode):
+def test_hp_kernel_matches_its_plain_version(device, ode, n_user, fo, mode, lanes):
+    """H1 through its wrapper (hp_plan's launch) and on G lanes a member at
+    every CTA size hp_plan searches: each output within its per-element
+    bound of the plain version, a repeat bit-identical, the tails exactly 0."""
     rng = np.random.default_rng(n_user)
     k, b = 12, 3000
     # per-member partitions on a 2^-10 grid (distinct float32 nodes) with
@@ -270,15 +275,22 @@ def test_hp_kernel_matches_its_plain_version(device, ode, n_user, fo, mode):
         ode, mops, dg_adjoint_interp_mixed(mops), k, n_max_user=n_user, fine_offset=fo,
         adjoint_mode=mode, rad=dg_radau_interp_mixed(mops), device=device)
     before = hm.dg_estimate_hp_per_member.launches
-    got = run(times, ns, y0)
+    outs = [run(times, ns, y0)]
     torch.cuda.synchronize()
     assert hm.dg_estimate_hp_per_member.launches == before + 1
+    for threads in hm.CTA_THREADS:
+        outs.append(hm._h1_launch(times, ns, y0, run.plan, hm.HpLaunch(lanes, threads)))
+    again = hm._h1_launch(times, ns, y0, run.plan, hm.HpLaunch(lanes, hm.CTA_THREADS[0]))
+    torch.cuda.synchronize()
+    assert hm.dg_estimate_hp_per_member.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(again, outs[1]))
     want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
     tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
-    for g, w, bound in zip(got, want, (tol["u"], tol["u"], tol["v"], tol["err"])):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all())
-        assert bool(((g - w).abs().double() <= bound).all())
-    assert bool((got[3][times[:, :-1] == 2.0] == 0).all())  # the tails contribute exactly 0
+    for got in outs:
+        for g, w, name in zip(got, want, ("u_c", "u_f", "v", "err")):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert bool(((g - w).abs().double() <= tol[name]).all()), name
+        assert bool((got[3][times[:, :-1] == 2.0] == 0).all())  # the tails contribute exactly 0
 
 
 def test_hp_kernel_refusals_raise(device):
@@ -920,10 +932,50 @@ def test_mxu_kernels_match_their_plain_version(device, n_order, k, dt, segment):
            8 * n * disc.np_ * EPS32 * float(lam.abs().max()) * float(uf_p.abs().max()))
     for g, p, t in zip(got, (uf_p, lam0_p, eta_p), tol):
         assert float((g.reshape(p.shape) - p).abs().max()) <= t
+    # the fused KM2 runs the plain version's float32 operations in its order
+    assert torch.equal(got[1].reshape(flat), lam0_p) and torch.equal(got[2].reshape(-1), eta_p)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    s_f = dg_mxu.km_rev_plan(k, b, disc.np_, n, sms).segment
+    assert dg_mxu.km_adj_est.cuda_launches == -(-n // s_f)
     want = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(
         disc, A, dt, n, b, device, store_trajectory=True)(u0, 0.1, lam)
     for g, w, (rtol, atol) in zip(got, want, ((2e-4, 1e-6), (2e-3, 2e-5), (5e-3, 1e-7))):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n_order,k", [(1, 300), (2, 1000), (5, 200), (7, 1000)])
+def test_mxu_reverse_on_every_plan(device, n_order, k):
+    """KM2 on every plan km_rev_plan searches (s_f 4 and 8, each CTA size
+    built for Np, the widest tiles and a third of them) and on narrow tiles,
+    13 steps (a remainder): each the plain version's bits, in ⌈13/s_f⌉ CUDA
+    launches; the 1024-thread CTA refused at Np ≥ 7."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    b, n = 3, 13
+    dt = 0.375 / A * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_mxu.mxu_ops(disc, A, dt, n, 1, b, device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.concatenate([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device).repeat(1, b).contiguous()
+    traj, uf = dg_mxu.km_fwd_traj(u0, 0.0, ops)
+    want = dg_mxu.km_adj_est_plain(traj, uf, lam, 0.0, ops)
+    plans = []
+    for s_f in (4, 8):
+        for threads in (512, 1024) if disc.np_ <= 6 else (512,):
+            widest = dg_rhs.fused_plan(k, s_f, threads)
+            third = max(widest.tile // 3, 1)
+            plans += [widest, widest._replace(tile=third, n_tiles=-(-k // third))]
+    plans.append(dg_rhs.fused_plan(k, 4, 512)._replace(tile=7, n_tiles=-(-k // 7)))
+    for plan in plans:
+        lam0, eta, n_cuda = dg_mxu._km2_launch(traj, uf, lam, 0.0, ops, plan)
+        torch.cuda.synchronize()
+        assert n_cuda == -(-n // plan.segment)
+        assert torch.equal(lam0, want[0]) and torch.equal(eta, want[1]), plan
+    if disc.np_ > 6:
+        with pytest.raises(RuntimeError, match="dg_mxu_rev failed"):
+            dg_mxu._km2_launch(traj, uf, lam, 0.0, ops, dg_rhs.fused_plan(k, 4, 1024))
 
 
 def test_sharded_pipelines_at_one_rank_are_the_tiled_bits(device):

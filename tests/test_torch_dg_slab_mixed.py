@@ -84,13 +84,15 @@ def test_plain_version_matches_the_jax_member_pipeline(adjoint_mode):
 
 @pytest.mark.parametrize("ode,mode,uniform", [("du/dt=sin(u)", "solve", None),
                                                ("gaussian_mixture", "reconstruct", None),
-                                               ("du/dt=sin(u)", "reconstruct", 3)])
+                                               ("du/dt=sin(u)", "reconstruct", 3),
+                                               ("du/dt=sin(u)", "reconstruct", None)])
 def test_kernel_tolerance_covers_float32_roundoff_and_decides(ode, mode, uniform):
     """hp_kernel_tolerance, the bound H1 is held to on the card, at bench.py's
     hp shape (K = 15, per-member partitions on a 2⁻¹⁰ grid with zero-width
     tails, random or uniform orders): the float32 plain version stays within
-    an eighth of it of float64 (so two float32 evaluations in any order stay
-    well inside it); an err of 0 would fail it; it is 0 on the tails."""
+    an eighth of every per-element bound of float64 (so two float32
+    evaluations in any order stay well inside it); an err of 0 would fail
+    it; v and err are bounded by 0 on the tails."""
     rng = np.random.default_rng(5)
     b, k = 256, 15
     y0 = rng.uniform(0.5, 2.0, b)
@@ -109,10 +111,12 @@ def test_kernel_tolerance_covers_float32_roundoff_and_decides(ode, mode, uniform
     p32 = run(times, ns, y0.float())
     p64 = run(times.double(), ns, y0.double())
     tol = hm.hp_kernel_tolerance(times, ns, y0.float(), p32, run.plan)
-    for g, w, bound in zip(p32, p64, (tol["u"], tol["u"], tol["v"], tol["err"])):
-        assert bool(((g.double() - w).abs() <= bound / 8).all())
+    for g, w, name in zip(p32, p64, ("u_c", "u_f", "v", "err")):
+        assert bool(((g.double() - w).abs() <= tol[name] / 8).all()), name
     live = torch.diff(times, dim=1) > 0
     assert tol["err"].shape == (b, k) and bool((tol["err"][~live] == 0).all())
+    assert all(tol[x].shape == (b, k, 1) for x in ("u_c", "u_f", "v"))
+    assert bool((tol["v"][..., 0][~live] == 0).all()) and bool((tol["u_c"] > 0).all())
     assert bool((p32[3].abs() > tol["err"]).any())
 
 
