@@ -9,7 +9,12 @@
 //                           forward :880 (_fwd_ckpt_grid_kernel_b) and, at
 //                           B = 1, :510 (_fwd_ckpt_grid_kernel). One kernel,
 //                           fwd_fused, s_f steps a launch in every mode.
-// K2  dg_adj_est_stored     replaces dg_rhs.py:1108 (_adj_est_grid_kernel_b_stored).
+// K2  dg_adj_est_stored     replaces dg_rhs.py:1108 (_adj_est_grid_kernel_b_stored);
+//                           at B = 1, from a global step offset and with η
+//                           carried in, it is the element-tiled reverse KT2
+//                           (ops/cuda/dg_tiled.py tiled_rev_seg), which
+//                           replaces dg_sharded.py:107 (_rev_seg_kernel) and
+//                           dg_tiled.py:314 (_rev_seg_grid_kernel).
 // K2r dg_adj_est_recompute  replaces dg_rhs.py:908 (_adj_est_grid_kernel_b) and,
 //                           at B = 1, :538 (_adj_est_grid_kernel) and :384
 //                           (_adj_estimate_kernel): per checkpoint segment in
@@ -410,16 +415,16 @@ int adj_march_impl(int nb, int nk, int n_steps, const double* rk,
 }
 
 template <int NP, int T>
-int adj_est_stored_impl(int nb, int nk, int n_steps, double t0, double dt,
-                        double a, const double* rk, const float* half_tables,
-                        Geom g, const FusedPlan& p, const float* traj,
-                        const float* u_final, const float* lam_end, float* lam0,
-                        float* eta, float* lbuf, int* launches,
-                        cudaStream_t stream) {
+int adj_est_stored_impl(int nb, int nk, int n_steps, int n_first, double t0,
+                        double dt, double a, const double* rk,
+                        const float* half_tables, Geom g, const FusedPlan& p,
+                        const float* traj, const float* u_final,
+                        const float* lam_end, float* lam0, float* eta,
+                        float* lbuf, int* launches, cudaStream_t stream) {
   const StepTables half = pack_tables(NP, half_tables);
   const float* lam = lam_end;
   const int total = (n_steps + p.seg - 1) / p.seg;
-  const int err = rev_range<NP, T>(nb, nk, 0, n_steps, t0, dt, a, rk, half, g, p,
+  const int err = rev_range<NP, T>(nb, nk, n_first, n_steps, t0, dt, a, rk, half, g, p,
                                    traj, u_final, &lam, launches, total, lam0, eta,
                                    lbuf, stream);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
@@ -512,15 +517,16 @@ int fwd_march_np(int nb, int nk, int n_steps, int store_every, double t0,
 }
 
 template <int NP>
-int adj_est_stored_np(int nb, int nk, int n_steps, double t0, double dt,
-                      double a, const double* rk, const float* half_tables,
-                      Geom g, const FusedPlan& p, const float* traj,
-                      const float* u_final, const float* lam_end, float* lam0,
-                      float* eta, float* lbuf, int* launches,
-                      cudaStream_t stream) {
+int adj_est_stored_np(int nb, int nk, int n_steps, int n_first, double t0,
+                      double dt, double a, const double* rk,
+                      const float* half_tables, Geom g, const FusedPlan& p,
+                      const float* traj, const float* u_final,
+                      const float* lam_end, float* lam0, float* eta, float* lbuf,
+                      int* launches, cudaStream_t stream) {
   AOA_FUSED_SWITCH(p, (adj_est_stored_impl<NP, T>(
-                          nb, nk, n_steps, t0, dt, a, rk, half_tables, g, p, traj,
-                          u_final, lam_end, lam0, eta, lbuf, launches, stream)))
+                          nb, nk, n_steps, n_first, t0, dt, a, rk, half_tables, g,
+                          p, traj, u_final, lam_end, lam0, eta, lbuf, launches,
+                          stream)))
 }
 
 template <int NP>
@@ -571,13 +577,17 @@ int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every, int seg,
                                      launches, static_cast<cudaStream_t>(stream)))
 }
 
-// K2 with the plan (seg = s_f, tile_l = L, ghost = W, threads): eta zeroed
-// by the caller; lbuf holds 2·Np·B·K floats; half_tables are folded for the
-// step dt/2. *launches receives the CUDA launches issued. -3: a plan the
-// kernels do not take.
-int dg_adj_est_stored(int np, int nb, int nk, int n_steps, int seg, int tile_l,
-                      int ghost, int threads, double t0, double dt, double a,
-                      const double* rk, const float* half_tables,
+// K2 (and KT2 at B = 1) with the plan (seg = s_f, tile_l = L, ghost = W,
+// threads) over the n_steps steps of traj, the global steps n_first ..
+// n_first + n_steps − 1: step n of traj starts at t0 + (n_first + n)·dt.
+// eta holds the η carried in (zeros for a whole sweep), accumulated in
+// place in the order n = n_steps − 1 … 0; lbuf holds 2·Np·B·K floats;
+// half_tables are folded for the step dt/2. *launches receives the CUDA
+// launches issued. -3: a plan the kernels do not take, or n_steps < 1 or
+// n_first < 0.
+int dg_adj_est_stored(int np, int nb, int nk, int n_steps, int n_first, int seg,
+                      int tile_l, int ghost, int threads, double t0, double dt,
+                      double a, const double* rk, const float* half_tables,
                       const float* rx, const float* fsl, const float* fsr,
                       const float* traj, const float* u_final,
                       const float* lam_end, float* lam0, float* eta,
@@ -585,10 +595,10 @@ int dg_adj_est_stored(int np, int nb, int nk, int n_steps, int seg, int tile_l,
   const Geom g{rx, fsl, fsr};
   const FusedPlan p{seg, tile_l, ghost, threads};
   *launches = 0;
-  if (check_plan(nk, p) != 0) return -3;
+  if (check_plan(nk, p) != 0 || n_steps < 1 || n_first < 0) return -3;
   AOA_NP_SWITCH(np, adj_est_stored_np<NP>(
-                        nb, nk, n_steps, t0, dt, a, rk, half_tables, g, p, traj,
-                        u_final, lam_end, lam0, eta, lbuf, launches,
+                        nb, nk, n_steps, n_first, t0, dt, a, rk, half_tables, g, p,
+                        traj, u_final, lam_end, lam0, eta, lbuf, launches,
                         static_cast<cudaStream_t>(stream)))
 }
 
@@ -635,7 +645,8 @@ const char* dg_error_string(int code) {
   if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 8)";
   if (code == -3)
     return "fused plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 or "
-           "1024 threads holding the window; n_steps a multiple of segment)";
+           "1024 threads holding the window; n_steps >= 1, a multiple of segment; "
+           "n_first >= 0)";
   if (code == -4)
     return "K1 plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
            "holds the mesh, 512 or 1024 threads holding the window; n_steps and "

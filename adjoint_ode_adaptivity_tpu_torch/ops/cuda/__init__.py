@@ -96,7 +96,7 @@ class KernelLibrary:
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.dg_fwd_march.argtypes = [i] * 9 + [d] * 3 + [p] * 11
         lib.dg_fwd_march.restype = i
-        lib.dg_adj_est_stored.argtypes = [i] * 8 + [d] * 3 + [p] * 13
+        lib.dg_adj_est_stored.argtypes = [i] * 9 + [d] * 3 + [p] * 13
         lib.dg_adj_est_stored.restype = i
         lib.dg_adj_est_recompute.argtypes = [i] * 9 + [d] * 3 + [p] * 14
         lib.dg_adj_est_recompute.restype = i
@@ -104,8 +104,6 @@ class KernelLibrary:
         lib.dg_adj_march.restype = i
         lib.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
         lib.dg_tiled_fwd.restype = i
-        lib.dg_tiled_rev.argtypes = [i] * 7 + [d] * 3 + [p] * 12
-        lib.dg_tiled_rev.restype = i
         lib.dg_mxu_fwd.argtypes = [i] * 4 + [p] * 9
         lib.dg_mxu_fwd.restype = i
         lib.dg_mxu_rev.argtypes = [i] * 8 + [p] * 11
@@ -116,7 +114,7 @@ class KernelLibrary:
         lib.fd_ensemble_vec.restype = i
         lib.fd_estimate_per_member.argtypes = [i, i, i, p, i, i, i, i, ctypes.c_float] + [p] * 5
         lib.fd_estimate_per_member.restype = i
-        lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 8 + [p] * 6
+        lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 10 + [p] * 6
         lib.dg_estimate_ensemble.restype = i
         lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 11 + [p] * 8
         lib.dg_estimate_hp_per_member.restype = i

@@ -21,7 +21,10 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108). Fused over
   s_f steps a launch (:func:`stored_plan`): one CTA per (tile, member), a
   window of L local elements and W = 10·s_f + 10 ghosts a side, the state in
-  registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA launches.
+  registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA launches. At B = 1,
+  from a global step offset with η carried in (``_k2_launch``'s
+  ``n_first`` and ``eta``), it is also the element-tiled reverse KT2
+  (ops/cuda/dg_tiled.py ``tiled_rev_seg``).
 - **K2r** :func:`adj_est_recompute` — per checkpoint segment in reverse,
   recompute the segment's states from its checkpoint into a (segment +
   1)-state scratch with K1's kernel, s_f steps a launch on K2's windows,
@@ -759,19 +762,23 @@ def _check_grid(b: int) -> None:
         raise ValueError(f"B={b}: the fused kernels take 1 <= B <= 65535 (grid y)")
 
 
-def _k2_launch(traj, u_final, lam_end, t0, ops: KernelOps, plan: FusedPlan):
-    """One dg_adj_est_stored call with ``plan``: ``(lam0, eta, CUDA
-    launches)``. The wrapper counts its launches; this does not."""
+def _k2_launch(traj, u_final, lam_end, t0, ops: KernelOps, plan: FusedPlan, n_first: int = 0,
+               eta=None):
+    """One dg_adj_est_stored call with ``plan`` over the global steps
+    n_first … n_first + n_steps − 1 of the (n_steps, Np, B, K) ``traj``,
+    accumulating onto a copy of ``eta`` (B, K) (default zeros): ``(lam0,
+    eta, CUDA launches)``. The wrapper counts its launches; this does not."""
     n_steps, _, b, _ = traj.shape
     _check_grid(b)
     lib = load_library()
     lam0 = torch.empty_like(lam_end)
-    eta = torch.zeros((b, ops.k), dtype=torch.float32, device=traj.device)
+    eta = (torch.zeros((b, ops.k), dtype=torch.float32, device=traj.device) if eta is None
+           else eta.clone())
     lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
     launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_adj_est_stored(
-        ops.np_, b, ops.k, n_steps, plan.segment, plan.tile, plan.ghost, plan.threads,
+        ops.np_, b, ops.k, n_steps, n_first, plan.segment, plan.tile, plan.ghost, plan.threads,
         float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.half.packed.ctypes.data,
         _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(traj), _ptr(u_final), _ptr(lam_end),
         _ptr(lam0), _ptr(eta), _ptr(lbuf[0]), ctypes.addressof(launches),

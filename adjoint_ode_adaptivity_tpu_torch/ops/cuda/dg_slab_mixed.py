@@ -59,7 +59,7 @@ from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import (
     gauss_solve,
 )
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab import _check
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab import _check, _lane_sum, _seq_dot
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_ensemble import VECTOR_KERNEL_IDS, _consts
 
 __all__ = [
@@ -166,31 +166,6 @@ def dg_estimate_hp_per_member_plain(times: torch.Tensor, ns: torch.Tensor, y0s: 
 
 
 # ------------------------------------------------- the lanes' sum order
-
-
-def _lane_sum(terms, lanes: int):
-    """Σ over axis 1 in H1's order: lane ℓ of the group sums the entries
-    ≡ ℓ (mod G) in ascending order, then rounds m = 1, 2, …, G/2 add each
-    lane's partner ℓ xor m; lane 0's value (every lane's)."""
-    parts = []
-    for lane in range(lanes):
-        acc = torch.zeros_like(terms[:, 0])
-        for q in range(lane, terms.shape[1], lanes):
-            acc = acc + terms[:, q]
-        parts.append(acc)
-    m = 1
-    while m < lanes:
-        parts = [parts[i] + parts[i ^ m] for i in range(lanes)]
-        m <<= 1
-    return parts[0]
-
-
-def _seq_dot(a, x):
-    """Σ_j a[..., j]·x[..., j] in the order j = 0, 1, … (an unrolled chain)."""
-    acc = a[..., 0] * x[..., 0]
-    for j in range(1, x.shape[-1]):
-        acc = acc + a[..., j] * x[..., j]
-    return acc
 
 
 def _quad_parts(interp, ue, phi_r, phi_m, tl, h, consts, ode, lanes: int):

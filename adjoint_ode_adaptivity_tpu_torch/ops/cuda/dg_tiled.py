@@ -1,37 +1,46 @@
-"""The element-tiled DG-advection pipeline on hand-written CUDA: ``seg``
-LSRK steps per launch, each CTA owning a tile of elements with a ghost ring.
+"""The element-tiled DG-advection pipeline on hand-written CUDA: the
+forward ``seg`` LSRK steps per launch, each CTA owning a tile of elements
+with a ghost ring; the reverse on K2's fused windows.
 
 Counterpart of the JAX package's ``ops/pallas/dg_tiled.py``
 (``make_pallas_fwd_adj_estimate_tiled`` and ``_tiled_grid``) with the
-per-segment kernels of ``ops/pallas/dg_sharded.py``. Two kernels
-(csrc/dg_tiled.cu):
+per-segment kernels of ``ops/pallas/dg_sharded.py``. Two kernels:
 
-- **KT1** :func:`tiled_fwd_seg` — per segment, one launch: every CTA loads
-  its tile's window [lo − W, hi + W) into shared memory and advances
-  ``segment`` steps there, writing the exact local entry states into a
-  global (n_steps, Np, K) trajectory (K2's layout, K1's values) and its
-  local exit state. Replaces ``_fwd_seg_kernel`` (dg_sharded.py:83) and
+- **KT1** :func:`tiled_fwd_seg` (csrc/dg_tiled.cu) — per segment, one
+  launch: every CTA loads its tile's window [lo − W, hi + W) into shared
+  memory and advances ``segment`` steps there, writing the exact local
+  entry states into a global (n_steps, Np, K) trajectory (K2's layout, K1's
+  values) and its local exit state. Replaces ``_fwd_seg_kernel`` (dg_sharded.py:83) and
   ``_fwd_seg_grid_kernel`` (dg_tiled.py:282).
-- **KT2** :func:`tiled_rev_seg` — per segment in reverse, one launch: the
-  same tile for λ; per step the dt/2·dt/2 step doubling from the stored
-  u_n, η += Σ_nodes λ·(u_{n+1} − half2) on the local elements, and two dt/2
+- **KT2** :func:`tiled_rev_seg` — the reverse sweep over the call's
+  segments: per step the dt/2·dt/2 step doubling from the stored u_n, η +=
+  Σ_nodes λ·(u_{n+1} − half2) on the local elements, and two dt/2
   transposes. Replaces ``_rev_seg_kernel`` (dg_sharded.py:107) and
-  ``_rev_seg_grid_kernel`` (dg_tiled.py:314).
+  ``_rev_seg_grid_kernel`` (dg_tiled.py:314). It runs K2's fused kernel
+  (csrc/dg_rhs.cu ``rev_fused``) at B = 1: the trajectory is exact
+  everywhere and in K2's layout, so a segment is only an API boundary for
+  the reverse, and the sweep takes its own s_f and windows (W = 10·s_f +
+  10, :func:`~.dg_rhs.stored_plan`) whatever the forward's segment: one
+  thread a window element, the state in registers, one barrier a stage,
+  ⌈n_steps/s_f⌉ CUDA launches a call, from the global step
+  first_segment·segment with η carried in.
 
 Ghost rule (dg_sharded.py:18-25, copied with :func:`ghost_width`): the flux
 couples ±1 element per stage, so a window's edges degrade one element a
 stage. The forward loses 5·seg elements a segment; λ loses 10 a step; the
 half steps read u_n exact ±10 elements around each local element, and here
 u_n comes from the global trajectory, exact everywhere. W ≥ 10·seg + 10
-keeps every local element exact: the outputs do not depend on the tiling,
-and each local element computes what K1 and K2 compute, with the same
-arithmetic (csrc/dg_stage.cuh), so the two pipelines agree bit for bit.
+keeps every local element exact (the reverse's own windows take W =
+10·s_f + 10): the outputs do not depend on the tiling, and each local
+element computes what K1 and K2 compute, with the same arithmetic
+(csrc/dg_stage.cuh), so the two pipelines agree bit for bit.
 
 Tiles. A JAX chunk (K/chunks elements; K/(8·chunks) lanes of the grid
-variant) can pass what one CTA's shared memory holds: KT2 keeps
-(4·Np + 3)·(L + 2W) floats. :func:`tile_plan` splits each chunk into equal
-CTA tiles whose window fits ``SMEM_BUDGET`` (two CTAs an SM); the ghost
-recompute costs 2W/L. The grid variant's chunk-major layout and
+variant) can pass what one CTA's shared memory holds. :func:`tile_plan`
+splits each chunk into equal CTA tiles whose window of (4·Np + 3)·(L + 2W)
+floats fits ``SMEM_BUDGET`` (KT1 keeps (2·Np + 2)·(L + 2W) of them; the
+rule is the one its tiles were measured on); the ghost recompute costs
+2W/L. The grid variant's chunk-major layout and
 sublane-rolled ghosts (dg_tiled.py:224-258, :534-557) exist for the TPU's
 (8, M) blocked layout and have no Hopper counterpart: both factories run
 KT1/KT2 on the (Np, K) state, and differ only in the validation they keep
@@ -39,8 +48,10 @@ from their JAX factories.
 
 A CUDA float32 tensor launches the kernel or raises; a CPU tensor takes the
 plain version (:func:`tiled_fwd_seg_plain`, :func:`tiled_rev_seg_plain`,
-:func:`tiled_plain`): the same tiles and windows with explicit ghost rings,
-so the halo logic is tested on the CPU, in float32 or float64.
+:func:`tiled_plain`): the tile plan's tiles and windows with explicit ghost
+rings, so the halo logic is tested on the CPU, in float32 or float64; K2's
+emulation (``dg_rhs._rev_fused_plain``) gives their bits on the reverse's
+own windows.
 """
 from __future__ import annotations
 
@@ -51,15 +62,19 @@ import torch
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
     _RK,
+    FusedPlan,
     KernelOps,
     _check,
     _check_uniform,
+    _k2_launch,
     _ptr,
+    _sm_count,
     _step_plain,
     _step_t_plain,
     _stream,
     _window,
     kernel_ops,
+    stored_plan,
 )
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
 
@@ -80,7 +95,7 @@ __all__ = [
 ]
 
 SMEM_BUDGET = 96 * 1024  # bytes of shared memory one CTA's window may take
-MAX_SEGMENT = 64  # csrc/dg_tiled.cu's kMaxSeg: the inflow table rides the launch
+MAX_SEGMENT = 64  # KT1's kMaxSeg (csrc/dg_tiled.cu): the inflow table rides the launch
 
 
 def ghost_width(segment: int, l_local: int) -> int:
@@ -104,7 +119,7 @@ class TilePlan(NamedTuple):
 def tile_plan(k: int, np_: int, segment: int, ghost: int, chunk: int,
               tile: int | None = None) -> TilePlan:
     """The CTA tiling of K elements: each ``chunk`` split into the fewest
-    equal tiles whose KT2 window, (4·Np + 3)·(L + 2W) floats, fits
+    equal tiles whose window, counted as (4·Np + 3)·(L + 2W) floats, fits
     :data:`SMEM_BUDGET` (``tile`` forces L)."""
     if not 1 <= segment <= MAX_SEGMENT:
         raise ValueError(f"segment={segment}: the tiled kernels take 1..{MAX_SEGMENT}")
@@ -217,10 +232,13 @@ def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
 def tiled_rev_seg(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
                   t0: float, plan: TilePlan, ops: KernelOps, first_segment: int = 0,
                   eta: torch.Tensor | None = None):
-    """KT2 over the segments of ``traj`` in reverse (one launch each), the
-    march's segments ``first_segment`` onwards (as :func:`tiled_fwd_seg`).
-    Returns ``(lam0, eta)``, eta (K,): the η carried in (``eta``, default
-    zeros) plus this sweep's, summed in place as a whole sweep sums it."""
+    """KT2 over the segments of ``traj`` in reverse, the march's segments
+    ``first_segment`` onwards (as :func:`tiled_fwd_seg`). Returns ``(lam0,
+    eta)``, eta (K,): the η carried in (``eta``, default zeros) plus this
+    sweep's, summed in place as a whole sweep sums it. On the card it runs
+    K2's fused kernel at B = 1 on :func:`~.dg_rhs.stored_plan`'s windows
+    for the card's SM count (``plan`` sets only the segment length):
+    ⌈n_steps/s_f⌉ CUDA launches."""
     state = (ops.np_, ops.k)
     if traj.dim() != 3 or traj.shape[0] % plan.segment or traj.shape[0] == 0:
         raise ValueError(f"traj must be (n_segments·{plan.segment}, Np, K), got "
@@ -235,27 +253,28 @@ def tiled_rev_seg(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tens
     if not on_cuda:
         return tiled_rev_seg_plain(traj, u_final, lam_end, float(t0), plan, ops,
                                    first_segment, eta)
-    lib = load_library()
-    lam0 = torch.empty_like(lam_end)
-    eta = (torch.zeros((ops.k,), dtype=torch.float32, device=traj.device) if eta is None
-           else eta.clone())
-    lbuf = torch.empty((2, lam_end.numel()), dtype=torch.float32, device=traj.device)
-    rx, fsl, fsr = ops.geom32
-    code = lib.lib.dg_tiled_rev(
-        ops.np_, ops.k, traj.shape[0] // plan.segment, plan.segment, plan.tile,
-        plan.ghost, first_segment, float(t0), ops.dt, ops.a, _RK.ctypes.data,
-        ops.half.packed.ctypes.data, _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(traj),
-        _ptr(u_final), _ptr(lam_end), _ptr(lam0), _ptr(eta), _ptr(lbuf),
-        _stream(traj.device),
-    )
+    fused = stored_plan(ops.k, 1, ops.np_, traj.shape[0], _sm_count(traj.device))
+    lam0, eta, tiled_rev_seg.cuda_launches = _kt2_launch(
+        traj, u_final, lam_end, t0, ops, fused, first_segment * plan.segment, eta)
     tiled_rev_seg.launches += 1
-    lib.check(code, "dg_tiled_rev", lib.lib.dg_tiled_error_string)
     return lam0, eta
+
+
+def _kt2_launch(traj, u_final, lam_end, t0, ops: KernelOps, fused: FusedPlan, n_first: int = 0,
+                eta=None):
+    """One K2 call at B = 1 on ``fused`` over the global steps n_first …
+    n_first + n_steps − 1 of the (n_steps, Np, K) ``traj``, η (K,) carried
+    in: ``(lam0, eta, CUDA launches)``. The wrapper counts its launches;
+    this does not."""
+    lam0, eta, n = _k2_launch(traj[:, :, None], u_final[:, None], lam_end[:, None], t0, ops,
+                              fused, n_first, None if eta is None else eta[None])
+    return lam0[:, 0], eta[0], n
 
 
 def reset_launch_counts() -> None:
     tiled_fwd_seg.launches = 0
     tiled_rev_seg.launches = 0
+    tiled_rev_seg.cuda_launches = 0
 
 
 reset_launch_counts()

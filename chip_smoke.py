@@ -42,23 +42,31 @@ raises, and the script exits non-zero; nothing is caught.
    and the single-run fd_adaptive default.
 8. CUDA-event times of each FD kernel and its plain version at the phase-6
    shapes, and of the B=1024 study with each engine.
-9. The DG slab kernel (csrc/dg_slab.cu) against its plain version, float32:
-   (a) order 1 at bench.py's shapes (B=16,384, K=16, t in [0, 2], y0 ~
-   U(0.5, 2) seed 1, 5 Newton steps), libm and fast trig; (b) orders 2 and
-   4 (Cramer and elimination) at B=1024; (c) per-member partitions with
-   zero-width tails, whose contributions are exactly 0; (d) t*sin(u) and
-   gaussian_mixture at 4,096 members; (e) B=102,400, seed 3.
+9. The DG slab kernel D1 (csrc/dg_slab.cu, G lanes a member) against its
+   plain version, float32, each output within its per-member, per-element
+   bound (ops/cuda/dg_slab.dg_kernel_tolerance) through the wrapper and on
+   every (G, CTA size) that d1_plan chooses from, a repeat bit-identical,
+   and in every case some |err| above its bound (an err of 0 fails): (a)
+   order 1 at bench.py's shapes (B=16,384, K=16, t in [0, 2], y0 ~ U(0.5, 2)
+   seed 1, 5 Newton steps), libm and fast trig; (b) order 2 (Cramer) on
+   K=2 slabs and order 4 (elimination) on du/dt=10cos(u), K=4, at B=1024,
+   where err lies above float32 roundoff; (c) per-member partitions with
+   zero-width tails, whose contributions are exactly 0; (d) t*sin(u) (K=16)
+   and gaussian_mixture (K=4) at 4,096 members; (e) B=102,400, seed 3.
 10. The DG-in-time paths through their entry points: ``drivers.dg_adaptive.
    main(["--ensemble", "1024", "--per-member", "--device-loop"])`` with the
    kernel's launch count, every iteration's partitions replayed through the
-   plain version (float32) and the torch engine (float64), the decisions
-   compared where the top-two margin clears the float32 bound;
-   ``--ensemble 1024`` on the shared partition; and the single-run default
-   ``dg_adaptive --maxit 30`` in float64 on the card against ``--device cpu``.
+   plain version (float32, held to the per-element err bound) and the torch
+   engine (float64), the decisions compared where the top-two margin clears
+   4x the member's largest err bound (some must); ``--ensemble 1024`` on
+   the shared partition; and the single-run default ``dg_adaptive --maxit
+   30`` in float64 on the card against ``--device cpu``.
 11. CUDA-event times of the DG slab kernel and its plain version at 9(a)
-   (libm and fast), 9(e) and 9(c), and of the B=1024 ensemble and per-member
+   (libm and fast), 9(e) and 9(c), the wrapper (d1_plan's G) in turns
+   against one lane a member; and of the B=1024 ensemble and per-member
    studies (bench.py's k0 4, maxit 10, tol 0, 8 Newton steps) with each
-   engine.
+   engine, the per-member study also in turns on d1_plan's launch and on
+   one lane a member.
 12. The hp kernel (csrc/dg_slab_mixed.cu) against its plain version,
    float32, in both adjoint modes: (a) bench.py's hp shape (B=512, seed 5,
    per-member partitions over K=15 slabs with zero-width tails, orders 1..3,
@@ -137,12 +145,16 @@ raises, and the script exits non-zero; nothing is caught.
    (d) make_cuda_advec_adjoint (KA) at B=1 against its plain version, with
    its launch count, and the two unbatched estimates against the stored
    single pipeline.
-24. The element-tiled pipeline (csrc/dg_tiled.cu: KT1, KT2): (a) against its
-   plain version (the same tiles and ghost windows) at K=640; (b) bench.py's
-   rows (K=10^5, segment 8, chunks 4, 256 steps; K=10^6, segment 16, chunks
-   25, 64 steps) through both tiled factories, bit-equal to the stored
-   pipeline, timed in turns with it, the main path's launch count from the K=10^6
-   tiled_grid run; (c) KT1 and KT2 alone at K=10^6 against K1's and K2's
+24. The element-tiled pipeline (KT1: csrc/dg_tiled.cu; KT2: K2's fused
+   kernel at B = 1, csrc/dg_rhs.cu rev_fused): (a) against its plain version
+   (the tile plan's tiles and ghost windows) at K=640, and KT2 bit-equal to
+   the stored pipeline's K2 on the same trajectory through its wrapper, on
+   narrow fused tiles, and one segment a call from the global step offset
+   with η carried in; (b) bench.py's rows (K=10^5, segment 8, chunks 4, 256
+   steps; K=10^6, segment 16, chunks 25, 64 steps) through both tiled
+   factories, bit-equal to the stored pipeline, timed in turns with it, the
+   main path's launch count from the K=10^6 tiled_grid run; (c) KT1 and KT2
+   alone at K=10^6 (KT2 on its stored_plan windows) against K1's and K2's
    plain versions, timed.
 25. The unbatched recompute pipeline at phase 21(c)'s row past memory
    (K=10^5, 81,920 steps, segment 256): time, peak device memory, and u,
@@ -229,6 +241,17 @@ raises, and the script exits non-zero; nothing is caught.
    bit-identical on a repeat (a gate), with its share of the bound; (e)
    phase 14's B=512 hp study in turns on hp_plan's launch and on one lane a
    member, and its torch.profiler trace.
+35. KT2 on K2's fused windows and D1 with G lanes a member: the registers
+   and spills that ptxas reported for rev_fused and dg_estimate_kernel; (a)
+   KT2 at phase 24's K=10^6 row on the wrapper's plan and, for each (s_f,
+   CTA size) stored_plan searches, the tiling its cost model rates cheapest,
+   timed in turns, each with its CUDA launches, the cost model and its share
+   of the bound, the whole sweep and the sweep one 16-step segment a call
+   (the sharded composition's calls: the global step offset, η carried in)
+   both the stored pipeline's bits (a gate); (b) D1 at B=1024 (9(c), the
+   studies' shape), 16,384 (9(a)) and 102,400 (9(e)) on every G and CTA
+   size, timed in turns beside the wrapper, each within dg_kernel_tolerance
+   (a gate), with its share of the bound.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -263,7 +286,7 @@ SOURCES = {
     "adj_est_recompute": f"{PACKAGE}/csrc/dg_rhs.cu",
     "adj_march": f"{PACKAGE}/csrc/dg_rhs.cu",
     "tiled_fwd_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
-    "tiled_rev_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
+    "tiled_rev_seg": f"{PACKAGE}/csrc/dg_rhs.cu",
     "mxu_fwd_traj": f"{PACKAGE}/csrc/dg_mxu.cu",
     "mxu_adj_est": f"{PACKAGE}/csrc/dg_mxu.cu",
 }
@@ -1056,34 +1079,26 @@ def march_bound(n_order, k, n_steps):
 # ------------------------------------------------------------ DG-in-time strand
 
 
-def dg_tol(plain, k, ops_p, ops_a):
-    """float32 kernel vs plain version on the same inputs: each element's
-    Newton and adjoint solves amplify the roundoff of their assembly (FMA
-    contraction in the kernel, none in the plain version) by the slab
-    system's condition κ (that of the zero-width system Sᵀ + B, resp.
-    −Sᵀ − e_L e_Lᵀ: 1 at order 1, 5.4 at order 4), and the inflow carries
-    it through the K elements. err_k = vᵀres sums Na products of an
-    O(max|v|) weight with a difference of O(max|u|) values, and is local:
-    a shift of the states carried in through the inflow moves Sᵀu_h, the
-    outflow and the inflow term alike and cancels in the residual (to
-    O(h·f_u)), so its bound has no K factor. The err bound is also the
-    noise a refinement decision must clear."""
-    import numpy as np
+def d1_shares(got, want, tol):
+    """Per output (u, v, err): max|kernel − plain| and its worst share of
+    dg_kernel_tolerance's per-element bound (a bound of 0 takes only an
+    exact 0)."""
+    import torch
 
-    a_p = ops_p.stiff.T.copy()
-    a_p[-1, -1] -= 1.0
-    a_a = -ops_a.stiff.T.copy()
-    a_a[0, 0] -= 1.0
-    kp, ka = float(np.linalg.cond(a_p)), float(np.linalg.cond(a_a))
-    umax, vmax = (float(x.abs().max()) for x in plain[:2])
-    return {"u": 8 * k * kp * EPS32 * umax, "v": 8 * k * ka * EPS32 * vmax,
-            "err": 8 * ka * ops_a.np_ * EPS32 * umax * vmax}
+    e, share = {}, {}
+    for name, g, w in zip(("u", "v", "err"), got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        d = (g - w).abs().double()
+        e[name] = float(d.max())
+        share[name] = float((d / tol[name]).nan_to_num(0.0, posinf=float("inf")).max())
+    return e, share
 
 
 def dg_case(label, device, errs, ode="du/dt=sin(u)", n=1, k=DG_SLAB["k"], b=DG_SLAB["b"],
             seed=DG_SLAB["seed"], newton_iters=DG_SLAB["newton_iters"], trig="libm",
             per_member=False):
-    """One phase-9 comparison: D1 against its plain version on the card."""
+    """One phase-9 comparison: D1 against its plain version on the card,
+    through the wrapper and on every (G, CTA size) d1_plan chooses from."""
     import numpy as np
     import torch
 
@@ -1106,18 +1121,30 @@ def dg_case(label, device, errs, ode="du/dt=sin(u)", n=1, k=DG_SLAB["k"], b=DG_S
     got = run(times, y0)
     torch.cuda.synchronize()
     want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
-    tol = dg_tol(want, k, ops_p, ops_a)
-    e = {}
-    for name, g, w in zip(("u", "v", "err"), got, want):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all()), f"{label}: {name}"
-        e[name] = float((g - w).abs().max())
-    smem = k * ops_p.np_ * 128 * 4 <= 48 * 1024
+    tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+    e, share = d1_shares(got, want, tol)
+    teeth = int((want[2].abs() > tol["err"]).sum())
+    worst = dict(share)
+    for g in ds.LANES:
+        for th in ds.CTA_THREADS:
+            launch = ds.D1Launch(g, th)
+            first = ds._d1_launch(times, y0, run.plan, launch)
+            again = ds._d1_launch(times, y0, run.plan, launch)
+            torch.cuda.synchronize()
+            assert all(bool(torch.equal(x, y)) for x, y in zip(first, again)), (label, launch)
+            e_l, share_l = d1_shares(first, want, tol)
+            for x in e:
+                e[x], worst[x] = max(e[x], e_l[x]), max(worst[x], share_l[x])
+    plan = ds.d1_plan(b, ops_p.np_, max(ops_p.phi.shape[0], ops_a.phi.shape[0]))
     say("9", f"{label}: {ode} order {n} K={k} B={b} newton {newton_iters} trig={trig} "
-             f"{'per-member' if per_member else 'shared'} times, states in "
-             f"{'shared memory' if smem else 'the u output'} | u {e['u']:.3e} (tol "
-             f"{tol['u']:.3e}) v {e['v']:.3e} (tol {tol['v']:.3e}) err {e['err']:.3e} (tol "
-             f"{tol['err']:.3e}; max|err| {float(want[2].abs().max()):.3e})")
-    assert all(e[x] <= tol[x] for x in e), f"{label}: the DG slab kernel disagrees"
+             f"{'per-member' if per_member else 'shared'} times, the wrapper on {plan} | max|kernel "
+             f"- plain| over it and {len(ds.LANES) * len(ds.CTA_THREADS)} (G, CTA size) launches: "
+             + " ".join(f"{x} {e[x]:.3e} (per-element tol <= {float(tol[x].max()):.3e}, worst "
+                        f"{worst[x]:.2%} of it; the wrapper {share[x]:.2%})" for x in e)
+             + f"; max|err| {float(want[2].abs().max()):.3e}, {teeth} of {want[2].numel()} "
+               f"elements above their err bound; every launch bit-identical on a repeat")
+    assert max(worst.values()) <= 1.0, f"{label}: the DG slab kernel disagrees"
+    assert teeth > 0, f"{label}: the err bound cannot tell an err of 0 from the plain version's"
     if per_member:  # a trailing zero-width slab contributes exactly 0
         pad = torch.diff(times, dim=1) == 0
         assert bool(pad.any()) and bool((got[2][pad] == 0).all()), "padding must contribute 0"
@@ -1136,14 +1163,15 @@ def phase9(device, errs):
     cases = {}
     for trig in ("libm", "fast"):
         cases[trig] = dg_case(f"(a) bench shapes, {trig}", device, errs, trig=trig)
-    dg_case("(b) order 2 (Cramer)", device, errs, n=2, b=1024, newton_iters=8)
-    dg_case("(b') order 4 (pivoted elimination)", device, errs, n=4, k=24, b=1024,
-            newton_iters=8)
+    # orders 2 and 4 on coarse slabs and fast dynamics: err above float32 roundoff
+    dg_case("(b) order 2 (Cramer)", device, errs, n=2, k=2, b=1024, newton_iters=8)
+    dg_case("(b') order 4 (pivoted elimination)", device, errs, ode="du/dt=10cos(u)", n=4, k=4,
+            b=1024, newton_iters=8)
     cases["study"] = dg_case("(c) per-member partitions", device, errs,
                              k=DG_STUDY["k0"] + DG_STUDY["maxit"] + 1, b=DG_STUDY["b"],
                              newton_iters=DG_STUDY["newton_iters"], per_member=True)
-    for ode in ("du/dt=t*sin(u)", "gaussian_mixture"):
-        dg_case(f"(d) {ode}", device, errs, ode=ode, b=4096)
+    for ode, k in (("du/dt=t*sin(u)", DG_SLAB["k"]), ("gaussian_mixture", 4)):
+        dg_case(f"(d) {ode}", device, errs, ode=ode, k=k, b=4096)
     cases["big"] = dg_case("(e) 102,400 members", device, errs, b=DG_SLAB_BIG["b"],
                            seed=DG_SLAB_BIG["seed"])
     run, times, y0 = cases["libm"]
@@ -1165,8 +1193,9 @@ def phase9(device, errs):
 
 
 def dg_decisions(err_a, err_b, noise):
-    """Members whose top-two |err| margin (of ``err_b``) clears 4x the noise,
-    and how many of them both sides refine at the same element."""
+    """Members whose top-two |err| margin (of ``err_b``) clears 4x the noise
+    (a number, or one a member), and how many of them both sides refine at
+    the same element."""
     import torch
 
     top2 = torch.topk(err_b.abs(), 2, dim=1).values
@@ -1211,28 +1240,33 @@ def phase10(device, errs):
     plan = ds.make_cuda_dg_estimate_ensemble(sin, ops_p, ops_a, k, 8, device=device).plan
     y32 = torch.tensor(y0s.astype(np.float32), device=device)
     y64 = torch.tensor(y0s.astype(np.float32).astype(np.float64), device=device)
-    worst = {"err": 0.0, "tol": 0.0}
+    worst = {"err": 0.0, "tol": 0.0, "share": 0.0}
     decided = agree = decided64 = agree64 = 0
     for r in hist:
         times = torch.tensor(r.times, dtype=torch.float32, device=device)
         plain = ds.dg_estimate_ensemble_plain(times, y32, plan)
-        tol = dg_tol(plain, k, ops_p, ops_a)
+        tol = ds.dg_kernel_tolerance(times, y32, plain, plan)["err"]
         err_k = torch.tensor(r.err, dtype=torch.float32, device=device)
-        e = float((err_k - plain[2]).abs().max())
-        assert e <= tol["err"], (e, tol["err"])
-        worst["err"], worst["tol"] = max(worst["err"], e), max(worst["tol"], tol["err"])
-        d, a = dg_decisions(err_k, plain[2], tol["err"])
+        d_err = (err_k - plain[2]).abs().double()
+        assert bool((d_err <= tol).all()), (float(d_err.max()), float(tol.max()))
+        worst["err"], worst["tol"] = max(worst["err"], float(d_err.max())), max(worst["tol"],
+                                                                               float(tol.max()))
+        worst["share"] = max(worst["share"], float((d_err / tol).nan_to_num(0.0).max()))
+        noise = tol.amax(dim=1)  # each member's largest err bound
+        d, a = dg_decisions(err_k, plain[2], noise)
         decided, agree = decided + d, agree + a
         err64 = dg_estimate_batched(ops_p, ops_a, sin.f, times.double(), y64, f_u=sin.f_u,
                                     newton_iters=8)[2]
-        d, a = dg_decisions(err_k.double(), err64, tol["err"])
+        d, a = dg_decisions(err_k.double(), err64, noise)
         decided64, agree64 = decided64 + d, agree64 + a
     errs["dg_estimate_ensemble"] = max(errs["dg_estimate_ensemble"], worst["err"])
     say("10", f"replay of {len(hist)} iterations' partitions through the plain version: max|d err| "
-              f"{worst['err']:.3e} (tol <= {worst['tol']:.3e}); decisions with a top-two margin > "
-              f"4x the err bound: {decided} of {len(hist) * 1024} member-iterations, "
-              f"kernel and plain agree on {agree}; against the float64 torch engine {decided64} "
-              f"clear it, agreement on {agree64}")
+              f"{worst['err']:.3e} (per-element tol <= {worst['tol']:.3e}, worst "
+              f"{worst['share']:.2%} of it); decisions with a top-two margin > 4x the member's "
+              f"largest err bound: {decided} of {len(hist) * 1024} member-iterations, kernel and "
+              f"plain agree on {agree}; against the float64 torch engine {decided64} clear it, "
+              f"agreement on {agree64}")
+    assert decided > 0, "no decision of the study clears the float32 bound"
     assert agree == decided and agree64 == decided64, "a decision above the float32 noise differs"
 
     ens = dg_adaptive.main(["--ensemble", "1024"])
@@ -1293,6 +1327,8 @@ def dg_times(device, cases):
     version at 9(a) (libm and fast), 9(e) and 9(c) (one iteration of the
     per-member study); the B=1024 studies with each engine. Returns
     (kernel ms, plain ms) at 9(a) libm for the kernel line."""
+    from unittest import mock
+
     import numpy as np
     import torch
 
@@ -1305,14 +1341,22 @@ def dg_times(device, cases):
                        ("study", "9(c), the studies' shape")):
         run, times, y0 = cases[key]
         b, k = y0.shape[0], run.plan.n_elements
-        ms = cuda_ms(lambda: run(times, y0), runs=5)
+        one = ds.D1Launch(1, ds.D1_THREADS)
+        turns = in_turns({"wrapper": lambda: run(times, y0),
+                          "one lane": lambda: ds._d1_launch(times, y0, run.plan, one)})
+        ms, ms1 = statistics.mean(turns["wrapper"]), statistics.mean(turns["one lane"])
         plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=5)
         b_ms, b_by = dg_slab_bound(1, k, b, run.plan.newton_iters, run.plan.ops_p.phi.shape[0],
                                    run.plan.ops_a.phi.shape[0], per_member=times.dim() == 2)
-        say("11", f"dg_estimate_ensemble {label} B={b} K={k}: kernel {ms:.4f} ms = "
-                  f"{b * k * 2 / (ms / 1e3):.4e} slab-solves/s; plain {plain_ms:.3f} ms; kernel "
-                  f"speed-up {plain_ms / ms:.1f}x; bound {b_ms:.5f} ms ({b_by}), kernel at "
-                  f"{b_ms / ms:.2%} of it")
+        nq = max(run.plan.ops_p.phi.shape[0], run.plan.ops_a.phi.shape[0])
+        say("11", f"dg_estimate_ensemble {label} B={b} K={k}: kernel on "
+                  f"{ds.d1_plan(b, run.plan.ops_p.np_, nq)} {ms:.4f} ms = "
+                  f"{b * k * 2 / (ms / 1e3):.4e} slab-solves/s, on one lane a member ({one}) "
+                  f"{ms1:.4f} ms (in turns, median of 5 each: {turns['wrapper'][0]:.4f} / "
+                  f"{turns['wrapper'][1]:.4f} and {turns['one lane'][0]:.4f} / "
+                  f"{turns['one lane'][1]:.4f}); plain {plain_ms:.3f} ms; kernel speed-up "
+                  f"{plain_ms / ms:.1f}x; bound {b_ms:.5f} ms ({b_by}), kernel at {b_ms / ms:.2%} "
+                  f"of it")
         out[label] = (ms, plain_ms)
 
     sin = odes.get_ode("du/dt=sin(u)")
@@ -1330,6 +1374,21 @@ def dg_times(device, cases):
                   f"(device loop, float32): engine cuda {ms_cuda:.3f} ms (median of 5; "
                   f"{ms_cuda / its:.3f} ms per iteration); engine torch {ms_torch:.1f} ms (one "
                   f"run); speed-up {ms_torch / ms_cuda:.1f}x")
+
+    # the per-member study on d1_plan's launch and on one lane a member
+    def study(one_lane=False):
+        loop = dg_loop.run_adaptive_dg_per_member
+        if not one_lane:
+            return loop(sin.f, y0s, (0.0, 2.0), engine="cuda", **kw)
+        with mock.patch.object(ds, "d1_plan", lambda b, np_, nq: ds.D1Launch(1, ds.D1_THREADS)):
+            return loop(sin.f, y0s, (0.0, 2.0), engine="cuda", **kw)
+
+    turns = in_turns({"d1_plan": study, "one lane a member": lambda: study(True)})
+    say("11", f"run_adaptive_dg_per_member B={DG_STUDY['b']} in turns, median of 5 each: on "
+              f"d1_plan's launch {statistics.mean(turns['d1_plan']):.3f} ms "
+              f"({turns['d1_plan'][0]:.3f} / {turns['d1_plan'][1]:.3f}), on one lane a member "
+              f"{statistics.mean(turns['one lane a member']):.3f} ms "
+              f"({turns['one lane a member'][0]:.3f} / {turns['one lane a member'][1]:.3f})")
     return out["9(a) libm"]
 
 
@@ -2864,6 +2923,30 @@ def phase24(device, errs):
     assert max(e[:2]) <= tol["u"] and e[2] <= tol["lam"] and e[3] <= tol["eta"]
     errs["tiled_fwd_seg"] = max(errs["tiled_fwd_seg"], *e[:2])
     errs["tiled_rev_seg"] = max(errs["tiled_rev_seg"], *e[2:])
+    # KT2 runs K2's fused kernel at B = 1: the stored pipeline's K2 on the
+    # same trajectory gives its bits, and so do narrow fused tiles and the
+    # sweep one segment a call from the global step offset with η carried in
+    want = dg_rhs.adj_est_stored(traj[:, :, None], uf[:, None], lam[:, None], 0.0, ops)
+    want = (want[0][:, 0], want[1][0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fused = dg_rhs.stored_plan(640, 1, disc.np_, 8, sms)
+    n_cuda = dg_tiled.tiled_rev_seg.cuda_launches
+    variants = {"the wrapper": (lam0, eta)}
+    for tile in (5, 50):
+        narrow = dg_rhs.fused_plan(640, 4, 512)._replace(tile=tile, n_tiles=-(-640 // tile))
+        variants[f"fused tiles of {tile}"] = dg_tiled._kt2_launch(traj, uf, lam, 0.0, ops, narrow)[:2]
+    lam_s, eta_s = lam, None
+    for si in reversed(range(4)):
+        seg_traj = traj[2 * si:2 * si + 2]
+        u_end = uf if si == 3 else traj[2 * si + 2]
+        lam_s, eta_s = dg_tiled.tiled_rev_seg(seg_traj, u_end, lam_s, 0.0, plan, ops, si, eta_s)
+    variants["one segment a call"] = (lam_s, eta_s)
+    torch.cuda.synchronize()
+    same = {key: all(bool(torch.equal(x, y)) for x, y in zip(v, want)) for key, v in variants.items()}
+    say("24", f"(a) KT2 on stored_plan's windows (s_f={fused.segment}, {fused.n_tiles} tile(s) of "
+              f"{fused.tile} + 2x{fused.ghost}, {n_cuda} CUDA launches): lam0 and eta bit-equal to "
+              f"the stored pipeline's K2 on the same trajectory: {same}")
+    assert all(same.values()), "KT2 is not the stored pipeline's bits"
 
     # (b) the rows, both factories against the stored K1/K2 pipeline: every
     # local element runs K1's/K2's arithmetic at the same times, so u_final,
@@ -2929,8 +3012,12 @@ def phase24(device, errs):
             lam0_p, eta_p = out.pop("p2")
             e2 = [float((out["k2"][0] - lam0_p[:, 0]).abs().max()),
                   float((out["k2"][1] - eta_p[0]).abs().max())]
+            kt2 = dg_rhs.stored_plan(k, 1, disc.np_, n_steps,
+                                     torch.cuda.get_device_properties(device).multi_processor_count)
             say("24", f"(c) K={k} segment={seg}: KT1 {ms_kt1:.3f} ms, KT2 {ms_kt2:.3f} ms (median "
-                      f"of 5); plain (K1's and K2's plain versions) {plain1:.1f} / {plain2:.1f} ms "
+                      f"of 5; KT2 on s_f={kt2.segment}, {kt2.n_tiles} CTAs of {kt2.tile} + "
+                      f"2x{kt2.ghost} on {kt2.threads} threads, "
+                      f"{dg_tiled.tiled_rev_seg.cuda_launches} CUDA launches); plain (K1's and K2's plain versions) {plain1:.1f} / {plain2:.1f} ms "
                       f"(one run each); kernel vs plain: traj+u {e1:.3e} (tol {tol['u']:.3e}), lam0 "
                       f"{e2[0]:.3e} (tol {tol['lam']:.3e}), eta {e2[1]:.3e} (tol {tol['eta']:.3e})")
             assert e1 <= tol["u"] and e2[0] <= tol["lam"] and e2[1] <= tol["eta"]
@@ -3461,8 +3548,9 @@ def phase29(device, lib):
     torch.cuda.empty_cache()
 
     # (c) phase 24's rows at B = 1 on a uniform mesh: the stored pipeline
-    # (K1 + fused K2) against KT1 + KT2 in turns, K2 against KT2 alone, and
-    # K2's plans on KT1's trajectory
+    # (K1 + fused K2) against KT1 + KT2 in turns, K2 against KT2 alone (the
+    # same kernel through the tiled wrapper), and K2's plans on KT1's
+    # trajectory
     for k, seg, chunks, n_steps in TILED_ROWS:
         disc = startup_1d(2, 0.0, 2 * np.pi, k)
         dt = cfl_step(disc)
@@ -3493,8 +3581,9 @@ def phase29(device, lib):
                   f"({alone['K2'][0]:.3f} / {alone['K2'][1]:.3f}; "
                   f"{dg_rhs.adj_est_stored.cuda_launches} CUDA launches, {plan.n_tiles} CTAs of "
                   f"{plan.tile} + 2x{plan.ghost}, {bound / ms['K2']:.2%} of the {bound:.3f} ms bound) "
-                  f"against KT2 {ms['KT2']:.3f} ms ({n_steps // seg} launches, {tiled.plan.n_tiles} "
-                  f"CTAs of {tiled.plan.tile} + 2x{tiled.plan.ghost}; {bound / ms['KT2']:.2%}); "
+                  f"against KT2 {ms['KT2']:.3f} ms (K2's kernel through the tiled wrapper, "
+                  f"{dg_tiled.tiled_rev_seg.cuda_launches} CUDA launches; "
+                  f"{bound / ms['KT2']:.2%}); "
                   f"u_final, lam0, eta and K2 vs KT2 bit-equal: {same}")
         assert all(same), f"K={k}: the fused K2 is not the tiled pipeline's bits"
         k2_plans("(c)", t3, u3, l3, ops, sms)
@@ -4159,6 +4248,162 @@ def phase34(device, lib, errs, hp_cases):
     return rows
 
 
+# KT2's plans measured at phase 24's K = 10^6 row: the s_f stored_plan
+# searches and MAX_FUSED, on 512- and 1024-thread CTAs
+KT2_STEPS = (4, 8, 16)
+
+
+def kt2_plans(device, sms, errs):
+    """KT2 at TILED_ROWS[-1] (K = 10^6, segment 16, 64 steps) on the
+    wrapper's plan and, for each (s_f, CTA size) of KT2_STEPS × FUSED_THREADS,
+    the tiling the cost model rates cheapest, timed in turns on KT1's
+    trajectory; every plan's whole sweep and its sweep one segment a call
+    (the global step offset, η carried in) the stored pipeline's bits (a
+    gate). Returns {key: ms}."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
+
+    k, seg, chunks, n_steps = TILED_ROWS[-1]
+    disc = startup_1d(2, 0.0, 2 * np.pi, k)
+    dt = cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    tiled = dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid(
+        disc, A, dt, segment=seg, n_segments=n_steps // seg, chunks=chunks, device=device)
+    traj, uf = dg_tiled.tiled_fwd_seg(u0, 0.0, n_steps // seg, tiled.plan, ops)
+    want = dg_rhs.adj_est_stored(traj[:, :, None], uf[:, None], lam[:, None], 0.0, ops)
+    want = (want[0][:, 0], want[1][0])
+    plans = {"wrapper's plan": dg_rhs.stored_plan(k, 1, disc.np_, n_steps, sms)}
+    for st in KT2_STEPS:
+        for th in dg_rhs.FUSED_THREADS:
+            plans[f"s_f={st} {th} threads"] = dg_rhs._cheapest(
+                dg_rhs._tilings(k, 1, sms, dg_rhs.fused_plan(k, st, th)),
+                lambda plan: dg_rhs._fused_cost(k, 1, n_steps, -(-n_steps // plan.segment), plan,
+                                                sms))
+    out, counts = {}, {}
+
+    def on(key, plan):
+        def run():
+            *out[key], counts[key] = dg_tiled._kt2_launch(traj, uf, lam, 0.0, ops, plan)
+
+        return run
+
+    def wrapper():
+        out["wrapper"] = dg_tiled.tiled_rev_seg(traj, uf, lam, 0.0, tiled.plan, ops)
+
+    turns = in_turns({"wrapper": wrapper, **{key: on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = dg_tiled.tiled_rev_seg.cuda_launches
+    b_ms, b_by = advec_bounds(disc.np_, k, n_steps)["tiled_rev_seg"]
+    rows = {}
+    for key, plan in {"wrapper": plans["wrapper's plan"], **plans}.items():
+        ms = rows[key] = statistics.mean(turns[key])
+        warps = max(-(-plan.n_tiles // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32),
+                    dg_rhs.MIN_WARPS)
+        model = dg_rhs._fused_cost(k, 1, n_steps, counts[key], plan, sms) / 1e3
+        implied = (ms * 1e3 - counts[key] * dg_rhs.LAUNCH_US) / (n_steps * warps)
+        lam_s, eta_s = lam, None
+        for si in reversed(range(n_steps // seg)):
+            u_end = uf if si == n_steps // seg - 1 else traj[(si + 1) * seg]
+            lam_s, eta_s, _ = dg_tiled._kt2_launch(traj[si * seg:(si + 1) * seg], u_end, lam_s,
+                                                   0.0, ops, plan, si * seg, eta_s)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out[key], want))
+        seg_same = bool(torch.equal(lam_s, want[0])) and bool(torch.equal(eta_s, want[1]))
+        say("35", f"(a) KT2 K={k} N=2 B=1 steps={n_steps} {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads ({plan.n_tiles} CTAs, "
+                  f"{warps} warps on the busiest SM, ghost 2W/L {2 * plan.ghost / plan.tile:.1%}); "
+                  f"{ms:.3f} ms (model {model:.3f}, implied STEP_WARP_US {implied:.4f}; in turns, "
+                  f"median of 5 each: {turns[key][0]:.3f} / {turns[key][1]:.3f}), {counts[key]} CUDA "
+                  f"launches, {b_ms / ms:.2%} of the {b_ms:.3f} ms bound ({b_by}); lam0 and eta "
+                  f"the stored pipeline's bits: whole sweep {same}, one {seg}-step segment a call "
+                  f"{seg_same}")
+        assert same and seg_same and counts[key] == -(-n_steps // plan.segment), key
+    say("35", f"(a) KT2: the wrapper {rows['wrapper']:.3f} ms; fastest "
+              f"{min(rows, key=rows.get)} {min(rows.values()):.3f} ms")
+    del traj, uf, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def d1_plans(label, case, device, errs):
+    """D1 on every G of LANES and 32 and every CTA size of CTA_THREADS,
+    timed in turns beside the wrapper, each within dg_kernel_tolerance (a
+    gate), with its share of dg_slab_bound. Returns {(lanes, threads): ms}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    run, times, y0 = case
+    plan = run.plan
+    b, k = y0.shape[0], plan.n_elements
+    want = ds.dg_estimate_ensemble_plain(times, y0, plan)
+    tol = ds.dg_kernel_tolerance(times, y0, want, plan)
+    variants = {(g, th): ds.D1Launch(g, th) for g in (*ds.LANES, 32) for th in ds.CTA_THREADS}
+    out = {}
+
+    def on(key, launch):
+        def go():
+            out[key] = ds._d1_launch(times, y0, plan, launch)
+
+        return go
+
+    turns = in_turns({"wrapper": lambda: run(times, y0),
+                      **{key: on(key, launch) for key, launch in variants.items()}})
+    nqp, nqa = plan.ops_p.phi.shape[0], plan.ops_a.phi.shape[0]
+    b_ms, b_by = dg_slab_bound(1, k, b, plan.newton_iters, nqp, nqa, per_member=times.dim() == 2)
+    mine = ds.d1_plan(b, plan.ops_p.np_, max(nqp, nqa))
+    rows = {}
+    for key, launch in variants.items():
+        ms = rows[key] = statistics.mean(turns[key])
+        e, share = d1_shares(out[key], want, tol)
+        errs["dg_estimate_ensemble"] = max(errs["dg_estimate_ensemble"], *e.values())
+        mark = " (the wrapper's plan)" if launch == mine else ""
+        say("35", f"(b) D1 {label} B={b} K={k} G={launch.lanes} {launch.threads} threads{mark}: "
+                  f"{ms:.4f} ms (in turns, "
+                  f"median of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}), {b_ms / ms:.3%} "
+                  f"of the {b_ms:.6f} ms bound ({b_by}); worst share of the per-element tolerance "
+                  + " ".join(f"{x} {share[x]:.2%}" for x in share))
+        assert max(share.values()) <= 1.0, (label, key)
+    say("35", f"(b) D1 {label} B={b}: the wrapper ({mine}) {statistics.mean(turns['wrapper']):.4f} "
+              f"ms; fastest {min(rows, key=rows.get)} {min(rows.values()):.4f} ms")
+    return rows
+
+
+def phase35(device, lib, errs, dg_cases):
+    """KT2 on K2's fused windows and D1 with G lanes a member: the kernels'
+    registers and spills; (a) KT2's plans at K = 10^6 in turns, every plan
+    the stored pipeline's bits whole and one segment a call; (b) D1 on every
+    G and CTA size at B = 1024, 16,384 and 102,400, in turns."""
+    import torch
+
+    regs = kernel_registers(lib.build_log, ("rev_fused",))
+    d1, name = [], None
+    for ln in lib.build_log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split(" for ", 1)[1].strip()
+            name = name if "dg_estimate_kernel" in name else None
+            frame = ""
+        elif name and "spill" in ln:
+            frame = ln.strip()
+        elif name and "registers" in ln:
+            d1.append(f"{instance_name(name)}: {ln.split('Used ', 1)[1].split(',')[0]}, {frame}")
+            name = None
+    say("35", f"ptxas -v for rev_fused ({len(regs)} instances): {'; '.join(regs)}")
+    say("35", f"ptxas -v for dg_estimate_kernel ({len(d1)} instances): {'; '.join(sorted(d1))}")
+    assert regs and d1, "no rev_fused or dg_estimate_kernel instance in the build log"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {f"KT2 {key}": ms for key, ms in kt2_plans(device, sms, errs).items()}
+    for key, label in (("study", "9(c), B=1024"), ("libm", "9(a)"), ("big", "9(e)")):
+        for k2, ms in d1_plans(label, dg_cases[key], device, errs).items():
+            rows[f"D1 {label} {k2}"] = ms
+    return rows
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -4270,6 +4515,7 @@ def main() -> int:
     phase32(device, lib, errs)
     phase33(device, lib, errs)
     phase34(device, lib, errs, hp_cases)
+    phase35(device, lib, errs, cases)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -16,15 +16,11 @@ max|u|·max|v| (FMA contraction in the kernel, none in the plain version);
 an indicator sums rf nodes (and d components), and J = Σu²dt a few ulp of
 max|u|²·T per step.
 
-The DG slab kernel: each element's Newton and adjoint solves amplify the
-roundoff of their assembly (FMA contraction in the kernel, none in the plain
-version) by the slab system's condition κ (that of the zero-width system,
-Sᵀ + B or −Sᵀ − e_L e_Lᵀ: 1 at order 1, 5.4 at order 4), and the inflow
-carries it through the K elements: u within 8·K·κ_p·ε·max|u|, v within
-8·K·κ_a·ε·max|v|. err_k = vᵀres, a sum of Na products of an O(max|v|)
-weight with a difference of O(max|u|) values, is local (a state shift
-carried in through the inflow cancels in the residual to O(h·f_u)): within
-8·κ_a·Na·ε·max|u|·max|v|.
+The DG slab kernel: ops/cuda/dg_slab.dg_kernel_tolerance — every bound per
+member and element, as the hp kernel's: u and v within 8·ε of their
+element's system's |J⁻¹|·(the magnitudes of its terms), carried by the
+inflow of the elements before (u) or after (v) it, err within 8·ε of the
+sum of the magnitudes of its products.
 
 The hp kernel: ops/cuda/dg_slab_mixed.hp_kernel_tolerance — every bound per
 member and element: u and v within 8·ε of their element's system's
@@ -196,23 +192,15 @@ def test_fd_kernels_reject_float64_and_non_contiguous(device):
         long(torch.zeros((8, 1000), device=device), torch.zeros(8, device=device))
 
 
-def _dg_tol(plain, k, ops_p, ops_a):
-    """The DG slab kernel's bounds (module docstring)."""
-    a_p = ops_p.stiff.T.copy()
-    a_p[-1, -1] -= 1.0
-    a_a = -ops_a.stiff.T.copy()
-    a_a[0, 0] -= 1.0
-    kp, ka = np.linalg.cond(a_p), np.linalg.cond(a_a)
-    umax, vmax = (float(x.abs().max()) for x in plain[:2])
-    return (8 * k * kp * EPS32 * umax, 8 * k * ka * EPS32 * vmax,
-            8 * ka * ops_a.np_ * EPS32 * umax * vmax)
-
-
+@pytest.mark.parametrize("lanes", [1, 4, 8, 16, 32])
 @pytest.mark.parametrize("ode,n,trig,per_member", [
     ("du/dt=sin(u)", 1, "libm", False), ("du/dt=sin(u)", 1, "fast", True),
     ("du/dt=sin(u)", 4, "libm", False), ("gaussian_mixture", 2, "libm", True),
 ])
-def test_dg_slab_kernel_matches_its_plain_version(device, ode, n, trig, per_member):
+def test_dg_slab_kernel_matches_its_plain_version(device, ode, n, trig, per_member, lanes):
+    """D1 through its wrapper (d1_plan's launch) and on G lanes a member at
+    every CTA size d1_plan chooses from: each output within its per-element
+    bound of the plain version, a repeat bit-identical, the tails exactly 0."""
     rng = np.random.default_rng(n)
     k, b = 12, 3000
     y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
@@ -227,15 +215,23 @@ def test_dg_slab_kernel_matches_its_plain_version(device, ode, n, trig, per_memb
     ops_p, ops_a = dg_time_operators(n), dg_time_operators(n + 1)
     run = ds.make_cuda_dg_estimate_ensemble(ode, ops_p, ops_a, k, 8, trig=trig, device=device)
     before = ds.dg_estimate_ensemble.launches
-    got = run(times, y0)
+    outs = [run(times, y0)]
     torch.cuda.synchronize()
     assert ds.dg_estimate_ensemble.launches == before + 1
+    for threads in ds.CTA_THREADS:
+        outs.append(ds._d1_launch(times, y0, run.plan, ds.D1Launch(lanes, threads)))
+    again = ds._d1_launch(times, y0, run.plan, ds.D1Launch(lanes, ds.CTA_THREADS[0]))
+    torch.cuda.synchronize()
+    assert ds.dg_estimate_ensemble.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(again, outs[1]))
     want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
-    for g, w, tol in zip(got, want, _dg_tol(want, k, ops_p, ops_a)):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all())
-        assert float((g - w).abs().max()) <= tol
-    if per_member:  # a trailing zero-width slab contributes exactly 0
-        assert bool((got[2][torch.diff(times, dim=1) == 0] == 0).all())
+    tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+    for got in outs:
+        for g, w, name in zip(got, want, ("u", "v", "err")):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert bool(((g - w).abs().double() <= tol[name]).all()), name
+        if per_member:  # a trailing zero-width slab contributes exactly 0
+            assert bool((got[2][torch.diff(times, dim=1) == 0] == 0).all())
 
 
 def test_dg_slab_kernel_refusals_raise(device):
@@ -246,6 +242,11 @@ def test_dg_slab_kernel_refusals_raise(device):
         run(times.double(), torch.ones(8, dtype=torch.float64, device=device))
     with pytest.raises(RuntimeError, match="dg_estimate_ensemble failed"):
         run(times, torch.ones(0, device=device))  # an empty grid: the launch is refused
+    y0 = torch.ones(8, device=device)
+    for launch in (ds.D1Launch(3, 128), ds.D1Launch(64, 128), ds.D1Launch(4, 96 + 1),
+                   ds.D1Launch(4, 512)):  # lanes not a power of two ≤ 32, CTAs not in warps ≤ 256
+        with pytest.raises(RuntimeError, match="launch plan"):
+            ds._d1_launch(times, y0, run.plan, launch)
 
 
 @pytest.mark.parametrize("lanes", [1, 4, 8, 16, 32])
@@ -890,6 +891,8 @@ def test_new_advection_kernels_refuse_what_they_do_not_take(device):
     traj = torch.zeros((4, 3, 1, 64), device=device)
     with pytest.raises(RuntimeError, match="fused plan"):  # ghosts under 10·s_f + 10
         dg_rhs._k2_launch(traj, traj[0], traj[0], 0.0, ops, dg_rhs.FusedPlan(4, 49, 100, 1, 512))
+    with pytest.raises(RuntimeError, match="fused plan"):  # a step before the march's first
+        dg_rhs._k2_launch(traj, traj[0], traj[0], 0.0, ops, dg_rhs.fused_plan(64, 4), n_first=-1)
     with pytest.raises(ValueError, match="B=70000"):
         dg_rhs._check_grid(70_000)
     plan = dg_tiled.tile_plan(64, 3, 1, 20, 64)
