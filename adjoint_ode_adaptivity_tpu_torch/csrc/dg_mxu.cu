@@ -5,8 +5,8 @@
 //
 // KM1 dg_mxu_fwd  replaces adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:151
 //                 (_fwd_traj_kernel_m): the LSRK4(5) march storing every
-//                 entry state in a (n_steps, Np, N) trajectory. One launch a
-//                 stage (km_stage).
+//                 entry state in a (n_steps, Np, N) trajectory. One launch
+//                 per s_f steps (km_fwd_fused).
 // KM2 dg_mxu_rev  replaces dg_mxu.py:179 (_adj_est_kernel_m): per step in
 //                 reverse, two dt/2 residual steps from the stored u_n,
 //                 η += Σ_rows λ·(u_{n+1} − half2), two dt/2 transposed steps.
@@ -32,22 +32,28 @@
 // the host as the TPU kernel forms them (dg_mxu.py:161, :195-196) and passed
 // in a table, one value per stage.
 //
-// KM1: one launch a stage. The TPU kernel keeps the whole (Np, N) state in
-// VMEM for `segment` steps per grid point; at the timed row (N = 7, K = 10⁴,
-// B = 8) the state is 2.5 MB, past one CTA's shared memory, and every stage
-// needs the neighbours' traces of the stage's input. So each stage is one
-// launch over read-only inputs into separate outputs (ping-pong), 5 a step.
-// A CTA owns kTile columns: it stages drc and its column tile (all Np rows,
-// one halo column each side) in shared memory, and each thread keeps a
-// register tile of Np × kPerThread outputs (columns tid + p·kThreads,
-// conflict-free).
+// KM1 and KM2 run on K1's and K2's windows (csrc/fused_window.cuh): one CTA
+// per (tile, member), a tile of L local columns [lo, hi) of member b's K
+// with a window of W ghost columns a side clipped to [0, K), one thread per
+// window column. The window's ends are the first/last masks of c % K at a
+// member's ends and wrong (outside the cone) at ghost edges: a coupling is
+// cut wherever the untiled march cuts it.
 //
-// KM2: fused over s_f steps a launch on K2's windows (csrc/fused_window.cuh):
-// one CTA per (tile, member), a tile of L local columns [lo, hi) of member
-// b's K with a window of W ghost columns a side clipped to [0, K), one
-// thread per window column. The window's ends are the first/last masks of
-// c % K at a member's ends and wrong (outside the cone) at ghost edges: a
-// coupling is cut wherever the per-stage kernel cuts it. Tiles over the
+// KM1: fused over s_f ≤ 32 steps a launch. Each thread keeps its column's
+// u, r and the stage output in registers; per stage it posts u[0] and
+// u[Np−1] into a double-buffered trace array in shared memory, passes one
+// __syncthreads and reads its neighbours' (km_window_fwd). The local entry
+// state of every step goes to the trajectory. The ghost rule: 5 stages a
+// step, each coupling ±1 column, so after s_f steps a window edge's error
+// has reached 5·s_f columns; W = 5·s_f keeps every local column exact, and
+// where one tile holds a member's K there are no ghosts. u crosses launches
+// through a global ping-pong buffer, from which the neighbouring tiles read
+// their ghosts; r restarts at every step's stage 0. The inflow values ride
+// each launch (FusedInflow), sliced by global step from the host's table.
+// The plan (ops/cuda/dg_mxu.py km_fwd_plan) picks s_f, the CTA size and the
+// tiles.
+//
+// KM2: fused over s_f ≤ 16 steps a launch. Tiles over the
 // flattened B·K columns, a tile spanning members, measured the same at
 // K = 10⁴ (PERF.md) and were dropped. Each thread keeps its column's λu, λr, the η it accumulates and the
 // trajectory columns u_n, u_{n+1} and the prefetched u_{n−1} in registers for
@@ -64,20 +70,21 @@
 // ghosts; η is loaded at a launch's start, accumulated in KM2's order
 // n = N−1 … 0 and stored at its end. Every column computes exactly the
 // per-stage sweep's operations in its order, so every plan gives the plain
-// version's bits.
+// version's bits, and so does KM1.
 //
 // What bounds them. The least time for the work is set by its operations
 // (2·Np² + 9·Np + 4 per column and stage): at N = 7, K = 10⁴, B = 8 and 256
-// steps, 0.31 ms for KM1 and 1.25 ms for KM2. KM1 as written is bound by its
-// launch per stage (1,280 at that row) and the state's round trip through
-// device memory every stage. KM2 fused is bound by issue: a stage is ~2·Np²
-// un-contracted FP32 instructions a column (the bits forbid FMA, so at
-// most half the card's FP32 rate counted in FMA operations), the ghosts add
-// 2W/L of recomputed work, and each launch ~4 µs of start and tail. The plan
-// (ops/cuda/dg_mxu.py km_rev_plan) picks s_f, the CTA size and the tiles.
-// Registers: a thread holds ~9·Np + 20 values (92 at Np = 8), so Np 7-8 run
-// 512-thread CTAs (128 registers a thread) and Np ≤ 6 one instance built for
-// 1024 threads (64 a thread). PERF.md holds the card's times.
+// steps, 0.31 ms for KM1 and 1.25 ms for KM2. Fused, both are bound by
+// issue: a stage is ~2·Np² un-contracted FP32 instructions a column (the
+// bits forbid FMA, so at most half the card's FP32 rate counted in FMA
+// operations), the ghosts add 2W/L of recomputed work, and each launch ~4 µs
+// of start and tail; KM1 also stores its trajectory (n_steps states). The
+// plans (ops/cuda/dg_mxu.py km_fwd_plan, km_rev_plan) pick s_f, the CTA size
+// and the tiles. Registers: a KM2 thread holds ~9·Np + 20 values (92 at Np =
+// 8), so Np 7-8 run 512-thread CTAs (128 registers a thread) and Np ≤ 6 one
+// instance built for 1024 threads (64 a thread); a KM1 thread holds 3·Np +
+// ~12, so one instance built for 1024 threads serves every Np. PERF.md holds
+// the card's times.
 
 #include <cuda_runtime.h>
 
@@ -99,118 +106,9 @@ using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
 using aoa_dg::store_col;
 
-// ------------------------------------------------- KM1: one launch a stage
-
-constexpr int kThreads = 128;
-constexpr int kPerThread = 2;
-constexpr int kTile = kThreads * kPerThread;
-constexpr int kHalo = kTile + 2;  // column cc of the tile at index cc + 1
-
-// Loads drc into sd and the tile's columns [c0 − 1, c0 + kTile] of every row
-// of x into sx (zero outside [0, n)).
-template <int NP>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ x,
-                                           const StepTables& tab, float* sd,
-                                           float (*sx)[kHalo], int c0, int n) {
-  for (int i = threadIdx.x; i < NP * NP; i += kThreads) sd[i] = tab.drc[i];
-  for (int e = threadIdx.x; e < NP * kHalo; e += kThreads) {
-    const int i = e / kHalo;
-    const int c = c0 + e % kHalo - 1;
-    sx[i][e % kHalo] = (c >= 0 && c < n) ? x[static_cast<long>(i) * n + c] : 0.f;
-  }
-}
-
-// acc[i][p] = Σ_m d[i][m]·x[m][col p] over m = 0 … Np−1 in order (d row-major).
-template <int NP>
-__device__ __forceinline__ void tile_product(const float* sd,
-                                             float (*sx)[kHalo],
-                                             float (&acc)[NP][kPerThread]) {
-#pragma unroll
-  for (int m = 0; m < NP; ++m) {
-    float x[kPerThread];
-#pragma unroll
-    for (int p = 0; p < kPerThread; ++p) x[p] = sx[m][threadIdx.x + p * kThreads + 1];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const float d = sd[i * NP + m];
-#pragma unroll
-      for (int p = 0; p < kPerThread; ++p) {
-        acc[i][p] = m == 0 ? __fmul_rn(d, x[p]) : __fadd_rn(acc[i][p], __fmul_rn(d, x[p]));
-      }
-    }
-  }
-}
-
-// One forward LSRK stage: r = A_s·r_in + rhs(u_in), u_out = u_in + B_s·r.
-// r_in == nullptr: stage 0 (r = rhs); r_out == nullptr drops r (stage 4).
-// traj_out != nullptr stores the stage input (the step's entry state).
-template <int NP>
-__global__ void __launch_bounds__(kThreads)
-km_stage(const float* __restrict__ u_in, const float* __restrict__ r_in,
-         float* __restrict__ u_out, float* __restrict__ r_out,
-         float* __restrict__ traj_out, StepTables tab, float a_s, float b_s,
-         float uin, int n, int nk) {
-  __shared__ float sd[NP * NP];
-  __shared__ float su[NP][kHalo];
-  const int c0 = blockIdx.x * kTile;
-  stage_tile<NP>(u_in, tab, sd, su, c0, n);
-  __syncthreads();
-  float acc[NP][kPerThread];
-  tile_product<NP>(sd, su, acc);
-#pragma unroll
-  for (int p = 0; p < kPerThread; ++p) {
-    const int cc = threadIdx.x + p * kThreads;
-    const int c = c0 + cc;
-    if (c >= n) continue;
-    const int k = c % nk;
-    const bool last = k == nk - 1;
-    const float du_l = __fsub_rn(su[0][cc + 1], k == 0 ? uin : su[NP - 1][cc]);
-    const float du_r = last ? 0.f : __fsub_rn(su[NP - 1][cc + 1], su[0][cc + 2]);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      const long at = static_cast<long>(i) * n + c;
-      const float u = su[i][cc + 1];
-      const float rhs = __fadd_rn(__fadd_rn(acc[i][p], __fmul_rn(tab.ll[i], du_l)),
-                                  __fmul_rn(tab.lr[i], du_r));
-      const float r = r_in != nullptr ? __fadd_rn(__fmul_rn(a_s, r_in[at]), rhs) : rhs;
-      if (traj_out != nullptr) traj_out[at] = u;
-      u_out[at] = __fadd_rn(u, __fmul_rn(b_s, r));
-      if (r_out != nullptr) r_out[at] = r;
-    }
-  }
-}
-
 inline int launch_error() { return static_cast<int>(cudaGetLastError()); }
 
-template <int NP>
-int fwd_impl(int n, int nk, int n_steps, const double* rk, const float* tables,
-             const float* inflow, const float* u0, float* traj, float* u_final,
-             float* ubuf, float* rbuf, cudaStream_t stream) {
-  const StepTables tab = pack_tables(NP, tables);
-  const RkCoef c = rk_coef(rk);
-  const long size = static_cast<long>(NP) * n;
-  const int blocks = (n + kTile - 1) / kTile;
-  const float* u_cur = u0;
-  const float* r_cur = nullptr;
-  const long total = 5L * n_steps;
-  long j = 0;
-  for (int step = 0; step < n_steps; ++step) {
-    for (int s = 0; s < 5; ++s, ++j) {
-      float* u_nxt = j == total - 1 ? u_final : ubuf + (j % 2) * size;
-      float* r_nxt = s == 4 ? nullptr : rbuf + (j % 2) * size;
-      km_stage<NP><<<blocks, kThreads, 0, stream>>>(
-          u_cur, s == 0 ? nullptr : r_cur, u_nxt, r_nxt,
-          s == 0 ? traj + step * size : nullptr, tab, c.a[s], c.b[s], inflow[j], n, nk);
-      const int err = launch_error();
-      if (err != 0) return err;
-      u_cur = u_nxt;
-      r_cur = r_nxt;
-    }
-  }
-  return 0;
-}
-
-// ---------------------------------------- KM2: fused over s_f steps a launch
+// ---------------------------------- KM1 and KM2: fused over s_f steps a launch
 
 // The widest Np whose thread holds its registers at 64 (1024-thread CTAs).
 constexpr int kKmMaxNp1024 = 6;
@@ -224,8 +122,9 @@ __device__ __forceinline__ float row_dot(const float* coef, const float* w) {
   return s;
 }
 
-// One residual stage of the window: post u[0] and u[Np−1], one barrier,
-// then km_stage's operations on this column (stage 0: r = rhs).
+// One forward stage of the window: post u[0] and u[Np−1], one barrier,
+// then r = A_s·r + rhs(u) and un = u + B_s·r on this column, the plain
+// version's operations in its order (stage 0: r = rhs).
 template <int NP, int T>
 __device__ __forceinline__ void km_window_fwd(Traces<T>& tr, int buf, const Elem& el,
                                               const float* u, float* r, float* un,
@@ -284,6 +183,37 @@ __device__ __forceinline__ void km_window_t(Traces<T>& tr, int buf, const Elem& 
     lu[j] = v;
     lr[j] = __fmul_rn(a_s, w[j]);
   }
+}
+
+// KM1's march over ``steps`` steps of the window from u_in, the global steps
+// n0 .. n0 + steps − 1: the local entry state of step n goes to
+// traj + n·size, the local exit state to u_out. inflow.v[5·s + j]: stage j
+// of the launch's step s. The window's ends are a member's first and last
+// columns (the masks of c % K) or ghost edges.
+template <int NP, int T>
+__global__ void __launch_bounds__(T)
+km_fwd_fused(const float* __restrict__ u_in, float* __restrict__ traj,
+             float* __restrict__ u_out, const __grid_constant__ StepTables full, RkCoef rk,
+             const __grid_constant__ FusedInflow inflow, int nk, int tile_l, int ghost,
+             int steps, int n0) {
+  __shared__ Traces<T> tr;
+  const Elem el = elem_of(nk, tile_l, ghost);
+  const long n = static_cast<long>(gridDim.y) * nk;
+  const long size = NP * n;
+  float u[NP] = {}, r[NP] = {}, un[NP] = {};
+  if (el.active) load_col<NP>(u_in, el.c, n, u);
+  int buf = 0;
+  for (int s = 0; s < steps; ++s) {
+    if (el.local) store_col<NP>(traj + (n0 + s) * size, el.c, n, u);
+#pragma unroll
+    for (int j = 0; j < 5; ++j, buf ^= 1) {
+      km_window_fwd<NP, T>(tr, buf, el, u, r, un, full, j > 0, rk.a[j], rk.b[j],
+                           inflow.v[5 * s + j]);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) u[i] = un[i];
+    }
+  }
+  if (el.local) store_col<NP>(u_out, el.c, n, u);
 }
 
 // KM2's reverse over ``steps`` steps: traj[0 .. steps − 1] their entry
@@ -355,6 +285,42 @@ km_rev_fused(const float* __restrict__ traj, const float* __restrict__ u_top,
   }
 }
 
+// -3 unless KM1 takes the plan: the forward's rules (aoa_dg::fwd_plan_ok),
+// n a multiple of K, at most 65,535 members (grid.y).
+int check_fwd_plan(int n, int nk, const FusedPlan& p) {
+  if (!aoa_dg::fwd_plan_ok(nk, p)) return -3;
+  return nk >= 1 && n % nk == 0 && n / nk <= 65535 ? 0 : -3;
+}
+
+// KM1: launches of s_f steps from the bottom (the last takes the remainder).
+// u rides the ping-pong ubuf (2·Np·N floats), from which the neighbouring
+// tiles read their ghosts; the last launch writes u_final. *launches counts
+// the launches.
+template <int NP, int T>
+int fwd_impl(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
+             const float* tables, const float* inflow, const float* u0, float* traj,
+             float* u_final, float* ubuf, int* launches, cudaStream_t stream) {
+  const StepTables full = pack_tables(NP, tables);
+  const RkCoef coef = rk_coef(rk);
+  const long size = static_cast<long>(NP) * n;
+  const dim3 grid((nk + p.tile_l - 1) / p.tile_l, n / nk);
+  const int block = fused_block(nk, p);
+  const float* cur = u0;
+  for (int lo = 0; lo < n_steps; lo += p.seg) {
+    const int steps = n_steps - lo < p.seg ? n_steps - lo : p.seg;
+    FusedInflow f{};
+    for (int i = 0; i < 5 * steps; ++i) f.v[i] = inflow[5L * lo + i];
+    float* out = lo + steps == n_steps ? u_final : ubuf + (*launches % 2) * size;
+    km_fwd_fused<NP, T><<<grid, block, 0, stream>>>(cur, traj, out, full, coef, f, nk,
+                                                    p.tile_l, p.ghost, steps, lo);
+    const int err = launch_error();
+    if (err != 0) return err;
+    ++*launches;
+    cur = out;
+  }
+  return 0;
+}
+
 // -3 unless KM2 takes the plan: the reverse's rules (aoa_dg::rev_plan_ok),
 // 1024 threads only at Np ≤ kKmMaxNp1024, n a multiple of K, at most
 // 65,535 members (grid.y).
@@ -402,6 +368,16 @@ int rev_impl(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
 template <int NP>
 constexpr int kKmThreads = NP <= kKmMaxNp1024 ? 1024 : 512;
 
+// KM1's one instance per Np, built for 1024 threads (a 512-thread plan runs
+// on it): a thread holds u, r and un, 3·Np + ~12 values.
+template <int NP>
+int fwd_np(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
+           const float* tables, const float* inflow, const float* u0, float* traj,
+           float* u_final, float* ubuf, int* launches, cudaStream_t stream) {
+  return fwd_impl<NP, 1024>(n, nk, n_steps, p, rk, tables, inflow, u0, traj, u_final, ubuf,
+                            launches, stream);
+}
+
 template <int NP>
 int rev_np(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
            const float* half_tables, const float* inflow, const float* traj,
@@ -416,18 +392,22 @@ int rev_np(int n, int nk, int n_steps, const FusedPlan& p, const double* rk,
 
 extern "C" {
 
-// Returns 0 on success, a cudaError_t code after a failed launch, or -1 for
-// an unsupported Np. n = B·K columns, nk = K. tables: float32 [drc (Np, Np)
-// row-major, liftl (Np), liftr (Np)] for the step dt; inflow: 5·n_steps
-// values, stage s of step m at 5m + s. traj: (n_steps, Np, n); ubuf, rbuf:
-// 2·Np·n floats each.
-int dg_mxu_fwd(int np, int n, int nk, int n_steps, const double* rk,
-               const float* tables, const float* inflow, const float* u0,
-               float* traj, float* u_final, float* ubuf, float* rbuf,
+// KM1 with the plan (seg = s_f, tile_l = L, ghost = W, threads). Returns 0
+// on success, a cudaError_t code after a failed launch, -1 for an
+// unsupported Np, -3 for a plan the kernel does not take. n = B·K columns,
+// nk = K. tables: float32 [drc (Np, Np) row-major, liftl (Np), liftr (Np)]
+// for the step dt; inflow: 5·n_steps values, stage s of step m at 5m + s.
+// traj: (n_steps, Np, n); ubuf: 2·Np·n floats. *launches receives the CUDA
+// launches issued.
+int dg_mxu_fwd(int np, int n, int nk, int n_steps, int seg, int tile_l, int ghost,
+               int threads, const double* rk, const float* tables, const float* inflow,
+               const float* u0, float* traj, float* u_final, float* ubuf, int* launches,
                void* stream) {
-  AOA_NP_SWITCH(np, fwd_impl<NP>(n, nk, n_steps, rk, tables, inflow, u0, traj,
-                                 u_final, ubuf, rbuf,
-                                 static_cast<cudaStream_t>(stream)))
+  const FusedPlan p{seg, tile_l, ghost, threads};
+  *launches = 0;
+  if (n_steps < 1 || check_fwd_plan(n, nk, p) != 0) return -3;
+  AOA_NP_SWITCH(np, fwd_np<NP>(n, nk, n_steps, p, rk, tables, inflow, u0, traj, u_final,
+                               ubuf, launches, static_cast<cudaStream_t>(stream)))
 }
 
 // KM2 with the plan (seg = s_f, tile_l = L, ghost = W, threads).
@@ -451,8 +431,9 @@ int dg_mxu_rev(int np, int n, int nk, int n_steps, int seg, int tile_l, int ghos
 const char* dg_mxu_error_string(int code) {
   if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 8)";
   if (code == -3)
-    return "KM2 plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 threads, or "
-           "1024 at Np <= 6, holding the window; n a multiple of K; B <= 65535; "
+    return "plan out of range (KM1: 1 <= s_f <= 32, W >= 5*s_f unless one tile holds K; "
+           "KM2: 1 <= s_f <= 16, W >= 10*s_f + 10, 1024 threads only at Np <= 6; both: "
+           "512 or 1024 threads holding the window, n a multiple of K, B <= 65535, "
            "n_steps >= 1)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

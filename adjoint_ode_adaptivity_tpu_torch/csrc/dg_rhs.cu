@@ -112,17 +112,12 @@ using aoa_dg::Traces;
 using aoa_dg::dg_inflow;
 using aoa_dg::elem_of;
 using aoa_dg::fused_block;
-using aoa_dg::kMaxFused;
 using aoa_dg::load_col;
 using aoa_dg::pack_tables;
 using aoa_dg::rk_coef;
 using aoa_dg::store_col;
 
 // ----------------------------------- K1, K2, K2r, KA: fused over s_f steps
-
-// K1's steps per launch: 5 inflow values a forward step in the same table.
-constexpr int kMaxFwdFused = 32;
-static_assert(5 * kMaxFwdFused <= 10 * kMaxFused, "K1's launch outgrows its inflow table");
 
 // The forward launch's table: stage s of its n-th step, global step
 // n_first + n, at t0 + (n_first + n)·dt (the host's double expression).
@@ -475,15 +470,9 @@ int check_plan(int nk, const FusedPlan& p) {
   return aoa_dg::rev_plan_ok(nk, p) ? 0 : -3;
 }
 
-// -4 unless K1 takes the plan: 1 <= s_f <= kMaxFwdFused, the forward ghost
-// rule W >= 5·s_f (a forward stage couples ±1 element) unless one tile
-// holds the whole mesh (no ghosts), a CTA size the kernel is built for and a
-// window that fits it.
+// -4 unless K1 takes the plan (aoa_dg::fwd_plan_ok).
 int check_fwd_plan(int nk, const FusedPlan& p) {
-  if (p.seg < 1 || p.seg > kMaxFwdFused || p.tile_l < 1 || p.ghost < 0) return -4;
-  if (p.ghost < 5 * p.seg && p.tile_l < nk) return -4;
-  if (p.threads != 512 && p.threads != 1024) return -4;
-  return fused_block(nk, p) <= p.threads ? 0 : -4;
+  return aoa_dg::fwd_plan_ok(nk, p) ? 0 : -4;
 }
 
 // -5 unless KA takes the plan: K1's rules (a transposed stage couples ±1

@@ -8,19 +8,21 @@
 // The polynomial sin/cos of ops/pallas/fast_trig.py:62-77 is the FastTrig
 // policy of odes.cuh (F1 with trig="fast").
 //
-// Each kernel runs one thread per initial condition (IC) or member: the
-// whole pipeline of one IC is independent of every other, so there is no
-// cross-thread data. Per thread:
+// The pipeline of one IC or member is independent of every other:
 //   coarse forward-Euler march u_{n+1} = u_n + f(u_n, t_n)·dt_n, the
-//   n_steps+1 coarse states kept in shared memory laid out [state][thread]
-//   (conflict-free, no __syncthreads: a thread reads only its own column);
+//   n_steps+1 coarse states kept in shared memory;
 //   a reverse sweep over the rf-refined grid j = n_fine .. 1 that
-//   interpolates u_j on the fly, updates the adjoint of J = ∫u² dt,
+//   interpolates u_j, updates the adjoint of J = ∫u² dt,
 //   v_j = k_j + (1 + f_u(u_j)·dt_f)·v_{j+1} with k_j = 2·u_j·dt_f, forms the
 //   residual r_j = u_j − (u_{j−1} + f(u_{j−1})·dt_f), and accumulates r·v
 //   per coarse step; a step's indicator is stored once its block is complete.
-// f and f_u of one fine node are evaluated once, as a pair, and f_u is
-// carried to the next iteration (the TPU kernel's _pair_cache).
+// F1 and F2 run one thread per IC, the coarse states laid out
+// [state][thread] (conflict-free, no __syncthreads: a thread reads only its
+// own column). F3 runs G lanes of a warp per member (below): only v's chain
+// and the per-step sums are serial, so the lanes split the fine nodes'
+// interpolation, (f, f_u) pairs and residuals, and one lane runs the chain.
+// f and f_u of one fine node are evaluated once, as a pair (the TPU
+// kernel's _pair_cache).
 //
 // The ODE is a compile-time functor of odes.cuh (one struct per registry
 // entry, chosen by kernel_id in the dispatch at the bottom); the gaussian
@@ -31,21 +33,25 @@
 // the host in double (as the TPU kernel folds them at trace time) and read
 // as float32 from `grid` = [tc (n_steps), dts (n_steps), tf (n_fine),
 // dtf (n_fine)], tf[j] and dtf[j] the time and width of fine node j; every
-// thread reads the same address (a broadcast). F3: the per-member widths arrive as (n_steps, B), so neighbouring threads read
-// neighbouring addresses; tc accumulates in float32 inside the kernel and
-// dt_f = dts·(1/rf), as in the TPU kernel.
+// thread reads the same address (a broadcast). F3: the per-member widths
+// arrive as (B, n_steps), a member's row contiguous for its lanes; tc
+// accumulates in float32 inside the kernel and dt_f = dts·(1/rf), as in the
+// TPU kernel.
 //
-// What bounds them on the H100: neither bytes nor FP32 operations. A thread
+// What bounds them on the H100: neither bytes nor FP32 operations. An IC
 // moves 4·(1 + n_steps) bytes of device memory and does ~16 operations per
 // fine node plus two libm transcendentals (sincosf, tens of instructions),
-// so at 102,400 ICs, 16 steps and rf 4 the byte bound is ~2 µs; the kernel
-// is latency-bound on each thread's serial dependency chain through the
-// sweep (v_j depends on v_{j+1}). One thread per IC gives 800 blocks of 128
-// threads at 102,400 ICs (6 per SM), but only 8 blocks at the per-member
-// study's B = 1024: that grid fills 8 of 132 SMs, and a redesign (several
-// threads per member, or several members' sweeps interleaved per thread)
-// is later work. Shared memory per block is (n_steps+1)·D·128·4 bytes
-// (8.7 KB at 16 steps; F3 also keeps tc, 22.5 KB at 43 steps).
+// so at 102,400 ICs, 16 steps and rf 4 the byte bound is ~2 µs; the kernels
+// are latency-bound on each IC's serial dependency chains (the coarse march;
+// v_j depends on v_{j+1}). One thread per IC gives 800 blocks of 128
+// threads at 102,400 ICs (6 per SM). At the per-member study's B = 1024 one
+// thread a member filled 8 of 132 SMs with every latency of the sweep in
+// one chain; F3's G lanes a member (ops/cuda/fd_ensemble.py fd_pm_plan: 32
+// at B ≤ 4096, one warp a member) leave the coarse march (43 serial sinf at
+// the study's shape) and ~172 dependent FMAs of the chain on it. Shared
+// memory: (n_steps+1)·D·128·4 bytes a block for F1/F2 (8.7 KB at 16
+// steps); F3 4·(3·n_steps + 2 + 3·window) bytes a member (2.6 KB at 43
+// steps, rf 4, one window).
 
 #include <cuda_runtime.h>
 
@@ -205,69 +211,121 @@ fd_ensemble_vec_kernel(int n, int n_steps, int rf, const float* __restrict__ gri
   }
 }
 
-// F3: per-member widths dt (n_steps, B); err (n_steps, B) in the strided
-// (block = 0) or block (block = 1) convention; j (B,) = Σ u_n²·dt_n.
+// F3: G lanes of one warp serve a member (G | 32, so a group never straddles
+// a warp); a CTA of T threads serves T/G members, each with its own slice of
+// shared memory: its widths dt (n_steps), the coarse trajectory and node
+// times (n_steps + 1 each), and a window of `window` fine nodes' tables
+// (the chain's coefficients A_j = 2·u_j·h_j and C_j = 1 + f_u(u_j)·h_j, and
+// the residual r_j). dt (B, n_steps) member-major, err (B, n_steps) in the
+// strided (block = 0) or block (block = 1) convention, j (B,) = Σ u_n²·dt_n.
+//   1. The group loads the member's widths (contiguous) into shared memory.
+//   2. Every lane runs the coarse march, J and tc, serially and alike; lane
+//      (s mod G) stores state s.
+//   3. The fine nodes are swept in windows from the top, (bot, top]. For a
+//      window the lanes split its nodes n = bot … top (n ≡ bot + lane mod G):
+//      u_n by interpolation, (f, f_u) at (u_n, t_n) once, h_n = dt_i·(1/rf),
+//      then r_{n+1} = u_{n+1} − (u_n + f_n·h_n), A_n and C_n; one __syncwarp;
+//      lane 0 runs v_j = A_j + C_j·v_{j+1} (v carried across windows) and
+//      the per-step sums of r_j·v_j for j = top … bot + 1, the plain
+//      version's order, storing each step's indicator once its block is
+//      complete; one __syncwarp before the next window overwrites the tables.
+// Only the chain is serial; everything it reads is in shared memory, so its
+// loads never wait on v. A zero-width step gives h = 0, u_{n+1} = u_n,
+// r = 0 and A = 0, C = 1: exactly 0 to its indicator.
 template <class Ode>
-__global__ void __launch_bounds__(kFdThreads)
-fd_estimate_per_member_kernel(int nb, int n_steps, int rf, int block, float t0,
-                              const float* __restrict__ dt, const float* __restrict__ u0,
-                              float* __restrict__ err, float* __restrict__ j_out,
-                              OdeConsts k) {
-  extern __shared__ float smem[];  // traj, then tc: 2·(n_steps + 1) rows of blockDim.x
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= nb) return;
-  const int tx = threadIdx.x;
-  const int bs = blockDim.x;
-  float* traj = smem;
-  float* tc = smem + (n_steps + 1) * bs;
+__global__ void __launch_bounds__(256)
+fd_estimate_per_member_kernel(int nb, int n_steps, int rf, int block, float t0, int lanes,
+                              int window, const float* __restrict__ dt,
+                              const float* __restrict__ u0, float* __restrict__ err,
+                              float* __restrict__ j_out, OdeConsts k) {
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x - slot * lanes;
+  const long m = static_cast<long>(blockIdx.x) * (blockDim.x / lanes) + slot;
+  const bool live = m < nb;
   const int n_fine = n_steps * rf;
+  float* ds = smem + static_cast<long>(slot) * (3 * n_steps + 2 + 3 * window);
+  float* traj = ds + n_steps;
+  float* tc = traj + n_steps + 1;
+  float* ca = tc + n_steps + 1;  // A_n at n − bot − 1
+  float* cc = ca + window;       // C_n at n − bot − 1
+  float* rr = cc + window;       // r_{n+1} at n − bot
   const float inv_rf = 1.f / static_cast<float>(rf);
 
-  float u = u0[m];
+  for (int s = lane; s < n_steps; s += lanes) ds[s] = live ? dt[m * n_steps + s] : 0.f;
+  __syncwarp();
+  float u = live ? u0[m] : 0.f;
   float t = t0;
   float j_val = 0.f;
-  traj[tx] = u;
-  tc[tx] = t;
+  if (lane == 0) {
+    traj[0] = u;
+    tc[0] = t;
+  }
   for (int s = 0; s < n_steps; ++s) {
-    const float d = dt[static_cast<long>(s) * nb + m];
+    const float d = ds[s];
     j_val = j_val + u * u * d;  // J = Σ u_n² dt_n (left rule)
     u = u + Ode::f(u, t, k) * d;
     t = t + d;
-    traj[(s + 1) * bs + tx] = u;
-    tc[(s + 1) * bs + tx] = t;
+    if (lane == (s + 1) % lanes) {
+      traj[s + 1] = u;
+      tc[s + 1] = t;
+    }
   }
-  j_out[m] = j_val;
+  if (lane == 0 && live) j_out[m] = j_val;
+  __syncwarp();
 
-  float u_j = u;
-  float fu_j = 0.f;
-  float v = 0.f;
+  float v = 0.f;    // v_{n_fine} = 0 (J sums u[:-1])
   float blk = 0.f;
-  for (int j = n_fine; j >= 1; --j) {
-    const int i = (j - 1) / rf;  // coarse step of fine interval [j−1, j)
-    const int q = (j - 1) - i * rf;
-    const float d_i = dt[static_cast<long>(i) * nb + m];
-    const float u_jm1 = u_fine(traj, bs, tx, j - 1, rf);
-    if (j < n_fine) {
-      const float d = dt[static_cast<long>(j / rf) * nb + m] * inv_rf;
-      v = 2.f * u_j * d + (1.f + fu_j * d) * v;
+  for (int top = n_fine; top >= 1; top -= window) {
+    const int bot = top > window ? top - window : 0;
+    for (int n = bot + lane; n <= top; n += lanes) {
+      if (n == n_fine) continue;  // node n_fine: no residual above it, no A, C
+      const int i = n / rf;       // coarse step of fine interval [n, n + 1)
+      const int q = n - i * rf;
+      const float d_i = ds[i];
+      const float w = static_cast<float>(q) / static_cast<float>(rf);
+      const float u_n = u_fine(traj, 1, 0, n, rf);
+      const float t_n = tc[i] + w * d_i;
+      const float h = d_i * inv_rf;
+      float f_n, fu_n;
+      Ode::pair(u_n, t_n, k, &f_n, &fu_n);
+      if (n < top) rr[n - bot] = u_fine(traj, 1, 0, n + 1, rf) - (u_n + f_n * h);
+      if (n > bot) {
+        ca[n - bot - 1] = 2.f * u_n * h;
+        cc[n - bot - 1] = 1.f + fu_n * h;
+      }
     }
-    const float w = static_cast<float>(q) / static_cast<float>(rf);
-    const float t_jm1 = tc[i * bs + tx] + w * d_i;
-    float f_jm1, fu_jm1;
-    Ode::pair(u_jm1, t_jm1, k, &f_jm1, &fu_jm1);
-    const float r = u_j - (u_jm1 + f_jm1 * (d_i * inv_rf));
-    const float e = r * v;
-    if (block) {
-      blk += e;
-    } else if (q != 0) {  // strided: drop the first fine node of every step
-      blk += fabsf(e);
+    __syncwarp();
+    if (lane == 0) {
+      // node j's tables are read while node j + 1's update of v runs
+      float a = 0.f, c = 1.f, r = rr[top - 1 - bot];
+      if (top < n_fine) {
+        a = ca[top - bot - 1];
+        c = cc[top - bot - 1];
+      }
+      for (int j = top; j > bot; --j) {
+        const float a_j = a, c_j = c, r_j = r;
+        if (j - 1 > bot) {
+          a = ca[j - bot - 2];
+          c = cc[j - bot - 2];
+          r = rr[j - bot - 2];
+        }
+        if (j < n_fine) v = a_j + c_j * v;
+        const float e = r_j * v;
+        const int i = (j - 1) / rf;
+        const int q = (j - 1) - i * rf;
+        if (block) {
+          blk += e;
+        } else if (q != 0) {  // strided: drop the first fine node of every step
+          blk += fabsf(e);
+        }
+        if (q == 0) {
+          if (live) err[m * n_steps + i] = block ? fabsf(blk) : blk;
+          blk = 0.f;
+        }
+      }
     }
-    if (q == 0) {
-      err[static_cast<long>(i) * nb + m] = block ? fabsf(blk) : blk;
-      blk = 0.f;
-    }
-    u_j = u_jm1;
-    fu_j = fu_jm1;
+    __syncwarp();
   }
 }
 
@@ -305,17 +363,23 @@ int launch_ensemble_vec(int n, int n_steps, int rf, const float* grid, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// F3's shared memory for T/G members with a window of `window` nodes.
+long per_member_smem(int lanes, int threads, int n_steps, int window) {
+  return static_cast<long>(threads / lanes) * (3L * n_steps + 2 + 3L * window) * sizeof(float);
+}
+
 template <class Ode>
-int launch_per_member(int nb, int n_steps, int rf, int block, float t0, const float* dt,
-                      const float* u0, float* err, float* j_out, const OdeConsts& k,
-                      cudaStream_t stream) {
-  const long smem = 2L * (n_steps + 1) * kFdThreads * sizeof(float);
+int launch_per_member(int nb, int n_steps, int rf, int block, float t0, int lanes, int threads,
+                      int window, const float* dt, const float* u0, float* err, float* j_out,
+                      const OdeConsts& k, cudaStream_t stream) {
+  const long smem = per_member_smem(lanes, threads, n_steps, window);
   const int code =
       set_smem(reinterpret_cast<const void*>(&fd_estimate_per_member_kernel<Ode>), smem);
   if (code != 0) return code;
-  const int blocks = (nb + kFdThreads - 1) / kFdThreads;
-  fd_estimate_per_member_kernel<Ode><<<blocks, kFdThreads, smem, stream>>>(
-      nb, n_steps, rf, block, t0, dt, u0, err, j_out, k);
+  const int per = threads / lanes;
+  const long blocks = (nb + per - 1) / per;
+  fd_estimate_per_member_kernel<Ode><<<blocks, threads, smem, stream>>>(
+      nb, n_steps, rf, block, t0, lanes, window, dt, u0, err, j_out, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -346,22 +410,35 @@ int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, const float* grid,
   return -2;
 }
 
-// dt is (n_steps, B), member-minor; block = 1 for the block convention,
-// 0 for strided. tc starts at t0.
+// F3 on `lanes` lanes a member (1, 2, 4, 8, 16 or 32) in CTAs of `threads`
+// (32, 64, 128 or 256) with a window of `window` fine nodes (1 <= window <=
+// n_steps·rf), the CTA's shared memory within a block's: -3 otherwise. dt
+// is (B, n_steps), member-major; block = 1 for the block convention, 0 for
+// strided. tc starts at t0.
 int fd_estimate_per_member(int ode_id, int n_u, int n_t, const float* consts, int nb,
-                           int n_steps, int rf, int block, float t0, const float* dt,
-                           const float* u0, float* err, float* j_out, void* stream) {
+                           int n_steps, int rf, int block, float t0, int lanes, int threads,
+                           int window, const float* dt, const float* u0, float* err,
+                           float* j_out, void* stream) {
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  const bool threads_ok = threads == 32 || threads == 64 || threads == 128 || threads == 256;
+  if (!lanes_ok || !threads_ok || n_steps < 1 || rf < 1 || window < 1 ||
+      window > n_steps * rf || per_member_smem(lanes, threads, n_steps, window) > kMaxSmem)
+    return -3;
   const OdeConsts k = pack_consts(n_u, n_t, consts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AOA_LAUNCH(ODE) \
-  launch_per_member<ODE>(nb, n_steps, rf, block, t0, dt, u0, err, j_out, k, s)
+#define AOA_LAUNCH(ODE)                                                                      \
+  launch_per_member<ODE>(nb, n_steps, rf, block, t0, lanes, threads, window, dt, u0, err,   \
+                         j_out, k, s)
   AOA_ODE_SCALAR_SWITCH(ode_id, 0, AOA_LAUNCH)
 #undef AOA_LAUNCH
 }
 
 const char* fd_error_string(int code) {
   if (code == -2) return "ODE kernel_id (or trig) not implemented by this kernel";
-  if (code == -3) return "coarse trajectory exceeds a block's shared memory (too many steps)";
+  if (code == -3)
+    return "coarse trajectory exceeds a block's shared memory (too many steps), or a launch "
+           "the per-member kernel does not take (lanes 1-32, a power of two; 32-256 threads; "
+           "1 <= window <= n_steps*rf)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,5 +1,5 @@
 // The launch scaffolding of the DG-advection kernels fused over s_f steps a
-// launch (csrc/dg_rhs.cu: K1, K2, K2r, KA; csrc/dg_mxu.cu: KM2): one CTA per
+// launch (csrc/dg_rhs.cu: K1, K2, K2r, KA; csrc/dg_mxu.cu: KM1, KM2): one CTA per
 // (tile, member), blockIdx.x the tile of L local elements [lo, hi),
 // blockIdx.y the member b; the CTA's window [lo − W, hi + W), clipped to
 // [0, K), of member b's row, one thread per window element, the state in
@@ -16,6 +16,10 @@ namespace aoa_dg {
 // Steps per launch: the inflow table rides the launch, 10 values a reverse
 // step (two dt/2 steps) and 5 a forward step.
 constexpr int kMaxFused = 16;
+// A forward launch (K1, KM1; KA's transposed march): 5 values a step in the
+// same table.
+constexpr int kMaxFwdFused = 32;
+static_assert(5 * kMaxFwdFused <= 10 * kMaxFused, "a forward launch outgrows its inflow table");
 
 // The inflow value of every stage of a launch, formed on the host.
 struct FusedInflow {
@@ -86,6 +90,17 @@ inline int fused_block(int nk, const FusedPlan& p) {
 // (512 or 1024) and a window that fits it.
 inline bool rev_plan_ok(int nk, const FusedPlan& p) {
   if (p.seg < 1 || p.seg > kMaxFused || p.tile_l < 1 || p.ghost < 10 * p.seg + 10) return false;
+  if (p.threads != 512 && p.threads != 1024) return false;
+  return fused_block(nk, p) <= p.threads;
+}
+
+// Whether a forward march (K1, KM1) or KA takes the plan: 1 <= s_f <=
+// kMaxFwdFused, the ghost rule W >= 5·s_f (5 stages a step, each coupling
+// ±1 element) unless one tile holds the whole mesh (no ghosts), a CTA size
+// the kernels are built for (512 or 1024) and a window that fits it.
+inline bool fwd_plan_ok(int nk, const FusedPlan& p) {
+  if (p.seg < 1 || p.seg > kMaxFwdFused || p.tile_l < 1 || p.ghost < 0) return false;
+  if (p.ghost < 5 * p.seg && p.tile_l < nk) return false;
   if (p.threads != 512 && p.threads != 1024) return false;
   return fused_block(nk, p) <= p.threads;
 }

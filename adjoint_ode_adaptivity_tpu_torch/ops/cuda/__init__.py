@@ -104,7 +104,7 @@ class KernelLibrary:
         lib.dg_adj_march.restype = i
         lib.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
         lib.dg_tiled_fwd.restype = i
-        lib.dg_mxu_fwd.argtypes = [i] * 4 + [p] * 9
+        lib.dg_mxu_fwd.argtypes = [i] * 8 + [p] * 9
         lib.dg_mxu_fwd.restype = i
         lib.dg_mxu_rev.argtypes = [i] * 8 + [p] * 11
         lib.dg_mxu_rev.restype = i
@@ -112,7 +112,8 @@ class KernelLibrary:
         lib.fd_ensemble.restype = i
         lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
         lib.fd_ensemble_vec.restype = i
-        lib.fd_estimate_per_member.argtypes = [i, i, i, p, i, i, i, i, ctypes.c_float] + [p] * 5
+        lib.fd_estimate_per_member.argtypes = ([i, i, i, p, i, i, i, i, ctypes.c_float]
+                                               + [i] * 3 + [p] * 5)
         lib.fd_estimate_per_member.restype = i
         lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 10 + [p] * 6
         lib.dg_estimate_ensemble.restype = i

@@ -12,14 +12,15 @@ Counterpart of the JAX package's ``ops/pallas/dg_mxu.py``
   u_n, η += Σ_rows λ·(u_{n+1} − half2), two dt/2 transposed steps. Replaces
   ``_adj_est_kernel_m`` (dg_mxu.py:179).
 
-KM1 launches once a stage (5 a step): the launches and the state's round
-trip through device memory every stage bound it, far above the operations
-bound of the work. KM2 is fused over s_f steps a launch (``km_rev_fused``,
-on K2's windows): one CTA per (tile, member), L local columns and W = 10·s_f
-+ 10 ghost columns a side, one thread a column, λ and the residual state in
-registers, one barrier a stage; :func:`km_rev_plan` picks s_f, the CTA size
-and the tiles; ⌈n_steps/s_f⌉ CUDA launches.
-:func:`km_adj_est_fused_plain` runs the same schedule in plain PyTorch.
+Both are fused over s_f steps a launch, one CTA per (tile, member), one
+thread a column, the state in registers, one barrier a stage. KM1
+(``km_fwd_fused``) runs on K1's windows: L local columns and W = 5·s_f ghost
+columns a side, or one tile with no ghosts where a member's K fits a CTA;
+:func:`km_fwd_plan` picks s_f ≤ 32, the CTA size and the tiles. KM2
+(``km_rev_fused``) runs on K2's windows, W = 10·s_f + 10;
+:func:`km_rev_plan` picks s_f, the CTA size and the tiles. Each makes
+⌈n_steps/s_f⌉ CUDA launches. :func:`km_fwd_traj_fused_plain` and
+:func:`km_adj_est_fused_plain` run the same schedules in plain PyTorch.
 
 Arithmetic. The tables fold rx and dt as ``_MxuCfg.tables`` does (dg_mxu.py:
 74-82): the scalar −a·rx·dt is formed in double, rounded to float32, and
@@ -39,8 +40,8 @@ float32 arithmetic (both IEEE, round to nearest).
 
 A CUDA float32 tensor launches the kernel or raises; a CPU tensor takes the
 plain version (float32 or float64). Each wrapper counts its kernel calls in
-``.launches``; ``km_adj_est.cuda_launches`` holds the last call's CUDA
-launches.
+``.launches``; ``km_fwd_traj.cuda_launches`` and
+``km_adj_est.cuda_launches`` hold the last call's CUDA launches.
 """
 from __future__ import annotations
 
@@ -56,16 +57,21 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_devi
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
     FUSED_CANDIDATE_STEPS,
     H100_SMS,
+    LAUNCH_US,
     MAX_NP,
     MIN_NP,
     _RK,
     FusedPlan,
     _balanced_plan,
+    _cheapest,
+    _check_grid,
     _check_on,
     _check_uniform,
     _ptr,
+    _fused_cost,
     _sm_count,
     _stream,
+    _window_plans,
 )
 from adjoint_ode_adaptivity_tpu_torch.ops.mesh import Discretization1D
 
@@ -75,6 +81,8 @@ __all__ = [
     "mxu_ops",
     "km_fwd_traj",
     "km_fwd_traj_plain",
+    "km_fwd_traj_fused_plain",
+    "km_fwd_plan",
     "km_adj_est",
     "km_adj_est_plain",
     "km_adj_est_fused_plain",
@@ -298,7 +306,7 @@ def km_adj_est_plain(traj, u_final, lam_end, t0: float, ops: MxuOps):
     return lu, eta
 
 
-# ------------------------------------------------------------ KM2's plans
+# ------------------------------------------------------- KM1's and KM2's plans
 
 
 # KM2's step, 20 stages of ~2·Np² + 9·Np + 4 un-contracted FP32 operations a
@@ -330,6 +338,83 @@ def km_rev_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> 
                           km_step_warp_us(np_))
 
 
+# KM1's step, 5 stages against KM2's 20, costs KM_FWD_STEP_WARP_US × (2·Np² +
+# 9·Np + 4) µs for each warp an SM holds over a launch. Fitted to
+# chip_smoke.py phase 36's first run on an NVIDIA H100 80GB HBM3 at 700 W:
+# the mean over the 16 plans it timed at the two MXU rows (Np = 8:
+# 0.00083-0.00105; Np = 3: 0.00097-0.00114 a unit), from the first guess of
+# a quarter of KM2's (0.00089).
+KM_FWD_STEP_WARP_US = 0.00100
+
+
+def km_fwd_step_warp_us(np_: int) -> float:
+    """µs a KM1 step costs each warp an SM holds, at Np rows."""
+    return KM_FWD_STEP_WARP_US * (2 * np_ * np_ + 9 * np_ + 4)
+
+
+def km_fwd_cost(k: int, b: int, np_: int, n_steps: int, plan: FusedPlan,
+                sms: int = H100_SMS) -> float:
+    """KM1's modelled µs on ``plan`` (dg_rhs._fwd_cost's form): the issue
+    time of dg_rhs._fused_cost at :func:`km_fwd_step_warp_us`, or the bytes
+    of the n_steps + 2 states KM1 moves (u0, the trajectory, u_final) at 3.35
+    TB/s where those take longer, plus LAUNCH_US a launch."""
+    issue = _fused_cost(k, b, n_steps, 0, plan, sms, km_fwd_step_warp_us(np_))
+    return (max(issue, (n_steps + 2) * np_ * b * k * 4 / 3.35e6)
+            + -(-n_steps // plan.segment) * LAUNCH_US)
+
+
+# the search costs ~1 ms of host time: once per shape
+@functools.lru_cache(maxsize=256)
+def km_fwd_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> FusedPlan:
+    """KM1's plan for K columns a member, B members, Np rows and n_steps
+    steps on a card of ``sms`` SMs: of dg_rhs._window_plans (s_f ∈ {4, 8,
+    16, 32} at most n_steps; 512- or 1024-thread CTAs, the one 1024-thread
+    instance serving both; one untiled CTA where K fits it, and every tiling
+    of W = 5·s_f), whichever minimises :func:`km_fwd_cost`: ⌈n_steps/s_f⌉
+    launches. A tie goes to the first found."""
+    return _cheapest(_window_plans(k, b, n_steps, sms),
+                     lambda plan: km_fwd_cost(k, b, np_, n_steps, plan, sms))
+
+
+def _windows(ops: MxuOps, plan: FusedPlan, device):
+    """Every (tile, member) window of ``plan`` over the N columns: the
+    window's columns, the local columns (global and within the window), and
+    the window's first/last masks (its ends)."""
+    for c0 in range(0, ops.n, ops.k):
+        for t in range(plan.n_tiles):
+            lo, hi = t * plan.tile, min((t + 1) * plan.tile, ops.k)
+            w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
+            first = torch.zeros(w1 - w0, dtype=torch.bool, device=device)
+            last = first.clone()
+            first[0] = last[-1] = True
+            yield (slice(c0 + w0, c0 + w1), slice(c0 + lo, c0 + hi), slice(lo - w0, hi - w0),
+                   first, last)
+
+
+def km_fwd_traj_fused_plain(u0, t0: float, ops: MxuOps, plan: FusedPlan):
+    """KM1's launch schedule in plain PyTorch: s_f steps a launch (the last
+    takes the remainder), every (tile, member) on its own window, whose ends
+    count as a member's first and last columns, the stage times of the
+    global step. Any ghost width, so a narrow one can be shown to reach the
+    local columns. Returns ``(traj, u_final)``."""
+    dtype, device = u0.dtype, u0.device
+    inflow = torch.as_tensor(fwd_inflow(t0, ops), dtype=dtype, device=device)
+    tabs, coef = _tabs(ops.full, dtype), _coef(dtype, device)
+    n_steps = inflow.shape[0]
+    traj = torch.empty((n_steps, *u0.shape), dtype=dtype, device=device)
+    u = u0
+    for lo_n in range(0, n_steps, plan.segment):
+        nxt = torch.empty_like(u)
+        for win, glo, loc, first, last in _windows(ops, plan, device):
+            uw = u[:, win]
+            for n in range(lo_n, min(lo_n + plan.segment, n_steps)):
+                traj[n][:, glo] = uw[:, loc]
+                uw = _march_plain(uw, inflow[n], tabs, coef, first, last)
+            nxt[:, glo] = uw[:, loc]
+        u = nxt
+    return traj, u
+
+
 def km_adj_est_fused_plain(traj, u_final, lam_end, t0: float, ops: MxuOps, plan: FusedPlan):
     """KM2's launch schedule in plain PyTorch: s_f steps a launch from the
     top (the last takes the remainder), every (tile, member) on its own
@@ -344,22 +429,14 @@ def km_adj_est_fused_plain(traj, u_final, lam_end, t0: float, ops: MxuOps, plan:
     for hi_n in range(n_steps, 0, -plan.segment):
         lo_n = max(hi_n - plan.segment, 0)
         lam_next = torch.empty_like(lam)
-        for c0 in range(0, ops.n, ops.k):
-            for t in range(plan.n_tiles):
-                lo, hi = t * plan.tile, min((t + 1) * plan.tile, ops.k)
-                w0, w1 = max(lo - plan.ghost, 0), min(hi + plan.ghost, ops.k)
-                win, glo = slice(c0 + w0, c0 + w1), slice(c0 + lo, c0 + hi)
-                loc = slice(lo - w0, hi - w0)
-                first = torch.zeros(w1 - w0, dtype=torch.bool, device=lam.device)
-                last = first.clone()
-                first[0] = last[-1] = True
-                lw, e = lam[:, win], eta[win]
-                for n in reversed(range(lo_n, hi_n)):
-                    u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
-                    lw, e = _rev_step_plain(traj[n][:, win], u_np1[:, win], lw, e, inflow[n],
-                                            tabs, coef, first, last)
-                lam_next[:, glo] = lw[:, loc]
-                eta[glo] = e[loc]
+        for win, glo, loc, first, last in _windows(ops, plan, lam.device):
+            lw, e = lam[:, win], eta[win]
+            for n in reversed(range(lo_n, hi_n)):
+                u_np1 = u_final if n == n_steps - 1 else traj[n + 1]
+                lw, e = _rev_step_plain(traj[n][:, win], u_np1[:, win], lw, e, inflow[n],
+                                        tabs, coef, first, last)
+            lam_next[:, glo] = lw[:, loc]
+            eta[glo] = e[loc]
         lam = lam_next
     return lam, eta
 
@@ -369,30 +446,45 @@ def km_adj_est_fused_plain(traj, u_final, lam_end, t0: float, ops: MxuOps, plan:
 
 def km_fwd_traj(u0: torch.Tensor, t0: float, ops: MxuOps):
     """KM1: march the (Np, N) state ``u0`` n_steps steps from ``t0``,
-    storing every entry state. Returns ``(traj, u_final)``."""
+    storing every entry state. Returns ``(traj, u_final)``. On the card it
+    runs :func:`km_fwd_plan`'s schedule for the card's SM count:
+    ⌈n_steps/s_f⌉ launches of the fused kernel."""
     n_steps = ops.segment * ops.n_segments
     if not _check_on("u0", u0, (ops.np_, ops.n), ops.device):
         return km_fwd_traj_plain(u0, float(t0), ops)
-    need = n_steps * u0.numel() * 4
-    free, total = torch.cuda.mem_get_info(u0.device)
-    if need > free:
-        raise MemoryError(
-            f"stored trajectory needs {need / 2**30:.2f} GiB ({n_steps}x{ops.np_}x{ops.n} "
-            f"float32); {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on {u0.device}"
-        )
+    plan = km_fwd_plan(ops.k, ops.b, ops.np_, n_steps, _sm_count(u0.device))
+    km_fwd_traj.launches += 1
+    traj, u_final, km_fwd_traj.cuda_launches = _km1_launch(u0, t0, ops, plan)
+    return traj, u_final
+
+
+def _km1_launch(u0, t0, ops: MxuOps, plan: FusedPlan):
+    """One dg_mxu_fwd call with ``plan``: ``(traj, u_final, CUDA
+    launches)``. The wrapper counts its launches; this does not."""
+    _check_grid(ops.b)
     lib = load_library()
     inflow = fwd_inflow(float(t0), ops)
-    traj = torch.empty((n_steps, *u0.shape), dtype=torch.float32, device=u0.device)
+    n_steps = inflow.shape[0]
+    try:  # no free-memory query up front: it costs host time on every call
+        traj = torch.empty((n_steps, *u0.shape), dtype=torch.float32, device=u0.device)
+    except torch.cuda.OutOfMemoryError as exc:
+        free, total = torch.cuda.mem_get_info(u0.device)
+        raise MemoryError(
+            f"stored trajectory needs {n_steps * u0.numel() * 4 / 2**30:.2f} GiB ({n_steps}x"
+            f"{ops.np_}x{ops.n} float32); {free / 2**30:.2f} of {total / 2**30:.2f} GiB free on "
+            f"{u0.device}"
+        ) from exc
     u_final = torch.empty_like(u0)
-    work = torch.empty((4, u0.numel()), dtype=torch.float32, device=u0.device)
+    ubuf = torch.empty((2, u0.numel()), dtype=torch.float32, device=u0.device)
+    launches = ctypes.c_int(0)
     code = lib.lib.dg_mxu_fwd(
-        ops.np_, ops.n, ops.k, n_steps, _RK.ctypes.data, ops.full.packed.ctypes.data,
-        inflow.ctypes.data, _ptr(u0), _ptr(traj), _ptr(u_final), _ptr(work[0]),
-        _ptr(work[2]), _stream(u0.device),
+        ops.np_, ops.n, ops.k, n_steps, plan.segment, plan.tile, plan.ghost,
+        plan.threads, _RK.ctypes.data, ops.full.packed.ctypes.data, inflow.ctypes.data,
+        _ptr(u0), _ptr(traj), _ptr(u_final), _ptr(ubuf[0]), ctypes.addressof(launches),
+        _stream(u0.device),
     )
-    km_fwd_traj.launches += 1
     lib.check(code, "dg_mxu_fwd", lib.lib.dg_mxu_error_string)
-    return traj, u_final
+    return traj, u_final, launches.value
 
 
 def km_adj_est(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor, t0: float,
@@ -435,6 +527,7 @@ def _km2_launch(traj, u_final, lam_end, t0, ops: MxuOps, plan: FusedPlan):
 
 def reset_launch_counts() -> None:
     km_fwd_traj.launches = 0
+    km_fwd_traj.cuda_launches = 0
     km_adj_est.launches = 0
     km_adj_est.cuda_launches = 0
 

@@ -1,10 +1,11 @@
 """The FD refinement signal on hand-written CUDA.
 
 Counterpart of the JAX package's ``ops/pallas/fd_ensemble.py``. Three
-kernels (csrc/fd_ensemble.cu), each one thread per initial condition (IC)
-or member, with the whole pipeline of that IC inside the thread — coarse
-Euler march, interpolation to the rf-refined grid, the adjoint of
-J = ∫u² dt, the residual and the per-step indicator:
+kernels (csrc/fd_ensemble.cu), each with the whole pipeline of an initial
+condition (IC) or member — coarse Euler march, interpolation to the
+rf-refined grid, the adjoint of J = ∫u² dt, the residual and the per-step
+indicator — F1 and F2 in one thread per IC, F3 in G lanes of a warp per
+member:
 
 - **F1** :func:`fd_ensemble` — scalar state, block indicator
   ``(n_steps, n_ics)``. Replaces ``_kernel`` (fd_ensemble.py:61); with
@@ -16,14 +17,16 @@ J = ∫u² dt, the residual and the per-step indicator:
   strided or block indicator and J per member. Replaces ``_pm_kernel``
   (fd_ensemble.py:357); the engine of ``run_adaptive_fd_per_member(engine="cuda")``.
 
-What bounds them, and what the design does about it: each IC's sweep is a
-serial chain (v_j needs v_{j+1}), so a kernel is latency-bound per thread,
+What bounds them, and what the design does about it: each IC's march and
+sweep are serial chains (v_j needs v_{j+1}), so a kernel is latency-bound,
 far above both the byte bound (one read of u0, one write per step) and the
-FP32 bound; one thread per IC keeps every chain independent and every
-access coalesced (the per-member widths are transposed to (n_steps, B) so
-that neighbouring threads read neighbouring addresses). At B = 1024 the grid
-is only 8 blocks of 128 threads on 132 SMs; splitting a member's sweep is
-later work.
+FP32 bound. F1 and F2 run one thread per IC, every chain independent and
+every access coalesced. F3 serves the per-member study's B = 1024, where one
+thread a member filled 8 of 132 SMs: its G lanes (:func:`fd_pm_plan`) split
+the fine nodes' interpolation, (f, f_u) pairs and residuals, and one lane
+runs only the chain v_j = A_j + C_j·v_{j+1} and the per-step sums in the
+plain version's order; the member's widths are read as (B, n_steps), its
+row contiguous, and err is written (B, n_steps): one CUDA launch a call.
 
 Each wrapper takes a plan made by its ``make_cuda_*`` entry point. A CUDA
 float32 tensor launches the kernel or raises; a CPU tensor takes the
@@ -35,10 +38,18 @@ Each wrapper counts its kernel launches in ``.launches``.
 The TPU tiling ((8, lane) carpets, ``lane_block``, the multiple-of-20480 IC
 rule, the scoped-VMEM checks) is not ported: the entry points take any
 ``n_ics`` and any B; the step count is bounded by a block's shared memory,
-which the kernel's launcher checks (a launch with too many steps raises).
+which the kernel's launcher checks (a launch with too many steps raises;
+F3's plan shrinks its CTA and its window of fine nodes to fit first).
+
+Tolerance (:func:`fd_kernel_tolerance`, :func:`fd_j_tolerance`): kernel
+and plain version run float32 in another order of roundings (FMA
+contraction in the kernel, none in the plain version), so each fine node's
+r·v differs by a few ulp of max|u|·max|v| and J by a few ulp of
+max|u|²·T per step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -50,6 +61,10 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_devi
 
 __all__ = [
     "FdPlan",
+    "FdPmLaunch",
+    "fd_pm_plan",
+    "fd_kernel_tolerance",
+    "fd_j_tolerance",
     "fine_grid",
     "fd_ensemble",
     "fd_ensemble_plain",
@@ -64,6 +79,11 @@ __all__ = [
 ]
 
 MAX_MODES = 8  # gaussian-mixture slots per kind in the consts layout (csrc OdeConsts)
+EPS32 = 2.0**-23
+PM_LANES = (1, 2, 4, 8, 16, 32)  # the lanes a member F3 takes
+PM_THREADS = (32, 64, 128, 256)  # its CTA sizes
+PM_MAX_WARPS = 4096  # fd_pm_plan's most warps: ~31 an SM on 132 SMs
+MAX_SMEM = 232_448  # csrc kMaxSmem: the bytes a block may use on sm_90
 VECTOR_KERNEL_IDS = {odes.KERNEL_IDS["harmonic_oscillator"]: 2}  # id -> d
 SIN_ID = odes.KERNEL_IDS["du/dt=sin(u)"]
 
@@ -250,10 +270,10 @@ def fd_ensemble_vec_plain(u0s: torch.Tensor, plan: FdPlan, stats: dict | None = 
 
 def fd_estimate_per_member_plain(dt_b: torch.Tensor, u0s: torch.Tensor, plan: FdPlan,
                                  stats: dict | None = None):
-    """F3's plain version: ``(err (B, n_steps), j (B,))`` from per-member
-    widths ``dt_b`` (B, n_steps); tc accumulates in the working type from
-    ``plan.t0`` and dt_f = dts·(1/rf), as in the kernel. ``stats`` as for
-    :func:`fd_ensemble_plain`."""
+    """F3's plain version: ``(err (B, n_steps), j (B,))``, err contiguous,
+    from per-member widths ``dt_b`` (B, n_steps); tc accumulates in the
+    working type from ``plan.t0`` and dt_f = dts·(1/rf), as in the kernel.
+    ``stats`` as for :func:`fd_ensemble_plain`."""
     f, f_u = plan.ode.f, plan.ode.f_u
     rf, n_steps = plan.rf, plan.n_steps
     dts = dt_b.T
@@ -291,7 +311,24 @@ def fd_estimate_per_member_plain(dt_b: torch.Tensor, u0s: torch.Tensor, plan: Fd
             out[i] = torch.abs(blk) if block else blk
             blk = None
         u_j, fu_j = u_jm1, fu_jm1
-    return out.T, j_val
+    return out.T.contiguous(), j_val
+
+
+def fd_kernel_tolerance(stats: dict, rf: int, d: int = 1) -> float:
+    """The bound on |kernel − plain| of an F1, F2 or F3 indicator entry,
+    from the plain version's ``stats`` (max|u|, max|v|): the residual
+    r = u_j − (u_{j−1} + f·dt_f) is a difference of O(max|u|) values, so each
+    fine node's r·v carries a few ulp of max|u|·max|v| (FMA contraction in
+    the kernel, none in the plain version); a block sums rf nodes and d
+    components. Entries of the plain version above it give the check its
+    teeth (an err of 0 fails there)."""
+    return 8 * rf * d * EPS32 * float(stats["u"]) * float(stats["v"])
+
+
+def fd_j_tolerance(stats: dict, n_steps: int, t_max: float) -> float:
+    """F3's bound on |kernel − plain| of J = Σ u_n²·dt_n: a few ulp of
+    max|u|²·T per step."""
+    return 8 * n_steps * EPS32 * float(stats["u"]) ** 2 * t_max
 
 
 # ------------------------------------------------------------------ wrappers
@@ -361,10 +398,44 @@ def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
     return err
 
 
+class FdPmLaunch(NamedTuple):
+    """F3's launch: ``lanes`` (G) lanes of a warp a member in CTAs of
+    ``threads``."""
+
+    lanes: int
+    threads: int
+
+
+def pm_window(launch: FdPmLaunch, n_steps: int, rf: int) -> int:
+    """The fine nodes F3 sweeps a window: all n_steps·rf where the CTA's
+    members' shared memory, 4·(3·n_steps + 2 + 3·window) bytes each, holds
+    them, else the most that fits (0: not even the coarse tables fit)."""
+    members = launch.threads // launch.lanes
+    room = MAX_SMEM // (4 * members) - (3 * n_steps + 2)
+    return max(min(n_steps * rf, room // 3), 0)
+
+
+@functools.lru_cache(maxsize=256)
+def fd_pm_plan(b: int, n_steps: int, rf: int) -> FdPmLaunch:
+    """F3's launch for B members of n_steps steps refined rf times: G the
+    most of :data:`PM_LANES` with B·G/32 ≤ :data:`PM_MAX_WARPS` warps (32 at
+    B ≤ 4096: one warp a member; 1 at B ≥ 131,072), in 128-thread CTAs, or
+    the largest smaller CTA whose members' coarse tables and a window of at
+    least one fine node fit a block's shared memory (:func:`pm_window`; at
+    G = 1, 226 steps take 64 threads)."""
+    lanes = max(g for g in PM_LANES if g == 1 or b * g <= 32 * PM_MAX_WARPS)
+    for threads in (128, 64, 32):
+        launch = FdPmLaunch(lanes, threads)
+        if pm_window(launch, n_steps, rf) >= 1:
+            return launch
+    return launch
+
+
 def fd_estimate_per_member(dt_b: torch.Tensor, u0s: torch.Tensor, plan: FdPlan):
     """F3: ``(err (B, n_steps), j (B,))`` from per-member coarse widths
     ``dt_b`` (B, n_steps) and ``u0s`` (B,). Zero-width (padding) steps are
-    exact identities and contribute exactly 0."""
+    exact identities and contribute exactly 0. On the card one CUDA launch
+    on :func:`fd_pm_plan`'s launch."""
     if u0s.dim() != 1:
         raise ValueError(f"u0s must be (B,), got {tuple(u0s.shape)}")
     b = u0s.shape[0]
@@ -376,18 +447,27 @@ def fd_estimate_per_member(dt_b: torch.Tensor, u0s: torch.Tensor, plan: FdPlan):
                          f"({u0s.dtype} on {u0s.device})")
     if not on_cuda:
         return fd_estimate_per_member_plain(dt_b, u0s, plan)
+    if not dt_b.is_contiguous():
+        raise ValueError("dt_b must be contiguous")
+    fd_estimate_per_member.launches += 1
+    return _f3_launch(dt_b, u0s, plan, fd_pm_plan(b, plan.n_steps, plan.rf))
+
+
+def _f3_launch(dt_b, u0s, plan: FdPlan, launch: FdPmLaunch):
+    """One fd_estimate_per_member call on ``launch``: ``(err (B, n_steps),
+    j (B,))``. The wrapper counts its launches; this does not."""
     lib = load_library()
-    dt_t = dt_b.T.contiguous()  # (n_steps, B): neighbouring threads, neighbouring members
-    err = torch.empty((plan.n_steps, b), dtype=torch.float32, device=u0s.device)
-    j_val = torch.empty((b,), dtype=torch.float32, device=u0s.device)
+    b, n_steps = u0s.shape[0], plan.n_steps
+    out = torch.empty(b * (n_steps + 1), dtype=torch.float32, device=u0s.device)  # one allocation
+    err, j_val = out[: b * n_steps].view(b, n_steps), out[b * n_steps:]
     code = lib.lib.fd_estimate_per_member(
         plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps,
-        plan.rf, int(plan.convention == "block"), plan.t0, dt_t.data_ptr(),
-        u0s.data_ptr(), err.data_ptr(), j_val.data_ptr(), _stream(u0s.device),
+        plan.rf, int(plan.convention == "block"), plan.t0, launch.lanes, launch.threads,
+        pm_window(launch, plan.n_steps, plan.rf), dt_b.data_ptr(), u0s.data_ptr(),
+        err.data_ptr(), j_val.data_ptr(), _stream(u0s.device),
     )
-    fd_estimate_per_member.launches += 1
     lib.check(code, "fd_estimate_per_member", lib.lib.fd_error_string)
-    return err.T, j_val
+    return err, j_val
 
 
 fd_ensemble.launches = 0

@@ -234,8 +234,7 @@ raises, and the script exits non-zero; nothing is caught.
    timed in turns, each with its CUDA
    launches, the cost model and the KM_STEP_WARP_US it implies, and its
    share of the bound, every plan the wrapper's bits and the wrapper the
-   plain version's (a gate); (c) KM1+KM2 against K1+K2 at both rows in
-   turns; (d) H1 at 12(a) and 12(b) (B=512 and 4096) in both adjoint modes
+   plain version's (a gate); (c) is 36(c); (d) H1 at 12(a) and 12(b) (B=512 and 4096) in both adjoint modes
    on G = 1, 4, 8, 16, 32 lanes and 64-, 128- and 256-thread CTAs, timed in
    turns beside the wrapper, each within hp_kernel_tolerance and
    bit-identical on a repeat (a gate), with its share of the bound; (e)
@@ -252,6 +251,23 @@ raises, and the script exits non-zero; nothing is caught.
    studies' shape), 16,384 (9(a)) and 102,400 (9(e)) on every G and CTA
    size, timed in turns beside the wrapper, each within dg_kernel_tolerance
    (a gate), with its share of the bound.
+36. KM1 fused over s_f steps a launch (csrc/dg_mxu.cu km_fwd_fused) and F3
+   with G lanes a member (csrc/fd_ensemble.cu): (a) the registers and
+   spills that ptxas reported for both (no km_fwd_fused instance may
+   spill: a gate); (b) KM1 at KM2_SMALL's shapes (B=8, 13 steps) on every
+   plan km_fwd_plan searches and on narrow tiles, and at both MXU_ROWS on
+   the wrapper's plan and each (s_f, CTA size)'s cheapest tiling, timed in
+   turns with its CUDA launches, the cost model, the KM_FWD_STEP_WARP_US it
+   implies and its share of the bound; every plan's trajectory and u_final
+   the wrapper's bits and the wrapper's km_fwd_traj_plain's (a gate); (c)
+   KM1+KM2 against K1+K2 at both rows in turns; (d) F3 at 6(e)'s shape on
+   every G and CTA size, timed in turns beside the wrapper and G = 1, each
+   within fd_kernel_tolerance with some plain entry above it, padding
+   exactly 0, a repeat bit-identical and the wrapper's bits (a gate), and
+   G = 1, G = 32 and the wrapper on the device alone (queued behind a
+   sleep); (e) the B=1024 per-member FD
+   study (phase 8's) in turns on fd_pm_plan's launch and on one lane a
+   member, and its torch.profiler trace.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -383,6 +399,24 @@ def cuda_ms(fn, runs: int, warmup: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls queued behind
+    a device-side sleep longer than the host takes to queue them, timed by
+    CUDA events, so the host's share of a call is left out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)  # ~3 ms
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def in_turns(fns: dict, runs: int = 5) -> dict:
@@ -708,28 +742,19 @@ def phase5(device):
 # ------------------------------------------------------------------ FD strand
 
 
-def fd_tol(stats, rf, d=1):
-    """float32 kernel vs plain version on the same inputs: the residual
-    r = u_j − (u_{j−1} + f·dt_f) is a difference of O(max|u|) values, so each
-    fine node's r·v carries a few ulp of max|u|·max|v| (FMA contraction in the
-    kernel, none in the plain version); a block sums rf nodes and d
-    components."""
-    return 8 * rf * d * EPS32 * float(stats["u"]) * float(stats["v"])
-
-
-def j_tol(stats, n_steps, t_max):
-    """J = Σ u_n²·dt_n: a few ulp of max|u|²·T per step."""
-    return 8 * n_steps * EPS32 * float(stats["u"]) ** 2 * t_max
-
-
-def fd_check(label, kname, got, want, tol, errs):
+def fd_check(label, kname, got, want, tol, errs, teeth=False):
+    """The kernel's output within ``tol`` of the plain version's; with
+    ``teeth``, some entry of the plain version lies above ``tol`` (so an
+    output of 0 fails)."""
     import torch
 
     assert bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output"
     e = float((got.double() - want.double()).abs().max())
+    above = int((want.abs() > tol).sum())
     say("6", f"{label}: max|kernel - plain| {e:.3e} (tol {tol:.3e}; max|plain| "
-             f"{float(want.abs().max()):.3e})")
+             f"{float(want.abs().max()):.3e}; {above} of {want.numel()} plain entries above tol)")
     assert e <= tol, f"{label}: kernel disagrees with its plain version"
+    assert above > 0 or not teeth, f"{label}: no entry above the tolerance (an output of 0 passes)"
     errs[kname] = max(errs.get(kname, 0.0), e)
 
 
@@ -774,7 +799,7 @@ def phase6(device, errs, inp):
         torch.cuda.synchronize()
         stats = {}
         want = fe.fd_ensemble_plain(x, run.plan, stats)
-        fd_check(label, "fd_ensemble", got, want, fd_tol(stats, rf), errs)
+        fd_check(label, "fd_ensemble", got, want, fe.fd_kernel_tolerance(stats, rf), errs)
 
     for trig in ("libm", "fast"):
         ensemble(f"(a) sin(u) {n} ICs, uniform dt, trig={trig}", "du/dt=sin(u)", dt, trig)
@@ -789,7 +814,7 @@ def phase6(device, errs, inp):
     stats = {}
     want = fe.fd_ensemble_vec_plain(inp["u0_vec"], run.plan, stats)
     fd_check(f"(d) harmonic_oscillator d=2, {n} ICs", "fd_ensemble_vec", got, want,
-             fd_tol(stats, rf, d=2), errs)
+             fe.fd_kernel_tolerance(stats, rf, d=2), errs)
 
     dt_pm, u0_pm = inp["dt_pm"], inp["u0_pm"]
     t_max = float(dt_pm.double().sum(1).max())
@@ -802,9 +827,10 @@ def phase6(device, errs, inp):
             err_p, j_p = fe.fd_estimate_per_member_plain(dt_pm, u0_pm, run.plan, stats)
             label = f"(e) per-member {ode} B={u0_pm.shape[0]} {FD_PM_STEPS} steps {conv}"
             fd_check(label + " err", "fd_estimate_per_member", err_k, err_p,
-                     fd_tol(stats, rf), errs)
+                     fe.fd_kernel_tolerance(stats, rf), errs, teeth=True)
             fd_check(label + " J", "fd_estimate_per_member", j_k, j_p,
-                     j_tol(stats, FD_PM_STEPS, t_max), errs)
+                     fe.fd_j_tolerance(stats, FD_PM_STEPS, t_max), errs)
+            assert err_k.shape == dt_pm.shape and err_k.is_contiguous()
             # zero-width padded steps contribute exactly 0
             pad = dt_pm == 0
             assert bool((err_k[pad] == 0).all()), "padding steps must contribute exactly 0"
@@ -865,6 +891,7 @@ def phase7(device, errs, inp):
     step = euler_step(odes.get_ode("du/dt=sin(u)").f)
     worst = {"err": 0.0, "tol_err": 0.0, "j": 0.0, "tol_j": 0.0, "torch": 0.0}
     decided = agree = 0
+    teeth = []
     for r in hist:
         times = torch.tensor(r.times, dtype=torch.float32, device=device)
         stats = {}
@@ -872,11 +899,14 @@ def phase7(device, errs, inp):
         n_act = torch.tensor(r.n_active, device=device)
         err_t = fd_loop.estimate_per_member(step, times, n_act, u0s, ref_factor=rf)[0]
         err_k = torch.tensor(r.err_steps, device=device)
-        tol_e = fd_tol(stats, rf)
-        tol_j = j_tol(stats, FD_PM_STEPS, FD_STUDY["t1"])
+        tol_e = fe.fd_kernel_tolerance(stats, rf)
+        tol_j = fe.fd_j_tolerance(stats, FD_PM_STEPS, FD_STUDY["t1"])
         e_err = float((err_k - err_p).abs().max())
         e_j = float((torch.tensor(r.j_coarse, device=device) - j_p).abs().max())
         assert e_err <= tol_e and e_j <= tol_j, (e_err, tol_e, e_j, tol_j)
+        above = int((err_p.abs() > tol_e).sum())
+        teeth.append(above)
+        assert above > 0, "a replayed grid with no err above its tolerance (an err of 0 passes)"
         for key, val in (("err", e_err), ("tol_err", tol_e), ("j", e_j), ("tol_j", tol_j),
                          ("torch", float((err_k - err_t).abs().max()))):
             worst[key] = max(worst[key], val)
@@ -890,7 +920,8 @@ def phase7(device, errs, inp):
     errs["fd_estimate_per_member"] = max(errs["fd_estimate_per_member"], worst["err"], worst["j"])
     say("7", f"replay of {len(hist)} grids through the plain version: max|d err| "
              f"{worst['err']:.3e} (tol <= {worst['tol_err']:.3e}), max|d J| {worst['j']:.3e} "
-             f"(tol <= {worst['tol_j']:.3e}); torch engine on the same grids: max|d err| "
+             f"(tol <= {worst['tol_j']:.3e}); entries of the plain err above its tolerance a "
+             f"grid {min(teeth)}-{max(teeth)}; torch engine on the same grids: max|d err| "
              f"{worst['torch']:.3e} (not bounded: another operation order)")
     say("7", f"refinement decisions with a top-two margin > 4x tol: {decided} of "
              f"{len(hist) * b} member-iterations; kernel, plain and torch engine agree on {agree}")
@@ -919,8 +950,8 @@ def phase7(device, errs, inp):
              f"{int(ref64.argmax())} (top-two margin {float(top2[0] - top2[1]):.3e}); "
              f"max|signal - float64| {d64:.3e}; d=2 signal argmax {int(sig['vec'].argmax())}; "
              f"wrapper launches {launches}")
-    assert d64 <= fd_tol(stats, rf), "the float32 signal is off its float64 plain version"
-    if float(top2[0] - top2[1]) > fd_tol(stats, rf):  # the signal's decision is above the noise
+    assert d64 <= fe.fd_kernel_tolerance(stats, rf), "the float32 signal is off its float64 plain version"
+    if float(top2[0] - top2[1]) > fe.fd_kernel_tolerance(stats, rf):  # above the noise
         assert int(sig["libm"].argmax()) == int(sig["fast"].argmax()) == int(ref64.argmax())
     assert all(launches[k] > 0 for k in ("fd_ensemble", "fd_ensemble_vec"))
 
@@ -3182,8 +3213,8 @@ def phase27(device, errs):
         say("27", f"N={n_order} K=10000 B=8 segment={seg} steps={n_steps}: KM1+KM2 {ms_km:.3f} ms "
                   f"({dofs / ms_km * 1e3:.4e} fwd+adjoint DoF-steps/s), K1+K2 {ms_k12:.3f} ms "
                   f"({dofs / ms_k12 * 1e3:.4e}); CUDA launches KM "
-                  f"{5 * n_steps + dg_mxu.km_adj_est.cuda_launches} (KM1 {5 * n_steps}, KM2 "
-                  f"{dg_mxu.km_adj_est.cuda_launches}), K1+K2 "
+                  f"{dg_mxu.km_fwd_traj.cuda_launches + dg_mxu.km_adj_est.cuda_launches} (KM1 "
+                  f"{dg_mxu.km_fwd_traj.cuda_launches}, KM2 {dg_mxu.km_adj_est.cuda_launches}), K1+K2 "
                   f"{dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} (in turns K1+K2, "
                   f"KM1+KM2, KM1+KM2, K1+K2, median of 5 each: KM {turns['KM1+KM2'][0]:.3f} / "
                   f"{turns['KM1+KM2'][1]:.3f}, K1K2 {turns['K1+K2'][0]:.3f} / "
@@ -3999,13 +4030,7 @@ def phase33(device, lib, errs):
     calls()
     torch.cuda.synchronize()
     per_call = (time.perf_counter() - t0) / 20 * 1e3
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(5_000_000)  # ~3 ms: longer than the host takes to queue the calls
-    start.record()
-    calls()
-    end.record()
-    torch.cuda.synchronize()
-    device_ms = start.elapsed_time(end) / 20
+    device_ms = queued_ms(lambda: tf.resblock_epoch_grad(packed, dt, u0, tg, inv_b=inv_b))
     seen = study_trace(calls, "resblock_tile_kernel", phase="33", also=("resblock_reduce_kernel",))
     split = "; ".join(f"{k} {ms / n:.4f} ms a launch" for k, (ms, n) in seen.items() if n)
     say("33", f"T1 S=2 F=500 B=8192, 20 back-to-back wrapper calls: {per_call:.4f} ms a call on "
@@ -4190,11 +4215,11 @@ def phase34(device, lib, errs, hp_cases):
     """KM2 fused over s_f steps a launch and H1 with G lanes a member: the
     kernels' registers and spills (a gate: no km_rev_fused instance
     spills); (a) KM2 at KM2_SMALL's shapes on every plan, bit-equal to the
-    plain version; (b) at both MXU_ROWS on every plan, in turns; (c) KM1+KM2
-    against K1+K2 at both rows, in turns; (d) H1 at 12(a) and 12(b) in both
-    adjoint modes on every G and CTA size, in turns; (e) the B = 512 hp
-    study (phase 14's) in turns on hp_plan's launch and on one lane a
-    member, and its trace."""
+    plain version; (b) at both MXU_ROWS on every plan, in turns; (d) H1 at
+    12(a) and 12(b) in both adjoint modes on every G and CTA size, in
+    turns; (e) the B = 512 hp study (phase 14's) in turns on hp_plan's
+    launch and on one lane a member, and its trace. (c), KM1+KM2 against
+    K1+K2, is phase 36(c)."""
     from unittest import mock
 
     import torch
@@ -4213,21 +4238,6 @@ def phase34(device, lib, errs, hp_cases):
     rows = {}
     for n_order, seg, n_steps in MXU_ROWS:
         rows[f"KM2 N={n_order}"] = km2_plans(n_order, seg, n_steps, device, sms, errs)
-    for n_order, seg, n_steps in MXU_ROWS:
-        disc = mesh(n_order, 10_000, graded=False)
-        km, k12, u0, lam = mxu_run(disc, cfl_step(disc), seg, n_steps, device)
-        out = {}
-        turns = in_turns({"K1+K2": lambda: out.update(k12=k12(u0, 0.0, lam)),
-                          "KM1+KM2": lambda: out.update(km=km(u0, 0.0, lam))})
-        ms = {name: statistics.mean(t) for name, t in turns.items()}
-        d = [float((g - w).abs().max()) for g, w in zip(out["km"], out["k12"])]
-        say("34", f"(c) KM/K1K2 at N={n_order} in turns: {ms['KM1+KM2'] / ms['K1+K2']:.3f} (KM1+KM2 "
-                  f"{ms['KM1+KM2']:.3f} ms, {turns['KM1+KM2'][0]:.3f} / {turns['KM1+KM2'][1]:.3f}; "
-                  f"K1+K2 {ms['K1+K2']:.3f} ms, {turns['K1+K2'][0]:.3f} / {turns['K1+K2'][1]:.3f}; "
-                  f"KM2 {dg_mxu.km_adj_est.cuda_launches} CUDA launches); max|KM - K1K2| u "
-                  f"{d[0]:.3e} lam0 {d[1]:.3e} eta {d[2]:.3e}")
-        del out, km, k12
-        torch.cuda.empty_cache()
     for key in (("a", "solve"), ("a", "reconstruct"), ("b", "solve"), ("b", "reconstruct")):
         h1 = h1_launches(f"12({key[0]})", hp_cases[key], device, errs)
         rows[f"H1 12({key[0]}) {key[1]}"] = min(h1.values())
@@ -4404,6 +4414,265 @@ def phase35(device, lib, errs, dg_cases):
     return rows
 
 
+def km1_plans(k, b, np_, n_steps, sms):
+    """KM1's wrapper plan and, for each (s_f, CTA size) that km_fwd_plan
+    searches, the plan its cost model rates cheapest there (the untiled CTA
+    among them where K fits)."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    plans = {"wrapper's plan": dg_mxu.km_fwd_plan(k, b, np_, n_steps, sms)}
+    candidates = list(dg_rhs._window_plans(k, b, n_steps, sms))
+    for st in sorted({p.segment for p in candidates}):
+        for th in dg_rhs.FUSED_THREADS:
+            plans[f"s_f={st} {th} threads"] = dg_rhs._cheapest(
+                (p for p in candidates if p.segment == st and p.threads == th),
+                lambda plan: dg_mxu.km_fwd_cost(k, b, np_, n_steps, plan, sms))
+    return plans
+
+
+def km1_small(device, sms):
+    """KM1 at KM2_SMALL's shapes (B = 8, 13 steps) on every plan
+    km_fwd_plan searches and on narrow tiles (L = 5 and 10, s_f 4), each
+    bit-equal to km_fwd_traj_plain in ⌈13/s_f⌉ CUDA launches. Returns the
+    number of (shape, plan) cases."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    n_plans = 0
+    for n_order, k, dt in KM2_SMALL:
+        disc = mesh(n_order, k, graded=False)
+        ops = dg_mxu.mxu_ops(disc, A, dt, 13, 1, 8, device)
+        phases = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+        u0 = torch.tensor(np.concatenate([np.sin(disc.x + q) for q in phases], 1),
+                          dtype=torch.float32, device=device)
+        want = dg_mxu.km_fwd_traj_plain(u0, 0.1, ops)
+        plans = list(dg_rhs._window_plans(k, 8, 13, sms))
+        plans += [dg_rhs.fwd_fused_plan(k, 4, 512)._replace(tile=t, n_tiles=-(-k // t))
+                  for t in (5, 10)]
+        for plan in plans:
+            *got, n_cuda = dg_mxu._km1_launch(u0, 0.1, ops, plan)
+            assert all(bool(torch.equal(x, y)) for x, y in zip(got, want)), (n_order, plan)
+            assert n_cuda == -(-13 // plan.segment), (n_cuda, plan)
+            n_plans += 1
+        say("36", f"(b) KM1 N={n_order} (Np={disc.np_}) K={k} B=8 13 steps: trajectory and u_final "
+                  f"bit-equal to km_fwd_traj_plain on {len(plans)} plans")
+    return n_plans
+
+
+def km1_row(n_order, seg, n_steps, device, sms, errs):
+    """KM1 through its wrapper and on km1_plans at one MXU row (K = 10^4, B
+    = 8), timed in turns, each with its CUDA launches, the cost model (and
+    the KM_FWD_STEP_WARP_US it implies) and its share of mxu_bounds; every
+    plan's output the wrapper's bits and the wrapper's km_fwd_traj_plain's
+    (a gate). Returns {key: ms}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
+
+    disc = mesh(n_order, 10_000, graded=False)
+    km, _, u0, _ = mxu_run(disc, cfl_step(disc), seg, n_steps, device)
+    ops = km.ops
+    u0 = u0.reshape(ops.np_, ops.n)
+    plans = km1_plans(ops.k, ops.b, disc.np_, n_steps, sms)
+    out, counts = {}, {}
+
+    def on(key, plan):
+        def run():
+            *out[key], counts[key] = dg_mxu._km1_launch(u0, 0.0, ops, plan)
+
+        return run
+
+    def wrapper():
+        out["wrapper"] = dg_mxu.km_fwd_traj(u0, 0.0, ops)
+
+    turns = in_turns({"wrapper": wrapper, **{key: on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = dg_mxu.km_fwd_traj.cuda_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dg_mxu.km_fwd_traj_plain(u0, 0.0, ops)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    bits = all(bool(torch.equal(x, y)) for x, y in zip(out["wrapper"], want))
+    errs["mxu_fwd_traj"] = max(errs["mxu_fwd_traj"], *(float((x - y).abs().max())
+                                                      for x, y in zip(out["wrapper"], want)))
+    del want
+    b_ms, b_by = mxu_bounds(disc.np_, ops.n, n_steps)["mxu_fwd_traj"]
+    unit = 2 * disc.np_ ** 2 + 9 * disc.np_ + 4
+    rows = {}
+    for key, plan in {"wrapper": plans["wrapper's plan"], **plans}.items():
+        ms = rows[key] = statistics.mean(turns[key])
+        warps = max(-(-plan.n_tiles * ops.b // sms) * -(-min(plan.tile + 2 * plan.ghost, ops.k)
+                                                         // 32), dg_rhs.MIN_WARPS)
+        model = dg_mxu.km_fwd_cost(ops.k, ops.b, disc.np_, n_steps, plan, sms)
+        implied = (ms * 1e3 - counts[key] * dg_rhs.LAUNCH_US) / (n_steps * warps * unit)
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out[key], out["wrapper"]))
+        say("36", f"(b) KM1 N={n_order} K=10000 B=8 steps={n_steps} {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads ({plan.n_tiles}x{ops.b} "
+                  f"CTAs, {warps} warps on the busiest SM); {ms:.4f} ms (model {model / 1e3:.4f}, "
+                  f"implied KM_FWD_STEP_WARP_US {implied:.5f}; in turns, median of 5 each: "
+                  f"{turns[key][0]:.4f} / {turns[key][1]:.4f}), {counts[key]} CUDA launches, "
+                  f"{b_ms / ms:.2%} of the {b_ms:.4f} ms bound ({b_by}); bits equal to the "
+                  f"wrapper's: {same}")
+        assert same and counts[key] == -(-n_steps // plan.segment), key
+    say("36", f"(b) KM1 N={n_order}: the wrapper's trajectory and u_final bit-equal to "
+              f"km_fwd_traj_plain (float32, {plain_s:.2f} s on the host clock): {bits}; fastest "
+              f"{min(rows, key=rows.get)} {min(rows.values()):.4f} ms")
+    assert bits, f"KM1 at N={n_order}: not the plain version's bits"
+    del out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def f3_launches(device, inp, errs):
+    """F3 at phase 6(e)'s shape (B = 1024, 43 steps, rf 4, padded tails),
+    sin u in both conventions, on every G of PM_LANES and CTA size of
+    PM_THREADS, timed in turns beside the wrapper, each within
+    fd_kernel_tolerance (some plain entry above it), padding exactly 0 and
+    a repeat bit-identical (a gate), with its share of fd_bounds. Returns
+    {(convention, lanes, threads): ms}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    dt_pm, u0_pm = inp["dt_pm"], inp["u0_pm"]
+    b, rf = u0_pm.shape[0], FD_STUDY["rf"]
+    b_ms, b_by = fd_bounds()["fd_estimate_per_member"]
+    rows = {}
+    for conv in ("strided", "block"):
+        run = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf, conv,
+                                                  device=device)
+        stats = {}
+        want = fe.fd_estimate_per_member_plain(dt_pm, u0_pm, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf)
+        above = int((want[0].abs() > tol).sum())
+        launches = {(g, th): fe.FdPmLaunch(g, th) for g in fe.PM_LANES for th in fe.PM_THREADS}
+        out = {}
+
+        def on(key, launch):
+            def go():
+                out[key] = fe._f3_launch(dt_pm, u0_pm, run.plan, launch)
+
+            return go
+
+        turns = in_turns({"wrapper": lambda: out.update(wrapper=run(dt_pm, u0_pm)),
+                          **{key: on(key, launch) for key, launch in launches.items()}})
+        mine = fe.fd_pm_plan(b, FD_PM_STEPS, rf)
+        same_all = True
+        for key, launch in launches.items():
+            ms = rows[(conv, *key)] = statistics.mean(turns[key])
+            again = fe._f3_launch(dt_pm, u0_pm, run.plan, launch)
+            torch.cuda.synchronize()
+            repeat = all(bool(torch.equal(x, y)) for x, y in zip(out[key], again))
+            same_all &= all(bool(torch.equal(x, y)) for x, y in zip(out[key], out["wrapper"]))
+            e = float((out[key][0] - want[0]).abs().max())
+            pad = bool((out[key][0][dt_pm == 0] == 0).all())
+            errs["fd_estimate_per_member"] = max(errs["fd_estimate_per_member"], e)
+            say("36", f"(d) F3 B={b} {FD_PM_STEPS} steps {conv} G={launch.lanes} {launch.threads} "
+                      f"threads{' (the wrapper plan)' if launch == mine else ''}: {ms:.4f} ms (in "
+                      f"turns, median of 5 each: {turns[key][0]:.4f} / {turns[key][1]:.4f}), "
+                      f"{b_ms / ms:.3%} of the {b_ms:.6f} ms bound ({b_by}); max|err - plain| "
+                      f"{e:.3e} (tol {tol:.3e}, {above} plain entries above it); padding 0: "
+                      f"{pad}; a repeat bit-identical: {repeat}")
+            assert e <= tol and above > 0 and pad and repeat, (conv, key)
+        on_device = {f"G={g}": queued_ms(on((g, 128), fe.FdPmLaunch(g, 128))) for g in (1, 32)}
+        say("36", f"(d) F3 {conv}: the wrapper ({mine}) {statistics.mean(turns['wrapper']):.4f} ms; "
+                  f"fastest {min(launches, key=lambda x: rows[(conv, *x)])} "
+                  f"{min(rows[(conv, *x)] for x in launches):.4f} ms; every launch the wrapper's "
+                  f"bits: {same_all}; on the device alone (20 calls queued behind a sleep): "
+                  f"{', '.join(f'{k} 128 threads {ms:.4f} ms' for k, ms in on_device.items())} "
+                  f"a call, the wrapper {queued_ms(lambda: run(dt_pm, u0_pm)):.4f}")
+        assert same_all, conv
+    return rows
+
+
+def phase36(device, lib, errs, inp):
+    """KM1 fused over s_f steps a launch and F3 with G lanes a member: (a)
+    the kernels' registers and spills (a gate: no km_fwd_fused instance
+    spills); (b) KM1 at KM2_SMALL's shapes on every plan and at both
+    MXU_ROWS on its plans, in turns; (c) KM1+KM2 against K1+K2 at both rows,
+    in turns; (d) F3 on every G and CTA size at 6(e)'s shape, in turns; (e)
+    the B = 1024 FD study in turns on fd_pm_plan's launch and on one lane a
+    member, and its trace."""
+    from unittest import mock
+
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    regs = kernel_registers(lib.build_log, ("km_fwd_fused",))
+    f3, name = [], None
+    for ln in lib.build_log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split(" for ", 1)[1].strip()
+            name = name if "fd_estimate_per_member_kernel" in name else None
+            frame = ""
+        elif name and "spill" in ln:
+            frame = ln.strip()
+        elif name and "registers" in ln:
+            f3.append(f"{instance_name(name)}: {ln.split('Used ', 1)[1].split(',')[0]}, {frame}")
+            name = None
+    say("36", f"(a) ptxas -v for km_fwd_fused ({len(regs)} instances): {'; '.join(regs)}")
+    say("36", f"(a) ptxas -v for fd_estimate_per_member_kernel ({len(f3)} instances): "
+              f"{'; '.join(sorted(f3))}")
+    assert regs and all("0 bytes spill stores, 0 bytes spill loads" in r for r in regs), (
+        "a km_fwd_fused instance spills")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    say("36", f"(b) KM1 bit-equal to its plain version on {km1_small(device, sms)} (shape, plan) "
+              f"cases")
+    rows = {}
+    for n_order, seg, n_steps in MXU_ROWS:
+        for key, ms in km1_row(n_order, seg, n_steps, device, sms, errs).items():
+            rows[f"KM1 N={n_order} {key}"] = ms
+    for n_order, seg, n_steps in MXU_ROWS:
+        disc = mesh(n_order, 10_000, graded=False)
+        km, k12, u0, lam = mxu_run(disc, cfl_step(disc), seg, n_steps, device)
+        out = {}
+        turns = in_turns({"K1+K2": lambda: out.update(k12=k12(u0, 0.0, lam)),
+                          "KM1+KM2": lambda: out.update(km=km(u0, 0.0, lam))})
+        ms = {name: statistics.mean(t) for name, t in turns.items()}
+        d = [float((g - w).abs().max()) for g, w in zip(out["km"], out["k12"])]
+        say("36", f"(c) KM/K1K2 at N={n_order} in turns: {ms['KM1+KM2'] / ms['K1+K2']:.3f} (KM1+KM2 "
+                  f"{ms['KM1+KM2']:.3f} ms, {turns['KM1+KM2'][0]:.3f} / {turns['KM1+KM2'][1]:.3f}; "
+                  f"K1+K2 {ms['K1+K2']:.3f} ms, {turns['K1+K2'][0]:.3f} / {turns['K1+K2'][1]:.3f}; "
+                  f"CUDA launches KM1 {dg_mxu.km_fwd_traj.cuda_launches}, KM2 "
+                  f"{dg_mxu.km_adj_est.cuda_launches}); max|KM - K1K2| u {d[0]:.3e} lam0 "
+                  f"{d[1]:.3e} eta {d[2]:.3e}")
+        rows[f"KM/K1K2 N={n_order}"] = ms["KM1+KM2"] / ms["K1+K2"]
+        del out, km, k12
+        torch.cuda.empty_cache()
+    for key, ms in f3_launches(device, inp, errs).items():
+        rows[f"F3 {key}"] = ms
+    ode = odes.get_ode("du/dt=sin(u)")
+    kw = dict(n_steps0=FD_STUDY["n_steps0"], tol=0.0, maxit=FD_STUDY["maxit"],
+              dtype=torch.float32, device=device, device_loop=True, ode=ode)
+
+    def study():
+        fd_loop.run_adaptive_fd_per_member(euler_step(ode.f), study_u0s(), (0.0, FD_STUDY["t1"]),
+                                           engine="cuda", **kw)
+
+    def one_lane():
+        with mock.patch.object(fe, "fd_pm_plan", lambda b, n, rf: fe.FdPmLaunch(1, 128)):
+            study()
+
+    turns = in_turns({"fd_pm_plan": study, "one lane a member": one_lane}, runs=3)
+    its = FD_STUDY["maxit"] + 1
+    say("36", f"(e) the FD per-member study B={FD_STUDY['b']} (device loop, {its} iterations) in "
+              f"turns, median of 3 each: on fd_pm_plan's launch "
+              f"{statistics.mean(turns['fd_pm_plan']):.3f} ms ({turns['fd_pm_plan'][0]:.3f} / "
+              f"{turns['fd_pm_plan'][1]:.3f}), on one lane a member "
+              f"{statistics.mean(turns['one lane a member']):.3f} ms "
+              f"({turns['one lane a member'][0]:.3f} / {turns['one lane a member'][1]:.3f})")
+    study_trace(study, "fd_estimate_per_member_kernel", phase="36")
+    study_trace(one_lane, "fd_estimate_per_member_kernel", phase="36 (one lane a member)")
+    return rows
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -4516,6 +4785,7 @@ def main() -> int:
     phase33(device, lib, errs)
     phase34(device, lib, errs, hp_cases)
     phase35(device, lib, errs, cases)
+    phase36(device, lib, errs, inp)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -10,11 +10,13 @@ reduction), so u and λ agree to a few ulp per step relative to their
 largest entry, and η — a sum of differences λ·(u_{n+1} − half2) of O(1)
 states — to a few ulp of max|λ|·max|u| per step.
 
-The FD kernels: the residual r = u_j − (u_{j−1} + f·dt_f) is a difference of
-O(max|u|) values, so each fine node's r·v differs by a few ulp of
+The FD kernels: ops/cuda/fd_ensemble.fd_kernel_tolerance and
+fd_j_tolerance — the residual r = u_j − (u_{j−1} + f·dt_f) is a difference
+of O(max|u|) values, so each fine node's r·v differs by a few ulp of
 max|u|·max|v| (FMA contraction in the kernel, none in the plain version);
 an indicator sums rf nodes (and d components), and J = Σu²dt a few ulp of
-max|u|²·T per step.
+max|u|²·T per step. Some entry of F3's plain err must lie above the bound
+(an err of 0 fails).
 
 The DG slab kernel: ops/cuda/dg_slab.dg_kernel_tolerance — every bound per
 member and element, as the hp kernel's: u and v within 8·ε of their
@@ -121,10 +123,6 @@ def test_kernel_rejects_float64_and_plain_is_not_taken(device):
         dg_rhs.fwd_march(torch.zeros((3, 16, 2), device=device).transpose(1, 2), 0.0, 4, ops)
 
 
-def _fd_tol(stats, rf, d=1):
-    return 8 * rf * d * EPS32 * float(stats["u"]) * float(stats["v"])
-
-
 @pytest.mark.parametrize("ode,trig", [("du/dt=sin(u)", "libm"), ("du/dt=sin(u)", "fast"),
                                       ("gaussian_mixture", "libm"), ("du/dt=t*sin(u)", "libm")])
 def test_fd_ensemble_kernel_matches_its_plain_version(device, ode, trig):
@@ -140,7 +138,7 @@ def test_fd_ensemble_kernel_matches_its_plain_version(device, ode, trig):
     stats = {}
     want = fe.fd_ensemble_plain(u0, run.plan, stats)
     assert got.shape == (n_steps, n) and bool(torch.isfinite(got).all())
-    assert float((got - want).abs().max()) <= _fd_tol(stats, rf)
+    assert float((got - want).abs().max()) <= fe.fd_kernel_tolerance(stats, rf)
 
 
 def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
@@ -153,7 +151,7 @@ def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
     assert fe.fd_ensemble_vec.launches == before + 1
     stats = {}
     want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
-    assert float((got - want).abs().max()) <= _fd_tol(stats, 4, d=2)
+    assert float((got - want).abs().max()) <= fe.fd_kernel_tolerance(stats, 4, d=2)
 
 
 @pytest.mark.parametrize("convention", ["strided", "block"])
@@ -173,9 +171,22 @@ def test_fd_estimate_per_member_kernel_matches_its_plain_version(device, convent
     assert fe.fd_estimate_per_member.launches == before + 1
     stats = {}
     err_p, j_p = fe.fd_estimate_per_member_plain(dt_b, u0, run.plan, stats)
-    assert float((err - err_p).abs().max()) <= _fd_tol(stats, rf)
-    assert float((j - j_p).abs().max()) <= 8 * n_steps * EPS32 * float(stats["u"]) ** 2 * 2.0
+    tol = fe.fd_kernel_tolerance(stats, rf)
+    assert err.shape == (b, n_steps) and err.is_contiguous()
+    assert float((err - err_p).abs().max()) <= tol
+    assert bool((err_p.abs() > tol).any())  # the bound has teeth: an err of 0 fails
+    assert float((j - j_p).abs().max()) <= fe.fd_j_tolerance(stats, n_steps, 2.0)
     assert bool((err[dt_b == 0] == 0).all())  # padding contributes exactly 0
+    # every G and CTA size: within the bound, padding 0, a repeat's bits
+    for lanes in fe.PM_LANES:
+        for threads in fe.PM_THREADS:
+            launch = fe.FdPmLaunch(lanes, threads)
+            got = fe._f3_launch(dt_b, u0, run.plan, launch)
+            again = fe._f3_launch(dt_b, u0, run.plan, launch)
+            torch.cuda.synchronize()
+            assert float((got[0] - err_p).abs().max()) <= tol, launch
+            assert bool((got[0][dt_b == 0] == 0).all()), launch
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), launch
 
 
 def test_fd_kernels_reject_float64_and_non_contiguous(device):
@@ -187,9 +198,12 @@ def test_fd_kernels_reject_float64_and_non_contiguous(device):
     pm = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 4, 4, device=device)
     with pytest.raises(ValueError):  # dt of another dtype than u0s
         pm(torch.zeros((8, 4), dtype=torch.float64, device=device), torch.zeros(8, device=device))
-    long = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 1000, 4, device=device)
-    with pytest.raises(RuntimeError, match="shared memory"):  # the launcher refuses
-        long(torch.zeros((8, 1000), device=device), torch.zeros(8, device=device))
+    # past one member's coarse tables in a block's shared memory the launcher refuses
+    long = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", 20_000, 4, device=device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        long(torch.zeros((8, 20_000), device=device), torch.zeros(8, device=device))
+    with pytest.raises(ValueError):  # dt not contiguous
+        pm(torch.zeros((4, 8), device=device).T, torch.zeros(8, device=device))
 
 
 @pytest.mark.parametrize("lanes", [1, 4, 8, 16, 32])
@@ -935,11 +949,14 @@ def test_mxu_kernels_match_their_plain_version(device, n_order, k, dt, segment):
            8 * n * disc.np_ * EPS32 * float(lam.abs().max()) * float(uf_p.abs().max()))
     for g, p, t in zip(got, (uf_p, lam0_p, eta_p), tol):
         assert float((g.reshape(p.shape) - p).abs().max()) <= t
-    # the fused KM2 runs the plain version's float32 operations in its order
+    # the fused KM1 and KM2 run the plain version's float32 operations in its order
+    assert torch.equal(got[0].reshape(flat), uf_p)
     assert torch.equal(got[1].reshape(flat), lam0_p) and torch.equal(got[2].reshape(-1), eta_p)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     s_f = dg_mxu.km_rev_plan(k, b, disc.np_, n, sms).segment
     assert dg_mxu.km_adj_est.cuda_launches == -(-n // s_f)
+    s_f = dg_mxu.km_fwd_plan(k, b, disc.np_, n, sms).segment
+    assert dg_mxu.km_fwd_traj.cuda_launches == -(-n // s_f)
     want = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(
         disc, A, dt, n, b, device, store_trajectory=True)(u0, 0.1, lam)
     for g, w, (rtol, atol) in zip(got, want, ((2e-4, 1e-6), (2e-3, 2e-5), (5e-3, 1e-7))):
@@ -979,6 +996,35 @@ def test_mxu_reverse_on_every_plan(device, n_order, k):
     if disc.np_ > 6:
         with pytest.raises(RuntimeError, match="dg_mxu_rev failed"):
             dg_mxu._km2_launch(traj, uf, lam, 0.0, ops, dg_rhs.fused_plan(k, 4, 1024))
+
+
+@pytest.mark.parametrize("n_order,k", [(1, 300), (2, 1000), (5, 200), (7, 1000)])
+def test_mxu_forward_on_every_plan(device, n_order, k):
+    """KM1 on every plan km_fwd_plan searches (s_f 4, 8 and 13 at 13 steps,
+    512- and 1024-thread CTAs, the untiled CTA where K fits, every tiling)
+    and on narrow tiles: each the plain version's bits (trajectory and
+    u_final), in ⌈13/s_f⌉ CUDA launches; a window one ghost short of 5·s_f
+    refused."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu
+
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    b, n = 3, 13
+    dt = 0.375 / A * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_mxu.mxu_ops(disc, A, dt, n, 1, b, device)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = torch.tensor(np.concatenate([np.sin(disc.x + p) for p in phases], 1),
+                      dtype=torch.float32, device=device)
+    want = dg_mxu.km_fwd_traj_plain(u0, 0.0, ops)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plans = list(dg_rhs._window_plans(k, b, n, sms))
+    plans.append(dg_rhs.fwd_fused_plan(k, 4, 512)._replace(tile=7, n_tiles=-(-k // 7)))
+    for plan in plans:
+        traj, uf, n_cuda = dg_mxu._km1_launch(u0, 0.0, ops, plan)
+        torch.cuda.synchronize()
+        assert n_cuda == -(-n // plan.segment)
+        assert torch.equal(traj, want[0]) and torch.equal(uf, want[1]), plan
+    with pytest.raises(RuntimeError, match="dg_mxu_fwd failed"):
+        dg_mxu._km1_launch(u0, 0.0, ops, dg_rhs.FusedPlan(4, 19, 100, -(-k // 100), 512))
 
 
 def test_sharded_pipelines_at_one_rank_are_the_tiled_bits(device):

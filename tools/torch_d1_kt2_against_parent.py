@@ -71,19 +71,28 @@ def constant_copy(src: str) -> str:
     return src
 
 
+def nvcc_shared(out: Path, sources, include: Path | None = None) -> subprocess.Popen:
+    """Start nvcc building ``sources`` into the shared library ``out``
+    (the port's sm_90a flags, -O3), ``include`` on the include path; the
+    caller waits."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import ARCH_FLAGS, _nvcc
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+    inc = [f"-I{include}"] if include is not None else []
+    return subprocess.Popen([_nvcc(), *flags, *inc, "-o", str(out), *map(str, sources)])
+
+
 def build(parent: Path):
-    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import ARCH_FLAGS, CSRC_DIR, _nvcc
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import CSRC_DIR
 
     out_dir = ROOT / "build" / "parent_d1_kt2"
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "dg_slab_constant.cu").write_text(constant_copy((CSRC_DIR / "dg_slab.cu").read_text()))
-    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
     csrc = parent / "adjoint_ode_adaptivity_tpu_torch" / "csrc"
     jobs = [
-        subprocess.Popen([_nvcc(), *flags, "-o", str(out_dir / "libparent.so"),
-                          str(csrc / "dg_slab.cu"), str(csrc / "dg_tiled.cu")]),
-        subprocess.Popen([_nvcc(), *flags, f"-I{CSRC_DIR}", "-o", str(out_dir / "libconst.so"),
-                          str(out_dir / "dg_slab_constant.cu")]),
+        nvcc_shared(out_dir / "libparent.so", [csrc / "dg_slab.cu", csrc / "dg_tiled.cu"]),
+        nvcc_shared(out_dir / "libconst.so", [out_dir / "dg_slab_constant.cu"], CSRC_DIR),
     ]
     if any(j.wait() for j in jobs):
         raise SystemExit("nvcc failed")
