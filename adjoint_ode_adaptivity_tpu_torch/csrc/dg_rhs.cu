@@ -8,7 +8,12 @@
 //                           segment-th entry state it is the checkpointing
 //                           forward :880 (_fwd_ckpt_grid_kernel_b) and, at
 //                           B = 1, :510 (_fwd_ckpt_grid_kernel). One kernel,
-//                           fwd_fused, s_f steps a launch in every mode.
+//                           fwd_fused, s_f steps a launch in every mode. At
+//                           B = 1 from a global step offset, storing every
+//                           step, it is the element-tiled forward KT1
+//                           (ops/cuda/dg_tiled.py tiled_fwd_seg), which
+//                           replaces dg_sharded.py:83 (_fwd_seg_kernel) and
+//                           dg_tiled.py:282 (_fwd_seg_grid_kernel).
 // K2  dg_adj_est_stored     replaces dg_rhs.py:1108 (_adj_est_grid_kernel_b_stored);
 //                           at B = 1, from a global step offset and with η
 //                           carried in, it is the element-tiled reverse KT2
@@ -30,8 +35,8 @@
 // State layout (Np, B, K) float32, element axis K contiguous. Geometry is
 // always per element (rx, fscale_left, fscale_right as (K,) vectors): the
 // adaptive loop's meshes are graded, the uniform mesh is the special case.
-// The per-element arithmetic is csrc/dg_stage.cuh's, shared with the tiled
-// kernels, every rounding explicit.
+// The per-element arithmetic is csrc/dg_stage.cuh's, every rounding
+// explicit.
 //
 // K1, K2, K2r and KA: fused over s_f steps per launch. One CTA per (tile,
 // member): blockIdx.x the tile of L local elements [lo, hi), blockIdx.y the
@@ -350,14 +355,16 @@ int rev_range(int nb, int nk, long n_first, int n_count, double t0, double dt,
   return 0;
 }
 
-// K1: n_steps forward steps from u0 at t0 in launches of s_f steps (the
-// last takes the remainder), the entry state of every store_every-th step to
-// store (nullptr: none). The state crosses launches through the ping-pong
-// ubuf (2·Np·B·K floats), from which the neighbouring tiles read their
-// ghosts; the last launch writes u_final. *launches counts the launches.
+// K1: n_steps forward steps from u0, the global steps n_first .. n_first +
+// n_steps − 1 (step n at t0 + n·dt), in launches of s_f steps (the last
+// takes the remainder), the entry state of every store_every-th step of the
+// call to store (nullptr: none; the index counts from the call's first
+// step). The state crosses launches through the ping-pong ubuf (2·Np·B·K
+// floats), from which the neighbouring tiles read their ghosts; the last
+// launch writes u_final. *launches counts the launches.
 template <int NP, int T>
-int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
-                   double dt, double a, const double* rk, const float* tables,
+int fwd_march_impl(int nb, int nk, int n_steps, int store_every, int n_first,
+                   double t0, double dt, double a, const double* rk, const float* tables,
                    Geom g, const FusedPlan& p, const float* u0, float* store,
                    float* u_final, float* ubuf, int* launches,
                    cudaStream_t stream) {
@@ -371,8 +378,9 @@ int fwd_march_impl(int nb, int nk, int n_steps, int store_every, double t0,
     const int steps = n_steps - lo < p.seg ? n_steps - lo : p.seg;
     float* out = lo + steps == n_steps ? u_final : ubuf + (*launches % 2) * size;
     fwd_fused<NP, T><<<grid, block, 0, stream>>>(
-        cur, store, out, g, full, coef, fwd_inflow(t0, dt, a, rk, lo, steps), nk,
-        p.tile_l, p.ghost, steps, lo, store_every, 0);
+        cur, store, out, g, full, coef,
+        fwd_inflow(t0, dt, a, rk, static_cast<long>(n_first) + lo, steps), nk, p.tile_l,
+        p.ghost, steps, lo, store_every, 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launches;
@@ -495,14 +503,15 @@ int check_adj_plan(int nk, const FusedPlan& p) {
 namespace {
 
 template <int NP>
-int fwd_march_np(int nb, int nk, int n_steps, int store_every, double t0,
-                 double dt, double a, const double* rk, const float* tables,
-                 Geom g, const FusedPlan& p, const float* u0, float* store,
-                 float* u_final, float* ubuf, int* launches,
+int fwd_march_np(int nb, int nk, int n_steps, int store_every, int n_first,
+                 double t0, double dt, double a, const double* rk,
+                 const float* tables, Geom g, const FusedPlan& p, const float* u0,
+                 float* store, float* u_final, float* ubuf, int* launches,
                  cudaStream_t stream) {
-  AOA_FUSED_SWITCH(p, (fwd_march_impl<NP, T>(nb, nk, n_steps, store_every, t0,
-                                             dt, a, rk, tables, g, p, u0, store,
-                                             u_final, ubuf, launches, stream)))
+  AOA_FUSED_SWITCH(p, (fwd_march_impl<NP, T>(nb, nk, n_steps, store_every,
+                                             n_first, t0, dt, a, rk, tables, g, p,
+                                             u0, store, u_final, ubuf, launches,
+                                             stream)))
 }
 
 template <int NP>
@@ -545,14 +554,17 @@ int adj_march_np(int nb, int nk, int n_steps, const double* rk,
 
 extern "C" {
 
-// K1 with the plan (seg = s_f, tile_l = L, ghost = W, threads). Returns 0
-// on success, a cudaError_t code after a failed launch, -1 for an
-// unsupported Np, -4 for a plan K1 does not take. ubuf holds 2·Np·B·K
-// floats. store (optional) receives the entry state of every
-// store_every-th step: (⌈n_steps / store_every⌉, Np, B, K). *launches
-// receives the CUDA launches issued.
-int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every, int seg,
-                 int tile_l, int ghost, int threads, double t0, double dt,
+// K1 (and KT1 at B = 1) with the plan (seg = s_f, tile_l = L, ghost = W,
+// threads) over the global steps n_first .. n_first + n_steps − 1: step n of
+// the call starts at t0 + (n_first + n)·dt. Returns 0 on success, a
+// cudaError_t code after a failed launch, -1 for an unsupported Np, -4 for a
+// plan K1 does not take (or n_first < 0). ubuf holds 2·Np·B·K floats. store
+// (optional) receives the entry state of every store_every-th step of the
+// call: (⌈n_steps / store_every⌉, Np, B, K). *launches receives the CUDA
+// launches issued.
+int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every,
+                 int n_first, int seg, int tile_l, int ghost, int threads,
+                 double t0, double dt,
                  double a, const double* rk, const float* tables,
                  const float* rx, const float* fsl, const float* fsr,
                  const float* u0, float* store, float* u_final, float* ubuf,
@@ -560,9 +572,10 @@ int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every, int seg,
   const Geom g{rx, fsl, fsr};
   const FusedPlan p{seg, tile_l, ghost, threads};
   *launches = 0;
-  if (check_fwd_plan(nk, p) != 0 || n_steps < 1 || store_every < 1) return -4;
-  AOA_NP_SWITCH(np, fwd_march_np<NP>(nb, nk, n_steps, store_every, t0, dt, a, rk,
-                                     tables, g, p, u0, store, u_final, ubuf,
+  if (check_fwd_plan(nk, p) != 0 || n_steps < 1 || store_every < 1 || n_first < 0)
+    return -4;
+  AOA_NP_SWITCH(np, fwd_march_np<NP>(nb, nk, n_steps, store_every, n_first, t0, dt,
+                                     a, rk, tables, g, p, u0, store, u_final, ubuf,
                                      launches, static_cast<cudaStream_t>(stream)))
 }
 
@@ -639,7 +652,7 @@ const char* dg_error_string(int code) {
   if (code == -4)
     return "K1 plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
            "holds the mesh, 512 or 1024 threads holding the window; n_steps and "
-           "store_every >= 1)";
+           "store_every >= 1, n_first >= 0)";
   if (code == -5)
     return "KA plan out of range (1 <= s_f <= 32, W >= 5*s_f unless one tile "
            "holds the mesh, 512 or 1024 threads holding the window; n_steps >= 1)";

@@ -1,11 +1,11 @@
 // The per-element arithmetic of one DG-advection LSRK stage, forward and
-// transposed, shared by csrc/dg_rhs.cu (KA: one launch per stage; K1, K2,
-// K2r: s_f steps a launch, the state in registers) and csrc/dg_tiled.cu
-// (KT1, KT2: one launch per segment, the stages in shared memory); the RK
-// coefficients serve csrc/dg_mxu.cu too. Every rounding is explicit (fmaf,
-// __fmul_rn, __fadd_rn, __fsub_rn), so the compiler contracts nothing
-// differently in the two files: an element whose inputs agree gets the same
-// bits from both.
+// transposed, of csrc/dg_rhs.cu's kernels (K1, K2, K2r, KA: s_f steps a
+// launch, the state in registers; at B = 1 from a global step offset they
+// are the element-tiled KT1 and KT2); the RK coefficients serve
+// csrc/dg_mxu.cu too. Every rounding is explicit (fmaf, __fmul_rn,
+// __fadd_rn, __fsub_rn), so the compiler contracts nothing differently in
+// any kernel instance: an element whose inputs agree gets the same bits
+// from every kernel and plan.
 //
 // Folded tables (per step size, folded on the host in float32, passed by
 // value): drc = −a·dt·Dr, ll = −a/2·dt·LIFT[:,0], lr = +a/2·dt·LIFT[:,1].

@@ -16,13 +16,16 @@
 //   v_j = k_j + (1 + f_u(u_j)·dt_f)·v_{j+1} with k_j = 2·u_j·dt_f, forms the
 //   residual r_j = u_j − (u_{j−1} + f(u_{j−1})·dt_f), and accumulates r·v
 //   per coarse step; a step's indicator is stored once its block is complete.
-// F1 and F2 run one thread per IC, the coarse states laid out
+// Only v's chain and the per-step sums are serial: the interpolation, the
+// (f, f_u) pair and the residual of every fine node depend on the coarse
+// trajectory alone. So F1 and F3 run G lanes of a warp per IC or member
+// (below): the lanes split the fine nodes' interpolation, pairs and
+// residuals ahead of the chain (F1 a block of nodes in registers, read
+// across the group by shuffles; F3 a window in shared-memory tables), and
+// the chain runs over them. F2 runs one thread per IC, the coarse states laid out
 // [state][thread] (conflict-free, no __syncthreads: a thread reads only its
-// own column). F3 runs G lanes of a warp per member (below): only v's chain
-// and the per-step sums are serial, so the lanes split the fine nodes'
-// interpolation, (f, f_u) pairs and residuals, and one lane runs the chain.
-// f and f_u of one fine node are evaluated once, as a pair (the TPU
-// kernel's _pair_cache).
+// own column). f and f_u of one fine node are evaluated once, as a pair (the
+// TPU kernel's _pair_cache).
 //
 // The ODE is a compile-time functor of odes.cuh (one struct per registry
 // entry, chosen by kernel_id in the dispatch at the bottom); the gaussian
@@ -32,26 +35,31 @@
 // Time grids. F1/F2: the coarse and fine node times and widths are folded on
 // the host in double (as the TPU kernel folds them at trace time) and read
 // as float32 from `grid` = [tc (n_steps), dts (n_steps), tf (n_fine),
-// dtf (n_fine)], tf[j] and dtf[j] the time and width of fine node j; every
-// thread reads the same address (a broadcast). F3: the per-member widths
+// dtf (n_fine), wq (rf)], tf[j] and dtf[j] the time and width of fine node
+// j, wq[q] = q/rf the interpolation weight of a node q past a coarse one
+// (read through L1: every IC reads the same table). F3: the per-member widths
 // arrive as (B, n_steps), a member's row contiguous for its lanes; tc
 // accumulates in float32 inside the kernel and dt_f = dts·(1/rf), as in the
 // TPU kernel.
 //
 // What bounds them on the H100: neither bytes nor FP32 operations. An IC
 // moves 4·(1 + n_steps) bytes of device memory and does ~16 operations per
-// fine node plus two libm transcendentals (sincosf, tens of instructions),
-// so at 102,400 ICs, 16 steps and rf 4 the byte bound is ~2 µs; the kernels
-// are latency-bound on each IC's serial dependency chains (the coarse march;
-// v_j depends on v_{j+1}). One thread per IC gives 800 blocks of 128
-// threads at 102,400 ICs (6 per SM). At the per-member study's B = 1024 one
-// thread a member filled 8 of 132 SMs with every latency of the sweep in
-// one chain; F3's G lanes a member (ops/cuda/fd_ensemble.py fd_pm_plan: 32
-// at B ≤ 4096, one warp a member) leave the coarse march (43 serial sinf at
-// the study's shape) and ~172 dependent FMAs of the chain on it. Shared
-// memory: (n_steps+1)·D·128·4 bytes a block for F1/F2 (8.7 KB at 16
-// steps); F3 4·(3·n_steps + 2 + 3·window) bytes a member (2.6 KB at 43
-// steps, rf 4, one window).
+// fine node plus two libm transcendentals (sincosf, ~30 instructions), so at
+// 102,400 ICs, 16 steps and rf 4 the byte bound is ~2 µs; the kernels issue
+// tens of instructions a fine node and wait on each IC's serial chains (the
+// coarse march; v_j depends on v_{j+1}). With G lanes (ops/cuda/
+// fd_ensemble.py fd_ens_plan for F1, fd_pm_plan for F3) the serial part left
+// per IC is the coarse march (n_steps serial sinf, run alike by
+// every lane of the group) and ~3 dependent operations a fine node in the
+// chain; the pairs of a block of nodes are all in flight before the chain
+// reads them. Every lane past the first repeats the march and waits beside
+// the chain, so the plans give G only where the card would otherwise hold
+// few warps: F1 the fewest lanes that put 8 warps on every SM (one lane an
+// IC at 102,400 ICs, 16 at 4,096), F3 one warp a member up to B = 4096.
+// Shared memory: F1 4·ens_stride bytes an IC and the rf weights (8.7 KB a
+// 128-thread CTA at 16 steps); F2 (n_steps+1)·D·128·4 bytes a block; F3
+// 4·(3·n_steps + 2 + 3·window) bytes a member (2.6 KB at 43 steps, rf 4, one
+// window).
 
 #include <cuda_runtime.h>
 
@@ -76,49 +84,131 @@ __device__ __forceinline__ float u_fine(const float* traj, int bs, int tx, int j
   return lo + w * (traj[(i + 1) * bs + tx] - lo);
 }
 
+// F1's floats of shared memory an IC: the coarse trajectory, rounded up to
+// odd so that the ICs of a warp (one lane each at G = 1) sit on distinct
+// banks.
+__host__ __device__ inline long ens_stride(int n_steps) { return (n_steps + 1) | 1; }
+
+// F1's nodes a lane computes ahead of the chain, in registers (U).
+constexpr int kEnsAhead = 4;
+
 // F1: the scalar ensemble signal, block convention; err is (n_steps, n).
+// G lanes of one warp serve an IC (G | 32, so a group never straddles a
+// warp); a CTA of T threads serves T/G ICs. Shared memory holds the CTA's
+// copy of the interpolation weights q/rf (the host's fold, as the plain
+// version's) and each IC's coarse trajectory (ens_stride floats).
+//   1. Every lane runs the coarse march serially and alike, in the plain
+//      version's order, with the host-folded times and widths; lane
+//      (s mod G) stores state s.
+//   2. The fine nodes are swept in blocks of U·G from the top, (top − U·G,
+//      top]. Lane l computes the nodes n = top − 1 − (u·G + l), u < U, into
+//      registers: u_n by interpolation, (f, f_u) at (u_n, tf_n) once, then
+//      r_{n+1} = u_{n+1} − (u_n + f_n·dtf_n) and the chain's coefficients
+//      A_n = 2·u_n·dtf_n and C_n = 1 + f_u(u_n)·dtf_n. The U·G pairs of a
+//      block are all in flight before the chain reads them (U independent
+//      pairs a lane at G = 1).
+//   3. Every lane of the group runs the chain over the block, reading the
+//      node it needs from the lane that computed it (__shfl_sync within the
+//      group; the node at the block's top was computed as the block above's
+//      last): v_j = A_j + C_j·v_{j+1} and the per-step sums of r_j·v_j for
+//      j = top … top − U·G + 1, the plain version's order, lane 0 storing
+//      each step's |sum| once its block is complete (a countdown over the
+//      block's nodes): err (n_steps, n), the lane-0 of neighbouring groups on
+//      neighbouring addresses.
+// Every lane takes the same trips through every loop (the blocks and the
+// chain run to the same bounds for every IC), so the shuffles see full warps.
 template <class Ode>
-__global__ void __launch_bounds__(kFdThreads)
-fd_ensemble_kernel(int n, int n_steps, int rf, const float* __restrict__ grid,
+__global__ void __launch_bounds__(256, 1)
+fd_ensemble_kernel(int n, int n_steps, int rf, int lanes, const float* __restrict__ grid,
                    const float* __restrict__ u0, float* __restrict__ err, OdeConsts k) {
-  extern __shared__ float traj[];  // [(n_steps + 1)][blockDim.x]
-  const int ic = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ic >= n) return;
-  const int tx = threadIdx.x;
-  const int bs = blockDim.x;
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int U = kEnsAhead;
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x - slot * lanes;
+  const long ic = static_cast<long>(blockIdx.x) * (blockDim.x / lanes) + slot;
+  const bool live = ic < n;
   const int n_fine = n_steps * rf;
   const float* tc = grid;
   const float* dts = grid + n_steps;
   const float* tf = dts + n_steps;
   const float* dtf = tf + n_fine;
+  float* wq = smem;  // wq[q] = q/rf
+  for (int q = threadIdx.x; q < rf; q += blockDim.x) wq[q] = dtf[n_fine + q];
+  __syncthreads();
+  float* traj = smem + rf + static_cast<long>(slot) * ens_stride(n_steps);
 
-  float u = u0[ic];
-  traj[tx] = u;
+  float u = live ? u0[ic] : 0.f;
+  if (lane == 0) traj[0] = u;
   for (int s = 0; s < n_steps; ++s) {
     u = u + Ode::f(u, tc[s], k) * dts[s];
-    traj[(s + 1) * bs + tx] = u;
+    if (lane == ((s + 1) & (lanes - 1))) traj[s + 1] = u;
   }
+  __syncwarp();
 
-  float u_j = u;
-  float fu_j = 0.f;  // f_u at node j, from the previous iteration's pair
-  float v = 0.f;     // v_{n_fine} = k_{n_fine} = 0 (J sums u[:-1])
+  // the lane's node nn = i·rf + q, stepped down by G nodes (di steps + dq)
+  const int di = lanes / rf;
+  const int dq = lanes - di * rf;
+  int nn = n_fine - 1 - lane;
+  int i = nn >= 0 ? nn / rf : -1;
+  int q = nn >= 0 ? nn - i * rf : 0;
+  float v = 0.f;  // v_{n_fine} = k_{n_fine} = 0 (J sums u[:-1])
   float blk = 0.f;
-  for (int j = n_fine; j >= 1; --j) {
-    const float u_jm1 = u_fine(traj, bs, tx, j - 1, rf);
-    if (j < n_fine) {
-      const float d = dtf[j];
-      v = 2.f * u_j * d + (1.f + fu_j * d) * v;
+  float a_top = 0.f, c_top = 1.f;  // A, C of the block's top node (none at n_fine)
+  int step = n_steps - 1, left = rf - 1;  // chain node j − 1 = step·rf + left
+  for (int top = n_fine; top > 0; top -= U * lanes) {
+    float rr[U], aa[U], cc[U];
+#pragma unroll
+    for (int b = 0; b < U; ++b) {
+      // below node 0 (the last block's spare slots) node 0 is computed and
+      // dropped, so the U pairs run without a branch of their own
+      const bool real = nn >= 0;
+      const int n_b = real ? nn : 0, i_b = real ? i : 0, q_b = real ? q : 0;
+      const float lo = traj[i_b];
+      const float hi = traj[i_b + 1];
+      const float u_n = q_b == 0 ? lo : lo + wq[q_b] * (hi - lo);  // u_fine's expression
+      const float u_n1 = q_b + 1 == rf ? hi : lo + wq[q_b + 1] * (hi - lo);
+      const float h = dtf[n_b];
+      float f_n, fu_n;
+      Ode::pair(u_n, tf[n_b], k, &f_n, &fu_n);
+      rr[b] = real ? u_n1 - (u_n + f_n * h) : 0.f;
+      aa[b] = real ? 2.f * u_n * h : 0.f;
+      cc[b] = real ? 1.f + fu_n * h : 1.f;
+      nn -= lanes;
+      i -= di;
+      q -= dq;
+      if (q < 0) {
+        q += rf;
+        --i;
+      }
     }
-    float f_jm1, fu_jm1;
-    Ode::pair(u_jm1, tf[j - 1], k, &f_jm1, &fu_jm1);
-    const float r = u_j - (u_jm1 + f_jm1 * dtf[j - 1]);
-    blk += r * v;
-    if ((j - 1) % rf == 0) {  // block (j−1)/rf covers fine nodes i·rf+1 .. (i+1)·rf
-      err[static_cast<long>((j - 1) / rf) * n + ic] = fabsf(blk);
-      blk = 0.f;
+#pragma unroll
+    for (int b = 0; b < U; ++b) {
+      for (int l = 0; l < lanes; ++l) {
+        const int j = top - (b * lanes + l);
+        if (j <= 0) break;
+        const float r_j = __shfl_sync(kFull, rr[b], l, lanes);  // node j − 1
+        float a_j = a_top, c_j = c_top;                           // node j
+        if (l > 0) {
+          a_j = __shfl_sync(kFull, aa[b], l - 1, lanes);
+          c_j = __shfl_sync(kFull, cc[b], l - 1, lanes);
+        } else if (b > 0) {
+          a_j = __shfl_sync(kFull, aa[b - 1], lanes - 1, lanes);
+          c_j = __shfl_sync(kFull, cc[b - 1], lanes - 1, lanes);
+        }
+        if (j < n_fine) v = a_j + c_j * v;
+        blk += r_j * v;
+        if (left == 0) {  // block `step` covers fine nodes step·rf+1 .. (step+1)·rf
+          if (live && lane == 0) err[static_cast<long>(step) * n + ic] = fabsf(blk);
+          blk = 0.f;
+          left = rf;
+          --step;
+        }
+        --left;
+      }
     }
-    u_j = u_jm1;
-    fu_j = fu_jm1;
+    a_top = __shfl_sync(kFull, aa[U - 1], lanes - 1, lanes);  // node top − U·G
+    c_top = __shfl_sync(kFull, cc[U - 1], lanes - 1, lanes);
   }
 }
 
@@ -339,14 +429,23 @@ int set_smem(const void* kernel, long bytes) {
   return 0;
 }
 
+// F1's shared memory for T/G ICs: the rf interpolation weights, then the
+// ICs' coarse trajectories.
+long ensemble_smem(int lanes, int threads, int n_steps, int rf) {
+  return (rf + static_cast<long>(threads / lanes) * ens_stride(n_steps)) *
+         static_cast<long>(sizeof(float));
+}
+
 template <class Ode>
-int launch_ensemble(int n, int n_steps, int rf, const float* grid, const float* u0,
-                    float* err, const OdeConsts& k, cudaStream_t stream) {
-  const long smem = static_cast<long>(n_steps + 1) * kFdThreads * sizeof(float);
+int launch_ensemble(int n, int n_steps, int rf, int lanes, int threads, const float* grid,
+                    const float* u0, float* err, const OdeConsts& k, cudaStream_t stream) {
+  const long smem = ensemble_smem(lanes, threads, n_steps, rf);
   const int code = set_smem(reinterpret_cast<const void*>(&fd_ensemble_kernel<Ode>), smem);
   if (code != 0) return code;
-  const int blocks = (n + kFdThreads - 1) / kFdThreads;
-  fd_ensemble_kernel<Ode><<<blocks, kFdThreads, smem, stream>>>(n, n_steps, rf, grid, u0, err, k);
+  const int per = threads / lanes;
+  const long blocks = (static_cast<long>(n) + per - 1) / per;
+  fd_ensemble_kernel<Ode><<<blocks, threads, smem, stream>>>(n, n_steps, rf, lanes, grid, u0,
+                                                            err, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,6 +460,13 @@ int launch_ensemble_vec(int n, int n_steps, int rf, const float* grid, const flo
   fd_ensemble_vec_kernel<Ode><<<blocks, kFdThreads, smem, stream>>>(n, n_steps, rf, grid, u0,
                                                                      err, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launches F1 and F3 take: G lanes (a power of two up to 32) of a warp
+// per IC or member, in CTAs of 32, 64, 128 or 256 threads.
+bool launch_ok(int lanes, int threads) {
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  return lanes_ok && (threads == 32 || threads == 64 || threads == 128 || threads == 256);
 }
 
 // F3's shared memory for T/G members with a window of `window` nodes.
@@ -389,14 +495,20 @@ extern "C" {
 
 // Return 0 on success, a cudaError_t code after a failed launch, -2 for an
 // ODE id the kernel does not take (or trig="fast" on another ODE than
-// sin(u)), -3 when the trajectory exceeds a block's shared memory.
+// sin(u)), -3 for a launch the kernel does not take. F1 runs on `lanes`
+// lanes an IC (1, 2, 4, 8, 16 or 32) in CTAs of `threads` (32, 64, 128 or
+// 256), the CTA's shared memory within a block's; grid is the host fold
+// [tc, dts, tf, dtf], err (n_steps, n).
 int fd_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const float* consts, int n,
-                int n_steps, int rf, const float* grid, const float* u0, float* err,
-                void* stream) {
+                int n_steps, int rf, int lanes, int threads, const float* grid,
+                const float* u0, float* err, void* stream) {
   if (fast_trig && ode_id != 1) return -2;
+  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1 ||
+      ensemble_smem(lanes, threads, n_steps, rf) > kMaxSmem)
+    return -3;
   const OdeConsts k = pack_consts(n_u, n_t, consts);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AOA_LAUNCH(ODE) launch_ensemble<ODE>(n, n_steps, rf, grid, u0, err, k, s)
+#define AOA_LAUNCH(ODE) launch_ensemble<ODE>(n, n_steps, rf, lanes, threads, grid, u0, err, k, s)
   AOA_ODE_SCALAR_SWITCH(ode_id, fast_trig, AOA_LAUNCH)
 #undef AOA_LAUNCH
 }
@@ -419,9 +531,7 @@ int fd_estimate_per_member(int ode_id, int n_u, int n_t, const float* consts, in
                            int n_steps, int rf, int block, float t0, int lanes, int threads,
                            int window, const float* dt, const float* u0, float* err,
                            float* j_out, void* stream) {
-  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
-  const bool threads_ok = threads == 32 || threads == 64 || threads == 128 || threads == 256;
-  if (!lanes_ok || !threads_ok || n_steps < 1 || rf < 1 || window < 1 ||
+  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1 || window < 1 ||
       window > n_steps * rf || per_member_smem(lanes, threads, n_steps, window) > kMaxSmem)
     return -3;
   const OdeConsts k = pack_consts(n_u, n_t, consts);
@@ -437,7 +547,7 @@ const char* fd_error_string(int code) {
   if (code == -2) return "ODE kernel_id (or trig) not implemented by this kernel";
   if (code == -3)
     return "coarse trajectory exceeds a block's shared memory (too many steps), or a launch "
-           "the per-member kernel does not take (lanes 1-32, a power of two; 32-256 threads; "
+           "the kernel does not take (lanes 1-32, a power of two; 32-256 threads; "
            "1 <= window <= n_steps*rf)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

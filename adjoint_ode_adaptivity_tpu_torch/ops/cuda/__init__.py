@@ -94,7 +94,7 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.dg_fwd_march.argtypes = [i] * 9 + [d] * 3 + [p] * 11
+        lib.dg_fwd_march.argtypes = [i] * 10 + [d] * 3 + [p] * 11
         lib.dg_fwd_march.restype = i
         lib.dg_adj_est_stored.argtypes = [i] * 9 + [d] * 3 + [p] * 13
         lib.dg_adj_est_stored.restype = i
@@ -102,13 +102,11 @@ class KernelLibrary:
         lib.dg_adj_est_recompute.restype = i
         lib.dg_adj_march.argtypes = [i] * 8 + [p] * 10
         lib.dg_adj_march.restype = i
-        lib.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
-        lib.dg_tiled_fwd.restype = i
         lib.dg_mxu_fwd.argtypes = [i] * 8 + [p] * 9
         lib.dg_mxu_fwd.restype = i
         lib.dg_mxu_rev.argtypes = [i] * 8 + [p] * 11
         lib.dg_mxu_rev.restype = i
-        lib.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
+        lib.fd_ensemble.argtypes = [i, i, i, i, p] + [i] * 5 + [p] * 4
         lib.fd_ensemble.restype = i
         lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
         lib.fd_ensemble_vec.restype = i
@@ -129,7 +127,7 @@ class KernelLibrary:
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",
                      "train_dense_error_string", "burgers_error_string",
-                     "dg_tiled_error_string", "dg_mxu_error_string"):
+                     "dg_mxu_error_string"):
             getattr(lib, name).argtypes = [i]
             getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib

@@ -15,7 +15,9 @@ the unbatched uniform-mesh entry points. Four kernels (csrc/dg_rhs.cu):
   mode (:func:`forward_plan`): one CTA per (tile, member), a window of L
   local elements and W = 5·s_f ghosts a side (none where one tile holds the
   mesh), the state in registers, one barrier a stage; ⌈n_steps/s_f⌉ CUDA
-  launches.
+  launches. At B = 1, from a global step offset storing every step
+  (``_k1_launch``'s ``n_first``), it is also the element-tiled forward KT1
+  (ops/cuda/dg_tiled.py ``tiled_fwd_seg``).
 - **K2** :func:`adj_est_stored` — for n = n_steps−1 … 0: two dt/2 steps from
   u_n, η += Σ_nodes λ·(u_{n+1} − half2), then two dt/2 transpose steps.
   Replaces ``_adj_est_grid_kernel_b_stored`` (dg_rhs.py:1108). Fused over
@@ -684,10 +686,11 @@ def fwd_march(u0: torch.Tensor, t0: float, n_steps: int, ops: KernelOps,
 
 
 def _k1_launch(lib, u0, t0, n_steps: int, store, store_every: int, ops: KernelOps,
-               plan: FusedPlan | None = None):
-    """One dg_fwd_march call with ``plan`` (default :func:`forward_plan`'s):
-    ``(u_final, CUDA launches)``. The wrapper counts its launches; this does
-    not."""
+               plan: FusedPlan | None = None, n_first: int = 0):
+    """One dg_fwd_march call with ``plan`` (default :func:`forward_plan`'s)
+    over the global steps n_first … n_first + n_steps − 1 (step n at t0 +
+    n·dt; the store index counts from the call's first step): ``(u_final,
+    CUDA launches)``. The wrapper counts its launches; this does not."""
     b = u0.shape[1]
     _check_grid(b)
     if plan is None:
@@ -698,7 +701,7 @@ def _k1_launch(lib, u0, t0, n_steps: int, store, store_every: int, ops: KernelOp
     launches = ctypes.c_int(0)
     rx, fsl, fsr = ops.geom32
     code = lib.lib.dg_fwd_march(
-        ops.np_, b, ops.k, n_steps, store_every, plan.segment, plan.tile, plan.ghost,
+        ops.np_, b, ops.k, n_steps, store_every, n_first, plan.segment, plan.tile, plan.ghost,
         plan.threads, float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data,
         _ptr(rx), _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(store), _ptr(u_final), _ptr(ubuf[0]),
         ctypes.addressof(launches), _stream(u0.device),

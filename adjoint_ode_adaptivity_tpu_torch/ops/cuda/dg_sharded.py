@@ -9,9 +9,9 @@ Counterpart of the JAX package's ``ops/pallas/dg_sharded.py``
 (``make_pallas_fwd_adj_estimate_tiled_grid_sharded`` :67). Both become
 factories over ONE rank-local composition: the TPU's blocked (8, m) layout
 and chunk-major grid layout have no Hopper counterpart (ROADMAP), and the
-kernels are csrc/dg_tiled.cu's KT1/KT2 (ops/cuda/dg_tiled.py), unchanged
-but for the segment offset of the stage times. There is no new kernel: the
-composition is plain PyTorch around them.
+kernels are KT1/KT2 (ops/cuda/dg_tiled.py: K1's and K2's fused kernels of
+csrc/dg_rhs.cu at B = 1, from the global step offset). There is no new
+kernel: the composition is plain PyTorch around them.
 
 Rank r holds the elements [r·L, (r+1)·L), L = K/D. Each segment s it
 1. extends its block with W elements from each neighbour
@@ -19,9 +19,10 @@ Rank r holds the elements [r·L, (r+1)·L), L = K/D. Each segment s it
    starts at the inflow element and rank D−1's ends at the outflow element,
    as a tile window of ops/cuda/dg_tiled.py is clipped to the domain;
 2. runs KT1 for one segment on the extended block, a mesh of its own whose
-   tiles near its edges compute degraded ghosts that never reach the local
-   elements (W ≥ 10·seg + 10, dg_sharded.py:18-25), storing the extended
-   trajectory;
+   first element takes the inflow value and whose last has no right face:
+   its edges degrade 5 elements a step, ghosts that never reach the local
+   elements within a segment (W ≥ 10·seg + 10, dg_sharded.py:18-25),
+   storing the extended trajectory;
 3. keeps its local slice.
 The reverse sweep takes the boundary state of segment s from segment s+1's
 ghost-fresh entry state (the final extended state for the last segment,

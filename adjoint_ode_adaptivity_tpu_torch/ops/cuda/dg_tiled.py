@@ -1,57 +1,57 @@
-"""The element-tiled DG-advection pipeline on hand-written CUDA: the
-forward ``seg`` LSRK steps per launch, each CTA owning a tile of elements
-with a ghost ring; the reverse on K2's fused windows.
+"""The element-tiled DG-advection pipeline on hand-written CUDA: K1's and
+K2's fused kernels at B = 1, each a call from the global step offset.
 
 Counterpart of the JAX package's ``ops/pallas/dg_tiled.py``
 (``make_pallas_fwd_adj_estimate_tiled`` and ``_tiled_grid``) with the
 per-segment kernels of ``ops/pallas/dg_sharded.py``. Two kernels:
 
-- **KT1** :func:`tiled_fwd_seg` (csrc/dg_tiled.cu) — per segment, one
-  launch: every CTA loads its tile's window [lo − W, hi + W) into shared
-  memory and advances ``segment`` steps there, writing the exact local
-  entry states into a global (n_steps, Np, K) trajectory (K2's layout, K1's
-  values) and its local exit state. Replaces ``_fwd_seg_kernel`` (dg_sharded.py:83) and
-  ``_fwd_seg_grid_kernel`` (dg_tiled.py:282).
+- **KT1** :func:`tiled_fwd_seg` — the forward over the call's segments,
+  every entry state stored into an (n_steps, Np, K) trajectory (K2's
+  layout) and the exit state. Replaces ``_fwd_seg_kernel``
+  (dg_sharded.py:83) and ``_fwd_seg_grid_kernel`` (dg_tiled.py:282). It
+  runs K1's fused kernel (csrc/dg_rhs.cu ``fwd_fused``) at B = 1 on
+  :func:`~.dg_rhs.forward_plan`'s windows (W = 5·s_f, none where one tile
+  holds the mesh), storing every step, from the global step
+  first_segment·segment: one thread a window element, the state in
+  registers, one barrier a stage, ⌈n_steps/s_f⌉ CUDA launches a call.
 - **KT2** :func:`tiled_rev_seg` — the reverse sweep over the call's
   segments: per step the dt/2·dt/2 step doubling from the stored u_n, η +=
   Σ_nodes λ·(u_{n+1} − half2) on the local elements, and two dt/2
   transposes. Replaces ``_rev_seg_kernel`` (dg_sharded.py:107) and
   ``_rev_seg_grid_kernel`` (dg_tiled.py:314). It runs K2's fused kernel
-  (csrc/dg_rhs.cu ``rev_fused``) at B = 1: the trajectory is exact
-  everywhere and in K2's layout, so a segment is only an API boundary for
-  the reverse, and the sweep takes its own s_f and windows (W = 10·s_f +
-  10, :func:`~.dg_rhs.stored_plan`) whatever the forward's segment: one
-  thread a window element, the state in registers, one barrier a stage,
-  ⌈n_steps/s_f⌉ CUDA launches a call, from the global step
-  first_segment·segment with η carried in.
+  (csrc/dg_rhs.cu ``rev_fused``) at B = 1 on
+  :func:`~.dg_rhs.stored_plan`'s windows (W = 10·s_f + 10), from the global
+  step first_segment·segment with η carried in: ⌈n_steps/s_f⌉ CUDA launches
+  a call.
 
-Ghost rule (dg_sharded.py:18-25, copied with :func:`ghost_width`): the flux
-couples ±1 element per stage, so a window's edges degrade one element a
-stage. The forward loses 5·seg elements a segment; λ loses 10 a step; the
-half steps read u_n exact ±10 elements around each local element, and here
-u_n comes from the global trajectory, exact everywhere. W ≥ 10·seg + 10
-keeps every local element exact (the reverse's own windows take W =
-10·s_f + 10): the outputs do not depend on the tiling, and each local
-element computes what K1 and K2 compute, with the same arithmetic
-(csrc/dg_stage.cuh), so the two pipelines agree bit for bit.
+The tiled trajectory is exact everywhere and in K2's layout, and every
+stage time is t0 + n·dt of the global step n, so a segment is only an API
+boundary: both kernels take their own s_f and windows whatever the
+segment, each local element computes what K1 and K2 compute with the same
+arithmetic (csrc/dg_stage.cuh), and the tiled pipelines give the stored
+pipeline's bits.
 
-Tiles. A JAX chunk (K/chunks elements; K/(8·chunks) lanes of the grid
-variant) can pass what one CTA's shared memory holds. :func:`tile_plan`
-splits each chunk into equal CTA tiles whose window of (4·Np + 3)·(L + 2W)
-floats fits ``SMEM_BUDGET`` (KT1 keeps (2·Np + 2)·(L + 2W) of them; the
-rule is the one its tiles were measured on); the ghost recompute costs
-2W/L. The grid variant's chunk-major layout and
-sublane-rolled ghosts (dg_tiled.py:224-258, :534-557) exist for the TPU's
-(8, M) blocked layout and have no Hopper counterpart: both factories run
-KT1/KT2 on the (Np, K) state, and differ only in the validation they keep
-from their JAX factories.
+The API's rules, kept from the JAX factories: a segment of 1 to
+:data:`MAX_SEGMENT` steps; the ghost rule (dg_sharded.py:18-25, copied
+with :func:`ghost_width`) W ≥ 10·seg + 10, which keeps every local element
+of a segment exact (the flux couples ±1 element per stage: the forward
+loses 5·seg elements a segment, λ 10 a step); and :func:`tile_plan`, which
+splits each chunk (K/chunks elements;
+K/(8·chunks) lanes of the grid variant) into equal tiles whose window of
+(4·Np + 3)·(L + 2W) floats fits :data:`SMEM_BUDGET`, refusing a ghost width
+that leaves no tile. The tile plan sets the plain versions' windows and the
+segment length; the card's kernels take their own. The grid variant's
+chunk-major layout and sublane-rolled ghosts (dg_tiled.py:224-258,
+:534-557) exist for the TPU's (8, M) blocked layout and have no Hopper
+counterpart: both factories run KT1/KT2 on the (Np, K) state, and differ
+only in the validation they keep from their JAX factories.
 
 A CUDA float32 tensor launches the kernel or raises; a CPU tensor takes the
 plain version (:func:`tiled_fwd_seg_plain`, :func:`tiled_rev_seg_plain`,
 :func:`tiled_plain`): the tile plan's tiles and windows with explicit ghost
-rings, so the halo logic is tested on the CPU, in float32 or float64; K2's
-emulation (``dg_rhs._rev_fused_plain``) gives their bits on the reverse's
-own windows.
+rings, so the halo logic is tested on the CPU, in float32 or float64; K1's
+and K2's emulations (``dg_rhs._fwd_fused_plain``, ``dg_rhs._rev_fused_plain``)
+give their bits on the kernels' own windows.
 """
 from __future__ import annotations
 
@@ -61,18 +61,17 @@ import torch
 
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
-    _RK,
     FusedPlan,
     KernelOps,
     _check,
     _check_uniform,
+    _k1_launch,
     _k2_launch,
-    _ptr,
     _sm_count,
     _step_plain,
     _step_t_plain,
-    _stream,
     _window,
+    forward_plan,
     kernel_ops,
     stored_plan,
 )
@@ -94,8 +93,10 @@ __all__ = [
     "make_cuda_fwd_adj_estimate_tiled_grid",
 ]
 
-SMEM_BUDGET = 96 * 1024  # bytes of shared memory one CTA's window may take
-MAX_SEGMENT = 64  # KT1's kMaxSeg (csrc/dg_tiled.cu): the inflow table rides the launch
+# the tile plan's budget for a window of (4·Np + 3)·(L + 2W) floats: it sets
+# the plain versions' tiles and refuses ghost rings that leave no tile
+SMEM_BUDGET = 96 * 1024
+MAX_SEGMENT = 64  # the API's longest segment (the JAX factories' and chip_smoke.py's rows)
 
 
 def ghost_width(segment: int, l_local: int) -> int:
@@ -202,31 +203,35 @@ def tiled_plain(u0, t0: float, lam_end, n_segments: int, plan: TilePlan, ops: Ke
 
 def tiled_fwd_seg(u0: torch.Tensor, t0: float, n_segments: int, plan: TilePlan,
                   ops: KernelOps, first_segment: int = 0):
-    """KT1 over n_segments segments (one launch each) from the (Np, K) state
-    ``u0``. Returns ``(traj, u_final)``, traj (n_segments·segment, Np, K).
-    The call's segments are the march's ``first_segment`` onwards: step n of
-    its segment si starts at t0 + ((first_segment + si)·segment + n)·dt."""
+    """KT1 over n_segments segments from the (Np, K) state ``u0``. Returns
+    ``(traj, u_final)``, traj (n_segments·segment, Np, K). The call's
+    segments are the march's ``first_segment`` onwards: step n of its
+    segment si starts at t0 + ((first_segment + si)·segment + n)·dt. On the
+    card it runs K1's fused kernel at B = 1 on :func:`~.dg_rhs.forward_plan`'s
+    windows for the card's SM count, storing every step (``plan`` sets only
+    the segment length): ⌈n_steps/s_f⌉ CUDA launches."""
     if n_segments < 1 or first_segment < 0:
         raise ValueError(f"n_segments={n_segments} must be >= 1, first_segment="
                          f"{first_segment} >= 0")
     if not _check("u0", u0, (ops.np_, ops.k), ops):
         return tiled_fwd_seg_plain(u0, float(t0), n_segments, plan, ops, first_segment)
-    lib = load_library()
-    size = u0.numel()
-    traj = torch.empty((n_segments * plan.segment, *u0.shape), dtype=torch.float32,
-                       device=u0.device)
-    u_final = torch.empty_like(u0)
-    ubuf = torch.empty((2, size), dtype=torch.float32, device=u0.device)
-    rx, fsl, fsr = ops.geom32
-    code = lib.lib.dg_tiled_fwd(
-        ops.np_, ops.k, n_segments, plan.segment, plan.tile, plan.ghost, first_segment,
-        float(t0), ops.dt, ops.a, _RK.ctypes.data, ops.full.packed.ctypes.data, _ptr(rx),
-        _ptr(fsl), _ptr(fsr), _ptr(u0), _ptr(traj), _ptr(u_final), _ptr(ubuf),
-        _stream(u0.device),
-    )
+    n_steps = n_segments * plan.segment
+    fused = forward_plan(ops.k, 1, ops.np_, n_steps, 1, _sm_count(u0.device))
+    traj, u_final, tiled_fwd_seg.cuda_launches = _kt1_launch(
+        u0, t0, n_steps, ops, fused, first_segment * plan.segment)
     tiled_fwd_seg.launches += 1
-    lib.check(code, "dg_tiled_fwd", lib.lib.dg_tiled_error_string)
     return traj, u_final
+
+
+def _kt1_launch(u0, t0, n_steps: int, ops: KernelOps, fused: FusedPlan, n_first: int = 0):
+    """One K1 call at B = 1 on ``fused`` over the global steps n_first …
+    n_first + n_steps − 1 from the (Np, K) ``u0``, storing every entry state:
+    ``(traj (n_steps, Np, K), u_final, CUDA launches)``. The wrapper counts
+    its launches; this does not."""
+    traj = torch.empty((n_steps, *u0.shape), dtype=torch.float32, device=u0.device)
+    u_final, n = _k1_launch(load_library(), u0[:, None], t0, n_steps, traj[:, :, None], 1, ops,
+                            fused, n_first)
+    return traj, u_final[:, 0], n
 
 
 def tiled_rev_seg(traj: torch.Tensor, u_final: torch.Tensor, lam_end: torch.Tensor,
@@ -273,6 +278,7 @@ def _kt2_launch(traj, u_final, lam_end, t0, ops: KernelOps, fused: FusedPlan, n_
 
 def reset_launch_counts() -> None:
     tiled_fwd_seg.launches = 0
+    tiled_fwd_seg.cuda_launches = 0
     tiled_rev_seg.launches = 0
     tiled_rev_seg.cuda_launches = 0
 

@@ -4,8 +4,8 @@ Counterpart of the JAX package's ``ops/pallas/fd_ensemble.py``. Three
 kernels (csrc/fd_ensemble.cu), each with the whole pipeline of an initial
 condition (IC) or member — coarse Euler march, interpolation to the
 rf-refined grid, the adjoint of J = ∫u² dt, the residual and the per-step
-indicator — F1 and F2 in one thread per IC, F3 in G lanes of a warp per
-member:
+indicator — F1 and F3 in G lanes of a warp per IC or member, F2 in one
+thread per IC:
 
 - **F1** :func:`fd_ensemble` — scalar state, block indicator
   ``(n_steps, n_ics)``. Replaces ``_kernel`` (fd_ensemble.py:61); with
@@ -18,15 +18,23 @@ member:
   (fd_ensemble.py:357); the engine of ``run_adaptive_fd_per_member(engine="cuda")``.
 
 What bounds them, and what the design does about it: each IC's march and
-sweep are serial chains (v_j needs v_{j+1}), so a kernel is latency-bound,
-far above both the byte bound (one read of u0, one write per step) and the
-FP32 bound. F1 and F2 run one thread per IC, every chain independent and
-every access coalesced. F3 serves the per-member study's B = 1024, where one
-thread a member filled 8 of 132 SMs: its G lanes (:func:`fd_pm_plan`) split
-the fine nodes' interpolation, (f, f_u) pairs and residuals, and one lane
-runs only the chain v_j = A_j + C_j·v_{j+1} and the per-step sums in the
-plain version's order; the member's widths are read as (B, n_steps), its
-row contiguous, and err is written (B, n_steps): one CUDA launch a call.
+sweep are serial chains (v_j needs v_{j+1}), so a kernel is latency- or
+issue-bound, far above both the byte bound (one read of u0, one write per
+step) and the FP32 bound. Only v's chain and the per-step sums are serial:
+the interpolation, the (f, f_u) pair and the residual of every fine node
+depend on the coarse trajectory alone. So F1 and F3 run G lanes of a warp
+per IC or member (:func:`fd_ens_plan`, :func:`fd_pm_plan`): the lanes split
+the fine nodes' interpolation, pairs and residuals of a block of nodes
+ahead of the chain (F1 in registers, read across the group by shuffles;
+F3 in shared-memory tables), and the chain v_j = A_j + C_j·v_{j+1} and the
+per-step sums run in the plain version's order, their loads off the
+chain. Small IC or member counts take many lanes (F3 at the
+per-member study's B = 1024: one warp a member; F1 as many as put 8 warps on
+every SM); F1's 102,400 ICs fill the card with one lane an IC, which keeps
+the fewest instructions an IC.
+F3's widths are read as (B, n_steps), a member's row contiguous, and its
+err written (B, n_steps); F1's err stays (n_steps, n_ics). F2 runs one
+thread per IC. One CUDA launch a call.
 
 Each wrapper takes a plan made by its ``make_cuda_*`` entry point. A CUDA
 float32 tensor launches the kernel or raises; a CPU tensor takes the
@@ -39,7 +47,8 @@ The TPU tiling ((8, lane) carpets, ``lane_block``, the multiple-of-20480 IC
 rule, the scoped-VMEM checks) is not ported: the entry points take any
 ``n_ics`` and any B; the step count is bounded by a block's shared memory,
 which the kernel's launcher checks (a launch with too many steps raises;
-F3's plan shrinks its CTA and its window of fine nodes to fit first).
+F1's plan shrinks its CTA and F3's its CTA and its window of fine nodes to
+fit first).
 
 Tolerance (:func:`fd_kernel_tolerance`, :func:`fd_j_tolerance`): kernel
 and plain version run float32 in another order of roundings (FMA
@@ -61,6 +70,8 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_devi
 
 __all__ = [
     "FdPlan",
+    "FdEnsLaunch",
+    "fd_ens_plan",
     "FdPmLaunch",
     "fd_pm_plan",
     "fd_kernel_tolerance",
@@ -80,10 +91,17 @@ __all__ = [
 
 MAX_MODES = 8  # gaussian-mixture slots per kind in the consts layout (csrc OdeConsts)
 EPS32 = 2.0**-23
-PM_LANES = (1, 2, 4, 8, 16, 32)  # the lanes a member F3 takes
-PM_THREADS = (32, 64, 128, 256)  # its CTA sizes
+PM_LANES = (1, 2, 4, 8, 16, 32)  # the lanes an IC or member F1 and F3 take
+PM_THREADS = (32, 64, 128, 256)  # their CTA sizes
 PM_MAX_WARPS = 4096  # fd_pm_plan's most warps: ~31 an SM on 132 SMs
+# fd_ens_plan's warps an SM: F1 is issue-bound once ~8 warps share an SM, and
+# every lane past the first repeats the march and idles beside the chain
+# (chip_smoke.py phase 37(c) on an H100: at 4,096 ICs G = 4-16 0.0101-0.0109 ms
+# on the device, G = 32 0.0158-0.0164, G = 1 0.0150-0.0162; at 102,400 G = 1
+# 0.0344-0.0372, G = 2 0.0393-0.0413)
+ENS_WARPS_PER_SM = 8
 MAX_SMEM = 232_448  # csrc kMaxSmem: the bytes a block may use on sm_90
+H100_SMS = 132
 VECTOR_KERNEL_IDS = {odes.KERNEL_IDS["harmonic_oscillator"]: 2}  # id -> d
 SIN_ID = odes.KERNEL_IDS["du/dt=sin(u)"]
 
@@ -92,9 +110,11 @@ class FdPlan(NamedTuple):
     """Everything one entry point's kernel needs, on one device.
 
     ``grid`` is the float64 host fold [tc (n_steps), dts (n_steps),
-    tf (n_fine), dtf (n_fine)] and ``grid32`` its float32 copy on the device
+    tf (n_fine), dtf (n_fine), q/rf (rf)] and ``grid32`` its float32 copy on
+    the device
     (empty for the per-member kernel, whose widths are an operand);
-    ``consts`` the 64 float32 constants passed by value (csrc OdeConsts)."""
+    ``consts`` the 64 float32 constants passed by value (csrc OdeConsts);
+    ``consts_ptr`` and ``grid_ptr`` their addresses, taken once a plan."""
 
     ode: odes.ODEProblem
     n_steps: int
@@ -106,12 +126,14 @@ class FdPlan(NamedTuple):
     grid32: torch.Tensor
     consts: np.ndarray
     n_modes: tuple  # (n_u, n_t) of the gaussian mixture, else (0, 0)
+    consts_ptr: int
+    grid_ptr: int
 
 
 def fine_grid(n_steps: int, rf: int, dt) -> np.ndarray:
-    """Coarse node times and widths and fine node times and widths, folded
-    in double as the TPU kernel folds them at trace time (t0 = 0; ``dt`` a
-    scalar or ``n_steps`` widths)."""
+    """Coarse node times and widths, fine node times and widths, and the rf
+    interpolation weights q/rf, folded in double as the TPU kernel folds
+    them at trace time (t0 = 0; ``dt`` a scalar or ``n_steps`` widths)."""
     dts = [float(dt)] * n_steps if np.ndim(dt) == 0 else [float(d) for d in dt]
     if len(dts) != n_steps:
         raise ValueError(f"dt vector length {len(dts)} != n_steps={n_steps}")
@@ -121,13 +143,13 @@ def fine_grid(n_steps: int, rf: int, dt) -> np.ndarray:
     n_fine = n_steps * rf
     tf = [tc[j // rf] + ((j % rf) / rf) * dts[j // rf] for j in range(n_fine)]
     dtf = [dts[j // rf] / rf for j in range(n_fine)]
-    return np.array(tc[:-1] + dts + tf + dtf, dtype=np.float64)
+    return np.array(tc[:-1] + dts + tf + dtf + [q / rf for q in range(rf)], dtype=np.float64)
 
 
 def _split(plan: FdPlan):
     s, nf = plan.n_steps, plan.n_steps * plan.rf
     g = plan.grid.tolist()
-    return g[:s], g[s:2 * s], g[2 * s:2 * s + nf], g[2 * s + nf:]
+    return g[:s], g[s:2 * s], g[2 * s:2 * s + nf], g[2 * s + nf:2 * s + 2 * nf]
 
 
 def _resolve(ode) -> odes.ODEProblem:
@@ -172,7 +194,7 @@ def _plan(ode, n_steps, rf, *, vector, trig="libm", convention="block", t0=0.0,
     consts, n_modes = _consts(ode)
     grid32 = torch.as_tensor(grid, dtype=torch.float32, device=require_device(device))
     return FdPlan(ode, n_steps, rf, trig, convention, float(t0), grid, grid32,
-                  consts, n_modes)
+                  consts, n_modes, consts.ctypes.data, grid32.data_ptr())
 
 
 # ------------------------------------------------------------ plain versions
@@ -355,24 +377,76 @@ def _on_cuda(name: str, x: torch.Tensor, shape, plan: FdPlan) -> bool:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's raw handle without a Stream object (~0.3 µs, not
+    ~5; a CUDA tensor's device always has an index)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class FdEnsLaunch(NamedTuple):
+    """F1's launch: ``lanes`` (G) lanes of a warp an IC in CTAs of
+    ``threads``."""
+
+    lanes: int
+    threads: int
+
+
+def ens_stride(n_steps: int) -> int:
+    """F1's floats of shared memory an IC (csrc ens_stride): the coarse
+    trajectory, rounded up to odd."""
+    return (n_steps + 1) | 1
+
+
+def ens_smem(launch: FdEnsLaunch, n_steps: int, rf: int) -> int:
+    """F1's bytes of shared memory a CTA (csrc ensemble_smem): the rf
+    interpolation weights, then its ICs' coarse trajectories."""
+    return 4 * (rf + launch.threads // launch.lanes * ens_stride(n_steps))
+
+
+@functools.lru_cache(maxsize=256)
+def fd_ens_plan(n_ics: int, n_steps: int, rf: int, sms: int = H100_SMS) -> FdEnsLaunch:
+    """F1's launch for n_ics ICs of n_steps steps refined rf times on a card
+    of ``sms`` SMs: G the fewest of :data:`PM_LANES` that put
+    :data:`ENS_WARPS_PER_SM` warps on every SM (32 at most: 16 at 4,096 ICs,
+    1 from 33,792), in 128-thread CTAs, or the largest smaller CTA whose
+    shared memory fits a block (:func:`ens_smem`; at G = 1, 453 steps take 64
+    threads). Where none fits (one IC's trajectory past a block) it returns
+    the 32-thread CTA, which the kernel refuses."""
+    lanes = next((g for g in PM_LANES if n_ics * g >= 32 * ENS_WARPS_PER_SM * sms), 32)
+    for threads in (128, 64, 32):
+        launch = FdEnsLaunch(lanes, threads)
+        if ens_smem(launch, n_steps, rf) <= MAX_SMEM:
+            return launch
+    return launch
 
 
 def fd_ensemble(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
-    """F1: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics,)."""
+    """F1: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics,).
+    On the card one CUDA launch on :func:`fd_ens_plan`'s launch."""
     if u0s.dim() != 1:
         raise ValueError(f"u0s must be (n_ics,), got {tuple(u0s.shape)}")
     if not _on_cuda("u0s", u0s, u0s.shape, plan):
         return fd_ensemble_plain(u0s, plan)
+    fd_ensemble.launches += 1
+    return _f1_launch(u0s, plan, fd_ens_plan(u0s.shape[0], plan.n_steps, plan.rf,
+                                             _sm_count(u0s.device)))
+
+
+def _f1_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
+    """One fd_ensemble call on ``launch``: err (n_steps, n_ics). The
+    wrapper counts its launches; this does not."""
     lib = load_library()
     n = u0s.shape[0]
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble(
-        plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes,
-        plan.consts.ctypes.data, n, plan.n_steps, plan.rf, plan.grid32.data_ptr(),
+        plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts_ptr, n,
+        plan.n_steps, plan.rf, launch.lanes, launch.threads, plan.grid_ptr,
         u0s.data_ptr(), err.data_ptr(), _stream(u0s.device),
     )
-    fd_ensemble.launches += 1
     lib.check(code, "fd_ensemble", lib.lib.fd_error_string)
     return err
 
@@ -390,7 +464,7 @@ def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
     u0t = u0s.T.contiguous()  # (d, n_ics): neighbouring threads, neighbouring ICs
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble_vec(
-        plan.ode.kernel_id, n, plan.n_steps, plan.rf, plan.grid32.data_ptr(),
+        plan.ode.kernel_id, n, plan.n_steps, plan.rf, plan.grid_ptr,
         u0t.data_ptr(), err.data_ptr(), _stream(u0s.device),
     )
     fd_ensemble_vec.launches += 1
@@ -461,7 +535,7 @@ def _f3_launch(dt_b, u0s, plan: FdPlan, launch: FdPmLaunch):
     out = torch.empty(b * (n_steps + 1), dtype=torch.float32, device=u0s.device)  # one allocation
     err, j_val = out[: b * n_steps].view(b, n_steps), out[b * n_steps:]
     code = lib.lib.fd_estimate_per_member(
-        plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps,
+        plan.ode.kernel_id, *plan.n_modes, plan.consts_ptr, b, plan.n_steps,
         plan.rf, int(plan.convention == "block"), plan.t0, launch.lanes, launch.threads,
         pm_window(launch, plan.n_steps, plan.rf), dt_b.data_ptr(), u0s.data_ptr(),
         err.data_ptr(), j_val.data_ptr(), _stream(u0s.device),

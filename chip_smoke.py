@@ -145,8 +145,9 @@ raises, and the script exits non-zero; nothing is caught.
    (d) make_cuda_advec_adjoint (KA) at B=1 against its plain version, with
    its launch count, and the two unbatched estimates against the stored
    single pipeline.
-24. The element-tiled pipeline (KT1: csrc/dg_tiled.cu; KT2: K2's fused
-   kernel at B = 1, csrc/dg_rhs.cu rev_fused): (a) against its plain version
+24. The element-tiled pipeline (KT1 and KT2: K1's and K2's fused kernels at
+   B = 1 from the global step offset, csrc/dg_rhs.cu fwd_fused and
+   rev_fused): (a) against its plain version
    (the tile plan's tiles and ghost windows) at K=640, and KT2 bit-equal to
    the stored pipeline's K2 on the same trajectory through its wrapper, on
    narrow fused tiles, and one segment a call from the global step offset
@@ -167,7 +168,8 @@ raises, and the script exits non-zero; nothing is caught.
    K=10^4, B=8, segment 2, 256 steps; the main path's launch count, each KM
    kernel and its plain version timed) and at the headline row (N=2, 2048
    steps), with the ratio KM/K1K2 on its own line.
-28. The element-sharded pipelines (ops/cuda/dg_sharded.py over KT1/KT2) at
+28. The element-sharded pipelines (ops/cuda/dg_sharded.py over KT1/KT2, a
+   call each a segment) at
    phase 24(b)'s K=10^6 row (segment 16, 64 steps): both factories at world
    1 in this process and at world 2 in two spawned ranks (gloo, both on
    cuda:0), u_final, λ0 and η bit-equal to the single-process tiled
@@ -268,6 +270,22 @@ raises, and the script exits non-zero; nothing is caught.
    sleep); (e) the B=1024 per-member FD
    study (phase 8's) in turns on fd_pm_plan's launch and on one lane a
    member, and its torch.profiler trace.
+37. KT1 as a call of K1's fused march (csrc/dg_rhs.cu fwd_fused at B = 1
+   from the global step offset) and F1 with G lanes an IC
+   (csrc/fd_ensemble.cu fd_ensemble_kernel): (a) the registers and spills
+   that ptxas reported for both (no instance may spill: a gate); (b) KT1 at
+   both TILED_ROWS on the wrapper's plan and each (s_f, CTA size)'s
+   cheapest tiling, timed in turns with its CUDA launches, the cost model,
+   the FWD_STEP_WARP_US it implies and its share of the bound, every plan's
+   trajectory and u_final, whole and one segment a call, the stored
+   pipeline's K1 bits (a gate), and tiled/stored in turns; (c) F1 and
+   F1-fast at FD_ENSEMBLE's shape, and F1 at 4,096 ICs, on every G and CTA
+   size, timed in turns beside the wrapper and G = 1, each within
+   fd_kernel_tolerance with some
+   plain entry above it and a repeat bit-identical (a gate), on the device
+   alone (queued behind a sleep) beside the call, and the ensemble signal's
+   argmax against the float64 plain version's where the top-two margin
+   clears twice the tolerance.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -301,7 +319,7 @@ SOURCES = {
     "fwd_march_ckpt": f"{PACKAGE}/csrc/dg_rhs.cu",
     "adj_est_recompute": f"{PACKAGE}/csrc/dg_rhs.cu",
     "adj_march": f"{PACKAGE}/csrc/dg_rhs.cu",
-    "tiled_fwd_seg": f"{PACKAGE}/csrc/dg_tiled.cu",
+    "tiled_fwd_seg": f"{PACKAGE}/csrc/dg_rhs.cu",
     "tiled_rev_seg": f"{PACKAGE}/csrc/dg_rhs.cu",
     "mxu_fwd_traj": f"{PACKAGE}/csrc/dg_mxu.cu",
     "mxu_adj_est": f"{PACKAGE}/csrc/dg_mxu.cu",
@@ -1037,8 +1055,9 @@ def fd_times(device, inp):
     return times
 
 
-def fd_bounds():
-    """Least time on the card for each FD kernel at the phase-6/8 shapes:
+def fd_bounds(n_ics=None):
+    """Least time on the card for each FD kernel at the phase-6/8 shapes (F1
+    and F2 at ``n_ics`` ICs where given):
     the larger of bytes (each input read once, each output written once)
     over 3.35 TB/s and FP32 operations over 67 TFLOP/s, counting an FMA as
     2 and each sin, cos or exp as 1 (the least a special-function unit can
@@ -1046,7 +1065,7 @@ def fd_bounds():
     sin(u); one product (−4·u₀) for the harmonic oscillator, whose Jacobian
     is constant. Per IC, a fine node costs 15.25 (d=1) or 27.5 (d=2)
     operations at rf 4."""
-    n, s, rf = FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["rf"]
+    n, s, rf = n_ics or FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["rf"]
     b, sp = FD_STUDY["b"], FD_PM_STEPS
     grid = 4 * (2 * s + 2 * s * rf)
 
@@ -3012,8 +3031,9 @@ def phase24(device, errs):
             d = [float((x - y).abs().max()) for x, y in zip(out[name], out["stored"])]
             say("24", f"(b) {name} K={k} N=2 segment={seg} chunks={chunks} steps={n_steps}: "
                       f"{p.n_tiles} CTA tiles of {p.tile} + 2x{p.ghost} ghosts (ghost overhead "
-                      f"2W/L = {2 * p.ghost / p.tile:.1%}); {ms:.3f} ms ({2 * n_steps // seg} CUDA "
-                      f"launches) against the stored pipeline's {ms_sto:.3f} ms "
+                      f"2W/L = {2 * p.ghost / p.tile:.1%}); {ms:.3f} ms "
+                      f"({dg_tiled.tiled_fwd_seg.cuda_launches + dg_tiled.tiled_rev_seg.cuda_launches}"
+                      f" CUDA launches) against the stored pipeline's {ms_sto:.3f} ms "
                       f"({dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches} "
                       f"launches), tiled/stored {ms / ms_sto:.3f} (in turns stored, tiled_grid, "
                       f"tiled, tiled, tiled_grid, stored, median of 5 each: {name} "
@@ -3045,8 +3065,12 @@ def phase24(device, errs):
                   float((out["k2"][1] - eta_p[0]).abs().max())]
             kt2 = dg_rhs.stored_plan(k, 1, disc.np_, n_steps,
                                      torch.cuda.get_device_properties(device).multi_processor_count)
+            kt1 = dg_rhs.forward_plan(k, 1, disc.np_, n_steps, 1,
+                                      torch.cuda.get_device_properties(device).multi_processor_count)
             say("24", f"(c) K={k} segment={seg}: KT1 {ms_kt1:.3f} ms, KT2 {ms_kt2:.3f} ms (median "
-                      f"of 5; KT2 on s_f={kt2.segment}, {kt2.n_tiles} CTAs of {kt2.tile} + "
+                      f"of 5; KT1 on s_f={kt1.segment}, {kt1.n_tiles} CTAs of {kt1.tile} + "
+                      f"2x{kt1.ghost} on {kt1.threads} threads, "
+                      f"{dg_tiled.tiled_fwd_seg.cuda_launches} CUDA launches; KT2 on s_f={kt2.segment}, {kt2.n_tiles} CTAs of {kt2.tile} + "
                       f"2x{kt2.ghost} on {kt2.threads} threads, "
                       f"{dg_tiled.tiled_rev_seg.cuda_launches} CUDA launches); plain (K1's and K2's plain versions) {plain1:.1f} / {plain2:.1f} ms "
                       f"(one run each); kernel vs plain: traj+u {e1:.3e} (tol {tol['u']:.3e}), lam0 "
@@ -4673,6 +4697,219 @@ def phase36(device, lib, errs, inp):
     return rows
 
 
+# KT1's (s_f, CTA size) candidates beside the wrapper's plan (forward_plan's
+# search: s_f 4-32 on 512- and 1024-thread CTAs)
+KT1_STEPS = (4, 8, 16, 32)
+
+
+def kt1_plans(row, device, sms):
+    """KT1 (K1's fused kernel at B = 1, every step stored, from the global
+    step offset) at a TILED_ROWS row on the wrapper's plan and, for each
+    (s_f, CTA size) of KT1_STEPS × FUSED_THREADS, the tiling K1's cost model
+    rates cheapest, timed in turns, each with its CUDA launches, the model,
+    the FWD_STEP_WARP_US it implies and its share of the bound; every plan's
+    trajectory and u_final, whole and one segment a call, the stored
+    pipeline's K1 bits (a gate); then the tiled pipeline against the stored
+    one in turns, bit-equal. Returns {key: ms}."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
+
+    k, seg, chunks, n_steps = row
+    disc = startup_1d(2, 0.0, 2 * np.pi, k)
+    dt = cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    tiled = dg_tiled.make_cuda_fwd_adj_estimate_tiled_grid(
+        disc, A, dt, segment=seg, n_segments=n_steps // seg, chunks=chunks, device=device)
+    want = dg_rhs.fwd_march(u0[:, None].contiguous(), 0.0, n_steps, ops, store_trajectory=True)
+    want = (want[0][:, :, 0], want[1][:, 0])
+    plans = {"wrapper's plan": dg_rhs.forward_plan(k, 1, disc.np_, n_steps, 1, sms)}
+    for st in KT1_STEPS:
+        for th in dg_rhs.FUSED_THREADS:
+            plans[f"s_f={st} {th} threads"] = dg_rhs._cheapest(
+                dg_rhs._tilings(k, 1, sms, dg_rhs.fwd_fused_plan(k, st, th)),
+                lambda plan: dg_rhs._fwd_cost(k, 1, disc.np_, n_steps, 1, plan, sms))
+    out, counts = {}, {}
+
+    def on(key, plan):
+        def run():
+            out.pop(key, None)
+            *out[key], counts[key] = dg_tiled._kt1_launch(u0, 0.0, n_steps, ops, plan)
+
+        return run
+
+    def wrapper():
+        out.pop("wrapper", None)
+        out["wrapper"] = dg_tiled.tiled_fwd_seg(u0, 0.0, n_steps // seg, tiled.plan, ops)
+
+    turns = in_turns({"wrapper": wrapper, **{key: on(key, plan) for key, plan in plans.items()}})
+    counts["wrapper"] = dg_tiled.tiled_fwd_seg.cuda_launches
+    b_ms, b_by = advec_bounds(disc.np_, k, n_steps)["tiled_fwd_seg"]
+    rows = {}
+    for key, plan in {"wrapper": plans["wrapper's plan"], **plans}.items():
+        ms = rows[key] = statistics.mean(turns[key])
+        warps = max(-(-plan.n_tiles // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32),
+                    dg_rhs.MIN_WARPS)
+        model = dg_rhs._fwd_cost(k, 1, disc.np_, n_steps, 1, plan, sms) / 1e3
+        implied = (ms * 1e3 - counts[key] * dg_rhs.LAUNCH_US) / (n_steps * warps)
+        parts, u = [], u0
+        for si in range(n_steps // seg):
+            traj, u, _ = dg_tiled._kt1_launch(u, 0.0, seg, ops, plan, si * seg)
+            parts.append(traj)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(x, y)) for x, y in zip(out[key], want))
+        seg_same = bool(torch.equal(torch.cat(parts), want[0])) and bool(torch.equal(u, want[1]))
+        del parts
+        say("37", f"(b) KT1 K={k} N=2 B=1 steps={n_steps} segment={seg} {key}: s_f={plan.segment} "
+                  f"W={plan.ghost} L={plan.tile} {plan.threads} threads ({plan.n_tiles} CTAs, "
+                  f"{warps} warps on the busiest SM, ghost 2W/L "
+                  f"{2 * plan.ghost / plan.tile:.1%}); {ms:.3f} ms (model {model:.3f}, implied "
+                  f"FWD_STEP_WARP_US {implied:.4f}; in turns, median of 5 each: "
+                  f"{turns[key][0]:.3f} / {turns[key][1]:.3f}), {counts[key]} CUDA launches, "
+                  f"{b_ms / ms:.2%} of the {b_ms:.3f} ms bound ({b_by}); traj and u_final the "
+                  f"stored pipeline's K1 bits: whole {same}, one {seg}-step segment a call "
+                  f"{seg_same}")
+        assert same and seg_same and counts[key] == -(-n_steps // plan.segment), key
+    say("37", f"(b) KT1 K={k}: the wrapper {rows['wrapper']:.3f} ms; fastest "
+              f"{min(rows, key=rows.get)} {min(rows.values()):.3f} ms")
+    del out, want
+    torch.cuda.empty_cache()
+    stored = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, n_steps, device)
+    res = {}
+    turns = in_turns({"stored": lambda: res.update(s=stored(u0, 0.0, lam)),
+                      "tiled": lambda: res.update(t=tiled(u0, 0.0, lam))})
+    same = [bool(torch.equal(x, y)) for x, y in zip(res["s"], res["t"])]
+    ms = {key: statistics.mean(t) for key, t in turns.items()}
+    say("37", f"(b) K={k} tiled_grid/stored {ms['tiled'] / ms['stored']:.3f} in turns (tiled "
+              f"{ms['tiled']:.3f} ms, {turns['tiled'][0]:.3f} / {turns['tiled'][1]:.3f}, "
+              f"{dg_tiled.tiled_fwd_seg.cuda_launches} + {dg_tiled.tiled_rev_seg.cuda_launches} "
+              f"CUDA launches; stored {ms['stored']:.3f} ms, {turns['stored'][0]:.3f} / "
+              f"{turns['stored'][1]:.3f}); u_final, lam0, eta bit-equal: {same}")
+    assert all(same), f"K={k}: the tiled pipeline is not the stored pipeline's bits"
+    rows["tiled/stored"] = ms["tiled"] / ms["stored"]
+    del res
+    torch.cuda.empty_cache()
+    return rows
+
+
+# F1's cases: FD_ENSEMBLE's shape in both trig modes (the signal path), and
+# 4,096 ICs (phase 6(c')'s count), where a group of lanes serves an IC
+F1_CASES = (("libm", 102_400), ("fast", 102_400), ("libm", 4096))
+
+
+def f1_launches(device, inp, errs):
+    """F1 at F1_CASES on every G of PM_LANES and CTA size of PM_THREADS,
+    timed in turns beside the wrapper and G = 1, each within
+    fd_kernel_tolerance (some plain entry above it) and a
+    repeat bit-identical (a gate), on the device alone (20 calls queued
+    behind a sleep) beside the call, with its share of fd_bounds; the
+    ensemble signal's argmax (the mean over ICs) the float64 plain
+    version's where its top-two margin clears twice the tolerance. Returns
+    {(trig, n_ics, lanes, threads): ms}."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    s, rf, dt = (FD_ENSEMBLE[k] for k in ("n_steps", "rf", "dt"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for trig, n in F1_CASES:
+        u0 = inp["u0"][:n].contiguous()
+        mine = fe.fd_ens_plan(n, s, rf, sms)
+        b_ms, b_by = fd_bounds(n)["fd_ensemble"]
+        run = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, trig=trig, device=device)
+        stats = {}
+        want = fe.fd_ensemble_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf)
+        above = int((want.abs() > tol).sum())
+        launches = {(g, th): fe.FdEnsLaunch(g, th) for g in fe.PM_LANES for th in fe.PM_THREADS}
+        out = {}
+
+        def on(key, launch):
+            def go():
+                out[key] = fe._f1_launch(u0, run.plan, launch)
+
+            return go
+
+        turns = in_turns({"wrapper": lambda: out.update(wrapper=run(u0)),
+                          **{key: on(key, launch) for key, launch in launches.items()}})
+        for key, launch in launches.items():
+            ms = rows[(trig, n, *key)] = statistics.mean(turns[key])
+            dev = queued_ms(on(key, launch))
+            again = fe._f1_launch(u0, run.plan, launch)
+            torch.cuda.synchronize()
+            repeat = bool(torch.equal(out[key], again))
+            e = float((out[key] - want).abs().max())
+            errs["fd_ensemble"] = max(errs["fd_ensemble"], e)
+            say("37", f"(c) F1 {n} ICs trig={trig} G={launch.lanes} {launch.threads} threads"
+                      f"{' (the wrapper plan)' if launch == mine else ''}: "
+                      f"{ms:.4f} ms a call (in turns, median of 5 each: {turns[key][0]:.4f} / "
+                      f"{turns[key][1]:.4f}), {dev:.4f} ms on the device alone, {b_ms / dev:.2%} of "
+                      f"the {b_ms:.5f} ms bound ({b_by}); max|err - plain| {e:.3e} (tol "
+                      f"{tol:.3e}, {above} plain entries above it); a repeat bit-identical: "
+                      f"{repeat}")
+            assert e <= tol and above > 0 and repeat, (trig, n, key)
+        same = bool(torch.equal(out["wrapper"], out[tuple(mine)]))
+        dev = {"the wrapper": queued_ms(lambda: run(u0)),
+               "G=1 128 threads": queued_ms(on((1, 128), launches[(1, 128)]))}
+        want64 = fe.fd_ensemble_plain(u0.double(), run.plan).mean(1)
+        top2 = torch.topk(want64, 2).values
+        margin = float(top2[0] - top2[1])
+        got_arg, want_arg = int(out["wrapper"].double().mean(1).argmax()), int(want64.argmax())
+        fastest = min(launches, key=lambda x: statistics.mean(turns[x]))
+        say("37", f"(c) F1 {n} ICs trig={trig}: the wrapper ({mine}) "
+                  f"{statistics.mean(turns['wrapper']):.4f} ms a call, {dev['the wrapper']:.4f} on "
+                  f"the device alone (G=1 128 threads {dev['G=1 128 threads']:.4f}); fastest call "
+                  f"{launches[fastest]} {statistics.mean(turns[fastest]):.4f} ms; the wrapper the "
+                  f"plan's launch's bits: {same}; the signal's argmax step {got_arg} against the "
+                  f"float64 plain version's {want_arg} (top-two margin {margin:.3e}, 2·tol "
+                  f"{2 * tol:.3e})")
+        assert same, (trig, n)
+        assert got_arg == want_arg or margin <= 2 * tol, (trig, n)
+    return rows
+
+
+def phase37(device, lib, errs, inp):
+    """KT1 as a call of K1's fused march and F1 with G lanes an IC: (a) the
+    registers and spills ptxas reported for fwd_fused and
+    fd_ensemble_kernel (a gate: no instance spills); (b) KT1's plans at
+    both TILED_ROWS in turns, bit-equal to the stored pipeline's K1 whole and
+    one segment a call, and tiled/stored in turns; (c) F1 and F1-fast on
+    every G and CTA size at FD_ENSEMBLE's shape, in turns."""
+    import torch
+
+    regs = kernel_registers(lib.build_log, ("fwd_fused",))
+    f1, name = [], None
+    for ln in lib.build_log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split(" for ", 1)[1].strip()
+            name = name if "fd_ensemble_kernel" in name else None
+            frame = ""
+        elif name and "spill" in ln:
+            frame = ln.strip()
+        elif name and "registers" in ln:
+            f1.append(f"{instance_name(name)}: {ln.split('Used ', 1)[1].split(',')[0]}, {frame}")
+            name = None
+    say("37", f"(a) ptxas -v for fwd_fused ({len(regs)} instances): {'; '.join(regs)}")
+    say("37", f"(a) ptxas -v for fd_ensemble_kernel ({len(f1)} instances): {'; '.join(sorted(f1))}")
+    clean = "0 bytes spill stores, 0 bytes spill loads"
+    assert regs and all(clean in r for r in regs), "a fwd_fused instance spills"
+    assert f1 and all(clean in r for r in f1), "an fd_ensemble_kernel instance spills"
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for row in TILED_ROWS:
+        for key, ms in kt1_plans(row, device, sms).items():
+            rows[f"KT1 K={row[0]} {key}"] = ms
+    for key, ms in f1_launches(device, inp, errs).items():
+        rows[f"F1 {key}"] = ms
+    return rows
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -4786,6 +5023,7 @@ def main() -> int:
     phase34(device, lib, errs, hp_cases)
     phase35(device, lib, errs, cases)
     phase36(device, lib, errs, inp)
+    phase37(device, lib, errs, inp)
     launches.update(rc_launches, **tl_launches, **km_launches)
     times.update(rc_times, **tl_times, **km_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -48,10 +48,11 @@ below that). The revolve composition against the stored pipeline: u and λ
 within float32 roundoff, η within 1e-4·|η| + 1e-9
 (tests/test_revolve_pipeline.py).
 
-The recompute (K1's checkpoint mode, K2r) and tiled (KT1, KT2) pipelines run
+The recompute (K1's checkpoint mode, K2r) and tiled pipelines run
 csrc/dg_stage.cuh's arithmetic, every rounding explicit, at the same times
-t0 + n·dt as K1 and K2: their outputs are held to the stored pipeline's bits,
-and to their plain versions by the bounds above.
+t0 + n·dt as K1 and K2 (the tiled KT1 and KT2 are K1's and K2's fused
+kernels at B = 1 from the global step offset): their outputs are held to the
+stored pipeline's bits, and to their plain versions by the bounds above.
 """
 import numpy as np
 import pytest
@@ -139,6 +140,40 @@ def test_fd_ensemble_kernel_matches_its_plain_version(device, ode, trig):
     want = fe.fd_ensemble_plain(u0, run.plan, stats)
     assert got.shape == (n_steps, n) and bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= fe.fd_kernel_tolerance(stats, rf)
+
+
+@pytest.mark.parametrize("trig", ["libm", "fast"])
+@pytest.mark.parametrize("n_steps,rf", [(16, 4), (13, 3), (5, 2)])
+def test_fd_ensemble_on_every_launch(device, trig, n_steps, rf):
+    """F1 on every G and CTA size, at step counts whose fine nodes fill, or
+    fall short of, the blocks of U·G nodes: within fd_kernel_tolerance of
+    the plain version, some plain entry above it, a repeat's bits; the
+    wrapper's launch is fd_ens_plan's; a launch past a block's shared
+    memory raises."""
+    rng = np.random.default_rng(2)
+    n = 1000
+    u0 = torch.tensor(rng.uniform(-3, 3, n), dtype=torch.float32, device=device)
+    run = fe.make_cuda_fd_ensemble("du/dt=sin(u)", n_steps, rf, 2.0 / n_steps, trig=trig,
+                                   device=device)
+    stats = {}
+    want = fe.fd_ensemble_plain(u0, run.plan, stats)
+    tol = fe.fd_kernel_tolerance(stats, rf)
+    assert bool((want.abs() > tol).any())  # the bound has teeth: an err of 0 fails
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wrapper = run(u0)
+    assert torch.equal(wrapper, fe._f1_launch(u0, run.plan, fe.fd_ens_plan(n, n_steps, rf, sms)))
+    for lanes in fe.PM_LANES:
+        for threads in fe.PM_THREADS:
+            launch = fe.FdEnsLaunch(lanes, threads)
+            got = fe._f1_launch(u0, run.plan, launch)
+            again = fe._f1_launch(u0, run.plan, launch)
+            torch.cuda.synchronize()
+            assert got.shape == (n_steps, n) and bool(torch.isfinite(got).all())
+            assert float((got - want).abs().max()) <= tol, launch
+            assert torch.equal(got, again), launch
+    long = fe.make_cuda_fd_ensemble("du/dt=sin(u)", 60_000, 1, 1e-4, device=device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        long(u0[:8].contiguous())
 
 
 def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
@@ -650,6 +685,40 @@ def test_tiled_kernels_reproduce_the_stored_pipeline(device, k, segment, chunks,
                8 * n * disc.np_ * EPS32 * float(lam.abs().max()))
         for g, p, t in zip(got, plain, tol):
             assert float((g - p).abs().max()) <= t
+
+
+@pytest.mark.parametrize("k,segment,graded", [(640, 2, False), (20_000, 8, False),
+                                             (3000, 4, True)])
+def test_tiled_forward_one_segment_a_call(device, k, segment, graded):
+    """KT1 is K1's fused kernel at B = 1 from the global step offset: one
+    segment a call (first_segment = s) and two segments from the middle give
+    the bits of the same steps inside one whole call, trajectory and
+    u_final; ⌈n_steps/s_f⌉ CUDA launches a call on forward_plan's windows."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_tiled
+
+    vx = 2 * np.pi * np.linspace(0, 1, k + 1) ** (1.6 if graded else 1.0)
+    disc = startup_1d(2, 0.0, 2 * np.pi, k, vx=vx)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_rhs.kernel_ops(disc, A, 0.5 * (0.75 / A) * xmin, device)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    plan = dg_tiled.tile_plan(k, disc.np_, segment, 10 * segment + 10, k)
+    n_seg = 4
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    traj, uf = dg_tiled.tiled_fwd_seg(u0, 0.1, n_seg, plan, ops)
+    fused = dg_rhs.forward_plan(k, 1, disc.np_, n_seg * segment, 1, sms)
+    assert dg_tiled.tiled_fwd_seg.cuda_launches == -(-n_seg * segment // fused.segment)
+    u = u0
+    for s in range(n_seg):
+        part, u = dg_tiled.tiled_fwd_seg(u, 0.1, 1, plan, ops, first_segment=s)
+        assert torch.equal(part, traj[s * segment:(s + 1) * segment]), s
+    assert torch.equal(u, uf)
+    part, u = dg_tiled.tiled_fwd_seg(traj[2 * segment].contiguous(), 0.1, 2, plan, ops,
+                                     first_segment=2)
+    assert torch.equal(part, traj[2 * segment:]) and torch.equal(u, uf)
+    # the stored pipeline's K1 gives the same trajectory
+    want, want_uf = dg_rhs.fwd_march(u0[:, None].contiguous(), 0.1, n_seg * segment, ops,
+                                     store_trajectory=True)
+    assert torch.equal(traj, want[:, :, 0]) and torch.equal(uf, want_uf[:, 0])
 
 
 # (n_order, K, B, graded, n_steps, segment): Np 2, 3 and 8; B 1, 3 and 8; K
