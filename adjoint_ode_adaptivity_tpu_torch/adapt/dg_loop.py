@@ -20,8 +20,11 @@ the largest |contribution| (MAIN.m:137-141), repeat.
 The ensemble loops take ``engine="torch"`` (march/dg_batched.py) or
 ``engine="cuda"``: each iteration's whole fwd + adjoint + AWR pipeline in one
 launch of the DG slab kernel (ops/cuda/dg_slab.py), which needs the ODE as
-``ode`` (a registry entry with a ``kernel_id``), float32 and J = ∫u
-(``g_u=None``); on a CPU device it runs the kernel's plain version.
+``ode`` (a registry entry with a ``kernel_id``), float32, and a goal the
+kernel evaluates: ``g_u=None`` (J = ∫u) or a registry functional's g_u with
+a ``kernel_id`` (``get_functional("J=int(u^2)").g_u``), passed next to
+``ode``; a bare callable raises. On a CPU device it runs the kernel's plain
+version.
 
 ``device_loop=True`` runs a fixed trip of ``maxit + 1`` iterations (fewer
 when resumed) with the stopping tests as device masks (|Σerr| < tol for the
@@ -272,14 +275,13 @@ def _estimator(engine, f, f_u, g_u, ode, dtype, newton, ops_p, ops_a, max_k, dev
                              "kernel_id): the kernel evaluates f and f_u itself")
         if dtype != torch.float32:
             raise ValueError(f"engine='cuda' runs float32, not {dtype}")
-        if g_u is not None:
-            raise ValueError("engine='cuda' supports J = ∫u only (g_u=None)")
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab import (
             make_cuda_dg_estimate_ensemble,
         )
 
         kernel = make_cuda_dg_estimate_ensemble(ode, ops_p, ops_a, max_k,
-                                                newton["newton_iters"] or 8, device=device)
+                                                newton["newton_iters"] or 8, g_u=g_u,
+                                                device=device)
 
         def run(times, y0s):
             u, _v, err = kernel(times, y0s)

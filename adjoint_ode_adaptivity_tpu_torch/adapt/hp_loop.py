@@ -30,8 +30,10 @@ and order vector. ``engine="torch"`` runs the eager pipeline
 (``adjoint/dg_mixed.dg_estimate_mixed``); ``engine="cuda"`` (ensembles only)
 runs each iteration's member pipeline in one launch of the hp kernel
 (ops/cuda/dg_slab_mixed.py), which needs the ODE as ``ode`` (a registry
-entry with a ``kernel_id``), float32 and J = ∫u (``g_u=None``); on a CPU
-device it runs the kernel's plain version.
+entry with a ``kernel_id``), float32, and a goal the kernel evaluates:
+``g_u=None`` (J = ∫u) or a registry functional's g_u with a ``kernel_id``
+(``get_functional("J=int(u^2)").g_u``), passed next to ``ode``; a bare
+callable raises. On a CPU device it runs the kernel's plain version.
 
 ``device_loop=True`` runs a fixed trip of ``maxit + 1`` iterations (fewer
 when resumed) with the stopping tests as device masks and one fetch at the
@@ -198,8 +200,6 @@ def _estimator(engine, f, f_u, g, g_u, ode, dtype, n_max, fine_offset, n_gq, adj
                              "kernel_id): the kernel evaluates f and f_u itself")
         if dtype != torch.float32:
             raise ValueError(f"engine='cuda' runs float32, not {dtype}")
-        if g_u is not None:
-            raise ValueError("engine='cuda' supports J = ∫u only (g_u=None)")
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab_mixed import (
             make_cuda_dg_estimate_hp_per_member,
         )
@@ -207,7 +207,7 @@ def _estimator(engine, f, f_u, g, g_u, ode, dtype, n_max, fine_offset, n_gq, adj
         pipeline = make_cuda_dg_estimate_hp_per_member(
             ode, mops, interp, max_k, n_max_user=n_max, fine_offset=fine_offset,
             newton_iters=newton["newton_iters"] or 8, adjoint_mode=adjoint_mode, rad=radau,
-            device=device)
+            g_u=g_u, device=device)
     else:
         def pipeline(times, ns, y0):
             return dg_estimate_mixed(mops, interp, f, times, ns, y0, fine_offset=fine_offset,

@@ -12,9 +12,16 @@
 //   dR/dU = A + h/2·Σ_q w_q f_u(φ_q·U) φ_q φ_qᵀ; then u_prev ← U[−1];
 //   backward sweep k = K−1..0 at order n+1 (Na = Np+1 nodes): with the
 //   primal interpolated into the element, (−Sᵀ − e_L e_Lᵀ + h/2·Σ_q w_q
-//   f_u φ_q φ_qᵀ) v = −h/2·M·g_u − e_R v_inflow (g_u ≡ 1: J = ∫u dt), then
+//   f_u φ_q φ_qᵀ) v = −h/2·M·g_u(u_h, t_n) − e_R v_inflow, then
 //   the primal residual at order n+1, res = Sᵀ u_h − e_R u_h[−1] + h/2·Σ_q
 //   w_q φ_q f + e_L u_prev, and err_k = vᵀ res; v_inflow ← v[0].
+// The goal J = ∫g(u, t) dt enters through g_u at the adjoint nodes, a
+// functor of odes.cuh chosen by the functional's kernel_id (a template
+// parameter): for J = ∫u (g_u ≡ 1) M·g_u is the folded row sums M·1; for
+// any other goal the kernel evaluates g_u at the Na interpolated primal
+// values u_h and node times t_n and forms −h/2·Σ_j M_ij·g_u(u_h[j], t_n[j])
+// in ascending j, as the TPU kernel sums it (dg_slab.py:205-211), from the
+// adjoint-order mass matrix and the node positions, appended to the tables.
 // Both systems are solved per thread in registers: unrolled Cramer
 // (cofactor expansion) for N ≤ 4, unrolled Gaussian elimination with
 // partial pivoting (selects, no branches) for N = 5..8 — march/dg_batched.py
@@ -50,7 +57,8 @@
 //
 // Tables. The quadrature loops run over a runtime count (n_gq is a caller's
 // choice) and read the folded tables: Φ, w·Φ, w·Φ⊗Φ, (1+r_q)/2, Sᵀ, the
-// mass row sums, and the primal→adjoint interpolation matrices, folded on
+// mass row sums, and the primal→adjoint interpolation matrices (and for a
+// goal other than J = ∫u the mass matrix and (1+r_i)/2), folded on
 // the host in double and rounded to float32 (as the TPU kernel folds them
 // into float32 immediates, dg_slab.py:96-117). They live on the device
 // (the wrapper's plan holds them), and each CTA copies them once into
@@ -76,7 +84,8 @@
 // member-element costs newton_iters × Nq_p quadrature points, each Np
 // interpolation FMAs, one (f, f_u) pair (a sincosf for sin u) and Np + Np²
 // accumulation FMAs, plus one Np×Np solve per Newton step, and the order
-// n+1 sweep (Nq_a points of Np + Na + Na² FMAs and one Na×Na solve). The
+// n+1 sweep (Nq_a points of Np + Na + Na² FMAs and one Na×Na solve; a goal
+// other than J = ∫u adds Na functor calls and Na² FMAs). The
 // bytes are a read of y0 and the times and a write of u, v and err. Each
 // member's work is one serial chain (Newton steps and elements depend on
 // the previous ones): the split shortens its quadrature part G-fold at the
@@ -107,13 +116,16 @@ struct Layout {
   static constexpr int kQp = NP * NP;                    // forward quadrature rows
   static constexpr int kQpStride = NP + 1 + NP + NP * NP;  // φ, (1+r)/2, wφ, wφφ
   static constexpr int kQaStride = NP + 1 + NA + NA * NA;  // φ_p→q, (1+r)/2, wφ, wφφ
-  int base_a, st_a, msum_a, to_nodes, qa;
-  __device__ explicit Layout(int nqp) {
+  static constexpr int kGoal = NA * NA + NA;               // M_a, (1+r_i)/2
+  int base_a, st_a, msum_a, to_nodes, qa, mass_a, c_nodes;
+  __device__ Layout(int nqp, int nqa) {
     base_a = kQp + nqp * kQpStride;
     st_a = base_a + NA * NA;
     msum_a = st_a + NA * NA;
     to_nodes = msum_a + NA;
     qa = to_nodes + NA * NP;
+    mass_a = qa + nqa * kQaStride;  // goals other than J = ∫u only
+    c_nodes = mass_a + NA * NA;
   }
 };
 
@@ -132,8 +144,9 @@ __device__ __forceinline__ void group_sums(float (&r)[N], float (&a)[N][N], int 
 }
 
 // D1 on G = g lanes a member, the n_tab floats of tables copied into shared
-// memory by the CTA; member m's times at times + m·m_stride (0: shared).
-template <int NP, class Ode>
+// memory by the CTA; member m's times at times + m·m_stride (0: shared);
+// the goal's adjoint source g_u by Goal.
+template <int NP, class Ode, class Goal>
 __global__ void __launch_bounds__(kDgMaxThreads)
 dg_estimate_kernel(int nb, int k_el, int newton_iters, int nqp, int nqa, int m_stride, int g,
                    int n_tab, int use_smem, const float* __restrict__ tables,
@@ -154,7 +167,7 @@ dg_estimate_kernel(int nb, int k_el, int newton_iters, int nqp, int nqa, int m_s
   const bool store = m_own < nb;
   const bool writes = store && lane == 0;
   const int m = store ? m_own : nb - 1;  // past B: the last member's inputs
-  const Layout<NP> lay(nqp);
+  const Layout<NP> lay(nqp, nqa);
   const float* tm = times + static_cast<long>(m) * m_stride;
   const float y0m = y0[m];
 
@@ -267,12 +280,24 @@ dg_estimate_kernel(int nb, int k_el, int newton_iters, int nqp, int nqa, int m_s
       }
     }
     group_sums<NA>(r, a, g);
+    float gu[NA];  // g_u at the adjoint nodes (a goal other than J = ∫u)
+    if constexpr (!Goal::kUnit) {
+#pragma unroll
+      for (int j = 0; j < NA; ++j) gu[j] = Goal::g_u(uh[j], tl + tab[lay.c_nodes + j] * h);
+    }
     float rhs[NA];
 #pragma unroll
     for (int i = 0; i < NA; ++i) {
 #pragma unroll
       for (int j = 0; j < NA; ++j) a[i][j] = tab[lay.base_a + i * NA + j] + hh * a[i][j];
-      rhs[i] = -hh * tab[lay.msum_a + i];
+      if constexpr (Goal::kUnit) {
+        rhs[i] = -hh * tab[lay.msum_a + i];
+      } else {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < NA; ++j) acc += tab[lay.mass_a + i * NA + j] * gu[j];
+        rhs[i] = -hh * acc;
+      }
     }
     rhs[NA - 1] = rhs[NA - 1] - v_in;
     float v[NA];
@@ -299,13 +324,13 @@ dg_estimate_kernel(int nb, int k_el, int newton_iters, int nqp, int nqa, int m_s
 }
 
 template <int NP>
-constexpr int table_size(int nqp, int nqa) {
+constexpr int table_size(int nqp, int nqa, bool goal) {
   return NP * NP + nqp * Layout<NP>::kQpStride + 2 * (NP + 1) * (NP + 1) + (NP + 1) +
-         (NP + 1) * NP + nqa * Layout<NP>::kQaStride;
+         (NP + 1) * NP + nqa * Layout<NP>::kQaStride + (goal ? Layout<NP>::kGoal : 0);
 }
 
 // One launch of ``lanes`` lanes a member on CTAs of ``threads``.
-template <int NP, class Ode>
+template <int NP, class Ode, class Goal>
 int launch_dg(int nb, int k_el, int newton_iters, int nqp, int nqa, int per_member, int lanes,
               int threads, int n_tab, const float* tables, const float* times, const float* y0,
               float* u, float* v, float* err, const OdeConsts& kc, cudaStream_t stream) {
@@ -314,21 +339,21 @@ int launch_dg(int nb, int k_el, int newton_iters, int nqp, int nqa, int per_memb
   const long store_bytes = static_cast<long>(k_el) * NP * per_block * sizeof(float);
   const int use_smem = tab_bytes + store_bytes <= kSmemCap ? 1 : 0;
   const int blocks = (nb + per_block - 1) / per_block;
-  dg_estimate_kernel<NP, Ode>
+  dg_estimate_kernel<NP, Ode, Goal>
       <<<blocks, threads, tab_bytes + (use_smem ? store_bytes : 0), stream>>>(
           nb, k_el, newton_iters, nqp, nqa, per_member ? k_el + 1 : 0, lanes, n_tab, use_smem,
           tables, times, y0, u, v, err, kc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Ode>
+template <class Ode, class Goal>
 int launch_np(int np_p, int nb, int k_el, int newton_iters, int nqp, int nqa, int per_member,
               int lanes, int threads, int n_tab, const float* tables, const float* times,
               const float* y0, float* u, float* v, float* err, const OdeConsts& kc,
               cudaStream_t stream) {
 #define AOA_DG_NP(N)                                                                        \
   case N:                                                                                   \
-    return launch_dg<N, Ode>(nb, k_el, newton_iters, nqp, nqa, per_member, lanes, threads, \
+    return launch_dg<N, Ode, Goal>(nb, k_el, newton_iters, nqp, nqa, per_member, lanes, threads, \
                              n_tab, tables, times, y0, u, v, err, kc, stream);
   switch (np_p) {
     AOA_DG_NP(1)
@@ -344,17 +369,30 @@ int launch_np(int np_p, int nb, int k_el, int newton_iters, int nqp, int nqa, in
 #undef AOA_DG_NP
 }
 
-int expected_tables(int np_p, int nqp, int nqa) {
+int expected_tables(int np_p, int nqp, int nqa, bool goal) {
   switch (np_p) {
-    case 1: return table_size<1>(nqp, nqa);
-    case 2: return table_size<2>(nqp, nqa);
-    case 3: return table_size<3>(nqp, nqa);
-    case 4: return table_size<4>(nqp, nqa);
-    case 5: return table_size<5>(nqp, nqa);
-    case 6: return table_size<6>(nqp, nqa);
-    case 7: return table_size<7>(nqp, nqa);
+    case 1: return table_size<1>(nqp, nqa, goal);
+    case 2: return table_size<2>(nqp, nqa, goal);
+    case 3: return table_size<3>(nqp, nqa, goal);
+    case 4: return table_size<4>(nqp, nqa, goal);
+    case 5: return table_size<5>(nqp, nqa, goal);
+    case 6: return table_size<6>(nqp, nqa, goal);
+    case 7: return table_size<7>(nqp, nqa, goal);
     default: return -1;
   }
+}
+
+// The goal's instance: gu_id is the functional's kernel_id (odes.cuh).
+template <class Ode>
+int launch_goal(int gu_id, int np_p, int nb, int k_el, int newton_iters, int nqp, int nqa,
+                int per_member, int lanes, int threads, int n_tab, const float* tables,
+                const float* times, const float* y0, float* u, float* v, float* err,
+                const OdeConsts& kc, cudaStream_t stream) {
+#define AOA_GOAL(GOAL)                                                                      \
+  launch_np<Ode, GOAL>(np_p, nb, k_el, newton_iters, nqp, nqa, per_member, lanes, threads, \
+                       n_tab, tables, times, y0, u, v, err, kc, stream)
+  AOA_GOAL_SWITCH(gu_id, AOA_GOAL)
+#undef AOA_GOAL
 }
 
 }  // namespace
@@ -365,10 +403,12 @@ extern "C" {
 // ODE id the kernel does not take (or trig="fast" on another ODE than
 // sin(u)), -4 for Np outside 1..7, -5 when the tables exceed the kernel's
 // shared-memory buffer, -6 when their length does not match (np_p, nqp,
-// nqa), -8 for a launch plan the kernel does not take (lanes a power of two
-// ≤ 32, threads a multiple of 32 ≤ 256). `tables` is a device pointer;
-// per_member = 1: times is (B, K+1); 0: times is (K+1,).
-int dg_estimate_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const float* consts,
+// nqa, the goal), -8 for a launch plan the kernel does not take (lanes a
+// power of two ≤ 32, threads a multiple of 32 ≤ 256), -9 for a goal id
+// (gu_id, the functional's kernel_id) the kernel does not take. `tables` is
+// a device pointer; per_member = 1: times is (B, K+1); 0: times is (K+1,).
+int dg_estimate_ensemble(int ode_id, int fast_trig, int gu_id, int n_u, int n_t,
+                         const float* consts,
                          const float* tables, int n_tables, int np_p, int nqp, int nqa, int nb,
                          int k_el, int newton_iters, int per_member, int lanes, int threads,
                          const float* times, const float* y0, float* u, float* v, float* err,
@@ -376,15 +416,16 @@ int dg_estimate_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const floa
   if (fast_trig && ode_id != 1) return -2;
   if (np_p < 1 || np_p > 7) return -4;
   if (n_tables > kMaxTables) return -5;
-  if (n_tables != expected_tables(np_p, nqp, nqa)) return -6;
+  if (gu_id < 0 || gu_id > 1) return -9;
+  if (n_tables != expected_tables(np_p, nqp, nqa, gu_id != 0)) return -6;
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || threads < 32 ||
       threads > kDgMaxThreads || threads % 32 != 0)
     return -8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const OdeConsts kc = pack_consts(n_u, n_t, consts);
-#define AOA_LAUNCH(ODE)                                                                  \
-  launch_np<ODE>(np_p, nb, k_el, newton_iters, nqp, nqa, per_member, lanes, threads,     \
-                 n_tables, tables, times, y0, u, v, err, kc, s)
+#define AOA_LAUNCH(ODE)                                                                   \
+  launch_goal<ODE>(gu_id, np_p, nb, k_el, newton_iters, nqp, nqa, per_member, lanes,      \
+                   threads, n_tables, tables, times, y0, u, v, err, kc, s)
   AOA_ODE_SCALAR_SWITCH(ode_id, fast_trig, AOA_LAUNCH)
 #undef AOA_LAUNCH
 }
@@ -395,6 +436,7 @@ const char* dg_slab_error_string(int code) {
   if (code == -5) return "folded tables exceed the kernel's shared-memory buffer (n_gq too large)";
   if (code == -6) return "folded table length does not match (Np, Nq_p, Nq_a)";
   if (code == -8) return "launch plan out of range (lanes 1..32 a power of two, threads 32..256 in warps)";
+  if (code == -9) return "goal functional kernel_id not implemented by this kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

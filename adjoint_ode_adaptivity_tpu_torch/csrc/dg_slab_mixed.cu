@@ -14,13 +14,20 @@
 //   padded to NP nodes; the padding identity keeps the padded unknowns 0),
 //   then u_prev ← U[n] (the dynamic right endpoint);
 //   backward sweep at order ns+1 (adjoint_mode "solve": (−Sᵀ − e_0 e_0ᵀ +
-//   pad_eye + h/2·Σ_q w_q f_u φ_q φ_qᵀ) v = −h/2·M·1 − e_{n+1} v_in) or the
+//   pad_eye + h/2·Σ_q w_q f_u φ_q φ_qᵀ) v = −h/2·M·g_u − e_{n+1} v_in) or the
 //   low solve at order ns with the inflow at node n, lifted to n+1 by the
 //   Radau tables (adjoint_mode "reconstruct"); then the order-(n+1) primal
 //   residual of the interpolated coarse solution, res = Sᵀ u_h − e_{n+1}
 //   u_h[n+1] + h/2·Σ_q w_q φ_q f + e_0 u_prev, and err_k = vᵀ res; the inflow
 //   of element k−1 is v[0] (solve) or the low solution's v[0] (reconstruct).
-// g_u ≡ 1 (J = ∫u dt), as in dg_slab.cu.
+// The goal J = ∫g(u, t) dt enters through g_u, a functor of odes.cuh chosen
+// by the functional's kernel_id (a template parameter), as in dg_slab.cu:
+// for J = ∫u the kernel reads M·1 as the folded row sums; for any other goal
+// it evaluates g_u at the system's live nodes (the interpolated u_h at order
+// n+1, or the coarse states at order n in "reconstruct") and 0 at the
+// padding, as the TPU kernel's live mask does (dg_slab_mixed.py:379), and
+// sums −h/2·Σ_j M_ij·g_u[j] in ascending j from the order's padded mass
+// matrix. The mask matters wherever g_u(0) ≠ 0 or g_u is singular at 0.
 //
 // Design for this card, not a copy of the TPU's: the TPU blends every
 // order's table into per-member tiles with masks, since it cannot gather per
@@ -96,14 +103,16 @@ constexpr int kMaxHpTables = 12 * 1024;  // floats: 48 KB of dynamic shared memo
 // ops/cuda/dg_slab_mixed.py kernel_tables: w_q (Q), (1 + r_q)/2 (Q), then
 // per stack order s (order s+1): A_fwd, A_adj, Sᵀ (NP² each), mass row sums
 // (NP), Φ (Q×NP); then per primal order p (order p+1): to_nodes, eval_rad,
-// to_hi (NP² each), to_quad (Q×NP).
+// to_hi (NP² each), to_quad (Q×NP); then, for a goal other than J = ∫u, per
+// stack order s: the padded mass matrix (NP²) and (1 + r_i)/2 (NP).
 template <int NP>
 struct HpLayout {
-  int nq, stack_stride, prim_stride, prim0;
+  int nq, stack_stride, prim_stride, prim0, goal0;
   __device__ HpLayout(int nq_, int n_stack) : nq(nq_) {
     stack_stride = 3 * NP * NP + NP + nq * NP;
     prim_stride = 3 * NP * NP + nq * NP;
     prim0 = 2 * nq + n_stack * stack_stride;
+    goal0 = prim0 + (n_stack - 1) * prim_stride;
   }
   __device__ int a_fwd(int s) const { return 2 * nq + s * stack_stride; }
   __device__ int a_adj(int s) const { return a_fwd(s) + NP * NP; }
@@ -114,11 +123,14 @@ struct HpLayout {
   __device__ int eval_rad(int p) const { return to_nodes(p) + NP * NP; }
   __device__ int to_hi(int p) const { return to_nodes(p) + 2 * NP * NP; }
   __device__ int to_quad(int p) const { return to_nodes(p) + 3 * NP * NP; }
+  __device__ int mass(int s) const { return goal0 + s * (NP * NP + NP); }
+  __device__ int c_nodes(int s) const { return mass(s) + NP * NP; }
 };
 
-int table_size(int np_max, int nq, int n_stack) {
+int table_size(int np_max, int nq, int n_stack, bool goal) {
   return 2 * nq + n_stack * (3 * np_max * np_max + np_max + nq * np_max) +
-         (n_stack - 1) * (3 * np_max * np_max + nq * np_max);
+         (n_stack - 1) * (3 * np_max * np_max + nq * np_max) +
+         (goal ? n_stack * (np_max * np_max + np_max) : 0);
 }
 
 // The group's sum of x: rounds m = 1, 2, …, g/2 of x += shfl_xor(x, m),
@@ -227,7 +239,7 @@ __device__ void march(const float* tab, const HpLayout<NP>& lay, int m, int nb, 
   }
 }
 
-template <int NP, class Ode>
+template <int NP, class Ode, class Goal>
 __global__ void __launch_bounds__(kHpMaxThreads)
 hp_kernel(int nb, int k_el, int newton_iters, int nq, int n_stack, int fine_offset,
           int reconstruct, int g, int n_tables, const float* __restrict__ tables,
@@ -288,12 +300,30 @@ hp_kernel(int nb, int k_el, int newton_iters, int nq, int n_stack, int fine_offs
     quad_sums<NP, Ode>(tab, nq, lane, g, to_q, ue, phi_a, phi_s, tl, h, kc, ra, a);
     const float* a_tab = tab + lay.a_adj(s_sys);
     const float* msum = tab + lay.msum(s_sys);
+    float gu[NP];  // g_u at the system's live nodes, 0 at the padding
+    if constexpr (!Goal::kUnit) {
+      const float* c_n = tab + lay.c_nodes(s_sys);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const float x = reconstruct ? ue[j] : uh[j];
+        gu[j] = (j <= e_in) ? Goal::g_u(x, tl + c_n[j] * h) : 0.f;
+      }
+    }
     float rhs[NP];
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
 #pragma unroll
       for (int j = 0; j < NP; ++j) a[i][j] = a_tab[i * NP + j] + hh * a[i][j];
-      const float r = -hh * msum[i];
+      float r;
+      if constexpr (Goal::kUnit) {
+        r = -hh * msum[i];
+      } else {
+        const float* m_row = tab + lay.mass(s_sys) + i * NP;
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < NP; ++j) acc += m_row[j] * gu[j];
+        r = -hh * acc;
+      }
       rhs[i] = (i == e_in) ? r - v_in : r;
     }
     float w[NP];
@@ -350,7 +380,7 @@ hp_kernel(int nb, int k_el, int newton_iters, int nq, int n_stack, int fine_offs
   }
 }
 
-template <int NP, class Ode>
+template <int NP, class Ode, class Goal>
 int launch_hp(int nb, int k_el, int newton_iters, int nq, int n_stack, int fine_offset,
               int reconstruct, int lanes, int threads, int n_tables, const float* tables,
               const float* times, const int* ns, const float* y0, float* uc, float* uf,
@@ -358,13 +388,13 @@ int launch_hp(int nb, int k_el, int newton_iters, int nq, int n_stack, int fine_
   const int per_block = threads / lanes;
   const int blocks = (nb + per_block - 1) / per_block;
   const size_t smem = static_cast<size_t>(n_tables) * sizeof(float);
-  hp_kernel<NP, Ode><<<blocks, threads, smem, stream>>>(
+  hp_kernel<NP, Ode, Goal><<<blocks, threads, smem, stream>>>(
       nb, k_el, newton_iters, nq, n_stack, fine_offset, reconstruct, lanes, n_tables, tables,
       times, ns, y0, uc, uf, v, err, kc);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Ode>
+template <class Ode, class Goal>
 int launch_np(int np_max, int nb, int k_el, int newton_iters, int nq, int n_stack,
               int fine_offset, int reconstruct, int lanes, int threads, int n_tables,
               const float* tables, const float* times, const int* ns, const float* y0,
@@ -372,7 +402,7 @@ int launch_np(int np_max, int nb, int k_el, int newton_iters, int nq, int n_stac
               cudaStream_t stream) {
 #define AOA_HP_NP(N)                                                                         \
   case N:                                                                                    \
-    return launch_hp<N, Ode>(nb, k_el, newton_iters, nq, n_stack, fine_offset, reconstruct, \
+    return launch_hp<N, Ode, Goal>(nb, k_el, newton_iters, nq, n_stack, fine_offset, reconstruct, \
                              lanes, threads, n_tables, tables, times, ns, y0, uc, uf, v, err, \
                              kc, stream);
   switch (np_max) {
@@ -388,6 +418,21 @@ int launch_np(int np_max, int nb, int k_el, int newton_iters, int nq, int n_stac
 #undef AOA_HP_NP
 }
 
+// The goal's instance: gu_id is the functional's kernel_id (odes.cuh).
+template <class Ode>
+int launch_goal(int gu_id, int np_max, int nb, int k_el, int newton_iters, int nq, int n_stack,
+                int fine_offset, int reconstruct, int lanes, int threads, int n_tables,
+                const float* tables, const float* times, const int* ns, const float* y0,
+                float* uc, float* uf, float* v, float* err, const OdeConsts& kc,
+                cudaStream_t stream) {
+#define AOA_HP_GOAL(GOAL)                                                                    \
+  launch_np<Ode, GOAL>(np_max, nb, k_el, newton_iters, nq, n_stack, fine_offset, reconstruct, \
+                       lanes, threads, n_tables, tables, times, ns, y0, uc, uf, v, err, kc,  \
+                       stream)
+  AOA_GOAL_SWITCH(gu_id, AOA_HP_GOAL)
+#undef AOA_HP_GOAL
+}
+
 }  // namespace
 
 extern "C" {
@@ -395,12 +440,13 @@ extern "C" {
 // Return 0 on success, a cudaError_t code after a failed launch, -2 for an
 // ODE id the kernel does not take, -4 for np_max outside 3..8, -5 when the
 // tables exceed the kernel's shared-memory buffer, -6 when their length does
-// not match (np_max, nq, n_stack), -7 for a stack that is not np_max − 1
-// orders deep or an offset outside 1..n_stack − 1, -8 for a launch plan the
-// kernel does not take (lanes a power of two ≤ 32, threads a multiple of 32
-// ≤ 256). `tables` is a device pointer; times is (K+1, B), ns (K, B) int32,
-// the outputs (K, np_max, B) and err (K, B).
-int dg_estimate_hp_per_member(int ode_id, int n_u, int n_t, const float* consts,
+// not match (np_max, nq, n_stack, the goal), -7 for a stack that is not
+// np_max − 1 orders deep or an offset outside 1..n_stack − 1, -8 for a
+// launch plan the kernel does not take (lanes a power of two ≤ 32, threads
+// a multiple of 32 ≤ 256), -9 for a goal id (gu_id, the functional's
+// kernel_id) the kernel does not take. `tables` is a device pointer; times
+// is (K+1, B), ns (K, B) int32, the outputs (K, np_max, B) and err (K, B).
+int dg_estimate_hp_per_member(int ode_id, int gu_id, int n_u, int n_t, const float* consts,
                               const float* tables, int n_tables, int np_max, int nq,
                               int n_stack, int fine_offset, int reconstruct, int lanes,
                               int threads, int nb, int k_el, int newton_iters,
@@ -408,16 +454,18 @@ int dg_estimate_hp_per_member(int ode_id, int n_u, int n_t, const float* consts,
                               float* uf, float* v, float* err, void* stream) {
   if (np_max < 3 || np_max > 8) return -4;
   if (n_stack != np_max - 1 || fine_offset < 1 || fine_offset >= n_stack) return -7;
-  if (n_tables != table_size(np_max, nq, n_stack)) return -6;
+  if (gu_id < 0 || gu_id > 1) return -9;
+  if (n_tables != table_size(np_max, nq, n_stack, gu_id != 0)) return -6;
   if (n_tables > kMaxHpTables) return -5;
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || threads < 32 ||
       threads > kHpMaxThreads || threads % 32 != 0)
     return -8;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const OdeConsts kc = pack_consts(n_u, n_t, consts);
-#define AOA_HP_LAUNCH(ODE)                                                                     \
-  launch_np<ODE>(np_max, nb, k_el, newton_iters, nq, n_stack, fine_offset, reconstruct,       \
-                 lanes, threads, n_tables, tables, times, ns, y0, uc, uf, v, err, kc, s)
+#define AOA_HP_LAUNCH(ODE)                                                                   \
+  launch_goal<ODE>(gu_id, np_max, nb, k_el, newton_iters, nq, n_stack, fine_offset,         \
+                   reconstruct, lanes, threads, n_tables, tables, times, ns, y0, uc, uf, v, \
+                   err, kc, s)
   switch (ode_id) {
     case 0: return AOA_HP_LAUNCH(OdeLinear);
     case 1: return AOA_HP_LAUNCH(OdeSin<Libm>);
@@ -437,6 +485,7 @@ const char* dg_slab_mixed_error_string(int code) {
   if (code == -6) return "folded table length does not match (np_max, nq, n_stack)";
   if (code == -7) return "stack depth or fine_offset out of range";
   if (code == -8) return "launch plan out of range (lanes 1..32 a power of two, threads 32..256 in warps)";
+  if (code == -9) return "goal functional kernel_id not implemented by this kernel";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

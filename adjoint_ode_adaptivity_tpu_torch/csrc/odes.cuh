@@ -1,6 +1,7 @@
 // The ODE right-hand sides of the registry (odes.py KERNEL_IDS) as device
 // functors, shared by the FD kernels (fd_ensemble.cu) and the DG-in-time
-// slab kernel (dg_slab.cu). Each functor gives f(u, t) and the pair
+// slab kernels (dg_slab.cu, dg_slab_mixed.cu), and the goal functionals'
+// adjoint sources g_u (functionals.py kernel_id) of the DG-in-time kernels. Each functor gives f(u, t) and the pair
 // (f, f_u) of one point, evaluated together (sin and cos from one sincosf);
 // the trig policy of OdeSin is libm (sincosf) or the shared-x² polynomials
 // of ops/fast_trig.py (FastTrig, |x| ≤ 4). The gaussian mixture's constants
@@ -185,6 +186,28 @@ struct OdeHarmonic {  // u'' = −ω²u, ω = 2, as (u, u')
     case 4: return LAUNCH(OdeTSin);                                          \
     case 5: return LAUNCH(OdeGaussMix);                                      \
     default: return -2;                                                      \
+  }
+
+// ---- goal functionals J = ∫ g(u, t) dt: the adjoint's source g_u(u, t)
+// at a node. kUnit marks g_u ≡ 1: the kernels then read M·g_u as the folded
+// row sums M·1 and need neither the mass matrix nor a functor call.
+struct GoalIntU {  // J = ∫u dt
+  static constexpr bool kUnit = true;
+  __device__ static float g_u(float, float) { return 1.f; }
+};
+
+struct GoalIntU2 {  // J = ∫u² dt
+  static constexpr bool kUnit = false;
+  __device__ static float g_u(float u, float) { return 2.f * u; }
+};
+
+// kernel_id of the registry functional (functionals.py): 0 J=int(u),
+// 1 J=int(u^2); -9 for any other.
+#define AOA_GOAL_SWITCH(id, LAUNCH)   \
+  switch (id) {                       \
+    case 0: return LAUNCH(GoalIntU);  \
+    case 1: return LAUNCH(GoalIntU2); \
+    default: return -9;               \
   }
 
 }  // namespace aoa

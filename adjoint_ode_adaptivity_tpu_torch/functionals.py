@@ -18,7 +18,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["Functional", "get_functional", "get_k", "FUNCTIONAL_REGISTRY", "terminal_abs_error"]
+__all__ = ["Functional", "get_functional", "get_k", "FUNCTIONAL_REGISTRY", "terminal_abs_error",
+           "kernel_goal"]
 
 
 class Functional(NamedTuple):
@@ -27,6 +28,9 @@ class Functional(NamedTuple):
     g_u: Callable | None  # integrand derivative g_u(u, t) for the continuous adjoint
     terminal: float  # continuous-adjoint terminal condition a(T)
     linear: bool
+    # the DG-in-time kernels' functor of g_u (csrc/odes.cuh AOA_GOAL_SWITCH):
+    # 0 g_u ≡ 1, 1 g_u = 2u; None where g_u is no elementwise adjoint source
+    kernel_id: int | None = None
 
 
 def _j_int_u(u, dt):
@@ -42,14 +46,32 @@ def _j_u_n(u, dt):
 
 
 FUNCTIONAL_REGISTRY: dict[str, Functional] = {
-    "J=int(u)": Functional("J=int(u)", _j_int_u, lambda u, t: torch.ones_like(u), 0.0, True),
-    "J=int(u^2)": Functional("J=int(u^2)", _j_int_u2, lambda u, t: 2.0 * u, 0.0, False),
+    "J=int(u)": Functional("J=int(u)", _j_int_u, lambda u, t: torch.ones_like(u), 0.0, True, 0),
+    "J=int(u^2)": Functional("J=int(u^2)", _j_int_u2, lambda u, t: 2.0 * u, 0.0, False, 1),
+    # g_u ≡ 0: the goal is a terminal condition, not an elementwise source
     "J=u_N": Functional("J=u_N", _j_u_n, lambda u, t: torch.zeros_like(u), 1.0, True),
 }
 
 
 def get_functional(name: str) -> Functional:
     return FUNCTIONAL_REGISTRY[name]
+
+
+def kernel_goal(g_u) -> Functional:
+    """The registry functional whose adjoint source is ``g_u``, for the
+    DG-in-time kernels: J = ∫u for ``None``, else the functional with a
+    ``kernel_id`` whose ``g_u`` (or which) this is. A bare callable raises:
+    the kernels evaluate g_u on the card by a functor of csrc/odes.cuh, not
+    a Python function."""
+    if g_u is None:
+        return FUNCTIONAL_REGISTRY["J=int(u)"]
+    for fn in FUNCTIONAL_REGISTRY.values():
+        if fn.kernel_id is not None and (g_u is fn or g_u is fn.g_u):
+            return fn
+    names = [n for n, fn in FUNCTIONAL_REGISTRY.items() if fn.kernel_id is not None]
+    raise ValueError(f"the CUDA kernels evaluate g_u on the card and take a registry "
+                     f"functional's (get_functional(name).g_u, name in {names}), not the bare "
+                     f"callable {g_u!r}")
 
 
 def get_k(functional: Functional, u: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:

@@ -113,13 +113,13 @@ class KernelLibrary:
         lib.fd_estimate_per_member.argtypes = ([i, i, i, p, i, i, i, i, ctypes.c_float]
                                                + [i] * 3 + [p] * 5)
         lib.fd_estimate_per_member.restype = i
-        lib.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 10 + [p] * 6
+        lib.dg_estimate_ensemble.argtypes = [i] * 5 + [p] * 2 + [i] * 10 + [p] * 6
         lib.dg_estimate_ensemble.restype = i
-        lib.dg_estimate_hp_per_member.argtypes = [i] * 3 + [p] * 2 + [i] * 11 + [p] * 8
+        lib.dg_estimate_hp_per_member.argtypes = [i] * 4 + [p] * 2 + [i] * 11 + [p] * 8
         lib.dg_estimate_hp_per_member.restype = i
         lib.resblock_epoch_grad.argtypes = [i] * 5 + [p] * 6 + [d] * 2 + [p] * 5
         lib.resblock_epoch_grad.restype = i
-        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 4 + [p] * 4 + [d] + [p] * 6
+        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 5 + [p] * 4 + [d] + [p] * 6
         lib.dense_epoch_grad.restype = i
         for name in ("burgers_march_f32", "burgers_march_f64"):
             getattr(lib, name).argtypes = [i] * 9 + [p] * 7

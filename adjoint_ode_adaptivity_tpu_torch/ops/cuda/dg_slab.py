@@ -30,10 +30,14 @@ kernel to the plain version. The wrapper counts its launches in
 ``.launches``. :func:`dg_kernel_tolerance` gives the per-member,
 per-element bounds within which the kernel agrees with its plain version.
 
+The goal J = ∫g(u, t) dt enters as the adjoint's source g_u at the adjoint
+nodes. The kernel takes the registry functionals with a ``kernel_id``
+(functionals.py: J = ∫u, g_u ≡ 1, read as the folded mass row sums; J = ∫u²,
+g_u = 2u, evaluated by a functor of csrc/odes.cuh against the adjoint-order
+mass matrix); a bare ``g_u`` callable raises.
+
 The TPU tiling (the (8, B/8) member tiles, ``pick_lane_block``,
-``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1. Only
-J = ∫u dt (g_u ≡ 1) is supported — the functional the loops and dg_adaptive
-use; another ``g_u`` raises (a functional id is later work, ROADMAP).
+``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch import odes
+from adjoint_ode_adaptivity_tpu_torch import functionals, odes
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import _interp_ops
 from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import dg_estimate_batched, solve_small
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import DGTimeOperators
@@ -121,9 +125,12 @@ class DgSlabPlan(NamedTuple):
     consts: np.ndarray
     n_modes: tuple
     device: torch.device
+    gu_id: int = 0  # the goal's kernel_id (functionals.py): 0 J = ∫u, 1 J = ∫u²
+    g_u: object = None  # its g_u for the plain version (None: g_u ≡ 1)
 
 
-def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators) -> np.ndarray:
+def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators,
+                  goal: bool = False) -> np.ndarray:
     """The kernel's tables folded in float64 (csrc/dg_slab.cu ``Layout``):
 
     forward (order n, Np nodes): A = Sᵀ with A[−1,−1] −= 1 (Np²), then per
@@ -131,7 +138,9 @@ def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators) -> np.ndarray:
     adjoint (Na = Np+1): −Sᵀ − e_L e_Lᵀ (Na²), Sᵀ (Na²), the mass row sums
     (Na; M·g_u with g_u ≡ 1), the primal→adjoint-node interpolation (Na×Np),
     then per adjoint quadrature point: the primal→quadrature row (Np),
-    (1+r_q)/2, w_q·φ_q (Na), w_q·φ_q φ_qᵀ (Na²)."""
+    (1+r_q)/2, w_q·φ_q (Na), w_q·φ_q φ_qᵀ (Na²); with ``goal`` (a g_u other
+    than ≡ 1) then the mass matrix M (Na²) and the node positions (1+r_i)/2
+    (Na)."""
     np_p = ops_p.np_
     a_p = ops_p.stiff.T.copy()
     a_p[-1, -1] -= 1.0
@@ -148,6 +157,8 @@ def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators) -> np.ndarray:
     for q in range(ops_a.phi.shape[0]):
         phi, w = ops_a.phi[q], ops_a.wq[q]
         parts += [to_quad[q], [(1.0 + ops_a.rq[q]) / 2.0], phi * w, np.outer(phi * w, phi).ravel()]
+    if goal:
+        parts += [ops_a.mass.ravel(), (1.0 + np.asarray(ops_a.r)) / 2.0]
     return np.concatenate([np.asarray(p, dtype=np.float64).ravel() for p in parts])
 
 
@@ -162,10 +173,11 @@ def _fns(plan: DgSlabPlan):
 
 def dg_estimate_ensemble_plain(times: torch.Tensor, y0s: torch.Tensor, plan: DgSlabPlan):
     """D1's plain version: ``dg_estimate_batched`` with the plan's ODE (or
-    the fast-trig polynomials), ``newton_iters`` Newton steps and g_u ≡ 1, in
-    the inputs' dtype. Returns ``(u (B,K,Np), v (B,K,Np+1), err (B,K))``."""
+    the fast-trig polynomials), ``newton_iters`` Newton steps and the plan's
+    goal (g_u), in the inputs' dtype. Returns ``(u (B,K,Np), v (B,K,Np+1),
+    err (B,K))``."""
     f, f_u = _fns(plan)
-    return dg_estimate_batched(plan.ops_p, plan.ops_a, f, times, y0s, f_u=f_u,
+    return dg_estimate_batched(plan.ops_p, plan.ops_a, f, times, y0s, f_u=f_u, g_u=plan.g_u,
                                newton_iters=plan.newton_iters)
 
 
@@ -213,6 +225,8 @@ class _Tables(NamedTuple):
     c_a: torch.Tensor  # (Qa,)
     wphi_a: torch.Tensor  # (Qa, Na)
     wphiphi_a: torch.Tensor  # (Qa, Na, Na)
+    mass_a: torch.Tensor | None  # (Na, Na), a goal other than J = ∫u only
+    c_nodes: torch.Tensor | None  # (Na,) (1 + r_i)/2
 
 
 def _unpack(plan: DgSlabPlan, like: torch.Tensor) -> _Tables:
@@ -232,10 +246,11 @@ def _unpack(plan: DgSlabPlan, like: torch.Tensor) -> _Tables:
     rows = take(qp, 2 * npp + 1 + npp * npp)
     base_a, st_a, msum, to_nodes = take(na, na), take(na, na), take(na), take(na, npp)
     rows_a = take(qa, npp + 1 + na + na * na)
+    goal = (take(na, na), take(na)) if plan.gu_id != 0 else (None, None)
     return _Tables(a_p, rows[:, :npp], rows[:, npp], rows[:, npp + 1:2 * npp + 1],
                    rows[:, 2 * npp + 1:].reshape(qp, npp, npp), base_a, st_a, msum, to_nodes,
                    rows_a[:, :npp], rows_a[:, npp], rows_a[:, npp + 1:npp + 1 + na],
-                   rows_a[:, npp + 1 + na:].reshape(qa, na, na))
+                   rows_a[:, npp + 1 + na:].reshape(qa, na, na), *goal)
 
 
 def _member_times(times, b: int):
@@ -247,8 +262,9 @@ def dg_estimate_ensemble_lanes_plain(times: torch.Tensor, y0s: torch.Tensor, pla
     """D1's algorithm in plain PyTorch with its sum order at ``lanes`` (G)
     lanes a member: the kernel's float32 tables, every quadrature loop
     summed by :func:`_lane_sum`, the assembly, the interpolations and vᵀres
-    as the kernel's unrolled chains, each member's elements and Newton steps
-    in the kernel's order, the systems solved by ``solve_small`` (the
+    as the kernel's unrolled chains (the goal's M·g_u too), each member's
+    elements and Newton steps in the kernel's order, the systems solved by
+    ``solve_small`` (the
     kernel's Cramer and pivoted elimination). Products are rounded apart
     (the kernel contracts them into FMAs), so this holds the sum order, not
     the kernel's bits. Returns ``(u (B,K,Np), v (B,K,Np+1), err (B,K))`` as
@@ -289,7 +305,11 @@ def dg_estimate_ensemble_lanes_plain(times: torch.Tensor, y0s: torch.Tensor, pla
         fq, fuq = f(uq, t_q), f_u(uq, t_q)
         r = _lane_sum(tb.wphi_a * fq[..., None], lanes)
         a = tb.base_a + hh[:, None, None] * _lane_sum(tb.wphiphi_a * fuq[..., None, None], lanes)
-        rhs = -hh[:, None] * tb.msum
+        if tb.mass_a is None:
+            rhs = -hh[:, None] * tb.msum
+        else:
+            gu = plan.g_u(uh, tl[:, None] + tb.c_nodes * h[:, None])
+            rhs = -hh[:, None] * _seq_dot(tb.mass_a, gu[:, None, :])
         rhs[:, -1] = rhs[:, -1] - v_in
         v = solve_small(a.permute(1, 2, 0), rhs.T).T
         acc = _seq_dot(tb.st_a, uh[:, None, :]) + hh[:, None] * r
@@ -320,7 +340,10 @@ def dg_kernel_tolerance(times: torch.Tensor, y0s: torch.Tensor, plain, plan: DgS
       system J_a (at the plain u), its inflow at the right end carried in
       backward from element k+1 through J_a⁻¹'s last column, plus the
       states' own error through f_u: |f_u(u_q ± δ_q) − f_u(u_q)| with
-      δ_q = Σ_j|T_qj|·ub_k.
+      δ_q = Σ_j|T_qj|·ub_k. The source's terms are h/2·|M·1| for J = ∫u
+      and h/2·Σ_j|M_ij|·|g_u(u_h,j, t_j)| for another goal, which also
+      carries the nodes' error through g_u: h/2·Σ_j|M_ij|·|g_u(u_h,j ± δ_j)
+      − g_u(u_h,j)| with δ_j = Σ_l|T_jl|·ub_k + 8ε·(|T||u|)_j.
     - ``err`` (B, K), per element 8·ε·scale_k, with scale_k =
       Σ_i |v_i|·(Σ_j |Sᵀ_ij|·(|T||u|)_j + h/2·Σ_q |φ_qi|·w_q·(|f_q| +
       |f_u,q|·(|T_q||u|)_q) + [i = 0]·|u_prev| + [i = Na−1]·(|T||u|)_{Na−1}),
@@ -391,9 +414,22 @@ def dg_kernel_tolerance(times: torch.Tensor, y0s: torch.Tensor, plain, plan: DgS
     carry_a = jinv_a[..., :, -1].abs().amax(dim=-1)
     v_in = torch.cat([v[:, 1:, 0], torch.zeros_like(v[:, :1, 0])], dim=1)  # (B, K)
     w_q = torch.einsum("qi,bki->bkq", phi_a, v).abs()
-    mag_a = (torch.einsum("bkij,bkj->bki", j_abs, v.abs()) + hh[..., None] * msum.abs())
-    mag_a[..., -1] = mag_a[..., -1] + v_in.abs()
     du = hh[..., None] * torch.einsum("qi,bkq->bki", phi_a.abs(), wq_a * dfu * w_q)
+    if plan.gu_id == 0:  # M·1, the folded row sums
+        src = hh[..., None] * msum.abs()
+    else:  # M·g_u(u_h, t_n), and the nodes' own error through g_u
+        mass = tab(ops_a.mass)
+        u_n = torch.einsum("ij,bkj->bki", to_nodes, u)
+        t_n = tl[..., None] + tab((1.0 + np.asarray(ops_a.r)) / 2.0) * h[..., None]
+        g_n = plan.g_u(u_n, t_n)
+        src = hh[..., None] * torch.einsum("ij,bkj->bki", mass.abs(), g_n.abs())
+        d_n = (to_nodes.abs().sum(dim=-1) * ub[..., None]
+               + 8 * eps * torch.einsum("ij,bkj->bki", to_nodes.abs(), u.abs()))
+        dg = torch.maximum((plan.g_u(u_n + d_n, t_n) - g_n).abs(),
+                           (plan.g_u(u_n - d_n, t_n) - g_n).abs())
+        du = du + hh[..., None] * torch.einsum("ij,bkj->bki", mass.abs(), dg)
+    mag_a = torch.einsum("bkij,bkj->bki", j_abs, v.abs()) + src
+    mag_a[..., -1] = mag_a[..., -1] + v_in.abs()
     local_a = torch.einsum("bkij,bkj->bki", jinv_a.abs(), 8 * eps * mag_a + du).amax(dim=-1)
     vb, vbs = torch.zeros_like(local_a[:, 0]), [None] * local_a.shape[1]
     for k in range(local_a.shape[1] - 1, -1, -1):
@@ -471,7 +507,8 @@ def _d1_launch(times, y0s, plan: DgSlabPlan, launch: D1Launch):
     v = torch.empty((k, np_a, b), dtype=torch.float32, device=y0s.device)
     err = torch.empty((k, b), dtype=torch.float32, device=y0s.device)
     code = lib.lib.dg_estimate_ensemble(
-        plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data,
+        plan.ode.kernel_id, int(plan.trig == "fast"), plan.gu_id, *plan.n_modes,
+        plan.consts.ctypes.data,
         plan.tables.data_ptr(), plan.tables.numel(), np_p, plan.ops_p.phi.shape[0],
         plan.ops_a.phi.shape[0], b, k, plan.newton_iters, int(per_member), launch.lanes,
         launch.threads, times.data_ptr(), y0s.data_ptr(), u.data_ptr(), v.data_ptr(),
@@ -496,19 +533,20 @@ def make_cuda_dg_estimate_ensemble(ode, ops_p: DGTimeOperators, ops_a: DGTimeOpe
                                    trig: str = "libm", device="cuda"):
     """``run(times, y0s) -> (u, v, err)``: the whole ensemble DG-in-time
     estimate (Newton forward march at ``ops_p``'s order, adjoint at
-    ``ops_a``'s = one above, per-element AWR for J = ∫u dt) in one launch of
-    D1, with the ``dg_estimate_batched`` contract. ``ode`` is a registry
-    entry (or its name) with a scalar ``kernel_id``; ``g_u`` must stay
-    ``None`` (g_u ≡ 1); ``trig="fast"`` (sin(u) only, |u| ≤ 4) evaluates
-    sin/cos by the shared-x² polynomials. ``run.plan`` holds the plan (for
-    the plain version)."""
+    ``ops_a``'s = one above, per-element AWR for the goal J = ∫g dt) in one
+    launch of D1, with the ``dg_estimate_batched`` contract. ``ode`` is a
+    registry entry (or its name) with a scalar ``kernel_id``; ``g_u`` is
+    ``None`` (J = ∫u) or a registry functional's g_u (or the functional)
+    with a ``kernel_id`` (functionals.kernel_goal); ``trig="fast"``
+    (sin(u) only, |u| ≤ 4) evaluates sin/cos by the shared-x² polynomials.
+    ``run.plan`` holds the plan (for the plain version)."""
     ode = odes.get_ode(ode) if isinstance(ode, str) else ode
     if ode.kernel_id is None:
         raise ValueError(f"ODE {ode.name!r} has no kernel_id: the DG kernel cannot run it")
     if ode.kernel_id in VECTOR_KERNEL_IDS:
         raise ValueError(f"ODE {ode.name!r}: the DG kernel takes a scalar ODE")
-    if g_u is not None:
-        raise ValueError("the DG kernel supports J = ∫u dt only (g_u ≡ 1): pass g_u=None")
+    goal = functionals.kernel_goal(g_u)
+    gu_id = goal.kernel_id
     if ops_a.np_ != ops_p.np_ + 1:
         raise ValueError("ops_a must be one order above ops_p")
     if ops_a.np_ > MAX_NP:
@@ -520,7 +558,7 @@ def make_cuda_dg_estimate_ensemble(ode, ops_p: DGTimeOperators, ops_a: DGTimeOpe
     if n_elements < 1 or newton_iters < 0:
         raise ValueError(f"n_elements={n_elements} must be >= 1 and newton_iters="
                          f"{newton_iters} >= 0")
-    tables = kernel_tables(ops_p, ops_a)
+    tables = kernel_tables(ops_p, ops_a, goal=gu_id != 0)
     if tables.size > MAX_TABLES:
         raise ValueError(f"folded tables of {tables.size} floats exceed the kernel's "
                          f"{MAX_TABLES} (n_gq too large)")
@@ -529,7 +567,8 @@ def make_cuda_dg_estimate_ensemble(ode, ops_p: DGTimeOperators, ops_a: DGTimeOpe
     tables32 = np.ascontiguousarray(tables, dtype=np.float32)
     plan = DgSlabPlan(ode, ops_p, ops_a, int(n_elements), int(newton_iters), trig, tables32,
                       torch.tensor(tables32, device=device), consts, n_modes,
-                      torch.empty(0, device=device).device)
+                      torch.empty(0, device=device).device, gu_id,
+                      None if gu_id == 0 else goal.g_u)
 
     def run(times, y0s):
         return dg_estimate_ensemble(times, y0s, plan)

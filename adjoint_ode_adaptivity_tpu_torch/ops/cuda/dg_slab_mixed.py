@@ -28,11 +28,16 @@ plain version, :func:`dg_estimate_hp_per_member_plain` —
 function in eager torch. Nothing falls back from the kernel. The wrapper
 counts its launches in ``.launches``.
 
+The goal J = ∫g(u, t) dt enters as the adjoint's source g_u, as in the DG
+slab kernel: the registry functionals with a ``kernel_id`` (J = ∫u, J =
+∫u²), g_u evaluated at the system's live nodes and 0 at the padding (the TPU
+kernel's live mask); a bare ``g_u`` callable raises.
+
 The TPU tiling (the (8, B/8) member tiles, ``pick_lane_block``,
-``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1. Only
-J = ∫u dt (g_u ≡ 1) is supported, as in the DG slab kernel. The kernel does
-not check the orders (that would cost a host read per launch): the hp loops
-keep them in ``1..n_max_user`` by construction; the plain version checks.
+``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1. The
+kernel does not check the orders (that would cost a host read per launch):
+the hp loops keep them in ``1..n_max_user`` by construction; the plain
+version checks.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch import odes
+from adjoint_ode_adaptivity_tpu_torch import functionals, odes
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
     MixedAdjointInterp,
     MixedRadauInterp,
@@ -129,16 +134,20 @@ class HpPlan(NamedTuple):
     consts: np.ndarray
     n_modes: tuple
     device: torch.device
+    gu_id: int = 0  # the goal's kernel_id (functionals.py): 0 J = ∫u, 1 J = ∫u²
+    g_u: object = None  # its g_u for the plain version (None: g_u ≡ 1)
 
 
 def kernel_tables(mops: MixedDGTimeOperators, interp: MixedAdjointInterp,
-                  rad: MixedRadauInterp | None = None) -> np.ndarray:
+                  rad: MixedRadauInterp | None = None, goal: bool = False) -> np.ndarray:
     """The kernel's tables in float64 (csrc/dg_slab_mixed.cu ``HpLayout``):
     w_q (Q), (1 + r_q)/2 (Q); per stack order s: A_fwd = Sᵀ − e_{s+1}e_{s+1}ᵀ
     + pad_eye, A_adj = −Sᵀ − e_0e_0ᵀ + pad_eye, Sᵀ (np_max² each), the mass
     row sums (np_max; M·g_u with g_u ≡ 1) and Φ (Q×np_max); per primal order
     p: to_nodes, the Radau eval_rad and to_hi (np_max² each; zero without
-    ``rad``) and to_quad (Q×np_max)."""
+    ``rad``) and to_quad (Q×np_max); with ``goal`` (a g_u other than ≡ 1)
+    then per stack order s: the padded mass matrix (np_max²) and (1 + r_i)/2
+    (np_max, the padding's r = 1)."""
     np_m, n_stack = mops.np_max, mops.n_max
     s_t, a_adj = mops.stiff_pad.transpose(0, 2, 1), _a_adj(mops)
     eval_rad = np.zeros((n_stack - 1, np_m, np_m)) if rad is None else rad.eval_rad
@@ -149,6 +158,9 @@ def kernel_tables(mops: MixedDGTimeOperators, interp: MixedAdjointInterp,
         parts += [a_fwd[s], a_adj[s], s_t[s], mops.mass_pad[s].sum(axis=1), mops.phi_pad[s]]
     for p in range(n_stack - 1):
         parts += [interp.to_nodes[p], eval_rad[p], to_hi[p], interp.to_quad[p]]
+    if goal:
+        for s in range(n_stack):
+            parts += [mops.mass_pad[s], (1.0 + mops.r_pad[s]) / 2.0]
     return np.concatenate([np.asarray(x, dtype=np.float64).ravel() for x in parts])
 
 
@@ -158,11 +170,13 @@ def kernel_tables(mops: MixedDGTimeOperators, interp: MixedAdjointInterp,
 def dg_estimate_hp_per_member_plain(times: torch.Tensor, ns: torch.Tensor, y0s: torch.Tensor,
                                     plan: HpPlan):
     """H1's plain version: ``dg_estimate_mixed`` with the plan's ODE,
-    ``newton_iters`` Newton steps and g_u ≡ 1, in the inputs' dtype.
-    Returns ``(u_c, u_f, v (B, K, np_max), err (B, K))``."""
+    ``newton_iters`` Newton steps and the plan's goal (g_u, 0 at the
+    padding), in the inputs' dtype. Returns ``(u_c, u_f, v (B, K, np_max),
+    err (B, K))``."""
     return dg_estimate_mixed(plan.mops, plan.interp, plan.ode.f, times, ns, y0s,
                              fine_offset=plan.fine_offset, adjoint_mode=plan.adjoint_mode,
-                             rad=plan.rad, f_u=plan.ode.f_u, newton_iters=plan.newton_iters)
+                             rad=plan.rad, f_u=plan.ode.f_u, g_u=plan.g_u,
+                             newton_iters=plan.newton_iters)
 
 
 # ------------------------------------------------- the lanes' sum order
@@ -199,6 +213,7 @@ def dg_estimate_hp_lanes_plain(times: torch.Tensor, ns: torch.Tensor, y0s: torch
     f32 = lambda x: _tab(x, like)  # noqa: E731
     a_fwd, a_adj, phi = f32(_a_fwd(mops)), f32(_a_adj(mops)), f32(mops.phi_pad)
     s_t, msum = f32(mops.stiff_pad.transpose(0, 2, 1)), f32(mops.mass_pad.sum(axis=2))
+    mass, c_nodes = f32(mops.mass_pad), f32((1.0 + mops.r_pad) / 2.0)
     to_nodes, to_quad = f32(interp.to_nodes), f32(interp.to_quad)
     consts = (f32(mops.wq), f32((1.0 + mops.rq) / 2.0))
     ns = ns.to(torch.int64)
@@ -236,7 +251,14 @@ def dg_estimate_hp_lanes_plain(times: torch.Tensor, ns: torch.Tensor, y0s: torch
         s_sys = n - 1 if rec else n
         uh = _seq_dot(to_nodes[n - 1], ue[:, None, :])
         ra, mat = _quad_parts(to_quad[n - 1], ue, phi[n], phi[s_sys], tl, h, consts, ode, lanes)
-        rhs = -hh * msum[s_sys]
+        if plan.gu_id == 0:
+            rhs = -hh * msum[s_sys]
+        else:  # g_u at the system's live nodes, 0 at the padding
+            x = ue if rec else uh
+            gu = torch.where(rows <= (s_sys + 1)[:, None],
+                             plan.g_u(x, tl[:, None] + c_nodes[s_sys] * h[:, None]),
+                             torch.zeros_like(x))
+            rhs = -hh * _seq_dot(mass[s_sys], gu[:, None, :])
         rhs = torch.where(rows == (s_sys + 1)[:, None], rhs - v_in[:, None], rhs)
         w = gauss_solve(a_adj[s_sys] + hh[..., None] * mat, rhs)
         if rec:
@@ -285,12 +307,15 @@ def _march_bound(u, top, y0, geom, mops, ode, eps):
     return torch.stack(out, dim=1)
 
 
-def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps):
+def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps, tl):
     """Per-element bound (B, K) on the float32 roundoff of the adjoint's
     nodal values. The element's system J_a (at the coarse u) turns 8·ε times
-    the summed magnitudes of its terms (|J_a||w|, h/2·|M·1| and the inflow)
-    and the coarse states' own error (through f_u at the quadrature points:
-    |f_u(u_q ± δ_q) − f_u(u_q)| with δ_q from ub_c) into |J_a⁻¹|·(that), and
+    the summed magnitudes of its terms (|J_a||w|, the source's h/2·|M·1|, or
+    h/2·Σ_j|M_ij|·|g_u(x_j)| at the live nodes x for another goal, and the
+    inflow) and the coarse states' own error (through f_u at the quadrature
+    points: |f_u(u_q ± δ_q) − f_u(u_q)| with δ_q from ub_c; for a goal also
+    through g_u at the nodes, h/2·Σ_j|M_ij|·|g_u(x_j ± δ_j) − g_u(x_j)| with
+    δ_j from ub_c and x's own rounding) into |J_a⁻¹|·(that), and
     carries the inflow's error in through J_a⁻¹'s inflow column; the
     reconstruct mode lifts the low solution's bound through |to_hi|·|eval_rad|
     and adds the lift's own rounding. w is the float64 solve at u_c."""
@@ -313,7 +338,28 @@ def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps):
         "bkqi,bkq,bkqj->bkij", phi_s, wq * fu_q, phi_s))
     j_abs = a_adj.abs() + hh[..., None] * torch.einsum(
         "bkqi,bkq,bkqj->bkij", phi_s.abs(), wq * fu_q.abs(), phi_s.abs())
-    msum = _tab(mops.mass_pad.sum(axis=2), like)[s_sys]
+    if plan.gu_id == 0:  # M·1, the folded row sums
+        src = _tab(mops.mass_pad.sum(axis=2), like)[s_sys]
+        src_abs, dsrc = src.abs(), torch.zeros_like(src)
+    else:  # M·g_u at the live nodes (the coarse u at order n in reconstruct)
+        rows = torch.arange(mops.np_max, device=like.device)
+        live = rows <= e_in[..., None]
+        mass = _tab(mops.mass_pad, like)[s_sys]
+        t_n = tl[..., None] + _tab((1.0 + mops.r_pad) / 2.0, like)[s_sys] * h[..., None]
+        if rec:
+            x, d = u_c, ub_c[..., None].expand_as(u_c)
+        else:
+            to_n = _tab(plan.interp.to_nodes, like)[ns - 1]
+            x = torch.einsum("bkij,bkj->bki", to_n, u_c)
+            d = (to_n.abs().sum(dim=-1) * ub_c[..., None]
+                 + 8 * eps * torch.einsum("bkij,bkj->bki", to_n.abs(), u_c.abs()))
+        g_n = torch.where(live, plan.g_u(x, t_n), torch.zeros_like(x))
+        dg = torch.where(live, torch.maximum((plan.g_u(x + d, t_n) - g_n).abs(),
+                                             (plan.g_u(x - d, t_n) - g_n).abs()),
+                         torch.zeros_like(x))
+        src = torch.einsum("bkij,bkj->bki", mass, g_n)
+        src_abs = torch.einsum("bkij,bkj->bki", mass.abs(), g_n.abs())
+        dsrc = torch.einsum("bkij,bkj->bki", mass.abs(), dg)
     e_hot = _one_hot(e_in, mops.np_max, like.dtype)
     carry = torch.gather(jinv.abs(), 3, e_in[..., None, None].expand(*jinv.shape[:3], 1))
     carry = carry[..., 0].amax(dim=-1)
@@ -326,11 +372,12 @@ def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps):
     vb = torch.empty_like(ub_c)
     for k in range(k_el - 1, -1, -1):
         w = torch.einsum("bij,bj->bi", jinv[:, k],
-                         -hh[:, k] * msum[:, k] - e_hot[:, k] * v_in[:, None])
+                         -hh[:, k] * src[:, k] - e_hot[:, k] * v_in[:, None])
         w_q = torch.einsum("bqi,bi->bq", phi_s[:, k], w).abs()
-        mag = (torch.einsum("bij,bj->bi", j_abs[:, k], w.abs()) + hh[:, k] * msum[:, k].abs()
+        mag = (torch.einsum("bij,bj->bi", j_abs[:, k], w.abs()) + hh[:, k] * src_abs[:, k]
                + e_hot[:, k] * v_in.abs()[:, None])
-        du = hh[:, k] * torch.einsum("bqi,bq->bi", phi_s[:, k].abs(), wq * dfu[:, k] * w_q)
+        du = hh[:, k] * (torch.einsum("bqi,bq->bi", phi_s[:, k].abs(), wq * dfu[:, k] * w_q)
+                         + dsrc[:, k])
         wb = (torch.einsum("bij,bj->bi", jinv[:, k].abs(), 8 * eps * mag + du).amax(dim=-1)
               + carry[:, k] * wb_next)
         if rec:
@@ -382,11 +429,11 @@ def hp_kernel_tolerance(times: torch.Tensor, ns: torch.Tensor, y0s: torch.Tensor
     ns = ns.to(torch.int64)
     y0 = y0s.to(times.dtype)
     u, u_f, v = (x.to(times.dtype) for x in plain[:3])
-    _, h, t_q = _geometry(times, _tab(mops.rq, times))
+    tl, h, t_q = _geometry(times, _tab(mops.rq, times))
     geom = (_tab(mops.wq, times), h, t_q)
     ub_c = _march_bound(u, ns, y0, geom, mops, ode, eps)
     ub_f = _march_bound(u_f, ns + plan.fine_offset, y0, geom, mops, ode, eps)
-    vb = _adjoint_bound(u, ub_c, ns, geom, plan, eps)
+    vb = _adjoint_bound(u, ub_c, ns, geom, plan, eps, tl)
 
     s_t = _tab(mops.stiff_pad, times).transpose(-1, -2)[ns]  # order n+1
     to_n = _tab(interp.to_nodes, times)[ns - 1]
@@ -448,7 +495,8 @@ def _h1_launch(times, ns, y0s, plan: HpPlan, launch: HpLaunch):
     v = torch.empty_like(u_c)
     err = torch.empty((k, b), dtype=torch.float32, device=y0s.device)
     code = lib.lib.dg_estimate_hp_per_member(
-        plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, plan.tables.data_ptr(),
+        plan.ode.kernel_id, plan.gu_id, *plan.n_modes, plan.consts.ctypes.data,
+        plan.tables.data_ptr(),
         plan.tables.numel(), np_m, plan.mops.rq.shape[0], plan.mops.n_max, plan.fine_offset,
         int(plan.adjoint_mode == "reconstruct"), launch.lanes, launch.threads, b, k,
         plan.newton_iters, times_k.data_ptr(), ns_k.data_ptr(), y0s.data_ptr(), u_c.data_ptr(),
@@ -481,15 +529,16 @@ def make_cuda_dg_estimate_hp_per_member(ode, mops: MixedDGTimeOperators,
     fine_offset)`` stack and ``interp`` its ``dg_adjoint_interp_mixed``;
     ``adjoint_mode="reconstruct"`` needs ``rad`` (its
     ``dg_radau_interp_mixed``). ``ode`` is a registry entry (or its name)
-    with a scalar ``kernel_id``; ``g_u`` must stay ``None`` (g_u ≡ 1).
+    with a scalar ``kernel_id``; ``g_u`` is ``None`` (J = ∫u) or a registry
+    functional's g_u (or the functional) with a ``kernel_id``.
     ``run.plan`` holds the plan (for the plain version)."""
     ode = odes.get_ode(ode) if isinstance(ode, str) else ode
     if ode.kernel_id is None:
         raise ValueError(f"ODE {ode.name!r} has no kernel_id: the hp kernel cannot run it")
     if ode.kernel_id in VECTOR_KERNEL_IDS:
         raise ValueError(f"ODE {ode.name!r}: the hp kernel takes a scalar ODE")
-    if g_u is not None:
-        raise ValueError("the hp kernel supports J = ∫u dt only (g_u ≡ 1): pass g_u=None")
+    goal = functionals.kernel_goal(g_u)
+    gu_id = goal.kernel_id
     if fine_offset < 1:
         raise ValueError(f"fine_offset={fine_offset} must be >= 1 (the adjoint runs at ns + 1 "
                          "and needs its tables in the operator stack)")
@@ -507,7 +556,7 @@ def make_cuda_dg_estimate_hp_per_member(ode, mops: MixedDGTimeOperators,
         raise ValueError(f"n_elements={n_elements} must be >= 1 and newton_iters="
                          f"{newton_iters} >= 0")
     rad = rad if adjoint_mode == "reconstruct" else None
-    tables = kernel_tables(mops, interp, rad)
+    tables = kernel_tables(mops, interp, rad, goal=gu_id != 0)
     if tables.size > MAX_TABLES:
         raise ValueError(f"folded tables of {tables.size} floats exceed the kernel's "
                          f"{MAX_TABLES} (n_gq too large)")
@@ -515,7 +564,8 @@ def make_cuda_dg_estimate_hp_per_member(ode, mops: MixedDGTimeOperators,
     consts, n_modes = _consts(ode)
     plan = HpPlan(ode, mops, interp, rad, int(n_elements), int(fine_offset), int(newton_iters),
                   adjoint_mode, torch.tensor(tables, dtype=torch.float32, device=device), consts,
-                  n_modes, torch.empty(0, device=device).device)
+                  n_modes, torch.empty(0, device=device).device, gu_id,
+                  None if gu_id == 0 else goal.g_u)
 
     def run(times, ns, y0s):
         return dg_estimate_hp_per_member(times, ns, y0s, plan)

@@ -240,14 +240,18 @@ def make_mixed_loss_train_step_fused(tx: Adam, n_steps: int, features: int, devi
     return train_step
 
 
-def make_shared_train_step_fused(tx: Adam, dt: torch.Tensor, sizes, device="cuda"):
+def make_shared_train_step_fused(tx: Adam, dt: torch.Tensor, sizes, device="cuda",
+                                 mxu_dtype=torch.float32):
     """:func:`make_shared_train_step` for ``ResNetBlock(sizes)`` with the
-    epoch's value and gradient in one call of T2; same signature."""
+    epoch's value and gradient in one call of T2; same signature.
+    ``mxu_dtype=torch.bfloat16`` selects the opt-in mixed-precision mode
+    (bf16 hidden-product inputs on the tensor cores, f32 everything else),
+    as the JAX package's (train/loop.py:113-145)."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_dense_fused import (
         make_cuda_dense_epoch_grad,
     )
 
-    grad_fn = make_cuda_dense_epoch_grad(dt.shape[0], sizes, device=device)
+    grad_fn = make_cuda_dense_epoch_grad(dt.shape[0], sizes, device=device, mxu_dtype=mxu_dtype)
 
     def train_step(state: TrainState, u0_batch, true_batch):
         loss, grads = grad_fn(state.params, dt, u0_batch, true_batch)

@@ -286,6 +286,27 @@ raises, and the script exits non-zero; nothing is caught.
    alone (queued behind a sleep) beside the call, and the ensemble signal's
    argmax against the float64 plain version's where the top-two margin
    clears twice the tolerance.
+38. The goal J = ∫u² (g_u = 2u by a functor of csrc/odes.cuh) on D1 and H1,
+   and T2's bf16 tensor-core mode: the SASS of both dense_cluster_kernel
+   instances (HMMA in the bf16 one only: a gate) and their registers; (a)
+   D1 with the goal at the per-member study's shape (B=1024, K=15) and
+   bench.py's (B=16,384, K=16) on every G and CTA size, each within the
+   extended dg_kernel_tolerance (a gate), some plain |err| above its bound
+   and the J = ∫u kernel's v outside it (the bound bites), the J = ∫u
+   kernel's bits against the parent's digest (PARENT_DIGESTS), and the two
+   goals timed in turns; (b) H1 likewise at B=512 (both adjoint modes) and
+   B=4096; (c) phase 10's per-member DG study (B=1024) and phase 13's hp
+   study (B=512) through run_adaptive_dg_per_member and
+   run_adaptive_dg_hp_per_member with g = u², g_u = 2u on the kernels, every
+   iteration replayed through the plain version and the float64 torch
+   engine, with the kernels' launch counts; (d) T2 bf16 at (100, 500), B=8192
+   S=10 and S=100 and the recurrent path's B=512 S=2 within the bf16 bound
+   of the float64 bf16 plain version (every (BM, C) at B=512), the
+   float32 mode outside that bound, the float32 mode's bits over every plan
+   against the parent's digest, timed in turns beside the float32 wrapper
+   and torch.matmul's bf16 GEMMs (a yardstick), with the share of
+   t2_bf16_bound; (e) five steps of make_shared_train_step_fused(...,
+   mxu_dtype=torch.bfloat16): the loss falls and stays finite.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -294,6 +315,8 @@ its path, error, times and bound; the last line is
 from __future__ import annotations
 
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -323,6 +346,9 @@ SOURCES = {
     "tiled_rev_seg": f"{PACKAGE}/csrc/dg_rhs.cu",
     "mxu_fwd_traj": f"{PACKAGE}/csrc/dg_mxu.cu",
     "mxu_adj_est": f"{PACKAGE}/csrc/dg_mxu.cu",
+    "dg_estimate_ensemble[J=int(u^2)]": f"{PACKAGE}/csrc/dg_slab.cu",
+    "dg_estimate_hp_per_member[J=int(u^2)]": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
+    "dense_epoch_grad[bf16]": f"{PACKAGE}/csrc/train_dense_fused.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -358,6 +384,13 @@ TPU_KERNELS = {
                      "dg_tiled_sharded.py:67",
     "mxu_fwd_traj": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:151 (_fwd_traj_kernel_m)",
     "mxu_adj_est": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_mxu.py:179 (_adj_est_kernel_m)",
+    # the same kernels' modes: D1 and H1 with a goal's g_u, T2's bf16 products
+    "dg_estimate_ensemble[J=int(u^2)]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab.py:92 "
+                                        "(g_u, :207)",
+    "dg_estimate_hp_per_member[J=int(u^2)]": "adjoint_ode_adaptivity_tpu/ops/pallas/"
+                                             "dg_slab_mixed.py:99 (g_u, :379)",
+    "dense_epoch_grad[bf16]": "adjoint_ode_adaptivity_tpu/ops/pallas/train_dense_fused.py:136 "
+                              "(mxu_dtype=bfloat16, _dot :124)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -397,7 +430,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
+SAID = {}  # phase -> (host clock at its first line, at its last)
+
+
 def say(phase: str, msg: str) -> None:
+    now = time.perf_counter()
+    SAID[phase] = (SAID.get(phase, (now,))[0], now)
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -652,11 +690,13 @@ def phase4(device, errs):
     traj, uf = out.pop("k1")
     t_k2 = cuda_ms(lambda: out.update(k2=dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops)), 5)
     del traj, uf
+    # the plain versions (~4 s and ~18 s a call) once each: they check the
+    # kernels, their time is no yardstick of speed
     t_p1 = cuda_ms(lambda: out.update(p1=dg_rhs.fwd_march_plain(u0, 0.0, n_steps, ops, True)),
-                   runs=3, warmup=0)
+                   runs=1, warmup=0)
     traj_p, uf_p = out.pop("p1")
     t_p2 = cuda_ms(lambda: out.update(p2=dg_rhs.adj_est_stored_plain(traj_p, uf_p, lam, 0.0, ops)),
-                   runs=3, warmup=0)
+                   runs=1, warmup=0)
     del traj_p
     uf_k, lam0_k, eta_k = out["k"]
     lam0_p, eta_p = out["p2"]
@@ -678,7 +718,7 @@ def phase4(device, errs):
              f"{t_pipe * 1e3 / cuda_launches:.2f} us each]; K1 {t_k1:.3f} ms ({k1_launches} "
              f"CUDA launches), K2 {t_k2:.3f} ms ({k2_launches}); K1/K2 {t_k1 / t_k2:.3f}")
     say("4", f"plain PyTorch pipeline {t_p1 + t_p2:.3f} ms (fwd {t_p1:.3f} + adj {t_p2:.3f}, "
-             f"median of 3) = {dof_steps / ((t_p1 + t_p2) / 1e3):.4e} DoF-steps/s; "
+             f"one run) = {dof_steps / ((t_p1 + t_p2) / 1e3):.4e} DoF-steps/s; "
              f"kernel speed-up {(t_p1 + t_p2) / t_pipe:.2f}x")
 
     ops_half = dg_rhs.kernel_ops(disc, A, dt / 2, device)
@@ -713,14 +753,14 @@ def march_times(device, errs):
     out = {}
     ms = cuda_ms(lambda: out.update(k=dg_rhs.fwd_march(u0, 0.0, n_steps, ops)[1]), runs=5)
     plain_ms = cuda_ms(lambda: out.update(p=dg_rhs.fwd_march_plain(u0, 0.0, n_steps, ops)[1]),
-                       runs=3, warmup=0)
+                       runs=1, warmup=0)
     e = float((out["k"] - out["p"]).abs().max())
     tol = 8 * n_steps * EPS32 * float(out["p"].abs().max())
     b_ms, b_by = march_bound(n_order, k, n_steps)
     say("4", f"K1 as the advec_dg march (_forward_kernel, dg_rhs.py:270) K={k} N={n_order} "
              f"B=1 steps={n_steps}: kernel {ms:.3f} ms (median of 5, "
              f"{dg_rhs.fwd_march.cuda_launches} CUDA launches); plain {plain_ms:.3f} ms "
-             f"(median of 3); bound {b_ms:.5f} ms ({b_by}); "
+             f"(one run); bound {b_ms:.5f} ms ({b_by}); "
              f"max|kernel - plain| {e:.3e} (tol {tol:.3e})")
     assert e <= tol, "K1 at B = 1 disagrees with its plain version"
     errs["fwd_march"] = max(errs["fwd_march"], e)
@@ -1133,11 +1173,15 @@ def d1_shares(got, want, tol):
     """Per output (u, v, err): max|kernel − plain| and its worst share of
     dg_kernel_tolerance's per-element bound (a bound of 0 takes only an
     exact 0)."""
-    import torch
+    return shares(("u", "v", "err"), got, want, tol)
 
+
+def shares(names, got, want, tol):
+    """Per output ``names``: max|kernel − plain| and its worst share of the
+    per-element bound ``tol[name]`` (a bound of 0 takes only an exact 0)."""
     e, share = {}, {}
-    for name, g, w in zip(("u", "v", "err"), got, want):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and bool(g.isfinite().all()), name
         d = (g - w).abs().double()
         e[name] = float(d.max())
         share[name] = float((d / tol[name]).nan_to_num(0.0, posinf=float("inf")).max())
@@ -1259,10 +1303,7 @@ def phase10(device, errs):
     import numpy as np
     import torch
 
-    from adjoint_ode_adaptivity_tpu_torch import odes
     from adjoint_ode_adaptivity_tpu_torch.drivers import dg_adaptive
-    from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import dg_estimate_batched
-    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
 
     argv = ["--ensemble", "1024", "--per-member", "--device-loop"]
@@ -1281,43 +1322,13 @@ def phase10(device, errs):
     for r in hist:
         assert np.all(np.isfinite(r.err)) and np.all(np.isfinite(r.j))
 
-    # replay every iteration's partitions: the plain version (float32, same
-    # card, bounded) and the torch engine in float64 (decisions only)
-    sin = odes.get_ode("du/dt=sin(u)")
-    y0s = np.random.default_rng(0).uniform(0.5, 2.0, 1024)
-    k = hist[0].times.shape[1] - 1
-    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
-    plan = ds.make_cuda_dg_estimate_ensemble(sin, ops_p, ops_a, k, 8, device=device).plan
-    y32 = torch.tensor(y0s.astype(np.float32), device=device)
-    y64 = torch.tensor(y0s.astype(np.float32).astype(np.float64), device=device)
-    worst = {"err": 0.0, "tol": 0.0, "share": 0.0}
-    decided = agree = decided64 = agree64 = 0
-    for r in hist:
-        times = torch.tensor(r.times, dtype=torch.float32, device=device)
-        plain = ds.dg_estimate_ensemble_plain(times, y32, plan)
-        tol = ds.dg_kernel_tolerance(times, y32, plain, plan)["err"]
-        err_k = torch.tensor(r.err, dtype=torch.float32, device=device)
-        d_err = (err_k - plain[2]).abs().double()
-        assert bool((d_err <= tol).all()), (float(d_err.max()), float(tol.max()))
-        worst["err"], worst["tol"] = max(worst["err"], float(d_err.max())), max(worst["tol"],
-                                                                               float(tol.max()))
-        worst["share"] = max(worst["share"], float((d_err / tol).nan_to_num(0.0).max()))
-        noise = tol.amax(dim=1)  # each member's largest err bound
-        d, a = dg_decisions(err_k, plain[2], noise)
-        decided, agree = decided + d, agree + a
-        err64 = dg_estimate_batched(ops_p, ops_a, sin.f, times.double(), y64, f_u=sin.f_u,
-                                    newton_iters=8)[2]
-        d, a = dg_decisions(err_k.double(), err64, noise)
-        decided64, agree64 = decided64 + d, agree64 + a
-    errs["dg_estimate_ensemble"] = max(errs["dg_estimate_ensemble"], worst["err"])
+    rep = dg_replay(hist, device, errs)
     say("10", f"replay of {len(hist)} iterations' partitions through the plain version: max|d err| "
-              f"{worst['err']:.3e} (per-element tol <= {worst['tol']:.3e}, worst "
-              f"{worst['share']:.2%} of it); decisions with a top-two margin > 4x the member's "
-              f"largest err bound: {decided} of {len(hist) * 1024} member-iterations, kernel and "
-              f"plain agree on {agree}; against the float64 torch engine {decided64} clear it, "
-              f"agreement on {agree64}")
-    assert decided > 0, "no decision of the study clears the float32 bound"
-    assert agree == decided and agree64 == decided64, "a decision above the float32 noise differs"
+              f"{rep['err']:.3e} (per-element tol <= {rep['tol']:.3e}, worst "
+              f"{rep['share']:.2%} of it); decisions with a top-two margin > 4x the member's "
+              f"largest err bound: {rep['decided']} of {len(hist) * 1024} member-iterations, "
+              f"kernel and plain agree on {rep['agree']}; against the float64 torch engine "
+              f"{rep['decided64']} clear it, agreement on {rep['agree64']}")
 
     ens = dg_adaptive.main(["--ensemble", "1024"])
     torch.cuda.synchronize()
@@ -1346,6 +1357,55 @@ def phase10(device, errs):
     return launches
 
 
+def dg_replay(hist, device, errs, g_u=None, key="dg_estimate_ensemble"):
+    """Every iteration's partitions of the B = 1024 per-member DG study (y0
+    ~ U(0.5, 2) from ``default_rng(0)``, the driver's draw) through the
+    plain version (float32, same card, held to D1's per-element err bound)
+    and the torch engine in float64 (decisions only): the decisions of
+    members whose top-two |err| margin clears 4x the member's largest err
+    bound. ``g_u`` the study's goal (None: J = ∫u); the worst |d err| goes
+    to ``errs[key]``."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import dg_estimate_batched
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    y0s = np.random.default_rng(0).uniform(0.5, 2.0, 1024)
+    k = hist[0].times.shape[1] - 1
+    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
+    plan = ds.make_cuda_dg_estimate_ensemble(sin, ops_p, ops_a, k, 8, g_u=g_u,
+                                             device=device).plan
+    y32 = torch.tensor(y0s.astype(np.float32), device=device)
+    y64 = torch.tensor(y0s.astype(np.float32).astype(np.float64), device=device)
+    out = dict(decided=0, agree=0, decided64=0, agree64=0, err=0.0, share=0.0, tol=0.0)
+    for r in hist:
+        times = torch.tensor(r.times, dtype=torch.float32, device=device)
+        plain = ds.dg_estimate_ensemble_plain(times, y32, plan)
+        tol = ds.dg_kernel_tolerance(times, y32, plain, plan)["err"]
+        err_k = torch.tensor(r.err, dtype=torch.float32, device=device)
+        d_err = (err_k - plain[2]).abs().double()
+        assert bool((d_err <= tol).all()), (float(d_err.max()), float(tol.max()))
+        out["err"], out["tol"] = max(out["err"], float(d_err.max())), max(out["tol"],
+                                                                          float(tol.max()))
+        out["share"] = max(out["share"], float((d_err / tol).nan_to_num(0.0).max()))
+        noise = tol.amax(dim=1)  # each member's largest err bound
+        err64 = dg_estimate_batched(ops_p, ops_a, sin.f, times.double(), y64, f_u=sin.f_u,
+                                    g_u=plan.g_u, newton_iters=8)[2]
+        for tag, (d, a) in (("", dg_decisions(err_k, plain[2], noise)),
+                            ("64", dg_decisions(err_k.double(), err64, noise))):
+            out["decided" + tag] += d
+            out["agree" + tag] += a
+    errs[key] = max(errs[key], out["err"])
+    assert out["decided"] > 0, "no decision of the study clears the float32 bound"
+    assert out["agree"] == out["decided"] and out["agree64"] == out["decided64"], (
+        "a decision above the float32 noise differs", out)
+    return out
+
+
 def solve_ops(m):
     """FP32 operations of one m×m solve by elimination (a division per row)
     and back substitution, the least count, whatever the kernel runs (Cramer
@@ -1354,7 +1414,7 @@ def solve_ops(m):
     return elim + sum(2 * (m - i - 1) + 1 for i in range(m))
 
 
-def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False):
+def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False, goal=False):
     """Least time on the card for one D1 call: the larger of bytes (times
     and y0 read once, u, v and err written once) over 3.35 TB/s and FP32
     operations over 67 TFLOP/s, counted from the kernel's loops — an FMA
@@ -1362,12 +1422,13 @@ def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False):
     Per member-element: newton_iters × (Nq_p points of 2Np² + 4Np + 4, the
     residual and Jacobian assembly, one Np×Np solve) and the order-(n+1)
     sweep (Nq_a points of 2Na² + 2Na + 2Np + 4, the assembly, one Na×Na
-    solve and vᵀres)."""
+    solve and vᵀres); a ``goal`` other than J = ∫u adds g_u at the Na nodes
+    and the Na² FMAs of M·g_u."""
     np_, na = n + 1, n + 2
     fwd = newton_iters * (nqp * (2 * np_ * np_ + 4 * np_ + 4) + 4 * np_ * np_ + 3 * np_ + 1
                           + solve_ops(np_))
     adj = (2 * na * np_ + nqa * (2 * na * na + 2 * na + 2 * np_ + 4) + 2 * na * na + na + 1
-           + solve_ops(na) + na * (2 * na + 5))
+           + solve_ops(na) + na * (2 * na + 5) + (na + 2 * na * na if goal else 0))
     n_bytes = 4 * ((k + 1) * (b if per_member else 1) + b + b * k * (np_ + na + 1))
     return bound(n_bytes, b * k * (fwd + adj))
 
@@ -1467,7 +1528,7 @@ def hp_inputs(device, b, k, n_user, seed, uniform=None):
             torch.tensor(y0, dtype=torch.float32, device=device))
 
 
-def hp_kernel(ode, n_user, fo, k, mode, device):
+def hp_kernel(ode, n_user, fo, k, mode, device, g_u=None):
     from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
         dg_adjoint_interp_mixed,
         dg_radau_interp_mixed,
@@ -1479,7 +1540,7 @@ def hp_kernel(ode, n_user, fo, k, mode, device):
     return hm.make_cuda_dg_estimate_hp_per_member(
         ode, mops, dg_adjoint_interp_mixed(mops), k, n_max_user=n_user, fine_offset=fo,
         newton_iters=HP_STUDY["newton_iters"], adjoint_mode=mode,
-        rad=dg_radau_interp_mixed(mops), device=device)
+        rad=dg_radau_interp_mixed(mops), g_u=g_u, device=device)
 
 
 def hp_case(label, device, errs, ode="du/dt=sin(u)", n_user=HP_STUDY["n_max"], fo=HP_STUDY["fo"],
@@ -1520,15 +1581,7 @@ def hp_shares(got, want, tol):
     """Per output (u_c, u_f, v, err): max|kernel − plain| and its worst
     share of hp_kernel_tolerance's per-element bound (a bound of 0 takes
     only an exact 0)."""
-    import torch
-
-    e, share = {}, {}
-    for name, g, w in zip(("u_c", "u_f", "v", "err"), got, want):
-        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
-        d = (g - w).abs().double()
-        e[name] = float(d.max())
-        share[name] = float((d / tol[name]).nan_to_num(0.0, posinf=float("inf")).max())
-    return e, share
+    return shares(("u_c", "u_f", "v", "err"), got, want, tol)
 
 
 def phase12(device, errs):
@@ -1588,11 +1641,12 @@ def hp_refusals(case):
     say("12", "float64 and non-contiguous inputs raise; no plain-version fallback on the card")
 
 
-def hp_replay(hist, mode, device, errs):
+def hp_replay(hist, mode, device, errs, g_u=None, key="dg_estimate_hp_per_member"):
     """Every iteration's partitions and orders of a per-member study through
     the plain version (float32, held to H1's per-element bound) and the
     torch engine (float64, decisions only): the p/h decisions of members
-    whose top-two |err| margin clears 4x the member's largest bound."""
+    whose top-two |err| margin clears 4x the member's largest bound. ``g_u``
+    the study's goal (None: J = ∫u); the worst |d err| goes to ``errs[key]``."""
     import numpy as np
     import torch
 
@@ -1601,7 +1655,7 @@ def hp_replay(hist, mode, device, errs):
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
 
     sin = odes.get_ode("du/dt=sin(u)")
-    plan = hp_kernel(sin, HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, mode, device).plan
+    plan = hp_kernel(sin, HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, mode, device, g_u).plan
     y32 = np.random.default_rng(HP_STUDY["seed"]).uniform(0.5, 2.0, HP_STUDY["b"]).astype(
         np.float32)
     y0, y64 = (torch.tensor(y32, dtype=d, device=device) for d in (torch.float32, torch.float64))
@@ -1619,13 +1673,14 @@ def hp_replay(hist, mode, device, errs):
         out["share"] = max(out["share"], float((d_err / tol.clamp_min(1e-300)).max()))
         err64 = dg_estimate_mixed(plan.mops, plan.interp, sin.f, times.double(), ns, y64,
                                   fine_offset=HP_STUDY["fo"], adjoint_mode=mode, rad=plan.rad,
-                                  f_u=sin.f_u, newton_iters=HP_STUDY["newton_iters"])[3]
+                                  f_u=sin.f_u, g_u=plan.g_u,
+                                  newton_iters=HP_STUDY["newton_iters"])[3]
         noise = tol.amax(dim=1)
-        for key, (d, a) in (("", dg_decisions(err_k, plain[3], noise)),
+        for tag, (d, a) in (("", dg_decisions(err_k, plain[3], noise)),
                             ("64", dg_decisions(err_k.double(), err64, noise))):
-            out["decided" + key] += d
-            out["agree" + key] += a
-    errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], out["err"])
+            out["decided" + tag] += d
+            out["agree" + tag] += a
+    errs[key] = max(errs[key], out["err"])
     assert out["decided"] > 0, "no decision of the study clears the float32 bound"
     assert out["agree"] == out["decided"] and out["agree64"] == out["decided64"], out
     return out
@@ -1703,7 +1758,7 @@ def phase13(device, errs):
     return launches
 
 
-def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode):
+def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode, goal=False):
     """Least time on the card for one H1 call: the larger of bytes (times,
     ns and y0 read once; u_c, u_f, v (B, K, np_max) and err written once)
     over 3.35 TB/s and FP32 operations over 67 TFLOP/s, counted as in
@@ -1712,7 +1767,8 @@ def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode):
     in the reconstruct mode, plus the Radau lift) — not the padded np_max,
     so the bound does not depend on the padding. A Newton step at p nodes:
     Nq points of 2p² + 5p + 4, the assembly 4p² + 3p, one p×p solve and
-    the update."""
+    the update. A ``goal`` other than J = ∫u adds g_u at the system's nodes
+    and the FMAs of M·g_u."""
     import numpy as np
 
     t, n = times.double().cpu().numpy(), ns.cpu().numpy()
@@ -1729,6 +1785,8 @@ def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode):
            + solve(ps) + pa * (2 * pa + 6))
     if adjoint_mode == "reconstruct":
         adj = adj + 2 * pa * pc + 2 * pa * pa
+    if goal:
+        adj = adj + ps + 2 * ps * ps
     n_ops = float(np.sum(march(pc) + march(pf) + adj))
     n_bytes = 4 * (b * (k + 1) + b * k + b + 3 * b * k * np_max + b * k)
     return bound(n_bytes, n_ops)
@@ -4910,6 +4968,387 @@ def phase37(device, lib, errs, inp):
     return rows
 
 
+# ------------------------------------------------- the goal and bf16 modes
+
+# D1 with a goal at the per-member study's shape and bench.py's (label, B, K,
+# Newton steps, per-member partitions, seed); H1's at HP_STUDY's and HP_BIG's
+D1_GOAL_CASES = (("the per-member study's shape", 1024, 15, 8, True, 2),
+                 ("bench.py's shape", 16_384, 16, 5, False, 1))
+T2_BF16_ROWS = ((8192, 10), (8192, 100), (512, 2))  # bench.py's rows; the recurrent path's
+# sha256 (16 hex digits) of the parent 81c75ac kernels' outputs (J = ∫u; T2
+# in float32) on these inputs, printed by tools/torch_goal_bf16_against_parent.py
+# on an NVIDIA H100 80GB HBM3 at 700 W: D1 and H1 at their wrapper's launch,
+# T2 over every (BM, C) plan in _feasible's order. The goal and bf16 modes
+# must leave these bits alone.
+PARENT_DIGESTS = {"D1 1024": "9c17a77a54f01917", "D1 16384": "35680304e7695012",
+                  "H1 512 solve": "7be8588c848bcbd8", "H1 512 reconstruct": "3cf395845c3eb3a9",
+                  "H1 4096 solve": "a4163c588a154456", "T2 8192 10": "e587078b00801107",
+                  "T2 512 2": "c1952e2d913c163e"}
+BF16_TFLOPS = 989e12  # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
+
+
+def digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def goal_d1_inputs(device, b, k, per_member, seed):
+    """y0 ~ U(0.5, 2) from ``default_rng(seed)``, and per-member partitions
+    of [0, 2] with zero-width tails (dg_case's draw) or the uniform one."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    if per_member:
+        t = np.full((b, k + 1), DG_SLAB["t1"])
+        for m, n_act in enumerate(rng.integers(2, k - 3, b)):
+            t[m, : n_act + 1] = np.concatenate(
+                [[0.0], np.sort(rng.uniform(0.0, DG_SLAB["t1"], n_act - 1)), [DG_SLAB["t1"]]])
+    else:
+        t = np.linspace(0.0, DG_SLAB["t1"], k + 1)
+    return torch.tensor(t, dtype=torch.float32, device=device), y0
+
+
+def t2_bf16_bound(s_steps, sizes, b):
+    """Least time for one T2 call in the bf16 mode: its inputs and
+    gradients once over 3.35 TB/s, against the hidden products'
+    8·B·S·Σ H_{l−1}H_l bf16 tensor operations over 989 TFLOP/s plus the
+    f32 elementwise work (t2_bound's B·S·(12·H_1 + 14·H_L)) over 67
+    TFLOP/s. Returns (ms, by, bf16 operations)."""
+    hh = sum(a * c for a, c in zip(sizes[:-1], sizes[1:]))
+    n_params = 2 * sizes[0] + hh + sum(sizes[1:]) + sizes[-1] + 1
+    n_bytes = 4 * (2 * n_params + hh + s_steps + 2 * b + 1)
+    tc_ops = 8 * b * s_steps * hh
+    t_ops = tc_ops / BF16_TFLOPS + b * s_steps * (12 * sizes[0] + 14 * sizes[-1]) / FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", tc_ops
+
+
+def d1_goal_case(label, b, k, newton, per_member, seed, device, errs):
+    """Phase 38(a): D1 with J = ∫u² on every (G, CTA size) against its
+    plain version within the extended bounds (a gate), some plain |err|
+    above its bound, the J = ∫u kernel outside the v bound; the J = ∫u
+    wrapper's bits against the parent's digest; the two goals in turns.
+    Returns (goal ms, J = ∫u ms, plain ms, bound)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import functionals
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    times, y0 = goal_d1_inputs(device, b, k, per_member, seed)
+    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
+    u2 = functionals.get_functional("J=int(u^2)")
+    run = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, newton,
+                                            g_u=u2.g_u, device=device)
+    unit = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, newton,
+                                             device=device)
+    want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+    tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+    worst = {x: 0.0 for x in ("u", "v", "err")}
+    launches = [ds.D1Launch(g, th) for g in (*ds.LANES, 32) for th in ds.CTA_THREADS]
+    for launch in launches:
+        e, share = d1_shares(ds._d1_launch(times, y0, run.plan, launch), want, tol)
+        errs["dg_estimate_ensemble[J=int(u^2)]"] = max(errs["dg_estimate_ensemble[J=int(u^2)]"],
+                                                       *e.values())
+        worst = {x: max(worst[x], share[x]) for x in worst}
+    unit_out = unit(times, y0)
+    torch.cuda.synchronize()
+    teeth = int((want[2].abs() > tol["err"]).sum())
+    bites = int(((unit_out[1] - want[1]).abs().double() > tol["v"]).any(dim=-1).sum())
+    bits = digest(unit_out)
+    key = f"D1 {b}"
+    nqp, nqa = ops_p.phi.shape[0], ops_a.phi.shape[0]
+    mine = ds.d1_plan(b, 2, max(nqp, nqa))
+    turns = in_turns({"J=int(u^2)": lambda: run(times, y0), "J=int(u)": lambda: unit(times, y0)})
+    ms, ms0 = (statistics.mean(turns[x]) for x in ("J=int(u^2)", "J=int(u)"))
+    plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=3)
+    b_ms, b_by = dg_slab_bound(1, k, b, newton, nqp, nqa, per_member, goal=True)
+    say("38", f"(a) D1 J=int(u^2) {label} B={b} K={k}: {len(launches)} (G, CTA) launches and the "
+              f"wrapper ({mine}) within the extended per-element bounds, worst share "
+              + " ".join(f"{x} {worst[x]:.2%}" for x in worst)
+              + f"; {teeth} plain |err| above their bound; the J=int(u) kernel's v outside it on "
+                f"{bites} member-elements; J=int(u) bits {bits} (the parent's "
+                f"{PARENT_DIGESTS.get(key, 'not recorded')}); in turns J=int(u^2) {ms:.4f} ms "
+                f"({turns['J=int(u^2)'][0]:.4f} / {turns['J=int(u^2)'][1]:.4f}) against J=int(u) "
+                f"{ms0:.4f} ms ({turns['J=int(u)'][0]:.4f} / {turns['J=int(u)'][1]:.4f}), "
+                f"{ms / ms0:.3f}x; plain {plain_ms:.3f} ms; bound {b_ms:.6f} ms ({b_by}), "
+                f"{b_ms / ms:.3%} of it")
+    assert max(worst.values()) <= 1.0, f"{label}: D1 with the goal disagrees"
+    assert teeth > 0 and bites > 0, f"{label}: the extended D1 bounds have no teeth"
+    assert key not in PARENT_DIGESTS or PARENT_DIGESTS[key] == bits, f"{label}: J=int(u) bits moved"
+    return ms, ms0, plain_ms, (b_ms, b_by)
+
+
+def h1_goal_case(b, seed, mode, device, errs):
+    """Phase 38(b): H1 with J = ∫u² at HP_STUDY's orders on every (G, CTA
+    size), as d1_goal_case. Returns (goal ms, J = ∫u ms, plain ms, bound)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import functionals
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    inputs = hp_inputs(device, b, HP_K, HP_STUDY["n_max"], seed)
+    u2 = functionals.get_functional("J=int(u^2)")
+    run = hp_kernel("du/dt=sin(u)", HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, mode, device,
+                    u2.g_u)
+    unit = hp_kernel("du/dt=sin(u)", HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, mode, device)
+    names = ("u_c", "u_f", "v", "err")
+    want = hm.dg_estimate_hp_per_member_plain(*inputs, run.plan)
+    tol = hm.hp_kernel_tolerance(*inputs, want, run.plan)
+    worst = {x: 0.0 for x in names}
+    launches = [hm.HpLaunch(g, th) for g in HP_LANES for th in hm.CTA_THREADS]
+    for launch in launches:
+        e, share = hp_shares(hm._h1_launch(*inputs, run.plan, launch), want, tol)
+        key = "dg_estimate_hp_per_member[J=int(u^2)]"
+        errs[key] = max(errs[key], *e.values())
+        worst = {x: max(worst[x], share[x]) for x in worst}
+    unit_out = unit(*inputs)
+    torch.cuda.synchronize()
+    teeth = int((want[3].abs() > tol["err"]).sum())
+    bites = int(((unit_out[2] - want[2]).abs().double() > tol["v"]).any(dim=-1).sum())
+    bits = digest(unit_out)
+    key = f"H1 {b} {mode}"
+    turns = in_turns({"J=int(u^2)": lambda: run(*inputs), "J=int(u)": lambda: unit(*inputs)})
+    ms, ms0 = (statistics.mean(turns[x]) for x in ("J=int(u^2)", "J=int(u)"))
+    plain_ms = cuda_ms(lambda: hm.dg_estimate_hp_per_member_plain(*inputs, run.plan), runs=3)
+    plan = run.plan
+    b_ms, b_by = dg_hp_bound(inputs[0], inputs[1], plan.newton_iters, plan.fine_offset,
+                             plan.mops.rq.shape[0], plan.mops.np_max, mode, goal=True)
+    mine = hm.hp_plan(b, plan.mops.np_max, plan.mops.rq.shape[0])
+    say("38", f"(b) H1 J=int(u^2) B={b} K={HP_K} {mode}: {len(launches)} (G, CTA) launches and the "
+              f"wrapper ({mine}) within the extended per-element bounds, worst share "
+              + " ".join(f"{x} {worst[x]:.2%}" for x in worst)
+              + f"; {teeth} plain |err| above their bound; the J=int(u) kernel's v outside it on "
+                f"{bites} member-elements; J=int(u) bits {bits} (the parent's "
+                f"{PARENT_DIGESTS.get(key, 'not recorded')}); in turns J=int(u^2) {ms:.4f} ms "
+                f"({turns['J=int(u^2)'][0]:.4f} / {turns['J=int(u^2)'][1]:.4f}) against J=int(u) "
+                f"{ms0:.4f} ms ({turns['J=int(u)'][0]:.4f} / {turns['J=int(u)'][1]:.4f}), "
+                f"{ms / ms0:.3f}x; plain {plain_ms:.3f} ms; bound {b_ms:.6f} ms ({b_by}), "
+                f"{b_ms / ms:.3%} of it")
+    assert max(worst.values()) <= 1.0, f"B={b} {mode}: H1 with the goal disagrees"
+    assert teeth > 0 and bites > 0, f"B={b} {mode}: the extended H1 bounds have no teeth"
+    assert key not in PARENT_DIGESTS or PARENT_DIGESTS[key] == bits, f"B={b} {mode}: bits moved"
+    return ms, ms0, plain_ms, (b_ms, b_by)
+
+
+def goal_studies(device, errs):
+    """Phase 38(c): the per-member DG study of phase 10 (B = 1024) and the
+    hp study of phase 13 (B = 512, solve) through their loops with the goal
+    J = ∫u² on the kernels, launches counted, every iteration replayed as
+    phases 10 and 13 replay theirs. Returns the launches of each kernel."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import functionals, odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop, hp_loop
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    u2 = functionals.get_functional("J=int(u^2)")
+    goal = dict(g=lambda u, t: u * u, g_u=u2.g_u, f_u=sin.f_u, engine="cuda", ode=sin,
+                device_loop=True, dtype=torch.float32, device=device)
+    y0s = np.random.default_rng(0).uniform(0.5, 2.0, 1024).astype(np.float32)
+    ds.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = dg_loop.run_adaptive_dg_per_member(sin.f, y0s, (0.0, DG_SLAB["t1"]), n_order=1, k0=2,
+                                              tol=1e-5, maxit=30, newton_iters=8, **goal)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_d1 = ds.dg_estimate_ensemble.launches
+    assert n_d1 > 0 and all(np.all(np.isfinite(r.err)) and np.all(np.isfinite(r.j)) for r in hist)
+    rep = dg_replay(hist, device, errs, u2.g_u, "dg_estimate_ensemble[J=int(u^2)]")
+    last = hist[-1]
+    say("38", f"(c) run_adaptive_dg_per_member B=1024 J=int(u^2) (g_u on the card, device loop, "
+              f"phase 10's study): {len(hist)} iterations, K [{last.n_active.min()}.."
+              f"{last.n_active.max()}], {last.n_refining} refining, mean |Adj-W Res| "
+              f"{np.abs(hist[0].est_total).mean():.3e} -> {np.abs(last.est_total).mean():.3e}, "
+              f"wall {wall:.3f} s, D1 launches {n_d1}; replay: max|d err| {rep['err']:.3e} "
+              f"(worst {rep['share']:.2%} of its bound), decisions clear of 4x the bound "
+              f"{rep['decided']}, kernel and plain agree on {rep['agree']}; float64 torch engine "
+              f"{rep['decided64']} / {rep['agree64']}")
+    y_hp = np.random.default_rng(HP_STUDY["seed"]).uniform(0.5, 2.0, HP_STUDY["b"]).astype(
+        np.float32)
+    hm.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = hp_loop.run_adaptive_dg_hp_per_member(
+        sin.f, y_hp, (0.0, HP_STUDY["t1"]), k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"],
+        mode="hp", tol=0.0, maxit=HP_STUDY["maxit"], newton_iters=HP_STUDY["newton_iters"],
+        **goal)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_h1 = hm.dg_estimate_hp_per_member.launches
+    assert n_h1 == len(hist) == HP_STUDY["maxit"] + 1, (n_h1, len(hist))
+    assert all(np.all(np.isfinite(r.err)) and np.all(np.isfinite(r.j_coarse)) for r in hist)
+    rep = hp_replay(hist, "solve", device, errs, u2.g_u, "dg_estimate_hp_per_member[J=int(u^2)]")
+    last = hist[-1]
+    say("38", f"(c) run_adaptive_dg_hp_per_member B={HP_STUDY['b']} J=int(u^2) (phase 13's study, "
+              f"solve): {len(hist)} iterations, K [{last.n_active.min()}..{last.n_active.max()}], "
+              f"max order {last.ns.max()}, mean |est| {np.abs(hist[0].est_total).mean():.3e} -> "
+              f"{np.abs(last.est_total).mean():.3e}, wall {wall:.3f} s, H1 launches {n_h1}; "
+              f"replay: max|d err| {rep['err']:.3e} (worst {rep['share']:.2%} of its bound), "
+              f"decisions clear of 4x the bound {rep['decided']}, kernel and plain agree on "
+              f"{rep['agree']}; float64 torch engine {rep['decided64']} / {rep['agree64']}")
+    return {"dg_estimate_ensemble[J=int(u^2)]": n_d1,
+            "dg_estimate_hp_per_member[J=int(u^2)]": n_h1}
+
+
+def t2_bf16_row(b, s_steps, device, errs, hold_every, time_every):
+    """Phase 38(d): T2's bf16 mode at one row against its float64 plain
+    version within the bf16 bound (a gate; on every (BM, C) with
+    ``hold_every``, else the wrapper's), the float32 mode outside it
+    somewhere; with ``time_every`` the float32 mode's bits over every plan
+    against the parent's digest, and every bf16 plan timed in turns beside
+    the bf16 and float32 wrappers and torch.matmul's bf16 GEMMs. Returns
+    (bf16 ms, f32 ms, GEMMs ms, plain ms, bound)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+
+    bf = torch.bfloat16
+    sizes = NN_T2["sizes"]
+    params, dt, u0, tr = nn_t2_inputs(device, s_steps)
+    u0, tr = u0[:b].contiguous(), tr[:b].contiguous()
+    theta, theta16 = td.pack_dense(params, sizes, device), td.pack_dense(params, sizes, device, bf)
+    sms = td._sm_count(device)
+    mine = td.dense_plan(sizes, b, sms, bf)
+    plans = {(bm, c): td.DensePlan(bm, c, -(-b // bm), td.dense_smem_bytes(sizes, bm, c, bf), True)
+             for bm, c in td._feasible(sizes, bf)}
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    a64 = (dt.double(), u0.double(), tr.double())
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, *a64, mxu_dtype=bf)
+    _, f64 = td.dense_epoch_grad_plain(p64, sizes, *a64)
+    worst, outside = 0.0, 0
+    for key, plan in (plans.items() if hold_every else [((mine.block_members, mine.cluster), mine)]):
+        loss, flat = td._t2_launch(theta16, sizes, dt, u0, tr, plan)
+        loss2, flat2 = td._t2_launch(theta16, sizes, dt, u0, tr, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(flat, flat2) and torch.equal(loss, loss2), (b, s_steps, key)
+        got = td.unpack_dense(flat, sizes, bf)
+        tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, *key, bf)
+        assert abs(float(loss) - float(l64)) <= tol["loss"], (b, s_steps, key, "loss")
+        for k in g64:
+            for q in g64[k]:
+                bnd = tol["grads"][k][q]
+                d = (got[k][q].double() - g64[k][q]).abs()
+                assert bool((d <= bnd).all()), f"T2 bf16 B={b} S={s_steps} {key} {k}/{q}"
+                worst = max(worst, float((d / bnd.clamp_min(1e-300)).max()))
+                errs["dense_epoch_grad[bf16]"] = max(errs["dense_epoch_grad[bf16]"],
+                                                     float(d.max()))
+                if key == (mine.block_members, mine.cluster):
+                    outside += int(((f64[k][q] - g64[k][q]).abs() > bnd).sum())
+    assert outside > 0, f"T2 bf16 B={b} S={s_steps}: the bf16 bound cannot tell the f32 mode"
+    f32_bits = ""
+    if time_every:  # the float32 mode's bits on every plan
+        outs = []
+        for bm, c in td._feasible(sizes):
+            outs += td._t2_launch(theta, sizes, dt, u0, tr,
+                                  td.DensePlan(bm, c, -(-b // bm), td.dense_smem_bytes(sizes, bm, c)))
+        f32_bits = digest(outs)
+        key = f"T2 {b} {s_steps}"
+        assert key not in PARENT_DIGESTS or PARENT_DIGESTS[key] == f32_bits, f"{key}: f32 bits moved"
+        f32_bits = f"; float32 bits over every plan {f32_bits} (the parent's " \
+                   f"{PARENT_DIGESTS.get(key, 'not recorded')})"
+    a, w = (torch.rand(x, device=device, dtype=bf) for x in ((b, sizes[0]), sizes))
+    dz = torch.rand((b, sizes[1]), device=device, dtype=bf)
+
+    def gemms():
+        for _ in range(s_steps):
+            a @ w, a @ w, a.T @ dz, dz @ w.T  # forward, recompute, ∂W, ∂a
+
+    runs = {"bf16 wrapper": lambda: td.dense_epoch_grad(theta16, sizes, dt, u0, tr, bf),
+            "f32 wrapper": lambda: td.dense_epoch_grad(theta, sizes, dt, u0, tr),
+            "torch.matmul bf16 GEMMs": gemms}
+    if time_every:
+        runs.update({f"bf16 {key}": (lambda p: lambda: td._t2_launch(theta16, sizes, dt, u0, tr, p))(
+            plan) for key, plan in plans.items()})
+    turns = in_turns(runs)
+    ms, ms32, gms = (statistics.mean(turns[x]) for x in ("bf16 wrapper", "f32 wrapper",
+                                                          "torch.matmul bf16 GEMMs"))
+    plain_ms = cuda_ms(lambda: td.dense_epoch_grad_plain(params, sizes, dt, u0, tr, bf), runs=3)
+    b_ms, b_by, tc_ops = t2_bf16_bound(s_steps, sizes, b)
+    say("38", f"(d) T2 bf16 {sizes} B={b} S={s_steps}: {len(plans) if hold_every else 1} plan(s) "
+              f"within the bf16 bound of the float64 bf16 plain version (worst {worst:.2%}), the "
+              f"float32 mode outside it at {outside} entries{f32_bits}; the wrapper "
+              f"({mine.block_members}, {mine.cluster}) {ms:.4f} ms "
+              f"({tc_ops / (ms / 1e3) / 1e12:.2f} TFLOP/s of its bf16 products; {b_ms / ms:.2%} "
+              f"of the {b_ms:.5f} ms bound, {b_by}), the float32 wrapper {ms32:.4f} ms "
+              f"({ms32 / ms:.2f}x), torch.matmul's bf16 GEMMs {gms:.4f} ms (the kernel at "
+              f"{ms / gms:.3f}x of them); plain {plain_ms:.3f} ms; in turns: "
+              + "; ".join(f"{x} {statistics.mean(t):.4f} ({t[0]:.4f} / {t[1]:.4f})"
+                          for x, t in turns.items()))
+    return ms, ms32, gms, plain_ms, (b_ms, b_by)
+
+
+def bf16_train_steps(device):
+    """Phase 38(e): five steps of make_shared_train_step_fused(...,
+    mxu_dtype=bfloat16) at (100, 500), S = 10, B = 8192: the loss falls and
+    stays finite. Returns T2's launches."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+    from adjoint_ode_adaptivity_tpu_torch.train import loop
+
+    params, dt, u0, tr = nn_t2_inputs(device, 10)
+    tx = loop.Adam(1e-3)
+    step = loop.make_shared_train_step_fused(tx, dt, NN_T2["sizes"], device=device,
+                                             mxu_dtype=torch.bfloat16)
+    state = loop.create_train_state(params, tx)
+    td.reset_launch_counts()
+    losses = []
+    for _ in range(5):
+        state, loss = step(state, u0, tr)
+        losses.append(float(loss))
+    n = td.dense_epoch_grad.launches
+    say("38", f"(e) make_shared_train_step_fused(..., mxu_dtype=torch.bfloat16) {NN_T2['sizes']} "
+              f"S=10 B={u0.shape[0]}: losses {', '.join(f'{x:.6e}' for x in losses)}; T2 "
+              f"launches {n}")
+    assert all(map(math.isfinite, losses)) and losses[-1] < losses[0] and n == 5, losses
+    return n
+
+
+def phase38(device, lib, errs):
+    """The goal J = ∫u² on D1 and H1, and T2's bf16 mode: (a) D1 at
+    D1_GOAL_CASES, (b) H1 at B = 512 (both modes) and 4096, (c) the DG and
+    hp per-member studies with the goal, (d) T2 bf16 at T2_BF16_ROWS, (e)
+    five bf16 train steps. Returns (launches, times, bounds) for the
+    kernels line's three mode rows."""
+    import re
+
+    sass = subprocess.run([os.environ.get("CUOBJDUMP", "cuobjdump"), "-sass", str(lib.path)],
+                          capture_output=True, text=True).stdout
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0]
+        if "dense_cluster_kernel" in name:
+            mode = "bf16" if "ILb1E" in name else "float32"
+            say("38", f"SASS of dense_cluster_kernel<{mode}>: {fn.count('HMMA')} HMMA, "
+                      f"{fn.count('FFMA')} FFMA instructions")
+            assert (fn.count("HMMA") > 0) == (mode == "bf16"), f"{mode}: tensor-core use"
+    say("38", "ptxas -v: " + "; ".join(kernel_registers(
+        lib.build_log, ("dense_cluster_kernel",))))
+    d1 = [d1_goal_case(*case, device, errs) for case in D1_GOAL_CASES]
+    h1 = [h1_goal_case(HP_STUDY["b"], HP_STUDY["seed"], "solve", device, errs),
+          h1_goal_case(HP_STUDY["b"], HP_STUDY["seed"], "reconstruct", device, errs),
+          h1_goal_case(HP_BIG["b"], HP_BIG["seed"], "solve", device, errs)]
+    launches = goal_studies(device, errs)
+    t2 = [t2_bf16_row(b, s, device, errs, hold_every=b < 8192, time_every=s < 100)
+          for b, s in T2_BF16_ROWS]
+    launches["dense_epoch_grad[bf16]"] = bf16_train_steps(device)
+    times = {"dg_estimate_ensemble[J=int(u^2)]": (d1[1][0], d1[1][2]),
+             "dg_estimate_hp_per_member[J=int(u^2)]": (h1[0][0], h1[0][2]),
+             "dense_epoch_grad[bf16]": (t2[0][0], t2[0][3])}
+    bounds = {"dg_estimate_ensemble[J=int(u^2)]": d1[1][3],
+              "dg_estimate_hp_per_member[J=int(u^2)]": h1[0][3],
+              "dense_epoch_grad[bf16]": t2[0][4]}
+    return launches, times, bounds
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -5024,11 +5463,12 @@ def main() -> int:
     phase35(device, lib, errs, cases)
     phase36(device, lib, errs, inp)
     phase37(device, lib, errs, inp)
-    launches.update(rc_launches, **tl_launches, **km_launches)
-    times.update(rc_times, **tl_times, **km_times)
+    md_launches, md_times, md_bounds = phase38(device, lib, errs)
+    launches.update(rc_launches, **tl_launches, **km_launches, **md_launches)
+    times.update(rc_times, **tl_times, **km_times, **md_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
               **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
-              **rc_bounds, **tl_bounds, **km_bounds}
+              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)
@@ -5039,6 +5479,10 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
         for name in TPU_KERNELS
     ]
+    ends = sorted(SAID.items(), key=lambda kv: kv[1][1])
+    print("[walls] seconds from the line before each phase's first to its last: "
+          + ", ".join(f"{p} {t1 - (ends[i - 1][1][1] if i else first):.1f}"
+                      for i, (p, (first, t1)) in enumerate(ends)), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

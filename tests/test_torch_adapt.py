@@ -13,6 +13,8 @@ from adjoint_ode_adaptivity_tpu.adapt.advec_loop import run_adaptive_advec as ja
 from adjoint_ode_adaptivity_tpu_torch.adapt.advec_loop import run_adaptive_advec
 from adjoint_ode_adaptivity_tpu_torch.drivers import advec_dg
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 REPO = Path(__file__).resolve().parents[1]
 # test_advec.py::test_adaptive_element_loop_reduces_estimate's config
 REF_KW = dict(n_order=2, k0=8, final_time=0.1, maxit=3, tol=1e-10)

@@ -16,6 +16,8 @@ from adjoint_ode_adaptivity_tpu_torch import interop
 from adjoint_ode_adaptivity_tpu_torch.adjoint import advec as tadj
 from adjoint_ode_adaptivity_tpu_torch.march import advec as tmarch
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 A = 2 * np.pi
 F64 = torch.float64
 

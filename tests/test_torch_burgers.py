@@ -33,6 +33,8 @@ from adjoint_ode_adaptivity_tpu_torch.march import burgers as tb
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
 from adjoint_ode_adaptivity_tpu_torch.ops.operators import mass_matrix
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 RTOL, ATOL = 1e-12, 1e-13
 

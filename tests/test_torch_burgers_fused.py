@@ -34,6 +34,8 @@ from adjoint_ode_adaptivity_tpu.ops import startup_1d as jax_startup_1d
 from adjoint_ode_adaptivity_tpu_torch import interop
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 BP = cb.BurgersPlan
 K = 60
 

@@ -29,6 +29,10 @@ member and element: u and v within 8·ε of their element's system's
 |J⁻¹|·(the magnitudes of its terms), carried by the inflow of the elements
 before it, err within 8·ε of the sum of the magnitudes of its products.
 
+D1 and H1 with the goal J = ∫u² (g_u = 2u by a functor): the same bounds,
+extended by the source's terms h/2·Σ_j|M_ij|·|g_u| and the nodes' error
+through g_u; the J = ∫u adjoint must lie outside them.
+
 The training kernels: each gradient entry against its own bound, against
 the plain version in float64. T1's (ops/cuda/train_fused.
 resblock_kernel_tolerance) is the first-order float32 error of every member
@@ -58,6 +62,7 @@ import numpy as np
 import pytest
 import torch
 
+from adjoint_ode_adaptivity_tpu_torch import functionals
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
     dg_adjoint_interp_mixed,
@@ -73,6 +78,8 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
 from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple, ResNetBlock
+
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
 
 pytestmark = pytest.mark.cuda
 A = 2 * np.pi
@@ -358,6 +365,97 @@ def test_hp_kernel_refusals_raise(device):
         run(times[:0], ns[:0], torch.ones(0, device=device))  # an empty grid: the launch is refused
 
 
+U2 = functionals.get_functional("J=int(u^2)")
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("n,per_member", [(1, True), (1, False), (3, False)])
+def test_dg_slab_kernel_with_a_goal_matches_its_plain_version(device, n, per_member, lanes):
+    """D1 with J = ∫u² through its wrapper and on G lanes at every CTA size:
+    each output within its extended per-element bound of the plain version,
+    a repeat bit-identical, the tails exactly 0; the J = ∫u kernel's v lies
+    outside the bound."""
+    rng = np.random.default_rng(20 + n)
+    k, b = 12, 3000
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    if per_member:
+        t = np.full((b, k + 1), 2.0)
+        for m, n_act in enumerate(rng.integers(2, k, b)):
+            t[m, : n_act + 1] = np.concatenate([[0.0], np.sort(rng.uniform(0.1, 1.9, n_act - 1)),
+                                                [2.0]])
+    else:
+        t = np.linspace(0.0, 2.0, k + 1)
+    times = torch.tensor(t, dtype=torch.float32, device=device)
+    ops_p, ops_a = dg_time_operators(n), dg_time_operators(n + 1)
+    run = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, 8, g_u=U2.g_u,
+                                            device=device)
+    before = ds.dg_estimate_ensemble.launches
+    outs = [run(times, y0)]
+    for threads in ds.CTA_THREADS:
+        outs.append(ds._d1_launch(times, y0, run.plan, ds.D1Launch(lanes, threads)))
+    again = ds._d1_launch(times, y0, run.plan, ds.D1Launch(lanes, ds.CTA_THREADS[0]))
+    torch.cuda.synchronize()
+    assert ds.dg_estimate_ensemble.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(again, outs[1]))
+    want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+    tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+    for got in outs:
+        for g, w, name in zip(got, want, ("u", "v", "err")):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert bool(((g - w).abs().double() <= tol[name]).all()), name
+        if per_member:
+            assert bool((got[2][torch.diff(times, dim=1) == 0] == 0).all())
+    unit = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, 8,
+                                             device=device)(times, y0)
+    assert bool(((unit[1] - want[1]).abs().double() > tol["v"]).any())
+
+
+@pytest.mark.parametrize("lanes", [4, 16])
+@pytest.mark.parametrize("mode", ["solve", "reconstruct"])
+def test_hp_kernel_with_a_goal_matches_its_plain_version(device, mode, lanes):
+    """H1 with J = ∫u² (g_u at the live nodes, 0 at the padding) through its
+    wrapper and on G lanes at every CTA size: within the extended bounds, a
+    repeat bit-identical, the tails exactly 0; the J = ∫u kernel's v lies
+    outside the bound."""
+    rng = np.random.default_rng(31)
+    k, b, n_user, fo = 12, 3000, 3, 2
+    t = np.full((b, k + 1), 2.0)
+    ns = np.ones((b, k), np.int64)
+    for m, n_act in enumerate(rng.integers(2, k, b)):
+        inner = np.sort(rng.choice(np.arange(1, 2048), n_act - 1, replace=False)) / 1024
+        t[m, : n_act + 1] = np.concatenate([[0.0], inner, [2.0]])
+        ns[m, :n_act] = rng.integers(1, n_user + 1, n_act)
+    times = torch.tensor(t, dtype=torch.float32, device=device)
+    ns = torch.tensor(ns, device=device)
+    y0 = torch.tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32, device=device)
+    mops = dg_time_operators_mixed(n_user + fo)
+
+    def make(g_u):
+        return hm.make_cuda_dg_estimate_hp_per_member(
+            "du/dt=sin(u)", mops, dg_adjoint_interp_mixed(mops), k, n_max_user=n_user,
+            fine_offset=fo, adjoint_mode=mode, rad=dg_radau_interp_mixed(mops), g_u=g_u,
+            device=device)
+
+    run = make(U2.g_u)
+    before = hm.dg_estimate_hp_per_member.launches
+    outs = [run(times, ns, y0)]
+    for threads in hm.CTA_THREADS:
+        outs.append(hm._h1_launch(times, ns, y0, run.plan, hm.HpLaunch(lanes, threads)))
+    again = hm._h1_launch(times, ns, y0, run.plan, hm.HpLaunch(lanes, hm.CTA_THREADS[0]))
+    torch.cuda.synchronize()
+    assert hm.dg_estimate_hp_per_member.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in zip(again, outs[1]))
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
+    tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
+    for got in outs:
+        for g, w, name in zip(got, want, ("u_c", "u_f", "v", "err")):
+            assert g.shape == w.shape and bool(torch.isfinite(g).all())
+            assert bool(((g - w).abs().double() <= tol[name]).all()), name
+        assert bool((got[3][times[:, :-1] == 2.0] == 0).all())
+    unit = make(None)(times, ns, y0)
+    assert bool(((unit[2] - want[2]).abs().double() > tol["v"]).any())
+
+
 def _most_above(leaves):
     """Most entries of each (reference, bound) leaf with a nonzero bound lie
     above it: a wrong or zero leaf cannot pass."""
@@ -481,6 +579,78 @@ def test_dense_epoch_kernel_on_every_plan(device, sizes, b):
         assert torch.equal(flat, flat2) and torch.equal(loss, loss2), (bm, c)
         tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, bm, c)
         got = td.unpack_dense(flat, sizes)
+        assert abs(float(loss) - float(l64)) <= tol["loss"], (bm, c)
+        for k in g64:
+            for q in g64[k]:
+                d = (got[k][q].double() - g64[k][q]).abs()
+                assert bool((d <= tol["grads"][k][q]).all()), (bm, c, k, q)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("sizes,b,s_steps", [((100, 500), 1000, 5), ((8, 16), 50, 5),
+                                             ((3, 6, 5), 70, 5), ((100, 500), 512, 2),
+                                             ((64,) * 4, 300, 3)])
+def test_dense_epoch_kernel_bf16_matches_its_plain_version(device, sizes, b, s_steps):
+    """T2's bf16 mode (mma.sync bf16 tensor cores) on its plan: twice,
+    bit-identical, each entry within the bf16 bound of the float64 bf16
+    plain version at that plan's (BM, C); the float32 mode's entries lie
+    outside it somewhere."""
+    params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(9), device=device)
+    rng = np.random.default_rng(10)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
+    dt[min(2, s_steps - 1)] = 0.0
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
+    tr = torch.sin(u0) + 0.3
+    theta = td.pack_dense(params, sizes, device, BF16)
+    before = td.dense_epoch_grad.launches
+    loss, flat = td.dense_epoch_grad(theta, sizes, dt, u0, tr, BF16)
+    loss2, flat2 = td.dense_epoch_grad(theta, sizes, dt, u0, tr, BF16)
+    torch.cuda.synchronize()
+    assert td.dense_epoch_grad.launches == before + 2
+    assert torch.equal(flat, flat2) and torch.equal(loss, loss2)
+    got = td.unpack_dense(flat, sizes, BF16)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    args64 = (dt.double(), u0.double(), tr.double())
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, *args64, mxu_dtype=BF16)
+    _, f64 = td.dense_epoch_grad_plain(p64, sizes, *args64)
+    plan = td.dense_plan(sizes, b, torch.cuda.get_device_properties(device).multi_processor_count,
+                         BF16)
+    tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, plan.block_members, plan.cluster,
+                                    BF16)
+    assert abs(float(loss) - float(l64)) <= tol["loss"]
+    outside = 0
+    for k in g64:
+        for q in g64[k]:
+            bnd = tol["grads"][k][q]
+            assert bool(((got[k][q].double() - g64[k][q]).abs() <= bnd).all()), (k, q)
+            outside += int(((f64[k][q] - g64[k][q]).abs() > bnd).sum())
+    assert outside > 0
+
+
+def test_dense_epoch_kernel_bf16_on_every_plan(device):
+    """T2's bf16 mode on every (BM, C) it takes at (100, 500), B = 200."""
+    sizes, b, s_steps = (100, 500), 200, 3
+    params = ResNetBlock(sizes).init_params(torch.Generator().manual_seed(4), device=device)
+    rng = np.random.default_rng(5)
+    dt = torch.tensor(rng.uniform(0.05, 0.15, s_steps), dtype=torch.float32, device=device)
+    u0 = torch.tensor(rng.uniform(-2, 2, b), dtype=torch.float32, device=device)
+    tr = torch.sin(u0) + 0.3
+    theta = td.pack_dense(params, sizes, device, BF16)
+    p64 = {k: {q: v.double() for q, v in d.items()} for k, d in params.items()}
+    l64, g64 = td.dense_epoch_grad_plain(p64, sizes, dt.double(), u0.double(), tr.double(),
+                                         mxu_dtype=BF16)
+    plans = list(td._feasible(sizes, BF16))
+    assert len(plans) >= 6
+    for bm, c in plans:
+        plan = td.DensePlan(bm, c, -(-b // bm), td.dense_smem_bytes(sizes, bm, c, BF16), True)
+        loss, flat = td._t2_launch(theta, sizes, dt, u0, tr, plan)
+        loss2, flat2 = td._t2_launch(theta, sizes, dt, u0, tr, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(flat, flat2) and torch.equal(loss, loss2), (bm, c)
+        tol = td.dense_kernel_tolerance(params, sizes, dt, u0, tr, bm, c, BF16)
+        got = td.unpack_dense(flat, sizes, BF16)
         assert abs(float(loss) - float(l64)) <= tol["loss"], (bm, c)
         for k in g64:
             for q in g64[k]:

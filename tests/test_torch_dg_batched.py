@@ -16,6 +16,8 @@ from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.march import dg_batched as tb
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 ATOL = 1e-12
 SIN = odes.get_ode("du/dt=sin(u)")

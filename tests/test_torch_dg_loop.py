@@ -24,6 +24,8 @@ from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop
 from adjoint_ode_adaptivity_tpu_torch.drivers import dg_adaptive
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 SIN = odes.get_ode("du/dt=sin(u)")
 F_J = lambda u, t: jnp.sin(u)  # noqa: E731
 CPU = dict(dtype=torch.float64, device="cpu")

@@ -21,6 +21,8 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint import dg_mixed as tadj
 from adjoint_ode_adaptivity_tpu_torch.interop import mixed_operators_from_numpy
 from adjoint_ode_adaptivity_tpu_torch.march import dg_mixed as tmarch
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 ATOL = 1e-12
 N_USER, FO = 3, 2

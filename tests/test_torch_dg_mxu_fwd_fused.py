@@ -27,6 +27,8 @@ from adjoint_ode_adaptivity_tpu.ops import startup_1d as jax_startup_1d
 from adjoint_ode_adaptivity_tpu_torch import interop
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_mxu, dg_rhs
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 A = 2 * np.pi
 B = 3
 EPS32 = float(np.finfo(np.float32).eps)

@@ -34,6 +34,8 @@ from adjoint_ode_adaptivity_tpu_torch.adapt import advec_loop
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, pick_chunk
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 A = 2 * np.pi
 F32_TOL = ((2e-4, 1e-6), (2e-3, 2e-5), (5e-3, 1e-7))  # test_pallas.py: u, λ, η
 

@@ -27,6 +27,8 @@ from adjoint_ode_adaptivity_tpu_torch import interop
 from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 A = 2 * np.pi
 B = 3
 

@@ -16,6 +16,8 @@ from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F32 = torch.float32
 TOL = {"u": 3e-6, "v": 5e-6, "err": 3e-6}
 F_J = lambda u, t: jnp.sin(u)  # noqa: E731

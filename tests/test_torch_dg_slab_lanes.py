@@ -26,6 +26,8 @@ from adjoint_ode_adaptivity_tpu.march.dg_time import dg_time_operators as jops
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 NAMES = ("u", "v", "err")
 
 

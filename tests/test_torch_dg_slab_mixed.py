@@ -20,6 +20,8 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
 from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mixed
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 N_USER, FO, K_EL, B, NEWTON = 3, 2, 5, 16, 8
 F_SIN = lambda u, t: jnp.sin(u)  # noqa: E731
 ATOL = {"u_c": 2e-5, "u_f": 2e-5, "v": 2e-4, "err": 2e-5}

@@ -13,6 +13,8 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
 )
 from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mixed
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
 N_USER, FO, NEWTON = 3, 2, 8
 
 

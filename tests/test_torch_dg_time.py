@@ -18,6 +18,8 @@ from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.adjoint import dg_time as tadj
 from adjoint_ode_adaptivity_tpu_torch.march import dg_time as tmarch
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 ATOL = 1e-12
 # graded partition over [0, 2]

@@ -31,6 +31,8 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint import estimate as est
 from adjoint_ode_adaptivity_tpu_torch.march import fd
 from adjoint_ode_adaptivity_tpu_torch.ops import fast_trig as ft
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 SCALAR_ODES = ["du/dt=u", "du/dt=sin(u)", "du/dt=cos(2*pi*u)", "du/dt=10cos(u)",
                "du/dt=t*sin(u)", "gaussian_mixture"]

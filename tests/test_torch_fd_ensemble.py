@@ -31,6 +31,8 @@ from adjoint_ode_adaptivity_tpu.ops.pallas.fd_ensemble import make_pallas_fd_est
 from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 F64 = torch.float64
 ATOL = 1e-12
 SCALAR_ODES = ["du/dt=u", "du/dt=sin(u)", "du/dt=cos(2*pi*u)", "du/dt=10cos(u)",

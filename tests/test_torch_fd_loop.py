@@ -19,6 +19,8 @@ from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
 from adjoint_ode_adaptivity_tpu_torch.drivers import fd_adaptive
 from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 SIN_J = jodes.get_ode("du/dt=sin(u)")
 SIN = odes.get_ode("du/dt=sin(u)")
 CPU = dict(dtype=torch.float64, device="cpu")

@@ -19,6 +19,8 @@ import torch
 
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 L = fe.FdPmLaunch
 
 

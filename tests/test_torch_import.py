@@ -6,6 +6,9 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
 
 REPO = Path(__file__).resolve().parents[1]
 

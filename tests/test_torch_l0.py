@@ -3,6 +3,7 @@
 coefficients, the interop round trip, and ``pick_chunk``."""
 import numpy as np
 import pytest
+import torch
 
 from adjoint_ode_adaptivity_tpu.march.lsrk import RK4A, RK4B, RK4C
 from adjoint_ode_adaptivity_tpu.ops import startup_1d as jax_startup_1d
@@ -11,6 +12,8 @@ from adjoint_ode_adaptivity_tpu_torch import interop
 from adjoint_ode_adaptivity_tpu_torch.march import lsrk
 from adjoint_ode_adaptivity_tpu_torch.ops import element_operators, radau_points, startup_1d
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import pick_chunk
+
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
 
 
 def _graded_vx(k):

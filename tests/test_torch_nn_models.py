@@ -25,6 +25,8 @@ from adjoint_ode_adaptivity_tpu_torch import interop, models, odes
 from adjoint_ode_adaptivity_tpu_torch.adapt import policy
 from adjoint_ode_adaptivity_tpu_torch.train import data, losses
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 RTOL = 1e-12
 
 

@@ -46,6 +46,8 @@ from adjoint_ode_adaptivity_tpu_torch.parallel import (
     shard_along,
 )
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 WORLDS = (1, 2, 4)
 EPS32 = float(np.finfo(np.float32).eps)
 

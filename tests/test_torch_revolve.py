@@ -40,6 +40,8 @@ from adjoint_ode_adaptivity_tpu_torch.march import advec as tmarch
 from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 A = 2 * np.pi
 F64 = torch.float64
 CASES = [(2, 1), (7, 1), (10, 3), (100, 7), (1000, 10), (5, 4), (4096, 12)]

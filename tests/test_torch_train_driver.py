@@ -35,6 +35,8 @@ from adjoint_ode_adaptivity_tpu_torch.drivers import train_resnet_ode as td
 from adjoint_ode_adaptivity_tpu_torch.train.adaptive import ensemble_refinement_signal
 from adjoint_ode_adaptivity_tpu_torch.tree import tree_leaves
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 RTOL = 1e-6
 
 

@@ -34,6 +34,8 @@ from adjoint_ode_adaptivity_tpu_torch import models as torch_models
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 S, F, B = 3, 24, 128
 
 

@@ -27,6 +27,8 @@ from adjoint_ode_adaptivity_tpu_torch import interop, models
 from adjoint_ode_adaptivity_tpu_torch.train import adaptive, checkpoint, loop
 from adjoint_ode_adaptivity_tpu_torch.train.metrics import MetricsLogger, StepTimer
 
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
+
 S, F, B = 3, 16, 128
 
 

@@ -5,7 +5,10 @@ tests/test_torch_train_driver.py: the JAX run is float64 data with float32
 parameters, and so is the port's; per-epoch losses, errors and signals to
 1e-6 relative.
 """
+import torch
 from test_torch_train_driver import assert_same_run, run_both
+
+torch.set_num_threads(1)  # one intra-op thread a process: the suite runs in xdist workers
 
 
 def test_recurrent_run_matches_the_jax_driver(tmp_path, monkeypatch):

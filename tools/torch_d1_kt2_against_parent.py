@@ -101,7 +101,7 @@ def build(parent: Path):
     par.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 8 + [p] * 6
     par.dg_tiled_rev.argtypes = [i] * 7 + [d] * 3 + [p] * 12
     const = ctypes.CDLL(str(out_dir / "libconst.so"))
-    const.dg_estimate_ensemble.argtypes = [i] * 4 + [p] * 2 + [i] * 10 + [p] * 6
+    const.dg_estimate_ensemble.argtypes = [i] * 5 + [p] * 2 + [i] * 10 + [p] * 6
     return par, const
 
 
@@ -123,7 +123,8 @@ def d1_inputs(b, k, per_member, seed, device):
 
 def d1_on(lib, times, y0, plan, *, host_tables=False, launch=None):
     """One launch of a D1 library (the parent's: host tables, (K+1, B)
-    per-member times; else this checkout's C signature): (u, v, err)."""
+    per-member times; else this checkout's C signature, which takes the
+    goal's id after the trig flag): (u, v, err)."""
     import torch
 
     b, k = y0.shape[0], plan.n_elements
@@ -141,7 +142,8 @@ def d1_on(lib, times, y0, plan, *, host_tables=False, launch=None):
                                         *shape, t.data_ptr(), y0.data_ptr(), u.data_ptr(),
                                         v.data_ptr(), err.data_ptr(), stream)
     else:
-        code = lib.dg_estimate_ensemble(*head, plan.tables.data_ptr(), plan.tables.numel(), *shape,
+        code = lib.dg_estimate_ensemble(*head[:2], plan.gu_id, *head[2:], plan.tables.data_ptr(),
+                                        plan.tables.numel(), *shape,
                                         launch.lanes, launch.threads, times.data_ptr(),
                                         y0.data_ptr(), u.data_ptr(), v.data_ptr(), err.data_ptr(),
                                         stream)
