@@ -33,11 +33,25 @@ one fetch at the end says which iterations belong to the history, the rest
 are dropped, and the history is bit-identical to the host loop's. The
 single run's Newton solves still read a norm per step (march/dg_time.py).
 
+``mesh=`` (the ensemble loops): a :class:`~..parallel.mesh.RankGrid` whose
+``mesh_axis`` (default ``"data"``) shards the members over ranks, as the
+JAX package's ``mesh=`` shards them over devices; B must divide over the
+axis. Each rank runs its block of members through the same estimate (the
+cuda engine's D1, or the torch engine). The ensemble loop does so by
+:func:`~..parallel.ensemble.ensemble_batched` on the replicated partition
+and sums its means (the per-element |err|, J and Σerr) over the ranks in
+one all-reduce an iteration, so every rank takes the same bisection and
+the same stop; the per-member loop keeps only its block's partitions and
+gathers its diagnostics in member order (once at the end with
+``device_loop``), the stop (no member refining) global. Every rank returns
+the global history; at one rank it is the unsharded loop's, bit for bit.
+With ``checkpoint_dir`` rank 0 writes the gathered state and every rank
+resumes from it.
+
 Entry points run on the card unless the caller passes ``device="cpu"``; a
 CUDA device that is not there raises. Checkpoints are ``torch.save`` files
 (fd_loop's atomic save); a resumed run continues the history. Not ported:
-the data-parallel ``mesh=`` (ROADMAP queue 1 item 14) and ``iteration=``
-(a jit-reuse hook that eager torch does not need).
+``iteration=`` (a jit-reuse hook that eager torch does not need).
 """
 from __future__ import annotations
 
@@ -47,7 +61,12 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import _atomic_save, _load
+from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import (
+    _atomic_save,
+    _load,
+    _member_grid,
+    _save_rank0,
+)
 from adjoint_ode_adaptivity_tpu_torch.adapt.policy import _insert
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import (
     dg_adjoint_march,
@@ -62,6 +81,13 @@ from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import (
 )
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_march, dg_time_operators
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.parallel.ensemble import ensemble_batched
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
+    RankGrid,
+    all_gather,
+    all_reduce_sum,
+    shard_along,
+)
 
 __all__ = [
     "DGAdaptResult",
@@ -323,6 +349,8 @@ def run_adaptive_dg_ensemble(
     ode=None,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
+    mesh: RankGrid | None = None,
+    mesh_axis: str = "data",
     dtype=None,
     device="cuda",
 ) -> list[DGEnsembleAdaptResult]:
@@ -332,13 +360,16 @@ def run_adaptive_dg_ensemble(
     bisects the element with the largest ensemble-mean |contribution|,
     until |mean Σerr| < tol or maxit. ``newton_iters`` fixes the forward
     Newton count (the cuda engine's default is 8). ``engine``, ``ode``,
-    ``device_loop`` and ``checkpoint_dir`` as in the module docstring;
-    ``dtype`` defaults to torch's default float type."""
+    ``device_loop``, ``checkpoint_dir``, ``mesh`` and ``mesh_axis`` as in
+    the module docstring; ``dtype`` defaults to torch's default float
+    type."""
     device = require_device(device)
     dtype = dtype or torch.get_default_dtype()
     ops_p = dg_time_operators(n_order, n_gq)
     ops_a = dg_time_operators(n_order + 1, None if n_gq is None else n_gq + 2)
     y0s = torch.as_tensor(np.asarray(y0s), dtype=dtype, device=device)
+    b = y0s.shape[0]
+    grid = _member_grid(mesh, mesh_axis, b)
 
     # restore before sizing the padding: a resumed run may ask for fewer or
     # more iterations than the one it resumes
@@ -357,14 +388,18 @@ def run_adaptive_dg_ensemble(
     estimate = _estimator(engine, f, f_u, g_u, ode, dtype,
                           dict(newton_tol=newton_tol, newton_maxit=newton_maxit,
                                newton_iters=newton_iters), ops_p, ops_a, max_k, device)
+    # this rank's members through the estimate; the partition is replicated
+    estimate_shard = ensemble_batched(lambda y, t: estimate(t, y), grid, mesh_axis)
 
     def iteration(times):
-        u, err = estimate(times, y0s)
-        j_mean = torch.mean(dg_element_functional_batched(ops_p, u, times, g))
-        err_mean = torch.mean(torch.abs(err), dim=0)  # (K,)
-        est_total = torch.mean(torch.sum(err, dim=1))
-        diag = torch.cat([times, err_mean.to(times.dtype),
-                          torch.stack([j_mean, est_total]).to(times.dtype)])
+        u, err = estimate_shard(y0s, times)
+        # the means over all members: this rank's sums, summed over the ranks
+        sums = torch.cat([torch.sum(torch.abs(err), dim=0),  # (K,)
+                          torch.sum(dg_element_functional_batched(ops_p, u, times, g))[None],
+                          torch.sum(torch.sum(err, dim=1))[None]])
+        means = all_reduce_sum(sums, grid, mesh_axis) / b
+        err_mean = means[:max_k]
+        diag = torch.cat([times, means.to(times.dtype)])
         return _bisect(times, err_mean), diag
 
     if raw is not None:
@@ -384,9 +419,10 @@ def run_adaptive_dg_ensemble(
 
     def save(times_f, n_act):
         if checkpoint_dir is not None:
-            payload = {"times": times_f.cpu(), "n_active": n_act,
-                       "history": [_to_saved(r._asdict()) for r in history]}
-            _atomic_save(payload, Path(checkpoint_dir) / ENSEMBLE_CHECKPOINT_FILE)
+            _save_rank0(grid, lambda: {
+                "times": times_f.cpu(), "n_active": n_act,
+                "history": [_to_saved(r._asdict()) for r in history]},
+                Path(checkpoint_dir) / ENSEMBLE_CHECKPOINT_FILE)
 
     if device_loop:
         rows, active = [], torch.ones((), dtype=torch.bool, device=device)
@@ -450,6 +486,8 @@ def run_adaptive_dg_per_member(
     ode=None,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
+    mesh: RankGrid | None = None,
+    mesh_axis: str = "data",
     dtype=None,
     device="cuda",
 ) -> list[DGPerMemberAdaptResult]:
@@ -458,13 +496,20 @@ def run_adaptive_dg_per_member(
     independently once |Σerr| < tol (frozen members are masked on the
     member axis, so shapes never change). Arguments as for
     :func:`run_adaptive_dg_ensemble`; the cuda engine reads per-member
-    partitions."""
+    partitions, which shard with the members under ``mesh``."""
     device = require_device(device)
     dtype = dtype or torch.get_default_dtype()
     ops_p = dg_time_operators(n_order, n_gq)
     ops_a = dg_time_operators(n_order + 1, None if n_gq is None else n_gq + 2)
     y0s = torch.as_tensor(np.asarray(y0s), dtype=dtype, device=device)
     b = y0s.shape[0]
+    grid = _member_grid(mesh, mesh_axis, b)
+
+    def gather(x, dim=0):  # the ranks' blocks in member order
+        return all_gather(x, grid, mesh_axis, dim)
+
+    def shard(x):
+        return shard_along(x, grid, mesh_axis)
 
     history: list[DGPerMemberAdaptResult] = []
     it0 = 0
@@ -492,8 +537,12 @@ def run_adaptive_dg_per_member(
                           dict(newton_tol=newton_tol, newton_maxit=newton_maxit,
                                newton_iters=newton_iters), ops_p, ops_a, max_k, device)
 
+    y_local = shard(y0s)  # this rank's members
+
     def iteration(times, refining):
-        u, err = estimate(times, y0s)
+        # ``times`` and ``refining`` are this rank's block of members: the
+        # partitions shard with them, as ensemble_batched's shard_extras
+        u, err = estimate(times, y_local)
         j = dg_element_functional_batched(ops_p, u, times, g)  # (B,)
         est_total = torch.sum(err, dim=1)  # (B,)
         # members at tolerance freeze: their partition stops changing
@@ -508,15 +557,16 @@ def run_adaptive_dg_per_member(
         t_res = raw["times"].numpy()
         t_res = np.concatenate([t_res, np.repeat(t_res[:, -1:], n_pad - t_res.shape[1], axis=1)],
                                axis=1)
-        times = torch.as_tensor(t_res, dtype=dtype, device=device)
-        refining = raw["refining"].to(device) != 0
-        n_active = raw["n_active"].numpy().copy()
+        times = shard(torch.as_tensor(t_res, dtype=dtype, device=device))
+        refining = shard(raw["refining"].to(device)) != 0
+        n_active = raw["n_active"].numpy().copy()  # (B,) on the host: every member
     else:
         row = np.linspace(t_span[0], t_span[1], k0 + 1)
         row = np.concatenate([row, np.full(max_k - k0, row[-1])])
-        times = torch.as_tensor(np.broadcast_to(row, (b, n_pad)).copy(), dtype=dtype,
+        b_loc = b // grid.axis_size(mesh_axis)
+        times = torch.as_tensor(np.broadcast_to(row, (b_loc, n_pad)).copy(), dtype=dtype,
                                 device=device)
-        refining = torch.ones((b,), dtype=torch.bool, device=device)
+        refining = torch.ones((b_loc,), dtype=torch.bool, device=device)
         n_active = np.full((b,), k0, np.int64)
 
     def append(d: np.ndarray) -> np.ndarray:
@@ -529,32 +579,36 @@ def run_adaptive_dg_per_member(
         return refine_h
 
     def save(times_f, refining_f):
-        if checkpoint_dir is not None:
-            payload = {"times": times_f.cpu(), "refining": refining_f.cpu().to(torch.int32),
-                       "n_active": torch.from_numpy(n_active),
-                       "history": [_to_saved(r._asdict()) for r in history]}
-            _atomic_save(payload, Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
+        if checkpoint_dir is None:
+            return
+        times_f, refining_f = gather(times_f), gather(refining_f.to(torch.int32))
+        _save_rank0(grid, lambda: {
+            "times": times_f.cpu(), "refining": refining_f.cpu(),
+            "n_active": torch.from_numpy(n_active),
+            "history": [_to_saved(r._asdict()) for r in history]},
+            Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
 
     if device_loop:
-        rows, cont = [], torch.ones((), dtype=torch.bool, device=device)
+        rows = []
         for _ in range(it0, maxit + 1):
             t_new, r_new, diag = iteration(times, refining)
-            rows.append(torch.cat([diag, cont.expand(b, 1).to(diag.dtype)], dim=1))
+            rows.append(diag)
             times, refining = t_new, r_new
-            cont = cont & torch.any(r_new)
-        buf = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, b, 0))  # the one fetch
+        # the one fetch; the history ends at the first iteration that left no
+        # member refining (the rest ran on frozen partitions)
+        buf = gather(torch.stack(rows), dim=1).cpu().numpy() if rows else np.zeros((0, b, 0))
         for d in buf:
-            if d[0, -1] == 0:
-                break
             # a row that refines no member adds zeros: the host loop's update
-            n_active = n_active + append(d[:, :-1]).astype(np.int64)
+            n_active = n_active + append(d).astype(np.int64)
+            if history[-1].n_refining == 0:
+                break
         if len(history) > it0:
             save(times, refining)
         return history
 
     for _ in range(it0, maxit + 1):
         times_new, refine_new, diag = iteration(times, refining)
-        refine_h = append(diag.cpu().numpy())
+        refine_h = append(gather(diag).cpu().numpy())
         if history[-1].n_refining > 0:
             times, refining = times_new, refine_new
             n_active = n_active + refine_h.astype(np.int64)

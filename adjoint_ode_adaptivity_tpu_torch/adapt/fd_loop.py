@@ -23,6 +23,15 @@ run.
 Entry points run on the card unless the caller passes ``device="cpu"``;
 a CUDA device that is not there raises. Checkpoints are ``torch.save``
 files; a resumed run continues bit-identically.
+
+``mesh=`` (the per-member study): a :class:`~..parallel.mesh.RankGrid`
+whose ``mesh_axis`` (default ``"data"``) shards the members over ranks, as
+the JAX package's ``mesh=`` shards them over devices. Each rank runs its
+block of members, their grids and widths with them, through the same
+estimate; the diagnostics are gathered in member order, so every rank
+returns the global history, and the stop (no member refining) is global.
+With ``checkpoint_dir`` rank 0 writes the gathered state and every rank
+resumes from it (a directory every rank reads).
 """
 from __future__ import annotations
 
@@ -51,6 +60,12 @@ from adjoint_ode_adaptivity_tpu_torch.adjoint.estimate import (
 )
 from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
+    RankGrid,
+    all_gather,
+    barrier,
+    shard_along,
+)
 
 __all__ = [
     "AdaptState",
@@ -157,6 +172,27 @@ def _load(checkpoint_dir: str | None, name: str):
         return None
     path = Path(checkpoint_dir) / name
     return torch.load(path, weights_only=True) if path.exists() else None
+
+
+def _save_rank0(grid: RankGrid, payload, path: Path) -> None:
+    """Rank 0 writes ``payload()``; no rank returns before the file is
+    there (a rank that resumes next reads it)."""
+    if grid.rank == 0:
+        _atomic_save(payload(), path)
+    barrier(grid)
+
+
+def _member_grid(mesh, axis: str, b: int) -> RankGrid:
+    """The rank grid that shards B members along ``axis``: ``mesh``, or one
+    rank (no process group) when it is None. B must divide over the axis."""
+    if mesh is None:
+        return RankGrid((axis,), (1,), 0, None, None)
+    if not isinstance(mesh, RankGrid):
+        raise TypeError(f"mesh= takes a RankGrid (parallel.make_rank_grid), not {type(mesh)}")
+    n = mesh.axis_size(axis)
+    if b % n:
+        raise ValueError(f"B={b} must divide over {n} ranks of mesh axis {axis!r}")
+    return mesh
 
 
 def _state_dict(s: AdaptState) -> dict:
@@ -515,6 +551,8 @@ def run_adaptive_fd_per_member(
     ode=None,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
+    mesh: RankGrid | None = None,
+    mesh_axis: str = "data",
     device="cuda",
 ) -> list[FDPerMemberAdaptResult]:
     """Per-member adaptive FD study: B independent Main_finite_difference.py
@@ -531,14 +569,23 @@ def run_adaptive_fd_per_member(
     forward-Euler ODE as ``ode`` (a registry entry with a ``kernel_id``),
     ``functional_name="J=int(u^2)"``, and float32 on a CUDA device (a CPU
     device runs the kernel's plain version). ``device_loop`` and
-    ``checkpoint_dir`` as for :func:`run_adaptive_fd`. The mesh-parallel
-    form of the JAX package (``mesh=``) is not ported."""
+    ``checkpoint_dir`` as for :func:`run_adaptive_fd`; ``mesh`` and
+    ``mesh_axis`` shard the members over ranks (module docstring), the
+    per-member widths with them."""
     device = require_device(device)
     if engine not in ("torch", "cuda"):
         raise ValueError(f"engine={engine!r}: 'torch' or 'cuda'")
     dtype = dtype or torch.get_default_dtype()
     u0s = torch.as_tensor(np.asarray(u0s), dtype=dtype, device=device)
     b = u0s.shape[0]
+    grid = _member_grid(mesh, mesh_axis, b)
+    u0s = shard_along(u0s, grid, mesh_axis)  # this rank's members
+
+    def gather(x, dim=0):  # the ranks' blocks in member order
+        return all_gather(x, grid, mesh_axis, dim)
+
+    def shard(x):
+        return shard_along(x, grid, mesh_axis)
     if max_nodes is None:
         max_nodes = n_steps0 + maxit + 2
 
@@ -602,16 +649,17 @@ def run_adaptive_fd_per_member(
         return times_next, n_active_next, refine_now, diag
 
     if raw is not None:
-        times = _pad_to(raw["times"], max_nodes).to(device=device, dtype=dtype)
-        n_active = raw["n_active"].to(device=device, dtype=torch.int32)
-        refining = raw["refining"].to(device) != 0
+        times = shard(_pad_to(raw["times"], max_nodes)).to(device=device, dtype=dtype)
+        n_active = shard(raw["n_active"]).to(device=device, dtype=torch.int32)
+        refining = shard(raw["refining"]).to(device) != 0
     else:
         row = np.linspace(t_span[0], t_span[1], n_steps0 + 1)
         row = np.concatenate([row, np.full(max_nodes - n_steps0 - 1, row[-1])])
-        times = torch.as_tensor(np.broadcast_to(row, (b, max_nodes)).copy(), dtype=dtype,
+        b_loc = u0s.shape[0]
+        times = torch.as_tensor(np.broadcast_to(row, (b_loc, max_nodes)).copy(), dtype=dtype,
                                 device=device)
-        n_active = torch.full((b,), n_steps0, dtype=torch.int32, device=device)
-        refining = torch.ones((b,), dtype=torch.bool, device=device)
+        n_active = torch.full((b_loc,), n_steps0, dtype=torch.int32, device=device)
+        refining = torch.ones((b_loc,), dtype=torch.bool, device=device)
 
     def _append(d_row: np.ndarray, na_row: np.ndarray) -> None:
         history.append(FDPerMemberAdaptResult(
@@ -626,40 +674,43 @@ def run_adaptive_fd_per_member(
     def _save(times_f, n_active_f, refining_f):
         if checkpoint_dir is None:
             return
-        payload = {
+        times_f, n_active_f = gather(times_f), gather(n_active_f)
+        refining_f = gather(refining_f.to(torch.int32))
+        _save_rank0(grid, lambda: {
             "times": times_f.cpu(),
             "n_active": n_active_f.cpu(),
-            "refining": refining_f.cpu().to(torch.int32),
+            "refining": refining_f.cpu(),
             "history": [
                 {k: (v if k == "n_refining" else torch.from_numpy(v))
                  for k, v in r._asdict().items()}
                 for r in history
             ],
-        }
-        _atomic_save(payload, Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
+        }, Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
+
+    def _row(diag, n_act):  # per member: diag and the pre-iteration n_active
+        return torch.cat([diag, n_act[:, None].to(diag.dtype)], dim=1)
 
     if device_loop:
-        rows, cont = [], torch.ones((), dtype=torch.bool, device=device)
+        rows = []
         for _ in range(it0, maxit + 1):
             t_n, na_n, r_n, diag = _iteration(times, n_active, refining)
-            # per member: diag, the pre-iteration n_active, and whether this
-            # iteration belongs to the history; all fetched once at the end
-            rows.append(torch.cat([diag, n_active[:, None].to(diag.dtype),
-                                   cont.expand(b, 1).to(diag.dtype)], dim=1))
+            rows.append(_row(diag, n_active))
             times, n_active, refining = t_n, na_n, r_n
-            cont = cont & torch.any(r_n)
-        buf = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, b, 0))
+        # the one fetch; the history ends at the first iteration that left no
+        # member refining (the rest ran on frozen grids)
+        buf = gather(torch.stack(rows), dim=1).cpu().numpy() if rows else np.zeros((0, b, 0))
         for row in buf:
-            if row[0, -1] == 0:
+            _append(row[:, :-1], row[:, -1])
+            if history[-1].n_refining == 0:
                 break
-            _append(row[:, :-2], row[:, -2])
         if len(history) > it0:
             _save(times, n_active, refining)
         return history
 
     for _ in range(it0, maxit + 1):
         times_new, n_active_new, refine_new, diag = _iteration(times, n_active, refining)
-        _append(diag.cpu().numpy(), n_active.cpu().numpy())
+        row = gather(_row(diag, n_active)).cpu().numpy()
+        _append(row[:, :-1], row[:, -1])
         if history[-1].n_refining > 0:
             times, n_active, refining = times_new, n_active_new, refine_new
         _save(times, n_active, refining)

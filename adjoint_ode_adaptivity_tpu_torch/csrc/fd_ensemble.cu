@@ -18,14 +18,12 @@
 //   per coarse step; a step's indicator is stored once its block is complete.
 // Only v's chain and the per-step sums are serial: the interpolation, the
 // (f, f_u) pair and the residual of every fine node depend on the coarse
-// trajectory alone. So F1 and F3 run G lanes of a warp per IC or member
+// trajectory alone. So every kernel runs G lanes of a warp per IC or member
 // (below): the lanes split the fine nodes' interpolation, pairs and
-// residuals ahead of the chain (F1 a block of nodes in registers, read
-// across the group by shuffles; F3 a window in shared-memory tables), and
-// the chain runs over them. F2 runs one thread per IC, the coarse states laid out
-// [state][thread] (conflict-free, no __syncthreads: a thread reads only its
-// own column). f and f_u of one fine node are evaluated once, as a pair (the
-// TPU kernel's _pair_cache).
+// residuals ahead of the chain (F1 and F2 a block of nodes in registers,
+// read across the group by shuffles; F3 a window in shared-memory tables),
+// and the chain runs over them. f and f_u (F2: f and the Jacobian) of one
+// fine node are evaluated once, as a pair (the TPU kernel's _pair_cache).
 //
 // The ODE is a compile-time functor of odes.cuh (one struct per registry
 // entry, chosen by kernel_id in the dispatch at the bottom); the gaussian
@@ -48,18 +46,18 @@
 // 102,400 ICs, 16 steps and rf 4 the byte bound is ~2 µs; the kernels issue
 // tens of instructions a fine node and wait on each IC's serial chains (the
 // coarse march; v_j depends on v_{j+1}). With G lanes (ops/cuda/
-// fd_ensemble.py fd_ens_plan for F1, fd_pm_plan for F3) the serial part left
-// per IC is the coarse march (n_steps serial sinf, run alike by
+// fd_ensemble.py fd_ens_plan for F1 and F2, fd_pm_plan for F3) the serial
+// part left per IC is the coarse march (n_steps serial sinf, run alike by
 // every lane of the group) and ~3 dependent operations a fine node in the
-// chain; the pairs of a block of nodes are all in flight before the chain
-// reads them. Every lane past the first repeats the march and waits beside
-// the chain, so the plans give G only where the card would otherwise hold
-// few warps: F1 the fewest lanes that put 8 warps on every SM (one lane an
-// IC at 102,400 ICs, 16 at 4,096), F3 one warp a member up to B = 4096.
-// Shared memory: F1 4·ens_stride bytes an IC and the rf weights (8.7 KB a
-// 128-thread CTA at 16 steps); F2 (n_steps+1)·D·128·4 bytes a block; F3
-// 4·(3·n_steps + 2 + 3·window) bytes a member (2.6 KB at 43 steps, rf 4, one
-// window).
+// chain (F2: ~3·D); the pairs of a block of nodes are all in flight before
+// the chain reads them. Every lane past the first repeats the march and
+// waits beside the chain, so the plans give G only where the card would
+// otherwise hold few warps: F1 and F2 the fewest lanes that put 8 warps on
+// every SM (one lane an IC at 102,400 ICs, 16 at 4,096), F3 one warp a
+// member up to B = 4096. Shared memory: F1 and F2 4·ens_stride(n_steps, D)
+// bytes an IC and the rf weights (8.7 KB a 128-thread CTA at 16 steps and
+// d = 1, 17.9 KB at d = 2); F3 4·(3·n_steps + 2 + 3·window) bytes a member
+// (2.6 KB at 43 steps, rf 4, one window).
 
 #include <cuda_runtime.h>
 
@@ -71,7 +69,6 @@ namespace {
 
 using namespace aoa;
 
-constexpr int kFdThreads = 128;
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
 // u at fine node j from the coarse trajectory traj[(state)·bs + tx]
@@ -84,10 +81,12 @@ __device__ __forceinline__ float u_fine(const float* traj, int bs, int tx, int j
   return lo + w * (traj[(i + 1) * bs + tx] - lo);
 }
 
-// F1's floats of shared memory an IC: the coarse trajectory, rounded up to
-// odd so that the ICs of a warp (one lane each at G = 1) sit on distinct
-// banks.
-__host__ __device__ inline long ens_stride(int n_steps) { return (n_steps + 1) | 1; }
+// F1's and F2's floats of shared memory an IC: the d components' coarse
+// trajectories, rounded up to odd so that the ICs of a warp (one lane each
+// at G = 1) sit on distinct banks.
+__host__ __device__ inline long ens_stride(int n_steps, int d = 1) {
+  return (static_cast<long>(d) * (n_steps + 1)) | 1;
+}
 
 // F1's nodes a lane computes ahead of the chain, in registers (U).
 constexpr int kEnsAhead = 4;
@@ -212,92 +211,185 @@ fd_ensemble_kernel(int n, int n_steps, int rf, int lanes, const float* __restric
   }
 }
 
-// F2: the vector-state ensemble signal; u0 is (D, n), err (n_steps, n).
+// F2: F1 for d-vector states; u0 is (n, D), IC-major, err (n_steps, n).
+// G lanes of one warp serve an IC, a CTA of T threads T/G ICs, as in F1.
+// Shared memory holds the rf weights q/rf and each IC's D coarse
+// trajectories, component-major (component c's state s at c·(n_steps + 1)
+// + s), in a slice of ens_stride(n_steps, D) floats (odd).
+//   1. Every lane runs the coarse march serially and alike, in the plain
+//      version's order; lane (s mod G) stores state s.
+//   2. The fine nodes are swept in blocks of U·G from the top. Lane l
+//      computes, in registers, the nodes n = top − 1 − (u·G + l), u < U:
+//      u_n per component by interpolation, the pair (f, J) at (u_n, tf_n)
+//      once, the residual r_{n+1} = u_{n+1} − (u_n + f_n·h_n) per component
+//      and the chain's coefficients A_n = 2·u_n·h_n per component and
+//      h_n·J(u_n)[m][a] for the entries Ode::nonzero(m, a) (a compile-time
+//      test: structurally zero entries are neither computed nor read, as
+//      the TPU kernel skips literal zeros at trace time).
+//   3. Every lane of the group runs the chain over the block, reading each
+//      node's values from the lane that computed it (__shfl_sync within the
+//      group): v_j[a] = A_j[a] + v_{j+1}[a], then + h_j·J_j[m][a]·v_{j+1}[m]
+//      in m order (the plain version's and the TPU kernel's order), and the
+//      per-step sums of e_j = Σ_a r_j[a]·v_j[a] (a in order), lane 0 storing
+//      each step's |sum| once its block is complete.
+// Every lane takes the same trips through every loop, so the shuffles see
+// full warps.
 template <class Ode>
-__global__ void __launch_bounds__(kFdThreads)
-fd_ensemble_vec_kernel(int n, int n_steps, int rf, const float* __restrict__ grid,
+__global__ void __launch_bounds__(256, 1)
+fd_ensemble_vec_kernel(int n, int n_steps, int rf, int lanes, const float* __restrict__ grid,
                        const float* __restrict__ u0, float* __restrict__ err, OdeConsts k) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int U = kEnsAhead;
   constexpr int D = Ode::D;
-  extern __shared__ float traj[];  // [(n_steps + 1)·D][blockDim.x]
-  const int ic = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ic >= n) return;
-  const int tx = threadIdx.x;
-  const int bs = blockDim.x;
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x - slot * lanes;
+  const long ic = static_cast<long>(blockIdx.x) * (blockDim.x / lanes) + slot;
+  const bool live = ic < n;
   const int n_fine = n_steps * rf;
+  const int rows = n_steps + 1;
   const float* tc = grid;
   const float* dts = grid + n_steps;
   const float* tf = dts + n_steps;
   const float* dtf = tf + n_fine;
+  float* wq = smem;  // wq[q] = q/rf
+  for (int q = threadIdx.x; q < rf; q += blockDim.x) wq[q] = dtf[n_fine + q];
+  __syncthreads();
+  float* traj = smem + rf + static_cast<long>(slot) * ens_stride(n_steps, D);
 
   float u[D];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    u[c] = u0[static_cast<long>(c) * n + ic];
-    traj[c * bs + tx] = u[c];
+  for (int c = 0; c < D; ++c) u[c] = live ? u0[ic * D + c] : 0.f;
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) traj[c * rows] = u[c];
   }
   for (int s = 0; s < n_steps; ++s) {
     float fs[D];
     Ode::f(u, tc[s], k, fs);
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      u[c] = u[c] + fs[c] * dts[s];
-      traj[((s + 1) * D + c) * bs + tx] = u[c];
+    for (int c = 0; c < D; ++c) u[c] = u[c] + fs[c] * dts[s];
+    if (lane == ((s + 1) & (lanes - 1))) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) traj[c * rows + s + 1] = u[c];
     }
   }
+  __syncwarp();
 
-  float u_j[D], v[D], jac_j[D * D];
+  // the lane's node nn = i·rf + q, stepped down by G nodes (di steps + dq)
+  const int di = lanes / rf;
+  const int dq = lanes - di * rf;
+  int nn = n_fine - 1 - lane;
+  int i = nn >= 0 ? nn / rf : -1;
+  int q = nn >= 0 ? nn - i * rf : 0;
+  float v[D];
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    u_j[c] = u[c];
-    v[c] = 0.f;
-  }
-#pragma unroll
-  for (int e = 0; e < D * D; ++e) jac_j[e] = 0.f;
+  for (int c = 0; c < D; ++c) v[c] = 0.f;  // v_{n_fine} = k_{n_fine} = 0 (J sums u[:-1])
   float blk = 0.f;
-  for (int j = n_fine; j >= 1; --j) {
-    // fine node j−1, component c: the (state, component) rows of traj
-    const int i = (j - 1) / rf;
-    const int q = (j - 1) - i * rf;
-    const float w = static_cast<float>(q) / static_cast<float>(rf);
-    float u_jm1[D];
+  // A and h·J of the block's top node (none at n_fine)
+  float a_top[D], hj_top[D * D];
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      const float lo = traj[(i * D + c) * bs + tx];
-      u_jm1[c] = q == 0 ? lo : lo + w * (traj[((i + 1) * D + c) * bs + tx] - lo);
-    }
-    if (j < n_fine) {  // v_j = k_j + (I + dt_f·J(u_j))ᵀ v_{j+1}
-      const float d = dtf[j];
-      float vn[D];
+  for (int c = 0; c < D; ++c) a_top[c] = 0.f;
 #pragma unroll
-      for (int a = 0; a < D; ++a) {
-        float acc = 2.f * u_j[a] * d + v[a];
+  for (int e = 0; e < D * D; ++e) hj_top[e] = 0.f;
+  int step = n_steps - 1, left = rf - 1;  // chain node j − 1 = step·rf + left
+  for (int top = n_fine; top > 0; top -= U * lanes) {
+    float rr[U][D], aa[U][D], hj[U][D * D];
 #pragma unroll
-        for (int m = 0; m < D; ++m) {
-          if (Ode::nonzero(m, a)) acc = acc + d * jac_j[m * D + a] * v[m];
-        }
-        vn[a] = acc;
+    for (int b = 0; b < U; ++b) {
+      // below node 0 (the last block's spare slots) node 0 is computed and
+      // dropped, so the U pairs run without a branch of their own
+      const bool real = nn >= 0;
+      const int n_b = real ? nn : 0, i_b = real ? i : 0, q_b = real ? q : 0;
+      float u_n[D], u_n1[D];
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        const float lo = traj[c * rows + i_b];
+        const float hi = traj[c * rows + i_b + 1];
+        u_n[c] = q_b == 0 ? lo : lo + wq[q_b] * (hi - lo);
+        u_n1[c] = q_b + 1 == rf ? hi : lo + wq[q_b + 1] * (hi - lo);
+      }
+      const float h = dtf[n_b];
+      float fs[D], jac[D * D];
+      Ode::pair(u_n, tf[n_b], k, fs, jac);
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        rr[b][c] = real ? u_n1[c] - (u_n[c] + fs[c] * h) : 0.f;
+        aa[b][c] = real ? 2.f * u_n[c] * h : 0.f;
       }
 #pragma unroll
-      for (int a = 0; a < D; ++a) v[a] = vn[a];
-    }
-    float fs[D], jac[D * D];
-    Ode::pair(u_jm1, tf[j - 1], k, fs, jac);
-    const float d_m = dtf[j - 1];
-    float e = 0.f;
-#pragma unroll
-    for (int a = 0; a < D; ++a) {
-      const float r = u_j[a] - (u_jm1[a] + fs[a] * d_m);
-      e = a == 0 ? r * v[a] : e + r * v[a];
-    }
-    blk += e;
-    if (q == 0) {
-      err[static_cast<long>(i) * n + ic] = fabsf(blk);
-      blk = 0.f;
+      for (int e = 0; e < D * D; ++e)
+        hj[b][e] = real && Ode::nonzero(e / D, e % D) ? h * jac[e] : 0.f;
+      nn -= lanes;
+      i -= di;
+      q -= dq;
+      if (q < 0) {
+        q += rf;
+        --i;
+      }
     }
 #pragma unroll
-    for (int a = 0; a < D; ++a) u_j[a] = u_jm1[a];
+    for (int b = 0; b < U; ++b) {
+      for (int l = 0; l < lanes; ++l) {
+        const int j = top - (b * lanes + l);
+        if (j <= 0) break;
+        float r_j[D], a_j[D], hj_j[D * D];  // r of node j − 1; A, h·J of node j
 #pragma unroll
-    for (int a = 0; a < D * D; ++a) jac_j[a] = jac[a];
+        for (int c = 0; c < D; ++c) {
+          r_j[c] = __shfl_sync(kFull, rr[b][c], l, lanes);
+          a_j[c] = a_top[c];
+        }
+#pragma unroll
+        for (int e = 0; e < D * D; ++e) hj_j[e] = hj_top[e];
+        if (l > 0) {
+#pragma unroll
+          for (int c = 0; c < D; ++c) a_j[c] = __shfl_sync(kFull, aa[b][c], l - 1, lanes);
+#pragma unroll
+          for (int e = 0; e < D * D; ++e)
+            if (Ode::nonzero(e / D, e % D)) hj_j[e] = __shfl_sync(kFull, hj[b][e], l - 1, lanes);
+        } else if (b > 0) {
+#pragma unroll
+          for (int c = 0; c < D; ++c)
+            a_j[c] = __shfl_sync(kFull, aa[b - 1][c], lanes - 1, lanes);
+#pragma unroll
+          for (int e = 0; e < D * D; ++e)
+            if (Ode::nonzero(e / D, e % D))
+              hj_j[e] = __shfl_sync(kFull, hj[b - 1][e], lanes - 1, lanes);
+        }
+        if (j < n_fine) {  // v_j = k_j + (I + h_j·J(u_j))ᵀ v_{j+1}
+          float vn[D];
+#pragma unroll
+          for (int a = 0; a < D; ++a) {
+            float acc = a_j[a] + v[a];
+#pragma unroll
+            for (int m = 0; m < D; ++m) {
+              if (Ode::nonzero(m, a)) acc = acc + hj_j[m * D + a] * v[m];
+            }
+            vn[a] = acc;
+          }
+#pragma unroll
+          for (int a = 0; a < D; ++a) v[a] = vn[a];
+        }
+        float e = r_j[0] * v[0];
+#pragma unroll
+        for (int a = 1; a < D; ++a) e = e + r_j[a] * v[a];
+        blk += e;
+        if (left == 0) {  // block `step` covers fine nodes step·rf+1 .. (step+1)·rf
+          if (live && lane == 0) err[static_cast<long>(step) * n + ic] = fabsf(blk);
+          blk = 0.f;
+          left = rf;
+          --step;
+        }
+        --left;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      a_top[c] = __shfl_sync(kFull, aa[U - 1][c], lanes - 1, lanes);  // node top − U·G
+#pragma unroll
+    for (int e = 0; e < D * D; ++e)
+      if (Ode::nonzero(e / D, e % D))
+        hj_top[e] = __shfl_sync(kFull, hj[U - 1][e], lanes - 1, lanes);
   }
 }
 
@@ -429,10 +521,10 @@ int set_smem(const void* kernel, long bytes) {
   return 0;
 }
 
-// F1's shared memory for T/G ICs: the rf interpolation weights, then the
-// ICs' coarse trajectories.
-long ensemble_smem(int lanes, int threads, int n_steps, int rf) {
-  return (rf + static_cast<long>(threads / lanes) * ens_stride(n_steps)) *
+// F1's and F2's shared memory for T/G ICs of d components: the rf
+// interpolation weights, then the ICs' coarse trajectories.
+long ensemble_smem(int lanes, int threads, int n_steps, int rf, int d = 1) {
+  return (rf + static_cast<long>(threads / lanes) * ens_stride(n_steps, d)) *
          static_cast<long>(sizeof(float));
 }
 
@@ -450,19 +542,20 @@ int launch_ensemble(int n, int n_steps, int rf, int lanes, int threads, const fl
 }
 
 template <class Ode>
-int launch_ensemble_vec(int n, int n_steps, int rf, const float* grid, const float* u0,
-                        float* err, const OdeConsts& k, cudaStream_t stream) {
-  const long smem = static_cast<long>(n_steps + 1) * Ode::D * kFdThreads * sizeof(float);
+int launch_ensemble_vec(int n, int n_steps, int rf, int lanes, int threads, const float* grid,
+                        const float* u0, float* err, const OdeConsts& k, cudaStream_t stream) {
+  const long smem = ensemble_smem(lanes, threads, n_steps, rf, Ode::D);
   const int code =
       set_smem(reinterpret_cast<const void*>(&fd_ensemble_vec_kernel<Ode>), smem);
   if (code != 0) return code;
-  const int blocks = (n + kFdThreads - 1) / kFdThreads;
-  fd_ensemble_vec_kernel<Ode><<<blocks, kFdThreads, smem, stream>>>(n, n_steps, rf, grid, u0,
-                                                                     err, k);
+  const int per = threads / lanes;
+  const long blocks = (static_cast<long>(n) + per - 1) / per;
+  fd_ensemble_vec_kernel<Ode><<<blocks, threads, smem, stream>>>(n, n_steps, rf, lanes, grid,
+                                                                 u0, err, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launches F1 and F3 take: G lanes (a power of two up to 32) of a warp
+// The launches F1, F2 and F3 take: G lanes (a power of two up to 32) of a warp
 // per IC or member, in CTAs of 32, 64, 128 or 256 threads.
 bool launch_ok(int lanes, int threads) {
   const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
@@ -513,13 +606,17 @@ int fd_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const float* consts
 #undef AOA_LAUNCH
 }
 
-// u0 is (D, n), component-major.
-int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, const float* grid,
-                    const float* u0, float* err, void* stream) {
+// F2 on `lanes` lanes an IC in CTAs of `threads`, as F1; u0 is (n, D),
+// IC-major.
+int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, int lanes, int threads,
+                    const float* grid, const float* u0, float* err, void* stream) {
+  if (ode_id != 6) return -2;
+  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1 ||
+      ensemble_smem(lanes, threads, n_steps, rf, OdeHarmonic::D) > kMaxSmem)
+    return -3;
   const OdeConsts k{};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ode_id == 6) return launch_ensemble_vec<OdeHarmonic>(n, n_steps, rf, grid, u0, err, k, s);
-  return -2;
+  return launch_ensemble_vec<OdeHarmonic>(n, n_steps, rf, lanes, threads, grid, u0, err, k,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // F3 on `lanes` lanes a member (1, 2, 4, 8, 16 or 32) in CTAs of `threads`

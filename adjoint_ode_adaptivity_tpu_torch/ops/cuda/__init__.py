@@ -108,7 +108,7 @@ class KernelLibrary:
         lib.dg_mxu_rev.restype = i
         lib.fd_ensemble.argtypes = [i, i, i, i, p] + [i] * 5 + [p] * 4
         lib.fd_ensemble.restype = i
-        lib.fd_ensemble_vec.argtypes = [i, i, i, i, p, p, p, p]
+        lib.fd_ensemble_vec.argtypes = [i] * 6 + [p] * 4
         lib.fd_ensemble_vec.restype = i
         lib.fd_estimate_per_member.argtypes = ([i, i, i, p, i, i, i, i, ctypes.c_float]
                                                + [i] * 3 + [p] * 5)

@@ -4,8 +4,7 @@ Counterpart of the JAX package's ``ops/pallas/fd_ensemble.py``. Three
 kernels (csrc/fd_ensemble.cu), each with the whole pipeline of an initial
 condition (IC) or member — coarse Euler march, interpolation to the
 rf-refined grid, the adjoint of J = ∫u² dt, the residual and the per-step
-indicator — F1 and F3 in G lanes of a warp per IC or member, F2 in one
-thread per IC:
+indicator — in G lanes of a warp per IC or member:
 
 - **F1** :func:`fd_ensemble` — scalar state, block indicator
   ``(n_steps, n_ics)``. Replaces ``_kernel`` (fd_ensemble.py:61); with
@@ -22,19 +21,20 @@ sweep are serial chains (v_j needs v_{j+1}), so a kernel is latency- or
 issue-bound, far above both the byte bound (one read of u0, one write per
 step) and the FP32 bound. Only v's chain and the per-step sums are serial:
 the interpolation, the (f, f_u) pair and the residual of every fine node
-depend on the coarse trajectory alone. So F1 and F3 run G lanes of a warp
-per IC or member (:func:`fd_ens_plan`, :func:`fd_pm_plan`): the lanes split
-the fine nodes' interpolation, pairs and residuals of a block of nodes
-ahead of the chain (F1 in registers, read across the group by shuffles;
-F3 in shared-memory tables), and the chain v_j = A_j + C_j·v_{j+1} and the
-per-step sums run in the plain version's order, their loads off the
-chain. Small IC or member counts take many lanes (F3 at the
-per-member study's B = 1024: one warp a member; F1 as many as put 8 warps on
-every SM); F1's 102,400 ICs fill the card with one lane an IC, which keeps
-the fewest instructions an IC.
-F3's widths are read as (B, n_steps), a member's row contiguous, and its
-err written (B, n_steps); F1's err stays (n_steps, n_ics). F2 runs one
-thread per IC. One CUDA launch a call.
+depend on the coarse trajectory alone. So each kernel runs G lanes of a
+warp per IC or member (:func:`fd_ens_plan` for F1 and F2, :func:`fd_pm_plan`
+for F3): the lanes split the fine nodes' interpolation, pairs and residuals
+of a block of nodes ahead of the chain (F1 and F2 in registers, read across
+the group by shuffles; F3 in shared-memory tables), and the chain
+v_j = A_j + C_j·v_{j+1} (F2: v_j = A_j + (I + h_j·J_j)ᵀ·v_{j+1}) and the
+per-step sums run in the plain version's order, their loads off the chain.
+Small IC or member counts take many lanes (F3 at the per-member study's
+B = 1024: one warp a member; F1 and F2 as many as put 8 warps on every SM);
+102,400 ICs fill the card with one lane an IC, which keeps the fewest
+instructions an IC. F3's widths are read as (B, n_steps), a member's row
+contiguous, and its err written (B, n_steps); F1's and F2's err stay
+(n_steps, n_ics), F2 reading its states (n_ics, d) as given. One CUDA
+launch a call.
 
 Each wrapper takes a plan made by its ``make_cuda_*`` entry point. A CUDA
 float32 tensor launches the kernel or raises; a CPU tensor takes the
@@ -47,8 +47,8 @@ The TPU tiling ((8, lane) carpets, ``lane_block``, the multiple-of-20480 IC
 rule, the scoped-VMEM checks) is not ported: the entry points take any
 ``n_ics`` and any B; the step count is bounded by a block's shared memory,
 which the kernel's launcher checks (a launch with too many steps raises;
-F1's plan shrinks its CTA and F3's its CTA and its window of fine nodes to
-fit first).
+F1's and F2's plan shrinks its CTA and F3's its CTA and its window of fine
+nodes to fit first).
 
 Tolerance (:func:`fd_kernel_tolerance`, :func:`fd_j_tolerance`): kernel
 and plain version run float32 in another order of roundings (FMA
@@ -395,31 +395,34 @@ class FdEnsLaunch(NamedTuple):
     threads: int
 
 
-def ens_stride(n_steps: int) -> int:
-    """F1's floats of shared memory an IC (csrc ens_stride): the coarse
-    trajectory, rounded up to odd."""
-    return (n_steps + 1) | 1
+def ens_stride(n_steps: int, d: int = 1) -> int:
+    """F1's and F2's floats of shared memory an IC (csrc ens_stride): the d
+    components' coarse trajectories, rounded up to odd."""
+    return (d * (n_steps + 1)) | 1
 
 
-def ens_smem(launch: FdEnsLaunch, n_steps: int, rf: int) -> int:
-    """F1's bytes of shared memory a CTA (csrc ensemble_smem): the rf
-    interpolation weights, then its ICs' coarse trajectories."""
-    return 4 * (rf + launch.threads // launch.lanes * ens_stride(n_steps))
+def ens_smem(launch: FdEnsLaunch, n_steps: int, rf: int, d: int = 1) -> int:
+    """F1's and F2's bytes of shared memory a CTA (csrc ensemble_smem): the
+    rf interpolation weights, then its ICs' coarse trajectories of d
+    components."""
+    return 4 * (rf + launch.threads // launch.lanes * ens_stride(n_steps, d))
 
 
 @functools.lru_cache(maxsize=256)
-def fd_ens_plan(n_ics: int, n_steps: int, rf: int, sms: int = H100_SMS) -> FdEnsLaunch:
-    """F1's launch for n_ics ICs of n_steps steps refined rf times on a card
-    of ``sms`` SMs: G the fewest of :data:`PM_LANES` that put
-    :data:`ENS_WARPS_PER_SM` warps on every SM (32 at most: 16 at 4,096 ICs,
-    1 from 33,792), in 128-thread CTAs, or the largest smaller CTA whose
-    shared memory fits a block (:func:`ens_smem`; at G = 1, 453 steps take 64
-    threads). Where none fits (one IC's trajectory past a block) it returns
-    the 32-thread CTA, which the kernel refuses."""
+def fd_ens_plan(n_ics: int, n_steps: int, rf: int, sms: int = H100_SMS,
+                d: int = 1) -> FdEnsLaunch:
+    """F1's (d = 1) and F2's launch for n_ics ICs of d components, n_steps
+    steps refined rf times, on a card of ``sms`` SMs: G the fewest of
+    :data:`PM_LANES` that put :data:`ENS_WARPS_PER_SM` warps on every SM (32
+    at most: 16 at 4,096 ICs, 1 from 33,792), in 128-thread CTAs, or the
+    largest smaller CTA whose shared memory fits a block (:func:`ens_smem`;
+    at G = 1 and d = 1, 453 steps take 64 threads; at d = 2, 226). Where
+    none fits (one IC's trajectory past a block) it returns the 32-thread
+    CTA, which the kernel refuses."""
     lanes = next((g for g in PM_LANES if n_ics * g >= 32 * ENS_WARPS_PER_SM * sms), 32)
     for threads in (128, 64, 32):
         launch = FdEnsLaunch(lanes, threads)
-        if ens_smem(launch, n_steps, rf) <= MAX_SMEM:
+        if ens_smem(launch, n_steps, rf, d) <= MAX_SMEM:
             return launch
     return launch
 
@@ -452,22 +455,29 @@ def _f1_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
 
 
 def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
-    """F2: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics, d).
-    The kernel reads the states component-major; the wrapper transposes."""
+    """F2: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics, d),
+    read as given (IC-major). On the card one CUDA launch on
+    :func:`fd_ens_plan`'s launch for d components."""
     d = VECTOR_KERNEL_IDS[plan.ode.kernel_id]
     if u0s.dim() != 2 or u0s.shape[1] != d:
         raise ValueError(f"u0s must be (n_ics, {d}), got {tuple(u0s.shape)}")
     if not _on_cuda("u0s", u0s, u0s.shape, plan):
         return fd_ensemble_vec_plain(u0s, plan)
+    fd_ensemble_vec.launches += 1
+    return _f2_launch(u0s, plan, fd_ens_plan(u0s.shape[0], plan.n_steps, plan.rf,
+                                             _sm_count(u0s.device), d))
+
+
+def _f2_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
+    """One fd_ensemble_vec call on ``launch``: err (n_steps, n_ics). The
+    wrapper counts its launches; this does not."""
     lib = load_library()
     n = u0s.shape[0]
-    u0t = u0s.T.contiguous()  # (d, n_ics): neighbouring threads, neighbouring ICs
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble_vec(
-        plan.ode.kernel_id, n, plan.n_steps, plan.rf, plan.grid_ptr,
-        u0t.data_ptr(), err.data_ptr(), _stream(u0s.device),
+        plan.ode.kernel_id, n, plan.n_steps, plan.rf, launch.lanes, launch.threads,
+        plan.grid_ptr, u0s.data_ptr(), err.data_ptr(), _stream(u0s.device),
     )
-    fd_ensemble_vec.launches += 1
     lib.check(code, "fd_ensemble_vec", lib.lib.fd_error_string)
     return err
 

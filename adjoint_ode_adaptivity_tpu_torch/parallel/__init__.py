@@ -1,8 +1,10 @@
-"""Multi-rank scale-out over ``torch.distributed``: rank grids and the
-element-sharded DG advection (the JAX package's ``parallel/``: meshes,
-``dg_shard``). The kernel pipelines over the same grids are
-``ops.cuda.dg_sharded``'s. The ensemble and pipeline-parallel modules are
-not ported yet (ROADMAP item 14)."""
+"""Multi-rank scale-out over ``torch.distributed``: rank grids, the
+element-sharded DG advection and the member-sharded ensembles (the JAX
+package's ``parallel/``: meshes, ``dg_shard``, ``ensemble``). The kernel
+pipelines over the element-sharded grids are ``ops.cuda.dg_sharded``'s; the
+DG and FD loops take a grid as ``mesh=`` (``adapt.dg_loop``,
+``adapt.fd_loop``). The pipeline-parallel module is not ported yet (ROADMAP
+item 14)."""
 
 from adjoint_ode_adaptivity_tpu_torch.parallel.dg_shard import (
     advec_fwd_adj_estimate_sharded,
@@ -10,8 +12,15 @@ from adjoint_ode_adaptivity_tpu_torch.parallel.dg_shard import (
     advec_rhs_local,
     local_operators,
 )
+from adjoint_ode_adaptivity_tpu_torch.parallel.ensemble import (
+    ensemble_batched,
+    ensemble_mean,
+    ensemble_refinement_signal,
+    ensemble_vmap,
+)
 from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
     RankGrid,
+    all_gather,
     all_reduce_sum,
     exchange,
     make_rank_grid,
@@ -26,6 +35,11 @@ __all__ = [
     "replicate",
     "exchange",
     "all_reduce_sum",
+    "all_gather",
+    "ensemble_vmap",
+    "ensemble_batched",
+    "ensemble_mean",
+    "ensemble_refinement_signal",
     "local_operators",
     "advec_rhs_local",
     "advec_march_sharded",

@@ -18,7 +18,12 @@ parallel/dg_shard.py and ops/cuda/dg_sharded.py).
   receives theirs: the non-periodic form of ``lax.ppermute`` over the ring
   that the DG halos use (the global boundary ranks have no neighbour
   outside and receive nothing).
-- :func:`all_reduce_sum` is ``lax.psum``.
+- :func:`all_reduce_sum` is ``lax.psum``, over every rank or along one axis.
+- :func:`all_gather` joins the ranks' blocks along an axis in rank order
+  (the global array of ``P(axis)``'s blocks), so gathered members keep
+  :func:`shard_along`'s order.
+- :func:`barrier` waits for every rank (after rank 0 writes a file that
+  the others read).
 
 Backends: ``nccl`` where each rank has a card of its own; ``gloo``
 otherwise (NCCL refuses two ranks on one device, and a host with one card
@@ -42,6 +47,8 @@ __all__ = [
     "replicate",
     "exchange",
     "all_reduce_sum",
+    "all_gather",
+    "barrier",
 ]
 
 
@@ -167,10 +174,36 @@ def exchange(to_prev: torch.Tensor, to_next: torch.Tensor, grid: RankGrid, axis:
     return tuple(recvs[key].to(device) if key in recvs else None for key in ("prev", "next"))
 
 
-def all_reduce_sum(x: torch.Tensor, grid: RankGrid) -> torch.Tensor:
-    """Σ of ``x`` over every rank of the grid (``lax.psum``)."""
+def all_reduce_sum(x: torch.Tensor, grid: RankGrid, axis: str | None = None) -> torch.Tensor:
+    """Σ of ``x`` over every rank of the grid (``lax.psum``), or over the
+    ranks of this rank's line along ``axis`` (their blocks gathered and
+    added in rank order). Every rank gets the same bits."""
+    if axis is not None and grid.axis_size(axis) < grid.world:
+        d = grid.axis_size(axis)
+        return torch.sum(all_gather(x[None], grid, axis), dim=0) if d > 1 else x
     if grid.world == 1:
         return x
     buf = _staged(x, grid).contiguous().clone()
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=grid.group)
     return buf.to(x.device)
+
+
+def all_gather(x: torch.Tensor, grid: RankGrid, axis: str, dim: int = 0) -> torch.Tensor:
+    """The blocks ``x`` (one shape on every rank) of this rank's line along
+    ``axis`` joined along ``dim`` in rank order: the inverse of
+    :func:`shard_along`. Every rank of the grid must call it."""
+    d = grid.axis_size(axis)
+    if d == 1:
+        return x
+    buf = _staged(x, grid).contiguous()
+    parts = [torch.empty_like(buf) for _ in range(grid.world)]
+    dist.all_gather(parts, buf, group=grid.group)
+    here = grid.axis_index(axis)
+    line = [grid.neighbour(axis, k - here) for k in range(d)]
+    return torch.cat([parts[r] for r in line], dim=dim).to(x.device)
+
+
+def barrier(grid: RankGrid) -> None:
+    """Return once every rank of the grid has called it (nothing at world 1)."""
+    if grid.world > 1:
+        dist.barrier(group=grid.group)

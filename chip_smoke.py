@@ -911,6 +911,57 @@ def study_u0s():
     return np.random.default_rng(0).uniform(0.5, 2.0, FD_STUDY["b"])
 
 
+def fd_replay(hist, device, errs):
+    """Every iteration's grids of the B = 1024 per-member FD study (u0 from
+    :func:`study_u0s`) through F3's plain version (float32, same card, held
+    to fd_kernel_tolerance and fd_j_tolerance, with entries above it) and
+    through the torch engine's estimate on the same grids (not bounded:
+    another operation order); the refinement decisions whose top-two margin
+    clears 4x the tolerance must agree in all three (a gate)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    rf = FD_STUDY["rf"]
+    u0s = torch.tensor(study_u0s(), dtype=torch.float32, device=device)
+    plan = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf,
+                                               device=device).plan
+    step = euler_step(odes.get_ode("du/dt=sin(u)").f)
+    out = {"err": 0.0, "tol_err": 0.0, "j": 0.0, "tol_j": 0.0, "torch": 0.0, "decided": 0,
+           "agree": 0, "teeth": []}
+    for r in hist:
+        times = torch.tensor(r.times, dtype=torch.float32, device=device)
+        stats = {}
+        err_p, j_p = fe.fd_estimate_per_member_plain(torch.diff(times, dim=1), u0s, plan, stats)
+        n_act = torch.tensor(r.n_active, device=device)
+        err_t = fd_loop.estimate_per_member(step, times, n_act, u0s, ref_factor=rf)[0]
+        err_k = torch.tensor(r.err_steps, device=device)
+        tol_e = fe.fd_kernel_tolerance(stats, rf)
+        tol_j = fe.fd_j_tolerance(stats, FD_PM_STEPS, FD_STUDY["t1"])
+        e_err = float((err_k - err_p).abs().max())
+        e_j = float((torch.tensor(r.j_coarse, device=device) - j_p).abs().max())
+        assert e_err <= tol_e and e_j <= tol_j, (e_err, tol_e, e_j, tol_j)
+        above = int((err_p.abs() > tol_e).sum())
+        out["teeth"].append(above)
+        assert above > 0, "a replayed grid with no err above its tolerance (an err of 0 passes)"
+        for key, val in (("err", e_err), ("tol_err", tol_e), ("j", e_j), ("tol_j", tol_j),
+                         ("torch", float((err_k - err_t).abs().max()))):
+            out[key] = max(out[key], val)
+        # refinement decisions where the top-two margin clears the noise
+        top2 = torch.topk(err_p, 2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 4 * tol_e
+        picks = [torch.argmax(x, dim=1) for x in (err_k, err_p, err_t)]
+        same = (picks[0] == picks[1]) & (picks[1] == picks[2])
+        out["decided"] += int(clear.sum())
+        out["agree"] += int((same & clear).sum())
+    errs["fd_estimate_per_member"] = max(errs["fd_estimate_per_member"], out["err"], out["j"])
+    assert out["agree"] == out["decided"], "a decision above the float32 noise differs between engines"
+    return out
+
+
 def phase7(device, errs, inp):
     """The FD paths through their entry points: the per-member study via the
     fd_adaptive driver (per-member kernel), the ensemble refinement signal
@@ -918,10 +969,7 @@ def phase7(device, errs, inp):
     import numpy as np
     import torch
 
-    from adjoint_ode_adaptivity_tpu_torch import odes
-    from adjoint_ode_adaptivity_tpu_torch.adapt import fd_loop
     from adjoint_ode_adaptivity_tpu_torch.drivers import fd_adaptive
-    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
     b, maxit, rf = FD_STUDY["b"], FD_STUDY["maxit"], FD_STUDY["rf"]
@@ -941,49 +989,15 @@ def phase7(device, errs, inp):
     for r in hist:
         assert np.all(np.isfinite(r.err_steps)) and np.all(np.isfinite(r.j_coarse))
 
-    # replay every iteration's grid through the plain version (float32, same
-    # card), and through the torch engine's iteration on the same grids
-    u0s = torch.tensor(study_u0s(), dtype=torch.float32, device=device)
-    plan = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf,
-                                               device=device).plan
-    step = euler_step(odes.get_ode("du/dt=sin(u)").f)
-    worst = {"err": 0.0, "tol_err": 0.0, "j": 0.0, "tol_j": 0.0, "torch": 0.0}
-    decided = agree = 0
-    teeth = []
-    for r in hist:
-        times = torch.tensor(r.times, dtype=torch.float32, device=device)
-        stats = {}
-        err_p, j_p = fe.fd_estimate_per_member_plain(torch.diff(times, dim=1), u0s, plan, stats)
-        n_act = torch.tensor(r.n_active, device=device)
-        err_t = fd_loop.estimate_per_member(step, times, n_act, u0s, ref_factor=rf)[0]
-        err_k = torch.tensor(r.err_steps, device=device)
-        tol_e = fe.fd_kernel_tolerance(stats, rf)
-        tol_j = fe.fd_j_tolerance(stats, FD_PM_STEPS, FD_STUDY["t1"])
-        e_err = float((err_k - err_p).abs().max())
-        e_j = float((torch.tensor(r.j_coarse, device=device) - j_p).abs().max())
-        assert e_err <= tol_e and e_j <= tol_j, (e_err, tol_e, e_j, tol_j)
-        above = int((err_p.abs() > tol_e).sum())
-        teeth.append(above)
-        assert above > 0, "a replayed grid with no err above its tolerance (an err of 0 passes)"
-        for key, val in (("err", e_err), ("tol_err", tol_e), ("j", e_j), ("tol_j", tol_j),
-                         ("torch", float((err_k - err_t).abs().max()))):
-            worst[key] = max(worst[key], val)
-        # refinement decisions where the top-two margin clears the noise
-        top2 = torch.topk(err_p, 2, dim=1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 4 * tol_e
-        picks = [torch.argmax(x, dim=1) for x in (err_k, err_p, err_t)]
-        same = (picks[0] == picks[1]) & (picks[1] == picks[2])
-        decided += int(clear.sum())
-        agree += int((same & clear).sum())
-    errs["fd_estimate_per_member"] = max(errs["fd_estimate_per_member"], worst["err"], worst["j"])
+    rep = fd_replay(hist, device, errs)
     say("7", f"replay of {len(hist)} grids through the plain version: max|d err| "
-             f"{worst['err']:.3e} (tol <= {worst['tol_err']:.3e}), max|d J| {worst['j']:.3e} "
-             f"(tol <= {worst['tol_j']:.3e}); entries of the plain err above its tolerance a "
-             f"grid {min(teeth)}-{max(teeth)}; torch engine on the same grids: max|d err| "
-             f"{worst['torch']:.3e} (not bounded: another operation order)")
-    say("7", f"refinement decisions with a top-two margin > 4x tol: {decided} of "
-             f"{len(hist) * b} member-iterations; kernel, plain and torch engine agree on {agree}")
-    assert agree == decided, "a decision above the float32 noise differs between engines"
+             f"{rep['err']:.3e} (tol <= {rep['tol_err']:.3e}), max|d J| {rep['j']:.3e} "
+             f"(tol <= {rep['tol_j']:.3e}); entries of the plain err above its tolerance a "
+             f"grid {min(rep['teeth'])}-{max(rep['teeth'])}; torch engine on the same grids: "
+             f"max|d err| {rep['torch']:.3e} (not bounded: another operation order)")
+    say("7", f"refinement decisions with a top-two margin > 4x tol: {rep['decided']} of "
+             f"{len(hist) * b} member-iterations; kernel, plain and torch engine agree on "
+             f"{rep['agree']}")
 
     # the ensemble refinement signal through its entry points
     n, s, dt = FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["dt"]
@@ -5349,6 +5363,291 @@ def phase38(device, lib, errs):
     return launches, times, bounds
 
 
+# ------------------------------------ F2 with G lanes; the member-sharded studies
+
+F2_CASES = (102_400, 4096)  # FD_ENSEMBLE's IC count and phase 37's small one
+
+
+def f2_launches(device, inp, errs):
+    """F2 at F2_CASES on every G of PM_LANES and CTA size of PM_THREADS,
+    timed in turns beside the wrapper, each within fd_kernel_tolerance(…,
+    d=2) (some plain entry above it) and a repeat bit-identical (a gate), on
+    the device alone (20 calls queued behind a sleep) beside the call, with
+    its share of fd_bounds."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    s, rf, dt = (FD_ENSEMBLE[k] for k in ("n_steps", "rf", "dt"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n in F2_CASES:
+        u0 = inp["u0_vec"][:n].contiguous()
+        mine = fe.fd_ens_plan(n, s, rf, sms, 2)
+        b_ms, b_by = fd_bounds(n)["fd_ensemble_vec"]
+        run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf, d=2)
+        above = int((want.abs() > tol).sum())
+        launches = {(g, th): fe.FdEnsLaunch(g, th) for g in fe.PM_LANES for th in fe.PM_THREADS}
+        out = {}
+
+        def on(key, launch):
+            def go():
+                out[key] = fe._f2_launch(u0, run.plan, launch)
+
+            return go
+
+        before = fe.fd_ensemble_vec.launches
+        turns = in_turns({"wrapper": lambda: out.update(wrapper=run(u0)),
+                          **{key: on(key, launch) for key, launch in launches.items()}})
+        counted = fe.fd_ensemble_vec.launches - before
+        for key, launch in launches.items():
+            ms = statistics.mean(turns[key])
+            dev = queued_ms(on(key, launch))
+            again = fe._f2_launch(u0, run.plan, launch)
+            torch.cuda.synchronize()
+            repeat = bool(torch.equal(out[key], again))
+            e = float((out[key] - want).abs().max())
+            errs["fd_ensemble_vec"] = max(errs["fd_ensemble_vec"], e)
+            say("39", f"(b) F2 {n} ICs G={launch.lanes} {launch.threads} threads"
+                      f"{' (the wrapper plan)' if launch == mine else ''}: "
+                      f"{ms:.4f} ms a call (in turns, median of 5 each: {turns[key][0]:.4f} / "
+                      f"{turns[key][1]:.4f}), {dev:.4f} ms on the device alone, {b_ms / dev:.2%} of "
+                      f"the {b_ms:.5f} ms bound ({b_by}); max|err - plain| {e:.3e} (tol "
+                      f"{tol:.3e}, {above} plain entries above it); a repeat bit-identical: "
+                      f"{repeat}")
+            assert e <= tol and above > 0 and repeat, (n, key)
+        same = bool(torch.equal(out["wrapper"], out[tuple(mine)]))
+        dev = {"the wrapper": queued_ms(lambda: run(u0)),
+               "G=1 128 threads": queued_ms(on((1, 128), launches[(1, 128)]))}
+        fastest = min(launches, key=lambda x: statistics.mean(turns[x]))
+        say("39", f"(b) F2 {n} ICs: the wrapper ({mine}) {statistics.mean(turns['wrapper']):.4f} "
+                  f"ms a call, {dev['the wrapper']:.4f} on the device alone ({b_ms / dev['the wrapper']:.2%} "
+                  f"of the bound; G=1 128 threads {dev['G=1 128 threads']:.4f}); fastest call "
+                  f"{launches[fastest]} {statistics.mean(turns[fastest]):.4f} ms; the wrapper the "
+                  f"plan's launch's bits: {same}; wrapper launches counted {counted} for "
+                  f"{2 * 6} calls (one a call)")
+        assert same and counted == 12, (n, same, counted)
+
+
+ENSEMBLE_STUDIES = ("dg_ensemble", "dg_per_member", "fd_per_member")
+DG_DRIVER = dict(k0=2, tol=1e-5, maxit=30)  # dg_adaptive's defaults
+
+
+def ensemble_study(name, device, grid):
+    """One of the three studies at the drivers' shapes on the cuda engine
+    (phases 7 and 10: ``dg_adaptive --ensemble 1024`` shared, ``--per-member
+    --device-loop``, ``fd_adaptive --ensemble 1024 --engine cuda --device-loop
+    --tol 0 --maxit 40``), members sharded over ``grid`` (None: unsharded)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop, fd_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    common = dict(engine="cuda", ode=sin, dtype=torch.float32, device=device, mesh=grid)
+    if name == "fd_per_member":
+        return fd_loop.run_adaptive_fd_per_member(
+            euler_step(sin.f), study_u0s(), (0.0, FD_STUDY["t1"]), n_steps0=FD_STUDY["n_steps0"],
+            ref_factor=FD_STUDY["rf"], tol=0.0, maxit=FD_STUDY["maxit"], device_loop=True, **common)
+    # the driver's draw: U(0.5, 2) from default_rng(0), float32
+    y0s = np.random.default_rng(0).uniform(0.5, 2.0, 1024).astype(np.float32)
+    run = dg_loop.run_adaptive_dg_ensemble if name == "dg_ensemble" else \
+        dg_loop.run_adaptive_dg_per_member
+    return run(sin.f, y0s, (0.0, DG_SLAB["t1"]), f_u=sin.f_u, n_order=1, newton_iters=8,
+               device_loop=name == "dg_per_member", **DG_DRIVER, **common)
+
+
+def timed_studies(device, grid, sync):
+    """Each study once to warm up, then once on the host clock after
+    ``sync()`` (every rank starts together): name -> (history, wall s)."""
+    import torch
+
+    out = {}
+    for name in ENSEMBLE_STUDIES:
+        ensemble_study(name, device, grid)
+        sync()
+        t0 = time.perf_counter()
+        hist = ensemble_study(name, device, grid)
+        torch.cuda.synchronize()
+        out[name] = (hist, time.perf_counter() - t0)
+    return out
+
+
+def ensemble_rank(rank, world, store, out_dir):
+    """One rank of phase 39(c) (torch.multiprocessing.spawn): gloo over a
+    FileStore, every rank on cuda:0; the global histories and the walls go
+    to out_dir/rank{r}.pkl."""
+    sys.path.insert(0, str(ROOT))
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        grid = make_rank_grid({"data": world})
+        out = timed_studies(torch.device("cuda", 0), grid, dist.barrier)
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def history_digest(hist) -> str:
+    """:func:`digest` of every field of every iteration of a loop's history."""
+    import numpy as np
+    import torch
+
+    return digest(torch.from_numpy(np.asarray(v, dtype=np.float64)) for r in hist for v in r)
+
+
+def ensemble_replay(hist, device, errs):
+    """Every iteration's shared partition of the B = 1024 ensemble DG study
+    through D1's plain version (float32, same card): the history's err_mean
+    within the mean of the per-element bounds plus the float32 sum's
+    B·ε·mean|err|, and the bisection where the plain mean's top-two margin
+    clears 4x that bound the same (a gate)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    b = 1024
+    y32 = torch.tensor(np.random.default_rng(0).uniform(0.5, 2.0, b).astype(np.float32),
+                       device=device)
+    k = DG_DRIVER["k0"] + DG_DRIVER["maxit"] + 1  # the loop's padded element count
+    plan = ds.make_cuda_dg_estimate_ensemble(sin, dg_time_operators(1), dg_time_operators(2),
+                                             k, 8, device=device).plan
+    out = dict(decided=0, agree=0, err=0.0, share=0.0)
+    for r in hist:
+        t = np.concatenate([r.times, np.full(k + 1 - len(r.times), r.times[-1])])
+        times = torch.tensor(t, dtype=torch.float32, device=device)[None].expand(b, -1).contiguous()
+        plain = ds.dg_estimate_ensemble_plain(times, y32, plan)
+        tol = ds.dg_kernel_tolerance(times, y32, plain, plan)["err"]
+        na = len(r.times) - 1
+        mean_p = plain[2].abs().double().mean(0)[:na]
+        bound = tol.mean(0)[:na] + b * EPS32 * mean_p
+        d = (torch.tensor(r.err_mean, device=device, dtype=torch.float64) - mean_p).abs()
+        assert bool((d <= bound).all()), (float(d.max()), float(bound.max()))
+        out["err"] = max(out["err"], float(d.max()))
+        out["share"] = max(out["share"], float((d / bound).max()))
+        top2 = torch.topk(mean_p, 2)
+        if float(top2.values[0] - top2.values[1]) > 4 * float(bound.max()):
+            out["decided"] += 1
+            out["agree"] += int(int(np.argmax(r.err_mean)) == int(top2.indices[0]))
+    errs["dg_estimate_ensemble"] = max(errs["dg_estimate_ensemble"], out["err"])
+    assert out["decided"] > 0 and out["agree"] == out["decided"], out
+    return out
+
+
+def agreement(name, h1, h2):
+    """Refinement decisions of two histories of one study taken on the same
+    partitions: (agreeing, compared). Per member and iteration where both
+    partitions are equal (per-member studies), or per iteration while the
+    shared partitions are equal."""
+    import numpy as np
+
+    agree = total = 0
+    for a, b in zip(h1, h2):
+        if name == "dg_ensemble":
+            if not np.array_equal(a.times, b.times):
+                break
+            total += 1
+            agree += int(np.argmax(a.err_mean) == np.argmax(b.err_mean))
+            continue
+        err = "err_steps" if name == "fd_per_member" else "err"
+        same = np.all(a.times == b.times, axis=1)
+        picks = [np.argmax(np.abs(getattr(x, err)), axis=1) for x in (a, b)]
+        total += int(same.sum())
+        agree += int((same & (picks[0] == picks[1])).sum())
+    return agree, total
+
+
+def phase39(device, lib, errs, inp):
+    """F2 with G lanes an IC and the member-sharded studies: (a) the
+    registers and spills ptxas reported for fd_ensemble_vec_kernel (a gate:
+    no instance spills); (b) F2 on every G and CTA size at 102,400 and 4,096
+    ICs, in turns; (c) the DG ensemble and per-member studies and the FD
+    per-member study (B = 1024, cuda engine) through parallel/ensemble.py's
+    mesh=: world 1 in this process (the unsharded loop's bits), world 2 as
+    two gloo ranks on the card, every decision clear of the kernels' bounds
+    replayed through the plain versions."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    f2 = kernel_registers(lib.build_log, ("fd_ensemble_vec_kernel",))
+    say("39", f"(a) ptxas -v for fd_ensemble_vec_kernel ({len(f2)} instances): {'; '.join(f2)}")
+    clean = "0 bytes spill stores, 0 bytes spill loads"
+    assert f2 and all(clean in r for r in f2), "an fd_ensemble_vec_kernel instance spills"
+    f2_launches(device, inp, errs)
+
+    # (c) world 1: the loops with mesh= a one-rank grid against mesh=None
+    one = timed_studies(device, make_rank_grid({"data": 1}), lambda: None)
+    ref = {name: ensemble_study(name, device, None) for name in ENSEMBLE_STUDIES}
+    for name in ENSEMBLE_STUDIES:
+        hist, wall = one[name]
+        bits = history_digest(hist) == history_digest(ref[name])
+        say("39", f"(c) {name} B=1024 world 1 (mesh=, cuda engine): {len(hist)} iterations, "
+                  f"wall {wall:.3f} s; the unsharded loop's history bit for bit: {bits}")
+        assert bits and len(hist) == len(ref[name]), name
+
+    world = 2
+    tmp = ROOT / "build" / f"chip_smoke_ensemble.{time.time_ns()}"
+    tmp.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(ensemble_rank, args=(world, str(tmp / "store"), str(tmp)), nprocs=world,
+                 join=True)
+        spawn_wall = time.perf_counter() - t0
+        parts = []
+        for r in range(world):
+            with open(tmp / f"rank{r}.pkl", "rb") as fh:
+                parts.append(pickle.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("39", f"(c) world 2: two ranks spawned (gloo over a FileStore, both on cuda:0), "
+              f"{spawn_wall:.1f} s with the spawn")
+    for name in ENSEMBLE_STUDIES:
+        hist = parts[0][name][0]
+        digests = {history_digest(p[name][0]) for p in parts}
+        assert len(digests) == 1, f"{name}: the ranks' global histories differ"
+        agree, total = agreement(name, one[name][0], hist)
+        if name == "dg_per_member":
+            rep = dg_replay(hist, device, errs)
+            clear = (f"replay through the plain version: {rep['decided']} decisions clear of 4x "
+                     f"the bound, {rep['agree']} agree (float64 torch engine "
+                     f"{rep['decided64']} / {rep['agree64']}), max|d err| {rep['err']:.3e}")
+        elif name == "fd_per_member":
+            rep = fd_replay(hist, device, errs)
+            clear = (f"replay through the plain version: {rep['decided']} decisions clear of 4x "
+                     f"the tolerance, {rep['agree']} agree, max|d err| {rep['err']:.3e}")
+        else:
+            rep = ensemble_replay(hist, device, errs)
+            clear = (f"replay through the plain version: {rep['decided']} bisections clear of 4x "
+                     f"the bound, {rep['agree']} agree, max|d err_mean| {rep['err']:.3e} "
+                     f"(worst {rep['share']:.2%} of its bound)")
+        wall = max(p[name][1] for p in parts)
+        say("39", f"(c) {name} B=1024 world 2: {len(hist)} iterations (world 1: "
+                  f"{len(one[name][0])}), wall {wall:.3f} s on the slower rank (world 1 "
+                  f"{one[name][1]:.3f} s, {wall / one[name][1]:.2f}x); decisions on equal "
+                  f"partitions agreeing with world 1: {agree} of {total}; {clear}")
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -5464,6 +5763,7 @@ def main() -> int:
     phase36(device, lib, errs, inp)
     phase37(device, lib, errs, inp)
     md_launches, md_times, md_bounds = phase38(device, lib, errs)
+    phase39(device, lib, errs, inp)
     launches.update(rc_launches, **tl_launches, **km_launches, **md_launches)
     times.update(rc_times, **tl_times, **km_times, **md_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

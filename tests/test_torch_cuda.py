@@ -184,16 +184,41 @@ def test_fd_ensemble_on_every_launch(device, trig, n_steps, rf):
 
 
 def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
+    """F2 on every G and CTA size, at step counts whose fine nodes fill, or
+    fall short of, the blocks of U·G nodes: within fd_kernel_tolerance(…,
+    d=2) of the plain version, some plain entry above it, a repeat's bits;
+    the wrapper's launch is fd_ens_plan's for d = 2, one launch counted; a
+    launch past a block's shared memory raises."""
     rng = np.random.default_rng(21)
-    u0 = torch.tensor(rng.uniform(-1, 1, (3000, 2)), dtype=torch.float32, device=device)
-    run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", 8, 4, 0.25, device=device)
-    before = fe.fd_ensemble_vec.launches
-    got = run(u0)
-    torch.cuda.synchronize()
-    assert fe.fd_ensemble_vec.launches == before + 1
-    stats = {}
-    want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
-    assert float((got - want).abs().max()) <= fe.fd_kernel_tolerance(stats, 4, d=2)
+    n = 3000
+    u0 = torch.tensor(rng.uniform(-1, 1, (n, 2)), dtype=torch.float32, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n_steps, rf in ((8, 4), (13, 3), (5, 2)):
+        run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", n_steps, rf, 2.0 / n_steps,
+                                           device=device)
+        before = fe.fd_ensemble_vec.launches
+        got = run(u0)
+        torch.cuda.synchronize()
+        assert fe.fd_ensemble_vec.launches == before + 1
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf, d=2)
+        assert bool((want.abs() > tol).any())  # the bound has teeth: an err of 0 fails
+        assert float((got - want).abs().max()) <= tol
+        mine = fe.fd_ens_plan(n, n_steps, rf, sms, 2)
+        assert torch.equal(got, fe._f2_launch(u0, run.plan, mine))
+        for lanes in fe.PM_LANES:
+            for threads in fe.PM_THREADS:
+                launch = fe.FdEnsLaunch(lanes, threads)
+                out = fe._f2_launch(u0, run.plan, launch)
+                again = fe._f2_launch(u0, run.plan, launch)
+                torch.cuda.synchronize()
+                assert out.shape == (n_steps, n) and bool(torch.isfinite(out).all())
+                assert float((out - want).abs().max()) <= tol, (n_steps, launch)
+                assert torch.equal(out, again), (n_steps, launch)
+    long = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", 30_000, 1, 1e-4, device=device)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        long(u0[:8].contiguous())
 
 
 @pytest.mark.parametrize("convention", ["strided", "block"])

@@ -2,7 +2,7 @@
 """A kernel of this checkout against another checkout's, in turns in one
 process, on one GPU.
 
-    python3 tools/torch_against_parent.py PARENT_ROOT --kernel kt1|f1
+    python3 tools/torch_against_parent.py PARENT_ROOT --kernel kt1|f1|f2
 
 PARENT_ROOT holds another version of ``adjoint_ode_adaptivity_tpu_torch/
 csrc`` (for example ``git archive <commit> adjoint_ode_adaptivity_tpu_torch/
@@ -34,6 +34,16 @@ loader.
   around this kernel; and the SASS instruction count of every
   fd_ensemble_kernel instance of both (cuobjdump), the libm and fast-trig
   paths side by side.
+- ``--kernel f2``: the parent's ``fd_ensemble_vec`` is the one-thread-an-IC
+  F2, C signature (ode_id, n, n_steps, rf, grid, u0, err, stream) on
+  component-major (d, n) states. At chip_smoke.py's F2_CASES (102,400 and
+  4,096 ICs, the harmonic oscillator, 16 steps, rf 4): the parent's F2 as
+  its wrapper called it (a transposed copy of the states a call) and this
+  wrapper (fd_ens_plan's launch for d = 2, the states as given), each within
+  fd_kernel_tolerance(…, d=2) of the plain version, timed in turns through
+  the call (CUDA events), on the device alone (20 calls queued behind a
+  sleep) and on the host clock; and the SASS instruction count of every
+  fd_ensemble_vec_kernel instance of both.
 
 Exits 1 on any difference.
 """
@@ -57,13 +67,15 @@ def build(parent: Path, kernel: str):
 
     out = ROOT / "build" / f"parent_{kernel}" / "libparent.so"
     csrc = parent / "adjoint_ode_adaptivity_tpu_torch" / "csrc"
-    src = {"kt1": "dg_tiled.cu", "f1": "fd_ensemble.cu"}[kernel]
+    src = {"kt1": "dg_tiled.cu", "f1": "fd_ensemble.cu", "f2": "fd_ensemble.cu"}[kernel]
     if nvcc_shared(out, [csrc / src]).wait():
         raise SystemExit("nvcc failed")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     par = ctypes.CDLL(str(out))
     if kernel == "kt1":
         par.dg_tiled_fwd.argtypes = [i] * 7 + [d] * 3 + [p] * 10
+    elif kernel == "f2":
+        par.fd_ensemble_vec.argtypes = [i] * 4 + [p] * 4
     else:
         par.fd_ensemble.argtypes = [i, i, i, i, p, i, i, i, p, p, p, p]
         par.fd_estimate_per_member.argtypes = ([i, i, i, p, i, i, i, i, ctypes.c_float]
@@ -291,10 +303,67 @@ def f1_half(par, par_path, device) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------------ F2
+
+
+def parent_f2(par, u0s, plan):
+    """One call of the parent's F2 as its wrapper made it (the states
+    transposed to (d, n) a call): err (n_steps, n)."""
+    import torch
+
+    n = u0s.shape[0]
+    u0t = u0s.T.contiguous()
+    err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
+    code = par.fd_ensemble_vec(plan.ode.kernel_id, n, plan.n_steps, plan.rf, plan.grid_ptr,
+                               u0t.data_ptr(), err.data_ptr(),
+                               torch._C._cuda_getCurrentRawStream(u0s.device.index))
+    if code != 0:
+        raise SystemExit(f"fd_ensemble_vec returned {code}")
+    return err
+
+
+def f2_half(par, par_path, device) -> bool:
+    import torch
+
+    import chip_smoke as cs
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+
+    inp = cs.fd_inputs(device)
+    s, rf, dt = (cs.FD_ENSEMBLE[k] for k in ("n_steps", "rf", "dt"))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ok = True
+    for n in cs.F2_CASES:
+        u0 = inp["u0_vec"][:n].contiguous()
+        run = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf, d=2)
+        out = {}
+        calls = {"parent": lambda: out.update(parent=parent_f2(par, u0, run.plan)),
+                 "this": lambda: out.update(this=run(u0))}
+        turns = cs.in_turns(calls)
+        queued = {key: cs.queued_ms(fn) for key, fn in calls.items()}
+        queued.update({f"{key} again": cs.queued_ms(fn) for key, fn in reversed(calls.items())})
+        host = {key: host_us(fn) for key, fn in calls.items()}
+        errs = {key: float((got - want).abs().max()) for key, got in out.items()}
+        ok &= max(errs.values()) <= tol and bool((want.abs() > tol).any())
+        print(f"F2 {n} ICs {s} steps rf {rf} d=2 (this on {fe.fd_ens_plan(n, s, rf, sms, 2)}): "
+              f"ms a call through the call, in turns: {turns_line(turns)}; on the device alone "
+              f"(20 calls queued behind a sleep): "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in queued.items())}; host µs a call to "
+              f"enqueue: {', '.join(f'{k} {v:.1f}' for k, v in host.items())}; max|err - plain| "
+              f"{errs} (tol {tol:.3e})", flush=True)
+    print(f"SASS instructions of fd_ensemble_vec_kernel: parent "
+          f"{sass_counts(par_path, 'fd_ensemble_vec_kernel')}; "
+          f"this {sass_counts(load_library().path, 'fd_ensemble_vec_kernel')}", flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent_root", type=Path)
-    ap.add_argument("--kernel", choices=("kt1", "f1"), required=True)
+    ap.add_argument("--kernel", choices=("kt1", "f1", "f2"), required=True)
     args = ap.parse_args()
     import torch
 
@@ -310,7 +379,10 @@ def main() -> int:
     load_library()
     par, par_path = build(args.parent_root.resolve(), args.kernel)
     device = torch.device("cuda")
-    ok = kt1_half(par, device) if args.kernel == "kt1" else f1_half(par, par_path, device)
+    if args.kernel == "kt1":
+        ok = kt1_half(par, device)
+    else:
+        ok = (f1_half if args.kernel == "f1" else f2_half)(par, par_path, device)
     print("all checks passed" if ok else "A CHECK FAILED", flush=True)
     return 0 if ok else 1
 
