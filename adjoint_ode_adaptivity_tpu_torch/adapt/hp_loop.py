@@ -42,9 +42,26 @@ tolerance Newton and order checks still read the host; the cuda engine's
 iterations read nothing until the fetch). Entry points run on
 the card unless the caller passes ``device="cpu"``; a CUDA device that is
 not there raises. Checkpoints are ``torch.save`` files; a resumed run
-continues the history. Not ported: the data-parallel ``mesh=`` (ROADMAP
-queue 1 item 14) and the JAX package's jit-reuse hooks (``iteration=``,
-``run_fused``, ``fused_args``).
+continues the history.
+
+``mesh=`` (the ensembles): a :class:`~..parallel.mesh.RankGrid` whose
+``mesh_axis`` (default ``"data"``) shards the members over ranks, as the
+JAX package's ``mesh=`` shards them over devices; B must divide over the
+axis (the hp kernel takes any B ≥ 1 a rank). Each rank runs its block of
+members through the same estimate (the cuda engine's H1, or the torch
+engine). The shared-partition loop sums its means (the signed and the
+absolute per-element err, both functionals, and the mean solution in
+``smooth`` mode) over the ranks in one all-reduce an iteration, so every
+rank takes the same decision and the same stop, and gathers the members'
+``u`` and ``v`` for the history (once at the end with ``device_loop``);
+the per-member loop keeps only its block's partitions and orders and
+gathers its diagnostics in member order (once at the end with
+``device_loop``), the stop (no member refining) global. Every rank returns
+the global history; at one rank it is the unsharded loop's, bit for bit
+(``mesh=None`` runs the same path on one rank). With ``checkpoint_dir``
+rank 0 writes the gathered state and every rank resumes from it. Not
+ported: the JAX package's jit-reuse hooks (``iteration=``, ``run_fused``,
+``fused_args``).
 """
 from __future__ import annotations
 
@@ -55,7 +72,7 @@ import numpy as np
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch.adapt.dg_loop import _from_saved, _to_saved
-from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import _atomic_save, _load
+from adjoint_ode_adaptivity_tpu_torch.adapt.fd_loop import _load, _member_grid, _save_rank0
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
     _functional,
     _functional_tables,
@@ -67,6 +84,12 @@ from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mi
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.jacobi import jacobi_gl
 from adjoint_ode_adaptivity_tpu_torch.ops.operators import vandermonde_1d
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
+    RankGrid,
+    all_gather,
+    all_reduce_sum,
+    shard_along,
+)
 
 __all__ = [
     "HPAdaptResult",
@@ -263,6 +286,8 @@ def run_adaptive_dg_hp(
     callback: Callable | None = None,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
+    mesh: RankGrid | None = None,
+    mesh_axis: str = "data",
     dtype=None,
     device="cuda",
 ) -> list[HPAdaptResult]:
@@ -283,9 +308,10 @@ def run_adaptive_dg_hp(
     (adj_march), 'reconstruct' solves it at ``ns`` and lifts it through
     Radau collocation (adj_rec). ``engine="cuda"`` needs an ensemble (the
     kernel's fixed Newton count, ``newton_iters`` default 8).
-    ``checkpoint_dir``, ``device_loop``, ``dtype`` (default torch's default
-    float type) and ``device`` as in the module docstring; the callback
-    receives each result (after the run with ``device_loop``) and is not
+    ``checkpoint_dir``, ``device_loop``, ``mesh`` (an ensemble only),
+    ``mesh_axis``, ``dtype`` (default torch's default float type) and
+    ``device`` as in the module docstring; the callback receives each
+    result on every rank (after the run with ``device_loop``) and is not
     re-invoked for restored iterations."""
     _check_args(mode, n0, n_max, adjoint_mode, fine_offset, engine)
     device = require_device(device)
@@ -294,8 +320,16 @@ def run_adaptive_dg_hp(
     ensemble = y0_arr.ndim == 1
     if engine == "cuda" and not ensemble:
         raise ValueError("engine='cuda' requires an ensemble (B,) y0")
+    if mesh is not None and not ensemble:
+        raise ValueError("mesh= requires a (B,) initial-condition array")
     y0_t = torch.as_tensor(y0_arr, dtype=dtype, device=device).reshape(-1)
     b = y0_t.shape[0]
+    grid = _member_grid(mesh, mesh_axis, b)
+    y_local = shard_along(y0_t, grid, mesh_axis)  # this rank's members
+    b_loc = y_local.shape[0]
+
+    def gather(x, dim=0):  # the ranks' blocks in member order
+        return all_gather(x, grid, mesh_axis, dim) if ensemble else x
     max_k = k0 + (maxit + 1 if mode != "p" else 1)
     # restore before sizing: a resume may come from a run with a larger maxit
     raw = _load(checkpoint_dir, CHECKPOINT_FILE)
@@ -310,19 +344,30 @@ def run_adaptive_dg_hp(
               if mode == "smooth" else None)
 
     def iteration(times, ns):
-        t_b, n_b = times.expand(b, -1).contiguous(), ns.expand(b, -1).contiguous()
-        u_b, v_b, err_b, j_cb, j_fb = estimate(t_b, n_b, y0_t)
+        t_b, n_b = times.expand(b_loc, -1).contiguous(), ns.expand(b_loc, -1).contiguous()
+        u_b, v_b, err_b, j_cb, j_fb = estimate(t_b, n_b, y_local)
+        u_s = None
         if ensemble:
-            u_r, v_r = u_b, v_b
-            err_adj = torch.mean(err_b, dim=0)  # signed mean (history, estimate)
-            abs_err = torch.mean(torch.abs(err_b), dim=0)  # the signal
-            j_c, j_f = torch.mean(j_cb), torch.mean(j_fb)
+            # the means over all members: this rank's sums (the signed err
+            # for the history and the estimate, |err| the signal), summed
+            # over the ranks in one all-reduce
+            u_r, v_r = u_b, v_b  # this rank's members
+            k = err_b.shape[1]
+            parts = [torch.sum(err_b, dim=0), torch.sum(torch.abs(err_b), dim=0),
+                     torch.sum(j_cb)[None], torch.sum(j_fb)[None]]
+            if smooth is not None:
+                parts.append(torch.sum(u_r, dim=0).reshape(-1).to(err_b.dtype))
+            means = all_reduce_sum(torch.cat(parts), grid, mesh_axis) / b
+            err_adj, abs_err = means[:k], means[k:2 * k]
+            j_c, j_f = means[2 * k], means[2 * k + 1]
+            if smooth is not None:
+                u_s = means[2 * k + 2:].reshape(u_r.shape[1:])
         else:
             u_r, v_r, err_adj, j_c, j_f = u_b[0], v_b[0], err_b[0], j_cb[0], j_fb[0]
             abs_err = torch.abs(err_adj)
+            u_s = u_r
         smooth_ok = None
         if smooth is not None:
-            u_s = torch.mean(u_r, dim=0) if ensemble else u_r
             smooth_ok = smooth(u_s[None], ns[None])
         t_new, n_new = _refine_candidate(times[None], ns[None], abs_err[None], mode, n_max,
                                          smooth_ok)
@@ -343,11 +388,12 @@ def run_adaptive_dg_hp(
 
     def save(times_s, ns_s, n_act, saturated):
         if checkpoint_dir is not None:
-            payload = {"times": torch.as_tensor(np.asarray(times_s)),
-                       "ns": torch.as_tensor(np.asarray(ns_s, np.int64)), "n_active": n_act,
-                       "saturated": saturated,
-                       "history": [_to_saved(r._asdict()) for r in history]}
-            _atomic_save(payload, Path(checkpoint_dir) / CHECKPOINT_FILE)
+            _save_rank0(grid, lambda: {
+                "times": torch.as_tensor(np.asarray(times_s)),
+                "ns": torch.as_tensor(np.asarray(ns_s, np.int64)), "n_active": n_act,
+                "saturated": saturated,
+                "history": [_to_saved(r._asdict()) for r in history]},
+                Path(checkpoint_dir) / CHECKPOINT_FILE)
 
     def result(times_h, ns_h, u, v, err, j_c, j_f, est, na):
         return HPAdaptResult(
@@ -366,7 +412,9 @@ def run_adaptive_dg_hp(
             changed = torch.any(t_new != t) | torch.any(ns_new != nsv)
             t, nsv = torch.where(go, t_new, t), torch.where(go, ns_new, nsv)
             active = go & changed
-        bufs = [torch.stack(col).cpu().numpy() for col in zip(*rows)] if rows else []  # the fetch
+        # the fetch; the members' u and v gathered once
+        bufs = [(gather(torch.stack(col), dim=1) if c < 2 else torch.stack(col)).cpu().numpy()
+                for c, col in enumerate(zip(*rows))] if rows else []
         n_new = int(bufs[8].sum()) if rows else 0
         for i in range(n_new):
             na = int((np.diff(bufs[5][i]) > 0).sum())
@@ -386,8 +434,8 @@ def run_adaptive_dg_hp(
     saturated = False
     for it in range(it0, maxit + 1):
         u, v, err, j_c, j_f, est, t_new, ns_new = iteration(t, nsv)
-        r = result(t.cpu().numpy(), nsv.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy(),
-                   err.cpu().numpy(), j_c, j_f, est, n_active)
+        r = result(t.cpu().numpy(), nsv.cpu().numpy(), gather(u).cpu().numpy(),
+                   gather(v).cpu().numpy(), err.cpu().numpy(), j_c, j_f, est, n_active)
         history.append(r)
         if callback is not None:
             callback(r)
@@ -436,6 +484,8 @@ def run_adaptive_dg_hp_per_member(
     smooth_theta: float = 0.3,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
+    mesh: RankGrid | None = None,
+    mesh_axis: str = "data",
     dtype=None,
     device="cuda",
 ) -> list[HPPerMemberAdaptResult]:
@@ -446,12 +496,22 @@ def run_adaptive_dg_hp_per_member(
     on the hp axis. Each history entry holds the partitions and orders the
     iteration ran on (before it refined) and ``n_refining`` after it.
     Arguments as for :func:`run_adaptive_dg_hp`; the cuda engine runs any
-    B ≥ 1."""
+    B ≥ 1 (a rank); under ``mesh`` the partitions, orders and refining
+    flags shard with the members."""
     _check_args(mode, n0, n_max, adjoint_mode, fine_offset, engine)
     device = require_device(device)
     dtype = dtype or torch.get_default_dtype()
     y0_t = torch.as_tensor(np.asarray(y0s), dtype=dtype, device=device)
     b = y0_t.shape[0]
+    grid = _member_grid(mesh, mesh_axis, b)
+    y_local = shard_along(y0_t, grid, mesh_axis)  # this rank's members
+
+    def gather(x, dim=0):  # the ranks' blocks in member order
+        return all_gather(x, grid, mesh_axis, dim)
+
+    def shard(x):
+        return shard_along(x, grid, mesh_axis)
+
     history: list[HPPerMemberAdaptResult] = []
     it0 = 0
     raw = _load(checkpoint_dir, PER_MEMBER_CHECKPOINT_FILE)
@@ -471,16 +531,17 @@ def run_adaptive_dg_hp_per_member(
                     np.concatenate([ns_r, np.ones((b, w), ns_r.dtype)], axis=1))
 
         t_res, n_res = repad(raw["times"].numpy(), raw["ns"].numpy())
-        refining = raw["refining"].to(device) != 0
+        refining = shard(raw["refining"].to(device)) != 0
         history = [r._replace(times=tt, ns=nn, err=np.concatenate(
             [r.err, np.zeros((b, max_k - r.err.shape[1]))], axis=1))
             for r, (tt, nn) in ((r, repad(r.times, r.ns)) for r in history)]
     else:
         row_t, row_n = _initial(t_span, k0, n0, max_k)
         t_res, n_res = np.broadcast_to(row_t, (b, max_k + 1)), np.broadcast_to(row_n, (b, max_k))
-        refining = torch.ones((b,), dtype=torch.bool, device=device)
-    times = torch.as_tensor(np.ascontiguousarray(t_res), dtype=dtype, device=device)
-    nsb = torch.as_tensor(np.ascontiguousarray(n_res), dtype=torch.int64, device=device)
+        refining = shard(torch.ones((b,), dtype=torch.bool, device=device))
+    # this rank's block of the members' partitions and orders
+    times = shard(torch.as_tensor(np.ascontiguousarray(t_res), dtype=dtype, device=device))
+    nsb = shard(torch.as_tensor(np.ascontiguousarray(n_res), dtype=torch.int64, device=device))
     estimate, mops = _estimator(engine, f, f_u, g, g_u, ode, dtype, n_max, fine_offset, n_gq,
                                 adjoint_mode, dict(newton_tol=newton_tol,
                                                    newton_maxit=newton_maxit,
@@ -489,7 +550,7 @@ def run_adaptive_dg_hp_per_member(
               if mode == "smooth" else None)
 
     def iteration(times_b, ns_b, refining):
-        u_c, _v, err, j_c, j_f = estimate(times_b, ns_b, y0_t)
+        u_c, _v, err, j_c, j_f = estimate(times_b, ns_b, y_local)
         est = torch.sum(err, dim=1)
         smooth_ok = smooth(u_c, ns_b) if smooth is not None else None
         t_new, n_new = _refine_candidate(times_b, ns_b, torch.abs(err), mode, n_max, smooth_ok)
@@ -502,38 +563,58 @@ def run_adaptive_dg_hp_per_member(
                 torch.where(apply[:, None], n_new, ns_b), apply & changed,
                 (err, j_c, j_f, est, n_active))
 
-    def record(times_b, ns_b, diag, n_ref):
+    k = nsb.shape[1]
+
+    def row(times_b, ns_b, diag, ref_new):
+        """This rank's members' diagnostics in one float64 (b_loc, ·) block:
+        times, orders, err, j_c, j_f, est, n_active and the refining flag
+        (float64 holds the float32 values and the counts exactly)."""
         err, j_c, j_f, est, n_act = diag
+        return torch.cat([times_b.double(), ns_b.double(), err.double(),
+                          torch.stack([j_c, j_f, est], dim=1).double(),
+                          torch.stack([n_act, ref_new], dim=1).double()], dim=1)
+
+    def record(rows_g):
+        """One iteration from the gathered (B, ·) block."""
+        c = np.cumsum([0, k + 1, k, k, 1, 1, 1, 1])
+        cast = lambda j, dt: rows_g[:, c[j]:c[j + 1]].astype(dt)  # noqa: E731
+        fdt = torch.empty((), dtype=dtype).numpy().dtype
         history.append(HPPerMemberAdaptResult(
-            times=times_b, ns=ns_b.astype(np.int32), err=err, j_coarse=j_c, j_fine=j_f,
-            est_total=est, n_active=n_act.astype(np.int32), n_refining=int(n_ref)))
+            times=cast(0, fdt), ns=cast(1, np.int32), err=cast(2, fdt),
+            j_coarse=cast(3, fdt)[:, 0], j_fine=cast(4, fdt)[:, 0], est_total=cast(5, fdt)[:, 0],
+            n_active=cast(6, np.int32)[:, 0], n_refining=int(rows_g[:, c[7]].sum())))
 
     def save(times_s, ns_s, refining_s):
-        if checkpoint_dir is not None:
-            payload = {"times": times_s.cpu(), "ns": ns_s.cpu(),
-                       "refining": refining_s.cpu().to(torch.int32),
-                       "history": [_to_saved(r._asdict()) for r in history]}
-            _atomic_save(payload, Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
+        if checkpoint_dir is None:
+            return
+        times_s, ns_s = gather(times_s), gather(ns_s)
+        refining_s = gather(refining_s.to(torch.int32))
+        _save_rank0(grid, lambda: {
+            "times": times_s.cpu(), "ns": ns_s.cpu(), "refining": refining_s.cpu(),
+            "history": [_to_saved(r._asdict()) for r in history]},
+            Path(checkpoint_dir) / PER_MEMBER_CHECKPOINT_FILE)
 
     if device_loop:
-        rows, cont = [], torch.ones((), dtype=torch.bool, device=device)
+        rows = []
         for _ in range(it0, maxit + 1):
             t_new, ns_new, ref_new, diag = iteration(times, nsb, refining)
-            rows.append((times, nsb, *diag, torch.sum(ref_new), cont))
+            rows.append(row(times, nsb, diag, ref_new))
             # once no member refines, an iteration leaves the state as it is
             times, nsb, refining = t_new, ns_new, ref_new
-            cont = cont & torch.any(ref_new)
-        bufs = [torch.stack(col).cpu().numpy() for col in zip(*rows)] if rows else []  # the fetch
-        for i in range(int(bufs[-1].sum()) if rows else 0):
-            record(bufs[0][i], bufs[1][i], [bufs[c][i] for c in range(2, 7)], bufs[7][i])
+        # the one fetch; the history ends at the first iteration that left no
+        # member refining
+        bufs = gather(torch.stack(rows), dim=1).cpu().numpy() if rows else []
+        for rows_g in bufs:
+            record(rows_g)
+            if history[-1].n_refining == 0:
+                break
         if len(history) > it0:
             save(times, nsb, refining)
         return history
 
     for it in range(it0, maxit + 1):
         t_new, ns_new, ref_new, diag = iteration(times, nsb, refining)
-        record(times.cpu().numpy(), nsb.cpu().numpy(), [x.cpu().numpy() for x in diag],
-               torch.sum(ref_new))
+        record(gather(row(times, nsb, diag, ref_new)).cpu().numpy())
         save(t_new, ns_new, ref_new)
         if history[-1].n_refining == 0 or it == maxit:
             break

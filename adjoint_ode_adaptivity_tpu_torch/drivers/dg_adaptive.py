@@ -26,8 +26,19 @@ order solvers (``--order`` the starting order, ``--n-max`` the p cap,
 fixed Newton count): one run, the ensemble-mean signal with ``--ensemble``,
 or one partition and order vector per member with ``--per-member``. The
 single run takes the torch engine; ``--engine cuda`` needs ``--ensemble``.
-``--dp`` (ROADMAP queue 1 item 14) and ``--plot`` (item 15) are not ported
-yet and raise.
+
+``--dp`` shards the ``--ensemble`` members over the ranks of a torchrun
+launch (``parallel.init_dp_grid`` on a ``data`` axis; one rank without
+torchrun) through the loops' ``mesh=``: the DG ensemble and per-member
+loops and, with ``--hp``, the hp ensemble and per-member loops (the hp
+single run refuses it, as the JAX driver does). B must divide over the
+ranks. Every rank runs the same study and holds the global history; rank 0
+alone prints. Two ranks on the CPU:
+
+    torchrun --nproc-per-node 2 -m adjoint_ode_adaptivity_tpu_torch.drivers.dg_adaptive \
+        --dp --device cpu --ensemble 8 --per-member --maxit 4
+
+``--plot`` (ROADMAP queue 1 item 15) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -90,8 +101,8 @@ def main(argv=None):
              "fwd + adjoint + AWR pipeline in one kernel launch per iteration)",
     )
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel members over devices: not ported yet (ROADMAP queue 1 "
-                        "item 14)")
+                   help="--ensemble only: shard the members over the ranks of a torchrun launch "
+                        "(a 'data' axis; B must divide over the ranks)")
     p.add_argument(
         "--per-member", action="store_true",
         help="--ensemble only: every member adapts its OWN partition (bisects its own "
@@ -121,9 +132,10 @@ def main(argv=None):
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    for flag, item in (("dp", 14), ("plot", 15)):
-        if getattr(args, flag):
-            p.error(f"--{flag} is not ported yet (ROADMAP queue 1 item {item})")
+    if args.plot:
+        p.error("--plot is not ported yet (ROADMAP queue 1 item 15)")
+    if args.dp and args.hp is not None and args.ensemble <= 0:
+        p.error("--dp requires --ensemble with --hp")
     device = torch.device(args.device)
     if args.engine == "cuda" and (device.type != "cuda" or args.x64):
         p.error("--engine cuda requires --device cuda and float32 (no --x64)")
@@ -134,6 +146,14 @@ def main(argv=None):
             f"--device {args.device}: no CUDA device is available "
             "(use --device cpu with --engine torch)"
         )
+    mesh, say = None, print
+    if args.dp and args.ensemble > 0:
+        from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import init_dp_grid
+
+        mesh, device = init_dp_grid({"data": -1}, device)
+        if mesh.rank != 0:
+            say = _quiet
+        say(f"dp over {mesh.world} devices")
 
     from adjoint_ode_adaptivity_tpu_torch import odes
     from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop
@@ -158,7 +178,7 @@ def main(argv=None):
         print(f"{r.est_total:.10e}")
 
     if args.hp is not None:
-        return _hp_main(args, ode, device, j_exact)
+        return _hp_main(args, ode, device, j_exact, mesh, say)
 
     if args.ensemble > 0:
         engine = args.engine or _default_engine(args, ode, device)
@@ -170,30 +190,30 @@ def main(argv=None):
         common = dict(f_u=ode.f_u, n_order=args.order, k0=args.k0, tol=args.tol,
                       maxit=args.maxit, newton_iters=8, engine=engine, ode=ode,
                       checkpoint_dir=args.checkpoint_dir, device_loop=args.device_loop,
-                      dtype=dtype, device=device)
+                      mesh=mesh, dtype=dtype, device=device)
         if args.per_member:
             history = dg_loop.run_adaptive_dg_per_member(ode.f, y0s, (args.t0, args.t1),
                                                          **common)
             for it, r in enumerate(history):
-                print(
+                say(
                     f"-- it {it} K=[{r.n_active.min()}..{r.n_active.max()}]"
                     f"  J_mean={r.j.mean():.10e}  "
                     f"mean |Adj-W Res|={np.abs(r.est_total).mean():.10e}  "
                     f"refining={r.n_refining}/{args.ensemble}"
                 )
             mode = "per-member, device-loop" if args.device_loop else "per-member"
-            print(f"finished after {len(history)} iterations "
-                  f"(B={args.ensemble}, {mode}, engine={engine})")
+            say(f"finished after {len(history)} iterations "
+                f"(B={args.ensemble}, {mode}, engine={engine})")
             return history
         history = dg_loop.run_adaptive_dg_ensemble(ode.f, y0s, (args.t0, args.t1), **common)
         for it, r in enumerate(history):
-            print(
+            say(
                 f"-- it {it} K={len(r.times) - 1}  "
                 f"J_mean={r.j_mean:.10e}  "
                 f"mean Adj-W Res={r.est_total_mean:.10e}"
             )
-        print(f"finished after {len(history)} iterations "
-              f"(B={args.ensemble}, engine={engine})")
+        say(f"finished after {len(history)} iterations "
+            f"(B={args.ensemble}, engine={engine})")
         return history
 
     padded = args.device_loop if args.padded is None else args.padded
@@ -209,9 +229,14 @@ def main(argv=None):
     return history
 
 
-def _hp_main(args, ode, device, j_exact):
+def _quiet(*_args, **_kw) -> None:
+    """``print`` on the ranks other than 0 under ``--dp``."""
+
+
+def _hp_main(args, ode, device, j_exact, mesh=None, say=print):
     """The ``--hp`` branch: the single run (torch engine, float64 unless
-    ``--no-x64``), the ensemble-mean signal or the per-member study."""
+    ``--no-x64``), the ensemble-mean signal or the per-member study, its
+    members over ``mesh``'s ranks (``--dp``); ``say`` prints."""
     from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
 
     engine = "torch"
@@ -228,20 +253,20 @@ def _hp_main(args, ode, device, j_exact):
                   tol=args.tol, maxit=args.maxit, adjoint_mode=args.adjoint,
                   newton_iters=args.newton_iters, engine=engine, ode=ode,
                   smooth_theta=args.smooth_theta, checkpoint_dir=args.checkpoint_dir,
-                  device_loop=args.device_loop, dtype=dtype, device=device)
+                  device_loop=args.device_loop, mesh=mesh, dtype=dtype, device=device)
     if args.ensemble > 0 and args.per_member:
         # every member its own partition AND order vector
         history = hp_loop.run_adaptive_dg_hp_per_member(ode.f, hp_y0, (args.t0, args.t1),
                                                         **common)
         for it, r in enumerate(history):
-            print(
+            say(
                 f"-- it {it} K=[{r.n_active.min()}..{r.n_active.max()}]"
                 f" max order={r.ns.max()}"
                 f" mean |est|={np.abs(r.est_total).mean():.10e}"
                 f" refining={r.n_refining}/{args.ensemble}"
             )
-        print(f"finished after {len(history)} iterations "
-              f"(per-member hp, B={args.ensemble}, mode={args.hp})")
+        say(f"finished after {len(history)} iterations "
+            f"(per-member hp, B={args.ensemble}, mode={args.hp})")
         return history
 
     # the exact-J comparison only makes sense for a single IC (the
@@ -249,21 +274,21 @@ def _hp_main(args, ode, device, j_exact):
     hp_j_exact = j_exact if args.ensemble == 0 else None
 
     def hp_callback(r):
-        print(f"-- it with K={len(r.ns)} ns={r.ns.tolist()}")
-        print("JuH-Juh")
-        print(f"{r.effectivity_gap:.10e}")
+        say(f"-- it with K={len(r.ns)} ns={r.ns.tolist()}")
+        say("JuH-Juh")
+        say(f"{r.effectivity_gap:.10e}")
         if hp_j_exact is not None:
-            print("JuH-Ju")
-            print(f"{r.j_coarse - hp_j_exact:.10e}")
-        print("Adj-W Res")
-        print(f"{r.est_total:.10e}")
+            say("JuH-Ju")
+            say(f"{r.j_coarse - hp_j_exact:.10e}")
+        say("Adj-W Res")
+        say(f"{r.est_total:.10e}")
 
     history = hp_loop.run_adaptive_dg_hp(ode.f, hp_y0, (args.t0, args.t1),
                                          callback=hp_callback, **common)
     last = history[-1]
-    print(f"finished after {len(history)} iterations "
-          f"(mode={args.hp}, K={len(last.ns)}, "
-          f"orders {last.ns.min()}..{last.ns.max()})")
+    say(f"finished after {len(history)} iterations "
+        f"(mode={args.hp}, K={len(last.ns)}, "
+        f"orders {last.ns.min()}..{last.ns.max()})")
     return history
 
 

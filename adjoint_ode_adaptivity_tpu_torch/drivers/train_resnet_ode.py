@@ -22,11 +22,25 @@ never carries on on the CPU. On the card every method trains through its
 hand-written kernel, T1 (ops/cuda/train_fused) for the per-step methods and
 T2 (ops/cuda/train_dense_fused) for ``recurrent``, at any ``--n-train`` and
 minibatch; a shape a kernel refuses raises. ``--train-engine torch`` takes
-autograd instead (on the CPU, the only engine); ``auto`` and ``cuda`` both
-mean the kernel, and ``cuda`` raises on the CPU. ``--dp`` waits
-for the port of ``parallel/``. The initial parameters and data are drawn
-from ``torch.Generator``s seeded by ``--seed`` (not JAX's streams);
-:func:`train` takes them, so a caller can feed its own.
+autograd instead (``auto`` on the CPU); ``auto`` on the card and ``cuda``
+mean the kernel, and ``cuda`` on the CPU runs the kernels' plain versions,
+as the JAX package's ``pallas`` engine runs its interpret mode there.
+
+``--dp`` shards the training members over the ranks of a torchrun launch
+(``parallel.init_dp_grid``; one rank without torchrun): each rank runs its
+fused step on its block of the members and the loss and gradients are
+summed over the ranks (``train.loop``'s ``mesh=``), so every rank holds the
+same parameters and reaches the same refined grid. The fused engine only,
+not ``--method recurrent`` (the JAX driver's rules); ``--n-train`` must
+divide over the ranks. Rank 0 alone prints and writes the JSONL, the
+checkpoints and ``meta.json``. Two ranks on the CPU:
+
+    torchrun --nproc-per-node 2 -m adjoint_ode_adaptivity_tpu_torch.drivers.train_resnet_ode \
+        --dp --device cpu --train-engine cuda --epochs 20 --maxit 2
+
+The initial parameters and data are drawn from ``torch.Generator``s seeded
+by ``--seed`` (not JAX's streams); :func:`train` takes them, so a caller
+can feed its own.
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ from adjoint_ode_adaptivity_tpu_torch import models, odes
 from adjoint_ode_adaptivity_tpu_torch.adapt.policy import plateau_detect, should_refine_depth
 from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march_per_step
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import RankGrid, barrier, init_dp_grid
 from adjoint_ode_adaptivity_tpu_torch.train import checkpoint as ckpt
 from adjoint_ode_adaptivity_tpu_torch.train import loop
 from adjoint_ode_adaptivity_tpu_torch.train.adaptive import ensemble_refinement_signal
@@ -108,11 +123,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "width growth")
     p.add_argument("--train-engine", default="auto", choices=["auto", "torch", "cuda"],
                    help="cuda = the fused training-epoch kernels (T1 per-step ResBlockSimple, "
-                        "T2 the recurrent Dense chain); torch = autograd; auto = cuda on the "
-                        "card, torch on the CPU")
+                        "T2 the recurrent Dense chain; their plain versions on the CPU); "
+                        "torch = autograd; auto = cuda on the card, torch on the CPU")
     p.add_argument("--device", default="cuda", help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel training (not ported: waits for parallel/)")
+                   help="shard the training members over the ranks of a torchrun launch (fused "
+                        "engine only: per-rank fused epoch kernels, summed gradients; n-train "
+                        "must divide over the ranks)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --checkpoint-dir")
@@ -168,21 +185,45 @@ def _insert_times(t: torch.Tensor, idx: int) -> torch.Tensor:
     return torch.cat([t[:idx], mid, t[idx:]])
 
 
-def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=None):
+def _fused(args, device) -> bool:
+    """Whether the run trains through the fused kernels (module docstring)."""
+    return args.train_engine == "cuda" or (args.train_engine == "auto"
+                                          and device.type == "cuda")
+
+
+def refuse_dp(args, device) -> None:
+    """The JAX driver's ``--dp`` rules: the fused engine, not the shared chain."""
+    if args.method == "recurrent":
+        raise SystemExit("--dp is only supported with the fused engines "
+                         "(methods variable_params/new_loss/detect/width)")
+    if not _fused(args, device):
+        raise SystemExit("--dp requires the fused engine (per-step ResBlockSimple method, "
+                         "--train-engine cuda, or auto on the card)")
+
+
+def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=None,
+          mesh: RankGrid | None = None):
     """The run after the draws: ``p1`` one step's parameters (flax names,
     the width method's at its capacity), ``u0_train``/``u0_test`` the ICs,
     on ``device``, in their own dtypes (the data's dtype is the march's;
-    the parameters keep theirs). Returns (state, times)."""
+    the parameters keep theirs). ``mesh`` (``--dp``): the rank grid whose
+    ``data`` axis shards the training members; every rank passes the same
+    draws. Returns (state, times)."""
     draws = draws or torch_draws()
     device = torch.device(device or u0_train.device)
-    if args.train_engine == "cuda" and device.type != "cuda":
-        raise SystemExit("--train-engine cuda needs --device cuda")
+    lead = mesh is None or mesh.rank == 0  # prints and writes the files
+    if mesh is not None:
+        refuse_dp(args, device)
+        d = mesh.axis_size("data")
+        if args.n_train % d:
+            raise SystemExit(f"--dp: n-train={args.n_train} must divide over the {d} ranks")
     dtype = u0_train.dtype
     ode = _ode(args)
     logger = MetricsLogger(f"ResNetODE_{args.method}_{args.seed}",
-                           wandb_project=args.wandb_project,
+                           wandb_project=args.wandb_project if lead else None,
                            wandb_config={"problem": "ResNet", "method": args.method},
-                           jsonl_path=args.jsonl, verbose=not args.quiet)
+                           jsonl_path=args.jsonl if lead else None,
+                           verbose=not args.quiet and lead)
     n_steps = args.n_steps
     t = torch.tensor(np.linspace(0.0, args.t1, n_steps + 1), dtype=dtype, device=device)
     dt = torch.diff(t)
@@ -200,7 +241,8 @@ def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=Non
     true_train = rk4_truth(ode.f, u0_train, span, n_sub=256)
     true_test = rk4_truth(ode.f, u0_test, span, n_sub=256)
     batch_size = max(8, args.n_train // 16)
-    use_fused = device.type == "cuda" and args.train_engine != "torch"
+    use_fused = _fused(args, device)
+    dp = dict(mesh=mesh)
 
     def nodes(dt):
         return torch.cat([torch.zeros_like(dt[:1]), torch.cumsum(dt, 0)])
@@ -221,10 +263,11 @@ def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=Non
                 return loop.make_per_step_masked_train_step(net, tx)
             return loop.make_per_step_train_step(net, tx)
         if use_mixed:
-            return loop.make_mixed_loss_train_step_fused(tx, s, args.width, device=device)
+            return loop.make_mixed_loss_train_step_fused(tx, s, args.width, device=device, **dp)
         if use_masked:
-            return loop.make_per_step_masked_train_step_fused(tx, s, capacity, device=device)
-        return loop.make_per_step_train_step_fused(tx, s, args.width, device=device)
+            return loop.make_per_step_masked_train_step_fused(tx, s, capacity, device=device,
+                                                              **dp)
+        return loop.make_per_step_train_step_fused(tx, s, args.width, device=device, **dp)
 
     train_step = make_step(n_steps, dt)
     ep_total, it = 0, 0
@@ -263,9 +306,11 @@ def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=Non
             train_step = make_step(n_steps, dt)
             if use_mixed:
                 traj_train = rk4_truth(ode.f, u0_train, span, n_sub=256, save_times=nodes(dt))
-            print(f"resumed from checkpoint step {last} (outer it {it})")
+            if lead:
+                print(f"resumed from checkpoint step {last} (outer it {it})")
         except (ValueError, KeyError, RuntimeError) as e:
-            print(f"resume failed ({type(e).__name__}: {e}); starting fresh")
+            if lead:
+                print(f"resume failed ({type(e).__name__}: {e}); starting fresh")
 
     masked_step = lambda u, tt, d, pm: net(pm[0], u, tt, d, pm[1])  # noqa: E731
     per_step = lambda u, tt, d, p: net(p, u, tt, d)  # noqa: E731
@@ -354,17 +399,21 @@ def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=Non
         if use_mixed:
             traj_train = rk4_truth(ode.f, u0_train, span, n_sub=256, save_times=nodes(dt))
 
-        print(f"outer it {it}: err_total={err_total:.4e}  {what}  (n_steps={len(dt)})")
+        if lead:
+            print(f"outer it {it}: err_total={err_total:.4e}  {what}  (n_steps={len(dt)})")
 
         if args.checkpoint_dir:
-            opt = state.opt_state
-            ck = {"params": state.params, "exp_avg": opt.exp_avg, "exp_avg_sq": opt.exp_avg_sq,
-                  "opt_step": opt.step, "times": t, "it": it}
-            if use_masked:
-                ck["n_active"] = n_active
-            ckpt.save_checkpoint(args.checkpoint_dir, it, ck)
-            (Path(args.checkpoint_dir) / "meta.json").write_text(
-                json.dumps({"n_steps": int(len(dt)), "capacity": int(capacity)}))
+            if lead:
+                opt = state.opt_state
+                ck = {"params": state.params, "exp_avg": opt.exp_avg,
+                      "exp_avg_sq": opt.exp_avg_sq, "opt_step": opt.step, "times": t, "it": it}
+                if use_masked:
+                    ck["n_active"] = n_active
+                ckpt.save_checkpoint(args.checkpoint_dir, it, ck)
+                (Path(args.checkpoint_dir) / "meta.json").write_text(
+                    json.dumps({"n_steps": int(len(dt)), "capacity": int(capacity)}))
+            if mesh is not None:
+                barrier(mesh)  # a rank that resumes next reads rank 0's files
         it += 1
 
     logger.finish()
@@ -373,12 +422,15 @@ def train(args, p1, u0_train, u0_test, *, draws: Draws | None = None, device=Non
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.dp:
-        raise SystemExit("--dp is not ported yet: it waits for the port of parallel/ "
-                         "(ROADMAP item 14)")
     device = require_device(args.device)
+    grid = None
+    if args.dp:
+        refuse_dp(args, device)
+        grid, device = init_dp_grid({"data": -1}, device)
+        if grid.rank == 0:
+            print(f"dp over {grid.world} devices")
     p1, u0_train, u0_test = initial_draws(args, device)
-    return train(args, p1, u0_train, u0_test, device=device)
+    return train(args, p1, u0_train, u0_test, device=device, mesh=grid)
 
 
 if __name__ == "__main__":

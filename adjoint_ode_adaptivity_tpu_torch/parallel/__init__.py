@@ -1,10 +1,11 @@
 """Multi-rank scale-out over ``torch.distributed``: rank grids, the
-element-sharded DG advection and the member-sharded ensembles (the JAX
-package's ``parallel/``: meshes, ``dg_shard``, ``ensemble``). The kernel
-pipelines over the element-sharded grids are ``ops.cuda.dg_sharded``'s; the
-DG and FD loops take a grid as ``mesh=`` (``adapt.dg_loop``,
-``adapt.fd_loop``). The pipeline-parallel module is not ported yet (ROADMAP
-item 14)."""
+element-sharded DG advection, the member-sharded ensembles and the
+pipeline-parallel march (the JAX package's ``parallel/``: meshes,
+``dg_shard``, ``ensemble``, ``pipeline``). The kernel pipelines over the
+element-sharded grids are ``ops.cuda.dg_sharded``'s; the DG, hp and FD
+loops take a grid as ``mesh=`` (``adapt.dg_loop``, ``adapt.hp_loop``,
+``adapt.fd_loop``), and so do the fused train steps (``train.loop``);
+``init_dp_grid`` gives the drivers' ``--dp`` its grid."""
 
 from adjoint_ode_adaptivity_tpu_torch.parallel.dg_shard import (
     advec_fwd_adj_estimate_sharded,
@@ -20,13 +21,18 @@ from adjoint_ode_adaptivity_tpu_torch.parallel.ensemble import (
 )
 from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import (
     RankGrid,
+    RingShift,
     all_gather,
     all_reduce_sum,
+    barrier,
     exchange,
+    init_dp_grid,
     make_rank_grid,
     replicate,
+    ring_shift,
     shard_along,
 )
+from adjoint_ode_adaptivity_tpu_torch.parallel.pipeline import pipeline_march
 
 __all__ = [
     "RankGrid",
@@ -36,6 +42,11 @@ __all__ = [
     "exchange",
     "all_reduce_sum",
     "all_gather",
+    "barrier",
+    "ring_shift",
+    "RingShift",
+    "init_dp_grid",
+    "pipeline_march",
     "ensemble_vmap",
     "ensemble_batched",
     "ensemble_mean",

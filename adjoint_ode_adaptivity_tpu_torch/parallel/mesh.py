@@ -18,12 +18,20 @@ parallel/dg_shard.py and ops/cuda/dg_sharded.py).
   receives theirs: the non-periodic form of ``lax.ppermute`` over the ring
   that the DG halos use (the global boundary ranks have no neighbour
   outside and receive nothing).
+- :func:`ring_shift` is ``lax.ppermute`` over the periodic ring
+  i → (i + shift) mod D along an axis; it is differentiable
+  (:class:`RingShift`: the backward shifts the cotangent the other way),
+  so autograd through it gives the reverse transfer, as ``jax.grad``
+  transposes a ``ppermute``.
 - :func:`all_reduce_sum` is ``lax.psum``, over every rank or along one axis.
 - :func:`all_gather` joins the ranks' blocks along an axis in rank order
   (the global array of ``P(axis)``'s blocks), so gathered members keep
   :func:`shard_along`'s order.
 - :func:`barrier` waits for every rank (after rank 0 writes a file that
   the others read).
+- :func:`init_dp_grid` is the drivers' ``--dp``: it joins the default
+  process group from torchrun's environment and lays its ranks out along
+  named axes.
 
 Backends: ``nccl`` where each rank has a card of its own; ``gloo``
 otherwise (NCCL refuses two ranks on one device, and a host with one card
@@ -34,6 +42,7 @@ grid has one rank and every exchange and reduction is the identity, as a
 """
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -49,6 +58,9 @@ __all__ = [
     "all_reduce_sum",
     "all_gather",
     "barrier",
+    "ring_shift",
+    "RingShift",
+    "init_dp_grid",
 ]
 
 
@@ -76,13 +88,15 @@ class RankGrid(NamedTuple):
         """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
         return int(np.unravel_index(self.rank, self.sizes)[self._axis(axis)])
 
-    def neighbour(self, axis: str, offset: int) -> int | None:
-        """The group rank ``offset`` steps along ``axis``, or None past the
-        grid's edge."""
+    def neighbour(self, axis: str, offset: int, periodic: bool = False) -> int | None:
+        """The group rank ``offset`` steps along ``axis``: None past the
+        grid's edge, or round the ring with ``periodic``."""
         coords = list(np.unravel_index(self.rank, self.sizes))
         i = self._axis(axis)
         coords[i] += offset
-        if not 0 <= coords[i] < self.sizes[i]:
+        if periodic:
+            coords[i] %= self.sizes[i]
+        elif not 0 <= coords[i] < self.sizes[i]:
             return None
         return int(np.ravel_multi_index(coords, self.sizes))
 
@@ -207,3 +221,78 @@ def barrier(grid: RankGrid) -> None:
     """Return once every rank of the grid has called it (nothing at world 1)."""
     if grid.world > 1:
         dist.barrier(group=grid.group)
+
+
+def _shift(x: torch.Tensor, grid: RankGrid, axis: str, shift: int) -> torch.Tensor:
+    buf = _staged(x, grid).contiguous()
+    recv = torch.empty_like(buf)
+    to = _global(grid, grid.neighbour(axis, shift, periodic=True))
+    frm = _global(grid, grid.neighbour(axis, -shift, periodic=True))
+    # posted together, so that a ring of ranks each sending before it
+    # receives cannot wait on itself
+    ops = [dist.P2POp(dist.isend, buf, to, grid.group),
+           dist.P2POp(dist.irecv, recv, frm, grid.group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(x.device)
+
+
+class RingShift(torch.autograd.Function):
+    """:func:`ring_shift` as an autograd function: the forward sends ``x``
+    ``shift`` ranks on round the ring along ``axis`` and returns what
+    arrived; the backward sends the cotangent ``shift`` ranks back (the
+    transpose of a permutation is its inverse). Every rank of the grid
+    must run both, in the same order: the same program on every rank
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, shift):
+        ctx.grid, ctx.axis, ctx.shift = grid, axis, shift
+        return _shift(x, grid, axis, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.grid, ctx.axis, -ctx.shift), None, None, None
+
+
+def ring_shift(x: torch.Tensor, grid: RankGrid, axis: str, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over the periodic ring i → (i + shift) mod D along
+    ``axis``: this rank sends ``x`` to the rank ``shift`` steps on and
+    returns the block (same shape) of the rank ``shift`` steps back. The
+    identity at D = 1. Differentiable (:class:`RingShift`). Every rank of
+    the grid must call it."""
+    if shift % grid.axis_size(axis) == 0:
+        return x
+    return RingShift.apply(x, grid, axis, shift)
+
+
+def init_dp_grid(axes: dict[str, int], device="cuda") -> tuple[RankGrid, torch.device]:
+    """The drivers' ``--dp``: ``(grid, device)``, the default process group
+    laid out along ``axes`` (as :func:`make_rank_grid`; one size may be −1)
+    and this rank's device.
+
+    Under torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT`` in the environment) it joins the default
+    group, once, through ``env://``: with ``nccl`` where each rank of the
+    host has a card of its own, else with ``gloo`` (ranks sharing a card,
+    or CPU ranks). A CUDA ``device`` becomes ``cuda:LOCAL_RANK mod
+    device_count``, made current. Without that environment the grid has one
+    rank and ``device`` is returned as given."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+
+    device = require_device(device)
+    env = os.environ
+    world = int(env.get("WORLD_SIZE", "1"))
+    if "RANK" in env and world > 1:
+        local = int(env.get("LOCAL_RANK", env["RANK"]))
+        backend = "gloo"
+        if device.type == "cuda":
+            n_cards = torch.cuda.device_count()
+            device = torch.device("cuda", local % n_cards)
+            torch.cuda.set_device(device)
+            if n_cards >= int(env.get("LOCAL_WORLD_SIZE", world)):
+                backend = "nccl"
+        if not dist.is_initialized():
+            dist.init_process_group(backend, init_method="env://", rank=int(env["RANK"]),
+                                    world_size=world)
+    return make_rank_grid(axes), device

@@ -19,6 +19,19 @@ formed in double and rounded to the moments' dtype), u = −lr · m̂ /
 (√v̂ + eps) (eps outside the root), p ← p + u. The parameters are a dict of
 tensors (the flax pytree) with the steps stacked first; so are the moments,
 which width surgery zeroes slice by slice (models.surgery.zero_step_moments).
+
+``mesh=`` on the four fused steps: a :class:`~..parallel.mesh.RankGrid`
+whose ``mesh_axis`` (default ``"data"``) shards the members over ranks, as
+the JAX package's ``mesh=`` shards them over devices under ``shard_map``.
+The step takes the global batch, the same on every rank; each rank runs its
+kernel on its contiguous block of members (B must divide over the axis),
+then the loss and the gradient leaves, concatenated into one flat vector,
+are summed over the ranks and divided by the rank count d: equal blocks
+make the mean of the blocks' means the batch mean. The sum runs in rank
+order, ((v₀ + v₁) + v₂) + …, on every rank (the blocks gathered, then
+added), so every rank gets the same bits, and Adam then runs on every rank
+on the same inputs: the parameters stay bit-identical across the ranks.
+At one rank it is the unsharded step's bits.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march, forward_march_per_step
+from adjoint_ode_adaptivity_tpu_torch.parallel.mesh import RankGrid, all_gather, shard_along
 from adjoint_ode_adaptivity_tpu_torch.train.losses import mixed_ramp_weight
 from adjoint_ode_adaptivity_tpu_torch.tree import tree_leaves, tree_map
 
@@ -190,14 +204,57 @@ def make_mixed_loss_train_step(net, tx: Adam):
     return train_step
 
 
-def make_per_step_train_step_fused(tx: Adam, n_steps: int, features: int, device="cuda"):
+def _data_parallel(grad_fn: Callable, mesh: RankGrid | None, mesh_axis: str,
+                   members: tuple[int, ...], member_dims: tuple[int, ...] | None = None):
+    """``grad_fn(params, *args, **kw) -> (loss, grads)`` over this rank's
+    members (module docstring): the arguments at the positions ``members``
+    (counted after ``params``) shard along ``member_dims`` (default 0),
+    the loss and the gradients are summed over the ranks in rank order and
+    divided by the rank count. ``grad_fn`` itself at ``mesh=None``."""
+    if mesh is None:
+        return grad_fn
+    if not isinstance(mesh, RankGrid):
+        raise TypeError(f"mesh= takes a RankGrid (parallel.make_rank_grid), not {type(mesh)}")
+    d = mesh.axis_size(mesh_axis)
+    dims = dict(zip(members, member_dims or (0,) * len(members)))
+
+    def run(params, *args, **kw):
+        local = [shard_along(a, mesh, mesh_axis, dims[i]) if i in dims else a
+                 for i, a in enumerate(args)]
+        loss, grads = grad_fn(params, *local, **kw)
+        leaves = tree_leaves(grads)
+        flat = torch.cat([loss.reshape(1).to(leaves[0].dtype)]
+                         + [g.reshape(-1) for g in leaves])
+        parts = all_gather(flat[None], mesh, mesh_axis)
+        total = parts[0]
+        for part in parts[1:]:  # rank order, the same bits on every rank
+            total = total + part
+        total = total / d
+        it, off = iter(leaves), 1
+
+        def take(_):
+            nonlocal off
+            g = next(it)
+            out = total[off:off + g.numel()].reshape(g.shape)
+            off += g.numel()
+            return out
+
+        return total[0].to(loss.dtype), tree_map(take, grads)
+
+    return run
+
+
+def make_per_step_train_step_fused(tx: Adam, n_steps: int, features: int, device="cuda",
+                                   mesh: RankGrid | None = None, mesh_axis: str = "data"):
     """:func:`make_per_step_train_step` for ResBlockSimple with the epoch's
-    value and gradient in one call of T1 (float32); same signature."""
+    value and gradient in one call of T1 (float32); same signature.
+    ``mesh`` shards the members over ranks (module docstring)."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_fused import (
         make_cuda_resblock_epoch_grad,
     )
 
-    grad_fn = make_cuda_resblock_epoch_grad(n_steps, features, device=device)
+    grad_fn = _data_parallel(make_cuda_resblock_epoch_grad(n_steps, features, device=device),
+                             mesh, mesh_axis, members=(1, 2))
 
     def train_step(state: TrainState, dt, u0_batch, true_batch):
         loss, grads = grad_fn(state.params, dt, u0_batch, true_batch)
@@ -206,14 +263,19 @@ def make_per_step_train_step_fused(tx: Adam, n_steps: int, features: int, device
     return train_step
 
 
-def make_per_step_masked_train_step_fused(tx: Adam, n_steps: int, capacity: int, device="cuda"):
+def make_per_step_masked_train_step_fused(tx: Adam, n_steps: int, capacity: int, device="cuda",
+                                          mesh: RankGrid | None = None,
+                                          mesh_axis: str = "data"):
     """:func:`make_per_step_masked_train_step` through T1 with the per-step
-    ``n_active`` gating the neurons in the kernel; same signature."""
+    ``n_active`` gating the neurons in the kernel; same signature.
+    ``mesh`` shards the members over ranks (module docstring)."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_fused import (
         make_cuda_resblock_epoch_grad,
     )
 
-    grad_fn = make_cuda_resblock_epoch_grad(n_steps, capacity, masked=True, device=device)
+    grad_fn = _data_parallel(
+        make_cuda_resblock_epoch_grad(n_steps, capacity, masked=True, device=device),
+        mesh, mesh_axis, members=(1, 2))
 
     def train_step(state: TrainState, dt, n_active, u0_batch, true_batch):
         loss, grads = grad_fn(state.params, dt, u0_batch, true_batch, n_active=n_active)
@@ -222,15 +284,19 @@ def make_per_step_masked_train_step_fused(tx: Adam, n_steps: int, capacity: int,
     return train_step
 
 
-def make_mixed_loss_train_step_fused(tx: Adam, n_steps: int, features: int, device="cuda"):
+def make_mixed_loss_train_step_fused(tx: Adam, n_steps: int, features: int, device="cuda",
+                                     mesh: RankGrid | None = None, mesh_axis: str = "data"):
     """:func:`make_mixed_loss_train_step` through T1's mixed variant (the
     trajectory targets go in as (S+1, B), the ramp weight as a scalar);
-    same signature."""
+    same signature. ``mesh`` shards the members over ranks (module
+    docstring)."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_fused import (
         make_cuda_resblock_epoch_grad,
     )
 
-    grad_fn = make_cuda_resblock_epoch_grad(n_steps, features, mixed=True, device=device)
+    grad_fn = _data_parallel(
+        make_cuda_resblock_epoch_grad(n_steps, features, mixed=True, device=device),
+        mesh, mesh_axis, members=(1, 2), member_dims=(0, 1))
 
     def train_step(state: TrainState, dt, u0_batch, true_traj_batch, it):
         loss, grads = grad_fn(state.params, dt, u0_batch, true_traj_batch.T,
@@ -241,17 +307,21 @@ def make_mixed_loss_train_step_fused(tx: Adam, n_steps: int, features: int, devi
 
 
 def make_shared_train_step_fused(tx: Adam, dt: torch.Tensor, sizes, device="cuda",
-                                 mxu_dtype=torch.float32):
+                                 mxu_dtype=torch.float32, mesh: RankGrid | None = None,
+                                 mesh_axis: str = "data"):
     """:func:`make_shared_train_step` for ``ResNetBlock(sizes)`` with the
     epoch's value and gradient in one call of T2; same signature.
     ``mxu_dtype=torch.bfloat16`` selects the opt-in mixed-precision mode
     (bf16 hidden-product inputs on the tensor cores, f32 everything else),
-    as the JAX package's (train/loop.py:113-145)."""
+    as the JAX package's (train/loop.py:113-145). ``mesh`` shards the
+    members over ranks (module docstring)."""
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda.train_dense_fused import (
         make_cuda_dense_epoch_grad,
     )
 
-    grad_fn = make_cuda_dense_epoch_grad(dt.shape[0], sizes, device=device, mxu_dtype=mxu_dtype)
+    grad_fn = _data_parallel(
+        make_cuda_dense_epoch_grad(dt.shape[0], sizes, device=device, mxu_dtype=mxu_dtype),
+        mesh, mesh_axis, members=(1, 2))
 
     def train_step(state: TrainState, u0_batch, true_batch):
         loss, grads = grad_fn(state.params, dt, u0_batch, true_batch)

@@ -5648,6 +5648,449 @@ def phase39(device, lib, errs, inp):
                   f"partitions agreeing with world 1: {agree} of {total}; {clear}")
 
 
+# the data-parallel paths (phase 40): the hp studies at phase 14's shape, the
+# fused train steps at the NN path's T1 shape and the recurrent path's T2
+# widths, both drivers with --dp, and pipeline_march at D = 2
+DP_T1 = dict(s=2, f=500, b=8192, seed=17, init_seed=5, perturb=0.05, steps=2)
+DP_T2 = dict(sizes=(100, 500), b=512, s=2, seed=19, init_seed=9, steps=2)
+DP_DG_ARGV = ["--ensemble", "1024", "--per-member", "--device-loop"]
+DP_PIPE = dict(width=500, s=8, m=4, mb=1024, seed=23, init_seed=11)
+DP_LR = 1e-3
+
+
+def hp_dp_study(kind, device, grid):
+    """Phase 14's hp study (B = 512, hp mode, H1) through the loops' mesh=:
+    the per-member study on the device loop, or the shared-partition
+    ensemble on the host loop (``dg_adaptive --hp hp --ensemble 512``)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.adapt import hp_loop
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    y0s = np.random.default_rng(HP_STUDY["seed"]).uniform(0.5, 2.0, HP_STUDY["b"]).astype(
+        np.float32)
+    kw = dict(f_u=sin.f_u, k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"], mode="hp",
+              tol=0.0, maxit=HP_STUDY["maxit"], newton_iters=HP_STUDY["newton_iters"],
+              engine="cuda", ode=sin, dtype=torch.float32, device=device, mesh=grid)
+    if kind == "hp_per_member":
+        return hp_loop.run_adaptive_dg_hp_per_member(sin.f, y0s, (0.0, HP_STUDY["t1"]),
+                                                     device_loop=True, **kw)
+    return hp_loop.run_adaptive_dg_hp(sin.f, y0s, (0.0, HP_STUDY["t1"]), **kw)
+
+
+def dp_train(kind, device, grid):
+    """Two Adam steps of a fused train step through mesh= (None: the
+    unsharded step): T1 at the NN path's shape (ResBlockSimple(500), S = 2,
+    8192 members) or T2 at the recurrent path's widths (100, 500), S = 2,
+    B = 512. Returns (losses, parameters on the host)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple, ResNetBlock
+    from adjoint_ode_adaptivity_tpu_torch.train import loop
+
+    cfg = DP_T1 if kind == "t1" else DP_T2
+    gen = torch.Generator().manual_seed(cfg["init_seed"])
+    s = cfg["s"]
+    if kind == "t1":
+        one = ResBlockSimple(cfg["f"]).init_params(gen)
+        params = {k: (torch.stack([v] * s) + cfg["perturb"] * torch.randn((s,) + v.shape,
+                                                                           generator=gen)
+                      ).to(device) for k, v in one.items()}
+    else:
+        params = ResNetBlock(cfg["sizes"]).init_params(gen, device=device)
+    u0 = torch.tensor(np.random.default_rng(cfg["seed"]).uniform(0.5, 2.0, cfg["b"]),
+                      dtype=torch.float32, device=device)
+    tr = odes.get_ode("du/dt=sin(u)").exact_fwd(1.0, u0).to(torch.float32)
+    dt = torch.full((s,), 1.0 / s, dtype=torch.float32, device=device)
+    tx = loop.Adam(DP_LR)
+    state = loop.create_train_state(params, tx)
+    losses = []
+    if kind == "t1":
+        step = loop.make_per_step_train_step_fused(tx, s, cfg["f"], device=device, mesh=grid)
+        for _ in range(cfg["steps"]):
+            state, loss = step(state, dt, u0, tr)
+            losses.append(float(loss))
+    else:
+        step = loop.make_shared_train_step_fused(tx, dt, cfg["sizes"], device=device, mesh=grid)
+        for _ in range(cfg["steps"]):
+            state, loss = step(state, u0, tr)
+            losses.append(float(loss))
+    return losses, {k: v.detach().cpu() for k, v in _flat_leaves(state.params)}
+
+
+def _flat_leaves(tree, prefix=""):
+    """(name, tensor) of a nested dict of tensors, in its order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def dp_pipeline(device, grid):
+    """pipeline_march of ResBlockSimple(500) steps (float64, S = 8, M = 4
+    microbatches of 1024 members) over ``grid``'s pipe axis against the
+    single-process march on the same card: (finals, the gradient of Σ
+    finals² joined over the ranks, the march's finals, its gradient, the
+    host wall s of the pipeline's forward and backward alone)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import forward_march_per_step
+    from adjoint_ode_adaptivity_tpu_torch.models import ResBlockSimple
+    from adjoint_ode_adaptivity_tpu_torch.parallel import all_reduce_sum, pipeline_march
+
+    c = DP_PIPE
+    net = ResBlockSimple(c["width"])
+    gen = torch.Generator().manual_seed(c["init_seed"])
+    one = net.init_params(gen, dtype=torch.float64)
+    params = {k: (torch.stack([v * (1 + 0.01 * i) for i in range(c["s"])])).to(device)
+              for k, v in one.items()}
+    dt = torch.full((c["s"],), 1.0 / c["s"], dtype=torch.float64, device=device)
+    u0s = torch.tensor(np.random.default_rng(c["seed"]).uniform(-2, 2, (c["m"], c["mb"])),
+                       device=device)
+
+    def step(u, t, d, p):  # (mb,) scalar states as (mb, 1)
+        return net(p, u[:, None], t, d)[:, 0]
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finals = pipeline_march(step, grid)(leaves, dt, u0s)
+    torch.sum(finals ** 2).backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grads = {k: all_reduce_sum(v.grad, grid, "pipe") for k, v in leaves.items()}
+    ref = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    want = torch.stack([forward_march_per_step(step, u0s[j], dt, ref)[-1]
+                        for j in range(c["m"])])
+    torch.sum(want ** 2).backward()
+    return finals.detach(), grads, want.detach(), {k: v.grad for k, v in ref.items()}, wall
+
+
+def dp_driver(name):
+    """One driver with --dp (one rank, or the ranks of the launch that
+    called): ``dg_adaptive --ensemble 1024 --per-member --device-loop``
+    (D1; returns its history and printed lines) or the NN path (T1;
+    returns its grid, parameters and printed lines)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import dg_adaptive, train_resnet_ode
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        if name == "dg_driver":
+            out = (dg_adaptive.main(DP_DG_ARGV + ["--dp"]),)
+        else:
+            state, times = train_resnet_ode.main(NN_ARGV + ["--dp", "--quiet"])
+            out = (times.cpu(), {k: v.detach().cpu() for k, v in state.params.items()})
+    return out + (buf.getvalue().splitlines(),)
+
+
+DP_CASES = ("hp_per_member", "hp_ensemble", "t1", "t2", "dg_driver", "nn_driver", "pipeline")
+
+
+def dp_cases(device, data, pipe, sync):
+    """Every phase-40 case on this rank's grids (``data`` for the studies
+    and the train steps, ``pipe`` for the pipeline; the drivers make their
+    own): name -> (result, wall s, {kernel: launches on this rank}). Each
+    case runs once to warm up and once timed (a fresh rank's first run of
+    the NN driver pays start-up costs many times its warm wall)."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_dense_fused as td
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import train_fused as tf
+
+    counters = {"H1": hm.dg_estimate_hp_per_member, "D1": ds.dg_estimate_ensemble,
+                "T1": tf.resblock_epoch_grad, "T2": td.dense_epoch_grad}
+    runs = {"hp_per_member": lambda: hp_dp_study("hp_per_member", device, data),
+            "hp_ensemble": lambda: hp_dp_study("hp_ensemble", device, data),
+            "t1": lambda: dp_train("t1", device, data),
+            "t2": lambda: dp_train("t2", device, data),
+            "dg_driver": lambda: dp_driver("dg_driver"),
+            "nn_driver": lambda: dp_driver("nn_driver"),
+            "pipeline": lambda: dp_pipeline(device, pipe)}
+    out = {}
+    for name in DP_CASES:
+        runs[name]()
+        sync()
+        for module in (hm, ds, tf, td):
+            module.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = runs[name]()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = (res, wall, {k: c.launches for k, c in counters.items() if c.launches})
+    return out
+
+
+def dp_rank(rank, world, port, out_dir):
+    """One rank of phase 40's world 2 (torch.multiprocessing.spawn): the
+    torchrun environment, then ``parallel.init_dp_grid`` as the drivers'
+    --dp joins (gloo: both ranks on cuda:0); every case's result, wall and
+    launches go to out_dir/rank{r}.pkl."""
+    sys.path.insert(0, str(ROOT))
+    import os
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from adjoint_ode_adaptivity_tpu_torch.parallel import init_dp_grid, make_rank_grid
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        grid, device = init_dp_grid({"data": -1}, "cuda")
+        assert grid.backend == "gloo" and device == torch.device("cuda", 0), (grid, device)
+        out = dp_cases(device, grid, make_rank_grid({"pipe": world}), dist.barrier)
+        out = {k: (_host(v[0]), v[1], v[2]) for k, v in out.items()}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _host(x):
+    """``x`` with every tensor moved to the host (to pickle it)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_host(v) for v in x)
+    return x
+
+
+def hp_ensemble_replay(hist, device, errs):
+    """Every iteration's shared partition and orders of the B = 512 hp
+    ensemble study through H1's plain version (float32, same card): the
+    history's signed mean err within the mean of the per-element bounds
+    plus the float32 sum's B·ε·mean|err|, and the element the study refined
+    (p or h) the plain signal's argmax where its top-two margin clears 4x
+    the largest bound (a gate)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    sin = odes.get_ode("du/dt=sin(u)")
+    b = HP_STUDY["b"]
+    plan = hp_kernel(sin, HP_STUDY["n_max"], HP_STUDY["fo"], HP_K, "solve", device).plan
+    y0 = torch.tensor(np.random.default_rng(HP_STUDY["seed"]).uniform(0.5, 2.0, b).astype(
+        np.float32), device=device)
+    out = dict(decided=0, agree=0, err=0.0, share=0.0)
+    for r, nxt in zip(hist, list(hist[1:]) + [None]):
+        na = len(r.ns)
+        t = np.concatenate([r.times, np.full(HP_K + 1 - len(r.times), r.times[-1])])
+        n = np.concatenate([r.ns, np.ones(HP_K - na, np.int64)])
+        times = torch.tensor(t, dtype=torch.float32, device=device)[None].expand(b, -1).contiguous()
+        ns = torch.tensor(n, dtype=torch.int64, device=device)[None].expand(b, -1).contiguous()
+        plain = hm.dg_estimate_hp_per_member_plain(times, ns, y0, plan)
+        tol = hm.hp_kernel_tolerance(times, ns, y0, plain, plan)["err"]
+        err_p = plain[3].double()
+        bound = tol.mean(0)[:na] + b * EPS32 * err_p.abs().mean(0)[:na]
+        d = (torch.tensor(r.err, device=device, dtype=torch.float64) - err_p.mean(0)[:na]).abs()
+        assert bool((d <= bound).all()), (float(d.max()), float(bound.max()))
+        out["err"] = max(out["err"], float(d.max()))
+        out["share"] = max(out["share"], float((d / bound.clamp_min(1e-300)).max()))
+        if nxt is None or (len(nxt.ns) == na and np.array_equal(nxt.ns, r.ns)):
+            continue
+        if len(nxt.ns) == na:  # p: the order that rose
+            ref = int(np.flatnonzero(nxt.ns != r.ns)[0])
+        else:  # h: the first node that moved is the bisected element's midpoint
+            ref = int(np.flatnonzero(nxt.times[: na + 1] != r.times)[0]) - 1
+        signal = err_p.abs().mean(0)[:na]
+        top2 = torch.topk(signal, 2)
+        if float(top2.values[0] - top2.values[1]) > 4 * float(bound.max()):
+            out["decided"] += 1
+            out["agree"] += int(ref == int(top2.indices[0]))
+    errs["dg_estimate_hp_per_member"] = max(errs["dg_estimate_hp_per_member"], out["err"])
+    assert out["decided"] > 0 and out["agree"] == out["decided"], out
+    return out
+
+
+def train_close(got, want):
+    """tests/test_torch_parallel_dp.py's tolerances (the JAX package's fused
+    train tests'): the losses within rtol 1e-6, every parameter within rtol
+    1e-4, atol 1e-7. Returns (worst loss rtol, worst parameter excess over
+    its tolerance, ok)."""
+    import torch
+
+    (l_got, p_got), (l_want, p_want) = got, want
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_got, l_want))
+    excess = max(float(((p_got[k].double() - p_want[k].double()).abs()
+                        - (1e-7 + 1e-4 * p_want[k].double().abs())).max()) for k in p_want)
+    return loss_rel, excess, loss_rel <= 1e-6 and excess <= 0
+
+
+def same_bits(a, b):
+    """Two results (nested tuples, lists, dicts, tensors, arrays, numbers,
+    namedtuple histories) equal bit for bit."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def phase40(device, errs):
+    """The data- and pipeline-parallel paths: the hp studies' mesh= (H1),
+    the fused train steps' mesh= (T1, T2), both drivers' --dp (D1, T1) and
+    pipeline_march at D = 2. World 1 in this process (a one-rank grid: the
+    unsharded bits), world 2 as two gloo ranks on cuda:0 joined through
+    the torchrun environment and init_dp_grid; each case's wall and its
+    kernels' launches a rank; every hp decision clear of 4x the kernel's
+    bound replayed through the plain version."""
+    import pickle
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from adjoint_ode_adaptivity_tpu_torch.parallel import make_rank_grid
+
+    one = dp_cases(device, make_rank_grid({"data": 1}), make_rank_grid({"pipe": 1}),
+                   lambda: None)
+    for name in ("hp_per_member", "hp_ensemble"):
+        ref = hp_dp_study(name, device, None)
+        bits = history_digest(one[name][0]) == history_digest(ref)
+        say("40", f"(a) {name} B={HP_STUDY['b']} world 1 (mesh=, H1): {len(ref)} iterations, wall "
+                  f"{one[name][1]:.3f} s, launches {one[name][2]}; the unsharded loop's "
+                  f"history bit for bit: {bits}")
+        assert bits and len(one[name][0]) == len(ref), name
+    for name in ("t1", "t2"):
+        ref = dp_train(name, device, None)
+        bits = same_bits(one[name][0], ref)
+        say("40", f"(b) {name.upper()} step world 1 (mesh=): losses {one[name][0][0]}, wall "
+                  f"{one[name][1]:.3f} s, launches {one[name][2]}; the unsharded step's bits: "
+                  f"{bits}")
+        assert bits, name
+    finals, grads, want, want_g, pipe_s = one["pipeline"][0]
+    bits = torch.equal(finals, want)
+    g_rel = max(float(((grads[k] - want_g[k]).abs() / want_g[k].abs().clamp_min(1e-300)).max())
+                for k in grads)
+    c = DP_PIPE
+    say("40", f"(d) pipeline_march D=1 (ResBlockSimple({c['width']}), S={c['s']}, M={c['m']} x "
+              f"{c['mb']}, float64): forward and backward {pipe_s:.3f} s (the case with the "
+              f"reference march {one['pipeline'][1]:.3f} s); the single-process march's finals "
+              f"bit for bit: "
+              f"{bits}, gradients max rel diff {g_rel:.2e}")
+    assert bits and g_rel <= 1e-10
+
+    world = 2
+    tmp = ROOT / "build" / f"chip_smoke_dp.{time.time_ns()}"
+    tmp.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(world, port, str(tmp)), nprocs=world, join=True)
+        spawn_wall = time.perf_counter() - t0
+        parts = []
+        for r in range(world):
+            with open(tmp / f"rank{r}.pkl", "rb") as fh:
+                parts.append(pickle.load(fh))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("40", f"world 2: two ranks spawned with the torchrun environment (init_dp_grid: gloo, "
+              f"both on cuda:0), {spawn_wall:.1f} s with the spawn")
+    for name in DP_CASES:
+        for p in parts:  # not the drivers' lines (rank 0 alone prints) nor the pipeline's wall
+            got, want = p[name][0], parts[0][name][0]
+            if name.endswith("_driver") or name == "pipeline":
+                got, want = got[:-1], want[:-1]
+            assert same_bits(got, want), f"{name}: the ranks' results differ"
+    launches = {name: [p[name][2] for p in parts] for name in DP_CASES}
+    walls = {name: max(p[name][1] for p in parts) for name in DP_CASES}
+    for name, kernel in (("hp_per_member", "H1"), ("hp_ensemble", "H1"), ("t1", "T1"),
+                         ("t2", "T2"), ("dg_driver", "D1"), ("nn_driver", "T1")):
+        assert all(n.get(kernel, 0) > 0 for n in launches[name]), (name, kernel, launches[name])
+
+    hist = parts[0]["hp_per_member"][0]
+    rep = hp_replay(hist, "solve", device, errs)
+    agree, total = agreement("dg_per_member", one["hp_per_member"][0], hist)
+    say("40", f"(a) hp_per_member world 2: {len(hist)} iterations (world 1 "
+              f"{len(one['hp_per_member'][0])}), wall {walls['hp_per_member']:.3f} s on the "
+              f"slower rank (world 1 {one['hp_per_member'][1]:.3f} s), launches a rank "
+              f"{launches['hp_per_member']}; decisions on equal partitions agreeing with world "
+              f"1: {agree} of {total}; replay through the plain version: {rep['decided']} "
+              f"decisions clear of 4x the bound, {rep['agree']} agree (float64 torch engine "
+              f"{rep['decided64']} / {rep['agree64']}), max|d err| {rep['err']:.3e}")
+    hist = parts[0]["hp_ensemble"][0]
+    rep = hp_ensemble_replay(hist, device, errs)
+    same = sum(np.array_equal(a.times, b.times) and np.array_equal(a.ns, b.ns)
+               for a, b in zip(one["hp_ensemble"][0], hist))
+    say("40", f"(a) hp_ensemble world 2: {len(hist)} iterations, K {len(hist[0].ns)} -> "
+              f"{len(hist[-1].ns)}, wall {walls['hp_ensemble']:.3f} s (world 1 "
+              f"{one['hp_ensemble'][1]:.3f} s), launches a rank {launches['hp_ensemble']}; "
+              f"{same} of {len(hist)} iterations on world 1's partition and orders; replay: "
+              f"{rep['decided']} refinements clear of 4x the bound, {rep['agree']} agree, "
+              f"max|d err| {rep['err']:.3e} (worst {rep['share']:.2%} of its bound)")
+    for name in ("t1", "t2"):
+        loss_rel, excess, ok = train_close(parts[0][name][0], one[name][0])
+        say("40", f"(b) {name.upper()} step world 2: losses {parts[0][name][0][0]}, wall "
+                  f"{walls[name]:.3f} s (world 1 {one[name][1]:.3f} s), launches a rank "
+                  f"{launches[name]}; parameters bit-identical on both ranks; against world 1 "
+                  f"loss rel diff {loss_rel:.2e} (limit 1e-6), parameters {excess:+.2e} over "
+                  f"rtol 1e-4 + atol 1e-7 (ok: {ok})")
+        assert ok, name
+    dg2, lines2 = parts[0]["dg_driver"][0]
+    dg1, lines1 = one["dg_driver"][0]
+    rep = dg_replay(dg2, device, errs)
+    agree, total = agreement("dg_per_member", dg1, dg2)
+    say("40", f"(c) dg_adaptive {' '.join(DP_DG_ARGV)} --dp: world 1 {len(dg1)} iterations, "
+              f"wall {one['dg_driver'][1]:.3f} s; world 2 {len(dg2)}, wall "
+              f"{walls['dg_driver']:.3f} s ({lines2[0]!r}, rank 1 printed "
+              f"{len(parts[1]['dg_driver'][0][-1])} lines), launches a rank "
+              f"{launches['dg_driver']}; decisions on equal partitions agreeing with world 1: "
+              f"{agree} of {total}; replay: {rep['decided']} decisions clear of 4x the bound, "
+              f"{rep['agree']} agree")
+    assert lines1[0] == "dp over 1 devices" and lines2[0] == "dp over 2 devices"
+    assert not parts[1]["dg_driver"][0][-1] and not parts[1]["nn_driver"][0][-1]
+    t2, _, nn_lines2 = parts[0]["nn_driver"][0]
+    t1, _, nn_lines1 = one["nn_driver"][0]
+    say("40", f"(c) train_resnet_ode {' '.join(NN_ARGV)} --dp: world 2 grid {t2.tolist()} "
+              f"(world 1 {t1.tolist()}, equal: {torch.equal(t1, t2)}); {nn_lines2[-1]!r}; both "
+              f"ranks the same grid and parameters; wall {walls['nn_driver']:.3f} s (world 1 "
+              f"{one['nn_driver'][1]:.3f} s), launches a rank "
+              f"{launches['nn_driver']}")
+    assert nn_lines1[0] == "dp over 1 devices" and nn_lines2[0] == "dp over 2 devices"
+    assert t1.shape == t2.shape and float((t1 - t2).abs().max()) <= 1e-6
+    finals, grads, want, want_g, _ = parts[0]["pipeline"][0]
+    pipe_s = max(p["pipeline"][0][4] for p in parts)
+    f_rel = float(((finals - want).abs() / want.abs().clamp_min(1e-300)).max())
+    g_rel = max(float(((grads[k] - want_g[k]).abs() / want_g[k].abs().clamp_min(1e-300)).max())
+                for k in grads)
+    say("40", f"(d) pipeline_march D=2: forward and backward {pipe_s:.3f} s on the slower rank "
+              f"(D=1 {one['pipeline'][0][4]:.3f} s; the case with the reference march "
+              f"{walls['pipeline']:.3f} s); finals against the single-process march max rel "
+              f"diff {f_rel:.2e} (limit 1e-12), gradients {g_rel:.2e} (limit 1e-10)")
+    assert f_rel <= 1e-12 and g_rel <= 1e-10
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -5764,6 +6207,7 @@ def main() -> int:
     phase37(device, lib, errs, inp)
     md_launches, md_times, md_bounds = phase38(device, lib, errs)
     phase39(device, lib, errs, inp)
+    phase40(device, errs)
     launches.update(rc_launches, **tl_launches, **km_launches, **md_launches)
     times.update(rc_times, **tl_times, **km_times, **md_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

@@ -169,10 +169,11 @@ def test_resume_continues_the_run(tmp_path, capsys, method):
 
 
 def test_refusals():
-    with pytest.raises(SystemExit, match="parallel"):
+    # --dp as the JAX driver refuses it: not the shared chain, not autograd
+    with pytest.raises(SystemExit, match="only supported with the fused engines"):
+        td.main(["--dp", "--device", "cpu", "--method", "recurrent", "--train-engine", "cuda"])
+    with pytest.raises(SystemExit, match="--dp requires the fused engine"):
         td.main(["--dp", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="--device cuda"):
-        td.main(["--device", "cpu", "--train-engine", "cuda"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             td.main(["--epochs", "1", "--maxit", "0"])
