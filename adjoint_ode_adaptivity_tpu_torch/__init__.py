@@ -19,14 +19,21 @@ fifth is the NN strand: ResNets as time integrators trained through the
 solver (per-step or shared residual blocks, Adam as optax computes it), the
 adjoint-weighted refinement signal deciding where a layer (time step) or a
 neuron goes, and the ``train_resnet_ode`` driver with its five methods.
+The last slice adds the implicit-function-theorem DG marches that a neural
+right-hand side trains through (single, ensemble and mixed-order), the
+``config`` facade, and the host tools (``ops.io``, ``drivers.sweep``,
+``utils.plotting`` behind the drivers' ``--plot``/``--animate``,
+``utils.profiling``).
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
 - ``odes``, ``functionals``  the ODE registry and the output functionals
-- ``ops``        host NumPy float64 builders (Jacobi, operators, mesh) and
-  the fast-trig polynomials
+- ``config``     the ``Problem``/``get_problem_functions`` facade over them
+- ``ops``        host NumPy float64 set-up (Jacobi, operators, mesh), the
+  fast-trig polynomials, and ``ops.io`` (the discretization's ``.npz``)
 - ``march``      one-step FD marches, LSRK coefficients, the advection march,
-  the DG-in-time slab marches (single, batched and mixed-order)
+  the DG-in-time slab marches (single, batched and mixed-order) and their
+  IFT counterparts as ``torch.autograd.Function``s
 - ``adjoint``    discrete adjoints, the FD estimate, the advection transpose
   step and fused estimate, the DG-in-time adjoint and AWR (uniform and
   mixed-order)
@@ -43,8 +50,13 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
 - ``train``      losses, RK4 truth, train steps (torch and cuda engines),
   Adam, the padded adaptive trainer, the refinement signal, metrics,
   checkpoints
-- ``drivers``    the ``fd_adaptive``, ``advec_dg``, ``dg_adaptive`` and
-  ``train_resnet_ode`` command lines
+- ``drivers``    the ``fd_adaptive``, ``advec_dg``, ``dg_adaptive``,
+  ``burgers_dg`` and ``train_resnet_ode`` command lines, and the ``sweep``
+  launcher of seeds
+- ``parallel``   rank grids over ``torch.distributed``, the sharded
+  advection pipelines, member-sharded studies, ``pipeline_march``
+- ``utils``      ``profiling`` (torch.profiler traces, timing) and
+  ``plotting`` (matplotlib, imported only when a frame is drawn)
 - ``interop``    carries JAX-package state across (discretization, operator
   bundle, mixed-order operator stack, gaussian-mixture constants, flax
   parameters, optax Adam moments)

@@ -38,7 +38,10 @@ alone prints. Two ranks on the CPU:
     torchrun --nproc-per-node 2 -m adjoint_ode_adaptivity_tpu_torch.drivers.dg_adaptive \
         --dp --device cpu --ensemble 8 --per-member --maxit 4
 
-``--plot`` (ROADMAP queue 1 item 15) is not ported yet and raises.
+``--plot`` writes one frame per iteration of the single run and of the
+``--hp`` single run or ensemble signal (member 0's nodal values) to
+``CASE/CASE_{i}.png`` (matplotlib, imported only then; rank 0 alone under
+``--dp``); the other ensemble studies draw none, as in the JAX driver.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ def _default_engine(args, ode, device) -> str:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--case", default="dg_nonlinear",
-                   help="name of the run (the plots it names are not ported yet)")
+                   help="name of the run and of the --plot frames' directory")
     p.add_argument("--ode", default="du/dt=sin(u)")
     p.add_argument("--y0", type=float, default=1.0)
     p.add_argument("--t0", type=float, default=0.0)
@@ -77,7 +80,7 @@ def main(argv=None):
     p.add_argument("--k0", type=int, default=2)
     p.add_argument("--tol", type=float, default=1e-5)
     p.add_argument("--maxit", type=int, default=30)
-    p.add_argument("--plot", action="store_true", help="not ported yet (ROADMAP queue 1 item 15)")
+    p.add_argument("--plot", action="store_true")
     p.add_argument("--checkpoint-dir", default=None,
                    help="torch.save each iteration; resume if present")
     p.add_argument("--x64", action=argparse.BooleanOptionalAction, default=None,
@@ -132,8 +135,6 @@ def main(argv=None):
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.plot:
-        p.error("--plot is not ported yet (ROADMAP queue 1 item 15)")
     if args.dp and args.hp is not None and args.ensemble <= 0:
         p.error("--dp requires --ensemble with --hp")
     device = torch.device(args.device)
@@ -226,7 +227,43 @@ def main(argv=None):
     )
     print(f"finished after {len(history)} iterations, "
           f"K={len(history[-1].times) - 1} elements")
+    if args.plot:
+        _plot_frames(args.case, history)
     return history
+
+
+def _plot_frames(case: str, history, hp: bool = False) -> None:
+    """One frame per iteration, ``case/case_{i}.png``: |err| bars per
+    element over each element's nodal primal and adjoint (the live nodes of
+    each element's order with ``hp``; member 0 of an ensemble)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from adjoint_ode_adaptivity_tpu_torch.utils.plotting import fresh_case_dir
+
+    fresh_case_dir(case)
+    for i, r in enumerate(history):
+        fig, ax1 = plt.subplots(figsize=(10, 7))
+        mids = (r.times[:-1] + r.times[1:]) / 2
+        ax1.bar(mids, np.abs(r.err), np.diff(r.times), color=[0.466, 0.674, 0.188])
+        ax1.set_ylabel("Error Contribution")
+        ax2 = ax1.twinx()
+        u_p = r.u[0] if r.u.ndim == 3 else r.u
+        v_p = r.v[0] if r.v.ndim == 3 else r.v
+        for kk in range(u_p.shape[0]):
+            # live nodes only: padded entries beyond an element's order are zeros
+            npk = int(r.ns[kk]) + 1 if hp else u_p.shape[1]
+            npa = npk + 1 if hp else v_p.shape[1]
+            tk = np.linspace(r.times[kk], r.times[kk + 1], npk)
+            ax2.plot(tk, u_p[kk, :npk], "g--*", linewidth=2)
+            ta = np.linspace(r.times[kk], r.times[kk + 1], npa)
+            ax2.plot(ta, v_p[kk, :npa], "r--*", linewidth=2)
+        ax2.set_ylabel("Solution")
+        fig.savefig(f"{case}/{case}_{i}.png")
+        plt.close(fig)
+    print(f"wrote {len(history)} frames to {case}/")
 
 
 def _quiet(*_args, **_kw) -> None:
@@ -289,6 +326,8 @@ def _hp_main(args, ode, device, j_exact, mesh=None, say=print):
     say(f"finished after {len(history)} iterations "
         f"(mode={args.hp}, K={len(last.ns)}, "
         f"orders {last.ns.min()}..{last.ns.max()})")
+    if args.plot and say is print:
+        _plot_frames(args.case, history, hp=True)
     return history
 
 

@@ -12,8 +12,10 @@ torch``. With ``--ensemble`` the estimate engine defaults to ``cuda`` on
 the card (the per-member kernel, one launch per iteration) and switches to
 ``torch``, saying so, where the kernel cannot run the study (another
 functional, an ODE without a device functor, ``--x64``); an explicit
-``--engine cuda`` there raises instead. Plotting (the JAX driver's
-``--plot`` and ``--animate``) is not ported yet.
+``--engine cuda`` there raises instead. ``--plot`` writes one frame per
+iteration of the single greedy run to ``CASE/CASE_{it}.png`` (matplotlib,
+imported only then), and ``--animate`` joins them into ``CASE/CASE.mp4``;
+the backtrack schedule ignores both, saying so, as the JAX driver does.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ def _default_engine(args, ode, device) -> str:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--case", default="FD_nonlinear_u_sq",
-                   help="name of the run (the plots it names are not ported yet)")
+                   help="name of the run and of the --plot frames' directory")
     p.add_argument("--ode", default="du/dt=sin(u)")
     p.add_argument("--functional", default="J=int(u^2)")
     p.add_argument("--u0", type=float, default=1.0)
@@ -55,8 +57,10 @@ def main(argv=None):
     p.add_argument("--ref-factor", type=int, default=4)
     p.add_argument("--tol", type=float, default=1e-5)
     p.add_argument("--maxit", type=int, default=40)
+    p.add_argument("--plot", action="store_true")
     p.add_argument("--checkpoint-dir", default=None,
                    help="torch.save each iteration; resume if present (greedy schedule only)")
+    p.add_argument("--animate", action="store_true")
     p.add_argument(
         "--device-loop", action="store_true",
         help="run a fixed trip of maxit+1 iterations with the stopping tests on the "
@@ -97,7 +101,7 @@ def main(argv=None):
     from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
 
     ode = odes.get_ode(args.ode)
-    get_functional(args.functional)  # an unknown name raises KeyError here
+    functional = get_functional(args.functional)  # an unknown name raises KeyError here
     step = euler_step(ode.f)
     dtype = torch.float64 if args.x64 else torch.float32
     t_span = (args.t0, args.t1)
@@ -124,6 +128,22 @@ def main(argv=None):
               f"(B={args.ensemble}, per-member, engine={engine})")
         return history
 
+    if args.schedule == "backtrack" and (args.plot or args.animate):
+        print("--plot/--animate are not supported with --schedule backtrack; ignoring")
+        args.plot = args.animate = False
+    plot_state = {"bar_ylim": None}
+    if args.plot:
+        from adjoint_ode_adaptivity_tpu_torch.utils.plotting import fresh_case_dir, plot_iteration
+
+        fresh_case_dir(args.case)
+        x_plot = np.linspace(args.t0, args.t1, 500)
+        x_t = torch.tensor(x_plot, dtype=torch.float64)
+        exact_fwd = ode.exact_fwd(x_t, args.u0).numpy() if ode.exact_fwd else None
+        exact_adj = None
+        if ode.exact_fwd is not None and functional.g_u is not None:
+            exact_adj = odes.exact_adjoint_rk4(ode, functional.g_u, x_t, args.u0, args.t1,
+                                               functional.terminal).numpy()
+
     if args.schedule == "backtrack":
         history = fd_loop.run_adaptive_fd_backtrack_padded(
             step, args.u0, t_span, coarsen_tol=args.coarsen_tol, **common
@@ -136,10 +156,23 @@ def main(argv=None):
         return history
 
     def callback(result):
+        n_act = int(result.n_steps_used)
+        it = int(result.state.it) - 1
         print(
-            f"it {int(result.state.it) - 1:3d}  steps {int(result.n_steps_used):4d}  "
+            f"it {it:3d}  steps {n_act:4d}  "
             f"J={float(result.j_coarse):+.10e}  sum(err)={float(result.err_total):.6e}"
         )
+        if args.plot:
+            rf = args.ref_factor
+            t_pre = result.times_used.cpu().numpy()[: n_act + 1]
+            dt = np.diff(t_pre)
+            t_fine = np.concatenate([[t_pre[0]], t_pre[0] + np.cumsum(np.repeat(dt / rf, rf))])
+            plot_state["bar_ylim"] = plot_iteration(
+                args.case, it, t_pre, result.u.cpu().numpy()[: n_act + 1], t_fine,
+                result.v.cpu().numpy()[: len(dt) * rf + 1],
+                result.err_steps.cpu().numpy()[:n_act], exact_t=x_plot, exact_fwd=exact_fwd,
+                exact_adj=exact_adj, bar_ylim=plot_state["bar_ylim"],
+            )
 
     history = fd_loop.run_adaptive_fd(
         step, args.u0, t_span, callback=callback, checkpoint_dir=args.checkpoint_dir,
@@ -147,6 +180,10 @@ def main(argv=None):
     )
     print(f"finished after {len(history)} iterations; final Σerr = "
           f"{float(history[-1].err_total):.6e}")
+    if args.plot and args.animate:
+        from adjoint_ode_adaptivity_tpu_torch.utils.plotting import animate_case
+
+        print("wrote", animate_case(args.case))
     return history
 
 

@@ -19,19 +19,27 @@ B initial conditions and/or time partitions are marched together.
   no host read).
 
 The right-hand side ``f(u, t)`` must be elementwise; ``f_u`` is its
-u-derivative (derived from ``f`` when ``None``). The implicit-function-
-theorem marches (``make_dg_slab_solver_batched``,
-``dg_march_batched_differentiable``) are not ported yet (ROADMAP queue 1
-item [8a]).
+u-derivative (derived from ``f`` when ``None``).
+:func:`dg_march_batched_differentiable` is the ensemble march that autograd
+differentiates through the implicit function theorem (one transposed
+closed-form solve per member and one residual VJP a slab).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import _interp_ops
-from adjoint_ode_adaptivity_tpu_torch.march.dg_time import DGTimeOperators, _as, elementwise_f_u
+from adjoint_ode_adaptivity_tpu_torch.march.dg_time import (
+    DGTimeOperators,
+    _ImplicitSlab,
+    _as,
+    _leaf_tensors,
+    _residual_vjp,
+    elementwise_f_u,
+)
 
 __all__ = [
     "solve_small",
@@ -42,6 +50,8 @@ __all__ = [
     "dg_adjoint_march_batched",
     "dg_element_functional_batched",
     "dg_estimate_batched",
+    "make_dg_slab_solver_batched",
+    "dg_march_batched_differentiable",
 ]
 
 
@@ -341,3 +351,123 @@ def dg_estimate_batched(
                            newton_maxit=newton_maxit, newton_iters=newton_iters)
     adj = dg_adjoint_march_batched(ops_a, f, fwd.u, times, y0, f_u=f_u, g_u=g_u)
     return fwd.u, adj.v, adj.err
+
+
+# ------------------------------------------------ differentiable (IFT) march
+#
+# The batched form of march/dg_time.py's make_dg_slab_solver: at the solved
+# slab R(u*) = 0 the vjp is ONE closed-form Np×Np transposed solve per
+# member plus one residual VJP, independent of the Newton count. This is how
+# a neural right-hand side trains *through* the implicit DG solver at
+# ensemble scale.
+
+
+def _slab_tables(ops: DGTimeOperators, dtype, device) -> tuple:
+    """(A = Sᵀ + B, Φ, w, r_q) on the device, built once a march."""
+    a_np = ops.stiff.T.copy()
+    a_np[-1, -1] += -1.0
+    return tuple(_as(x, dtype, device) for x in (a_np, ops.phi, ops.wq, ops.rq))
+
+
+def _residual_b(tabs, f, u, u_prev, h, t_left, params, fq=None):
+    """Batched slab residual R(U) (Np, B) with an explicit params pytree:
+    ``f(u, t, params)`` elementwise (the dg_march_batched weak form), from
+    :func:`_slab_tables`; ``fq`` is f at the quadrature points where the
+    caller has it already."""
+    a_mat, phi, wq, rq = tabs
+    if fq is None:
+        t_q = t_left[None, :] + (1.0 + rq)[:, None] * h[None, :] / 2.0
+        fq = f(phi @ u, t_q, params)
+    res = a_mat @ u + (h / 2.0) * (phi.T @ (wq[:, None] * fq))
+    return torch.cat([res[:1] + u_prev, res[1:]])
+
+
+def _f_and_jacobian_b(tabs, f, u, h, t_left, params):
+    """f at the quadrature points and dR/dU (Np, Np, B) from one forward-mode
+    pass with a ones tangent (``f`` elementwise; dual tensors, the values of
+    ``torch.func.jvp`` at a fraction of its host time): jac[i, j, b] =
+    A[i, j] + h/2 Σ_q φ_qi (w_q f_u,q) φ_qj."""
+    a_mat, phi, wq, rq = tabs
+    t_q = t_left[None, :] + (1.0 + rq)[:, None] * h[None, :] / 2.0
+    u_q = phi @ u
+    with fwAD.dual_level():
+        fq, dfq = fwAD.unpack_dual(f(fwAD.make_dual(u_q, torch.ones_like(u_q)), t_q, params))
+    return fq, a_mat[:, :, None] + (h / 2.0) * torch.einsum(
+        "qi,qb,qj->ijb", phi, wq[:, None] * dfq, phi)
+
+
+def _ift_solve(jac: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """w with Jᵀ w = g per member (jac (Np, Np, B), g (Np, B))."""
+    return solve_small(jac.transpose(0, 1), g)
+
+
+def make_dg_slab_solver_batched(
+    ops: DGTimeOperators,
+    f: Callable,
+    *,
+    newton_iters: int = 8,
+):
+    """Returns ``solve(u_prev, h, t_left, params) -> u (Np, B)``: one DG slab
+    solved for the whole (B,) ensemble by fixed-count Newton with the
+    closed-form :func:`solve_small` (no host read), whose gradient autograd
+    takes by the implicit function theorem. It is exact with respect to
+    ``u_prev``, ``h``, ``t_left`` (each (B,)) and every leaf of ``params``:
+    one transposed :func:`solve_small` plus one residual VJP, never through
+    the iteration.
+
+    ``f(u, t, params)`` must be elementwise in ``u``/``t``.
+    """
+    tables = {}  # (dtype, device) -> _slab_tables
+
+    def solve(u_prev, h, t_left, params=None):
+        dtype = torch.promote_types(u_prev.dtype, h.dtype)
+        key = (dtype, h.device)
+        if key not in tables:
+            tables[key] = _slab_tables(ops, dtype, h.device)
+        tabs = tables[key]
+        params, leaves = _leaf_tensors(params, h.dtype, h.device)
+
+        def residual(u, up, hh, tl, p):
+            return _residual_b(tabs, f, u, up, hh, tl, p)
+
+        def jacobian(u, up, hh, tl, p):
+            return _f_and_jacobian_b(tabs, f, u, hh, tl, p)[1]
+
+        with torch.no_grad():
+            u = u_prev[None, :].expand(ops.np_, u_prev.shape[0]).to(dtype, copy=True)
+            for _ in range(newton_iters):
+                fq, jac = _f_and_jacobian_b(tabs, f, u, h, t_left, params)
+                u = u - solve_small(jac, _residual_b(tabs, f, u, u_prev, h, t_left, params, fq))
+        return _ImplicitSlab.apply((residual, jacobian, _ift_solve, _residual_vjp), params, u,
+                                   u_prev, h, t_left, *leaves)
+
+    return solve
+
+
+def dg_march_batched_differentiable(
+    ops: DGTimeOperators,
+    f: Callable,
+    times: torch.Tensor,  # (K+1,) or (B, K+1)
+    y0,  # (B,)
+    params=None,
+    *,
+    newton_iters: int = 8,
+) -> torch.Tensor:
+    """Ensemble DG-in-time march that autograd differentiates: a loop of
+    IFT-wrapped batched slab solves. Returns the (B, K, Np) nodal solution;
+    gradients flow to ``y0``, ``times`` and ``params`` (e.g. a neural
+    right-hand side trained through the implicit solver over the whole IC
+    ensemble: the batched form of
+    :func:`~adjoint_ode_adaptivity_tpu_torch.march.dg_time.dg_march_differentiable`)."""
+    times, y0 = _norm_times(times, y0)
+    dtype = torch.promote_types(times.dtype, y0.dtype)
+    times, y0 = times.to(dtype), y0.to(dtype)
+    solve = make_dg_slab_solver_batched(ops, f, newton_iters=newton_iters)
+    params, _ = _leaf_tensors(params, dtype, times.device)
+    t_lefts, hs = _slab_geometry(times)
+    us, u_prev = [], y0
+    for k in range(hs.shape[0]):
+        u = solve(u_prev, hs[k], t_lefts[k], params)
+        us.append(u)
+        u_prev = u[-1]
+    return torch.stack(us).permute(2, 0, 1)  # (K, Np, B) -> (B, K, Np)

@@ -28,9 +28,9 @@ A zero-width slab (h = 0) reduces to ``S u + e_0 u_prev = 0`` whose
 solution is the constant ``u_prev`` at every order, the Newton initial
 guess, so padded partitions compose with mixed orders.
 
-The implicit-function-theorem march (``make_dg_slab_solver_mixed``,
-``dg_march_mixed_differentiable``) is not ported yet (ROADMAP queue 1 item
-[8a]).
+:func:`dg_march_mixed_differentiable` is the single-run mixed-order march
+that autograd differentiates through the implicit function theorem (one
+transposed solve at each converged slab plus one residual VJP).
 """
 from __future__ import annotations
 
@@ -39,7 +39,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch.march.dg_time import DGMarchResult, elementwise_f_u
+from adjoint_ode_adaptivity_tpu_torch.march.dg_time import (
+    DGMarchResult,
+    _ImplicitSlab,
+    _leaf_tensors,
+    _residual_vjp,
+    elementwise_f_u,
+)
 from adjoint_ode_adaptivity_tpu_torch.ops.jacobi import jacobi_gl, jacobi_gq
 from adjoint_ode_adaptivity_tpu_torch.ops.operators import (
     dmatrix_1d,
@@ -54,6 +60,8 @@ __all__ = [
     "dg_time_operators_mixed",
     "gauss_solve",
     "dg_march_mixed",
+    "make_dg_slab_solver_mixed",
+    "dg_march_mixed_differentiable",
 ]
 
 
@@ -252,3 +260,116 @@ def dg_march_mixed(
     return DGMarchResult(u=torch.stack(us, dim=1), t=torch.stack(ts, dim=1),
                          newton_iters=torch.stack(iters, dim=1),
                          newton_resnorm=torch.stack(resn, dim=1))
+
+
+# -------------------------------------------- differentiable mixed-order march
+#
+# The implicit-function-theorem construction of dg_time.make_dg_slab_solver
+# at per-element orders. The element's operator tables are gathered outside
+# the autograd Function and need no gradient (the order is never
+# differentiated; JAX computes the tables' cotangents and discards them).
+
+
+def _mixed_slab_residual(f, u, u_prev, h, t_left, params, tables):
+    """R(U) (np_max,) of one slab at its order, from its gathered tables
+    (S_n, Φ_n, pad_eye_n, e_n, rq, wq)."""
+    s_k, phi_k, eye_k, e_end, rq, wq = tables
+    a_mat = s_k.T - torch.outer(e_end, e_end) + eye_k
+    u_q = phi_k @ u
+    t_q = t_left + (1.0 + rq) * h / 2.0
+    m_tilde = h / 2.0 * (phi_k.T @ (wq * f(u_q, t_q, params)))
+    res = a_mat @ u + m_tilde
+    return torch.cat([res[:1] + u_prev, res[1:]])
+
+
+def _ift_solve(jac: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """w with Jᵀ w = g by the unrolled elimination of the padded system."""
+    return gauss_solve(jac.T, g)
+
+
+def make_dg_slab_solver_mixed(
+    mops: MixedDGTimeOperators,
+    f: Callable,
+    *,
+    newton_tol: float = 1e-7,
+    newton_maxit: int = 500,
+):
+    """Returns ``solve(u_prev, h, t_left, n_k, params) -> u (np_max,)``: one
+    mixed-order DG time slab solved by Newton at order ``n_k`` (an int),
+    whose gradient autograd takes by the implicit function theorem. It is
+    exact with respect to ``u_prev``, ``h``, ``t_left`` and every leaf of
+    ``params`` (``f(u, t, params)`` takes the parameter pytree
+    explicitly)."""
+    np_m = mops.np_max
+
+    def solve(u_prev, h, t_left, n_k, params=None):
+        n_k = int(n_k)
+        if not 1 <= n_k <= mops.n_max:
+            raise ValueError(f"order {n_k} outside the operator stack [1, {mops.n_max}]")
+        h = torch.as_tensor(h)
+        dtype, dev = h.dtype, h.device
+        i = n_k - 1
+        e_end = torch.zeros((np_m,), dtype=dtype, device=dev)
+        e_end[n_k] = 1.0
+        tables = (*(torch.as_tensor(x[i], dtype=dtype, device=dev)
+                    for x in (mops.stiff_pad, mops.phi_pad, mops.pad_eye)),
+                  e_end, *(torch.as_tensor(x, dtype=dtype, device=dev) for x in (mops.rq, mops.wq)))
+        u_prev = torch.as_tensor(u_prev, dtype=dtype, device=dev)
+        t_left = torch.as_tensor(t_left, dtype=dtype, device=dev)
+        params, leaves = _leaf_tensors(params, dtype, dev)
+
+        def residual(u, up, hh, tl, p):
+            return _mixed_slab_residual(f, u, up, hh, tl, p, tables)
+
+        def jacobian(u, up, hh, tl, p):
+            return torch.func.jacfwd(lambda uu: residual(uu, up, hh, tl, p))(u)
+
+        with torch.no_grad():
+            u = u_prev * ((torch.cumsum(e_end, 0) < 1.0).to(dtype) + e_end)
+            it, du_norm = 0, float("inf")
+            while it <= newton_maxit and du_norm > newton_tol:
+                delta = gauss_solve(jacobian(u, u_prev, h, t_left, params),
+                                    residual(u, u_prev, h, t_left, params))
+                u = u - delta
+                du_norm = float(torch.linalg.norm(delta))
+                it += 1
+        return _ImplicitSlab.apply((residual, jacobian, _ift_solve, _residual_vjp), params, u,
+                                   u_prev, h, t_left, *leaves)
+
+    return solve
+
+
+def dg_march_mixed_differentiable(
+    mops: MixedDGTimeOperators,
+    f: Callable,
+    times: torch.Tensor,  # (K+1,)
+    ns,  # (K,) orders in 1..n_max
+    y0,
+    params=None,
+    *,
+    newton_tol: float = 1e-7,
+    newton_maxit: int = 500,
+) -> torch.Tensor:
+    """Mixed-order DG march of one run that autograd differentiates (the
+    per-element-order counterpart of
+    :func:`~adjoint_ode_adaptivity_tpu_torch.march.dg_time.dg_march_differentiable`):
+    a loop of IFT-wrapped slab solves at per-element orders ``ns``.
+    Gradients flow to ``y0``, ``times`` and ``params``: a neural right-hand
+    side trains *through* an hp-adapted implicit solver. Returns the
+    (K, np_max) padded nodal solution; the carry into the next slab is the
+    element's right-endpoint node ``u[ns[k]]``."""
+    times = torch.as_tensor(times)
+    dtype, dev = times.dtype, times.device
+    ns = torch.as_tensor(ns)
+    _check_orders(ns, mops.n_max)
+    solve = make_dg_slab_solver_mixed(mops, f, newton_tol=newton_tol, newton_maxit=newton_maxit)
+    params, _ = _leaf_tensors(params, dtype, dev)
+    t_left = times[:-1]
+    hs = times[1:] - times[:-1]
+    u_prev = torch.as_tensor(y0, dtype=dtype, device=dev).reshape(())
+    us = []
+    for k, n_k in enumerate(ns.tolist()):
+        u = solve(u_prev, hs[k], t_left[k], n_k, params)
+        us.append(u)
+        u_prev = u[n_k]
+    return torch.stack(us)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten"]
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -25,4 +25,14 @@ def tree_leaves(tree: Any) -> list:
     """The leaves of ``tree`` in the order :func:`tree_map` visits them."""
     out: list = []
     tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """``tree``'s structure with its leaves replaced, in :func:`tree_leaves`
+    order, by ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
     return out

@@ -307,6 +307,27 @@ raises, and the script exits non-zero; nothing is caught.
    and torch.matmul's bf16 GEMMs (a yardstick), with the share of
    t2_bf16_bound; (e) five steps of make_shared_train_step_fused(...,
    mxu_dtype=torch.bfloat16): the loss falls and stays finite.
+41. The IFT-differentiable DG marches, the config facade and the host tools,
+   float64: (a) dg_march_differentiable (N=2, 16 slabs, f = sin(p·u)),
+   its values dg_march's to 1e-12, d/d(y0, p, times) the CPU's to 1e-10
+   relative and central differences' to 1e-6; (b) a width-32 tanh MLP
+   right-hand side trained through dg_march_batched_differentiable (B =
+   16,384, 16 slabs, N = 1 and 2, 8 Newton steps, five train.Adam steps
+   toward the sin(u) flow's u(T)): the loss falls; one forward + backward
+   timed (CUDA events) with the backward's share, a torch.profiler trace
+   (launches, busy share); the same five steps over the first 256 members
+   on the card and on the CPU (in a process of its own, beside the rest of
+   the phase), every step's loss and gradients to 1e-10 relative, and
+   those members' u(T) in the full march the 256-member march's to 1e-12;
+   (c)
+   dg_march_mixed_differentiable on orders 1-4 over 16 elements, its values
+   dg_march_mixed's to 1e-12 and its gradients the CPU's; (d) every Funs
+   field of get_problem_functions on the card against device="cpu" (sin(u),
+   J = ∫u², 10^4 steps) to 1e-12; (e) ops/io round-trips a K = 10^4
+   Discretization1D bit for bit, profiling.trace around one stored-pipeline
+   estimate (launches recorded against launches run), and sweep runs two
+   fd_adaptive seeds on the card at --parallel 2, both rc 0 (beside (a),
+   (c)-(e); (b) runs after it).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -6091,6 +6112,422 @@ def phase40(device, errs):
     assert f_rel <= 1e-12 and g_rel <= 1e-10
 
 
+# ------------------------------------------------- the IFT marches and host tools
+
+IFT_SLABS = 16
+IFT_BATCH = dict(b=16_384, width=32, steps=5, lr=1e-2, newton_iters=8, seed=41)
+IFT_CHECK_B = 256  # the members whose steps are held against the CPU
+IFT_TOL = 1e-10  # card against CPU, float64: relative to the largest entry
+FACADE = dict(steps=10_000, adjoint_steps=2_500)  # the fine adjoint march: 10^4 steps at rf 4
+SWEEP_EXTRA = "--device cuda --maxit 5"
+
+
+def rel(a, b) -> float:
+    """max |a − b| / max |b| over tensors or dicts of tensors on any devices."""
+    import torch
+
+    if isinstance(a, dict):
+        return max(rel(a[k], b[k]) for k in a)
+    a, b = (torch.as_tensor(x).detach().double().cpu() for x in (a, b))
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def ift_grads(march, dev, y0, p, times, objective):
+    """``march(times, y0, p)`` (float64 on ``dev``), its objective and the
+    objective's gradients with respect to (y0, p, times)."""
+    import torch
+
+    leaves = [torch.tensor(x, dtype=torch.float64, device=dev, requires_grad=True)
+              for x in (y0, p, times)]
+    u = march(leaves[2], leaves[0], leaves[1])
+    j = objective(u)
+    return u.detach(), j.detach(), torch.autograd.grad(j, leaves)
+
+
+def ift_single(device):
+    """41(a): dg_march_differentiable, N = 2, 16 slabs, f = sin(p·u)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import (
+        dg_march,
+        dg_march_differentiable,
+        dg_time_operators,
+    )
+
+    ops = dg_time_operators(2)
+    times = np.linspace(0.0, 2.0, IFT_SLABS + 1)
+
+    def march(ts, y0, p):
+        return dg_march_differentiable(ops, lambda u, t, q: torch.sin(q * u), ts, y0, p)
+
+    def objective(u):
+        return (u[-1] ** 2).sum() + u[:, 0].sum()
+
+    t0 = time.perf_counter()
+    u_c, j_c, g_c = ift_grads(march, device, 1.0, 1.3, times, objective)
+    wall = time.perf_counter() - t0
+    _, j_h, g_h = ift_grads(march, "cpu", 1.0, 1.3, times, objective)
+    plain = dg_march(ops, lambda u, t: torch.sin(1.3 * u),
+                     torch.tensor(times, dtype=torch.float64, device=device), 1.0).u
+    val_err = float((u_c - plain).abs().max())
+    g_rel = [rel(a, b) for a, b in zip(g_c, g_h)]
+    eps = 1e-6
+
+    def j_at(y0, p, ts):
+        u = march(torch.tensor(ts, dtype=torch.float64, device=device), y0, p)
+        return float(objective(u))
+
+    bumped = times.copy()
+    bumped[5] += eps
+    lowered = times.copy()
+    lowered[5] -= eps
+    fd = ((j_at(1.0 + eps, 1.3, times) - j_at(1.0 - eps, 1.3, times)) / (2 * eps),
+          (j_at(1.0, 1.3 + eps, times) - j_at(1.0, 1.3 - eps, times)) / (2 * eps),
+          (j_at(1.0, 1.3, bumped) - j_at(1.0, 1.3, lowered)) / (2 * eps))
+    ad = (float(g_c[0]), float(g_c[1]), float(g_c[2][5]))
+    fd_rel = max(abs(a - b) / abs(b) for a, b in zip(ad, fd))
+    say("41", f"(a) dg_march_differentiable N=2, K={IFT_SLABS}, f=sin(p u), float64 on the card: "
+              f"values against dg_march max |diff| {val_err:.2e} (limit 1e-12); J {float(j_c):.12f}"
+              f", d/d(y0, p, times) against the CPU's max rel diff {max(g_rel):.2e} (limit 1e-10)"
+              f", against central differences (eps 1e-6; y0, p, t_5) max rel "
+              f"{fd_rel:.2e} (limit 1e-6); forward and backward {wall:.3f} s (a host read a "
+              f"Newton step)")
+    assert val_err <= 1e-12 and max(g_rel) <= 1e-10 and rel(j_c, j_h) <= 1e-12 and fd_rel <= 1e-6
+
+
+def ift_mlp(u, t, p):
+    """The tanh MLP right-hand side u -> tanh(u·w1 + b1)·w2, elementwise."""
+    import torch
+
+    h = torch.tanh(u[..., None] * p["w1"][0] + p["b1"])
+    return (h @ p["w2"])[..., 0]
+
+
+def ift_problem(n, dev, b):
+    """41(b)'s training problem at order ``n`` on ``dev`` over the first
+    ``b`` members: (loss(params), march(f, params) -> u(T)), the loss the
+    mean squared distance of u(T) from the sin(u) flow's, both through the
+    solver; and the initial parameters (float64 on ``dev``)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import (
+        dg_march_batched_differentiable,
+    )
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+
+    c = IFT_BATCH
+    rng = np.random.default_rng(c["seed"])
+    init = {"w1": rng.normal(size=(1, c["width"])) * 0.5, "b1": np.zeros(c["width"]),
+            "w2": rng.normal(size=(c["width"], 1)) * 0.2}
+    y0s = rng.uniform(0.5, 2.0, b)  # the first b of any larger draw
+    ops = dg_time_operators(n)
+    y = torch.tensor(y0s[:b], dtype=torch.float64, device=dev)
+    ts = torch.linspace(0.0, 2.0, IFT_SLABS + 1, dtype=torch.float64, device=dev)
+
+    def march(f, p=None):
+        return dg_march_batched_differentiable(ops, f, ts, y, p,
+                                               newton_iters=c["newton_iters"])[:, -1, -1]
+
+    target = march(lambda u, t, p: torch.sin(u))
+    params = {k: torch.tensor(v, dtype=torch.float64, device=dev) for k, v in init.items()}
+    return (lambda p: torch.mean((march(ift_mlp, p) - target) ** 2)), march, params
+
+
+def ift_train(n, dev, b) -> list:
+    """IFT_BATCH's Adam steps from the seed's draws: [(params, loss,
+    gradients)] a step."""
+    from adjoint_ode_adaptivity_tpu_torch import train
+
+    loss, _, params = ift_problem(n, dev, b)
+    tx = train.Adam(IFT_BATCH["lr"])
+    state, steps = tx.init(params), []
+    for _ in range(IFT_BATCH["steps"]):
+        val, g = train.value_and_grad(loss, params)
+        steps.append((params, val, g))
+        params, state = tx.update(g, state, params)
+    return steps
+
+
+def ift_cpu_steps() -> dict:
+    """41(b)'s CPU reference, in a process of its own while the card runs
+    the phase: each order's steps of the first IFT_CHECK_B members (float64),
+    their losses and gradients."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(2)  # beside the phase's own process and the sweep's two
+    return {n: [(float(v), g) for _, v, g in ift_train(n, "cpu", IFT_CHECK_B)] for n in (1, 2)}
+
+
+def ift_batched(device) -> dict:
+    """41(b): a width-32 tanh MLP right-hand side trained through
+    dg_march_batched_differentiable at B = 16,384, 16 slabs, N = 1 and 2.
+    Returns each order's steps over the first IFT_CHECK_B members on the
+    card, to hold against ift_cpu_steps."""
+    import torch
+
+    c = IFT_BATCH
+    checks = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        steps = ift_train(n, device, c["b"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        losses = [float(v) for _, v, _ in steps]
+        loss, march, _ = ift_problem(n, device, c["b"])
+        params = steps[-1][0]
+
+        def fwd_bwd(p=params):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            return torch.autograd.grad(loss(leaves), list(leaves.values()))
+
+        fwd, bwd = [], []
+        for _ in range(3):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            val = loss(leaves)
+            ev[1].record()
+            torch.autograd.grad(val, list(leaves.values()))
+            ev[2].record()
+            torch.cuda.synchronize()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+        ms_f, ms_b = statistics.median(fwd), statistics.median(bwd)
+        say("41", f"(b) N={n}: B={c['b']}, {IFT_SLABS} slabs, {c['newton_iters']} Newton steps, "
+                  f"tanh MLP width {c['width']}, float64, {c['steps']} Adam steps (lr {c['lr']}) in "
+                  f"{train_s:.3f} s (problem set-up included), losses "
+                  f"{[f'{v:.6e}' for v in losses]}; a step's forward + backward "
+                  f"{ms_f + ms_b:.3f} ms (CUDA events, median of 3; forward {ms_f:.3f}, backward "
+                  f"{ms_b:.3f}, {ms_b / (ms_f + ms_b):.1%})")
+        study_trace(fwd_bwd, "tanh", phase="41")
+        assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0], losses
+        checks[n] = [(float(v), g) for _, v, g in ift_train(n, device, IFT_CHECK_B)]
+        _, march_c, _ = ift_problem(n, device, IFT_CHECK_B)
+        with torch.no_grad():
+            tie = rel(march(ift_mlp, params)[:IFT_CHECK_B], march_c(ift_mlp, params))
+        say("41", f"(b) N={n}: u(T) of the first {IFT_CHECK_B} members in the B={c['b']} march "
+                  f"against the {IFT_CHECK_B}-member march at the last step's parameters: max rel "
+                  f"diff {tie:.2e} (limit 1e-12)")
+        assert tie <= 1e-12
+    return checks
+
+
+def ift_compare(card: dict, cpu: dict) -> None:
+    """41(b)'s gate: the card's steps of the first IFT_CHECK_B members
+    against the CPU's, loss and gradients at every step."""
+    for n in card:
+        worst_v = max(rel(a[0], b[0]) for a, b in zip(card[n], cpu[n]))
+        worst_g = max(rel(a[1], b[1]) for a, b in zip(card[n], cpu[n]))
+        say("41", f"(b) N={n}: the {len(card[n])} Adam steps of the first {IFT_CHECK_B} members, "
+                  f"card against CPU (float64, each from the seed's draws): every step's loss max "
+                  f"rel diff {worst_v:.2e}, gradients {worst_g:.2e} (limit {IFT_TOL:.0e})")
+        assert len(card[n]) == len(cpu[n]) == IFT_BATCH["steps"]
+        assert worst_v <= IFT_TOL and worst_g <= IFT_TOL
+
+
+def ift_mixed(device):
+    """41(c): dg_march_mixed_differentiable on orders 1-4 over 16 elements."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import (
+        dg_march_mixed,
+        dg_march_mixed_differentiable,
+        dg_time_operators_mixed,
+    )
+
+    mops = dg_time_operators_mixed(4)
+    times = np.linspace(0.0, 2.0, IFT_SLABS + 1)
+    ns = np.tile([1, 2, 3, 4], IFT_SLABS // 4)
+
+    def march(ts, y0, p):
+        return dg_march_mixed_differentiable(mops, lambda u, t, q: torch.sin(u) * q, ts, ns, y0,
+                                             p)
+
+    def objective(u):
+        return u[:, 0].sum() + u[-1].sum()
+
+    u_c, j_c, g_c = ift_grads(march, device, 1.0, 1.3, times, objective)
+    _, _, g_h = ift_grads(march, "cpu", 1.0, 1.3, times, objective)
+    ts = torch.tensor(times, dtype=torch.float64, device=device)
+    plain = dg_march_mixed(mops, lambda u, t: torch.sin(u) * 1.3, ts[None],
+                           torch.tensor(ns, device=device)[None],
+                           torch.ones(1, dtype=torch.float64, device=device)).u[0]
+    val_err = float((u_c - plain).abs().max())
+    g_rel = max(rel(a, b) for a, b in zip(g_c, g_h))
+    say("41", f"(c) dg_march_mixed_differentiable orders {ns.tolist()}, f=sin(u) p, float64 on "
+              f"the card: values against dg_march_mixed max |diff| {val_err:.2e} (limit 1e-12); "
+              f"d/d(y0, p, times) against the CPU's max rel diff {g_rel:.2e} (limit 1e-10)")
+    assert val_err <= 1e-12 and g_rel <= 1e-10
+
+
+def facade(device):
+    """41(d): every Funs field of get_problem_functions on the card against
+    device='cpu', du/dt=sin(u), J=int(u^2)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import config
+
+    problem = config.Problem(case="smoke", ode="du/dt=sin(u)", out_functional="J=int(u^2)")
+    card, host = (config.get_problem_functions(problem, device=d) for d in (device, "cpu"))
+    rng = np.random.default_rng(7)
+
+    def grid(n):
+        w = rng.uniform(0.5, 1.5, n)
+        dt = w / w.sum() * 2.0
+        return dt, np.concatenate([[0.0], np.cumsum(dt)])
+
+    dt, t = grid(FACADE["steps"])
+    dt_a, t_a = grid(FACADE["adjoint_steps"])
+    t0 = time.perf_counter()
+    # the CPU's forward, adjoint and estimate are the card's inputs and its references
+    want = {"forward_solve": host.forward_solve(dt)}
+    u = want["forward_solve"].numpy()
+    u_a = host.forward_solve(dt_a).numpy()
+    want["adjoint_solve"] = host.adjoint_solve(dt_a, u_a)
+    v_a = want["adjoint_solve"].numpy()
+    want["error_estimate"] = host.error_estimate(dt_a, u_a, v_a)
+    err = want["error_estimate"].numpy()
+    T = lambda x, d: torch.tensor(x, dtype=torch.float64, device=d)  # noqa: E731
+    fields = {
+        "fwd_update": lambda F, d: F.fwd_update(T(u[:-1], d), T(t[:-1], d), T(dt, d)),
+        "get_f": lambda F, d: F.get_f(u, dt),
+        "get_jf_diag": lambda F, d: F.get_jf_diag(u, dt),
+        "get_k": lambda F, d: F.get_k(u, dt),
+        "exact_fwd": lambda F, d: F.exact_fwd(T(t, d), 1.0),
+        "exact_adj": lambda F, d: F.exact_adj(t[::50]),
+        "forward_solve": lambda F, d: F.forward_solve(dt),
+        "adjoint_solve": lambda F, d: F.adjoint_solve(dt_a, u_a),
+        "error_estimate": lambda F, d: F.error_estimate(dt_a, u_a, v_a),
+        "adapt": lambda F, d: F.adapt(t_a, err),
+    }
+    assert set(fields) == set(config.Funs._fields)
+    diffs = {}
+    for name, fn in fields.items():
+        got = fn(card, device)
+        ref = want[name] if name in want else fn(host, "cpu")
+        assert got.device.type == device.type and ref.device.type == "cpu", name
+        assert got.shape == ref.shape, (name, got.shape, ref.shape)
+        diffs[name] = float((got.cpu() - ref).abs().max() / max(1.0, float(ref.abs().max())))
+    wall = time.perf_counter() - t0
+    say("41", f"(d) get_problem_functions(device=cuda) against device=cpu, du/dt=sin(u), "
+              f"J=int(u^2), {FACADE['steps']} steps ({FACADE['adjoint_steps']} coarse, "
+              f"{FACADE['adjoint_steps'] * problem.ref_factor} fine for the adjoint fields): max "
+              f"|diff|/max(1, |cpu|) per field {', '.join(f'{k} {v:.1e}' for k, v in diffs.items())}"
+              f" (limit 1e-12); both devices {wall:.2f} s")
+    assert max(diffs.values()) <= 1e-12, diffs
+
+
+def host_tools(device):
+    """41(e): ops/io at K = 10^4 and profiling.trace around one
+    stored-pipeline estimate."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops import io, startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+    from adjoint_ode_adaptivity_tpu_torch.utils import profiling
+
+    tmp = ROOT / "build" / f"chip_smoke_tools.{time.time_ns()}"
+    tmp.mkdir(parents=True)
+    try:
+        disc = startup_1d(2, 0.0, 2 * np.pi, 10_000)
+        path = io.save_discretization(disc, tmp / "disc.npz")
+        back = io.load_discretization(path)
+        same = all(
+            (type(b) is int and a == b) if isinstance(a, int) else
+            (np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b))
+            for a, b in zip(disc, back))
+        say("41", f"(e) ops/io: Discretization1D K=10^4, N=2 through {path.name} "
+                  f"({path.stat().st_size} bytes): every field bit for bit {same}")
+        assert same
+
+        n_order, k, n_steps, b = (HEADLINE[x] for x in ("n_order", "k", "n_steps", "batch"))
+        hd = mesh(n_order, k, graded=False)
+        run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(hd, A, cfl_step(hd), n_steps, b,
+                                                             device, store_trajectory=True)
+        u0 = phased_states(hd, b, device, torch.float32)
+        lam = batched_cotangent(hd, b, device, torch.float32)
+        run(u0, 0.0, lam)
+        torch.cuda.synchronize()
+        with profiling.trace(str(tmp / "trace")):
+            run(u0, 0.0, lam)
+            torch.cuda.synchronize()
+        ran = dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches
+        (trace_file,) = list((tmp / "trace").iterdir())
+        events = json.loads(trace_file.read_text())["traceEvents"]
+        recorded = sum(1 for e in events if e.get("cat") == "kernel")
+        say("41", f"(e) profiling.trace around one stored-pipeline estimate (K={k}, N={n_order}, "
+                  f"{n_steps} steps, B={b}): {trace_file.name} "
+                  f"({trace_file.stat().st_size} bytes), {recorded} kernel launches recorded, "
+                  f"{ran} CUDA launches ran (K1 {dg_rhs.fwd_march.cuda_launches}, K2 "
+                  f"{dg_rhs.adj_est_stored.cuda_launches})")
+        assert recorded > 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sweep_run(out: dict) -> None:
+    """41(e)'s sweep: two fd_adaptive seeds on the card at --parallel 2,
+    through the sweep's command line (it raises unless every rc is 0); its
+    wall, or the exception, into ``out``."""
+    from adjoint_ode_adaptivity_tpu_torch.drivers import sweep
+
+    t0 = time.perf_counter()
+    try:
+        out["cmds"] = sweep.main(["--driver", "fd_adaptive", "--seeds", "1", "2",
+                                  f"--extra={SWEEP_EXTRA}", "--run", "--parallel", "2"])
+    except BaseException as exc:  # re-raised by phase41 in the main thread
+        out["error"] = exc
+    out["wall"] = time.perf_counter() - t0
+
+
+def phase41(device):
+    """The IFT-differentiable DG marches, the config facade and the host
+    tools on the card. 41(b)'s CPU reference runs in a process of its own
+    and the sweep's two driver processes in a thread from the start, beside
+    (a), (c), (d) and (e); (b) times its steps after both processes have
+    left the card."""
+    import concurrent.futures
+    import multiprocessing
+    import threading
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_ref = pool.submit(ift_cpu_steps)
+        env = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env) if p)
+        swept = {}
+        thread = threading.Thread(target=sweep_run, args=(swept,))
+        thread.start()
+        try:
+            ift_single(device)
+            ift_mixed(device)
+            facade(device)
+            host_tools(device)
+        finally:
+            thread.join()
+            if env is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = env
+        if "error" in swept:
+            raise swept["error"]
+        say("41", f"(e) sweep --driver fd_adaptive --seeds 1 2 --extra '{SWEEP_EXTRA}' --run "
+                  f"--parallel 2: {len(swept['cmds'])} runs, every rc 0 (sweep raises otherwise), "
+                  f"{swept['wall']:.1f} s beside (a), (c)-(e)")
+        card_ref = ift_batched(device)
+        ift_compare(card_ref, cpu_ref.result())
+    say("41", f"phase 41 {time.perf_counter() - t0:.1f} s")
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -6208,6 +6645,7 @@ def main() -> int:
     md_launches, md_times, md_bounds = phase38(device, lib, errs)
     phase39(device, lib, errs, inp)
     phase40(device, errs)
+    phase41(device)
     launches.update(rc_launches, **tl_launches, **km_launches, **md_launches)
     times.update(rc_times, **tl_times, **km_times, **md_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,

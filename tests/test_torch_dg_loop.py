@@ -202,14 +202,14 @@ def test_driver_prints_the_jax_drivers_lines(argv):
 
 
 def test_driver_refuses_what_is_not_ported(capsys):
-    for argv in (["--dp", "--hp", "hp"], ["--plot"],
+    for argv in (["--dp", "--hp", "hp"],
                  ["--device", "cpu", "--ensemble", "8", "--engine", "cuda"],
                  ["--ensemble", "8", "--engine", "cuda", "--x64"]):
         with pytest.raises(SystemExit):
             dg_adaptive.main(argv)
     err = capsys.readouterr().err
     assert "--dp requires --ensemble with --hp" in err  # the JAX driver's refusal
-    assert "not ported yet (ROADMAP queue 1 item 15)" in err
+    assert "not ported yet" not in err  # --plot is ported (tests/test_torch_host_tools.py)
     args = dg_adaptive.argparse.Namespace(x64=None)
     cuda = torch.device("cuda")
     assert dg_adaptive._default_engine(args, SIN, cuda) == "cuda"
