@@ -19,12 +19,15 @@ the largest |contribution| (MAIN.m:137-141), repeat.
 
 The ensemble loops take ``engine="torch"`` (march/dg_batched.py) or
 ``engine="cuda"``: each iteration's whole fwd + adjoint + AWR pipeline in one
-launch of the DG slab kernel (ops/cuda/dg_slab.py), which needs the ODE as
-``ode`` (a registry entry with a ``kernel_id``), float32, and a goal the
-kernel evaluates: ``g_u=None`` (J = ∫u) or a registry functional's g_u with
-a ``kernel_id`` (``get_functional("J=int(u^2)").g_u``), passed next to
-``ode``; a bare callable raises. On a CPU device it runs the kernel's plain
-version.
+launch of the DG slab kernel (ops/cuda/dg_slab.py), in float32. It runs the
+ODE ``ode`` (a registry entry's functor; an ``ODEProblem`` without a
+``kernel_id`` is traced) or, with ``ode=None``, the loop's own ``f`` and
+``f_u`` traced into a device functor (``f_u=None`` derived by forward
+mode), as the JAX package's Pallas engine takes ``f``; ``g_u`` is ``None``
+(J = ∫u), a registry functional's g_u, or any elementwise callable, traced.
+The trace and the user library's build happen once a study. A callable
+outside the tracer's op set raises (ops/cuda/functor.py). On a CPU device
+it runs the kernel's plain version.
 
 ``device_loop=True`` runs a fixed trip of ``maxit + 1`` iterations (fewer
 when resumed) with the stopping tests as device masks (|Σerr| < tol for the
@@ -296,18 +299,16 @@ def _estimator(engine, f, f_u, g_u, ode, dtype, newton, ops_p, ops_a, max_k, dev
     if engine not in ("torch", "cuda"):
         raise ValueError(f"engine={engine!r}: 'torch' or 'cuda'")
     if engine == "cuda":
-        if ode is None or getattr(ode, "kernel_id", None) is None:
-            raise ValueError("engine='cuda' needs the ODE as ode= (a registry entry with a "
-                             "kernel_id): the kernel evaluates f and f_u itself")
         if dtype != torch.float32:
             raise ValueError(f"engine='cuda' runs float32, not {dtype}")
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab import (
             make_cuda_dg_estimate_ensemble,
         )
 
-        kernel = make_cuda_dg_estimate_ensemble(ode, ops_p, ops_a, max_k,
-                                                newton["newton_iters"] or 8, g_u=g_u,
-                                                device=device)
+        # the registry entry (or ODEProblem) ode, else the loop's f and f_u traced
+        kernel = make_cuda_dg_estimate_ensemble(
+            ode, ops_p, ops_a, max_k, newton["newton_iters"] or 8,
+            **({} if ode is not None else {"f": f, "f_u": f_u}), g_u=g_u, device=device)
 
         def run(times, y0s):
             u, _v, err = kernel(times, y0s)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from adjoint_ode_adaptivity_tpu_torch import functionals as fnl
+from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.adapt.policy import (
     bisect_refine_masked,
     bisect_refine_padded,
@@ -549,6 +550,7 @@ def run_adaptive_fd_per_member(
     dtype=None,
     engine: str = "torch",
     ode=None,
+    ode_f: Callable | None = None,
     checkpoint_dir: str | None = None,
     device_loop: bool = False,
     mesh: RankGrid | None = None,
@@ -566,9 +568,13 @@ def run_adaptive_fd_per_member(
     one launch of the per-member kernel
     (:func:`~adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_estimate_per_member`)
     followed by the batched padded bisection on the device. It needs the
-    forward-Euler ODE as ``ode`` (a registry entry with a ``kernel_id``),
-    ``functional_name="J=int(u^2)"``, and float32 on a CUDA device (a CPU
-    device runs the kernel's plain version). ``device_loop`` and
+    forward-Euler ODE as ``ode`` (a registry entry's functor; an
+    ``ODEProblem`` without a ``kernel_id`` is traced) or, as the JAX
+    package's Pallas engine takes it, as ``ode_f(u, t)``, an elementwise
+    callable traced into a device functor with its f_u derived by forward
+    mode (JAX's ``jax.jvp``), once a study; ``functional_name="J=int(u^2)"``,
+    and float32 on a CUDA device (a CPU device runs the kernel's plain
+    version). ``device_loop`` and
     ``checkpoint_dir`` as for :func:`run_adaptive_fd`; ``mesh`` and
     ``mesh_axis`` shard the members over ranks (module docstring), the
     per-member widths with them."""
@@ -614,11 +620,9 @@ def run_adaptive_fd_per_member(
 
     fnl.get_functional(functional_name)  # an unknown name raises before any solve
     if engine == "cuda":
-        if ode is None or getattr(ode, "kernel_id", None) is None:
-            raise ValueError(
-                "engine='cuda' needs the ODE as ode= (a registry entry with a kernel_id): "
-                "the kernel evaluates f and f_u itself"
-            )
+        if (ode is None) == (ode_f is None):
+            raise ValueError("engine='cuda' needs the forward-Euler ODE as ode= (a registry "
+                             "entry or an ODEProblem) or as ode_f= (a callable), one of them")
         if functional_name != "J=int(u^2)":
             raise ValueError(f"engine='cuda' supports functional_name='J=int(u^2)', "
                              f"not {functional_name!r}")
@@ -626,6 +630,8 @@ def run_adaptive_fd_per_member(
             make_cuda_fd_estimate_per_member,
         )
 
+        if ode is None:  # f_u derived by forward mode, as JAX's engine takes jax.jvp
+            ode = odes.ODEProblem("ode_f", f=ode_f)
         cuda_run = make_cuda_fd_estimate_per_member(
             ode, max_nodes - 1, ref_factor, convention, t0=t_span[0], device=device
         )

@@ -29,11 +29,15 @@ sharing one partition and order vector refined at the ensemble-mean |err|;
 and order vector. ``engine="torch"`` runs the eager pipeline
 (``adjoint/dg_mixed.dg_estimate_mixed``); ``engine="cuda"`` (ensembles only)
 runs each iteration's member pipeline in one launch of the hp kernel
-(ops/cuda/dg_slab_mixed.py), which needs the ODE as ``ode`` (a registry
-entry with a ``kernel_id``), float32, and a goal the kernel evaluates:
-``g_u=None`` (J = ∫u) or a registry functional's g_u with a ``kernel_id``
-(``get_functional("J=int(u^2)").g_u``), passed next to ``ode``; a bare
-callable raises. On a CPU device it runs the kernel's plain version.
+(ops/cuda/dg_slab_mixed.py), in float32, on the ODE ``ode`` (a registry
+entry's functor; an ``ODEProblem`` without a ``kernel_id`` is traced) or,
+with ``ode=None``, the loop's own ``f`` and ``f_u`` traced into a device
+functor (``f_u=None`` derived by forward mode), as the JAX package's
+Pallas engine takes ``f``; ``g_u`` is ``None`` (J = ∫u), a registry
+functional's g_u, or any elementwise callable, traced, evaluated at the
+live nodes only. The trace and the user library's build happen once a
+study; a callable outside the tracer's op set raises. On a CPU device it
+runs the kernel's plain version.
 
 ``device_loop=True`` runs a fixed trip of ``maxit + 1`` iterations (fewer
 when resumed) with the stopping tests as device masks and one fetch at the
@@ -218,19 +222,17 @@ def _estimator(engine, f, f_u, g, g_u, ode, dtype, n_max, fine_offset, n_gq, adj
     interp = dg_adjoint_interp_mixed(mops)
     radau = dg_radau_interp_mixed(mops) if adjoint_mode == "reconstruct" else None
     if engine == "cuda":
-        if ode is None or getattr(ode, "kernel_id", None) is None:
-            raise ValueError("engine='cuda' needs the ODE as ode= (a registry entry with a "
-                             "kernel_id): the kernel evaluates f and f_u itself")
         if dtype != torch.float32:
             raise ValueError(f"engine='cuda' runs float32, not {dtype}")
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab_mixed import (
             make_cuda_dg_estimate_hp_per_member,
         )
 
+        # the registry entry (or ODEProblem) ode, else the loop's f and f_u traced
         pipeline = make_cuda_dg_estimate_hp_per_member(
             ode, mops, interp, max_k, n_max_user=n_max, fine_offset=fine_offset,
             newton_iters=newton["newton_iters"] or 8, adjoint_mode=adjoint_mode, rad=radau,
-            g_u=g_u, device=device)
+            **({} if ode is not None else {"f": f, "f_u": f_u}), g_u=g_u, device=device)
     else:
         def pipeline(times, ns, y0):
             return dg_estimate_mixed(mops, interp, f, times, ns, y0, fine_offset=fine_offset,

@@ -17,7 +17,8 @@
 //   w_q φ_q f + e_L u_prev, and err_k = vᵀ res; v_inflow ← v[0].
 // The goal J = ∫g(u, t) dt enters through g_u at the adjoint nodes, a
 // functor of odes.cuh chosen by the functional's kernel_id (a template
-// parameter): for J = ∫u (g_u ≡ 1) M·g_u is the folded row sums M·1; for
+// parameter; in a user library the traced goal, ops/cuda/functor.py, and the
+// ODE likewise): for J = ∫u (g_u ≡ 1) M·g_u is the folded row sums M·1; for
 // any other goal the kernel evaluates g_u at the Na interpolated primal
 // values u_h and node times t_n and forms −h/2·Σ_j M_ij·g_u(u_h[j], t_n[j])
 // in ascending j, as the TPU kernel sums it (dg_slab.py:205-211), from the
@@ -416,8 +417,9 @@ int dg_estimate_ensemble(int ode_id, int fast_trig, int gu_id, int n_u, int n_t,
   if (fast_trig && ode_id != 1) return -2;
   if (np_p < 1 || np_p > 7) return -4;
   if (n_tables > kMaxTables) return -5;
-  if (gu_id < 0 || gu_id > 1) return -9;
-  if (n_tables != expected_tables(np_p, nqp, nqa, gu_id != 0)) return -6;
+  const int goal = goal_tables(gu_id);
+  if (goal < 0) return -9;
+  if (n_tables != expected_tables(np_p, nqp, nqa, goal != 0)) return -6;
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || threads < 32 ||
       threads > kDgMaxThreads || threads % 32 != 0)
     return -8;

@@ -21,13 +21,15 @@
 //   u_h[n+1] + h/2·Σ_q w_q φ_q f + e_0 u_prev, and err_k = vᵀ res; the inflow
 //   of element k−1 is v[0] (solve) or the low solution's v[0] (reconstruct).
 // The goal J = ∫g(u, t) dt enters through g_u, a functor of odes.cuh chosen
-// by the functional's kernel_id (a template parameter), as in dg_slab.cu:
+// by the functional's kernel_id (a template parameter; a user library's
+// traced goal, ops/cuda/functor.py, with kUnit false), as in dg_slab.cu:
 // for J = ∫u the kernel reads M·1 as the folded row sums; for any other goal
 // it evaluates g_u at the system's live nodes (the interpolated u_h at order
 // n+1, or the coarse states at order n in "reconstruct") and 0 at the
 // padding, as the TPU kernel's live mask does (dg_slab_mixed.py:379), and
 // sums −h/2·Σ_j M_ij·g_u[j] in ascending j from the order's padded mass
-// matrix. The mask matters wherever g_u(0) ≠ 0 or g_u is singular at 0.
+// matrix. The mask matters wherever g_u(0) ≠ 0 or g_u is singular at 0
+// (g_u = 1/u at the padding's zero nodes).
 //
 // Design for this card, not a copy of the TPU's: the TPU blends every
 // order's table into per-member tiles with masks, since it cannot gather per
@@ -454,8 +456,9 @@ int dg_estimate_hp_per_member(int ode_id, int gu_id, int n_u, int n_t, const flo
                               float* uf, float* v, float* err, void* stream) {
   if (np_max < 3 || np_max > 8) return -4;
   if (n_stack != np_max - 1 || fine_offset < 1 || fine_offset >= n_stack) return -7;
-  if (gu_id < 0 || gu_id > 1) return -9;
-  if (n_tables != table_size(np_max, nq, n_stack, gu_id != 0)) return -6;
+  const int goal = goal_tables(gu_id);
+  if (goal < 0) return -9;
+  if (n_tables != table_size(np_max, nq, n_stack, goal != 0)) return -6;
   if (n_tables > kMaxHpTables) return -5;
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || threads < 32 ||
       threads > kHpMaxThreads || threads % 32 != 0)
@@ -466,15 +469,7 @@ int dg_estimate_hp_per_member(int ode_id, int gu_id, int n_u, int n_t, const flo
   launch_goal<ODE>(gu_id, np_max, nb, k_el, newton_iters, nq, n_stack, fine_offset,         \
                    reconstruct, lanes, threads, n_tables, tables, times, ns, y0, uc, uf, v, \
                    err, kc, s)
-  switch (ode_id) {
-    case 0: return AOA_HP_LAUNCH(OdeLinear);
-    case 1: return AOA_HP_LAUNCH(OdeSin<Libm>);
-    case 2: return AOA_HP_LAUNCH(OdeCos2Pi);
-    case 3: return AOA_HP_LAUNCH(Ode10Cos);
-    case 4: return AOA_HP_LAUNCH(OdeTSin);
-    case 5: return AOA_HP_LAUNCH(OdeGaussMix);
-    default: return -2;
-  }
+  AOA_ODE_LIBM_SWITCH(ode_id, AOA_HP_LAUNCH)
 #undef AOA_HP_LAUNCH
 }
 

@@ -26,9 +26,10 @@
 // fine node are evaluated once, as a pair (the TPU kernel's _pair_cache).
 //
 // The ODE is a compile-time functor of odes.cuh (one struct per registry
-// entry, chosen by kernel_id in the dispatch at the bottom); the gaussian
-// mixture's constants and the fast-trig coefficients travel by value in
-// OdeConsts.
+// entry, chosen by kernel_id in the dispatch at the bottom; in a user
+// library, ops/cuda/functor.py's traced functor alone, F2's of any D); the
+// gaussian mixture's constants and the fast-trig coefficients travel by
+// value in OdeConsts.
 //
 // Time grids. F1/F2: the coarse and fine node times and widths are folded on
 // the host in double (as the TPU kernel folds them at trace time) and read
@@ -541,6 +542,8 @@ int launch_ensemble(int n, int n_steps, int rf, int lanes, int threads, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
+// F2's launch; -3 where the CTA's D-component trajectories exceed a block's
+// shared memory (set_smem).
 template <class Ode>
 int launch_ensemble_vec(int n, int n_steps, int rf, int lanes, int threads, const float* grid,
                         const float* u0, float* err, const OdeConsts& k, cudaStream_t stream) {
@@ -607,16 +610,16 @@ int fd_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const float* consts
 }
 
 // F2 on `lanes` lanes an IC in CTAs of `threads`, as F1; u0 is (n, D),
-// IC-major.
+// IC-major, D the vector functor's (ode_id 6 the harmonic oscillator, or
+// the user library's traced one).
 int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, int lanes, int threads,
                     const float* grid, const float* u0, float* err, void* stream) {
-  if (ode_id != 6) return -2;
-  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1 ||
-      ensemble_smem(lanes, threads, n_steps, rf, OdeHarmonic::D) > kMaxSmem)
-    return -3;
+  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1) return -3;
   const OdeConsts k{};
-  return launch_ensemble_vec<OdeHarmonic>(n, n_steps, rf, lanes, threads, grid, u0, err, k,
-                                          static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AOA_LAUNCH(ODE) launch_ensemble_vec<ODE>(n, n_steps, rf, lanes, threads, grid, u0, err, k, s)
+  AOA_ODE_VECTOR_SWITCH(ode_id, AOA_LAUNCH)
+#undef AOA_LAUNCH
 }
 
 // F3 on `lanes` lanes a member (1, 2, 4, 8, 16 or 32) in CTAs of `threads`

@@ -28,8 +28,9 @@ class Functional(NamedTuple):
     g_u: Callable | None  # integrand derivative g_u(u, t) for the continuous adjoint
     terminal: float  # continuous-adjoint terminal condition a(T)
     linear: bool
-    # the DG-in-time kernels' functor of g_u (csrc/odes.cuh AOA_GOAL_SWITCH):
-    # 0 g_u ≡ 1, 1 g_u = 2u; None where g_u is no elementwise adjoint source
+    # the DG-in-time kernels' registry functor of g_u (csrc/odes.cuh
+    # AOA_GOAL_SWITCH): 0 g_u ≡ 1, 1 g_u = 2u; None for any other (the
+    # kernels trace its g_u, ops/cuda/functor.py)
     kernel_id: int | None = None
 
 
@@ -58,20 +59,25 @@ def get_functional(name: str) -> Functional:
 
 
 def kernel_goal(g_u) -> Functional:
-    """The registry functional whose adjoint source is ``g_u``, for the
-    DG-in-time kernels: J = ∫u for ``None``, else the functional with a
-    ``kernel_id`` whose ``g_u`` (or which) this is. A bare callable raises:
-    the kernels evaluate g_u on the card by a functor of csrc/odes.cuh, not
-    a Python function."""
+    """The goal of a DG-in-time kernel for the adjoint source ``g_u``: J = ∫u
+    for ``None``; the registry functional with a ``kernel_id`` whose ``g_u``
+    (or which) this is; any other elementwise callable ``g_u(u, t)`` as a
+    functional with no ``kernel_id``, which the kernels trace into a device
+    functor (ops/cuda/functor.py)."""
     if g_u is None:
         return FUNCTIONAL_REGISTRY["J=int(u)"]
     for fn in FUNCTIONAL_REGISTRY.values():
         if fn.kernel_id is not None and (g_u is fn or g_u is fn.g_u):
             return fn
-    names = [n for n, fn in FUNCTIONAL_REGISTRY.items() if fn.kernel_id is not None]
-    raise ValueError(f"the CUDA kernels evaluate g_u on the card and take a registry "
-                     f"functional's (get_functional(name).g_u, name in {names}), not the bare "
-                     f"callable {g_u!r}")
+    if isinstance(g_u, Functional):
+        if g_u.g_u is None or g_u.terminal != 0.0:
+            raise ValueError(f"the functional {g_u.name!r} is no integral J = ∫g dt: the "
+                             "kernels take an adjoint source g_u and no terminal condition")
+        return g_u._replace(kernel_id=None)
+    if not callable(g_u):
+        raise ValueError(f"g_u={g_u!r} is neither a callable nor a functional")
+    return Functional(f"J with g_u={getattr(g_u, '__qualname__', repr(g_u))}", None, g_u, 0.0,
+                      False)
 
 
 def get_k(functional: Functional, u: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:

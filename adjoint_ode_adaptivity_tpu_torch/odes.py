@@ -5,8 +5,11 @@ Counterpart of the JAX package's ``odes.py``. Every scalar entry carries a
 closed-form ``f_u`` (the JAX package differentiates the ones it leaves out
 by AD) and a ``kernel_id`` naming its device functor in ``csrc/odes.cuh``,
 the header shared by the FD kernels (``csrc/fd_ensemble.cu``) and the DG
-slab kernel (``csrc/dg_slab.cu``); an entry without a ``kernel_id`` cannot
-run on the kernels, and their entry points raise for it.
+slab kernels (``csrc/dg_slab.cu``, ``csrc/dg_slab_mixed.cu``). An
+``ODEProblem`` without a ``kernel_id`` runs on the kernels too: their entry
+points trace its elementwise ``f`` (and ``f_u``, derived by forward mode
+where it is ``None``) into a device functor (ops/cuda/functor.py), and
+raise for a callable outside the tracer's op set.
 
 ``gaussian_mixture`` draws its constants from ``jax.random.PRNGKey(1/2/3)``
 in the JAX package. The port holds those draws (taken with 64-bit floats,
@@ -59,7 +62,7 @@ class ODEProblem(NamedTuple):
     exact_fwd: Callable | None = None  # exact_fwd(t, u0) -> u(t)
     f_u: Callable | None = None  # df/du, closed form
     linear: bool = False
-    kernel_id: int | None = None
+    kernel_id: int | None = None  # None: the kernels trace f and f_u
     kernel_params: tuple = ()
 
 

@@ -8,6 +8,9 @@ them with plain ``nvcc`` (sm_90a, a C interface, no PyTorch headers), one
 ``nvcc -c`` per source, all started together, then links one shared library
 into ``build/torch_kernels/`` at the root of the checkout on first use,
 cached by a hash of the sources and flags, and loads the result with ctypes.
+:func:`load_user_library` builds a user library the same way for a
+caller's traced callables (ops/cuda/functor.py): only the sources a kernel
+needs, with the generated header, under ``build/torch_kernels/user/``.
 Nothing is built when a module is imported, so CPU-only machines import
 every module and run the kernels' plain PyTorch versions.
 """
@@ -27,6 +30,7 @@ import torch
 __all__ = [
     "pick_chunk",
     "load_library",
+    "load_user_library",
     "KernelLibrary",
     "require_device",
     "make_cuda_fwd_adj_estimate_grid_mxu",
@@ -85,8 +89,9 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """The loaded kernel library: ctypes entry points with declared
-    argument types, plus where and how long the build took."""
+    """A loaded kernel library: ctypes entry points with declared argument
+    types (for the symbols it has: a user library holds one source's), plus
+    where and how long the build took."""
 
     def __init__(self, path: Path, build_seconds: float, build_log: str):
         self.path = path
@@ -94,42 +99,35 @@ class KernelLibrary:
         self.build_log = build_log
         lib = ctypes.CDLL(str(path))
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.dg_fwd_march.argtypes = [i] * 10 + [d] * 3 + [p] * 11
-        lib.dg_fwd_march.restype = i
-        lib.dg_adj_est_stored.argtypes = [i] * 9 + [d] * 3 + [p] * 13
-        lib.dg_adj_est_stored.restype = i
-        lib.dg_adj_est_recompute.argtypes = [i] * 9 + [d] * 3 + [p] * 14
-        lib.dg_adj_est_recompute.restype = i
-        lib.dg_adj_march.argtypes = [i] * 8 + [p] * 10
-        lib.dg_adj_march.restype = i
-        lib.dg_mxu_fwd.argtypes = [i] * 8 + [p] * 9
-        lib.dg_mxu_fwd.restype = i
-        lib.dg_mxu_rev.argtypes = [i] * 8 + [p] * 11
-        lib.dg_mxu_rev.restype = i
-        lib.fd_ensemble.argtypes = [i, i, i, i, p] + [i] * 5 + [p] * 4
-        lib.fd_ensemble.restype = i
-        lib.fd_ensemble_vec.argtypes = [i] * 6 + [p] * 4
-        lib.fd_ensemble_vec.restype = i
-        lib.fd_estimate_per_member.argtypes = ([i, i, i, p, i, i, i, i, ctypes.c_float]
-                                               + [i] * 3 + [p] * 5)
-        lib.fd_estimate_per_member.restype = i
-        lib.dg_estimate_ensemble.argtypes = [i] * 5 + [p] * 2 + [i] * 10 + [p] * 6
-        lib.dg_estimate_ensemble.restype = i
-        lib.dg_estimate_hp_per_member.argtypes = [i] * 4 + [p] * 2 + [i] * 11 + [p] * 8
-        lib.dg_estimate_hp_per_member.restype = i
-        lib.resblock_epoch_grad.argtypes = [i] * 5 + [p] * 6 + [d] * 2 + [p] * 5
-        lib.resblock_epoch_grad.restype = i
-        lib.dense_epoch_grad.argtypes = [i, p] + [i] * 5 + [p] * 4 + [d] + [p] * 6
-        lib.dense_epoch_grad.restype = i
-        for name in ("burgers_march_f32", "burgers_march_f64"):
-            getattr(lib, name).argtypes = [i] * 9 + [p] * 7
-            getattr(lib, name).restype = i
+        signatures = {
+            "dg_fwd_march": [i] * 10 + [d] * 3 + [p] * 11,
+            "dg_adj_est_stored": [i] * 9 + [d] * 3 + [p] * 13,
+            "dg_adj_est_recompute": [i] * 9 + [d] * 3 + [p] * 14,
+            "dg_adj_march": [i] * 8 + [p] * 10,
+            "dg_mxu_fwd": [i] * 8 + [p] * 9,
+            "dg_mxu_rev": [i] * 8 + [p] * 11,
+            "fd_ensemble": [i, i, i, i, p] + [i] * 5 + [p] * 4,
+            "fd_ensemble_vec": [i] * 6 + [p] * 4,
+            "fd_estimate_per_member": ([i, i, i, p, i, i, i, i, ctypes.c_float]
+                                       + [i] * 3 + [p] * 5),
+            "dg_estimate_ensemble": [i] * 5 + [p] * 2 + [i] * 10 + [p] * 6,
+            "dg_estimate_hp_per_member": [i] * 4 + [p] * 2 + [i] * 11 + [p] * 8,
+            "resblock_epoch_grad": [i] * 5 + [p] * 6 + [d] * 2 + [p] * 5,
+            "dense_epoch_grad": [i, p] + [i] * 5 + [p] * 4 + [d] + [p] * 6,
+            "burgers_march_f32": [i] * 9 + [p] * 7,
+            "burgers_march_f64": [i] * 9 + [p] * 7,
+        }
+        for name, argtypes in signatures.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = i
         for name in ("dg_error_string", "fd_error_string", "dg_slab_error_string",
                      "dg_slab_mixed_error_string", "train_fused_error_string",
                      "train_dense_error_string", "burgers_error_string",
                      "dg_mxu_error_string"):
-            getattr(lib, name).argtypes = [i]
-            getattr(lib, name).restype = ctypes.c_char_p
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = [i]
+                getattr(lib, name).restype = ctypes.c_char_p
         self.lib = lib
 
     def check(self, code: int, what: str, error_string=None) -> None:
@@ -138,6 +136,37 @@ class KernelLibrary:
         if code != 0:
             msg = (error_string or self.lib.dg_error_string)(code).decode()
             raise RuntimeError(f"{what} failed: error {code} ({msg})")
+
+
+def _build(out: Path, units, extra_flags=()) -> None:
+    """``nvcc -c`` each of ``units`` (all started together) and link them
+    into ``out``; the compilers' output goes to ``out``'s ``.log``."""
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{s.stem}-{tag}.o" for s in units]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-c", str(s), "-o", str(o)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(units, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    out.with_suffix(".log").write_text("".join(logs))
+    for src, proc, log in zip(units, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+    os.replace(tmp, out)
+
+
+def _loaded(out: Path, t0: float) -> KernelLibrary:
+    log_path = out.with_suffix(".log")
+    build_seconds = time.perf_counter() - t0
+    return KernelLibrary(out, build_seconds, log_path.read_text() if log_path.exists() else "")
 
 
 @functools.cache
@@ -150,30 +179,37 @@ def load_library() -> KernelLibrary:
         digest.update(src.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"libaoa_kernels-{digest.hexdigest()[:16]}.so"
-    log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
     if not out.exists():
-        nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
-        units = [s for s in sources if s.suffix == ".cu"]
-        objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in units]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(units, objs)
-        ]
-        logs = [p.communicate()[0] for p in procs]
-        log_path.write_text("".join(logs))
-        for src, proc, log in zip(units, procs, logs):
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        for o in objs:
-            o.unlink()
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
-        os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
-    log = log_path.read_text() if log_path.exists() else ""
-    return KernelLibrary(out, build_seconds, log)
+        _build(out, [s for s in sources if s.suffix == ".cu"])
+    return _loaded(out, t0)
+
+
+@functools.cache
+def load_user_library(sources: tuple, header: str) -> KernelLibrary:
+    """Build (once per hash of ``sources``, every csrc header, ``header``
+    and the flags) and load a user library: the csrc files ``sources``
+    (e.g. ``("dg_slab.cu",)``) compiled with ``-DAOA_USER_FUNCTORS`` and the
+    generated ``header`` as ``aoa_user_functors.cuh`` (ops/cuda/functor.py),
+    so that their switches take the traced functors alone. The library and
+    its header sit in ``build/torch_kernels/user/``; ``build_seconds`` and
+    ``build_log`` are this build's."""
+    units = [CSRC_DIR / name for name in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in units + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(header.encode())
+    key = digest.hexdigest()[:16]
+    inc = BUILD_DIR / "user" / key
+    out = inc.parent / f"libaoa_user-{key}.so"
+    t0 = time.perf_counter()
+    if not out.exists():
+        # written whole under a name of its own, then renamed: a process
+        # building the same library beside this one reads a complete header
+        inc.mkdir(parents=True, exist_ok=True)
+        tmp = inc / f"aoa_user_functors.cuh.{os.getpid()}.tmp"
+        tmp.write_text(header)
+        os.replace(tmp, inc / "aoa_user_functors.cuh")
+        _build(out, units, ("-DAOA_USER_FUNCTORS", "-I", str(inc)))
+    return _loaded(out, t0)

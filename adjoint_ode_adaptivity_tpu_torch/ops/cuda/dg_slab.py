@@ -31,10 +31,13 @@ kernel to the plain version. The wrapper counts its launches in
 per-element bounds within which the kernel agrees with its plain version.
 
 The goal J = ∫g(u, t) dt enters as the adjoint's source g_u at the adjoint
-nodes. The kernel takes the registry functionals with a ``kernel_id``
-(functionals.py: J = ∫u, g_u ≡ 1, read as the folded mass row sums; J = ∫u²,
-g_u = 2u, evaluated by a functor of csrc/odes.cuh against the adjoint-order
-mass matrix); a bare ``g_u`` callable raises.
+nodes: J = ∫u (g_u ≡ 1) is read as the folded mass row sums; any other g_u
+is evaluated by a functor against the adjoint-order mass matrix — the
+registry's (J = ∫u², g_u = 2u; functionals.py ``kernel_id``) or a caller's
+elementwise callable traced into one (ops/cuda/functor.py). The ODE's f
+and f_u are likewise a registry entry's functor or traced callables (f_u
+derived by forward mode when not given, as JAX's ``jax.jvp``); anything
+traced runs on a user library of csrc/dg_slab.cu alone.
 
 The TPU tiling (the (8, B/8) member tiles, ``pick_lane_block``,
 ``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1.
@@ -47,13 +50,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch import functionals, odes
+from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_time import _interp_ops
 from adjoint_ode_adaptivity_tpu_torch.march.dg_batched import dg_estimate_batched, solve_small
 from adjoint_ode_adaptivity_tpu_torch.march.dg_time import DGTimeOperators
 from adjoint_ode_adaptivity_tpu_torch.ops import fast_trig
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_ensemble import SIN_ID, VECTOR_KERNEL_IDS, _consts
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_ensemble import SIN_ID, _consts
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import KernelFunctors, scalar_functors
 from adjoint_ode_adaptivity_tpu_torch.ops.jacobi import jacobi_gl
 from adjoint_ode_adaptivity_tpu_torch.ops.operators import interp_matrix_1d
 
@@ -112,9 +116,11 @@ def d1_plan(b: int, np_: int, nq: int) -> D1Launch:
 class DgSlabPlan(NamedTuple):
     """Everything the kernel needs, on one device: the operators, the folded
     tables (:func:`kernel_tables` rounded to float32; on the device, each
-    CTA copies them to shared memory) and the ODE's by-value constants."""
+    CTA copies them to shared memory), the ODE's by-value constants, and
+    ``functors``: what the kernel runs (its library and ids) and the plain
+    version's callables (``functors.ode`` and ``functors.g_u``, None:
+    J = ∫u)."""
 
-    ode: odes.ODEProblem
     ops_p: DGTimeOperators
     ops_a: DGTimeOperators
     n_elements: int
@@ -125,8 +131,7 @@ class DgSlabPlan(NamedTuple):
     consts: np.ndarray
     n_modes: tuple
     device: torch.device
-    gu_id: int = 0  # the goal's kernel_id (functionals.py): 0 J = ∫u, 1 J = ∫u²
-    g_u: object = None  # its g_u for the plain version (None: g_u ≡ 1)
+    functors: KernelFunctors
 
 
 def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators,
@@ -168,7 +173,7 @@ def kernel_tables(ops_p: DGTimeOperators, ops_a: DGTimeOperators,
 def _fns(plan: DgSlabPlan):
     if plan.trig == "fast":
         return (lambda u, t: fast_trig.fast_sin(u)), (lambda u, t: fast_trig.fast_cos(u))
-    return plan.ode.f, plan.ode.f_u
+    return plan.functors.ode.f, plan.functors.ode.f_u
 
 
 def dg_estimate_ensemble_plain(times: torch.Tensor, y0s: torch.Tensor, plan: DgSlabPlan):
@@ -177,8 +182,8 @@ def dg_estimate_ensemble_plain(times: torch.Tensor, y0s: torch.Tensor, plan: DgS
     goal (g_u), in the inputs' dtype. Returns ``(u (B,K,Np), v (B,K,Np+1),
     err (B,K))``."""
     f, f_u = _fns(plan)
-    return dg_estimate_batched(plan.ops_p, plan.ops_a, f, times, y0s, f_u=f_u, g_u=plan.g_u,
-                               newton_iters=plan.newton_iters)
+    return dg_estimate_batched(plan.ops_p, plan.ops_a, f, times, y0s, f_u=f_u,
+                               g_u=plan.functors.g_u, newton_iters=plan.newton_iters)
 
 
 # ------------------------------------------------- the lanes' sum order
@@ -246,7 +251,7 @@ def _unpack(plan: DgSlabPlan, like: torch.Tensor) -> _Tables:
     rows = take(qp, 2 * npp + 1 + npp * npp)
     base_a, st_a, msum, to_nodes = take(na, na), take(na, na), take(na), take(na, npp)
     rows_a = take(qa, npp + 1 + na + na * na)
-    goal = (take(na, na), take(na)) if plan.gu_id != 0 else (None, None)
+    goal = (take(na, na), take(na)) if plan.functors.g_u is not None else (None, None)
     return _Tables(a_p, rows[:, :npp], rows[:, npp], rows[:, npp + 1:2 * npp + 1],
                    rows[:, 2 * npp + 1:].reshape(qp, npp, npp), base_a, st_a, msum, to_nodes,
                    rows_a[:, :npp], rows_a[:, npp], rows_a[:, npp + 1:npp + 1 + na],
@@ -308,7 +313,7 @@ def dg_estimate_ensemble_lanes_plain(times: torch.Tensor, y0s: torch.Tensor, pla
         if tb.mass_a is None:
             rhs = -hh[:, None] * tb.msum
         else:
-            gu = plan.g_u(uh, tl[:, None] + tb.c_nodes * h[:, None])
+            gu = plan.functors.g_u(uh, tl[:, None] + tb.c_nodes * h[:, None])
             rhs = -hh[:, None] * _seq_dot(tb.mass_a, gu[:, None, :])
         rhs[:, -1] = rhs[:, -1] - v_in
         v = solve_small(a.permute(1, 2, 0), rhs.T).T
@@ -415,18 +420,18 @@ def dg_kernel_tolerance(times: torch.Tensor, y0s: torch.Tensor, plain, plan: DgS
     v_in = torch.cat([v[:, 1:, 0], torch.zeros_like(v[:, :1, 0])], dim=1)  # (B, K)
     w_q = torch.einsum("qi,bki->bkq", phi_a, v).abs()
     du = hh[..., None] * torch.einsum("qi,bkq->bki", phi_a.abs(), wq_a * dfu * w_q)
-    if plan.gu_id == 0:  # M·1, the folded row sums
+    if plan.functors.g_u is None:  # M·1, the folded row sums
         src = hh[..., None] * msum.abs()
     else:  # M·g_u(u_h, t_n), and the nodes' own error through g_u
         mass = tab(ops_a.mass)
         u_n = torch.einsum("ij,bkj->bki", to_nodes, u)
         t_n = tl[..., None] + tab((1.0 + np.asarray(ops_a.r)) / 2.0) * h[..., None]
-        g_n = plan.g_u(u_n, t_n)
+        g_n = plan.functors.g_u(u_n, t_n)
         src = hh[..., None] * torch.einsum("ij,bkj->bki", mass.abs(), g_n.abs())
         d_n = (to_nodes.abs().sum(dim=-1) * ub[..., None]
                + 8 * eps * torch.einsum("ij,bkj->bki", to_nodes.abs(), u.abs()))
-        dg = torch.maximum((plan.g_u(u_n + d_n, t_n) - g_n).abs(),
-                           (plan.g_u(u_n - d_n, t_n) - g_n).abs())
+        dg = torch.maximum((plan.functors.g_u(u_n + d_n, t_n) - g_n).abs(),
+                           (plan.functors.g_u(u_n - d_n, t_n) - g_n).abs())
         du = du + hh[..., None] * torch.einsum("ij,bkj->bki", mass.abs(), dg)
     mag_a = torch.einsum("bkij,bkj->bki", j_abs, v.abs()) + src
     mag_a[..., -1] = mag_a[..., -1] + v_in.abs()
@@ -502,12 +507,14 @@ def _d1_launch(times, y0s, plan: DgSlabPlan, launch: D1Launch):
     per_member = times.dim() == 2
     times = times.contiguous()  # (B, K+1) or (K+1,)
     np_p, np_a = plan.ops_p.np_, plan.ops_a.np_
-    lib = load_library()
+    lib = plan.functors.library()
     u = torch.empty((k, np_p, b), dtype=torch.float32, device=y0s.device)
     v = torch.empty((k, np_a, b), dtype=torch.float32, device=y0s.device)
     err = torch.empty((k, b), dtype=torch.float32, device=y0s.device)
+    # a user library's ODE functor carries its trig policy itself
+    fast = plan.trig == "fast" and plan.functors.header is None
     code = lib.lib.dg_estimate_ensemble(
-        plan.ode.kernel_id, int(plan.trig == "fast"), plan.gu_id, *plan.n_modes,
+        plan.functors.ode_id, int(fast), plan.functors.gu_id, *plan.n_modes,
         plan.consts.ctypes.data,
         plan.tables.data_ptr(), plan.tables.numel(), np_p, plan.ops_p.phi.shape[0],
         plan.ops_a.phi.shape[0], b, k, plan.newton_iters, int(per_member), launch.lanes,
@@ -528,47 +535,50 @@ def reset_launch_counts() -> None:
 # -------------------------------------------------------------- entry point
 
 
-def make_cuda_dg_estimate_ensemble(ode, ops_p: DGTimeOperators, ops_a: DGTimeOperators,
-                                   n_elements: int, newton_iters: int = 5, *, g_u=None,
+def make_cuda_dg_estimate_ensemble(ode=None, ops_p: DGTimeOperators | None = None,
+                                   ops_a: DGTimeOperators | None = None, n_elements: int = 16,
+                                   newton_iters: int = 5, *, f=None, f_u=None, g_u=None,
                                    trig: str = "libm", device="cuda"):
     """``run(times, y0s) -> (u, v, err)``: the whole ensemble DG-in-time
     estimate (Newton forward march at ``ops_p``'s order, adjoint at
     ``ops_a``'s = one above, per-element AWR for the goal J = ∫g dt) in one
-    launch of D1, with the ``dg_estimate_batched`` contract. ``ode`` is a
-    registry entry (or its name) with a scalar ``kernel_id``; ``g_u`` is
-    ``None`` (J = ∫u) or a registry functional's g_u (or the functional)
-    with a ``kernel_id`` (functionals.kernel_goal); ``trig="fast"``
+    launch of D1, with the ``dg_estimate_batched`` contract. The ODE is
+    ``ode`` (a registry entry, its name, or an ``ODEProblem``, traced where
+    it has no ``kernel_id``) or, as JAX's ``make_pallas_dg_estimate_ensemble(
+    ops_p, ops_a, f, f_u=None, …)`` takes it, an elementwise callable ``f``
+    (or ``ode``) with ``f_u`` (derived by forward mode when ``None``);
+    ``g_u`` is ``None`` (J = ∫u), a registry functional's g_u (or the
+    functional), or any elementwise callable ``g_u(u, t)``, traced
+    (functionals.kernel_goal). A traced callable runs on a user library
+    built once for it (on the card, when this is called). ``trig="fast"``
     (sin(u) only, |u| ≤ 4) evaluates sin/cos by the shared-x² polynomials.
     ``run.plan`` holds the plan (for the plain version)."""
-    ode = odes.get_ode(ode) if isinstance(ode, str) else ode
-    if ode.kernel_id is None:
-        raise ValueError(f"ODE {ode.name!r} has no kernel_id: the DG kernel cannot run it")
-    if ode.kernel_id in VECTOR_KERNEL_IDS:
-        raise ValueError(f"ODE {ode.name!r}: the DG kernel takes a scalar ODE")
-    goal = functionals.kernel_goal(g_u)
-    gu_id = goal.kernel_id
+    if ops_p is None or ops_a is None:
+        raise ValueError("ops_p and ops_a are required")
+    functors = scalar_functors(ode, f, f_u, g_u, source="dg_slab.cu", trig=trig)
     if ops_a.np_ != ops_p.np_ + 1:
         raise ValueError("ops_a must be one order above ops_p")
     if ops_a.np_ > MAX_NP:
         raise ValueError(f"in-kernel solves support Np <= {MAX_NP} (Cramer <= 4, pivoted GE 5-8)")
     if trig not in ("libm", "fast"):
         raise ValueError(f"trig={trig!r}: 'libm' or 'fast'")
-    if trig == "fast" and ode.kernel_id != SIN_ID:
+    if trig == "fast" and functors.ode.kernel_id != SIN_ID:
         raise ValueError("trig='fast' is implemented for du/dt=sin(u) only")
     if n_elements < 1 or newton_iters < 0:
         raise ValueError(f"n_elements={n_elements} must be >= 1 and newton_iters="
                          f"{newton_iters} >= 0")
-    tables = kernel_tables(ops_p, ops_a, goal=gu_id != 0)
+    tables = kernel_tables(ops_p, ops_a, goal=functors.g_u is not None)
     if tables.size > MAX_TABLES:
         raise ValueError(f"folded tables of {tables.size} floats exceed the kernel's "
                          f"{MAX_TABLES} (n_gq too large)")
-    consts, n_modes = _consts(ode)
+    consts, n_modes = _consts(functors.ode)
     device = require_device(device)
+    if functors.header is not None and device.type == "cuda":
+        functors.library()  # build the user library now, not inside the first call
     tables32 = np.ascontiguousarray(tables, dtype=np.float32)
-    plan = DgSlabPlan(ode, ops_p, ops_a, int(n_elements), int(newton_iters), trig, tables32,
+    plan = DgSlabPlan(ops_p, ops_a, int(n_elements), int(newton_iters), trig, tables32,
                       torch.tensor(tables32, device=device), consts, n_modes,
-                      torch.empty(0, device=device).device, gu_id,
-                      None if gu_id == 0 else goal.g_u)
+                      torch.empty(0, device=device).device, functors)
 
     def run(times, y0s):
         return dg_estimate_ensemble(times, y0s, plan)

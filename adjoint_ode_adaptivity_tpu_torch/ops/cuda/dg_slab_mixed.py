@@ -29,9 +29,13 @@ function in eager torch. Nothing falls back from the kernel. The wrapper
 counts its launches in ``.launches``.
 
 The goal J = ∫g(u, t) dt enters as the adjoint's source g_u, as in the DG
-slab kernel: the registry functionals with a ``kernel_id`` (J = ∫u, J =
-∫u²), g_u evaluated at the system's live nodes and 0 at the padding (the TPU
-kernel's live mask); a bare ``g_u`` callable raises.
+slab kernel: J = ∫u on the folded row sums, any other g_u by a functor —
+the registry's (J = ∫u²) or a caller's callable traced into one
+(ops/cuda/functor.py) — evaluated at the system's live nodes and 0 at the
+padding (the TPU kernel's live mask), which keeps a g_u singular at 0
+(g_u = 1/u) finite. The ODE's f and f_u are a registry entry's functor or
+traced callables (f_u derived by forward mode when not given); anything
+traced runs on a user library of csrc/dg_slab_mixed.cu alone.
 
 The TPU tiling (the (8, B/8) member tiles, ``pick_lane_block``,
 ``ensure_scoped_vmem``, B a multiple of 8) is not ported: any B ≥ 1. The
@@ -47,7 +51,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from adjoint_ode_adaptivity_tpu_torch import functionals, odes
 from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
     MixedAdjointInterp,
     MixedRadauInterp,
@@ -63,9 +66,10 @@ from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import (
     _tab,
     gauss_solve,
 )
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_slab import _check, _lane_sum, _seq_dot
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_ensemble import VECTOR_KERNEL_IDS, _consts
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.fd_ensemble import _consts
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import KernelFunctors, scalar_functors
 
 __all__ = [
     "HpPlan",
@@ -119,10 +123,11 @@ def hp_plan(b: int, np_max: int, nq: int) -> HpLaunch:
 
 class HpPlan(NamedTuple):
     """Everything the kernel needs, on one device: the operator stacks, the
-    folded tables (:func:`kernel_tables` rounded to float32, on the device)
-    and the ODE's by-value constants."""
+    folded tables (:func:`kernel_tables` rounded to float32, on the device),
+    the ODE's by-value constants, and ``functors``: what the kernel runs
+    (its library and ids) and the plain version's callables (``functors.ode``
+    and ``functors.g_u``, None: J = ∫u)."""
 
-    ode: odes.ODEProblem
     mops: MixedDGTimeOperators
     interp: MixedAdjointInterp
     rad: MixedRadauInterp | None  # adjoint_mode "reconstruct" only
@@ -134,8 +139,7 @@ class HpPlan(NamedTuple):
     consts: np.ndarray
     n_modes: tuple
     device: torch.device
-    gu_id: int = 0  # the goal's kernel_id (functionals.py): 0 J = ∫u, 1 J = ∫u²
-    g_u: object = None  # its g_u for the plain version (None: g_u ≡ 1)
+    functors: KernelFunctors
 
 
 def kernel_tables(mops: MixedDGTimeOperators, interp: MixedAdjointInterp,
@@ -173,9 +177,10 @@ def dg_estimate_hp_per_member_plain(times: torch.Tensor, ns: torch.Tensor, y0s: 
     ``newton_iters`` Newton steps and the plan's goal (g_u, 0 at the
     padding), in the inputs' dtype. Returns ``(u_c, u_f, v (B, K, np_max),
     err (B, K))``."""
-    return dg_estimate_mixed(plan.mops, plan.interp, plan.ode.f, times, ns, y0s,
+    ode = plan.functors.ode
+    return dg_estimate_mixed(plan.mops, plan.interp, ode.f, times, ns, y0s,
                              fine_offset=plan.fine_offset, adjoint_mode=plan.adjoint_mode,
-                             rad=plan.rad, f_u=plan.ode.f_u, g_u=plan.g_u,
+                             rad=plan.rad, f_u=ode.f_u, g_u=plan.functors.g_u,
                              newton_iters=plan.newton_iters)
 
 
@@ -208,7 +213,7 @@ def dg_estimate_hp_lanes_plain(times: torch.Tensor, ns: torch.Tensor, y0s: torch
     solved by ``gauss_solve`` (the kernel: Cramer or pivoted elimination),
     so this holds the sum order, not the kernel's bits. Returns ``(u_c, u_f,
     v, err)`` as the plain version does."""
-    mops, interp, ode = plan.mops, plan.interp, plan.ode
+    mops, interp, ode = plan.mops, plan.interp, plan.functors.ode
     like = times
     f32 = lambda x: _tab(x, like)  # noqa: E731
     a_fwd, a_adj, phi = f32(_a_fwd(mops)), f32(_a_adj(mops)), f32(mops.phi_pad)
@@ -251,12 +256,12 @@ def dg_estimate_hp_lanes_plain(times: torch.Tensor, ns: torch.Tensor, y0s: torch
         s_sys = n - 1 if rec else n
         uh = _seq_dot(to_nodes[n - 1], ue[:, None, :])
         ra, mat = _quad_parts(to_quad[n - 1], ue, phi[n], phi[s_sys], tl, h, consts, ode, lanes)
-        if plan.gu_id == 0:
+        if plan.functors.g_u is None:
             rhs = -hh * msum[s_sys]
         else:  # g_u at the system's live nodes, 0 at the padding
             x = ue if rec else uh
             gu = torch.where(rows <= (s_sys + 1)[:, None],
-                             plan.g_u(x, tl[:, None] + c_nodes[s_sys] * h[:, None]),
+                             plan.functors.g_u(x, tl[:, None] + c_nodes[s_sys] * h[:, None]),
                              torch.zeros_like(x))
             rhs = -hh * _seq_dot(mass[s_sys], gu[:, None, :])
         rhs = torch.where(rows == (s_sys + 1)[:, None], rhs - v_in[:, None], rhs)
@@ -319,7 +324,7 @@ def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps, tl):
     carries the inflow's error in through J_a⁻¹'s inflow column; the
     reconstruct mode lifts the low solution's bound through |to_hi|·|eval_rad|
     and adds the lift's own rounding. w is the float64 solve at u_c."""
-    mops, ode = plan.mops, plan.ode
+    mops, ode = plan.mops, plan.functors.ode
     wq, h, t_q = geom
     like = u_c
     rec = plan.adjoint_mode == "reconstruct"
@@ -338,7 +343,7 @@ def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps, tl):
         "bkqi,bkq,bkqj->bkij", phi_s, wq * fu_q, phi_s))
     j_abs = a_adj.abs() + hh[..., None] * torch.einsum(
         "bkqi,bkq,bkqj->bkij", phi_s.abs(), wq * fu_q.abs(), phi_s.abs())
-    if plan.gu_id == 0:  # M·1, the folded row sums
+    if plan.functors.g_u is None:  # M·1, the folded row sums
         src = _tab(mops.mass_pad.sum(axis=2), like)[s_sys]
         src_abs, dsrc = src.abs(), torch.zeros_like(src)
     else:  # M·g_u at the live nodes (the coarse u at order n in reconstruct)
@@ -353,9 +358,9 @@ def _adjoint_bound(u_c, ub_c, ns, geom, plan, eps, tl):
             x = torch.einsum("bkij,bkj->bki", to_n, u_c)
             d = (to_n.abs().sum(dim=-1) * ub_c[..., None]
                  + 8 * eps * torch.einsum("bkij,bkj->bki", to_n.abs(), u_c.abs()))
-        g_n = torch.where(live, plan.g_u(x, t_n), torch.zeros_like(x))
-        dg = torch.where(live, torch.maximum((plan.g_u(x + d, t_n) - g_n).abs(),
-                                             (plan.g_u(x - d, t_n) - g_n).abs()),
+        g_n = torch.where(live, plan.functors.g_u(x, t_n), torch.zeros_like(x))
+        dg = torch.where(live, torch.maximum((plan.functors.g_u(x + d, t_n) - g_n).abs(),
+                                             (plan.functors.g_u(x - d, t_n) - g_n).abs()),
                          torch.zeros_like(x))
         src = torch.einsum("bkij,bkj->bki", mass, g_n)
         src_abs = torch.einsum("bkij,bkj->bki", mass.abs(), g_n.abs())
@@ -423,7 +428,7 @@ def hp_kernel_tolerance(times: torch.Tensor, ns: torch.Tensor, y0s: torch.Tensor
     float64 (tests/test_torch_dg_slab_mixed.py), so two float32 evaluations
     in any order stay inside it. A trailing zero-width element has v = 0 and
     bounds v = err = 0 there: both sides return exactly 0."""
-    mops, interp, ode = plan.mops, plan.interp, plan.ode
+    mops, interp, ode = plan.mops, plan.interp, plan.functors.ode
     eps = float(np.finfo(np.float32).eps)
     times = times.to(torch.float64)
     ns = ns.to(torch.int64)
@@ -487,7 +492,7 @@ def _h1_launch(times, ns, y0s, plan: HpPlan, launch: HpLaunch):
     does not."""
     b, k = y0s.shape[0], plan.n_elements
     np_m = plan.mops.np_max
-    lib = load_library()
+    lib = plan.functors.library()
     times_k = times.T.contiguous()  # (K+1, B)
     ns_k = ns.T.to(torch.int32).contiguous()  # (K, B)
     u_c = torch.empty((k, np_m, b), dtype=torch.float32, device=y0s.device)
@@ -495,7 +500,7 @@ def _h1_launch(times, ns, y0s, plan: HpPlan, launch: HpLaunch):
     v = torch.empty_like(u_c)
     err = torch.empty((k, b), dtype=torch.float32, device=y0s.device)
     code = lib.lib.dg_estimate_hp_per_member(
-        plan.ode.kernel_id, plan.gu_id, *plan.n_modes, plan.consts.ctypes.data,
+        plan.functors.ode_id, plan.functors.gu_id, *plan.n_modes, plan.consts.ctypes.data,
         plan.tables.data_ptr(),
         plan.tables.numel(), np_m, plan.mops.rq.shape[0], plan.mops.n_max, plan.fine_offset,
         int(plan.adjoint_mode == "reconstruct"), launch.lanes, launch.threads, b, k,
@@ -517,28 +522,29 @@ def reset_launch_counts() -> None:
 # -------------------------------------------------------------- entry point
 
 
-def make_cuda_dg_estimate_hp_per_member(ode, mops: MixedDGTimeOperators,
-                                        interp: MixedAdjointInterp, n_elements: int, *,
-                                        n_max_user: int, fine_offset: int = 2,
-                                        newton_iters: int = 8, adjoint_mode: str = "solve",
-                                        rad: MixedRadauInterp | None = None, g_u=None,
-                                        device="cuda"):
+def make_cuda_dg_estimate_hp_per_member(ode=None, mops: MixedDGTimeOperators | None = None,
+                                        interp: MixedAdjointInterp | None = None,
+                                        n_elements: int = 16, *, n_max_user: int,
+                                        fine_offset: int = 2, newton_iters: int = 8,
+                                        adjoint_mode: str = "solve",
+                                        rad: MixedRadauInterp | None = None, f=None, f_u=None,
+                                        g_u=None, device="cuda"):
     """``run(times, ns, y0s) -> (u_c, u_f, v, err)``: the per-member hp
     estimate in one launch of H1, with the ``dg_estimate_mixed`` contract.
     ``mops`` must be the ``dg_time_operators_mixed(n_max_user +
     fine_offset)`` stack and ``interp`` its ``dg_adjoint_interp_mixed``;
     ``adjoint_mode="reconstruct"`` needs ``rad`` (its
-    ``dg_radau_interp_mixed``). ``ode`` is a registry entry (or its name)
-    with a scalar ``kernel_id``; ``g_u`` is ``None`` (J = ∫u) or a registry
-    functional's g_u (or the functional) with a ``kernel_id``.
-    ``run.plan`` holds the plan (for the plain version)."""
-    ode = odes.get_ode(ode) if isinstance(ode, str) else ode
-    if ode.kernel_id is None:
-        raise ValueError(f"ODE {ode.name!r} has no kernel_id: the hp kernel cannot run it")
-    if ode.kernel_id in VECTOR_KERNEL_IDS:
-        raise ValueError(f"ODE {ode.name!r}: the hp kernel takes a scalar ODE")
-    goal = functionals.kernel_goal(g_u)
-    gu_id = goal.kernel_id
+    ``dg_radau_interp_mixed``). The ODE is ``ode`` (a registry entry, its
+    name, or an ``ODEProblem``, traced where it has no ``kernel_id``) or,
+    as JAX's ``make_pallas_dg_estimate_hp_per_member(mops, interp, f,
+    f_u=None, …)`` takes it, an elementwise callable ``f`` (or ``ode``) with
+    ``f_u`` (derived by forward mode when ``None``); ``g_u`` is ``None``
+    (J = ∫u), a registry functional's g_u (or the functional), or any
+    elementwise callable ``g_u(u, t)``, traced. ``run.plan`` holds the plan
+    (for the plain version)."""
+    if mops is None or interp is None:
+        raise ValueError("mops and interp are required")
+    functors = scalar_functors(ode, f, f_u, g_u, source="dg_slab_mixed.cu")
     if fine_offset < 1:
         raise ValueError(f"fine_offset={fine_offset} must be >= 1 (the adjoint runs at ns + 1 "
                          "and needs its tables in the operator stack)")
@@ -556,16 +562,17 @@ def make_cuda_dg_estimate_hp_per_member(ode, mops: MixedDGTimeOperators,
         raise ValueError(f"n_elements={n_elements} must be >= 1 and newton_iters="
                          f"{newton_iters} >= 0")
     rad = rad if adjoint_mode == "reconstruct" else None
-    tables = kernel_tables(mops, interp, rad, goal=gu_id != 0)
+    tables = kernel_tables(mops, interp, rad, goal=functors.g_u is not None)
     if tables.size > MAX_TABLES:
         raise ValueError(f"folded tables of {tables.size} floats exceed the kernel's "
                          f"{MAX_TABLES} (n_gq too large)")
     device = require_device(device)
-    consts, n_modes = _consts(ode)
-    plan = HpPlan(ode, mops, interp, rad, int(n_elements), int(fine_offset), int(newton_iters),
+    if functors.header is not None and device.type == "cuda":
+        functors.library()  # build the user library now, not inside the first call
+    consts, n_modes = _consts(functors.ode)
+    plan = HpPlan(mops, interp, rad, int(n_elements), int(fine_offset), int(newton_iters),
                   adjoint_mode, torch.tensor(tables, dtype=torch.float32, device=device), consts,
-                  n_modes, torch.empty(0, device=device).device, gu_id,
-                  None if gu_id == 0 else goal.g_u)
+                  n_modes, torch.empty(0, device=device).device, functors)
 
     def run(times, ns, y0s):
         return dg_estimate_hp_per_member(times, ns, y0s, plan)

@@ -36,6 +36,12 @@ contiguous, and its err written (B, n_steps); F1's and F2's err stay
 (n_steps, n_ics), F2 reading its states (n_ics, d) as given. One CUDA
 launch a call.
 
+The ODE is a registry entry's functor of csrc/odes.cuh, or any elementwise
+callable traced into a device functor (ops/cuda/functor.py), as the JAX
+entry points take ``f``, ``f_u`` and ``f_comps``/``jac_comps``: a traced
+ODE runs on a user library of csrc/fd_ensemble.cu alone, built once per
+functor.
+
 Each wrapper takes a plan made by its ``make_cuda_*`` entry point. A CUDA
 float32 tensor launches the kernel or raises; a CPU tensor takes the
 kernel's plain PyTorch version (``*_plain``, float32 or float64), which
@@ -66,7 +72,12 @@ import torch
 
 from adjoint_ode_adaptivity_tpu_torch import odes
 from adjoint_ode_adaptivity_tpu_torch.ops import fast_trig
-from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda import require_device
+from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import (
+    KernelFunctors,
+    scalar_functors,
+    vector_functors,
+)
 
 __all__ = [
     "FdPlan",
@@ -102,7 +113,7 @@ PM_MAX_WARPS = 4096  # fd_pm_plan's most warps: ~31 an SM on 132 SMs
 ENS_WARPS_PER_SM = 8
 MAX_SMEM = 232_448  # csrc kMaxSmem: the bytes a block may use on sm_90
 H100_SMS = 132
-VECTOR_KERNEL_IDS = {odes.KERNEL_IDS["harmonic_oscillator"]: 2}  # id -> d
+SOURCE = "fd_ensemble.cu"
 SIN_ID = odes.KERNEL_IDS["du/dt=sin(u)"]
 
 
@@ -114,9 +125,10 @@ class FdPlan(NamedTuple):
     the device
     (empty for the per-member kernel, whose widths are an operand);
     ``consts`` the 64 float32 constants passed by value (csrc OdeConsts);
-    ``consts_ptr`` and ``grid_ptr`` their addresses, taken once a plan."""
+    ``consts_ptr`` and ``grid_ptr`` their addresses, taken once a plan;
+    ``functors`` what the kernel runs (its library, ids and d) and the
+    plain versions' callables (``functors.ode``)."""
 
-    ode: odes.ODEProblem
     n_steps: int
     rf: int
     trig: str  # "libm" or "fast"
@@ -128,6 +140,7 @@ class FdPlan(NamedTuple):
     n_modes: tuple  # (n_u, n_t) of the gaussian mixture, else (0, 0)
     consts_ptr: int
     grid_ptr: int
+    functors: KernelFunctors
 
 
 def fine_grid(n_steps: int, rf: int, dt) -> np.ndarray:
@@ -152,10 +165,6 @@ def _split(plan: FdPlan):
     return g[:s], g[s:2 * s], g[2 * s:2 * s + nf], g[2 * s + nf:2 * s + 2 * nf]
 
 
-def _resolve(ode) -> odes.ODEProblem:
-    return odes.get_ode(ode) if isinstance(ode, str) else ode
-
-
 def _consts(ode: odes.ODEProblem) -> tuple[np.ndarray, tuple]:
     """The kernel's by-value constants: gaussian-mixture modes, then the
     fast-trig coefficients (ops/fast_trig.py)."""
@@ -174,27 +183,24 @@ def _consts(ode: odes.ODEProblem) -> tuple[np.ndarray, tuple]:
     return buf, n_modes
 
 
-def _plan(ode, n_steps, rf, *, vector, trig="libm", convention="block", t0=0.0,
+def _plan(functors: KernelFunctors, n_steps, rf, *, trig="libm", convention="block", t0=0.0,
           dt=None, device="cuda") -> FdPlan:
-    ode = _resolve(ode)
-    if ode.kernel_id is None:
-        raise ValueError(f"ODE {ode.name!r} has no kernel_id: the FD kernels cannot run it")
-    if (ode.kernel_id in VECTOR_KERNEL_IDS) != vector:
-        kind = "a vector" if vector else "a scalar"
-        raise ValueError(f"ODE {ode.name!r}: this entry point takes {kind} ODE")
     if trig not in ("libm", "fast"):
         raise ValueError(f"trig={trig!r}: 'libm' or 'fast'")
-    if trig == "fast" and ode.kernel_id != SIN_ID:
+    if trig == "fast" and functors.ode_id != SIN_ID:
         raise ValueError("trig='fast' is implemented for du/dt=sin(u) only")
     if convention not in ("strided", "block"):
         raise ValueError(f"unknown convention {convention!r}")
-    if n_steps < 1 or rf < 1:
+    if n_steps is None or rf is None or n_steps < 1 or rf < 1:
         raise ValueError(f"n_steps={n_steps} and ref_factor={rf} must be >= 1")
+    device = require_device(device)
+    if functors.header is not None and device.type == "cuda":
+        functors.library()  # build the user library now, not inside the first call
     grid = fine_grid(n_steps, rf, dt) if dt is not None else np.zeros(0)
-    consts, n_modes = _consts(ode)
-    grid32 = torch.as_tensor(grid, dtype=torch.float32, device=require_device(device))
-    return FdPlan(ode, n_steps, rf, trig, convention, float(t0), grid, grid32,
-                  consts, n_modes, consts.ctypes.data, grid32.data_ptr())
+    consts, n_modes = _consts(functors.ode)
+    grid32 = torch.as_tensor(grid, dtype=torch.float32, device=device)
+    return FdPlan(n_steps, rf, trig, convention, float(t0), grid, grid32,
+                  consts, n_modes, consts.ctypes.data, grid32.data_ptr(), functors)
 
 
 # ------------------------------------------------------------ plain versions
@@ -203,7 +209,7 @@ def _plan(ode, n_steps, rf, *, vector, trig="libm", convention="block", t0=0.0,
 def _scalar_fns(plan: FdPlan) -> tuple[Callable, Callable]:
     if plan.trig == "fast":
         return (lambda u, t: fast_trig.fast_sin(u)), (lambda u, t: fast_trig.fast_cos(u))
-    return plan.ode.f, plan.ode.f_u
+    return plan.functors.ode.f, plan.functors.ode.f_u
 
 
 def _fine(traj, j: int, rf: int):
@@ -256,7 +262,7 @@ def fd_ensemble_vec_plain(u0s: torch.Tensor, plan: FdPlan, stats: dict | None = 
     """F2's plain version on (n_ics, d) states: the block indicator
     (n_steps, n_ics). The adjoint applies (I + dt_f·J)ᵀ with J[m, i] =
     ∂f_m/∂u_i from ``ode.f_u``. ``stats`` as for :func:`fd_ensemble_plain`."""
-    f, jac_fn = plan.ode.f, plan.ode.f_u
+    f, jac_fn = plan.functors.ode.f, plan.functors.ode.f_u
     tc, dts, tf, dtf = _split(plan)
     rf, n_fine, d = plan.rf, plan.n_steps * plan.rf, u0s.shape[1]
     u = u0s
@@ -296,7 +302,7 @@ def fd_estimate_per_member_plain(dt_b: torch.Tensor, u0s: torch.Tensor, plan: Fd
     from per-member widths ``dt_b`` (B, n_steps); tc accumulates in the
     working type from ``plan.t0`` and dt_f = dts·(1/rf), as in the kernel.
     ``stats`` as for :func:`fd_ensemble_plain`."""
-    f, f_u = plan.ode.f, plan.ode.f_u
+    f, f_u = plan.functors.ode.f, plan.functors.ode.f_u
     rf, n_steps = plan.rf, plan.n_steps
     dts = dt_b.T
     tc = [torch.full_like(u0s, plan.t0)]
@@ -442,11 +448,11 @@ def fd_ensemble(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
 def _f1_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
     """One fd_ensemble call on ``launch``: err (n_steps, n_ics). The
     wrapper counts its launches; this does not."""
-    lib = load_library()
+    lib = plan.functors.library()
     n = u0s.shape[0]
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble(
-        plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts_ptr, n,
+        plan.functors.ode_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts_ptr, n,
         plan.n_steps, plan.rf, launch.lanes, launch.threads, plan.grid_ptr,
         u0s.data_ptr(), err.data_ptr(), _stream(u0s.device),
     )
@@ -458,7 +464,7 @@ def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
     """F2: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics, d),
     read as given (IC-major). On the card one CUDA launch on
     :func:`fd_ens_plan`'s launch for d components."""
-    d = VECTOR_KERNEL_IDS[plan.ode.kernel_id]
+    d = plan.functors.d
     if u0s.dim() != 2 or u0s.shape[1] != d:
         raise ValueError(f"u0s must be (n_ics, {d}), got {tuple(u0s.shape)}")
     if not _on_cuda("u0s", u0s, u0s.shape, plan):
@@ -471,11 +477,11 @@ def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
 def _f2_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
     """One fd_ensemble_vec call on ``launch``: err (n_steps, n_ics). The
     wrapper counts its launches; this does not."""
-    lib = load_library()
+    lib = plan.functors.library()
     n = u0s.shape[0]
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble_vec(
-        plan.ode.kernel_id, n, plan.n_steps, plan.rf, launch.lanes, launch.threads,
+        plan.functors.ode_id, n, plan.n_steps, plan.rf, launch.lanes, launch.threads,
         plan.grid_ptr, u0s.data_ptr(), err.data_ptr(), _stream(u0s.device),
     )
     lib.check(code, "fd_ensemble_vec", lib.lib.fd_error_string)
@@ -540,12 +546,12 @@ def fd_estimate_per_member(dt_b: torch.Tensor, u0s: torch.Tensor, plan: FdPlan):
 def _f3_launch(dt_b, u0s, plan: FdPlan, launch: FdPmLaunch):
     """One fd_estimate_per_member call on ``launch``: ``(err (B, n_steps),
     j (B,))``. The wrapper counts its launches; this does not."""
-    lib = load_library()
+    lib = plan.functors.library()
     b, n_steps = u0s.shape[0], plan.n_steps
     out = torch.empty(b * (n_steps + 1), dtype=torch.float32, device=u0s.device)  # one allocation
     err, j_val = out[: b * n_steps].view(b, n_steps), out[b * n_steps:]
     code = lib.lib.fd_estimate_per_member(
-        plan.ode.kernel_id, *plan.n_modes, plan.consts_ptr, b, plan.n_steps,
+        plan.functors.ode_id, *plan.n_modes, plan.consts_ptr, b, plan.n_steps,
         plan.rf, int(plan.convention == "block"), plan.t0, launch.lanes, launch.threads,
         pm_window(launch, plan.n_steps, plan.rf), dt_b.data_ptr(), u0s.data_ptr(),
         err.data_ptr(), j_val.data_ptr(), _stream(u0s.device),
@@ -574,33 +580,51 @@ def _with_plan(run, plan: FdPlan):
     return run
 
 
-def make_cuda_fd_ensemble(ode, n_steps: int, ref_factor: int, dt, trig: str = "libm",
-                          device="cuda"):
+def make_cuda_fd_ensemble(ode=None, n_steps: int | None = None, ref_factor: int | None = None,
+                          dt=None, trig: str = "libm", device="cuda", *, f=None, f_u=None):
     """``run(u0s) -> err_steps``: the per-IC block indicator (n_steps, n_ics)
     of the FD pipeline (u' = f(u, t), J = ∫u² dt) in one launch; its mean
-    over axis 1 is the ensemble refinement signal. ``ode`` is a registry
-    entry (or its name) with a ``kernel_id``; ``dt`` a scalar or n_steps
-    widths; ``trig="fast"`` (sin(u) only, |u| ≤ 4) evaluates sin/cos by the
-    shared-x² polynomials."""
-    plan = _plan(ode, n_steps, ref_factor, vector=False, trig=trig, dt=dt, device=device)
+    over axis 1 is the ensemble refinement signal. The ODE is ``ode`` (a
+    registry entry, its name, or an ``ODEProblem``, traced where it has no
+    ``kernel_id``) or, as JAX's ``make_pallas_fd_ensemble(f, f_u, …)``
+    takes it, an elementwise callable ``f`` (or ``ode``) with its ``f_u``
+    (required), both traced into a device functor; ``dt`` a scalar or
+    n_steps widths; ``trig="fast"`` (sin(u) only, |u| ≤ 4) evaluates
+    sin/cos by the shared-x² polynomials."""
+    functors = scalar_functors(ode, f, f_u, source=SOURCE, trig=trig, goal=False, need_f_u=True)
+    if dt is None:
+        raise ValueError("dt is required: a scalar or n_steps widths")
+    plan = _plan(functors, n_steps, ref_factor, trig=trig, dt=dt, device=device)
     return _with_plan(lambda u0s: fd_ensemble(u0s, plan), plan)
 
 
-def make_cuda_fd_ensemble_vec(ode, n_steps: int, ref_factor: int, dt, device="cuda"):
+def make_cuda_fd_ensemble_vec(ode=None, n_steps: int | None = None,
+                              ref_factor: int | None = None, dt=None, device="cuda", *,
+                              f_comps=None, jac_comps=None, d: int | None = None):
     """Vector-state variant: ``run(u0s) -> err_steps`` with ``u0s`` (n_ics, d)
     and the block indicator (n_steps, n_ics) (r·v contracted over
-    components)."""
-    plan = _plan(ode, n_steps, ref_factor, vector=True, dt=dt, device=device)
+    components). The ODE is ``ode`` (a vector registry entry or its name)
+    or, as JAX's ``make_pallas_fd_ensemble_vec(f_comps, jac_comps, d, …)``
+    takes it, ``f_comps(us, t) -> d-tuple`` and ``jac_comps(us, t) -> d×d
+    nested tuple`` (entry [m][i] = ∂f_m/∂u_i; literal zeros are skipped)
+    on a d-tuple of components, traced for 2 ≤ d ≤ ``functor.MAX_VECTOR_D``."""
+    functors = vector_functors(ode, f_comps, jac_comps, d, source=SOURCE)
+    if dt is None:
+        raise ValueError("dt is required: a scalar or n_steps widths")
+    plan = _plan(functors, n_steps, ref_factor, dt=dt, device=device)
     return _with_plan(lambda u0s: fd_ensemble_vec(u0s, plan), plan)
 
 
-def make_cuda_fd_estimate_per_member(ode, n_steps: int, ref_factor: int,
+def make_cuda_fd_estimate_per_member(ode=None, n_steps: int | None = None,
+                                     ref_factor: int | None = None,
                                      convention: str = "strided", t0: float = 0.0,
-                                     device="cuda"):
+                                     device="cuda", *, f=None, f_u=None):
     """Fused per-member FD estimate: ``run(dt_b, u0s) -> (err_steps, j)``
     with per-member (B, n_steps) coarse widths, ``err_steps`` (B, n_steps)
     in ``convention`` and ``j`` = Σ u_n² dt_n (B,) — one launch per call,
-    the engine of ``run_adaptive_fd_per_member(engine="cuda")``."""
-    plan = _plan(ode, n_steps, ref_factor, vector=False, convention=convention, t0=t0,
-                 device=device)
+    the engine of ``run_adaptive_fd_per_member(engine="cuda")``. The ODE as
+    for :func:`make_cuda_fd_ensemble` (``f`` and its required ``f_u``, as
+    JAX's ``make_pallas_fd_estimate_per_member(f, f_u, …)``)."""
+    functors = scalar_functors(ode, f, f_u, source=SOURCE, goal=False, need_f_u=True)
+    plan = _plan(functors, n_steps, ref_factor, convention=convention, t0=t0, device=device)
     return _with_plan(lambda dt_b, u0s: fd_estimate_per_member(dt_b, u0s, plan), plan)

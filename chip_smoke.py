@@ -328,6 +328,27 @@ raises, and the script exits non-zero; nothing is caught.
    estimate (launches recorded against launches run), and sweep runs two
    fd_adaptive seeds on the card at --parallel 2, both rc 0 (beside (a),
    (c)-(e); (b) runs after it).
+42. A caller's elementwise callables traced into device functors
+   (ops/cuda/functor.py) on F1, F2, F3, D1 and H1: (a) the user libraries
+   (one csrc file and the generated header each) built together, each its
+   seconds and its instances' registers; (b) F1 on u(1−u) + 0.1·cos(2t) with
+   its hand-written f_u and F2 on Van der Pol (tests/test_pallas.py:564-573)
+   at 102,400 ICs, F3 at the per-member study's shape (B = 1024, 43 steps),
+   each within fd_kernel_tolerance of its plain version with some plain
+   entry above the bound, timed in turns beside the registry kernel at the
+   same shape, and the registry F1-F3 bits against the parent's digests;
+   (c) D1 with f_u derived on Dual<float> and g_u = 1/u at B = 1024 (K =
+   15) and 16,384 (K = 16) on per-member partitions within
+   dg_kernel_tolerance (bounds that bite, tails exactly 0), timed beside
+   the registry kernel (sin u, J = ∫u²), and sin(u) spelled as a callable
+   within the registry functor's bounds of its output; (d) H1 likewise at
+   B = 512, finite through the padding's zero nodes; (e) each through the
+   entry points a user calls, its launch count from 0: the F1 and F2
+   signals, the B = 1024 per-member FD study on ``ode_f``, the B = 1024
+   per-member DG study (device loop, ``ode=None``, f and g_u = 1/u; its
+   last partitions replayed to the history's err bits) and the B = 512 hp
+   study; (f) an untraceable callable (a reduction) refused on every path
+   with no launch.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -370,6 +391,12 @@ SOURCES = {
     "dg_estimate_ensemble[J=int(u^2)]": f"{PACKAGE}/csrc/dg_slab.cu",
     "dg_estimate_hp_per_member[J=int(u^2)]": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
     "dense_epoch_grad[bf16]": f"{PACKAGE}/csrc/train_dense_fused.cu",
+    # a caller's callables traced into device functors (ops/cuda/functor.py)
+    "fd_ensemble[traced]": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "fd_ensemble_vec[traced]": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "fd_estimate_per_member[traced]": f"{PACKAGE}/csrc/fd_ensemble.cu",
+    "dg_estimate_ensemble[traced]": f"{PACKAGE}/csrc/dg_slab.cu",
+    "dg_estimate_hp_per_member[traced]": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -412,6 +439,19 @@ TPU_KERNELS = {
                                              "dg_slab_mixed.py:99 (g_u, :379)",
     "dense_epoch_grad[bf16]": "adjoint_ode_adaptivity_tpu/ops/pallas/train_dense_fused.py:136 "
                               "(mxu_dtype=bfloat16, _dot :124)",
+    # the same kernels on a caller's elementwise callables, which Pallas traces
+    # into the body (make_pallas_* take f, f_u, g_u, f_comps and jac_comps)
+    "fd_ensemble[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:61 (f, f_u of "
+                           "make_pallas_fd_ensemble, :127)",
+    "fd_ensemble_vec[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201 "
+                               "(f_comps, jac_comps of make_pallas_fd_ensemble_vec, :276)",
+    "fd_estimate_per_member[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:357 "
+                                      "(f, f_u of make_pallas_fd_estimate_per_member, :458)",
+    "dg_estimate_ensemble[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab.py:92 (f, "
+                                    "f_u=None, g_u of make_pallas_dg_estimate_ensemble, :236)",
+    "dg_estimate_hp_per_member[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab_mixed.py:99"
+                                         " (f, f_u=None, g_u of "
+                                         "make_pallas_dg_estimate_hp_per_member, :458)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -821,7 +861,7 @@ def phase5(device):
 # ------------------------------------------------------------------ FD strand
 
 
-def fd_check(label, kname, got, want, tol, errs, teeth=False):
+def fd_check(label, kname, got, want, tol, errs, teeth=False, phase="6"):
     """The kernel's output within ``tol`` of the plain version's; with
     ``teeth``, some entry of the plain version lies above ``tol`` (so an
     output of 0 fails)."""
@@ -830,7 +870,7 @@ def fd_check(label, kname, got, want, tol, errs, teeth=False):
     assert bool(torch.isfinite(got).all()), f"{label}: non-finite kernel output"
     e = float((got.double() - want.double()).abs().max())
     above = int((want.abs() > tol).sum())
-    say("6", f"{label}: max|kernel - plain| {e:.3e} (tol {tol:.3e}; max|plain| "
+    say(phase, f"{label}: max|kernel - plain| {e:.3e} (tol {tol:.3e}; max|plain| "
              f"{float(want.abs().max()):.3e}; {above} of {want.numel()} plain entries above tol)")
     assert e <= tol, f"{label}: kernel disagrees with its plain version"
     assert above > 0 or not teeth, f"{label}: no entry above the tolerance (an output of 0 passes)"
@@ -1130,7 +1170,7 @@ def fd_times(device, inp):
     return times
 
 
-def fd_bounds(n_ics=None):
+def fd_bounds(n_ics=None, pairs=(2, 1, 2), grid_ops=(0, 0), f_ops=(1, 1, 1)):
     """Least time on the card for each FD kernel at the phase-6/8 shapes (F1
     and F2 at ``n_ics`` ICs where given):
     the larger of bytes (each input read once, each output written once)
@@ -1139,7 +1179,13 @@ def fd_bounds(n_ics=None):
     take). The (f, f_u) pair costs what its functor does: sin and cos for
     sin(u); one product (−4·u₀) for the harmonic oscillator, whose Jacobian
     is constant. Per IC, a fine node costs 15.25 (d=1) or 27.5 (d=2)
-    operations at rf 4."""
+    operations at rf 4. ``pairs`` are the pair's operations of F1, F2 and
+    F3 on each IC's or member's state (a traced functor's, phase 42), and
+    ``grid_ops`` those of F1 and F2 on t alone, needed once a fine node of
+    the grid that every IC shares. The forward march evaluates f alone at
+    each coarse step: ``f_ops`` are its operations on the state (F1, F2,
+    F3; sin u and −4·u₀ take 1); its terms in t alone are those of the fine
+    node at the same time, counted there."""
     n, s, rf = n_ics or FD_ENSEMBLE["n_ics"], FD_ENSEMBLE["n_steps"], FD_ENSEMBLE["rf"]
     b, sp = FD_STUDY["b"], FD_PM_STEPS
     grid = 4 * (2 * s + 2 * s * rf)
@@ -1147,13 +1193,18 @@ def fd_bounds(n_ics=None):
     def node_ops(d, pair):  # interpolation, v update, residual, r·v per component; the pair
         return d * (3 * (rf - 1) / rf + 6 + 3 + 2) + pair
 
-    sin_node, harmonic_node = node_ops(1, pair=2), node_ops(2, pair=1)
+    sin_node, harmonic_node, pm_node = (node_ops(1, pairs[0]), node_ops(2, pairs[1]),
+                                        node_ops(1, pairs[2]))
     work = {
-        "fd_ensemble": (4 * n + 4 * s * n + grid, n * (3 * s + s * rf * sin_node + s)),
-        "fd_ensemble_vec": (8 * n + 4 * s * n + grid, n * (5 * s + s * rf * harmonic_node + s)),
+        "fd_ensemble": (4 * n + 4 * s * n + grid,
+                        n * ((2 + f_ops[0]) * s + s * rf * sin_node + s)
+                        + s * rf * grid_ops[0]),
+        "fd_ensemble_vec": (8 * n + 4 * s * n + grid,
+                            n * ((4 + f_ops[1]) * s + s * rf * harmonic_node + s)
+                            + s * rf * grid_ops[1]),
         # + J (3/step), t (1/step), fine times and widths (3/node)
         "fd_estimate_per_member": (4 * b + 8 * sp * b + 4 * b,
-                                   b * (7 * sp + sp * rf * (sin_node + 3) + sp)),
+                                   b * ((6 + f_ops[2]) * sp + sp * rf * (pm_node + 3) + sp)),
     }
     return {k: bound(*v) for k, v in work.items()}
 
@@ -1429,7 +1480,7 @@ def dg_replay(hist, device, errs, g_u=None, key="dg_estimate_ensemble"):
         out["share"] = max(out["share"], float((d_err / tol).nan_to_num(0.0).max()))
         noise = tol.amax(dim=1)  # each member's largest err bound
         err64 = dg_estimate_batched(ops_p, ops_a, sin.f, times.double(), y64, f_u=sin.f_u,
-                                    g_u=plan.g_u, newton_iters=8)[2]
+                                    g_u=plan.functors.g_u, newton_iters=8)[2]
         for tag, (d, a) in (("", dg_decisions(err_k, plain[2], noise)),
                             ("64", dg_decisions(err_k.double(), err64, noise))):
             out["decided" + tag] += d
@@ -1449,7 +1500,7 @@ def solve_ops(m):
     return elim + sum(2 * (m - i - 1) + 1 for i in range(m))
 
 
-def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False, goal=False):
+def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False, goal=False, pair=2, gu=1):
     """Least time on the card for one D1 call: the larger of bytes (times
     and y0 read once, u, v and err written once) over 3.35 TB/s and FP32
     operations over 67 TFLOP/s, counted from the kernel's loops — an FMA
@@ -1458,12 +1509,13 @@ def dg_slab_bound(n, k, b, newton_iters, nqp, nqa, per_member=False, goal=False)
     residual and Jacobian assembly, one Np×Np solve) and the order-(n+1)
     sweep (Nq_a points of 2Na² + 2Na + 2Np + 4, the assembly, one Na×Na
     solve and vᵀres); a ``goal`` other than J = ∫u adds g_u at the Na nodes
-    and the Na² FMAs of M·g_u."""
+    and the Na² FMAs of M·g_u. ``pair`` and ``gu`` are the operations of
+    the (f, f_u) pair and of g_u (a traced functor's, phase 42)."""
     np_, na = n + 1, n + 2
-    fwd = newton_iters * (nqp * (2 * np_ * np_ + 4 * np_ + 4) + 4 * np_ * np_ + 3 * np_ + 1
-                          + solve_ops(np_))
-    adj = (2 * na * np_ + nqa * (2 * na * na + 2 * na + 2 * np_ + 4) + 2 * na * na + na + 1
-           + solve_ops(na) + na * (2 * na + 5) + (na + 2 * na * na if goal else 0))
+    fwd = newton_iters * (nqp * (2 * np_ * np_ + 4 * np_ + 2 + pair) + 4 * np_ * np_ + 3 * np_
+                          + 1 + solve_ops(np_))
+    adj = (2 * na * np_ + nqa * (2 * na * na + 2 * na + 2 * np_ + 2 + pair) + 2 * na * na + na
+           + 1 + solve_ops(na) + na * (2 * na + 5) + (gu * na + 2 * na * na if goal else 0))
     n_bytes = 4 * ((k + 1) * (b if per_member else 1) + b + b * k * (np_ + na + 1))
     return bound(n_bytes, b * k * (fwd + adj))
 
@@ -1708,7 +1760,7 @@ def hp_replay(hist, mode, device, errs, g_u=None, key="dg_estimate_hp_per_member
         out["share"] = max(out["share"], float((d_err / tol.clamp_min(1e-300)).max()))
         err64 = dg_estimate_mixed(plan.mops, plan.interp, sin.f, times.double(), ns, y64,
                                   fine_offset=HP_STUDY["fo"], adjoint_mode=mode, rad=plan.rad,
-                                  f_u=sin.f_u, g_u=plan.g_u,
+                                  f_u=sin.f_u, g_u=plan.functors.g_u,
                                   newton_iters=HP_STUDY["newton_iters"])[3]
         noise = tol.amax(dim=1)
         for tag, (d, a) in (("", dg_decisions(err_k, plain[3], noise)),
@@ -1793,7 +1845,8 @@ def phase13(device, errs):
     return launches
 
 
-def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode, goal=False):
+def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode, goal=False, pair=2,
+                gu=1):
     """Least time on the card for one H1 call: the larger of bytes (times,
     ns and y0 read once; u_c, u_f, v (B, K, np_max) and err written once)
     over 3.35 TB/s and FP32 operations over 67 TFLOP/s, counted as in
@@ -1803,7 +1856,7 @@ def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode, goal=Fals
     so the bound does not depend on the padding. A Newton step at p nodes:
     Nq points of 2p² + 5p + 4, the assembly 4p² + 3p, one p×p solve and
     the update. A ``goal`` other than J = ∫u adds g_u at the system's nodes
-    and the FMAs of M·g_u."""
+    and the FMAs of M·g_u. ``pair`` and ``gu`` as in dg_slab_bound."""
     import numpy as np
 
     t, n = times.double().cpu().numpy(), ns.cpu().numpy()
@@ -1812,16 +1865,16 @@ def dg_hp_bound(times, ns, newton_iters, fo, nq, np_max, adjoint_mode, goal=Fals
     solve = np.vectorize(solve_ops)
 
     def march(p):
-        return newton_iters * (nq * (2 * p * p + 5 * p + 4) + 4 * p * p + 4 * p + solve(p))
+        return newton_iters * (nq * (2 * p * p + 5 * p + 2 + pair) + 4 * p * p + 4 * p + solve(p))
 
     pc, pf, pa = n + 1, n + fo + 1, n + 2
     ps = pa if adjoint_mode == "solve" else pc
-    adj = (2 * pa * pc + nq * (2 * pc + 4 + 2 * pa + ps + 2 * ps * ps) + 2 * ps * ps + 2 * ps
-           + solve(ps) + pa * (2 * pa + 6))
+    adj = (2 * pa * pc + nq * (2 * pc + 2 + pair + 2 * pa + ps + 2 * ps * ps) + 2 * ps * ps
+           + 2 * ps + solve(ps) + pa * (2 * pa + 6))
     if adjoint_mode == "reconstruct":
         adj = adj + 2 * pa * pc + 2 * pa * pa
     if goal:
-        adj = adj + ps + 2 * ps * ps
+        adj = adj + gu * ps + 2 * ps * ps
     n_ops = float(np.sum(march(pc) + march(pf) + adj))
     n_bytes = 4 * (b * (k + 1) + b * k + b + 3 * b * k * np_max + b * k)
     return bound(n_bytes, n_ops)
@@ -5014,11 +5067,15 @@ T2_BF16_ROWS = ((8192, 10), (8192, 100), (512, 2))  # bench.py's rows; the recur
 # in float32) on these inputs, printed by tools/torch_goal_bf16_against_parent.py
 # on an NVIDIA H100 80GB HBM3 at 700 W: D1 and H1 at their wrapper's launch,
 # T2 over every (BM, C) plan in _feasible's order. The goal and bf16 modes
-# must leave these bits alone.
+# must leave these bits alone. F1, F2 and F3 (sin u, the harmonic oscillator,
+# sin u strided) at fd_inputs' phase-6 inputs: the parent ef762ac's, printed
+# by tools/torch_fd_digests.py on the same card; the traced functors (phase
+# 42) must leave the registry modes' bits alone.
 PARENT_DIGESTS = {"D1 1024": "9c17a77a54f01917", "D1 16384": "35680304e7695012",
                   "H1 512 solve": "7be8588c848bcbd8", "H1 512 reconstruct": "3cf395845c3eb3a9",
                   "H1 4096 solve": "a4163c588a154456", "T2 8192 10": "e587078b00801107",
-                  "T2 512 2": "c1952e2d913c163e"}
+                  "T2 512 2": "c1952e2d913c163e", "F1 102400": "0a1187cfdd680f43",
+                  "F2 102400": "891f5a68da654eaa", "F3 1024": "a795d3ab8a92e180"}
 BF16_TFLOPS = 989e12  # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
 
 
@@ -5100,9 +5157,10 @@ def d1_goal_case(label, b, k, newton, per_member, seed, device, errs):
     key = f"D1 {b}"
     nqp, nqa = ops_p.phi.shape[0], ops_a.phi.shape[0]
     mine = ds.d1_plan(b, 2, max(nqp, nqa))
-    turns = in_turns({"J=int(u^2)": lambda: run(times, y0), "J=int(u)": lambda: unit(times, y0)})
+    turns = in_turns({"J=int(u^2)": lambda: run(times, y0), "J=int(u)": lambda: unit(times, y0)},
+                     runs=3)
     ms, ms0 = (statistics.mean(turns[x]) for x in ("J=int(u^2)", "J=int(u)"))
-    plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=3)
+    plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=1)
     b_ms, b_by = dg_slab_bound(1, k, b, newton, nqp, nqa, per_member, goal=True)
     say("38", f"(a) D1 J=int(u^2) {label} B={b} K={k}: {len(launches)} (G, CTA) launches and the "
               f"wrapper ({mine}) within the extended per-element bounds, worst share "
@@ -5149,9 +5207,10 @@ def h1_goal_case(b, seed, mode, device, errs):
     bites = int(((unit_out[2] - want[2]).abs().double() > tol["v"]).any(dim=-1).sum())
     bits = digest(unit_out)
     key = f"H1 {b} {mode}"
-    turns = in_turns({"J=int(u^2)": lambda: run(*inputs), "J=int(u)": lambda: unit(*inputs)})
+    turns = in_turns({"J=int(u^2)": lambda: run(*inputs), "J=int(u)": lambda: unit(*inputs)},
+                     runs=3)
     ms, ms0 = (statistics.mean(turns[x]) for x in ("J=int(u^2)", "J=int(u)"))
-    plain_ms = cuda_ms(lambda: hm.dg_estimate_hp_per_member_plain(*inputs, run.plan), runs=3)
+    plain_ms = cuda_ms(lambda: hm.dg_estimate_hp_per_member_plain(*inputs, run.plan), runs=1)
     plan = run.plan
     b_ms, b_by = dg_hp_bound(inputs[0], inputs[1], plan.newton_iters, plan.fine_offset,
                              plan.mops.rq.shape[0], plan.mops.np_max, mode, goal=True)
@@ -5306,7 +5365,7 @@ def t2_bf16_row(b, s_steps, device, errs, hold_every, time_every):
     turns = in_turns(runs)
     ms, ms32, gms = (statistics.mean(turns[x]) for x in ("bf16 wrapper", "f32 wrapper",
                                                           "torch.matmul bf16 GEMMs"))
-    plain_ms = cuda_ms(lambda: td.dense_epoch_grad_plain(params, sizes, dt, u0, tr, bf), runs=3)
+    plain_ms = cuda_ms(lambda: td.dense_epoch_grad_plain(params, sizes, dt, u0, tr, bf), runs=1)
     b_ms, b_by, tc_ops = t2_bf16_bound(s_steps, sizes, b)
     say("38", f"(d) T2 bf16 {sizes} B={b} S={s_steps}: {len(plans) if hold_every else 1} plan(s) "
               f"within the bf16 bound of the float64 bf16 plain version (worst {worst:.2%}), the "
@@ -6528,6 +6587,523 @@ def phase41(device):
     say("41", f"phase 41 {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------- traced user functors on F1, F2, F3, D1 and H1 (phase 42)
+
+TRACED = ("fd_ensemble[traced]", "fd_ensemble_vec[traced]", "fd_estimate_per_member[traced]",
+          "dg_estimate_ensemble[traced]", "dg_estimate_hp_per_member[traced]")
+# D1 at the per-member study's shape and at bench.py's (B, K, Newton steps,
+# seed), both on per-member partitions with zero-width tails
+USER_D1_CASES = ((1024, 15, 8, 2), (16_384, 16, 5, 1))
+USER_STUDY = dict(maxit=10, hp_maxit=5)  # the traced studies' iterations (device loops)
+
+
+def user_f(u, t):  # du/dt = u(1 − u) + 0.1·cos(2t): in no registry; y0 in [0.2, 0.8]
+    import torch
+
+    return u * (1 - u) + 0.1 * torch.cos(2 * t)
+
+
+def user_f_u(u, t):  # its hand-written ∂f/∂u (F1 and F3)
+    return 1 - 2 * u
+
+
+def user_g_u(u, t):  # J = ∫log u: g_u = 1/u, singular at H1's zero padding nodes
+    return 1.0 / u
+
+
+def user_sin(u, t):  # du/dt = sin(u) spelled as a callable: f_u derived by Dual<float>
+    import torch
+
+    return torch.sin(u)
+
+
+def vdp_comps(us, t):  # Van der Pol, μ = 1, as tests/test_pallas.py:568-570 writes it
+    return (us[1], (1.0 - us[0] * us[0]) * us[1] - us[0])
+
+
+def vdp_jac(us, t):  # tests/test_pallas.py:571-573, its literal 0.0 skipped by F2
+    return ((0.0, 1.0), (-2.0 * us[0] * us[1] - 1.0, 1.0 - us[0] * us[0]))
+
+
+def rigid_comps(us, t):  # d = 3: Euler's rigid body (Hairer), zeros on J's diagonal
+    return (us[1] * us[2], -us[0] * us[2], -0.51 * us[0] * us[1])
+
+
+def rigid_jac(us, t):
+    return ((0.0, us[2], us[1]), (-us[2], 0.0, -us[0]), (-0.51 * us[1], -0.51 * us[0], 0.0))
+
+
+def coupled_comps(us, t):  # d = 4, F2's cap: two coupled oscillators, one cubic, one forced
+    import torch
+
+    return (us[1], -us[0] - 0.1 * us[0] * us[0] * us[0] + 0.2 * (us[2] - us[0]), us[3],
+            -us[2] + 0.2 * (us[0] - us[2]) + 0.05 * torch.cos(t))
+
+
+def coupled_jac(us, t):
+    return ((0.0, 1.0, 0.0, 0.0), (-1.2 - 0.3 * us[0] * us[0], 0.0, 0.2, 0.0),
+            (0.0, 0.0, 0.0, 1.0), (0.2, 0.0, -1.2, 0.0))
+
+
+# F2 above d = 2 (phase 42(b)): d -> (name, f_comps, jac_comps)
+USER_VECTOR_D = {3: ("rigid body", rigid_comps, rigid_jac),
+                 4: ("coupled oscillators", coupled_comps, coupled_jac)}
+
+
+def functor_ops(*fns) -> tuple:
+    """Operations that the callables ``fns`` (each a scalar callable or
+    ``(fn, d, jacobian)``) need together: one an IR node of their traces (a
+    transcendental, a comparison and a select one each; inputs and
+    constants free), a subexpression that two of them share counted once.
+    Returns (the operations on u, those on t alone): where every IC shares
+    the grid, the second is needed once a node, not once an IC. For an f_u
+    that the kernel derives, pass f's closed-form derivative: the least
+    work for the pair is f and that, not twice f."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import functor
+
+    ids, on_u = {}, []
+    for spec in fns:
+        fn, d, jac = spec if isinstance(spec, tuple) else (spec, 0, False)
+        local = []
+        for op, args in functor.trace(fn, d, jac).nodes:
+            if op in ("u", "t"):
+                key = (op, args)
+            else:
+                key = (op, tuple(("node", local[a]) if isinstance(a, int) else ("const", a)
+                                 for a in args))
+            if key not in ids:
+                ids[key] = len(on_u)
+                on_u.append(op == "u" or any(on_u[local[a]] for a in args
+                                             if isinstance(a, int)))
+            local.append(ids[key])
+    counted = [dep for key, dep in zip(ids, on_u) if key[0] not in ("u", "t")]
+    return sum(counted), len(counted) - sum(counted)
+
+
+def user_libraries():
+    """The user libraries phase 42 runs, built together (threads: each a
+    single nvcc -c and a link). Returns {name: KernelLibrary} and the wall
+    seconds of the whole build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adjoint_ode_adaptivity_tpu_torch import odes
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import scalar_functors, vector_functors
+
+    fd = "fd_ensemble.cu"
+    kfs = {
+        "F1/F3 (f, f_u)": scalar_functors(f=user_f, f_u=user_f_u, source=fd, goal=False,
+                                          need_f_u=True),
+        "F3 (the study's ode_f, f_u derived)": scalar_functors(
+            odes.ODEProblem("ode_f", f=user_f), source=fd, goal=False),
+        "F2 (Van der Pol)": vector_functors(f_comps=vdp_comps, jac_comps=vdp_jac, d=2,
+                                            source=fd),
+        **{f"F2 ({name} d={d})": vector_functors(f_comps=comps, jac_comps=jac, d=d, source=fd)
+           for d, (name, comps, jac) in USER_VECTOR_D.items()},
+        "D1 (f, g_u = 1/u)": scalar_functors(f=user_f, g_u=user_g_u, source="dg_slab.cu"),
+        "D1 (sin(u) as a callable)": scalar_functors(f=user_sin, source="dg_slab.cu"),
+        "H1 (f, g_u = 1/u)": scalar_functors(f=user_f, g_u=user_g_u,
+                                             source="dg_slab_mixed.cu"),
+    }
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kfs)) as pool:
+        libs = dict(zip(kfs, pool.map(lambda kf: kf.library(), kfs.values())))
+    return libs, time.perf_counter() - t0
+
+
+def user_d1_inputs(device, b, k, seed):
+    """y0 ~ U(0.2, 0.8) and per-member partitions of [0, 2] with 2..k−3
+    live slabs and zero-width tails, from ``default_rng(seed)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    y0 = torch.tensor(rng.uniform(0.2, 0.8, b), dtype=torch.float32, device=device)
+    t = np.full((b, k + 1), DG_SLAB["t1"])
+    for m, n_act in enumerate(rng.integers(2, k - 3, b)):
+        t[m, : n_act + 1] = np.concatenate(
+            [[0.0], np.sort(rng.uniform(0.0, DG_SLAB["t1"], n_act - 1)), [DG_SLAB["t1"]]])
+    return torch.tensor(t, dtype=torch.float32, device=device), y0
+
+
+def user_turns(label, traced, registry):
+    """The traced and the registry kernel at one shape in turns (CUDA
+    events, median of 5 each, A B B A). Returns the traced kernel's ms."""
+    turns = in_turns({"traced": traced, "registry": registry})
+    ms, ms_r = (statistics.mean(turns[x]) for x in ("traced", "registry"))
+    say("42", f"{label}: in turns traced {ms:.4f} ms ({turns['traced'][0]:.4f} / "
+              f"{turns['traced'][1]:.4f}) against the registry kernel {ms_r:.4f} ms "
+              f"({turns['registry'][0]:.4f} / {turns['registry'][1]:.4f}), {ms / ms_r:.3f}x")
+    return ms
+
+
+def user_fd(device, inp, errs):
+    """Phase 42(b): F1 and F2 at 102,400 ICs and F3 at the per-member
+    study's shape on the traced functors, each within fd_kernel_tolerance
+    of its plain version with some plain entry above the bound, timed in
+    turns beside the registry kernel at the same shape; the registry F1, F2
+    and F3 bits against the parent's digests. Returns {name: (ms, plain
+    ms)} and the inputs of the path runs."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    n, s, rf, dt = (FD_ENSEMBLE[k] for k in ("n_ics", "n_steps", "rf", "dt"))
+    f32 = dict(dtype=torch.float32, device=device)
+    u0 = torch.tensor(np.random.default_rng(42).uniform(0.2, 0.8, n), **f32)
+    u0v = torch.tensor(np.random.default_rng(43).uniform(-1.5, 1.5, (n, 2)), **f32)
+    dt_pm = inp["dt_pm"]
+    u0_pm = torch.tensor(np.random.default_rng(44).uniform(0.2, 0.8, dt_pm.shape[0]), **f32)
+    times = {}
+
+    f1 = fe.make_cuda_fd_ensemble(f=user_f, f_u=user_f_u, n_steps=s, ref_factor=rf, dt=dt,
+                                  device=device)
+    stats = {}
+    want = fe.fd_ensemble_plain(u0, f1.plan, stats)
+    fd_check(f"(b) F1 traced u(1-u)+0.1cos(2t), given f_u, {n} ICs", TRACED[0], f1(u0), want,
+             fe.fd_kernel_tolerance(stats, rf), errs, teeth=True, phase="42")
+    reg = fe.make_cuda_fd_ensemble("du/dt=sin(u)", s, rf, dt, device=device)
+    times[TRACED[0]] = (user_turns(f"(b) F1 {n} ICs", lambda: f1(u0), lambda: reg(u0)),
+                        cuda_ms(lambda: fe.fd_ensemble_plain(u0, f1.plan), runs=1))
+
+    f2 = fe.make_cuda_fd_ensemble_vec(f_comps=vdp_comps, jac_comps=vdp_jac, d=2, n_steps=s,
+                                      ref_factor=rf, dt=dt, device=device)
+    stats = {}
+    want = fe.fd_ensemble_vec_plain(u0v, f2.plan, stats)
+    fd_check(f"(b) F2 traced Van der Pol d=2, {n} ICs", TRACED[1], f2(u0v), want,
+             fe.fd_kernel_tolerance(stats, rf, d=2), errs, teeth=True, phase="42")
+    reg_v = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", s, rf, dt, device=device)
+    times[TRACED[1]] = (user_turns(f"(b) F2 {n} ICs (registry: the harmonic oscillator)",
+                                   lambda: f2(u0v), lambda: reg_v(u0v)),
+                        cuda_ms(lambda: fe.fd_ensemble_vec_plain(u0v, f2.plan), runs=1))
+    for d, (name, comps, jac) in USER_VECTOR_D.items():  # up to functor.MAX_VECTOR_D
+        fd_ = fe.make_cuda_fd_ensemble_vec(f_comps=comps, jac_comps=jac, d=d, n_steps=s,
+                                           ref_factor=rf, dt=dt, device=device)
+        u0d = torch.tensor(np.random.default_rng(40 + d).uniform(-1.5, 1.5, (n, d)), **f32)
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0d, fd_.plan, stats)
+        fd_check(f"(b) F2 traced {name} d={d}, {n} ICs", TRACED[1], fd_(u0d), want,
+                 fe.fd_kernel_tolerance(stats, rf, d=d), errs, teeth=True, phase="42")
+        launch = fe.fd_ens_plan(n, s, rf, fe._sm_count(device), d)
+        say("42", f"(b) F2 d={d} {n} ICs on {launch}: {cuda_ms(lambda: fd_(u0d), runs=3):.4f} "
+                  "ms (median of 3)")
+
+    f3 = fe.make_cuda_fd_estimate_per_member(f=user_f, f_u=user_f_u, n_steps=FD_PM_STEPS,
+                                             ref_factor=rf, convention="strided", device=device)
+    err_k, j_k = f3(dt_pm, u0_pm)
+    stats = {}
+    err_p, j_p = fe.fd_estimate_per_member_plain(dt_pm, u0_pm, f3.plan, stats)
+    label = f"(b) F3 traced B={u0_pm.shape[0]} {FD_PM_STEPS} steps strided"
+    fd_check(label + " err", TRACED[2], err_k, err_p, fe.fd_kernel_tolerance(stats, rf), errs,
+             teeth=True, phase="42")
+    fd_check(label + " J", TRACED[2], j_k, j_p,
+             fe.fd_j_tolerance(stats, FD_PM_STEPS, float(dt_pm.double().sum(1).max())), errs,
+             phase="42")
+    assert bool((err_k[dt_pm == 0] == 0).all()), "F3 traced: padding must contribute exactly 0"
+    reg_pm = fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", FD_PM_STEPS, rf, "strided",
+                                                 device=device)
+    times[TRACED[2]] = (user_turns(f"(b) F3 B={u0_pm.shape[0]}", lambda: f3(dt_pm, u0_pm),
+                                   lambda: reg_pm(dt_pm, u0_pm)),
+                        cuda_ms(lambda: fe.fd_estimate_per_member_plain(dt_pm, u0_pm, f3.plan),
+                                runs=1))
+
+    # the registry modes keep their bits (the parent's at these inputs)
+    bits = {f"F1 {n}": digest([reg(inp["u0"])]), f"F2 {n}": digest([reg_v(inp["u0_vec"])]),
+            f"F3 {dt_pm.shape[0]}": digest(reg_pm(dt_pm, inp["u0_pm"]))}
+    say("42", "(b) registry bits: " + ", ".join(
+        f"{k} {v} (the parent's {PARENT_DIGESTS.get(k, 'not recorded')})" for k, v in bits.items()))
+    for k, v in bits.items():
+        assert k not in PARENT_DIGESTS or PARENT_DIGESTS[k] == v, f"{k}: registry bits moved"
+    return times, (u0, u0v, u0_pm, f1, f2)
+
+
+def user_d1(device, errs):
+    """Phase 42(c): D1 on the traced f (f_u derived) and g_u = 1/u at
+    USER_D1_CASES within dg_kernel_tolerance, some plain |err| above its
+    bound, tails exactly 0, timed in turns beside the registry kernel (sin u,
+    J = ∫u²); sin(u) as a callable within the registry functor's bounds of
+    its output. Returns (ms, plain ms, bound) at bench.py's shape."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import functionals
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+
+    ops_p, ops_a = dg_time_operators(1), dg_time_operators(2)
+    nqp, nqa = ops_p.phi.shape[0], ops_a.phi.shape[0]
+    u2 = functionals.get_functional("J=int(u^2)")
+    out = None
+    for b, k, newton, seed in USER_D1_CASES:
+        times, y0 = user_d1_inputs(device, b, k, seed)
+        run = ds.make_cuda_dg_estimate_ensemble(ops_p=ops_p, ops_a=ops_a, f=user_f,
+                                                n_elements=k, newton_iters=newton, g_u=user_g_u,
+                                                device=device)
+        got = run(times, y0)
+        want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+        tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+        e, share = d1_shares(got, want, tol)
+        teeth = int((want[2].abs() > tol["err"]).sum())
+        tail = times[:, 1:] == times[:, :-1]
+        zero = bool((got[2][tail] == 0).all())
+        errs[TRACED[3]] = max(errs[TRACED[3]], *e.values())
+        say("42", f"(c) D1 traced u(1-u)+0.1cos(2t) (f_u derived), g_u = 1/u, B={b} K={k} "
+                  f"{newton} Newton steps: " + " ".join(
+                      f"{x} {e[x]:.3e} (worst {share[x]:.2%} of its bound)" for x in e)
+            + f"; {teeth} plain |err| above their bound; {int(tail.sum())} tail slabs exactly 0: "
+              f"{zero}")
+        assert max(share.values()) <= 1.0, f"B={b}: traced D1 disagrees with its plain version"
+        assert teeth > 0 and zero, f"B={b}: the bound has no teeth, or a tail contributed"
+        reg = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, newton,
+                                                g_u=u2.g_u, device=device)
+        ms = user_turns(f"(c) D1 B={b} K={k} (registry: sin u, J = ∫u²)", lambda: run(times, y0),
+                        lambda: reg(times, y0))
+        if b == USER_D1_CASES[0][0]:
+            lam = ds.make_cuda_dg_estimate_ensemble(ops_p=ops_p, ops_a=ops_a, f=user_sin,
+                                                    n_elements=k, newton_iters=newton,
+                                                    device=device)
+            unit = ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops_p, ops_a, k, newton,
+                                                     device=device)
+            ref = unit(times, y0)
+            tol_r = ds.dg_kernel_tolerance(times, y0, ds.dg_estimate_ensemble_plain(
+                times, y0, unit.plan), unit.plan)
+            e_l, share_l = d1_shares(lam(times, y0), ref, tol_r)
+            say("42", f"(c) D1 sin(u) as a callable (Dual<float> f_u) against the registry "
+                      f"functor's output, B={b}: " + " ".join(
+                          f"{x} {e_l[x]:.3e} (worst {share_l[x]:.2%} of its bound)" for x in e_l))
+            assert max(share_l.values()) <= 1.0, "sin(u) traced leaves the registry's bounds"
+        else:
+            plain_ms = cuda_ms(lambda: ds.dg_estimate_ensemble_plain(times, y0, run.plan), runs=1)
+            b_ms = dg_slab_bound(1, k, b, newton, nqp, nqa, per_member=True, goal=True,
+                                 pair=sum(functor_ops(user_f, user_f_u)),
+                                 gu=sum(functor_ops(user_g_u)))
+            out = (ms, plain_ms, b_ms)
+    torch.cuda.synchronize()
+    return out
+
+
+def user_h1(device, errs):
+    """Phase 42(d): H1 on the traced f and g_u = 1/u at the hp study's
+    shape (B = 512, orders 1..3, y0 ~ U(0.2, 0.8)) within
+    hp_kernel_tolerance, finite through the padding's zero nodes, tails
+    exactly 0, timed in turns beside the registry kernel (sin u, J = ∫u²).
+    Returns (ms, plain ms, bound)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch import functionals
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.dg_mixed import (
+        dg_adjoint_interp_mixed,
+        dg_radau_interp_mixed,
+    )
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_mixed import dg_time_operators_mixed
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+
+    b, n_user, fo = HP_STUDY["b"], HP_STUDY["n_max"], HP_STUDY["fo"]
+    times, ns, _ = hp_inputs(device, b, HP_K, n_user, HP_STUDY["seed"])
+    y0 = torch.tensor(np.random.default_rng(45).uniform(0.2, 0.8, b), dtype=torch.float32,
+                      device=device)
+    mops = dg_time_operators_mixed(n_user + fo)
+    run = hm.make_cuda_dg_estimate_hp_per_member(
+        mops=mops, interp=dg_adjoint_interp_mixed(mops), f=user_f, n_elements=HP_K,
+        n_max_user=n_user, fine_offset=fo, newton_iters=HP_STUDY["newton_iters"],
+        rad=dg_radau_interp_mixed(mops), g_u=user_g_u, device=device)
+    got = run(times, ns, y0)
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
+    tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
+    e, share = hp_shares(got, want, tol)
+    teeth = int((want[3].abs() > tol["err"]).sum())
+    tail = times[:, :-1] == HP_STUDY["t1"]
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    errs[TRACED[4]] = max(errs[TRACED[4]], *e.values())
+    say("42", f"(d) H1 traced f (f_u derived), g_u = 1/u, B={b} K={HP_K} solve: " + " ".join(
+        f"{x} {e[x]:.3e} (worst {share[x]:.2%} of its bound)" for x in e)
+        + f"; {teeth} plain |err| above their bound; finite through the padding: {finite}; "
+          f"{int(tail.sum())} tail slabs exactly 0: {bool((got[3][tail] == 0).all())}")
+    assert max(share.values()) <= 1.0, "traced H1 disagrees with its plain version"
+    assert teeth > 0 and finite and bool((got[3][tail] == 0).all()), "H1 traced: gates"
+    u2 = functionals.get_functional("J=int(u^2)")
+    reg = hp_kernel("du/dt=sin(u)", n_user, fo, HP_K, "solve", device, u2.g_u)
+    ms = user_turns(f"(d) H1 B={b} (registry: sin u, J = ∫u²)", lambda: run(times, ns, y0),
+                    lambda: reg(times, ns, y0))
+    plain_ms = cuda_ms(lambda: hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan),
+                       runs=1)
+    b_ms = dg_hp_bound(times, ns, HP_STUDY["newton_iters"], fo, mops.rq.shape[0], mops.np_max,
+                       "solve", goal=True, pair=sum(functor_ops(user_f, user_f_u)),
+                       gu=sum(functor_ops(user_g_u)))
+    return ms, plain_ms, b_ms
+
+
+def user_paths(device, fd_in):
+    """Phase 42(e): each traced kernel through the entry points a user
+    calls, its launch count set to 0 just before and read just after: the
+    F1 and F2 ensemble signals (one call each at 102,400 ICs), the B = 1024
+    per-member FD study on ``ode_f`` (F3), the B = 1024 per-member DG
+    study with the device loop on the traced f and g_u = 1/u (D1, its last
+    partitions replayed: the kernel gives the history's err bits), and the
+    B = 512 hp per-member study on them (H1). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop, fd_loop, hp_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    u0, u0v, u0_pm, f1, f2 = fd_in
+    launches = {}
+    fe.reset_launch_counts()
+    signal = f1(u0).mean(dim=1)
+    launches[TRACED[0]] = fe.fd_ensemble.launches
+    fe.reset_launch_counts()
+    signal_v = f2(u0v).mean(dim=1)
+    launches[TRACED[1]] = fe.fd_ensemble_vec.launches
+    assert bool(torch.isfinite(signal).all()) and bool(torch.isfinite(signal_v).all())
+
+    common = dict(tol=0.0, device_loop=True, dtype=torch.float32, device=device, engine="cuda")
+    fe.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = fd_loop.run_adaptive_fd_per_member(euler_step(user_f), u0_pm.cpu().numpy(),
+                                              (0.0, FD_STUDY["t1"]), ode_f=user_f,
+                                              maxit=USER_STUDY["maxit"], **common)
+    torch.cuda.synchronize()
+    launches[TRACED[2]] = fe.fd_estimate_per_member.launches
+    wall_fd = time.perf_counter() - t0
+    assert all(np.all(np.isfinite(r.err_total)) for r in hist)
+
+    b = USER_D1_CASES[0][0]
+    y0s = np.random.default_rng(46).uniform(0.2, 0.8, b).astype(np.float32)
+    goal = dict(g=lambda u, t: torch.log(u), g_u=user_g_u, newton_iters=8)
+    ds.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist_dg = dg_loop.run_adaptive_dg_per_member(user_f, y0s, (0.0, DG_SLAB["t1"]), k0=2,
+                                                 maxit=USER_STUDY["maxit"], **goal, **common)
+    torch.cuda.synchronize()
+    launches[TRACED[3]] = ds.dg_estimate_ensemble.launches
+    wall_dg = time.perf_counter() - t0
+    last = hist_dg[-1]
+    k = last.times.shape[1] - 1
+    replay = ds.make_cuda_dg_estimate_ensemble(ops_p=dg_time_operators(1),
+                                               ops_a=dg_time_operators(2), f=user_f,
+                                               n_elements=k, newton_iters=8, g_u=user_g_u,
+                                               device=device)
+    again = replay(torch.tensor(last.times, dtype=torch.float32, device=device),
+                   torch.tensor(y0s, device=device))[2].cpu().numpy()
+    same = bool(np.array_equal(again, last.err))
+    assert all(np.all(np.isfinite(r.err)) for r in hist_dg) and same
+
+    y_hp = np.random.default_rng(47).uniform(0.2, 0.8, HP_STUDY["b"]).astype(np.float32)
+    hm.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist_hp = hp_loop.run_adaptive_dg_hp_per_member(
+        user_f, y_hp, (0.0, HP_STUDY["t1"]), k0=HP_STUDY["k0"], n0=1, n_max=HP_STUDY["n_max"],
+        mode="hp", maxit=USER_STUDY["hp_maxit"], **goal, **common)
+    torch.cuda.synchronize()
+    launches[TRACED[4]] = hm.dg_estimate_hp_per_member.launches
+    wall_hp = time.perf_counter() - t0
+    assert all(np.all(np.isfinite(r.err)) for r in hist_hp)
+    say("42", f"(e) paths: F1 and F2 ensemble signals (max {float(signal.max()):.3e}, "
+              f"{float(signal_v.max()):.3e}); run_adaptive_fd_per_member(ode_f=u(1-u)+0.1cos(2t)) "
+              f"B={u0_pm.shape[0]} {len(hist)} iterations, wall {wall_fd:.3f} s; "
+              f"run_adaptive_dg_per_member(ode=None, f, g_u = 1/u, device loop) B={b} "
+              f"{len(hist_dg)} iterations, K [{last.n_active.min()}..{last.n_active.max()}], mean "
+              f"|Adj-W Res| {np.abs(hist_dg[0].est_total).mean():.3e} -> "
+              f"{np.abs(last.est_total).mean():.3e}, wall {wall_dg:.3f} s, the last partitions' "
+              f"err replayed bit for bit: {same}; run_adaptive_dg_hp_per_member B={HP_STUDY['b']} "
+              f"{len(hist_hp)} iterations, max order {hist_hp[-1].ns.max()}, wall {wall_hp:.3f} s;"
+              f" launches {launches}")
+    assert all(v > 0 for v in launches.values()), launches
+    return launches
+
+
+def user_refusals(device):
+    """Phase 42(f): an untraceable callable raises on every path on the card
+    and launches nothing."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adapt import dg_loop, fd_loop, hp_loop
+    from adjoint_ode_adaptivity_tpu_torch.march.dg_time import dg_time_operators
+    from adjoint_ode_adaptivity_tpu_torch.march.fd import euler_step
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab as ds
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_slab_mixed as hm
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+
+    def bad(u, t):  # a reduction: no elementwise op
+        return torch.sum(u) * u
+
+    y = np.full(8, 0.5, np.float32)
+    kw = dict(engine="cuda", maxit=1, dtype=torch.float32, device=device)
+    calls = {
+        "make_cuda_fd_ensemble": lambda: fe.make_cuda_fd_ensemble(
+            f=bad, f_u=user_f_u, n_steps=4, ref_factor=2, dt=0.1, device=device),
+        "make_cuda_fd_ensemble_vec": lambda: fe.make_cuda_fd_ensemble_vec(
+            f_comps=lambda us, t: (torch.sum(us[0]) * us[1], us[0]), jac_comps=vdp_jac, d=2,
+            n_steps=4, ref_factor=2, dt=0.1, device=device),
+        "make_cuda_dg_estimate_ensemble": lambda: ds.make_cuda_dg_estimate_ensemble(
+            ops_p=dg_time_operators(1), ops_a=dg_time_operators(2), f=user_f, g_u=bad,
+            device=device),
+        "run_adaptive_fd_per_member": lambda: fd_loop.run_adaptive_fd_per_member(
+            euler_step(user_f), y, (0.0, 2.0), ode_f=bad, **kw),
+        "run_adaptive_dg_per_member": lambda: dg_loop.run_adaptive_dg_per_member(
+            bad, y, (0.0, 2.0), **kw),
+        "run_adaptive_dg_hp_per_member": lambda: hp_loop.run_adaptive_dg_hp_per_member(
+            user_f, y, (0.0, 2.0), g_u=bad, **kw),
+    }
+    fe.reset_launch_counts()
+    ds.reset_launch_counts()
+    hm.reset_launch_counts()
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as exc:
+            refused[name] = "cannot trace" in str(exc) and "sum" in str(exc)
+        else:
+            refused[name] = False
+    launched = (fe.fd_ensemble.launches + fe.fd_ensemble_vec.launches
+                + fe.fd_estimate_per_member.launches + ds.dg_estimate_ensemble.launches
+                + hm.dg_estimate_hp_per_member.launches)
+    say("42", f"(f) torch.sum(u)·u on the card: refused with a ValueError naming the op on "
+              f"{refused}; kernel launches {launched}")
+    assert all(refused.values()) and launched == 0, (refused, launched)
+
+
+def phase42(device, errs, inp):
+    """Traced user functors on F1, F2, F3, D1 and H1: (a) the user
+    libraries built together, each its seconds and its instances' registers;
+    (b) F1, F2 and F3, (c) D1, (d) H1 at their shapes against their plain
+    versions with bounds that bite, timed against the registry kernels;
+    (e) each through its path; (f) the refusals. Returns (launches, times,
+    bounds) for the kernels line's five traced rows."""
+    t0 = time.perf_counter()
+    libs, wall = user_libraries()
+    names = ("fd_ensemble_kernel", "fd_ensemble_vec_kernel", "fd_estimate_per_member_kernel",
+             "dg_estimate_kernel", "hp_kernel")
+    for name, lib in libs.items():
+        say("42", f"(a) user library {name}: built in {lib.build_seconds:.2f} s "
+                  f"({lib.path.name}); " + "; ".join(kernel_registers(lib.build_log, names)))
+    say("42", f"(a) {len(libs)} user libraries built together in {wall:.2f} s")
+    times, fd_in = user_fd(device, inp, errs)
+    ms, plain_ms, b_d1 = user_d1(device, errs)
+    times[TRACED[3]] = (ms, plain_ms)
+    ms, plain_ms, b_h1 = user_h1(device, errs)
+    times[TRACED[4]] = (ms, plain_ms)
+    launches = user_paths(device, fd_in)
+    user_refusals(device)
+    scalar, vdp = functor_ops(user_f, user_f_u), functor_ops((vdp_comps, 2, False),
+                                                             (vdp_jac, 2, True))
+    f_alone = (functor_ops(user_f)[0], functor_ops((vdp_comps, 2, False))[0])
+    fd_b = fd_bounds(pairs=(scalar[0], vdp[0], sum(scalar)), grid_ops=(scalar[1], vdp[1]),
+                     f_ops=(f_alone[0], f_alone[1], f_alone[0]))
+    bounds = {TRACED[0]: fd_b["fd_ensemble"], TRACED[1]: fd_b["fd_ensemble_vec"],
+              TRACED[2]: fd_b["fd_estimate_per_member"], TRACED[3]: b_d1, TRACED[4]: b_h1}
+    say("42", f"traced functors: phase wall {time.perf_counter() - t0:.1f} s; bounds "
+              + ", ".join(f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in bounds.items()))
+    return launches, times, bounds
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -6646,11 +7222,12 @@ def main() -> int:
     phase39(device, lib, errs, inp)
     phase40(device, errs)
     phase41(device)
-    launches.update(rc_launches, **tl_launches, **km_launches, **md_launches)
-    times.update(rc_times, **tl_times, **km_times, **md_times)
+    us_launches, us_times, us_bounds = phase42(device, errs, inp)
+    launches.update(rc_launches, **tl_launches, **km_launches, **md_launches, **us_launches)
+    times.update(rc_times, **tl_times, **km_times, **md_times, **us_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
               **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
-              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds}
+              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds, **us_bounds}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

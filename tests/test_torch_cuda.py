@@ -31,7 +31,9 @@ before it, err within 8·ε of the sum of the magnitudes of its products.
 
 D1 and H1 with the goal J = ∫u² (g_u = 2u by a functor): the same bounds,
 extended by the source's terms h/2·Σ_j|M_ij|·|g_u| and the nodes' error
-through g_u; the J = ∫u adjoint must lie outside them.
+through g_u; the J = ∫u adjoint must lie outside them. F1-F3, D1 and H1 on a
+caller's callables traced into functors (ops/cuda/functor.py): the same
+bounds, with teeth.
 
 The training kernels: each gradient entry against its own bound, against
 the plain version in float64. T1's (ops/cuda/train_fused.
@@ -1313,3 +1315,103 @@ def test_sharded_pipelines_at_one_rank_are_the_tiled_bits(device):
             assert torch.equal(g, w)
     assert (dg_tiled.tiled_fwd_seg.launches - before[0],
             dg_tiled.tiled_rev_seg.launches - before[1]) == (8, 8)
+
+
+# ----------------------------- a caller's callables traced into functors
+
+def _logistic(u, t):  # u(1 − u) + 0.1·cos(2t), in no registry; u stays in (0, 1)
+    return u * (1 - u) + 0.1 * torch.cos(2 * t)
+
+
+def _inverse(u, t):  # g_u = 1/u (J = ∫log u), singular at H1's zero padding nodes
+    return 1.0 / u
+
+
+def test_traced_fd_kernels_match_their_plain_versions(device):
+    """F1 (f and its f_u), F2 (Van der Pol; its Jacobian's literal 0.0
+    skipped) and F3 on traced functors (ops/cuda/functor.py), each within
+    fd_kernel_tolerance of its plain version, the bound with teeth."""
+    rng = np.random.default_rng(3)
+    f32 = dict(dtype=torch.float32, device=device)
+    s, rf = 8, 4
+    f_u = lambda u, t: 1 - 2 * u  # noqa: E731
+    u0 = torch.tensor(rng.uniform(0.2, 0.8, 2048), **f32)
+    run = fe.make_cuda_fd_ensemble(f=_logistic, f_u=f_u, n_steps=s, ref_factor=rf, dt=0.25,
+                                   device=device)
+    stats = {}
+    want = fe.fd_ensemble_plain(u0, run.plan, stats)
+    tol = fe.fd_kernel_tolerance(stats, rf)
+    assert float((run(u0) - want).abs().max()) <= tol and bool((want.abs() > tol).any())
+    u0v = torch.tensor(rng.uniform(-1.5, 1.5, (2048, 2)), **f32)
+    run = fe.make_cuda_fd_ensemble_vec(
+        f_comps=lambda us, t: (us[1], (1.0 - us[0] * us[0]) * us[1] - us[0]),
+        jac_comps=lambda us, t: ((0.0, 1.0), (-2.0 * us[0] * us[1] - 1.0, 1.0 - us[0] * us[0])),
+        d=2, n_steps=s, ref_factor=rf, dt=0.25, device=device)
+    stats = {}
+    want = fe.fd_ensemble_vec_plain(u0v, run.plan, stats)
+    tol = fe.fd_kernel_tolerance(stats, rf, d=2)
+    assert float((run(u0v) - want).abs().max()) <= tol and bool((want.abs() > tol).any())
+    dt_b = torch.tensor(rng.uniform(0.05, 0.4, (256, s)), **f32)
+    dt_b[::3, -2:] = 0.0  # zero-width padding steps
+    u0 = u0[:256].contiguous()
+    run = fe.make_cuda_fd_estimate_per_member(f=_logistic, f_u=f_u, n_steps=s, ref_factor=rf,
+                                              device=device)
+    err, _ = run(dt_b, u0)
+    stats = {}
+    want, _ = fe.fd_estimate_per_member_plain(dt_b, u0, run.plan, stats)
+    tol = fe.fd_kernel_tolerance(stats, rf)
+    assert float((err - want).abs().max()) <= tol and bool((want.abs() > tol).any())
+    assert bool((err[dt_b == 0] == 0).all())
+
+
+@pytest.mark.parametrize("mode", ["solve", "reconstruct"])
+def test_traced_dg_kernels_match_their_plain_versions(device, mode):
+    """D1 and H1 on a traced f (f_u derived on Dual<float>) and g_u = 1/u
+    within their per-element bounds; g_u stays finite at H1's padding."""
+    rng = np.random.default_rng(4)
+    f32 = dict(dtype=torch.float32, device=device)
+    b, k = 256, 6
+    t = np.full((b, k + 1), 2.0)
+    ns = np.ones((b, k), np.int64)
+    for m in range(b):
+        live = int(rng.integers(2, k + 1))
+        t[m, : live + 1] = np.concatenate([[0.0], np.sort(rng.uniform(0.1, 1.9, live - 1)), [2.0]])
+        ns[m, :live] = rng.integers(1, 4, live)
+    times, y0 = torch.tensor(t, **f32), torch.tensor(rng.uniform(0.2, 0.8, b), **f32)
+    run = ds.make_cuda_dg_estimate_ensemble(ops_p=dg_time_operators(1), ops_a=dg_time_operators(2),
+                                            f=_logistic, n_elements=k, newton_iters=6,
+                                            g_u=_inverse, device=device)
+    want = ds.dg_estimate_ensemble_plain(times, y0, run.plan)
+    tol = ds.dg_kernel_tolerance(times, y0, want, run.plan)
+    for name, g, w in zip(("u", "v", "err"), run(times, y0), want):
+        assert bool(((g - w).abs().double() <= tol[name]).all()), name
+    assert bool((want[2].abs() > tol["err"]).any())
+    mops = dg_time_operators_mixed(5)
+    run = hm.make_cuda_dg_estimate_hp_per_member(
+        mops=mops, interp=dg_adjoint_interp_mixed(mops), f=_logistic, n_elements=k,
+        n_max_user=3, fine_offset=2, adjoint_mode=mode, rad=dg_radau_interp_mixed(mops),
+        g_u=_inverse, device=device)
+    ns = torch.tensor(ns, device=device)
+    got = run(times, ns, y0)
+    want = hm.dg_estimate_hp_per_member_plain(times, ns, y0, run.plan)
+    tol = hm.hp_kernel_tolerance(times, ns, y0, want, run.plan)
+    for name, g, w in zip(("u_c", "u_f", "v", "err"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert bool(((g - w).abs().double() <= tol[name]).all()), name
+    assert bool((want[3].abs() > tol["err"]).any())
+
+
+def test_untraceable_callables_raise_on_the_card(device):
+    """A reduction is no elementwise op: every entry point raises, nothing
+    launches, nothing falls back to the plain version."""
+    def bad(u, t):
+        return torch.sum(u) * u
+
+    before = (fe.fd_ensemble.launches, ds.dg_estimate_ensemble.launches)
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        fe.make_cuda_fd_ensemble(f=bad, f_u=bad, n_steps=4, ref_factor=2, dt=0.1, device=device)
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        ds.make_cuda_dg_estimate_ensemble(ops_p=dg_time_operators(1),
+                                          ops_a=dg_time_operators(2), f=_logistic, g_u=bad,
+                                          device=device)
+    assert (fe.fd_ensemble.launches, ds.dg_estimate_ensemble.launches) == before

@@ -155,12 +155,13 @@ def test_engines_refuse_what_they_cannot_run():
     kw = dict(engine="cuda", maxit=1, device="cpu", dtype=torch.float32)
     for name in ("run_adaptive_dg_ensemble", "run_adaptive_dg_per_member"):
         loop = getattr(dg_loop, name)
-        with pytest.raises(ValueError, match="ode="):
-            loop(SIN.f, Y0S, (0.0, 2.0), **kw)
+        # with ode=None the engine traces f (and g_u): a reduction is no elementwise op
+        with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+            loop(lambda u, t: torch.sum(u) * u, Y0S, (0.0, 2.0), **kw)
         with pytest.raises(ValueError, match="float32"):
             loop(SIN.f, Y0S, (0.0, 2.0), ode=SIN, **{**kw, "dtype": torch.float64})
-        with pytest.raises(ValueError, match="g_u"):
-            loop(SIN.f, Y0S, (0.0, 2.0), ode=SIN, g_u=lambda u, t: 2 * u, **kw)
+        with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+            loop(SIN.f, Y0S, (0.0, 2.0), ode=SIN, g_u=lambda u, t: torch.sum(u) * u, **kw)
         with pytest.raises(ValueError, match="engine"):
             loop(SIN.f, Y0S, (0.0, 2.0), engine="pallas", device="cpu")
     with pytest.raises(ValueError, match="padded"):

@@ -100,14 +100,16 @@ def test_fast_trig_plain_version_agrees_with_libm():
 
 def test_entry_point_refuses_what_the_kernel_does_not_take():
     ops1, ops2 = dg_time_operators(1), dg_time_operators(2)
-    no_functor = odes.ODEProblem("du/dt=-u", lambda u, t: -u, f_u=lambda u, t: -torch.ones_like(u))
-    with pytest.raises(ValueError, match="kernel_id"):
-        ds.make_cuda_dg_estimate_ensemble(no_functor, ops1, ops2, 4, device="cpu")
+    # an ODE without a kernel_id and a bare g_u are traced: a reduction is not elementwise
+    untraceable = odes.ODEProblem("du/dt=-sum(u)", lambda u, t: -torch.sum(u) * u,
+                                  f_u=lambda u, t: -torch.ones_like(u))
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        ds.make_cuda_dg_estimate_ensemble(untraceable, ops1, ops2, 4, device="cpu")
     with pytest.raises(ValueError, match="scalar"):
         ds.make_cuda_dg_estimate_ensemble("harmonic_oscillator", ops1, ops2, 4, device="cpu")
-    with pytest.raises(ValueError, match="g_u"):
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
         ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", ops1, ops2, 4, device="cpu",
-                                          g_u=lambda u, t: 2.0 * u)
+                                          g_u=lambda u, t: torch.sum(u) * u)
     with pytest.raises(ValueError, match="Np <= 8"):
         ds.make_cuda_dg_estimate_ensemble("du/dt=sin(u)", dg_time_operators(7),
                                           dg_time_operators(8), 4, device="cpu")

@@ -108,7 +108,7 @@ def test_d1_plain_version_matches_the_jax_pipeline_with_g_u():
     k = 8
     times, y0s = _d1_inputs(k, 24, seed=4)
     run = _d1(1, k)
-    assert run.plan.gu_id == 1
+    assert run.plan.functors.gu_id == 1
     got = run(times, y0s)
     want = dg_estimate_batched(jops(1), jops(2), F_J, jnp.asarray(times.numpy()),
                                jnp.asarray(y0s.numpy()), g_u=GU_J, newton_iters=6)
@@ -172,8 +172,8 @@ def test_d1_tables_and_unit_goal():
     assert goal.size == base.size + na * na + na
     np.testing.assert_array_equal(goal[: base.size], base)
     np.testing.assert_array_equal(goal[base.size: base.size + na * na], ops_a.mass.ravel())
-    assert _d1(1, 4, g_u=functionals.get_functional("J=int(u)").g_u).plan.gu_id == 0
-    assert _d1(1, 4, g_u=U2).plan.gu_id == 1
+    assert _d1(1, 4, g_u=functionals.get_functional("J=int(u)").g_u).plan.functors.gu_id == 0
+    assert _d1(1, 4, g_u=U2).plan.functors.gu_id == 1
     assert _d1(2, 4).plan.tables32.size == goal.size
 
 
@@ -239,20 +239,30 @@ def test_hp_per_member_loop_with_g_u_matches_jax():
 
 
 def test_the_cuda_engine_refuses_a_bare_g_u():
-    bare = lambda u, t: 2.0 * u  # noqa: E731
-    with pytest.raises(ValueError, match="registry functional"):
-        functionals.kernel_goal(bare)
-    with pytest.raises(ValueError, match="registry functional"):
+    """A bare g_u is traced into a device functor (ops/cuda/functor.py): one
+    outside the tracer's op set is refused on every path, as is a goal with
+    a terminal condition (J = u_N); a traceable one runs on a user library
+    (the user id), its plain g_u the traced callable's values."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import USER_KERNEL_ID
+
+    bare = lambda u, t: torch.sum(u) * u  # noqa: E731 - a reduction: no elementwise op
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
         _d1(1, 4, g_u=bare)
-    with pytest.raises(ValueError, match="registry functional"):
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
         _hp(4, g_u=bare)
-    with pytest.raises(ValueError, match="registry functional"):
-        _d1(1, 4, g_u=functionals.get_functional("J=u_N").g_u)
+    with pytest.raises(ValueError, match="terminal condition"):
+        _d1(1, 4, g_u=functionals.get_functional("J=u_N"))
     kw = dict(engine="cuda", ode=SIN, maxit=1, dtype=torch.float32, device="cpu", g_u=bare)
-    with pytest.raises(ValueError, match="registry functional"):
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
         dg_loop.run_adaptive_dg_per_member(SIN.f, np.ones(4), (0.0, 2.0), **kw)
-    with pytest.raises(ValueError, match="registry functional"):
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
         hp_loop.run_adaptive_dg_hp_per_member(SIN.f, np.ones(4), (0.0, 2.0), **kw)
+    traced = lambda u, t: 2.0 * u  # noqa: E731
+    assert functionals.kernel_goal(traced).kernel_id is None
+    for plan in (_d1(1, 4, g_u=traced).plan, _hp(4, g_u=traced).plan):
+        assert plan.functors.gu_id == USER_KERNEL_ID and plan.functors.header is not None
+        x = torch.linspace(0.5, 2.0, 7, dtype=torch.float64)
+        assert torch.equal(plan.functors.g_u(x, x), traced(x, x))
     # the torch engine keeps taking any callable
     hist = dg_loop.run_adaptive_dg_per_member(SIN.f, np.ones(4), (0.0, 2.0), maxit=1, g_u=bare,
                                               dtype=torch.float64, device="cpu")

@@ -154,13 +154,15 @@ def test_entry_point_refuses_what_the_kernel_does_not_take():
     interp = dg_adjoint_interp_mixed(mops)
     make = hm.make_cuda_dg_estimate_hp_per_member
     kw = dict(n_max_user=N_USER, device="cpu")
-    no_functor = odes.ODEProblem("du/dt=-u", lambda u, t: -u, f_u=lambda u, t: -torch.ones_like(u))
-    with pytest.raises(ValueError, match="kernel_id"):
-        make(no_functor, mops, interp, 4, **kw)
+    # an ODE without a kernel_id and a bare g_u are traced: a reduction is not elementwise
+    untraceable = odes.ODEProblem("du/dt=-sum(u)", lambda u, t: -torch.sum(u) * u,
+                                  f_u=lambda u, t: -torch.ones_like(u))
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        make(untraceable, mops, interp, 4, **kw)
     with pytest.raises(ValueError, match="scalar"):
         make("harmonic_oscillator", mops, interp, 4, **kw)
-    with pytest.raises(ValueError, match="g_u"):
-        make("du/dt=sin(u)", mops, interp, 4, g_u=lambda u, t: 2 * u, **kw)
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        make("du/dt=sin(u)", mops, interp, 4, g_u=lambda u, t: torch.sum(u) * u, **kw)
     with pytest.raises(ValueError, match="n_max_user"):
         make("du/dt=sin(u)", mops, interp, 4, n_max_user=N_USER, fine_offset=1, device="cpu")
     with pytest.raises(ValueError, match="fine_offset"):

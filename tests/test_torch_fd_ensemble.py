@@ -165,9 +165,11 @@ def test_fd_estimate_per_member_plain_time_dependent_matches_xla(convention):
 
 
 def test_entry_points_refuse_what_the_kernels_do_not_take():
-    no_functor = odes.ODEProblem("du/dt=-u", lambda u, t: -u, f_u=lambda u, t: -torch.ones_like(u))
-    with pytest.raises(ValueError, match="kernel_id"):
-        fe.make_cuda_fd_ensemble(no_functor, 4, 4, 0.1, device="cpu")
+    # an ODE without a kernel_id is traced: a reduction is not elementwise
+    untraceable = odes.ODEProblem("du/dt=-sum(u)", lambda u, t: -torch.sum(u) * u,
+                                  f_u=lambda u, t: -torch.ones_like(u))
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        fe.make_cuda_fd_ensemble(untraceable, 4, 4, 0.1, device="cpu")
     with pytest.raises(ValueError, match="vector"):
         fe.make_cuda_fd_ensemble_vec("du/dt=sin(u)", 4, 4, 0.1, device="cpu")
     with pytest.raises(ValueError, match="scalar"):

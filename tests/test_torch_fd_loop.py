@@ -176,9 +176,12 @@ def test_per_member_cuda_engine_refuses_what_its_kernel_cannot_run():
     kw = dict(engine="cuda", maxit=1, **CPU)
     with pytest.raises(ValueError, match="ode="):
         fd_loop.run_adaptive_fd_per_member(_step(), U0S, (0.0, 2.0), **kw)
-    no_functor = odes.ODEProblem("du/dt=-u", lambda u, t: -u)
-    with pytest.raises(ValueError, match="kernel_id"):
-        fd_loop.run_adaptive_fd_per_member(_step(), U0S, (0.0, 2.0), ode=no_functor, **kw)
+    # an ODEProblem without a kernel_id (or ode_f) is traced: a reduction is not elementwise
+    untraceable = odes.ODEProblem("du/dt=-sum(u)", lambda u, t: -torch.sum(u) * u)
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        fd_loop.run_adaptive_fd_per_member(_step(), U0S, (0.0, 2.0), ode=untraceable, **kw)
+    with pytest.raises(ValueError, match="cannot trace.*torch.sum"):
+        fd_loop.run_adaptive_fd_per_member(_step(), U0S, (0.0, 2.0), ode_f=untraceable.f, **kw)
     with pytest.raises(ValueError, match="J=int"):
         fd_loop.run_adaptive_fd_per_member(_step(), U0S, (0.0, 2.0), ode=SIN,
                                            functional_name="J=u_N", **kw)

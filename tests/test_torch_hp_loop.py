@@ -223,9 +223,11 @@ def test_loops_refuse_what_they_cannot_run():
                            (dict(n0=5), "n0"), (dict(adjoint_mode="x"), "adjoint_mode"),
                            (dict(fine_offset=0), "fine_offset"),
                            (dict(engine="cuda", ode=SIN, dtype=torch.float64), "float32"),
-                           (dict(engine="cuda", dtype=torch.float32), "ode="),
+                           # ode=None traces f; g_u is traced: neither may reduce
+                           (dict(engine="cuda", dtype=torch.float32,
+                                 f_u=lambda u, t: torch.sum(u) * u), "cannot trace"),
                            (dict(engine="cuda", ode=SIN, dtype=torch.float32,
-                                 g_u=lambda u, t: 2 * u), "g_u")):
+                                 g_u=lambda u, t: torch.sum(u) * u), "cannot trace")):
             with pytest.raises(ValueError, match=match):
                 loop(SIN.f, Y0S, (0.0, 2.0), **bad, **kw)
     with pytest.raises(ValueError, match="ensemble"):

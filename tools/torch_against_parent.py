@@ -184,7 +184,7 @@ def parent_f1(par, u0s, plan):
     n = u0s.shape[0]
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = par.fd_ensemble(
-        plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data, n,
+        plan.functors.ode_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data, n,
         plan.n_steps, plan.rf, plan.grid32.data_ptr(), u0s.data_ptr(), err.data_ptr(),
         torch.cuda.current_stream(u0s.device).cuda_stream)
     if code != 0:
@@ -206,7 +206,7 @@ def parent_f3_call(dt_b, u0s, plan):
     out = torch.empty(b * (n_steps + 1), dtype=torch.float32, device=u0s.device)
     err, j_val = out[: b * n_steps].view(b, n_steps), out[b * n_steps:]
     code = lib.lib.fd_estimate_per_member(
-        plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps,
+        plan.functors.ode_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps,
         plan.rf, int(plan.convention == "block"), plan.t0, launch.lanes, launch.threads,
         fe.pm_window(launch, plan.n_steps, plan.rf), dt_b.data_ptr(), u0s.data_ptr(),
         err.data_ptr(), j_val.data_ptr(), torch.cuda.current_stream(u0s.device).cuda_stream)
@@ -314,7 +314,7 @@ def parent_f2(par, u0s, plan):
     n = u0s.shape[0]
     u0t = u0s.T.contiguous()
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
-    code = par.fd_ensemble_vec(plan.ode.kernel_id, n, plan.n_steps, plan.rf, plan.grid_ptr,
+    code = par.fd_ensemble_vec(plan.functors.ode_id, n, plan.n_steps, plan.rf, plan.grid_ptr,
                                u0t.data_ptr(), err.data_ptr(),
                                torch._C._cuda_getCurrentRawStream(u0s.device.index))
     if code != 0:

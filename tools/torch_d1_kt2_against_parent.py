@@ -132,7 +132,7 @@ def d1_on(lib, times, y0, plan, *, host_tables=False, launch=None):
     u = torch.empty((k, plan.ops_p.np_, b), dtype=torch.float32, device=y0.device)
     v = torch.empty((k, plan.ops_a.np_, b), dtype=torch.float32, device=y0.device)
     err = torch.empty((k, b), dtype=torch.float32, device=y0.device)
-    head = (plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data)
+    head = (plan.functors.ode_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data)
     shape = (plan.ops_p.np_, plan.ops_p.phi.shape[0], plan.ops_a.phi.shape[0], b, k,
              plan.newton_iters, int(pm))
     stream = torch.cuda.current_stream(y0.device).cuda_stream
@@ -142,8 +142,8 @@ def d1_on(lib, times, y0, plan, *, host_tables=False, launch=None):
                                         *shape, t.data_ptr(), y0.data_ptr(), u.data_ptr(),
                                         v.data_ptr(), err.data_ptr(), stream)
     else:
-        code = lib.dg_estimate_ensemble(*head[:2], plan.gu_id, *head[2:], plan.tables.data_ptr(),
-                                        plan.tables.numel(), *shape,
+        code = lib.dg_estimate_ensemble(*head[:2], plan.functors.gu_id, *head[2:],
+                                        plan.tables.data_ptr(), plan.tables.numel(), *shape,
                                         launch.lanes, launch.threads, times.data_ptr(),
                                         y0.data_ptr(), u.data_ptr(), v.data_ptr(), err.data_ptr(),
                                         stream)

@@ -120,7 +120,7 @@ def main() -> int:
         v = torch.empty((k, plan.ops_a.np_, b), device=device)
         err = torch.empty((k, b), device=device)
         code = parent.dg_estimate_ensemble(
-            plan.ode.kernel_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data,
+            plan.functors.ode_id, int(plan.trig == "fast"), *plan.n_modes, plan.consts.ctypes.data,
             plan.tables.data_ptr(), plan.tables.numel(), plan.ops_p.np_, plan.ops_p.phi.shape[0],
             plan.ops_a.phi.shape[0], b, k, plan.newton_iters, int(times.dim() == 2),
             launch.lanes, launch.threads, times.data_ptr(), y0.data_ptr(), u.data_ptr(),
@@ -156,7 +156,7 @@ def main() -> int:
         err = torch.empty((k, b), device=device)
         t_k, ns_k = times.T.contiguous(), ns.T.to(torch.int32).contiguous()
         code = parent.dg_estimate_hp_per_member(
-            plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, plan.tables.data_ptr(),
+            plan.functors.ode_id, *plan.n_modes, plan.consts.ctypes.data, plan.tables.data_ptr(),
             plan.tables.numel(), np_m, plan.mops.rq.shape[0], plan.mops.n_max, plan.fine_offset,
             int(plan.adjoint_mode == "reconstruct"), launch.lanes, launch.threads, b, k,
             plan.newton_iters, t_k.data_ptr(), ns_k.data_ptr(), y0.data_ptr(),

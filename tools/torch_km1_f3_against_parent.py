@@ -112,7 +112,7 @@ def parent_f3(par, dt_b, u0s, plan):
     err = torch.empty((plan.n_steps, b), dtype=torch.float32, device=u0s.device)
     j = torch.empty((b,), dtype=torch.float32, device=u0s.device)
     code = par.fd_estimate_per_member(
-        plan.ode.kernel_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps, plan.rf,
+        plan.functors.ode_id, *plan.n_modes, plan.consts.ctypes.data, b, plan.n_steps, plan.rf,
         int(plan.convention == "block"), plan.t0, dt_t.data_ptr(), u0s.data_ptr(), err.data_ptr(),
         j.data_ptr(), torch.cuda.current_stream(u0s.device).cuda_stream)
     if code != 0:
