@@ -77,7 +77,7 @@
 
 namespace {
 
-constexpr int kMaxNp = 8;
+constexpr int kMaxNp = 16;
 
 template <typename T>
 struct Tables {
@@ -358,6 +358,8 @@ int dispatch(int np, int nb, int nk, int n_steps, int limiter, const Plan& p,
     return by_threads<T, N>(nb, nk, n_steps, limiter, tables, geom, p, u0,     \
                             u_out, ubuf, launches, st);
     AOA_CASE(2) AOA_CASE(3) AOA_CASE(4) AOA_CASE(5) AOA_CASE(6) AOA_CASE(7) AOA_CASE(8)
+    AOA_CASE(9) AOA_CASE(10) AOA_CASE(11) AOA_CASE(12) AOA_CASE(13) AOA_CASE(14)
+    AOA_CASE(15) AOA_CASE(16)
 #undef AOA_CASE
     default: return -1;
   }
@@ -394,7 +396,7 @@ int burgers_march_f64(int np, int nb, int nk, int n_steps, int limiter,
 }
 
 const char* burgers_error_string(int code) {
-  if (code == -1) return "unsupported Np (the kernel takes 2 <= Np <= 8)";
+  if (code == -1) return "unsupported Np (the kernel takes 2 <= Np <= 16)";
   if (code == -2) return "unknown limiter (0 = N, 1 = 1, 2 = none)";
   if (code == -3) return "bad shape (1 <= B <= 65535, K >= 2, n_steps >= 1)";
   if (code == -4)

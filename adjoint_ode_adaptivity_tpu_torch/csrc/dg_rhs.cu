@@ -90,6 +90,14 @@
 // its bytes) and the carried state once per launch. PERF.md holds the
 // measured times.
 //
+// Np 2-16 (N = 1-15) take the same kernels: every array is sized by the
+// template's NP and the folded tables ride the launch at kMaxNp = 16 (1.1 KB
+// of parameters). At Np 9-16 the forward and adjoint kernels hold 40-64
+// registers a thread at 1024 threads with no spill; the reverse takes 512
+// threads there (113-128 registers; 8-148 bytes spilled at Np 13-16, 208-1588
+// at 1024 threads), which stored_plan and recompute_plan keep to (nvcc
+// -Xptxas -v, tools/torch_high_order_plans.py).
+//
 // Alternatives weighed. A cooperative kernel with grid.sync() per stage
 // still syncs 5 (K1, KA) or 20 (K2) times a step across the whole card; a
 // CUDA graph of a per-stage loop still runs a kernel a stage, each round-tripping
@@ -574,9 +582,9 @@ int dg_fwd_march(int np, int nb, int nk, int n_steps, int store_every,
   *launches = 0;
   if (check_fwd_plan(nk, p) != 0 || n_steps < 1 || store_every < 1 || n_first < 0)
     return -4;
-  AOA_NP_SWITCH(np, fwd_march_np<NP>(nb, nk, n_steps, store_every, n_first, t0, dt,
-                                     a, rk, tables, g, p, u0, store, u_final, ubuf,
-                                     launches, static_cast<cudaStream_t>(stream)))
+  AOA_NP16_SWITCH(np, fwd_march_np<NP>(nb, nk, n_steps, store_every, n_first, t0, dt,
+                                       a, rk, tables, g, p, u0, store, u_final, ubuf,
+                                       launches, static_cast<cudaStream_t>(stream)))
 }
 
 // K2 (and KT2 at B = 1) with the plan (seg = s_f, tile_l = L, ghost = W,
@@ -598,10 +606,10 @@ int dg_adj_est_stored(int np, int nb, int nk, int n_steps, int n_first, int seg,
   const FusedPlan p{seg, tile_l, ghost, threads};
   *launches = 0;
   if (check_plan(nk, p) != 0 || n_steps < 1 || n_first < 0) return -3;
-  AOA_NP_SWITCH(np, adj_est_stored_np<NP>(
-                        nb, nk, n_steps, n_first, t0, dt, a, rk, half_tables, g, p,
-                        traj, u_final, lam_end, lam0, eta, lbuf, launches,
-                        static_cast<cudaStream_t>(stream)))
+  AOA_NP16_SWITCH(np, adj_est_stored_np<NP>(
+                          nb, nk, n_steps, n_first, t0, dt, a, rk, half_tables, g, p,
+                          traj, u_final, lam_end, lam0, eta, lbuf, launches,
+                          static_cast<cudaStream_t>(stream)))
 }
 
 // K2r: ckpt (n_steps / segment, Np, B, K), K1's checkpoints; scratch holds
@@ -620,10 +628,10 @@ int dg_adj_est_recompute(int np, int nb, int nk, int n_steps, int segment,
   const FusedPlan p{seg, tile_l, ghost, threads};
   *launches = 0;
   if (check_plan(nk, p) != 0 || segment < 1 || n_steps % segment != 0) return -3;
-  AOA_NP_SWITCH(np, adj_est_recompute_np<NP>(
-                        nb, nk, n_steps, segment, t0, dt, a, rk, tables,
-                        half_tables, g, p, ckpt, lam_end, lam0, eta, scratch,
-                        lbuf, launches, static_cast<cudaStream_t>(stream)))
+  AOA_NP16_SWITCH(np, adj_est_recompute_np<NP>(
+                          nb, nk, n_steps, segment, t0, dt, a, rk, tables,
+                          half_tables, g, p, ckpt, lam_end, lam0, eta, scratch,
+                          lbuf, launches, static_cast<cudaStream_t>(stream)))
 }
 
 // KA with the plan (seg = s_f, tile_l = L, ghost = W, threads): λ0 =
@@ -638,13 +646,13 @@ int dg_adj_march(int np, int nb, int nk, int n_steps, int seg, int tile_l,
   const FusedPlan p{seg, tile_l, ghost, threads};
   *launches = 0;
   if (check_adj_plan(nk, p) != 0 || n_steps < 1) return -5;
-  AOA_NP_SWITCH(np, adj_march_np<NP>(nb, nk, n_steps, rk, tables, g, p, lam_end,
-                                     lam0, lbuf, launches,
-                                     static_cast<cudaStream_t>(stream)))
+  AOA_NP16_SWITCH(np, adj_march_np<NP>(nb, nk, n_steps, rk, tables, g, p, lam_end,
+                                       lam0, lbuf, launches,
+                                       static_cast<cudaStream_t>(stream)))
 }
 
 const char* dg_error_string(int code) {
-  if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 8)";
+  if (code == -1) return "unsupported Np (the kernels take 2 <= Np <= 16)";
   if (code == -3)
     return "fused plan out of range (1 <= s_f <= 16, W >= 10*s_f + 10, 512 or "
            "1024 threads holding the window; n_steps >= 1, a multiple of segment; "

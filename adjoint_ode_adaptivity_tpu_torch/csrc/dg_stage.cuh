@@ -19,7 +19,7 @@
 
 namespace aoa_dg {
 
-constexpr int kMaxNp = 8;
+constexpr int kMaxNp = 16;
 
 struct StepTables {
   float drc[kMaxNp * kMaxNp];  // (Np, Np) row-major, row stride Np
@@ -150,14 +150,25 @@ __device__ __forceinline__ void stage_t(const float* lu, const float* w,
 
 }  // namespace aoa_dg
 
-#define AOA_NP_SWITCH(np, CALL)                    \
-  switch (np) {                                    \
-    case 2: { constexpr int NP = 2; return CALL; } \
-    case 3: { constexpr int NP = 3; return CALL; } \
-    case 4: { constexpr int NP = 4; return CALL; } \
-    case 5: { constexpr int NP = 5; return CALL; } \
-    case 6: { constexpr int NP = 6; return CALL; } \
-    case 7: { constexpr int NP = 7; return CALL; } \
-    case 8: { constexpr int NP = 8; return CALL; } \
-    default: return -1;                            \
+#define AOA_NP_CASE(N, CALL) \
+  case N: { constexpr int NP = N; return CALL; }
+
+// Np 2-8: every kernel of these stages.
+#define AOA_NP_SWITCH(np, CALL)                                            \
+  switch (np) {                                                            \
+    AOA_NP_CASE(2, CALL) AOA_NP_CASE(3, CALL) AOA_NP_CASE(4, CALL)         \
+    AOA_NP_CASE(5, CALL) AOA_NP_CASE(6, CALL) AOA_NP_CASE(7, CALL)         \
+    AOA_NP_CASE(8, CALL)                                                   \
+    default: return -1;                                                    \
+  }
+
+// Np 2-16: csrc/dg_rhs.cu's kernels (K1, K2, K2r, KA) also take N = 8-15.
+#define AOA_NP16_SWITCH(np, CALL)                                          \
+  switch (np) {                                                            \
+    AOA_NP_CASE(2, CALL) AOA_NP_CASE(3, CALL) AOA_NP_CASE(4, CALL)         \
+    AOA_NP_CASE(5, CALL) AOA_NP_CASE(6, CALL) AOA_NP_CASE(7, CALL)         \
+    AOA_NP_CASE(8, CALL) AOA_NP_CASE(9, CALL) AOA_NP_CASE(10, CALL)        \
+    AOA_NP_CASE(11, CALL) AOA_NP_CASE(12, CALL) AOA_NP_CASE(13, CALL)      \
+    AOA_NP_CASE(14, CALL) AOA_NP_CASE(15, CALL) AOA_NP_CASE(16, CALL)      \
+    default: return -1;                                                    \
   }

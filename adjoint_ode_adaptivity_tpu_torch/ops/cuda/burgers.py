@@ -21,7 +21,10 @@ ghosts. :func:`burgers_plan` picks the schedule under a cost model fitted
 on the card, and :func:`burgers_march_fused_plain` runs the same schedule
 in plain PyTorch (the same tiles, windows, remainders and per-element
 geometry), bit-equal to the untiled plain version: the ghost rule (W ≥
-10·s_f limited, 5·s_f unlimited) is tested there.
+10·s_f limited, 5·s_f unlimited) is tested there. The kernel takes Np
+2-16 (N = 1-15), one thread an element at every order; above Np = 8 the
+plans price a step by the high-order fit (:data:`HIGH_NP_COST`) and take
+512-thread CTAs.
 
 The plain version equals ``march/burgers.py::burgers_march`` per batch
 member up to the order of operations (the step size is folded into the
@@ -55,7 +58,9 @@ __all__ = [
     "make_cuda_burgers_march_single",
 ]
 
-MIN_NP, MAX_NP = 2, 8
+# Np 2-16: csrc/burgers.cu's folded tables (kMaxNp = 16) and the instances
+# it builds; float64 at 512 threads already spills 52-372 bytes at Np 11-16
+MIN_NP, MAX_NP = 2, 16
 LIMITER_IDS = {"n": 0, "1": 1, "none": 2}
 EPS0 = 1.0e-8  # the troubled-cell threshold of utils/SlopeLimitN.m
 
@@ -87,7 +92,8 @@ def burgers_tables(disc: Discretization1D, dt: float, limiter: str = "n",
     if limiter not in LIMITER_IDS:
         raise ValueError(f"limiter {limiter!r}: expected one of {tuple(LIMITER_IDS)}")
     if not MIN_NP <= disc.np_ <= MAX_NP:
-        raise ValueError(f"Np={disc.np_}: the kernel takes {MIN_NP} <= Np <= {MAX_NP}")
+        raise ValueError(f"Np={disc.np_}: the kernel takes {MIN_NP} <= Np <= {MAX_NP} "
+                         f"(MAX_NP = {MAX_NP}: an element's nodes in one thread's registers)")
     device = require_device(device)
     v, inv_v, dr = (np.asarray(m, dtype=np.float64) for m in (disc.v, disc.inv_v, disc.dr))
     n_lin = min(2, disc.np_)
@@ -235,6 +241,12 @@ BURGERS_STEP_WARP_US = 0.17
 LAUNCH_US = 3.74
 MIN_WARPS = 16
 H100_SMS = 132
+# Above Np = 8: (c0, c2, launch) -> c0 + c2·Np² µs a step for each warp the
+# busiest SM holds, plus launch µs a launch, least squares over
+# tools/torch_high_order_plans.py's sweep (float32 ΠN, K = 10⁴, B = 8, 256
+# steps, Np 9, 12 and 16, every candidate plan, 512-thread CTAs) on an
+# NVIDIA H100 80GB HBM3 at 700 W; its plans there were the fastest measured.
+HIGH_NP_COST = (0.23514, 0.001397, 7.09)
 
 
 def ghost_rule(limiter: str) -> int:
@@ -253,11 +265,12 @@ def window_of(k: int, plan: BurgersPlan) -> int:
     return k if is_ring(k, plan) else min(plan.tile, k) + 2 * plan.ghost
 
 
-def _threads_for(f64: bool):
-    """The CTA sizes the plans take: float32 512 or 1024 threads at every
-    Np (ptxas -v: 34-55 registers, no spills); float64 is built for 512
-    only (50-114 registers)."""
-    return CTA_THREADS[:1] if f64 else CTA_THREADS
+def _threads_for(f64: bool, np_: int):
+    """The CTA sizes the plans take: float32 512 or 1024 threads through
+    Np = 8 (ptxas -v: 38-64 registers, no spills), 512 above (1024 spills
+    20-196 bytes from Np = 11; 512 measured fastest at Np 9, 12 and 16);
+    float64 is built for 512 only (54-128 registers)."""
+    return CTA_THREADS[:1] if f64 or np_ > 8 else CTA_THREADS
 
 
 def burgers_fused_plan(k: int, steps: int, threads: int = 512, limiter: str = "n") -> BurgersPlan:
@@ -275,20 +288,23 @@ def burgers_fused_plan(k: int, steps: int, threads: int = 512, limiter: str = "n
     return BurgersPlan(steps, ghost, tile, -(-k // tile), threads)
 
 
-def _cost(k: int, b: int, n_steps: int, plan: BurgersPlan, sms: int) -> float:
+def _cost(k: int, b: int, np_: int, n_steps: int, plan: BurgersPlan, sms: int) -> float:
     """Modelled µs of ``plan``: n_steps times the busiest SM's warps (CTAs
-    dealt round-robin; at least MIN_WARPS), plus the launches."""
+    dealt round-robin; at least MIN_WARPS) at BURGERS_STEP_WARP_US a step
+    (above Np = 8 :data:`HIGH_NP_COST`'s), plus the launches."""
+    step_us, launch_us = BURGERS_STEP_WARP_US, LAUNCH_US
+    if np_ > 8:
+        step_us, launch_us = HIGH_NP_COST[0] + HIGH_NP_COST[1] * np_ * np_, HIGH_NP_COST[2]
     warps = -(-plan.n_tiles * b // sms) * -(-window_of(k, plan) // 32)
-    return (n_steps * max(warps, MIN_WARPS) * BURGERS_STEP_WARP_US
-            + -(-n_steps // plan.segment) * LAUNCH_US)
+    return n_steps * max(warps, MIN_WARPS) * step_us + -(-n_steps // plan.segment) * launch_us
 
 
-def _plans(k: int, b: int, n_steps: int, limiter: str, f64: bool, sms: int):
+def _plans(k: int, b: int, np_: int, n_steps: int, limiter: str, f64: bool, sms: int):
     """The candidates: one tile of the whole ring where a CTA holds it (one
     launch), then for s_f ∈ {2, 4, 8, 16} (at most n_steps) and each CTA
     size every tiling from the fewest tiles a CTA holds to one more CTA an
     SM (each tile count's L = ⌈K/tiles⌉)."""
-    threads_opts = _threads_for(f64)
+    threads_opts = _threads_for(f64, np_)
     for threads in threads_opts:
         if k <= threads:
             yield BurgersPlan(n_steps, 0, k, 1, threads)
@@ -306,19 +322,19 @@ def _plans(k: int, b: int, n_steps: int, limiter: str, f64: bool, sms: int):
 
 
 @functools.lru_cache(maxsize=256)
-def burgers_plan(k: int, b: int, n_steps: int, limiter: str = "n",
+def burgers_plan(k: int, b: int, np_: int, n_steps: int, limiter: str = "n",
                  f64: bool = False, sms: int = H100_SMS) -> BurgersPlan:
-    """B1's plan for K elements, B members and n_steps ≥ 1 steps with
-    ``limiter`` in float32 (or ``f64``) on a card of ``sms`` SMs (the model
-    is fitted at Np = 3 and 5 and taken for every Np): of :func:`_plans`,
-    whichever minimises
+    """B1's plan for K elements, B members, Np nodes and n_steps ≥ 1 steps
+    with ``limiter`` in float32 (or ``f64``) on a card of ``sms`` SMs (the
+    model is fitted at Np = 3 and 5 and taken through Np = 8; above, the
+    high-order fit): of :func:`_plans`, whichever minimises
     :func:`_cost`; a tie goes to the first found (the ring, then the fewest
     steps, 512 threads, the fewest tiles)."""
     if n_steps < 1:
         raise ValueError(f"n_steps={n_steps}: a plan needs at least one step")
     best = None
-    for plan in _plans(k, b, n_steps, limiter, f64, sms):
-        cost = _cost(k, b, n_steps, plan, sms)
+    for plan in _plans(k, b, np_, n_steps, limiter, f64, sms):
+        cost = _cost(k, b, np_, n_steps, plan, sms)
         if best is None or cost < best[0]:
             best = (cost, plan)
     return best[1]
@@ -382,7 +398,7 @@ def burgers_march(u0: torch.Tensor, n_steps: int, tab: BurgersTables) -> torch.T
         raise ValueError("u0 must be contiguous")
     if n_steps == 0:
         return u0.clone()
-    plan = burgers_plan(tab.k, u0.shape[1], n_steps, tab.limiter,
+    plan = burgers_plan(tab.k, u0.shape[1], tab.np_, n_steps, tab.limiter,
                         u0.dtype == torch.float64, _sm_count(u0.device))
     u, burgers_march.cuda_launches = _b1_launch(u0, n_steps, tab, plan)
     burgers_march.launches += 1

@@ -58,7 +58,6 @@ from adjoint_ode_adaptivity_tpu_torch.ops.cuda.dg_rhs import (
     FUSED_CANDIDATE_STEPS,
     H100_SMS,
     LAUNCH_US,
-    MAX_NP,
     MIN_NP,
     _RK,
     FusedPlan,
@@ -90,6 +89,8 @@ __all__ = [
     "reset_launch_counts",
     "make_cuda_fwd_adj_estimate_grid_mxu",
 ]
+
+MAX_NP = 8  # KM1/KM2 take Np 2-8, as the JAX package's dg_mxu.py
 
 
 class MxuTables(NamedTuple):

@@ -58,6 +58,11 @@ the plain versions alike, so the recompute pipeline reproduces the stored
 one bit for bit: the recomputed states are K1's trajectory and K2r's sweep
 is K2's.
 
+The kernels take Np 2-16 (N = 1-15): one thread holds an element's nodes in
+registers at every order (csrc/dg_rhs.cu); above Np = 8 the plan functions
+price a step by the high-order fit (:data:`HIGH_NP_FWD_COST` and its kin)
+and K2 keeps to 512-thread CTAs. Above Np = 16 :func:`kernel_ops` raises.
+
 Geometry is always per element (rx, fscale_left, fscale_right), so graded
 meshes need no special path; the unbatched entry points keep the JAX
 package's uniform-mesh contract (``_check_uniform``). The step size is
@@ -111,7 +116,10 @@ __all__ = [
     "make_cuda_fwd_adj_estimate_grid",
 ]
 
-MIN_NP, MAX_NP = 2, 8
+# Np 2-16: the folded tables' size (csrc/dg_stage.cuh's kMaxNp) and the
+# instances csrc/dg_rhs.cu builds; K2 at 512 threads already spills 8-148
+# bytes at Np 13-16 (nvcc -Xptxas -v)
+MIN_NP, MAX_NP = 2, 16
 _RK = np.ascontiguousarray(np.concatenate([RK4A, RK4B, RK4C]), dtype=np.float64)
 MAX_FUSED = 16  # csrc/dg_rhs.cu's kMaxFused: the inflow table rides the launch
 MAX_FWD_FUSED = 32  # its kMaxFwdFused: 5 inflow values a forward step in the same table
@@ -165,7 +173,8 @@ def kernel_ops(disc: Discretization1D, a: float, dt: float, device) -> KernelOps
     """Kernel operands for ``disc`` at step ``dt`` on ``device`` (upwind
     flux, alpha = 1, inflow BC −sin(a·t), as the TPU kernels)."""
     if not MIN_NP <= disc.np_ <= MAX_NP:
-        raise ValueError(f"Np={disc.np_}: the kernels take {MIN_NP} <= Np <= {MAX_NP}")
+        raise ValueError(f"Np={disc.np_}: the kernels take {MIN_NP} <= Np <= {MAX_NP} "
+                         f"(MAX_NP = {MAX_NP}: an element's nodes in one thread's registers)")
     device = require_device(device)
     geom = [
         torch.as_tensor(np.ascontiguousarray(g), dtype=torch.float64, device=device)
@@ -384,14 +393,34 @@ H100_SMS = 132
 FUSED_CANDIDATE_STEPS = (4, 8)
 FWD_CANDIDATE_STEPS = (4, 8, 16, 32)
 
+# Above Np = 8 a step's cost grows with the stages' Np×Np products and a
+# launch's with the tables and windows it loads: (c0, c2, launch) -> c0 +
+# c2·Np² µs a step for each warp the busiest SM holds, plus launch µs a
+# launch. K1's, K2's and KA's are least squares over
+# tools/torch_high_order_plans.py's sweep (K = 10⁴, B = 8, 256 steps, Np 9,
+# 12 and 16, every candidate plan, 512-thread CTAs) on an NVIDIA H100 80GB
+# HBM3 at 700 W; the plans they pick there ran within 0-17 % of the fastest
+# plan measured (the tool's `[picked]` lines). K2's c0 < 0 holds only over Np 9-16 (0.43-2.41 µs).
+HIGH_NP_FWD_COST = (0.02697, 0.001195, 6.52)
+HIGH_NP_REV_COST = (-0.47924, 0.011271, 9.78)
+HIGH_NP_ADJ_COST = (0.00108, 0.001554, 6.07)
+
+
+def _step_costs(np_: int, step_warp_us: float, high: tuple) -> tuple:
+    """(µs a step for each warp, µs a launch) at ``np_``: the Np ≤ 8 model's
+    ``step_warp_us`` and :data:`LAUNCH_US`, or the high-order fit ``high``."""
+    if np_ <= 8:
+        return step_warp_us, LAUNCH_US
+    return high[0] + high[1] * np_ * np_, high[2]
+
 
 def _fused_cost(k: int, b: int, n_steps: int, launches: int, plan: FusedPlan, sms: int,
-                step_warp_us: float = STEP_WARP_US) -> float:
+                step_warp_us: float = STEP_WARP_US, launch_us: float = LAUNCH_US) -> float:
     """Modelled µs of ``launches`` launches over n_steps steps: the warps of
     the busiest SM (CTAs dealt round-robin; at least MIN_WARPS) times the
-    steps, plus the launches."""
+    steps, plus ``launch_us`` a launch."""
     warps = -(-plan.n_tiles * b // sms) * -(-min(plan.tile + 2 * plan.ghost, k) // 32)
-    return n_steps * max(warps, MIN_WARPS) * step_warp_us + launches * LAUNCH_US
+    return n_steps * max(warps, MIN_WARPS) * step_warp_us + launches * launch_us
 
 
 def _tilings(k: int, b: int, sms: int, widest: FusedPlan):
@@ -414,29 +443,32 @@ def _cheapest(plans, cost_of) -> FusedPlan:
 
 
 def _balanced_plan(k: int, b: int, np_: int, n_steps: int, sms: int, steps_options,
-                   launches_of, step_warp_us: float = STEP_WARP_US) -> FusedPlan:
+                   launches_of, step_warp_us: float = STEP_WARP_US,
+                   launch_us: float = LAUNCH_US) -> FusedPlan:
     """K2's, K2r's or KM2's cheapest plan under :func:`_fused_cost` at
-    ``step_warp_us`` over s_f in ``steps_options``, 512- or 1024-thread CTAs
-    (1024 only where the reverse kernel holds its registers at 64 a thread
-    without spilling: Np ≤ 6, per nvcc -Xptxas -v) and every tiling
+    ``step_warp_us`` and ``launch_us`` over s_f in ``steps_options``, 512-
+    or 1024-thread CTAs (1024 only where the reverse kernel holds its
+    registers at 64 a thread without spilling: Np ≤ 6, per nvcc -Xptxas -v)
+    and every tiling
     (:func:`_tilings`); a tie goes to the fewest tiles and s_f = 4."""
     plans = (plan for steps in steps_options
              for threads in (FUSED_THREADS if np_ <= 6 else FUSED_THREADS[:1])
              for plan in _tilings(k, b, sms, fused_plan(k, steps, threads)))
     return _cheapest(plans, lambda plan: _fused_cost(k, b, n_steps, launches_of(plan.segment),
-                                                     plan, sms, step_warp_us))
+                                                     plan, sms, step_warp_us, launch_us))
 
 
 def _fwd_cost(k: int, b: int, np_: int, n_steps: int, store_every: int | None,
               plan: FusedPlan, sms: int) -> float:
     """K1's modelled µs on ``plan``: the issue time of :func:`_fused_cost`
-    at FWD_STEP_WARP_US a step, or the bytes K1 must move (u0, u_final and
-    the stored states) at 3.35 TB/s where those take longer, plus the
-    launches."""
+    at FWD_STEP_WARP_US a step (above Np = 8 :data:`HIGH_NP_FWD_COST`'s), or
+    the bytes K1 must move (u0, u_final and the stored states) at 3.35 TB/s
+    where those take longer, plus the launches."""
+    step_us, launch_us = _step_costs(np_, FWD_STEP_WARP_US, HIGH_NP_FWD_COST)
     launches = -(-n_steps // plan.segment)
-    issue = _fused_cost(k, b, n_steps, 0, plan, sms, FWD_STEP_WARP_US)
+    issue = _fused_cost(k, b, n_steps, 0, plan, sms, step_us)
     states = 2 + (-(-n_steps // store_every) if store_every else 0)
-    return max(issue, states * np_ * b * k * 4 / 3.35e6) + launches * LAUNCH_US
+    return max(issue, states * np_ * b * k * 4 / 3.35e6) + launches * launch_us
 
 
 def _window_plans(k: int, b: int, n_steps: int, sms: int):
@@ -458,7 +490,7 @@ def forward_plan(k: int, b: int, np_: int, n_steps: int, store_every: int | None
     """K1's plan for K elements, B members, Np nodes and n_steps steps,
     storing every store_every-th entry state (None: none), on a card of
     ``sms`` SMs: of :func:`_window_plans` (the forward kernel holds its
-    registers at 64 a thread at every Np, so 1024 threads serve every Np),
+    registers at 64 a thread through Np = 16, so 1024 threads serve every Np),
     whichever minimises :func:`_fwd_cost`: ⌈n_steps/s_f⌉ launches. A tie
     goes to the first found: the fewest steps, 512 threads, one tile."""
     return _cheapest(_window_plans(k, b, n_steps, sms),
@@ -469,13 +501,14 @@ def forward_plan(k: int, b: int, np_: int, n_steps: int, store_every: int | None
 def adjoint_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> FusedPlan:
     """KA's plan: :func:`forward_plan`'s search over :func:`_window_plans`
     (5 transposed stages a step couple ±1 element each, so W = 5·s_f as
-    K1's), under :func:`_fused_cost` at :data:`ADJ_STEP_WARP_US` a step with
-    ⌈n_steps/s_f⌉ launches; KA stores nothing. A thread holds λu, λr and its
-    geometry, 2·Np + 3 values, so 1024 threads serve every Np. A tie goes to
-    the first found."""
+    K1's), under :func:`_fused_cost` at :data:`ADJ_STEP_WARP_US` a step
+    (above Np = 8 :data:`HIGH_NP_ADJ_COST`'s) with ⌈n_steps/s_f⌉ launches;
+    KA stores nothing. A thread holds λu, λr and its geometry, 2·Np + 3
+    values, so 1024 threads serve every Np. A tie goes to the first found."""
+    step_us, launch_us = _step_costs(np_, ADJ_STEP_WARP_US, HIGH_NP_ADJ_COST)
     return _cheapest(_window_plans(k, b, n_steps, sms),
                      lambda plan: _fused_cost(k, b, n_steps, -(-n_steps // plan.segment), plan,
-                                              sms, ADJ_STEP_WARP_US))
+                                              sms, step_us, launch_us))
 
 
 # the search costs ~1 ms of host time at B = 1: once per shape
@@ -489,9 +522,11 @@ def stored_plan(k: int, b: int, np_: int, n_steps: int, sms: int = H100_SMS) -> 
     103 at Np = 8) and posts 16 bytes of traces a stage, 8 or 16 KB of shared
     memory a CTA: registers, not shared memory, limit the CTA. At the
     headline (K = 10⁴, B = 8, Np = 3, 2048 steps) it takes s_f = 8 on 16
-    tiles of 625 + 2·90 ghosts, 128 CTAs of 1024 threads, one an SM."""
+    tiles of 625 + 2·90 ghosts, 128 CTAs of 1024 threads, one an SM. Above
+    Np = 8 a step costs :data:`HIGH_NP_REV_COST`'s, on 512 threads."""
     options = sorted({min(s, n_steps) for s in FUSED_CANDIDATE_STEPS})
-    return _balanced_plan(k, b, np_, n_steps, sms, options, lambda s: -(-n_steps // s))
+    return _balanced_plan(k, b, np_, n_steps, sms, options, lambda s: -(-n_steps // s),
+                          *_step_costs(np_, STEP_WARP_US, HIGH_NP_REV_COST))
 
 
 @functools.lru_cache(maxsize=256)
@@ -505,7 +540,8 @@ def recompute_plan(k: int, b: int, np_: int, segment: int, n_steps: int,
     options = sorted({-(-segment // -(-segment // c)) for c in FUSED_CANDIDATE_STEPS})
     n_seg = n_steps // segment
     return _balanced_plan(k, b, np_, n_steps + n_steps // 4, sms, options,
-                          lambda s: 2 * n_seg * -(-segment // s))
+                          lambda s: 2 * n_seg * -(-segment // s),
+                          *_step_costs(np_, STEP_WARP_US, HIGH_NP_REV_COST))
 
 
 def _window(plan, ops: KernelOps, t: int):

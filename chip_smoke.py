@@ -349,6 +349,23 @@ raises, and the script exits non-zero; nothing is caught.
    last partitions replayed to the history's err bits) and the B = 512 hp
    study; (f) an untraceable callable (a reduction) refused on every path
    with no launch.
+43. High order, Np 9-16 (N = 8-15), on csrc/dg_rhs.cu's and
+   csrc/burgers.cu's kernels (one thread an element, as at Np 2-8): (a) the
+   registers and spills of every instance at Np 9-16; (b) at Np 9, 12 and
+   16 on the headline mesh (K = 10^4, B = 8, 64 steps, phased sines with
+   nodal noise) K1, K2, K2r and KA against their plain versions within
+   tolerances() (Np/8 above Np = 8) with teeth, K2r K2's bits, and B1 in
+   float64 and float32 step by step; on the smooth phased sines at the
+   headline step, where η lies below float32 roundoff, K2's η within 4x
+   the float32 plain run's distance from the float64 one, a bfloat16
+   trajectory outside it; (c) the kernels at Np 2-8 against the parent's
+   digests (tools/torch_dg_digests.py); (d) the headline pipeline (2048
+   steps, stored trajectory) and B1 at N = 8 and 11, timed, with DoF-steps/s,
+   CUDA launches and the share of the bound; (e) the paths at N = 8:
+   advec_dg --adapt --kernel cuda --order 8 against --kernel torch (replayed
+   to the noise bound), the recompute pipeline's bits, both engines'
+   decisions on sin(20x), the march alone, make_cuda_advec_adjoint,
+   burgers_dg --kernel cuda --order 8, a tiled and a revolve call.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -397,6 +414,12 @@ SOURCES = {
     "fd_estimate_per_member[traced]": f"{PACKAGE}/csrc/fd_ensemble.cu",
     "dg_estimate_ensemble[traced]": f"{PACKAGE}/csrc/dg_slab.cu",
     "dg_estimate_hp_per_member[traced]": f"{PACKAGE}/csrc/dg_slab_mixed.cu",
+    # the same kernels' instances at Np 9-16 (phase 43)
+    "fwd_march[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_est_stored[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_est_recompute[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "adj_march[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
+    "burgers_march[Np 9-16]": f"{PACKAGE}/csrc/burgers.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -452,6 +475,18 @@ TPU_KERNELS = {
     "dg_estimate_hp_per_member[traced]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_slab_mixed.py:99"
                                          " (f, f_u=None, g_u of "
                                          "make_pallas_dg_estimate_hp_per_member, :458)",
+    # the same kernels at N = 8-15, which the Pallas bodies take at any order
+    # their VMEM check admits
+    "fwd_march[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981 "
+                          "(_fwd_traj_grid_kernel_b; with no store :1017 and :270; the "
+                          "checkpoints :880 and :510; KT1 dg_sharded.py:83, dg_tiled.py:282)",
+    "adj_est_stored[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:1108 "
+                               "(_adj_est_grid_kernel_b_stored; KT2 dg_sharded.py:107, "
+                               "dg_tiled.py:314)",
+    "adj_est_recompute[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:908 "
+                                  "(_adj_est_grid_kernel_b; at B = 1 :538 and :384)",
+    "adj_march[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:335 (_adjoint_kernel)",
+    "burgers_march[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/burgers.py:57 (_kernel)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -587,13 +622,18 @@ def tolerances(n_steps, np_, u, lam):
     """float32 kernel vs plain, same tables, different operation order:
     a few ulp per step of the largest state (u), cotangent (λ), and of
     max|λ|·max|u| per node and step for η (a sum of differences of O(1)
-    states)."""
+    states). A stage's rows are Np-term dot products, each rounding Np
+    times: the bound that held K1, K2, K2r and KA through Np = 8 (phase
+    2(b), N = 7) grows as Np/8 above (the same values at Np ≤ 8). Noisy
+    nodal data give η teeth; on smooth data at N ≥ 8 η lies below float32
+    roundoff (phase 43(b) holds it there to the float64 plain run)."""
     eps = 2.0**-23
     umax, lmax = float(u.abs().max()), float(lam.abs().max())
+    length = max(1.0, np_ / 8)
     return {
-        "u": 8 * n_steps * eps * umax,
-        "lam": 8 * n_steps * eps * lmax,
-        "eta": 8 * n_steps * np_ * eps * umax * lmax,
+        "u": 8 * n_steps * eps * umax * length,
+        "lam": 8 * n_steps * eps * lmax * length,
+        "eta": 8 * n_steps * np_ * eps * umax * lmax * length,
     }
 
 
@@ -631,7 +671,7 @@ def compare_case(name, disc, batch, n_steps, device, errs):
     errs["adj_est_stored"] = max(errs["adj_est_stored"], e["lam0"], e["eta"])
 
 
-def eager_estimate(vx, n_steps, dt, device, dtype):
+def eager_estimate(vx, n_steps, dt, device, dtype, n_order=2):
     """The ``engine="torch"`` estimate of one adaptive-loop iteration."""
     import numpy as np
     import torch
@@ -640,7 +680,7 @@ def eager_estimate(vx, n_steps, dt, device, dtype):
     from adjoint_ode_adaptivity_tpu_torch.march.advec import advec_operators
     from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
 
-    disc = startup_1d(2, 0.0, 2 * np.pi, len(vx) - 1, vx=vx)
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, len(vx) - 1, vx=vx)
     ops = advec_operators(disc, a=A, dtype=dtype, device=device)
     u0 = torch.as_tensor(np.sin(disc.x), dtype=dtype, device=device)
     res = advec_fwd_adj_estimate(ops, disc, u0, dt, n_steps, segment=max(n_steps // 8, 1))
@@ -2490,7 +2530,7 @@ def burgers_ics(disc, b, device, dtype):
     return torch.tensor(u0, dtype=dtype, device=device)
 
 
-def b1_double(label, u0, n_steps, tab, errs):
+def b1_double(label, u0, n_steps, tab, errs, phase="19", key="burgers_march"):
     """B1 against its plain version in float64, each entry within
     test_pallas.py:629's 1e-12·|plain| + 1e-13 (the same tables, another
     order of operations). Returns the plain version's output."""
@@ -2503,11 +2543,11 @@ def b1_double(label, u0, n_steps, tab, errs):
     d = (got - want).abs()
     bound = 1e-12 * want.abs() + 1e-13
     worst, above = float((d / bound).max()), int((d > bound).sum())
-    say("19", f"{label} float64: max|kernel - plain| {float(d.max()):.3e}, worst entry at "
+    say(phase, f"{label} float64: max|kernel - plain| {float(d.max()):.3e}, worst entry at "
               f"{worst:.3%} of its bound (1e-12·|plain| + 1e-13), {above} of {d.numel()} "
               f"entries above")
     assert bool(torch.isfinite(got).all()) and above == 0, f"{label}: B1 disagrees in float64"
-    errs["burgers_march"] = max(errs["burgers_march"], float(d.max()))
+    errs[key] = max(errs[key], float(d.max()))
     return got
 
 
@@ -2522,7 +2562,7 @@ def spread(cells, reach=10):
     return width * torch.nn.functional.avg_pool1d(ext[:, None], width, stride=1)[:, 0]
 
 
-def b1_lockstep(label, u0, n_steps, tab, errs):
+def b1_lockstep(label, u0, n_steps, tab, errs, phase="19", key="burgers_march"):
     """B1 held to its plain version step by step: every step, both start
     from the plain version's state. Each entry of the kernel's step must lie
     within the step's roundoff — float64: 1e-12·|plain| + 1e-13; float32:
@@ -2569,9 +2609,9 @@ def b1_lockstep(label, u0, n_steps, tab, errs):
         above += int((d > bound).sum())
         n_near += int((near > 0).sum())
         allow = max(allow, float(near.max()))
-        errs["burgers_march"] = max(errs["burgers_march"], float(d.max()))
+        errs[key] = max(errs[key], float(d.max()))
         u = want
-    say("19", f"{label} {'float64' if f64 else 'float32'} step by step ({n_steps} steps): worst "
+    say(phase, f"{label} {'float64' if f64 else 'float32'} step by step ({n_steps} steps): worst "
               f"entry at {worst:.3%} of its bound (roundoff "
               f"{'1e-12·|plain| + 1e-13' if f64 else f'{step_tol:.3e}'} per step), {above} "
               f"entries above; {n_near} cell-steps with ΠN's margin within {band:.1e} of ε₀, "
@@ -2590,7 +2630,7 @@ def b1_free(label, got, want, n_steps, tab, u0, errs):
     errs["burgers_march"] = max(errs["burgers_march"], d)
 
 
-def burgers_props(label, u, u0, disc, n_steps, eps):
+def burgers_props(label, u, u0, disc, n_steps, eps, phase="20"):
     """After the shock: finite, within the initial range up to 5e-2
     (tests/test_burgers.py's allowance), and Σ cell averages·h conserved
     to roundoff: each stage rounds every node to ε/2 of max|u|, so the total
@@ -2605,7 +2645,7 @@ def burgers_props(label, u, u0, disc, n_steps, eps):
     total0, total = float(torch.sum(w * u0.double())), float(torch.sum(w * u.double()))
     cons = 5 * n_steps * eps / 2 * float(u0.abs().max()) * 2 * np.pi
     lo, hi = float(u0.min()) - 5e-2, float(u0.max()) + 5e-2
-    say("20", f"{label}: finite {bool(torch.isfinite(u).all())}, range [{float(u.min()):+.4f}, "
+    say(phase, f"{label}: finite {bool(torch.isfinite(u).all())}, range [{float(u.min()):+.4f}, "
               f"{float(u.max()):+.4f}] within [{lo:+.4f}, {hi:+.4f}], Σ avg·h {total:+.9f} vs "
               f"{total0:+.9f} (drift {abs(total - total0):.3e}, bound {cons:.3e})")
     assert bool(torch.isfinite(u).all()) and lo <= float(u.min()) and float(u.max()) <= hi
@@ -4070,13 +4110,13 @@ def b1_plans(row, device, sms):
         u0 = torch.tensor((0.5 + np.sin(disc.x))[:, None, :], dtype=torch.float32, device=device)
     else:
         u0 = burgers_ics(disc, b, device, torch.float32)
-    mine = cb.burgers_plan(k, b, n_steps, "n", False, sms)
+    mine = cb.burgers_plan(k, b, tab.np_, n_steps, "n", False, sms)
     plans = {}
     for st, th in B1_PLANS:
-        if th in cb._threads_for(False):
+        if th in cb._threads_for(False, tab.np_):
             plans[f"s_f={min(st, n_steps)} {th} threads widest"] = cb.burgers_fused_plan(
                 k, min(st, n_steps), th)
-    for th in cb._threads_for(False):
+    for th in cb._threads_for(False, tab.np_):
         if k <= th:
             plans[f"ring {th} threads"] = cb.BurgersPlan(n_steps, 0, k, 1, th)
             break
@@ -4096,7 +4136,7 @@ def b1_plans(row, device, sms):
     b_ms, b_by = burgers_bound(n, k, b, n_steps)
     for key, plan in {"wrapper": mine, **plans}.items():
         ms = statistics.mean(turns[key])
-        model = cb._cost(k, b, n_steps, plan, sms) / 1e3
+        model = cb._cost(k, b, tab.np_, n_steps, plan, sms) / 1e3
         same = torch.equal(out[key], out["wrapper"])
         ghost = (f"W={plan.ghost} L={plan.tile}, ghost 2W/L {2 * plan.ghost / plan.tile:.1%}"
                  if not cb.is_ring(k, plan) else "the ring, no ghosts")
@@ -5075,7 +5115,30 @@ PARENT_DIGESTS = {"D1 1024": "9c17a77a54f01917", "D1 16384": "35680304e7695012",
                   "H1 512 solve": "7be8588c848bcbd8", "H1 512 reconstruct": "3cf395845c3eb3a9",
                   "H1 4096 solve": "a4163c588a154456", "T2 8192 10": "e587078b00801107",
                   "T2 512 2": "c1952e2d913c163e", "F1 102400": "0a1187cfdd680f43",
-                  "F2 102400": "891f5a68da654eaa", "F3 1024": "a795d3ab8a92e180"}
+                  "F2 102400": "891f5a68da654eaa", "F3 1024": "a795d3ab8a92e180",
+                  # the register advection and Burgers kernels at N = 1-7 (Np 2-8),
+                  # tools/torch_dg_digests.py on the parent a5c8d6d
+                  "K1 N=1": "105cf4d25e582f65", "K2 N=1": "56710e3c0902635c",
+                  "K2r N=1": "3de4c9a434ad1765", "KA N=1": "8fbd4b304244f510",
+                  "B1 N=1 f32": "c793da331f5d7337", "B1 N=1 f64": "ea65d90c9316f0dc",
+                  "K1 N=2": "b6a96f51be0019d9", "K2 N=2": "ca4ff416ed962035",
+                  "K2r N=2": "6155e96690f1d13c", "KA N=2": "3561c26ffa0a9b0e",
+                  "B1 N=2 f32": "d12933c2af62127c", "B1 N=2 f64": "121590ca93f2509f",
+                  "K1 N=3": "26585d0b0db41c74", "K2 N=3": "e5abb4f9f8f85f3f",
+                  "K2r N=3": "cfbad8d2299d1ca7", "KA N=3": "fd9a2e3ecd5b5392",
+                  "B1 N=3 f32": "71449ce405635ba4", "B1 N=3 f64": "c1da4741f75b0670",
+                  "K1 N=4": "6761d42f3bbe39f2", "K2 N=4": "44ede74036e24ee3",
+                  "K2r N=4": "4138b1cecbec5ed1", "KA N=4": "ba260d2e20437022",
+                  "B1 N=4 f32": "eb0fefaacdc7398b", "B1 N=4 f64": "393de5950454f3b3",
+                  "K1 N=5": "1253246026729520", "K2 N=5": "e50bd56bca6a4288",
+                  "K2r N=5": "0d52d4ca4872491d", "KA N=5": "faa86b294be19b8b",
+                  "B1 N=5 f32": "0a2de6b407dadc32", "B1 N=5 f64": "3a014a9c7564a2f3",
+                  "K1 N=6": "23ba46af2df7e1e7", "K2 N=6": "b99fcf7aab0fe6bb",
+                  "K2r N=6": "72c6706dc6dc131d", "KA N=6": "053c1ccbdf3cb4a2",
+                  "B1 N=6 f32": "a4d015bfc1064461", "B1 N=6 f64": "a3d287b0531ae174",
+                  "K1 N=7": "047c9ab15bebba60", "K2 N=7": "04b03bf7a38f8ada",
+                  "K2r N=7": "6e018897ab8daed0", "KA N=7": "5c88ab1a043137ff",
+                  "B1 N=7 f32": "9dd059cdf5eaba84", "B1 N=7 f64": "e73bec7dccd422e3"}
 BF16_TFLOPS = 989e12  # dense bf16 on the tensor cores (NVIDIA data sheet, H100 SXM)
 
 
@@ -7104,6 +7167,475 @@ def phase42(device, errs, inp):
     return launches, times, bounds
 
 
+# --------------------------------------------- high order: Np 9-16 (N = 8-15)
+
+# K1, K2, K2r, KA and B1 against their plain versions at Np 9, 12 and 16 on
+# the headline mesh (64 steps: the plain K2 grows with Np); the headline
+# pipeline timed at N = 8 and 11
+HIGH_CHECK = dict(k=10_000, b=8, n_steps=64, segment=4, orders=(8, 11, 15), b1_lockstep=16)
+HIGH_HEADLINE = dict(k=10_000, b=8, n_steps=2048, orders=(8, 11))
+HIGH_KERNELS = ("fwd_fused", "rev_fused", "adj_fused", "burgers_fused")
+# the kernels' rows at Np 9-16 on the kernels line
+HIGH_ROWS = ("fwd_march[Np 9-16]", "adj_est_stored[Np 9-16]", "adj_est_recompute[Np 9-16]",
+             "adj_march[Np 9-16]", "burgers_march[Np 9-16]")
+# the paths at N = 8 (Np 9): the adaptive study through the driver, the
+# decisions where the indicator clears float32 roundoff, Burgers' driver
+HIGH_ADAPT_ARGV = ["--adapt", "--kernel", "cuda", "--order", "8", "--k", "16",
+                   "--final-time", "0.1", "--maxit", "3"]
+HIGH_DECISIONS = dict(n_order=8, k0=6, final_time=0.05, cfl=0.75, maxit=3, tol=1e-12)
+
+
+def high_inputs(disc, b, device, seed):
+    """Phased sines (bench.py's) plus 0.5·U(−1, 1) on every node, whose stiff
+    modes lift η above its bound, and the cotangent of J = ∫u with ±50 %
+    noise, as (Np, B, K) float32."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+
+    rng = np.random.default_rng(seed)
+    phases = np.linspace(0.0, 2 * np.pi, b, endpoint=False)
+    u0 = np.stack([np.sin(disc.x + p) + 0.5 * rng.uniform(-1, 1, disc.x.shape) for p in phases],
+                  axis=1)
+    lam = terminal_integral_cotangent(disc, torch.float64, "cpu").numpy()
+    lam = np.stack([lam * (1 + 0.5 * rng.uniform(-1, 1, lam.shape)) for _ in range(b)], axis=1)
+    f32 = dict(dtype=torch.float32, device=device)
+    return torch.tensor(u0, **f32), torch.tensor(lam, **f32)
+
+
+def high_bounds(np_, b, k, n_steps, segment):
+    """Least times at Np over n_steps on B·K columns (stage_ops per column
+    and stage, recounted for Np): K1 storing the trajectory, K2 on it (as
+    dg_bounds), K2r from n_steps/segment checkpoints, KA (advec_bounds)."""
+    cols, state = b * k, 4 * np_ * b * k
+    geom = 3 * 4 * k
+    rc = advec_bounds(np_, cols, n_steps, n_steps // segment)
+    return {"K1": k1_bound(np_, b, k, n_steps, n_steps),
+            "K2": bound(n_steps * state + 3 * state + geom + 4 * cols,
+                        n_steps * (20 * stage_ops(np_) + 3 * np_) * cols),
+            "K2r": rc["adj_est_recompute"], "KA": rc["adj_march"]}
+
+
+def high_check(n_order, device, errs):
+    """43(b): K1 (the trajectory), K2 on the kernel's trajectory, K1's
+    checkpoints + K2r (K2's bits) and KA against their plain versions on the
+    same inputs at HIGH_CHECK's shape and the driver's step 0.75·x_min/a
+    (cfl_dt's; at half of it η at Np = 16 lies below its bound), within
+    tolerances() (Np/8 above Np = 8) with teeth; B1 in float64
+    (1e-12·|plain| + 1e-13) and float32 step by step; then η on smooth data
+    (:func:`high_eta_smooth`). Returns ms and plain ms by kernel (CUDA
+    events; the kernels median of 3, the plain versions one run)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    c = HIGH_CHECK
+    k, b, n, seg = c["k"], c["b"], c["n_steps"], c["segment"]
+    disc = mesh(n_order, k, graded=False)
+    np_, dt = disc.np_, 2 * cfl_step(disc)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    sms = dg_rhs._sm_count(device)
+    plans = (dg_rhs.forward_plan(k, b, np_, n, 1, sms), dg_rhs.stored_plan(k, b, np_, n, sms),
+             dg_rhs.recompute_plan(k, b, np_, seg, n, sms), dg_rhs.adjoint_plan(k, b, np_, n, sms))
+    assert all(p.threads == 512 for p in plans[1:3]), plans  # K2's registers at Np 9-16
+    u0, lam = high_inputs(disc, b, device, seed=n_order)
+    out, ms, plain = {}, {}, {}
+    ms["K1"] = cuda_ms(lambda: out.update(k1=dg_rhs.fwd_march(u0, 0.0, n, ops, True)), runs=3)
+    traj, uf = out.pop("k1")
+    ms["K2"] = cuda_ms(lambda: out.update(k2=dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops)), 3)
+    ckpts, uf_c = dg_rhs.fwd_march_ckpt(u0, 0.0, n, seg, ops)
+    ms["K2r"] = cuda_ms(lambda: out.update(
+        k2r=dg_rhs.adj_est_recompute(ckpts, lam, 0.0, seg, ops)), runs=3)
+    ms["KA"] = cuda_ms(lambda: out.update(ka=dg_rhs.adj_march(lam, n, ops)), runs=3)
+    launches = {"K1": dg_rhs.fwd_march.cuda_launches, "K2": dg_rhs.adj_est_stored.cuda_launches,
+                "K2r": dg_rhs.adj_est_recompute.cuda_launches,
+                "KA": dg_rhs.adj_march.cuda_launches}
+    # K1's other modes: the checkpoints and no store (revolve's advance)
+    ms["K1 ckpt"] = cuda_ms(lambda: out.update(kc=dg_rhs.fwd_march_ckpt(u0, 0.0, n, seg, ops)), 3)
+    launches["K1 ckpt"] = dg_rhs.fwd_march_ckpt.cuda_launches
+    ms["K1 no store"] = cuda_ms(lambda: out.update(kn=dg_rhs.fwd_march(u0, 0.0, n, ops)), 3)
+    launches["K1 no store"] = dg_rhs.fwd_march.cuda_launches
+    plain["K1"] = cuda_ms(lambda: out.update(p1=dg_rhs.fwd_march_plain(u0, 0.0, n, ops, True)),
+                          runs=1, warmup=0)
+    plain["K2"] = cuda_ms(lambda: out.update(
+        p2=dg_rhs.adj_est_stored_plain(traj, uf, lam, 0.0, ops)), runs=1, warmup=0)
+    plain["K2r"] = cuda_ms(lambda: out.update(
+        p2r=dg_rhs.adj_est_recompute_plain(ckpts, lam, 0.0, seg, ops)), runs=1, warmup=0)
+    plain["KA"] = cuda_ms(lambda: out.update(pa=dg_rhs.adj_march_plain(lam, n, ops)), runs=1,
+                          warmup=0)
+    plain["K1 ckpt"] = cuda_ms(lambda: dg_rhs.fwd_march_plain(u0, 0.0, n, ops,
+                                                              checkpoint_every=seg), 1, 0)
+    plain["K1 no store"] = cuda_ms(lambda: dg_rhs.fwd_march_plain(u0, 0.0, n, ops), 1, 0)
+    traj_p, uf_p = out["p1"]
+    tol = tolerances(n, np_, uf_p, lam)
+    pairs = {"K1 traj": (traj, traj_p, "u"), "K1 u_final": (uf, uf_p, "u"),
+             "K2 lam0": (out["k2"][0], out["p2"][0], "lam"),
+             "K2 eta": (out["k2"][1], out["p2"][1], "eta"),
+             "K2r lam0": (out["k2r"][0], out["p2r"][0], "lam"),
+             "K2r eta": (out["k2r"][1], out["p2r"][1], "eta"),
+             "KA lam0": (out["ka"], out["pa"], "lam")}
+    e = {name: float((g - w).abs().max()) for name, (g, w, _) in pairs.items()}
+    teeth = {name: int((w.abs() > tol[key]).sum()) for name, (_, w, key) in pairs.items()}
+    same = (torch.equal(ckpts, traj[::seg]) and torch.equal(uf_c, uf)
+            and torch.equal(out["kc"][0], ckpts) and torch.equal(out["kn"][1], uf)
+            and all(torch.equal(a, b_) for a, b_ in zip(out["k2r"], out["k2"])))
+    say("43", f"(b) N={n_order} Np={np_} K={k} B={b} steps={n} dt={dt:.4e}: " + ", ".join(
+        f"{name} {e[name]:.3e} (tol {tol[key]:.3e}, {teeth[name]} plain entries above)"
+        for name, (_, _, key) in pairs.items())
+        + f"; K2r = K2, K1's checkpoints and no-store u_final bit for bit: {same}; plans "
+        + ", ".join(f"{x} s_f={p.segment} W={p.ghost} L={p.tile} tiles={p.n_tiles}"
+                    for x, p in zip(("K1", "K2", "K2r", "KA"), plans)))
+    say("43", f"(b) N={n_order} times (ms; kernel median of 3, plain one run): " + ", ".join(
+        f"{x} {ms[x]:.3f} ({launches[x]} CUDA launches) plain {plain[x]:.3f}" for x in ms))
+    for name, (g, _, key) in pairs.items():
+        assert bool(torch.isfinite(g).all()), name
+        assert e[name] <= tol[key] and teeth[name] > 0, (name, e[name], tol[key], teeth[name])
+    assert same, "K2r leaves K2's bits"
+    for row, names in (("fwd_march[Np 9-16]", ("K1 traj", "K1 u_final")),
+                       ("adj_est_stored[Np 9-16]", ("K2 lam0", "K2 eta")),
+                       ("adj_est_recompute[Np 9-16]", ("K2r lam0", "K2r eta")),
+                       ("adj_march[Np 9-16]", ("KA lam0",))):
+        errs[row] = max(errs[row], *(e[x] for x in names))
+    del traj, traj_p, out
+    high_eta_smooth(disc, device, errs)
+
+    # B1 at the same mesh, ΠN, dt = 0.3·x_min
+    dt_b = BURGERS["cfl"] * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    tab = cb.burgers_tables(disc, dt_b, "n", device)
+    plan_b = cb.burgers_plan(k, b, np_, n, "n", False, sms)
+    assert plan_b.threads == 512, plan_b  # float32 spills at 1024 threads from Np 11
+    label = f"(b) B1 N={n_order} Np={np_} K={k} B={b} dt={dt_b:.4e} ΠN"
+    b1_double(label + f" steps={n}", burgers_ics(disc, b, device, torch.float64), n, tab, errs,
+              "43", "burgers_march[Np 9-16]")
+    u0_b = burgers_ics(disc, b, device, torch.float32)
+    b1_lockstep(label, u0_b, c["b1_lockstep"], tab, errs, "43", "burgers_march[Np 9-16]")
+    ms["B1"] = cuda_ms(lambda: cb.burgers_march(u0_b, n, tab), runs=3)
+    launches["B1"] = cb.burgers_march.cuda_launches
+    plain["B1"] = cuda_ms(lambda: cb.burgers_march_plain(u0_b, n, tab), runs=1, warmup=0)
+    say("43", f"{label} float32 {n} steps: kernel {ms['B1']:.3f} ms ({launches['B1']} CUDA "
+              f"launches; plan s_f={plan_b.segment} W={plan_b.ghost} L={plan_b.tile} tiles="
+              f"{plan_b.n_tiles}), plain {plain['B1']:.3f} ms (one run)")
+    return ms, plain
+
+
+def high_eta_smooth(disc, device, errs):
+    """43(b): η on the path's own data, bench.py's phased sines and the ∫u
+    cotangent at the headline step, where at N ≥ 8 the step-doubling
+    residual lies below float32 roundoff and tolerances()' η bound has no
+    teeth: K2's η (on K1's trajectory) against the float64 plain run on the
+    same trajectory, within 4 times the float32 plain run's own largest
+    distance from it; the plain version on the trajectory rounded to
+    bfloat16 (a lower-precision control) must land outside."""
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    c = HIGH_CHECK
+    b, n = c["b"], c["n_steps"]
+    ops = dg_rhs.kernel_ops(disc, A, cfl_step(disc), device)
+    u0 = phased_states(disc, b, device, torch.float32)
+    lam = batched_cotangent(disc, b, device, torch.float32)
+    traj, uf = dg_rhs.fwd_march(u0, 0.0, n, ops, store_trajectory=True)
+    eta = dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops)[1].double()
+    eta64 = dg_rhs.adj_est_stored_plain(traj.double(), uf.double(), lam.double(), 0.0, ops)[1]
+    eta32 = dg_rhs.adj_est_stored_plain(traj, uf, lam, 0.0, ops)[1].double()
+    bf = [x.bfloat16().float() for x in (traj, uf)]
+    eta_bf = dg_rhs.adj_est_stored_plain(*bf, lam, 0.0, ops)[1].double()
+    del traj, bf
+    roundoff = float((eta32 - eta64).abs().max())
+    bound = 4 * roundoff
+    err, ctrl = float((eta - eta64).abs().max()), float((eta_bf - eta64).abs().max())
+    old = tolerances(n, disc.np_, uf, lam)["eta"]
+    say("43", f"(b) N={disc.np_ - 1} smooth data (phased sines, headline step, {n} steps): "
+              f"max|eta64| {float(eta64.abs().max()):.3e}, float32 plain roundoff "
+              f"{roundoff:.3e}; K2's eta {err:.3e} from the float64 run (bound 4x roundoff "
+              f"{bound:.3e}, {err / bound:.1%}; tolerances() {old:.3e}); "
+              f"bfloat16 trajectory control {ctrl:.3e} ({ctrl / bound:.1f}x the bound)")
+    assert err <= bound and ctrl > bound, (err, bound, ctrl)
+    errs["adj_est_stored[Np 9-16]"] = max(errs["adj_est_stored[Np 9-16]"], err)
+
+
+def high_headline(device):
+    """43(d): the headline pipeline (K = 10⁴, B = 8, 2048 steps, stored
+    trajectory) at N = 8 and 11, and B1 at the same shape (ΠN): ms (CUDA
+    events, median of 3 after a warm-up), fwd+adjoint DoF-steps/s, CUDA
+    launches, K1 and K2 alone, and the share of their bounds."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs
+
+    c = HIGH_HEADLINE
+    k, b, n = c["k"], c["b"], c["n_steps"]
+    for n_order in c["orders"]:
+        disc = mesh(n_order, k, graded=False)
+        np_, dt = disc.np_, cfl_step(disc)
+        ops = dg_rhs.kernel_ops(disc, A, dt, device)
+        u0 = phased_states(disc, b, device, torch.float32)
+        lam = batched_cotangent(disc, b, device, torch.float32)
+        run = dg_rhs.make_cuda_fwd_adj_estimate_grid_batched(disc, A, dt, n, b, device,
+                                                             store_trajectory=True)
+        out = {}
+        t_pipe = cuda_ms(lambda: out.update(r=run(u0, 0.0, lam)), runs=3)
+        n_cuda = dg_rhs.fwd_march.cuda_launches + dg_rhs.adj_est_stored.cuda_launches
+        t_k1 = cuda_ms(lambda: out.update(k1=dg_rhs.fwd_march(u0, 0.0, n, ops, True)), runs=1)
+        traj, uf = out.pop("k1")
+        t_k2 = cuda_ms(lambda: dg_rhs.adj_est_stored(traj, uf, lam, 0.0, ops), runs=1)
+        del traj, uf
+        for x in out["r"]:
+            assert bool(torch.isfinite(x).all())
+        bd = high_bounds(np_, b, k, n, 4)
+        b_ms = bd["K1"][0] + bd["K2"][0]
+        dof_steps = b * np_ * k * 2 * n
+        say("43", f"(d) headline pipeline N={n_order} Np={np_} K={k} B={b} steps={n} "
+                  f"dt={dt:.4e}: {t_pipe:.3f} ms (median of 3) = "
+                  f"{dof_steps / (t_pipe / 1e3):.4e} fwd+adjoint DoF-steps/s, {n_cuda} CUDA "
+                  f"launches; K1 {t_k1:.3f} ms (bound {bd['K1'][0]:.3f} ms, {bd['K1'][1]}, "
+                  f"{bd['K1'][0] / t_k1:.3%}), K2 {t_k2:.3f} ms (bound {bd['K2'][0]:.3f} ms, "
+                  f"{bd['K2'][1]}, {bd['K2'][0] / t_k2:.3%}); pipeline at {b_ms / t_pipe:.3%} of "
+                  f"its bound {b_ms:.3f} ms")
+        dt_b = BURGERS["cfl"] * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+        tab = cb.burgers_tables(disc, dt_b, "n", device)
+        u_b = burgers_ics(disc, b, device, torch.float32)
+        t_b = cuda_ms(lambda: out.update(b=cb.burgers_march(u_b, n, tab)), runs=3)
+        assert bool(torch.isfinite(out["b"]).all())
+        bb = burgers_bound(n_order, k, b, n)
+        say("43", f"(d) B1 N={n_order} Np={np_} K={k} B={b} steps={n} ΠN: {t_b:.3f} ms "
+                  f"(median of 3) = {b * np_ * k * n / (t_b / 1e3):.4e} DoF-steps/s, "
+                  f"{cb.burgers_march.cuda_launches} CUDA launches; bound {bb[0]:.3f} ms "
+                  f"({bb[1]}), at {bb[0] / t_b:.3%}")
+
+
+def high_paths(device, errs):
+    """43(e): the paths at N = 8 (Np 9) through the entry points a user
+    calls, each with its wrappers' counts set to 0 just before and read just
+    after: advec_dg --adapt --kernel cuda --order 8 (K1 + K2) against
+    --kernel torch; the same study with no free memory reported (K1's
+    checkpoints + K2r), the stored study's history bit for bit; the decisions
+    of both engines where the indicator clears float32 roundoff; the march
+    alone (K1, no store); make_cuda_advec_adjoint (KA) against its plain
+    version; burgers_dg --kernel cuda --order 8 (B1); a tiled call and a
+    revolve call against the stored pipeline. Returns the kernels line's
+    launches."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.adapt import advec_loop
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.advec import terminal_integral_cotangent
+    from adjoint_ode_adaptivity_tpu_torch.adjoint.revolve_vjp import revolve_advec_estimate
+    from adjoint_ode_adaptivity_tpu_torch.drivers import advec_dg, burgers_dg
+    from adjoint_ode_adaptivity_tpu_torch.march.advec import cfl_dt
+    from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_rhs, dg_tiled
+
+    launches = {}
+    dg_rhs.reset_launch_counts()
+    hist = advec_dg.main(HIGH_ADAPT_ARGV)
+    torch.cuda.synchronize()
+    launches["fwd_march[Np 9-16]"] = dg_rhs.fwd_march.launches
+    launches["adj_est_stored[Np 9-16]"] = dg_rhs.adj_est_stored.launches
+    hist_t = advec_dg.main([a if a != "cuda" else "torch" for a in HIGH_ADAPT_ARGV])
+    same = [bool(np.array_equal(a.vx, b.vx)) for a, b in zip(hist, hist_t)]
+    say("43", f"(e) advec_dg {' '.join(HIGH_ADAPT_ARGV)}: {len(hist)} iterations, K "
+              f"{[len(r.vx) - 1 for r in hist]}, steps {[r.n_steps for r in hist]}, wrapper "
+              f"launches {launches}; --kernel torch (float32 eager) vertex history equal per "
+              f"iteration: {same}; Σeta cuda {[f'{r.est_total:+.3e}' for r in hist]} torch "
+              f"{[f'{r.est_total:+.3e}' for r in hist_t]}")
+    assert all(v > 0 for v in launches.values()), launches
+    eps = 2.0**-23
+    for it, r in enumerate(hist):
+        j_t, eta_t, disc = eager_estimate(r.vx, r.n_steps, r.dt, device, torch.float32, 8)
+        lam = terminal_integral_cotangent(disc, torch.float64, "cpu").numpy()
+        tol_j = 8 * np.sqrt(r.n_steps) * eps * float(np.sum(np.abs(lam)))
+        tol_eta = 8 * np.sqrt(r.n_steps) * disc.np_ * eps * float(np.max(np.abs(lam)))
+        dj, de = abs(r.j_value - j_t), float(np.max(np.abs(r.eta - eta_t)))
+        say("43", f"(e) replay it {it} K={disc.k} Np={disc.np_}: |dJ| {dj:.3e} (tol {tol_j:.3e}) "
+                  f"max|d eta| {de:.3e} (tol {tol_eta:.3e})")
+        assert dj <= tol_j and de <= tol_eta, f"N=8 replay it {it}: cuda vs torch engine"
+    _, eta64, _ = eager_estimate(hist[0].vx, hist[0].n_steps, hist[0].dt, device,
+                                 torch.float64, 8)
+    say("43", f"(e) it 0 float64 eta: max {np.max(np.abs(eta64)):.3e} (the float32 engines' "
+              f"decisions at this indicator are roundoff)")
+
+    real = advec_loop._free_device_bytes
+    advec_loop._free_device_bytes = lambda device: 0
+    try:
+        dg_rhs.reset_launch_counts()
+        hist_r = advec_dg.main(HIGH_ADAPT_ARGV)
+        torch.cuda.synchronize()
+        rc = {"fwd_march_ckpt": dg_rhs.fwd_march_ckpt.launches,
+              "adj_est_recompute": dg_rhs.adj_est_recompute.launches,
+              "adj_est_stored": dg_rhs.adj_est_stored.launches}
+    finally:
+        advec_loop._free_device_bytes = real
+    bits = all(np.array_equal(a.vx, b.vx) and np.array_equal(a.eta, b.eta)
+               and a.j_value == b.j_value for a, b in zip(hist, hist_r))
+    say("43", f"(e) the same study on the recompute pipeline (no free memory reported): "
+              f"wrapper launches {rc}; the stored study's history bit for bit: {bits}")
+    assert rc["fwd_march_ckpt"] > 0 and rc["adj_est_recompute"] > 0 and rc["adj_est_stored"] == 0
+    assert bits and len(hist_r) == len(hist)
+    launches["adj_est_recompute[Np 9-16]"] = rc["adj_est_recompute"]
+
+    kw = dict(HIGH_DECISIONS, device=device)
+    hc = advec_loop.run_adaptive_advec(lambda x: np.sin(20 * x), engine="cuda", **kw)
+    ht = advec_loop.run_adaptive_advec(lambda x: np.sin(20 * x), engine="torch",
+                                       dtype=torch.float32, **kw)
+    assert len(hc) == len(ht)
+    for a, b in zip(hc, ht):
+        np.testing.assert_array_equal(a.vx, b.vx)
+    say("43", f"(e) sin(20x) N=8 K0=6 cfl 0.75: cuda and torch vertex histories equal over "
+              f"{len(hc)} iterations (K -> {len(hc[-1].vx) - 1}), max|eta| "
+              f"{max(float(np.max(np.abs(r.eta))) for r in hc):.3e}, max|d eta| "
+              f"{max(float(np.max(np.abs(a.eta - b.eta))) for a, b in zip(hc, ht)):.3e}")
+
+    dg_rhs.reset_launch_counts()
+    err = advec_dg.main(["--kernel", "cuda", "--order", "8", "--k", "16"])
+    march = {"fwd_march": dg_rhs.fwd_march.launches,
+             "adj_est_stored": dg_rhs.adj_est_stored.launches}
+    # the same march timed (K1 at B = 1, no store: the TPU's _forward_kernel)
+    disc = startup_1d(8, 0.0, 2 * np.pi, 16)
+    dt, n_m = cfl_dt(disc, A, 0.75, 2.0)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u_m = torch.tensor(np.sin(disc.x)[:, None, :], dtype=torch.float32, device=device)
+    m_ms = cuda_ms(lambda: dg_rhs.fwd_march(u_m, 0.0, n_m, ops), runs=3)
+    m_cuda = dg_rhs.fwd_march.cuda_launches
+    m_plain = cuda_ms(lambda: dg_rhs.fwd_march_plain(u_m, 0.0, n_m, ops), runs=1, warmup=0)
+    m_bound = march_bound(8, 16, n_m)
+    say("43", f"(e) advec_dg --kernel cuda --order 8 --k 16 (march only): max error {err:.3e}, "
+              f"wrapper launches {march}; the march (K=16, B=1, {n_m} steps) {m_ms:.3f} ms "
+              f"({m_cuda} CUDA launches, median of 3), plain {m_plain:.3f} ms (one run), bound "
+              f"{m_bound[0]:.6f} ms ({m_bound[1]})")
+    assert np.isfinite(err) and err < 1e-4 and march == {"fwd_march": 1, "adj_est_stored": 0}
+
+    disc = startup_1d(8, 0.0, 2 * np.pi, 256)
+    dt = cfl_step(disc)
+    lam = torch.tensor(np.random.default_rng(43).standard_normal(disc.x.shape),
+                       dtype=torch.float32, device=device)
+    dg_rhs.reset_launch_counts()
+    lam0 = dg_rhs.make_cuda_advec_adjoint(disc, A, dt, 64, device)(lam, 4)
+    torch.cuda.synchronize()
+    launches["adj_march[Np 9-16]"] = dg_rhs.adj_march.launches
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    want = dg_rhs.adj_march_plain(lam[:, None, :], 256, ops)[:, 0]
+    e = float((lam0 - want).abs().max())
+    tol = tolerances(256, disc.np_, want, lam)["lam"]
+    say("43", f"(e) make_cuda_advec_adjoint N=8 K=256 B=1 256 steps: max|kernel - plain| {e:.3e} "
+              f"(tol {tol:.3e}), wrapper launches {launches['adj_march[Np 9-16]']}")
+    assert e <= tol and launches["adj_march[Np 9-16]"] == 1
+    errs["adj_march[Np 9-16]"] = max(errs["adj_march[Np 9-16]"], e)
+
+    cb.reset_launch_counts()
+    u = burgers_dg.main(["--kernel", "cuda", "--order", "8"])
+    torch.cuda.synchronize()
+    launches["burgers_march[Np 9-16]"] = cb.burgers_march.launches
+    d = startup_1d(8, 0.0, 2 * np.pi, 48)
+    u0 = torch.tensor(0.5 + np.sin(d.x), dtype=torch.float32, device=device)
+    burgers_props(f"(e) burgers_dg --kernel cuda --order 8 (K=48, T=1.5, 7,500 steps, float32; "
+                  f"{cb.burgers_march.cuda_launches} CUDA launches)", u, u0, d, 7500, EPS32, "43")
+    assert launches["burgers_march[Np 9-16]"] == 1
+
+    disc = startup_1d(8, 0.0, 2 * np.pi, 2048)
+    dt = cfl_step(disc)
+    u0 = torch.tensor(np.sin(disc.x), dtype=torch.float32, device=device)
+    lam = terminal_integral_cotangent(disc, torch.float32, device)
+    single = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, 32, device)
+    stored = single(u0, 0.0, lam)
+    run_tl = dg_tiled.make_cuda_fwd_adj_estimate_tiled(disc, A, dt, segment=4, n_segments=8,
+                                                       chunks=4, device=device)
+    dg_tiled.reset_launch_counts()
+    tiled = run_tl(u0, 0.0, lam)
+    tl = {"tiled_fwd_seg": dg_tiled.tiled_fwd_seg.launches,
+          "tiled_rev_seg": dg_tiled.tiled_rev_seg.launches}
+    same = [torch.equal(a, b) for a, b in zip(tiled, stored)]
+    tl_ms = cuda_ms(lambda: run_tl(u0, 0.0, lam), runs=3)
+    st_ms = cuda_ms(lambda: single(u0, 0.0, lam), runs=3)
+    ops = dg_rhs.kernel_ops(disc, A, dt, device)
+    u_b, lam_b = u0[:, None, :].contiguous(), lam[:, None, :].contiguous()
+
+    def plain_pipeline():
+        traj, uf = dg_rhs.fwd_march_plain(u_b, 0.0, 32, ops, True)
+        dg_rhs.adj_est_stored_plain(traj, uf, lam_b, 0.0, ops)
+
+    pl_ms = cuda_ms(plain_pipeline, runs=1, warmup=0)
+    tb = advec_bounds(disc.np_, disc.k, 32)
+    say("43", f"(e) make_cuda_fwd_adj_estimate_tiled N=8 K=2048 segment 4 x 8 chunks 4 "
+              f"(KT1 + KT2): the stored pipeline's bits {same}, wrapper launches {tl}; "
+              f"{tl_ms:.3f} ms against the stored pipeline's {st_ms:.3f} (median of 3), plain "
+              f"{pl_ms:.3f} ms (one run); bounds KT1 {tb['tiled_fwd_seg'][0]:.6f} ms "
+              f"({tb['tiled_fwd_seg'][1]}), KT2 {tb['tiled_rev_seg'][0]:.6f} ms "
+              f"({tb['tiled_rev_seg'][1]})")
+    assert all(same) and all(v > 0 for v in tl.values())
+
+    rev = revolve_advec_estimate(disc, A, dt, 512, 64, 4, device=device)
+    dg_rhs.reset_launch_counts()
+    got = rev(u0, 0.0, lam)
+    torch.cuda.synchronize()
+    st = rev.revolve_stats
+    rl = {"fwd_march": dg_rhs.fwd_march.launches, "adj_est_stored": dg_rhs.adj_est_stored.launches}
+    want = dg_rhs.make_cuda_fwd_adj_estimate_single(disc, A, dt, 512, device)(u0, 0.0, lam)
+    tol = tolerances(512, disc.np_, want[0], lam)
+    e = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    eta_above = int(((got[2] - want[2]).abs() > 1e-4 * want[2].abs() + 1e-9).sum())
+    say("43", f"(e) revolve_advec_estimate N=8 K=2048 512 steps unit 64 snaps 4: stats {st}; "
+              f"wrapper launches {rl}; against the stored pipeline u_final {e[0]:.3e} (tol "
+              f"{tol['u']:.3e}) "
+              f"lam0 {e[1]:.3e} (tol {tol['lam']:.3e}) eta {e[2]:.3e} ({eta_above} entries "
+              f"above 1e-4·|eta| + 1e-9)")
+    assert e[0] <= tol["u"] and e[1] <= tol["lam"] and eta_above == 0
+    assert rl == {"fwd_march": st["forward_units"] + st["n_units"],
+                  "adj_est_stored": st["n_units"]}, rl
+    return launches
+
+
+def phase43(device, lib, errs):
+    """High order, Np 9-16: (a) the registers and spills of every instance
+    at Np 9-16; (b) K1, K2, K2r, KA and B1 against their plain versions at
+    Np 9, 12 and 16; (c) the kernels at Np 2-8 against the parent's digests;
+    (d) the headline pipeline and B1 at N = 8 and 11, timed; (e) the paths
+    at N = 8. Returns (launches, times, bounds) for the kernels line's
+    Np 9-16 rows (times and bounds at 43(b)'s N = 8 shape)."""
+    import re
+
+    t0 = time.perf_counter()
+    high = [x for x in kernel_registers(lib.build_log, HIGH_KERNELS)
+            if int(re.findall(r"\d+", x.split("<", 1)[1])[0]) >= 9]
+    say("43", "(a) " + "; ".join(high))
+    times = {}
+    for n_order in HIGH_CHECK["orders"]:
+        ms, plain = high_check(n_order, device, errs)
+        if n_order == HIGH_CHECK["orders"][0]:
+            for row, x in zip(HIGH_ROWS, ("K1", "K2", "K2r", "KA", "B1")):
+                times[row] = (ms[x], plain[x])
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_dg_digests
+
+    got = torch_dg_digests.digests(device)
+    bad = {key: (v, PARENT_DIGESTS.get(key)) for key, v in got.items()
+           if PARENT_DIGESTS.get(key) != v}
+    say("43", f"(c) the kernels at Np 2-8 against the parent's digests "
+              f"(tools/torch_dg_digests.py): {len(got) - len(bad)} of {len(got)} equal; "
+              f"differing {bad}")
+    assert not bad, bad
+    high_headline(device)
+    launches = high_paths(device, errs)
+    c = HIGH_CHECK
+    np_ = c["orders"][0] + 1
+    bd = high_bounds(np_, c["b"], c["k"], c["n_steps"], c["segment"])
+    bounds = {"fwd_march[Np 9-16]": bd["K1"], "adj_est_stored[Np 9-16]": bd["K2"],
+              "adj_est_recompute[Np 9-16]": bd["K2r"], "adj_march[Np 9-16]": bd["KA"],
+              "burgers_march[Np 9-16]": burgers_bound(c["orders"][0], c["k"], c["b"],
+                                                      c["n_steps"])}
+    say("43", f"high order: phase wall {time.perf_counter() - t0:.1f} s; launches {launches}; "
+              "bounds at N=8 " + ", ".join(f"{k} {v[0]:.6f} ms ({v[1]})"
+                                          for k, v in bounds.items()))
+    return launches, times, bounds
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -7223,11 +7755,13 @@ def main() -> int:
     phase40(device, errs)
     phase41(device)
     us_launches, us_times, us_bounds = phase42(device, errs, inp)
-    launches.update(rc_launches, **tl_launches, **km_launches, **md_launches, **us_launches)
-    times.update(rc_times, **tl_times, **km_times, **md_times, **us_times)
+    hi_launches, hi_times, hi_bounds = phase43(device, lib, errs)
+    launches.update(rc_launches, **tl_launches, **km_launches, **md_launches, **us_launches,
+                    **hi_launches)
+    times.update(rc_times, **tl_times, **km_times, **md_times, **us_times, **hi_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
               **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
-              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds, **us_bounds}
+              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds, **us_bounds, **hi_bounds}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

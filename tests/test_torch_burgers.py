@@ -129,7 +129,7 @@ def test_b1_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="limiter"):
         cb.burgers_tables(disc, 1e-3, "tvb", "cpu")
     with pytest.raises(ValueError, match="Np"):
-        cb.burgers_tables(_disc(8, 4)[1], 1e-3, "n", "cpu")
+        cb.burgers_tables(_disc(16, 4)[1], 1e-3, "n", "cpu")
     with pytest.raises(ValueError, match="expected"):
         cb.make_cuda_burgers_march(disc, 1e-3, 4, batch=3, device="cpu")(u)
 

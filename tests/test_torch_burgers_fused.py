@@ -135,14 +135,14 @@ def test_burgers_plans():
     = 16, 53 tiles of 189 + 2·160 on 512 threads (phase 33's fastest
     plans); every window within its CTA; float64 on 512 threads; the
     unlimited ghost rule 5·s_f; what the plans refuse."""
-    assert cb.burgers_plan(48, 1, 7500) == BP(7500, 0, 48, 1, 512)
-    assert cb.burgers_plan(48, 8, 64, "none") == BP(64, 0, 48, 1, 512)
-    assert cb.burgers_plan(10_000, 8, 2048) == BP(8, 80, 625, 16, 1024)
-    assert cb.burgers_plan(10_000, 1, 2048) == BP(16, 160, 189, 53, 512)
+    assert cb.burgers_plan(48, 1, 5, 7500) == BP(7500, 0, 48, 1, 512)
+    assert cb.burgers_plan(48, 8, 5, 64, "none") == BP(64, 0, 48, 1, 512)
+    assert cb.burgers_plan(10_000, 8, 3, 2048) == BP(8, 80, 625, 16, 1024)
+    assert cb.burgers_plan(10_000, 1, 3, 2048) == BP(16, 160, 189, 53, 512)
     for k, b, n, lim, f64 in ((10_000, 8, 2048, "n", False), (10_000, 1, 2048, "n", False),
                               (10_000, 8, 2048, "n", True), (10_000, 8, 2048, "none", False),
                               (2_000, 2, 13, "1", False), (700, 1, 5, "n", True)):
-        plan = cb.burgers_plan(k, b, n, lim, f64)
+        plan = cb.burgers_plan(k, b, 3, n, lim, f64)
         assert plan.threads in ((512,) if f64 else cb.CTA_THREADS)
         assert cb.window_of(k, plan) <= plan.threads
         assert plan.n_tiles == -(-k // plan.tile) and plan.segment <= n
@@ -153,4 +153,4 @@ def test_burgers_plans():
         with pytest.raises(ValueError):
             cb.burgers_fused_plan(1000, steps, threads)
     with pytest.raises(ValueError):
-        cb.burgers_plan(48, 1, 0)
+        cb.burgers_plan(48, 1, 5, 0)

@@ -1415,3 +1415,127 @@ def test_untraceable_callables_raise_on_the_card(device):
                                           ops_a=dg_time_operators(2), f=_logistic, g_u=bad,
                                           device=device)
     assert (fe.fd_ensemble.launches, ds.dg_estimate_ensemble.launches) == before
+
+
+# ------------------------------------------ high order: Np 9-16 (N = 8-15)
+
+
+def _high_inputs(disc, b, device, seed):
+    """Phased sines with 0.5·U(−1, 1) nodal noise and a noisy J = ∫u
+    cotangent, (Np, B, K) float32 (η above its bound: chip_smoke.py's
+    high_inputs)."""
+    rng = np.random.default_rng(seed)
+    phases = np.linspace(0, 2 * np.pi, b, endpoint=False)
+    u0 = np.stack([np.sin(disc.x + p) + 0.5 * rng.uniform(-1, 1, disc.x.shape) for p in phases], 1)
+    lam = terminal_integral_cotangent(disc, torch.float64, "cpu").numpy()
+    lam = np.stack([lam * (1 + 0.5 * rng.uniform(-1, 1, lam.shape)) for _ in range(b)], 1)
+    return (torch.tensor(u0, dtype=torch.float32, device=device),
+            torch.tensor(lam, dtype=torch.float32, device=device))
+
+
+def _advec_tolerances(n_steps, np_, u, lam):
+    """chip_smoke.py's tolerances (Np/8 above Np = 8)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import tolerances
+
+    return tolerances(n_steps, np_, u, lam)
+
+
+@pytest.mark.parametrize("n_order,k,b", [(8, 300, 3), (11, 70, 2), (15, 1000, 1)])
+def test_high_order_advection_kernels(device, n_order, k, b):
+    """K1 (trajectory and checkpoints), K2, K2r and KA at Np 9, 12 and 16 on
+    the plans the wrappers pick (K2 on 512 threads): within chip_smoke.py's
+    tolerances of their plain versions (Np/8 above Np = 8) with teeth; K2r
+    K2's bits and the checkpoints the trajectory's; ⌈n_steps/s_f⌉ CUDA
+    launches; narrower tiles the same bits. Uniform meshes at the driver's
+    step 0.75·x_min/a: on a graded mesh, or at half the step, η lies below
+    its bound."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    xmin = float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    ops = dg_rhs.kernel_ops(disc, A, 0.75 / A * xmin, device)
+    u0, lam = _high_inputs(disc, b, device, n_order)
+    n_steps, segment, np_ = 13, 1, disc.np_
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    traj, uf = dg_rhs.fwd_march(u0, 0.1, n_steps, ops, store_trajectory=True)
+    plan = dg_rhs.forward_plan(k, b, np_, n_steps, 1, sms)
+    assert dg_rhs.stored_plan(k, b, np_, n_steps, sms).threads == 512
+    assert dg_rhs.fwd_march.cuda_launches == -(-n_steps // plan.segment)
+    lam0, eta = dg_rhs.adj_est_stored(traj, uf, lam, 0.1, ops)
+    ckpts, uf_c = dg_rhs.fwd_march_ckpt(u0, 0.1, n_steps, segment, ops)
+    lam0_r, eta_r = dg_rhs.adj_est_recompute(ckpts, lam, 0.1, segment, ops)
+    lam_a = dg_rhs.adj_march(lam, n_steps, ops)
+    torch.cuda.synchronize()
+    assert torch.equal(ckpts, traj) and torch.equal(uf_c, uf)
+    assert torch.equal(lam0_r, lam0) and torch.equal(eta_r, eta)
+    traj_p, uf_p = dg_rhs.fwd_march_plain(u0, 0.1, n_steps, ops, True)
+    lam0_p, eta_p = dg_rhs.adj_est_stored_plain(traj, uf, lam, 0.1, ops)
+    lam_ap = dg_rhs.adj_march_plain(lam, n_steps, ops)
+    tol = _advec_tolerances(n_steps, np_, uf_p, lam)
+    for got, want, key in ((traj, traj_p, "u"), (uf, uf_p, "u"), (lam0, lam0_p, "lam"),
+                           (eta, eta_p, "eta"), (lam_a, lam_ap, "lam")):
+        assert float((got - want).abs().max()) <= tol[key], key
+        assert bool((want.abs() > tol[key]).any()), key
+    lib = load_library()
+    narrow = dg_rhs.fwd_fused_plan(k, 1, 512)._replace(tile=7, n_tiles=-(-k // 7))
+    store = torch.empty_like(traj)
+    got, n_cuda = dg_rhs._k1_launch(lib, u0, 0.1, n_steps, store, 1, ops, narrow)
+    assert n_cuda == n_steps and torch.equal(got, uf) and torch.equal(store, traj)
+    assert torch.equal(dg_rhs._ka_launch(lam, n_steps, ops, narrow)[0], lam_a)
+    narrow_r = dg_rhs.fused_plan(k, 1, 512)._replace(tile=5, n_tiles=-(-k // 5))
+    assert all(torch.equal(x, y) for x, y in
+               zip(dg_rhs._k2_launch(traj, uf, lam, 0.1, ops, narrow_r)[:2], (lam0, eta)))
+
+
+@pytest.mark.parametrize("n_order,k", [(8, 48), (11, 300), (15, 100)])
+def test_high_order_burgers_kernel(device, n_order, k):
+    """B1 at Np 9, 12 and 16 on the plans the wrapper picks (512 threads;
+    the ring at K = 48): float64 within 1e-12·|plain| + 1e-13, float32
+    before the shock within 8·n_steps·ε₃₂·max|u0|, for the three limiters."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+
+    disc = startup_1d(n_order, 0.0, 2 * np.pi, k)
+    dt = 0.3 * float(np.min(np.abs(disc.x[0] - disc.x[1])))
+    u0 = np.stack([(0.5 + 0.05 * j) * np.sin(disc.x) for j in range(4)], axis=1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for limiter in ("n", "1", "none"):
+        tab = cb.burgers_tables(disc, dt, limiter, device)
+        for dtype in (torch.float64, torch.float32):
+            x = torch.tensor(u0, dtype=dtype, device=device)
+            plan = cb.burgers_plan(k, 4, disc.np_, 24, limiter, dtype == torch.float64, sms)
+            assert plan.threads == 512
+            got = cb.burgers_march(x, 24, tab)
+            want = cb.burgers_march_plain(x, 24, tab)
+            bound = (1e-12 * want.abs() + 1e-13 if dtype == torch.float64
+                     else 8 * 24 * EPS32 * float(x.abs().max()))
+            assert bool(((got - want).abs() <= bound).all()), (limiter, dtype)
+            assert cb.burgers_march.cuda_launches == -(-24 // plan.segment)
+
+
+def test_high_order_kernels_refuse_what_they_do_not_take(device):
+    """At Np 9: K1 and KA with ghosts short of 5·s_f, K2 short of 10·s_f +
+    10, B1 float64 on 1024 threads; Np 17 before any launch."""
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import burgers as cb
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
+
+    disc = startup_1d(8, 0.0, 2 * np.pi, 600)
+    ops = dg_rhs.kernel_ops(disc, A, 1e-4, device)
+    u0 = torch.zeros((9, 1, 600), device=device)
+    lib = load_library()
+    short = dg_rhs.FusedPlan(2, 9, 400, 2, 512)
+    with pytest.raises(RuntimeError, match="K1 plan out of range"):
+        dg_rhs._k1_launch(lib, u0, 0.0, 4, None, 1, ops, short)
+    with pytest.raises(RuntimeError, match="KA plan out of range"):
+        dg_rhs._ka_launch(u0, 4, ops, short)
+    with pytest.raises(RuntimeError, match="fused plan out of range"):
+        dg_rhs._k2_launch(torch.zeros((4, 9, 1, 600), device=device), u0, u0, 0.0, ops,
+                          dg_rhs.FusedPlan(1, 19, 400, 2, 512))
+    tab = cb.burgers_tables(disc, 1e-4, "n", device)
+    with pytest.raises(RuntimeError, match="plan refused"):
+        cb._b1_launch(u0.double(), 4, tab, cb.BurgersPlan(1, 10, 12, 50, 1024))
+    with pytest.raises(ValueError, match="MAX_NP = 16"):
+        dg_rhs.kernel_ops(startup_1d(16, 0.0, 2 * np.pi, 8), A, 1e-4, device)

@@ -128,6 +128,6 @@ def test_wrappers_validate_and_count_only_kernel_launches():
         dg_rhs.fwd_march(u0, 0.0, 0, ops)
     with pytest.raises(TypeError):
         dg_rhs.fwd_march(u0.to(torch.float16), 0.0, 4, ops)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="MAX_NP = 16"):
         dg_rhs.kernel_ops(interop.discretization_from_numpy(
-            jax_startup_1d(8, 0.0, 1.0, 4)._asdict()), A, 1e-3, "cpu")
+            jax_startup_1d(16, 0.0, 1.0, 4)._asdict()), A, 1e-3, "cpu")

@@ -140,7 +140,7 @@ def check_b1(parent, device, sms) -> bool:
     for n_order, k, b, graded, n_steps, limiter, f64, dt in B1_CASES:
         tab, u0 = setup(n_order, k, b, graded, limiter, f64, dt)
         want = parent_b1(u0, n_steps, tab)
-        mine = cb.burgers_plan(k, b, n_steps, limiter, f64, sms)
+        mine = cb.burgers_plan(k, b, tab.np_, n_steps, limiter, f64, sms)
         plans = {"wrapper": mine}
         for threads in ((512,) if f64 else cb.CTA_THREADS):
             if k <= threads:
@@ -165,11 +165,11 @@ def check_b1(parent, device, sms) -> bool:
         tab, u0 = setup(n_order, k, b, graded, limiter, f64, dt)
         t = in_turns({"parent": lambda: parent_b1(u0, n_steps, tab),
                       "this": lambda: cb.burgers_march(u0, n_steps, tab)})
-        plan = cb.burgers_plan(k, b, n_steps, limiter, f64, sms)
+        plan = cb.burgers_plan(k, b, tab.np_, n_steps, limiter, f64, sms)
         print(f"B1 times K={k} N={n_order} B={b} steps={n_steps}: parent "
               f"{t['parent'][0]:.4f} / {t['parent'][1]:.4f} ms, this {t['this'][0]:.4f} / "
               f"{t['this'][1]:.4f} ms on {tuple(plan)} "
-              f"(model {cb._cost(k, b, n_steps, plan, sms) / 1e3:.4f} ms)", flush=True)
+              f"(model {cb._cost(k, b, tab.np_, n_steps, plan, sms) / 1e3:.4f} ms)", flush=True)
     for limiter in ("n", "1", "none"):
         for k in (16, 48, 128, 512):
             tab, u0 = setup(4, k, 1, False, limiter, False, 2e-4 * 48 / k)
