@@ -21,8 +21,9 @@
 // trajectory alone. So every kernel runs G lanes of a warp per IC or member
 // (below): the lanes split the fine nodes' interpolation, pairs and
 // residuals ahead of the chain (F1 and F2 a block of nodes in registers,
-// read across the group by shuffles; F3 a window in shared-memory tables),
-// and the chain runs over them. f and f_u (F2: f and the Jacobian) of one
+// read across the group by shuffles; F3, and F2 where a node's table passes
+// the registers, a window in shared-memory tables), and the chain runs over
+// them. f and f_u (F2: f and the Jacobian) of one
 // fine node are evaluated once, as a pair (the TPU kernel's _pair_cache).
 //
 // The ODE is a compile-time functor of odes.cuh (one struct per registry
@@ -55,14 +56,19 @@
 // waits beside the chain, so the plans give G only where the card would
 // otherwise hold few warps: F1 and F2 the fewest lanes that put 8 warps on
 // every SM (one lane an IC at 102,400 ICs, 16 at 4,096), F3 one warp a
-// member up to B = 4096. Shared memory: F1 and F2 4·ens_stride(n_steps, D)
-// bytes an IC and the rf weights (8.7 KB a 128-thread CTA at 16 steps and
-// d = 1, 17.9 KB at d = 2); F3 4·(3·n_steps + 2 + 3·window) bytes a member
-// (2.6 KB at 43 steps, rf 4, one window).
+// member up to B = 4096; F2's window design G >= D lanes, lane a owning v[a]
+// (the chain ~3 dependent operations and D shuffles a fine node). Shared
+// memory: F1 and F2 4·ens_stride(n_steps, D) bytes an IC and the rf weights
+// (8.7 KB a 128-thread CTA at 16 steps and d = 1, 17.9 KB at d = 2), F2's
+// window design 4·(W + 1)·vec_row() more (9.2 KB an IC at d = 15 dense,
+// W = 8); F3 4·(3·n_steps + 2 + 3·window) bytes a member (2.6 KB at 43
+// steps, rf 4, one window).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
+#include <utility>
 
 #include "odes.cuh"
 
@@ -91,6 +97,53 @@ __host__ __device__ inline long ens_stride(int n_steps, int d = 1) {
 
 // F1's nodes a lane computes ahead of the chain, in registers (U).
 constexpr int kEnsAhead = 4;
+
+// F2's register design holds U nodes' r, A and h·J a lane, U = 4 at d <= 4
+// and 1 above; its instances are compiled where a node's table, 2D + nnz
+// floats (nnz: the live Jacobian entries), is at most kVecRegRow, the
+// largest that held with no spill on an H100 (tools/torch_f2_designs.py:
+// Lorenz-96 to d = 8 and the dense system to d = 6 at U = 1, 107-167
+// registers; the dense d = 8, 80 floats, spills). Larger tables run the
+// window design (ops/cuda/fd_ensemble.py f2_plan).
+constexpr int kVecRegRow = 48;
+__host__ __device__ constexpr int vec_ahead(int d) { return d <= 4 ? kEnsAhead : 1; }
+
+// A compile-time loop: f(std::integral_constant<int, I>{}) for I in [0, N),
+// in order (a fold, not a recursion: N runs to 225).
+template <class F, int... I>
+__device__ __forceinline__ void static_for_each(F& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, class F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_each(f, std::make_integer_sequence<int, N>{});
+}
+
+// The compact layout of a vector functor's h·J: its Ode::nonzero entries,
+// row-major (m, then i), one slot each; structurally zero ones have none.
+template <class Ode>
+__host__ __device__ constexpr int jac_slot(int e) {  // live entries before e = m·D + i
+  int c = 0;
+  for (int k = 0; k < e; ++k) c += Ode::nonzero(k / Ode::D, k % Ode::D) ? 1 : 0;
+  return c;
+}
+template <class Ode>
+__host__ __device__ constexpr unsigned jac_row_mask(int m) {  // bit i: entry (m, i) live
+  unsigned r = 0;
+  for (int i = 0; i < Ode::D; ++i) r |= Ode::nonzero(m, i) ? 1u << i : 0u;
+  return r;
+}
+// A node's table: r (D), A (D), h·J (its live entries); a window row holds
+// it rounded up to odd, so that the lanes writing neighbouring rows hit
+// distinct banks.
+template <class Ode>
+__host__ __device__ constexpr int vec_table() {
+  return 2 * Ode::D + jac_slot<Ode>(Ode::D * Ode::D);
+}
+template <class Ode>
+__host__ __device__ constexpr int vec_row() {
+  return vec_table<Ode>() | 1;
+}
 
 // F1: the scalar ensemble signal, block convention; err is (n_steps, n).
 // G lanes of one warp serve an IC (G | 32, so a group never straddles a
@@ -219,8 +272,9 @@ fd_ensemble_kernel(int n, int n_steps, int rf, int lanes, const float* __restric
 // + s), in a slice of ens_stride(n_steps, D) floats (odd).
 //   1. Every lane runs the coarse march serially and alike, in the plain
 //      version's order; lane (s mod G) stores state s.
-//   2. The fine nodes are swept in blocks of U·G from the top. Lane l
-//      computes, in registers, the nodes n = top − 1 − (u·G + l), u < U:
+//   2. The fine nodes are swept in blocks of U·G from the top (U =
+//      vec_ahead(D)). Lane l computes, in registers, the nodes
+//      n = top − 1 − (u·G + l), u < U:
 //      u_n per component by interpolation, the pair (f, J) at (u_n, tf_n)
 //      once, the residual r_{n+1} = u_{n+1} − (u_n + f_n·h_n) per component
 //      and the chain's coefficients A_n = 2·u_n·h_n per component and
@@ -234,13 +288,15 @@ fd_ensemble_kernel(int n, int n_steps, int rf, int lanes, const float* __restric
 //      per-step sums of e_j = Σ_a r_j[a]·v_j[a] (a in order), lane 0 storing
 //      each step's |sum| once its block is complete.
 // Every lane takes the same trips through every loop, so the shuffles see
-// full warps.
-template <class Ode>
+// full warps. A lane holds U·(2D + nnz) floats of a block beside the chain's
+// D + nnz of the block's top and v's D: the instances are compiled where
+// 2D + nnz <= kVecRegRow alone (chip_smoke.py phase 44 reads their
+// registers).
+template <class Ode, int U>
 __global__ void __launch_bounds__(256, 1)
 fd_ensemble_vec_kernel(int n, int n_steps, int rf, int lanes, const float* __restrict__ grid,
                        const float* __restrict__ u0, float* __restrict__ err, OdeConsts k) {
   constexpr unsigned kFull = 0xffffffffu;
-  constexpr int U = kEnsAhead;
   constexpr int D = Ode::D;
   extern __shared__ float smem[];
   const int slot = threadIdx.x / lanes;
@@ -394,6 +450,152 @@ fd_ensemble_vec_kernel(int n, int n_steps, int rf, int lanes, const float* __res
   }
 }
 
+// F2's window design, for states whose node table the registers cannot
+// hold (2D + nnz > kVecRegRow, up to d = 15): G >= D lanes of one warp serve
+// an IC, lane a owning the adjoint's component v[a]; a CTA of T threads
+// serves T/G ICs. Shared memory holds the rf weights and, per IC, the D
+// coarse trajectories (ens_stride floats, as the register design) and a
+// window of W + 1 rows of vec_row() floats: r_{n+1} (D), A_n = 2·u_n·h_n (D) and h_n·J(u_n) at its compact
+// slots (jac_slot), row k for node bot + k, row W for the window's top node.
+//   1. Every lane runs the coarse march, as the register design.
+//   2. The fine nodes are swept in windows of W from the top, (bot, top].
+//      The lanes split the nodes n = bot … top − 1 (n ≡ bot + lane mod G):
+//      u_n by interpolation, Ode::pair once, then r_{n+1}, A_n and h_n·J's
+//      live entries into node n's row; one __syncwarp.
+//   3. Every lane takes each chain step j = top … bot + 1: lane a forms
+//      v_j[a] = (A_j[a] + v_{j+1}[a]) + h_j·J_j[m][a]·v_{j+1}[m] over the
+//      live m in order (the plain version's order), v_{j+1}[m] read by
+//      __shfl_sync within the group into every lane (vm); then the group
+//      shuffles v_j into vm, and every lane sums e_j = Σ_a r_j[a]·v_j[a] in
+//      a order; lane 0 stores each step's |sum| once its block is complete.
+//      The column's live m and slots are compile-time row masks (a lane's
+//      slot is the row's base plus the live entries left of its a).
+//   4. Node bot's A and h·J move to row W (the next window's top); a
+//      __syncwarp before the next window overwrites the rows.
+// Lanes a >= D compute nodes and hold v = 0 in the chain. Every lane takes
+// the same trips through the chain (the windows and steps run to the same
+// bounds for every IC), so the shuffles see full warps; the node loop, which
+// has none, may end a trip early in the last lanes. The arithmetic of a node
+// and a chain step is the register design's, expression for expression.
+template <class Ode>
+__global__ void __launch_bounds__(256)
+fd_ensemble_vec_window_kernel(int n, int n_steps, int rf, int lanes, int window,
+                              const float* __restrict__ grid, const float* __restrict__ u0,
+                              float* __restrict__ err, OdeConsts k) {
+  constexpr unsigned kFull = 0xffffffffu;
+  constexpr int D = Ode::D;
+  constexpr int kRow = vec_row<Ode>();
+  extern __shared__ float smem[];
+  const int slot = threadIdx.x / lanes;
+  const int lane = threadIdx.x - slot * lanes;
+  const long ic = static_cast<long>(blockIdx.x) * (blockDim.x / lanes) + slot;
+  const bool live = ic < n;
+  const int n_fine = n_steps * rf;
+  const int rows = n_steps + 1;
+  const float* tc = grid;
+  const float* dts = grid + n_steps;
+  const float* tf = dts + n_steps;
+  const float* dtf = tf + n_fine;
+  float* wq = smem;  // wq[q] = q/rf
+  for (int q = threadIdx.x; q < rf; q += blockDim.x) wq[q] = dtf[n_fine + q];
+  __syncthreads();
+  float* traj = smem + rf +
+                static_cast<long>(slot) * (ens_stride(n_steps, D) + (window + 1L) * kRow);
+  float* tab = traj + ens_stride(n_steps, D);
+
+  {
+    float u[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) u[c] = live ? u0[ic * D + c] : 0.f;
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) traj[c * rows] = u[c];
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      float fs[D];
+      Ode::f(u, tc[s], k, fs);
+#pragma unroll
+      for (int c = 0; c < D; ++c) u[c] = u[c] + fs[c] * dts[s];
+      if (lane == ((s + 1) & (lanes - 1))) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) traj[c * rows + s + 1] = u[c];
+      }
+    }
+  }
+  __syncwarp();
+
+  const int a = lane;  // this lane's component (none at a >= D)
+  float v = 0.f;       // v_{j+1}[a]; v_{n_fine} = 0 (J sums u[:-1])
+  float vm[D];         // v_{j+1}[m] of every component
+#pragma unroll
+  for (int m = 0; m < D; ++m) vm[m] = 0.f;
+  float blk = 0.f;
+  int step = n_steps - 1, left = rf - 1;  // chain node j − 1 = step·rf + left
+  for (int top = n_fine; top > 0; top -= window) {
+    const int bot = top > window ? top - window : 0;
+    for (int nn = bot + lane; nn < top; nn += lanes) {
+      const int i = nn / rf;
+      const int q = nn - i * rf;
+      float u_n[D], u_n1[D];
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        const float lo = traj[c * rows + i];
+        const float hi = traj[c * rows + i + 1];
+        u_n[c] = q == 0 ? lo : lo + wq[q] * (hi - lo);
+        u_n1[c] = q + 1 == rf ? hi : lo + wq[q + 1] * (hi - lo);
+      }
+      const float h = dtf[nn];
+      float fs[D], jac[D * D];
+      Ode::pair(u_n, tf[nn], k, fs, jac);
+      float* row = tab + (nn - bot) * kRow;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        row[c] = u_n1[c] - (u_n[c] + fs[c] * h);
+        row[D + c] = 2.f * u_n[c] * h;
+      }
+      static_for<D * D>([&](auto ec) {
+        constexpr int e = decltype(ec)::value;
+        if constexpr (Ode::nonzero(e / D, e % D)) {
+          constexpr int at = 2 * D + jac_slot<Ode>(e);
+          row[at] = h * jac[e];
+        }
+      });
+    }
+    __syncwarp();
+    for (int j = top; j > bot; --j) {
+      const float* r_j = tab + (j - 1 - bot) * kRow;  // r of node j − 1
+      if (j < n_fine) {  // v_j = k_j + (I + h_j·J(u_j))ᵀ v_{j+1}
+        const float* c_j = tab + (j < top ? j - bot : window) * kRow;  // A, h·J of node j
+        float acc = (a < D ? c_j[D + a] : 0.f) + v;
+        static_for<D>([&](auto mc) {
+          constexpr int m = decltype(mc)::value;
+          constexpr unsigned mask = jac_row_mask<Ode>(m);
+          constexpr int base = 2 * D + jac_slot<Ode>(m * D);
+          if ((mask >> a) & 1u)
+            acc = acc + c_j[base + __popc(mask & ((1u << a) - 1u))] * vm[m];
+        });
+        v = a < D ? acc : 0.f;
+#pragma unroll
+        for (int m = 0; m < D; ++m) vm[m] = __shfl_sync(kFull, v, m, lanes);
+      }
+      float e = r_j[0] * vm[0];
+#pragma unroll
+      for (int c = 1; c < D; ++c) e = e + r_j[c] * vm[c];
+      blk += e;
+      if (left == 0) {  // block `step` covers fine nodes step·rf+1 .. (step+1)·rf
+        if (live && lane == 0) err[static_cast<long>(step) * n + ic] = fabsf(blk);
+        blk = 0.f;
+        left = rf;
+        --step;
+      }
+      --left;
+    }
+    __syncwarp();
+    for (int x = D + lane; x < kRow; x += lanes) tab[window * kRow + x] = tab[x];
+    __syncwarp();
+  }
+}
+
 // F3: G lanes of one warp serve a member (G | 32, so a group never straddles
 // a warp); a CTA of T threads serves T/G members, each with its own slice of
 // shared memory: its widths dt (n_steps), the coarse trajectory and node
@@ -542,20 +744,46 @@ int launch_ensemble(int n, int n_steps, int rf, int lanes, int threads, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// F2's launch; -3 where the CTA's D-component trajectories exceed a block's
-// shared memory (set_smem).
+// F2's window design's shared memory for T/G ICs: the rf weights, then each
+// IC's trajectories and W + 1 rows of vec_row() floats.
 template <class Ode>
-int launch_ensemble_vec(int n, int n_steps, int rf, int lanes, int threads, const float* grid,
-                        const float* u0, float* err, const OdeConsts& k, cudaStream_t stream) {
-  const long smem = ensemble_smem(lanes, threads, n_steps, rf, Ode::D);
-  const int code =
-      set_smem(reinterpret_cast<const void*>(&fd_ensemble_vec_kernel<Ode>), smem);
-  if (code != 0) return code;
+long vec_window_smem(int lanes, int threads, int n_steps, int rf, int window) {
+  return (rf + static_cast<long>(threads / lanes) *
+                   (ens_stride(n_steps, Ode::D) + (window + 1L) * vec_row<Ode>())) *
+         static_cast<long>(sizeof(float));
+}
+
+// F2's launch: the window design where window > 0 (G >= D lanes), else the
+// register design (2D + nnz <= kVecRegRow); -3 where neither takes the
+// launch or the CTA's shared memory exceeds a block's (set_smem).
+template <class Ode>
+int launch_ensemble_vec(int n, int n_steps, int rf, int lanes, int threads, int window,
+                        const float* grid, const float* u0, float* err, const OdeConsts& k,
+                        cudaStream_t stream) {
   const int per = threads / lanes;
   const long blocks = (static_cast<long>(n) + per - 1) / per;
-  fd_ensemble_vec_kernel<Ode><<<blocks, threads, smem, stream>>>(n, n_steps, rf, lanes, grid,
-                                                                 u0, err, k);
-  return static_cast<int>(cudaGetLastError());
+  if (window > 0) {
+    if (lanes < Ode::D) return -3;
+    const long smem = vec_window_smem<Ode>(lanes, threads, n_steps, rf, window);
+    const int code = set_smem(
+        reinterpret_cast<const void*>(&fd_ensemble_vec_window_kernel<Ode>), smem);
+    if (code != 0) return code;
+    fd_ensemble_vec_window_kernel<Ode><<<blocks, threads, smem, stream>>>(
+        n, n_steps, rf, lanes, window, grid, u0, err, k);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (vec_table<Ode>() <= kVecRegRow) {
+    constexpr int U = vec_ahead(Ode::D);
+    const long smem = ensemble_smem(lanes, threads, n_steps, rf, Ode::D);
+    const int code =
+        set_smem(reinterpret_cast<const void*>(&fd_ensemble_vec_kernel<Ode, U>), smem);
+    if (code != 0) return code;
+    fd_ensemble_vec_kernel<Ode, U><<<blocks, threads, smem, stream>>>(n, n_steps, rf, lanes,
+                                                                      grid, u0, err, k);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return -3;
+  }
 }
 
 // The launches F1, F2 and F3 take: G lanes (a power of two up to 32) of a warp
@@ -611,13 +839,16 @@ int fd_ensemble(int ode_id, int fast_trig, int n_u, int n_t, const float* consts
 
 // F2 on `lanes` lanes an IC in CTAs of `threads`, as F1; u0 is (n, D),
 // IC-major, D the vector functor's (ode_id 6 the harmonic oscillator, or
-// the user library's traced one).
-int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, int lanes, int threads,
+// the user library's traced one). window = 0: the register design (2D + nnz
+// <= kVecRegRow); window > 0: the window design on windows of that many
+// fine nodes (lanes >= D).
+int fd_ensemble_vec(int ode_id, int n, int n_steps, int rf, int lanes, int threads, int window,
                     const float* grid, const float* u0, float* err, void* stream) {
-  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1) return -3;
+  if (!launch_ok(lanes, threads) || n_steps < 1 || rf < 1 || window < 0) return -3;
   const OdeConsts k{};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AOA_LAUNCH(ODE) launch_ensemble_vec<ODE>(n, n_steps, rf, lanes, threads, grid, u0, err, k, s)
+#define AOA_LAUNCH(ODE) \
+  launch_ensemble_vec<ODE>(n, n_steps, rf, lanes, threads, window, grid, u0, err, k, s)
   AOA_ODE_VECTOR_SWITCH(ode_id, AOA_LAUNCH)
 #undef AOA_LAUNCH
 }
@@ -648,7 +879,8 @@ const char* fd_error_string(int code) {
   if (code == -3)
     return "coarse trajectory exceeds a block's shared memory (too many steps), or a launch "
            "the kernel does not take (lanes 1-32, a power of two; 32-256 threads; "
-           "1 <= window <= n_steps*rf)";
+           "1 <= window <= n_steps*rf; F2: lanes >= d on a window, 2d + nnz <= the "
+           "register design's cap without one)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

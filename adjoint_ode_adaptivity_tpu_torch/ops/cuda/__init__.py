@@ -107,7 +107,7 @@ class KernelLibrary:
             "dg_mxu_fwd": [i] * 8 + [p] * 9,
             "dg_mxu_rev": [i] * 8 + [p] * 11,
             "fd_ensemble": [i, i, i, i, p] + [i] * 5 + [p] * 4,
-            "fd_ensemble_vec": [i] * 6 + [p] * 4,
+            "fd_ensemble_vec": [i] * 7 + [p] * 4,
             "fd_estimate_per_member": ([i, i, i, p, i, i, i, i, ctypes.c_float]
                                        + [i] * 3 + [p] * 5),
             "dg_estimate_ensemble": [i] * 5 + [p] * 2 + [i] * 10 + [p] * 6,

@@ -10,8 +10,14 @@ indicator — in G lanes of a warp per IC or member:
   ``(n_steps, n_ics)``. Replaces ``_kernel`` (fd_ensemble.py:61); with
   ``trig="fast"`` it evaluates sin/cos by the polynomials of
   :mod:`adjoint_ode_adaptivity_tpu_torch.ops.fast_trig` (fast_trig.py:62-77).
-- **F2** :func:`fd_ensemble_vec` — d-vector state, the adjoint through
-  (I + dt·J)ᵀ. Replaces ``_vec_kernel`` (fd_ensemble.py:201).
+- **F2** :func:`fd_ensemble_vec` — d-vector state (2 ≤ d ≤ 15, JAX's own
+  cap), the adjoint through (I + dt·J)ᵀ. Replaces ``_vec_kernel``
+  (fd_ensemble.py:201). Two designs by the size of a fine node's table,
+  2d + nnz floats (r, A and h·J's live entries; :func:`f2_plan`): up to
+  :data:`F2_REG_ROW` F1's, a block of nodes a lane in registers (d ≤ 4:
+  every ODE; Lorenz-96 to d = 8, a dense Jacobian to d = 6); above it a
+  window of nodes in shared memory, G ≥ d lanes an IC, lane a owning
+  v[a] and reading the others by shuffles (dense d ≥ 7, sparse d ≥ 9).
 - **F3** :func:`fd_estimate_per_member` — per-member step widths (B, n_steps),
   strided or block indicator and J per member. Replaces ``_pm_kernel``
   (fd_ensemble.py:357); the engine of ``run_adaptive_fd_per_member(engine="cuda")``.
@@ -53,8 +59,10 @@ The TPU tiling ((8, lane) carpets, ``lane_block``, the multiple-of-20480 IC
 rule, the scoped-VMEM checks) is not ported: the entry points take any
 ``n_ics`` and any B; the step count is bounded by a block's shared memory,
 which the kernel's launcher checks (a launch with too many steps raises;
-F1's and F2's plan shrinks its CTA and F3's its CTA and its window of fine
-nodes to fit first).
+F1's and F2's plan shrinks its CTA, F2's window design its window, and
+F3's its CTA and its window of fine nodes to fit first). F2's entry point
+refuses a step count past one IC a CTA (:func:`f2_max_steps`) before any
+launch, and takes every (d, n_steps) that JAX's check admits.
 
 Tolerance (:func:`fd_kernel_tolerance`, :func:`fd_j_tolerance`): kernel
 and plain version run float32 in another order of roundings (FMA
@@ -83,6 +91,11 @@ __all__ = [
     "FdPlan",
     "FdEnsLaunch",
     "fd_ens_plan",
+    "FdVecLaunch",
+    "vec_window_plan",
+    "f2_registers",
+    "f2_plan",
+    "f2_max_steps",
     "FdPmLaunch",
     "fd_pm_plan",
     "fd_kernel_tolerance",
@@ -112,6 +125,11 @@ PM_MAX_WARPS = 4096  # fd_pm_plan's most warps: ~31 an SM on 132 SMs
 # 0.0344-0.0372, G = 2 0.0393-0.0413)
 ENS_WARPS_PER_SM = 8
 MAX_SMEM = 232_448  # csrc kMaxSmem: the bytes a block may use on sm_90
+# F2 runs its register design (U = 4 nodes a lane at d <= 4, 1 above) where
+# a node's table, 2d + nnz floats, is at most F2_REG_ROW (csrc kVecRegRow:
+# the largest that held with no spill on an H100, tools/torch_f2_designs.py),
+# else its window design
+F2_REG_ROW = 48
 H100_SMS = 132
 SOURCE = "fd_ensemble.cu"
 SIN_ID = odes.KERNEL_IDS["du/dt=sin(u)"]
@@ -460,29 +478,115 @@ def _f1_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
     return err
 
 
+class FdVecLaunch(NamedTuple):
+    """F2's window design: ``lanes`` (G ≥ d) lanes of a warp an IC in CTAs
+    of ``threads``, the fine nodes swept ``window`` (W) at a time."""
+
+    lanes: int
+    threads: int
+    window: int
+
+
+VEC_LEAST = FdVecLaunch(32, 32, 1)  # the window design's least footprint: one IC a CTA
+REG_LEAST = FdEnsLaunch(32, 32)  # the register design's
+
+
+def vec_row(d: int, nnz: int) -> int:
+    """The floats of a window row (csrc vec_row): r and A (d each) and
+    h·J's live entries, rounded up to odd."""
+    return (2 * d + nnz) | 1
+
+
+def vec_window_smem(launch: FdVecLaunch, n_steps: int, rf: int, d: int, nnz: int) -> int:
+    """The window design's bytes of shared memory a CTA (csrc
+    vec_window_smem): the rf weights, then each IC's coarse trajectories
+    (:func:`ens_stride`) and W + 1 rows of :func:`vec_row` floats."""
+    per_ic = ens_stride(n_steps, d) + (launch.window + 1) * vec_row(d, nnz)
+    return 4 * (rf + launch.threads // launch.lanes * per_ic)
+
+
+@functools.lru_cache(maxsize=256)
+def vec_window_plan(n_steps: int, rf: int, d: int, nnz: int) -> FdVecLaunch:
+    """F2's window launch for d components with nnz live Jacobian
+    entries: G the smallest of :data:`PM_LANES` that is at least d and 8
+    (8 for d ≤ 8, 16 up to 15), W = 8 fine nodes, in 64-thread CTAs, or the
+    smaller CTA and then the largest smaller W whose shared memory fits a
+    block (:func:`vec_window_smem`), and last one IC a CTA
+    (:data:`VEC_LEAST`), which the kernel refuses where even that does not
+    fit (:func:`f2_max_steps`). tools/torch_f2_designs.py on an H100 at
+    102,400 ICs: G = 8 at d = 6 and 8 and 16 at d = 15, W = 8 and 64
+    threads the fastest or within 15 % of it (at d = 15 W = 16 and 128
+    threads took 1.74x as long)."""
+    lanes = next(g for g in PM_LANES if g >= max(d, 8))
+    for window in (8, 4, 2, 1):
+        for threads in (64, 32):
+            launch = FdVecLaunch(lanes, threads, window)
+            if vec_window_smem(launch, n_steps, rf, d, nnz) <= MAX_SMEM:
+                return launch
+    return VEC_LEAST
+
+
+def f2_registers(d: int, nnz: int) -> bool:
+    """True where F2 runs its register design: a node's table, 2d + nnz
+    floats, at most :data:`F2_REG_ROW`."""
+    return 2 * d + nnz <= F2_REG_ROW
+
+
+def f2_smem(launch, n_steps: int, rf: int, d: int, nnz: int) -> int:
+    """A CTA's bytes of shared memory in either design."""
+    if isinstance(launch, FdVecLaunch):
+        return vec_window_smem(launch, n_steps, rf, d, nnz)
+    return ens_smem(launch, n_steps, rf, d)
+
+
+def f2_plan(n_ics: int, n_steps: int, rf: int, sms: int, d: int, nnz: int):
+    """F2's launch: the register design's :func:`fd_ens_plan` (or one IC a
+    CTA, :data:`REG_LEAST`, where a long trajectory passes its launch's
+    block) where :func:`f2_registers`, else :func:`vec_window_plan`."""
+    if not f2_registers(d, nnz):
+        return vec_window_plan(n_steps, rf, d, nnz)
+    launch = fd_ens_plan(n_ics, n_steps, rf, sms, d)
+    return launch if ens_smem(launch, n_steps, rf, d) <= MAX_SMEM else REG_LEAST
+
+
+def f2_max_steps(rf: int, d: int, nnz: int) -> int:
+    """The most steps F2 takes at d with nnz live Jacobian entries (its
+    design's least footprint, one IC a CTA): past them the entry point
+    refuses before any launch."""
+    least = REG_LEAST if f2_registers(d, nnz) else VEC_LEAST
+    lo, hi = 0, MAX_SMEM // 4
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        fits = f2_smem(least, mid, rf, d, nnz) <= MAX_SMEM
+        lo, hi = (mid, hi) if fits else (lo, mid - 1)
+    return lo
+
+
 def fd_ensemble_vec(u0s: torch.Tensor, plan: FdPlan) -> torch.Tensor:
     """F2: the per-IC block indicator (n_steps, n_ics) of ``u0s`` (n_ics, d),
     read as given (IC-major). On the card one CUDA launch on
-    :func:`fd_ens_plan`'s launch for d components."""
+    :func:`f2_plan`'s launch for d components."""
     d = plan.functors.d
     if u0s.dim() != 2 or u0s.shape[1] != d:
         raise ValueError(f"u0s must be (n_ics, {d}), got {tuple(u0s.shape)}")
     if not _on_cuda("u0s", u0s, u0s.shape, plan):
         return fd_ensemble_vec_plain(u0s, plan)
     fd_ensemble_vec.launches += 1
-    return _f2_launch(u0s, plan, fd_ens_plan(u0s.shape[0], plan.n_steps, plan.rf,
-                                             _sm_count(u0s.device), d))
+    return _f2_launch(u0s, plan, f2_plan(u0s.shape[0], plan.n_steps, plan.rf,
+                                         _sm_count(u0s.device), d, plan.functors.nnz))
 
 
-def _f2_launch(u0s, plan: FdPlan, launch: FdEnsLaunch) -> torch.Tensor:
-    """One fd_ensemble_vec call on ``launch``: err (n_steps, n_ics). The
-    wrapper counts its launches; this does not."""
+def _f2_launch(u0s, plan: FdPlan, launch) -> torch.Tensor:
+    """One fd_ensemble_vec call on ``launch`` (an :class:`FdEnsLaunch`:
+    the register design; an :class:`FdVecLaunch`: the window design):
+    err (n_steps, n_ics). The wrapper counts its launches; this does not."""
     lib = plan.functors.library()
     n = u0s.shape[0]
     err = torch.empty((plan.n_steps, n), dtype=torch.float32, device=u0s.device)
     code = lib.lib.fd_ensemble_vec(
         plan.functors.ode_id, n, plan.n_steps, plan.rf, launch.lanes, launch.threads,
-        plan.grid_ptr, u0s.data_ptr(), err.data_ptr(), _stream(u0s.device),
+        getattr(launch, "window", 0), plan.grid_ptr, u0s.data_ptr(), err.data_ptr(),
+        _stream(u0s.device),
     )
     lib.check(code, "fd_ensemble_vec", lib.lib.fd_error_string)
     return err
@@ -607,10 +711,24 @@ def make_cuda_fd_ensemble_vec(ode=None, n_steps: int | None = None,
     or, as JAX's ``make_pallas_fd_ensemble_vec(f_comps, jac_comps, d, …)``
     takes it, ``f_comps(us, t) -> d-tuple`` and ``jac_comps(us, t) -> d×d
     nested tuple`` (entry [m][i] = ∂f_m/∂u_i; literal zeros are skipped)
-    on a d-tuple of components, traced for 2 ≤ d ≤ ``functor.MAX_VECTOR_D``."""
+    on a d-tuple of components, traced for 2 ≤ d ≤ ``functor.MAX_VECTOR_D``
+    (15, JAX's own cap; d = 16 raises naming it). On the card a node's
+    table of 2d + nnz floats (nnz the live Jacobian entries) sits in
+    registers where :func:`f2_registers`, else in a shared-memory window
+    (:func:`f2_plan`); every step count JAX's VMEM check admits fits, and
+    for the card one past a block's shared memory (:func:`f2_max_steps`)
+    raises a ValueError naming the limit before any build or launch (the
+    plain version on the CPU takes it)."""
     functors = vector_functors(ode, f_comps, jac_comps, d, source=SOURCE)
     if dt is None:
         raise ValueError("dt is required: a scalar or n_steps widths")
+    if torch.device(device).type == "cuda" and n_steps and ref_factor and ref_factor >= 1:
+        most = f2_max_steps(ref_factor, functors.d, functors.nnz)
+        if n_steps > most:
+            raise ValueError(f"n_steps={n_steps} at d={functors.d} (rf {ref_factor}, "
+                             f"{functors.nnz} live Jacobian entries): one IC's shared memory "
+                             f"passes a block's {MAX_SMEM} bytes; F2 takes at most {most} steps "
+                             "there")
     plan = _plan(functors, n_steps, ref_factor, dt=dt, device=device)
     return _with_plan(lambda u0s: fd_ensemble_vec(u0s, plan), plan)
 

@@ -67,11 +67,13 @@ __all__ = [
 ]
 
 USER_KERNEL_ID = 1000  # csrc/odes.cuh kUserKernelId: the user case of every switch
-VECTOR_KERNEL_IDS = {odes.KERNEL_IDS["harmonic_oscillator"]: 2}  # registry id -> d
-# F2's cap on the state size: its registers hold U·(2d + d²) floats of a
-# block's nodes (U = 4) beside the chain's d² + 2d (chip_smoke.py phase
-# 42(b) on an H100: d = 3 and 4 in 96 and 128 registers, no spill)
-MAX_VECTOR_D = 4
+# registry id -> (d, live Jacobian entries): csrc/odes.cuh OdeHarmonic
+VECTOR_KERNEL_IDS = {odes.KERNEL_IDS["harmonic_oscillator"]: (2, 2)}
+# F2's cap on the state size, JAX's own: make_pallas_fd_ensemble_vec's
+# scoped-VMEM check admits d = 15 at one step and no d >= 16. F2 holds a
+# node's table in registers where fd_ensemble.f2_registers, else in a
+# shared-memory window.
+MAX_VECTOR_D = 15
 
 _UNARY = ("neg", "sin", "cos", "tan", "exp", "log", "sqrt", "rsqrt", "tanh", "sigmoid", "abs",
           "relu")
@@ -605,6 +607,7 @@ class KernelFunctors(NamedTuple):
     header: str | None
     sources: tuple
     d: int = 0
+    nnz: int = 0  # a vector ODE's live Jacobian entries (nonzero(m, i))
 
     def library(self):
         from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library, load_user_library
@@ -706,8 +709,9 @@ def vector_functors(ode=None, f_comps=None, jac_comps=None, d=None, *,
                     source: str) -> KernelFunctors:
     """Resolve F2's vector ODE: a registry entry (its name) with a vector
     ``kernel_id``, or ``f_comps(us, t) -> d-tuple`` and ``jac_comps(us, t)
-    -> d×d nested tuple`` (literal zeros skipped) traced for d ≤
-    :data:`MAX_VECTOR_D` components."""
+    -> d×d nested tuple`` (literal zeros skipped) traced for 2 ≤ d ≤
+    :data:`MAX_VECTOR_D` components (a larger d raises a ValueError naming
+    the limit)."""
     if ode is not None:
         if f_comps is not None or jac_comps is not None:
             raise ValueError("pass the ODE as ode= or as (f_comps, jac_comps, d), not both")
@@ -716,15 +720,15 @@ def vector_functors(ode=None, f_comps=None, jac_comps=None, d=None, *,
             raise ValueError(f"ODE {getattr(reg, 'name', reg)!r}: this entry point takes a "
                              "vector registry ODE, or (f_comps, jac_comps, d)")
         return KernelFunctors(reg, None, reg.kernel_id, 0, None, (source,),
-                              VECTOR_KERNEL_IDS[reg.kernel_id])
+                              *VECTOR_KERNEL_IDS[reg.kernel_id])
     if f_comps is None or jac_comps is None or d is None:
         raise ValueError("a vector ODE needs f_comps, jac_comps and d")
     d = int(d)
     if d < 2:
         raise ValueError(f"d={d}: the vector kernel takes d >= 2 (scalar states go to F1)")
     if d > MAX_VECTOR_D:
-        raise ValueError(f"d={d}: the vector kernel holds at most d={MAX_VECTOR_D} components "
-                         "in registers")
+        raise ValueError(f"d={d}: the vector kernel takes at most d={MAX_VECTOR_D} components "
+                         f"(MAX_VECTOR_D, JAX's own cap)")
     t_f, t_j = trace(f_comps, d), trace(jac_comps, d, jacobian=True)
 
     def f(u, t):  # (…, d) states: the d results stacked
@@ -741,4 +745,4 @@ def vector_functors(ode=None, f_comps=None, jac_comps=None, d=None, *,
     plain = odes.ODEProblem(name=f"traced {t_f.name}", f=f, f_u=jac, kernel_id=None)
     defines = {"AOA_USER_ODE_VEC": f"OdeTracedVec<{d}, {struct_name(t_f)}, {struct_name(t_j)}>"}
     return KernelFunctors(plain, None, USER_KERNEL_ID, 0, _header(defines, [t_f, t_j]),
-                          (source,), d)
+                          (source,), d, sum(x is not None for x in t_j.outputs))

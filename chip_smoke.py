@@ -124,7 +124,8 @@ raises, and the script exits non-zero; nothing is caught.
    across the shock) with B1's launch count and the post-shock properties
    (finite, within the initial range up to 5e-2, Σ cell averages·h
    conserved to float32 roundoff); ``--kernel torch`` in float64 on the
-   card, and B1 in float64 against it; ``advec_dg --limiter n`` and ``1``
+   card (run on a thread beside phase 1's build, which leaves the card
+   idle), and B1 in float64 against it; ``advec_dg --limiter n`` and ``1``
    on the card against ``--device cpu``.
 21. Revolve: ``revolve_advec_estimate`` at K=10^4, 2048 steps, unit 128,
    4 snaps against the stored pipeline, with K1/K2's launch counts; at
@@ -366,6 +367,16 @@ raises, and the script exits non-zero; nothing is caught.
    to the noise bound), the recompute pipeline's bits, both engines'
    decisions on sin(20x), the march alone, make_cuda_advec_adjoint,
    burgers_dg --kernel cuda --order 8, a tiled and a revolve call.
+44. F2 on traced vector ODEs of 5-15 components at 102,400 ICs (Lorenz-96,
+   F = 8, at d = 5 over 16 steps and d = 8 over 8, rf 4, dt 0.0125; a dense
+   d = 15 system at 1 step, rf 16): (a) the user libraries built together,
+   each case's instance's registers and spills, the kernel against its
+   plain version within fd_kernel_tolerance(…, d) with teeth and a bfloat16
+   run of the plain version outside it, device and call ms, the plain ms
+   and the bound, and Lorenz-96 on the window design beside the register
+   design; (b) each case through make_cuda_fd_ensemble_vec, its launch
+   count from 0; (c) the registry F2 and the traced d = 2, 3 and 4 against
+   the parent's digests.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is
@@ -420,6 +431,8 @@ SOURCES = {
     "adj_est_recompute[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
     "adj_march[Np 9-16]": f"{PACKAGE}/csrc/dg_rhs.cu",
     "burgers_march[Np 9-16]": f"{PACKAGE}/csrc/burgers.cu",
+    # F2 on traced vector ODEs of 5-15 components (phase 44)
+    "fd_ensemble_vec[d 5-15]": f"{PACKAGE}/csrc/fd_ensemble.cu",
 }
 TPU_KERNELS = {
     "fwd_march": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:981; with no trajectory "
@@ -487,6 +500,10 @@ TPU_KERNELS = {
                                   "(_adj_est_grid_kernel_b; at B = 1 :538 and :384)",
     "adj_march[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/dg_rhs.py:335 (_adjoint_kernel)",
     "burgers_march[Np 9-16]": "adjoint_ode_adaptivity_tpu/ops/pallas/burgers.py:57 (_kernel)",
+    # the vector kernel at the d its scoped-VMEM check admits past the port's
+    # register design (fd_ensemble.py:326-334)
+    "fd_ensemble_vec[d 5-15]": "adjoint_ode_adaptivity_tpu/ops/pallas/fd_ensemble.py:201 "
+                               "(_vec_kernel at d 5-15, make_pallas_fd_ensemble_vec :276)",
 }
 # the JAX package's benchmark shapes: the ensemble refinement signal and its
 # d=2 sibling (utils/flops.py:100-104) and the per-member study (bench.py:824-833)
@@ -2690,8 +2707,50 @@ def phase19(device, errs):
     return plain_ms, (disc, dt)
 
 
-def phase20(device, errs):
-    """The Burgers path through its entry points."""
+def burgers_eager64():
+    """Start phase 20's float64 eager Burgers march (``burgers_dg --kernel
+    torch``: T = 1.5, 7,500 steps at ~13 ms of host a step) on a thread of
+    its own. It needs no kernel, and the kernels' build leaves the card and
+    a host core idle, so main() starts it before the build and joins it
+    after. Returns the join: (u64, wall seconds, burgers_dg's printout);
+    it re-raises what the march raised."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.drivers import burgers_dg
+
+    box = {}
+
+    def march():
+        out = io.StringIO()
+        try:
+            t0 = time.perf_counter()
+            # the main thread prints nothing until the join
+            with contextlib.redirect_stdout(out):
+                u = burgers_dg.main(["--kernel", "torch"])
+            torch.cuda.synchronize()
+            box["result"] = (u, time.perf_counter() - t0, out.getvalue())
+        except BaseException as exc:  # re-raised by the join
+            box["error"] = exc
+
+    thread = threading.Thread(target=march, name="burgers-eager-f64", daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    return join
+
+
+def phase20(device, errs, march64):
+    """The Burgers path through its entry points; ``march64`` what
+    :func:`burgers_eager64`'s join returned."""
     import numpy as np
     import torch
 
@@ -2713,20 +2772,19 @@ def phase20(device, errs):
     u0 = torch.tensor(0.5 + np.sin(disc.x), dtype=torch.float64, device=device)
     burgers_props("shock run, B1 float32", u, u0.float(), disc, n_steps, EPS32)
 
-    t0 = time.perf_counter()
-    u64 = burgers_dg.main(["--kernel", "torch"])
-    torch.cuda.synchronize()
-    wall64 = time.perf_counter() - t0
+    # the float64 eager march ran on a thread beside the kernels' build
+    u64, wall64, printed = march64
+    print(printed, end="", flush=True)
     assert cb.burgers_march.launches == 1 and u64.dtype == torch.float64
     burgers_props("shock run, --kernel torch float64 on the card", u64, u0, disc, n_steps,
                   2.0**-52)
     tab = cb.burgers_tables(disc, 2e-4, "n", device)
     k64 = cb.burgers_march(u0[:, None, :].contiguous(), n_steps, tab)[:, 0]
     d64 = float((k64 - u64).abs().max())
-    say("20", f"--kernel torch float64: wall {wall64:.2f} s; after the shock, B1 float64 vs it "
-              f"max|d| {d64:.3e} (bound 1e-10) and B1 float32 vs it "
-              f"{float((u.double() - u64).abs().max()):.3e} (in float32 roundoff decides the "
-              f"troubled-cell test differently; 19(d) holds B1 step by step)")
+    say("20", f"--kernel torch float64 (on a thread beside phase 1's build): wall {wall64:.2f} "
+              f"s; after the shock, B1 float64 vs it max|d| {d64:.3e} (bound 1e-10) and B1 "
+              f"float32 vs it {float((u.double() - u64).abs().max()):.3e} (in float32 roundoff "
+              f"decides the troubled-cell test differently; 19(d) holds B1 step by step)")
     # two float64 implementations of the same march (equal at 1e-12 on the
     # CPU, tests/test_torch_burgers.py) after 7,500 steps through the shock
     assert d64 <= 1e-10, "B1 float64 leaves the eager float64 march"
@@ -5116,6 +5174,11 @@ PARENT_DIGESTS = {"D1 1024": "9c17a77a54f01917", "D1 16384": "35680304e7695012",
                   "H1 4096 solve": "a4163c588a154456", "T2 8192 10": "e587078b00801107",
                   "T2 512 2": "c1952e2d913c163e", "F1 102400": "0a1187cfdd680f43",
                   "F2 102400": "891f5a68da654eaa", "F3 1024": "a795d3ab8a92e180",
+                  # F2 on phase 42's traced callables at d = 2-4 (tools/torch_fd_digests.py
+                  # on the parent 14fbbe5)
+                  "F2 traced d=2 102400": "6d66aa475b7a4023",
+                  "F2 traced d=3 102400": "08aa1bf8783ed289",
+                  "F2 traced d=4 102400": "d969f099e31c2beb",
                   # the register advection and Burgers kernels at N = 1-7 (Np 2-8),
                   # tools/torch_dg_digests.py on the parent a5c8d6d
                   "K1 N=1": "105cf4d25e582f65", "K2 N=1": "56710e3c0902635c",
@@ -7636,6 +7699,219 @@ def phase43(device, lib, errs):
     return launches, times, bounds
 
 
+# ------------------------------------- F2 at d 5-15: the window design (phase 44)
+
+# F2's cases at FD_ENSEMBLE's 102,400 ICs: (label, system, d, steps, rf, dt);
+# the window design's at JAX's admitted step counts (fd_ensemble.py:326-334)
+WIDE_CASES = (("Lorenz-96 F=8 d=5", "lorenz96", 5, 16, 4, 0.0125),
+              ("Lorenz-96 F=8 d=8", "lorenz96", 8, 8, 4, 0.0125),
+              ("dense d=15", "dense", 15, 1, 16, 0.1))
+WIDE_SEED = 44
+L96_FORCING = 8.0
+# the dense system's fixed table: A[m][i] = 0.4·sin(1.3m + 0.7i + 0.3) − δ_mi,
+# rounded to 4 decimals (every entry nonzero, eigenvalues' real parts < −0.18)
+DENSE_A = tuple(tuple(round(0.4 * math.sin(1.3 * m + 0.7 * i + 0.3) - (m == i), 4)
+                      for i in range(15)) for m in range(15))
+
+
+def lorenz96(d, forcing=L96_FORCING):
+    """Lorenz-96, u_i' = (u_{i+1} − u_{i−2})·u_{i−1} − u_i + F (indices mod
+    d), as (f_comps, jac_comps): its Jacobian has 4 live entries a row, the
+    rest literal zeros (skipped). Plain arithmetic: the same callables trace
+    into F2's functor and run on JAX's arrays."""
+
+    def f_comps(us, t):
+        return tuple((us[(i + 1) % d] - us[(i - 2) % d]) * us[(i - 1) % d] - us[i] + forcing
+                     for i in range(d))
+
+    def jac_comps(us, t):
+        rows = []
+        for i in range(d):
+            row = [0.0] * d
+            row[(i + 1) % d] = us[(i - 1) % d]
+            row[(i - 2) % d] = -us[(i - 1) % d]
+            row[(i - 1) % d] = us[(i + 1) % d] - us[(i - 2) % d]
+            row[i] = -1.0
+            rows.append(tuple(row))
+        return tuple(rows)
+
+    return f_comps, jac_comps
+
+
+def dense_system(d=15, xp=None):
+    """u'_m = Σ_i A[m][i]·u_i + 0.1·sin(u_m) with A = DENSE_A's leading
+    d×d block, as (f_comps, jac_comps): every Jacobian entry live (the
+    off-diagonal ones constants). ``xp`` the array module of sin and cos
+    (torch; jax.numpy for JAX's kernel)."""
+    if xp is None:
+        import torch as xp
+    a = [row[:d] for row in DENSE_A[:d]]
+
+    def f_comps(us, t):
+        return tuple(sum((a[m][i] * us[i] for i in range(1, d)), a[m][0] * us[0])
+                     + 0.1 * xp.sin(us[m]) for m in range(d))
+
+    def jac_comps(us, t):
+        return tuple(tuple(a[m][i] + 0.1 * xp.cos(us[m]) if i == m else a[m][i]
+                           for i in range(d)) for m in range(d))
+
+    return f_comps, jac_comps
+
+
+def wide_system(name, d):
+    return lorenz96(d) if name == "lorenz96" else dense_system(d)
+
+
+def jax_admitted_steps(d):
+    """The most steps make_pallas_fd_ensemble_vec's scoped-VMEM check
+    (fd_ensemble.py:326-334) admits at d: ((s + 1)·d + s + 8·d)·8·2560·4
+    bytes within 12 MiB (0: none, d >= 16)."""
+    s = 0
+    while ((s + 2) * d + s + 1 + 8 * d) * 8 * 2560 * 4 <= 12 * 2**20:
+        s += 1
+    return s
+
+
+
+def wide_u0(name, n, d, seed=WIDE_SEED):
+    """Initial states from ``default_rng(seed)``: Lorenz-96's F + 0.5·U(−1, 1),
+    the dense system's U(−1, 1), as (n, d) float64 numpy."""
+    import numpy as np
+
+    r = np.random.default_rng(seed).uniform(-1.0, 1.0, (n, d))
+    return L96_FORCING + 0.5 * r if name == "lorenz96" else r
+
+
+def wide_bound(n, d, nnz, steps, rf, pair, grid_ops, f_ops):
+    """Least time of F2 on n ICs of d components (nnz live Jacobian
+    entries), ``steps`` steps refined rf times: bytes (u0 and the grid read
+    once, err written once) over 3.35 TB/s against FP32 operations over 67
+    TFLOP/s (an FMA 2, a transcendental 1). An IC's coarse step costs f and
+    2d; a fine node the interpolation (3 a component off a coarse node),
+    the pair, r (3d), A (2d), h·J (nnz), the v update (d + 2·nnz) and r·v
+    (2d); a block's |sum| 1. ``pair`` and ``f_ops`` are the functors'
+    operations on the state (functor_ops), ``grid_ops`` those on t alone,
+    once a fine node of the shared grid."""
+    node = d * (3 * (rf - 1) / rf + 3 + 2 + 1 + 2) + 3 * nnz + pair
+    n_bytes = 4 * n * d + 4 * steps * n + 4 * (2 * steps + 2 * steps * rf + rf)
+    n_ops = n * ((f_ops + 2 * d) * steps + steps * rf * node + steps) + steps * rf * grid_ops
+    return bound(n_bytes, n_ops)
+
+
+def wide_libraries():
+    """Phase 44's user libraries (one a case), built together. Returns
+    {label: (KernelFunctors, KernelLibrary)} and the wall seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda.functor import vector_functors
+
+    kfs = {}
+    for label, name, d, *_ in WIDE_CASES:
+        comps, jac = wide_system(name, d)
+        kfs[label] = vector_functors(f_comps=comps, jac_comps=jac, d=d, source="fd_ensemble.cu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kfs)) as pool:
+        libs = dict(zip(kfs, pool.map(lambda kf: kf.library(), kfs.values())))
+    return {k: (kfs[k], libs[k]) for k in kfs}, time.perf_counter() - t0
+
+
+def phase44(device, errs):
+    """F2 at d 5-15 on traced callables, 102,400 ICs: per case of
+    WIDE_CASES (a) the user library's build seconds and the registers and
+    spills of the instance the plan runs; the kernel against its plain
+    version within fd_kernel_tolerance(…, d), some plain entry above it,
+    and a bfloat16 run of the plain version outside it (the control); the
+    device ms (20 calls queued behind a sleep, median of 5), the ms through
+    the call (median of 5), the plain ms and the bound; the other design on
+    the same inputs where it takes them (Lorenz-96: the window design, its
+    bits beside the register design's); (b) each case through the entry
+    point, its launch count set to 0 just before and read just after; (c)
+    the registry F2 and the traced d = 2, 3 and 4 against the parent's
+    digests (tools/torch_fd_digests.py) (every d of 2-15 at every step count
+    JAX admits: tests/test_torch_cuda.py).
+    Returns (launches, (ms, plain ms),
+    bound) for the kernels line's row at case (c)."""
+    import numpy as np
+    import torch
+
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
+    from adjoint_ode_adaptivity_tpu_torch.ops.cuda import functor
+
+    t0 = time.perf_counter()
+    key = "fd_ensemble_vec[d 5-15]"
+    n = FD_ENSEMBLE["n_ics"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    libs, wall = wide_libraries()
+    say("44", f"(a) {len(libs)} user libraries built together in {wall:.2f} s")
+    runs, row = {}, None
+    for label, name, d, steps, rf, dt in WIDE_CASES:
+        kf, lib = libs[label]
+        comps, jac = wide_system(name, d)
+        run = fe.make_cuda_fd_ensemble_vec(f_comps=comps, jac_comps=jac, d=d, n_steps=steps,
+                                           ref_factor=rf, dt=dt, device=device)
+        u0 = torch.tensor(wide_u0(name, n, d), dtype=torch.float32, device=device)
+        launch = fe.f2_plan(n, steps, rf, sms, d, kf.nnz)
+        window = isinstance(launch, fe.FdVecLaunch)
+        inst = "fd_ensemble_vec_window_kernel" if window else "fd_ensemble_vec_kernel"
+        regs = [r for r in kernel_registers(lib.build_log, (inst,)) if r.startswith(inst + ":")]
+        say("44", f"(a) {label}, {steps} steps rf {rf} dt {dt}, {kf.nnz} live Jacobian entries: "
+                  f"built in {lib.build_seconds:.2f} s; plan {launch} "
+                  f"({'window' if window else 'register'} design); {'; '.join(regs)}")
+        got = run(u0)
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf, d)
+        fd_check(f"(a) {label}", key, got, want, tol, errs, teeth=True, phase="44")
+        errs["fd_ensemble_vec"] = max(errs["fd_ensemble_vec"], errs[key])
+        control = fe.fd_ensemble_vec_plain(u0.to(torch.bfloat16), run.plan)
+        e_ctl = float((control.double() - want.double()).abs().max())
+        say("44", f"(a) {label}: the plain version in bfloat16 {e_ctl:.3e} from the float32 "
+                  f"one, {e_ctl / tol:.1f}x the tolerance (the control lies outside it)")
+        assert e_ctl > tol, f"{label}: a bfloat16 run passes the tolerance"
+        dev = statistics.median(queued_ms(lambda: run(u0)) for _ in range(5))
+        call = cuda_ms(lambda: run(u0), runs=5)
+        plain_ms = cuda_ms(lambda: fe.fd_ensemble_vec_plain(u0, run.plan), runs=1)
+        pair, on_t = functor_ops((comps, d, False), (jac, d, True))
+        b_ms, b_by = wide_bound(n, d, kf.nnz, steps, rf, pair, on_t,
+                                functor_ops((comps, d, False))[0])
+        say("44", f"(a) {label}: {dev:.4f} ms on the device (20 calls queued behind a sleep, "
+                  f"median of 5), {call:.4f} ms a call (median of 5), plain {plain_ms:.3f} ms; "
+                  f"bound {b_ms:.6f} ms ({b_by}), {b_ms / dev:.2%} of it")
+        if not window:
+            other = fe.vec_window_plan(steps, rf, d, kf.nnz)
+            got_w = fe._f2_launch(u0, run.plan, other)
+            dev_w = statistics.median(
+                queued_ms(lambda: fe._f2_launch(u0, run.plan, other)) for _ in range(5))
+            fd_check(f"(a) {label} on the window design {other}", key, got_w, want, tol, errs,
+                     phase="44")
+            say("44", f"(a) {label} on the window design: {dev_w:.4f} ms on the device against "
+                      f"the register design's {dev:.4f}; the register design's bits: "
+                      f"{bool(torch.equal(got_w, got))}")
+        runs[label] = (run, u0)
+        row = ((dev, plain_ms), (b_ms, b_by))
+    launches = 0
+    for label, (run, u0) in runs.items():
+        fe.reset_launch_counts()
+        signal = run(u0).mean(dim=1)
+        torch.cuda.synchronize()
+        count = fe.fd_ensemble_vec.launches
+        say("44", f"(b) {label} through make_cuda_fd_ensemble_vec: {count} CUDA launch; signal "
+                  f"finite {bool(torch.isfinite(signal).all())}, shape {tuple(signal.shape)}")
+        assert count == 1 and bool(torch.isfinite(signal).all()), label
+        launches += count
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_fd_digests
+
+    got = {k: v for k, v in torch_fd_digests.digests(device).items() if k.startswith("F2")}
+    bad = {k: (v, PARENT_DIGESTS.get(k)) for k, v in got.items() if PARENT_DIGESTS.get(k) != v}
+    say("44", f"(c) F2 at d = 2-4 against the parent's digests (tools/torch_fd_digests.py): "
+              f"{len(got) - len(bad)} of {len(got)} equal; differing {bad}")
+    assert not bad, bad
+    assert functor.MAX_VECTOR_D == 15
+    say("44", f"F2 at d 5-15: phase wall {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches, row[0], row[1]
+
+
 def instance_name(mangled: str) -> str:
     """A kernel instance's readable name from its mangled one, e.g.
     dg_estimate_kernel<4, OdeSin<Libm>>."""
@@ -7681,8 +7957,11 @@ def main() -> int:
     from adjoint_ode_adaptivity_tpu_torch.ops import startup_1d
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import load_library
 
+    join64 = burgers_eager64()
     t0 = time.perf_counter()
     lib = load_library()
+    build_s = time.perf_counter() - t0
+    march64 = join64()
     log = lib.build_log.splitlines()
     regs = [ln.split()[4] for ln in log if "registers" in ln]
     spills, name = [], ""
@@ -7691,7 +7970,8 @@ def main() -> int:
             name = ln.split(" for ", 1)[1].strip()
         elif "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
             spills.append(f"{instance_name(name)} ({ln.strip()})")
-    say("1", f"kernels built in {time.perf_counter() - t0:.2f} s ({lib.path.name}); "
+    say("1", f"kernels built in {build_s:.2f} s ({lib.path.name}), phase 20's float64 eager "
+             f"march beside them joined at {time.perf_counter() - t0:.2f} s; "
              f"{len(regs)} kernel instances, registers {sorted(set(regs), key=int)}, "
              f"spilling instances {len(spills)}: {spills}")
 
@@ -7730,7 +8010,7 @@ def main() -> int:
         times[name] = (ms, plain_ms)
 
     plain_b1, bench_b1 = phase19(device, errs)
-    launches["burgers_march"], _ = phase20(device, errs)
+    launches["burgers_march"], _ = phase20(device, errs, march64)
     rev = phase21(device, errs)
     b1_ms, b1_bound = burgers_times(device, plain_b1, bench_b1)
     times["burgers_march"] = (b1_ms, plain_b1)
@@ -7756,12 +8036,15 @@ def main() -> int:
     phase41(device)
     us_launches, us_times, us_bounds = phase42(device, errs, inp)
     hi_launches, hi_times, hi_bounds = phase43(device, lib, errs)
+    wide = "fd_ensemble_vec[d 5-15]"
+    launches[wide], times[wide], wide_b = phase44(device, errs)
     launches.update(rc_launches, **tl_launches, **km_launches, **md_launches, **us_launches,
                     **hi_launches)
     times.update(rc_times, **tl_times, **km_times, **md_times, **us_times, **hi_times)
     bounds = {**dg_bounds(), **fd_bounds(), "dg_estimate_hp_per_member": hp_bound,
               **{name: v[2][:2] for name, v in nn.items()}, "burgers_march": b1_bound,
-              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds, **us_bounds, **hi_bounds}
+              **rc_bounds, **tl_bounds, **km_bounds, **md_bounds, **us_bounds, **hi_bounds,
+              wide: wide_b}
     # no single PyTorch call computes any of these pipelines: library_ms is null
     # (T2's hidden-chain GEMMs through torch.matmul are printed in phase 18 as
     # a yardstick; they are not the same function)

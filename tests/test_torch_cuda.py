@@ -218,9 +218,89 @@ def test_fd_ensemble_vec_kernel_matches_its_plain_version(device):
                 assert out.shape == (n_steps, n) and bool(torch.isfinite(out).all())
                 assert float((out - want).abs().max()) <= tol, (n_steps, launch)
                 assert torch.equal(out, again), (n_steps, launch)
-    long = fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", 30_000, 1, 1e-4, device=device)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        long(u0[:8].contiguous())
+    with pytest.raises(ValueError, match="shared memory"):  # refused before any launch
+        fe.make_cuda_fd_ensemble_vec("harmonic_oscillator", 30_000, 1, 1e-4, device=device)
+    long = fe._plan(run.plan.functors, 30_000, 1, dt=1e-4, device=device)
+    with pytest.raises(RuntimeError, match="shared memory"):  # and by the kernel's launcher
+        fe._f2_launch(u0[:8].contiguous(), long, fe.REG_LEAST)
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("name,d,cases", [("lorenz96", 5, ((16, 4), (13, 3))),
+                                          ("dense", 15, ((1, 16), (3, 5)))])
+def test_fd_ensemble_vec_wide_kernel_matches_its_plain_version(device, name, d, cases):
+    """F2 at d = 5 (Lorenz-96: the register design, U = 1) and d = 15 (the
+    dense system: the window design) on traced callables, 3,000 ICs, at step
+    counts whose fine nodes fill, or fall short of, the windows: every
+    launch the plan can return (the register design's G and CTA sizes; the
+    window design's G >= d, W in 8, 4, 2, 1, 64 or 32 threads, and one IC a
+    CTA), and at d = 5 the window design too, each within
+    fd_kernel_tolerance(…, d) of the plain version with some plain entry
+    above it, a repeat's bits; the wrapper's launch is f2_plan's."""
+    cs = _chip_smoke()
+    comps, jac = cs.wide_system(name, d)
+    n = 3000
+    u0 = torch.tensor(cs.wide_u0(name, n, d), dtype=torch.float32, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n_steps, rf in cases:
+        run = fe.make_cuda_fd_ensemble_vec(f_comps=comps, jac_comps=jac, d=d, n_steps=n_steps,
+                                           ref_factor=rf, dt=0.0125 if d == 5 else 0.1,
+                                           device=device)
+        nnz = run.plan.functors.nnz
+        before = fe.fd_ensemble_vec.launches
+        got = run(u0)
+        torch.cuda.synchronize()
+        assert fe.fd_ensemble_vec.launches == before + 1
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, rf, d)
+        assert bool((want.abs() > tol).any())  # the bound has teeth: an err of 0 fails
+        assert float((got - want).abs().max()) <= tol
+        assert torch.equal(got, fe._f2_launch(u0, run.plan, fe.f2_plan(n, n_steps, rf, sms, d,
+                                                                       nnz)))
+        lanes = [g for g in fe.PM_LANES if g >= max(d, 8)]
+        launches = [fe.FdVecLaunch(g, th, w) for g in lanes for th in (64, 32)
+                    for w in (8, 4, 2, 1)] + [fe.VEC_LEAST]
+        if fe.f2_registers(d, nnz):
+            launches += [fe.FdEnsLaunch(g, th) for g in fe.PM_LANES for th in fe.PM_THREADS]
+        for launch in launches:
+            out = fe._f2_launch(u0, run.plan, launch)
+            again = fe._f2_launch(u0, run.plan, launch)
+            torch.cuda.synchronize()
+            assert out.shape == (n_steps, n) and bool(torch.isfinite(out).all())
+            assert float((out - want).abs().max()) <= tol, (n_steps, launch)
+            assert torch.equal(out, again), (n_steps, launch)
+
+
+@pytest.mark.parametrize("d", range(2, 16))
+def test_fd_ensemble_vec_takes_every_step_count_jax_admits(device, d):
+    """F2 on the dense system's leading d×d block (every Jacobian entry
+    live: the register design to d = 6, the window design above) at every
+    step count that JAX's scoped-VMEM check admits at d (45 at d = 2 ... 1
+    at d = 14 and 15), 512 ICs, rf 4, through the entry point and
+    f2_plan's launch, each within fd_kernel_tolerance(…, d) of the plain
+    version."""
+    cs = _chip_smoke()
+    comps, jac = cs.dense_system(d)
+    u0 = torch.tensor(cs.wide_u0("dense", 512, d), dtype=torch.float32, device=device)
+    for n_steps in range(1, cs.jax_admitted_steps(d) + 1):
+        run = fe.make_cuda_fd_ensemble_vec(f_comps=comps, jac_comps=jac, d=d, n_steps=n_steps,
+                                           ref_factor=4, dt=0.05, device=device)
+        got = run(u0)
+        stats = {}
+        want = fe.fd_ensemble_vec_plain(u0, run.plan, stats)
+        tol = fe.fd_kernel_tolerance(stats, 4, d)
+        assert bool(torch.isfinite(got).all()), (d, n_steps)
+        assert float((got - want).abs().max()) <= tol, (d, n_steps)
 
 
 @pytest.mark.parametrize("convention", ["strided", "block"])

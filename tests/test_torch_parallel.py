@@ -36,6 +36,7 @@ import torch
 from jax.sharding import Mesh
 
 import torch_parallel_ranks as ranks
+from torch_rank_procs import kill_ranks, rank_logs
 from adjoint_ode_adaptivity_tpu_torch.ops.cuda import dg_sharded, dg_tiled
 from adjoint_ode_adaptivity_tpu_torch.parallel import (
     RankGrid,
@@ -119,9 +120,10 @@ def runs(tmp_path_factory):
     try:
         jax_refs = {"dg_shard": _jax_dg_shard(),
                     **{case: _jax_factory(*case) for case in JAX_FACTORY_CASES}}
-    finally:
-        logs = {world: [p.communicate(timeout=600)[0] for p in ps]
-                for world, (_, ps) in procs.items()}
+    except BaseException:  # the references failed: no rank outlives the fixture
+        kill_ranks(procs)
+        raise
+    logs = rank_logs(procs, timeout=600)  # kills every rank on a timeout
     out = {}
     for world, (tmp, ps) in procs.items():
         for p, log in zip(ps, logs[world]):

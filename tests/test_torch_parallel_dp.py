@@ -60,6 +60,7 @@ import torch
 from jax.sharding import Mesh
 
 import torch_dp_ranks as ranks
+from torch_rank_procs import kill_ranks, rank_logs
 from adjoint_ode_adaptivity_tpu import models as jmodels
 from adjoint_ode_adaptivity_tpu.adapt import hp_loop as jhp
 from adjoint_ode_adaptivity_tpu.parallel import make_mesh, pipeline_march as jpipeline_march
@@ -290,9 +291,10 @@ def runs(tmp_path_factory):
     try:
         refs = {"hp": _jax_hp(), "train": _jax_train({k: inp[k] for k in ranks.TRAIN_STEPS}),
                 "pipeline": _jax_pipeline(inp)}
-    finally:
-        logs = {world: [p.communicate(timeout=900)[0] for p in ps]
-                for world, (_, ps) in procs.items()}
+    except BaseException:  # the references failed: no rank outlives the fixture
+        kill_ranks(procs)
+        raise
+    logs = rank_logs(procs, timeout=900)  # kills every rank on a timeout
     out = {}
     for world, (tmp, ps) in procs.items():
         for p, log in zip(ps, logs[world]):

@@ -45,6 +45,7 @@ import torch
 from jax.sharding import Mesh
 
 import torch_ensemble_ranks as ranks
+from torch_rank_procs import kill_ranks, rank_logs
 from adjoint_ode_adaptivity_tpu import odes as jodes
 from adjoint_ode_adaptivity_tpu.adapt import dg_loop as jdg
 from adjoint_ode_adaptivity_tpu.adapt import fd_loop as jfd
@@ -131,9 +132,10 @@ def runs(tmp_path_factory):
         port = {f"{name}/{tag}/{dl}": ranks.run_loop(name, None, dtype, device_loop=dl)
                 for name in LOOPS for tag, dtype in ranks.DTYPES.items()
                 for dl in (False, True)}
-    finally:
-        logs = {world: [p.communicate(timeout=600)[0] for p in ps]
-                for world, (_, ps) in procs.items()}
+    except BaseException:  # the references failed: no rank outlives the fixture
+        kill_ranks(procs)
+        raise
+    logs = rank_logs(procs, timeout=600)  # kills every rank on a timeout
     out = {}
     for world, (tmp, ps) in procs.items():
         for p, log in zip(ps, logs[world]):

@@ -300,8 +300,8 @@ def test_vector_traces_and_their_refusals():
     np.testing.assert_array_equal(vf.ode.f(u, 0.0)[:, 0].numpy(), u[:, 1].numpy())
     jac = vf.ode.f_u(u, 0.0)
     assert jac.shape == (5, 2, 2) and torch.all(jac[:, 0, 0] == 0) and torch.all(jac[:, 0, 1] == 1)
-    with pytest.raises(ValueError, match="at most d=4"):
-        functor.vector_functors(f_comps=lambda us, t: us, jac_comps=VDP_J, d=5, source="x")
+    with pytest.raises(ValueError, match="at most d=15"):
+        functor.vector_functors(f_comps=lambda us, t: us, jac_comps=VDP_J, d=16, source="x")
     with pytest.raises(ValueError, match="2-tuple"):
         functor.vector_functors(f_comps=lambda us, t: us[0], jac_comps=VDP_J, d=2, source="x")
     with pytest.raises(ValueError, match="us\\[i\\]"):

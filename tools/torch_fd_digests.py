@@ -3,7 +3,10 @@
 (sin u), F2 (the harmonic oscillator) and F3 (sin u, strided) at
 chip_smoke.py's phase-6 inputs (``fd_inputs``: 102,400 ICs, 16 steps,
 rf 4, dt = 2/16; the per-member study's B = 1024 widths over 43 steps),
-computed with the package of the checkout at ROOT.
+and of F2 on phase 42's traced callables at d = 2, 3 and 4 (Van der Pol,
+the rigid body, the coupled oscillators; its draws, the same shape),
+computed with the package (and chip_smoke.py's callables) of the checkout
+at ROOT.
 
     python3 tools/torch_fd_digests.py ROOT
 
@@ -28,16 +31,13 @@ def digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def main(root: str) -> int:
-    sys.path.insert(0, root)
+def digests(dev) -> dict:
+    """The digests on the card ``dev``, by chip_smoke.py's PARENT_DIGESTS
+    keys, with the package first on sys.path."""
     import torch
 
     from adjoint_ode_adaptivity_tpu_torch.ops.cuda import fd_ensemble as fe
 
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
     n, b, s, rf, dt = 102_400, 1024, 43, 4, 2.0 / 16  # chip_smoke.py FD_ENSEMBLE, FD_STUDY
     f32 = dict(dtype=torch.float32, device=dev)
     rng = np.random.default_rng(5)  # chip_smoke.py fd_inputs' draws, in its order
@@ -56,7 +56,25 @@ def main(root: str) -> int:
         f"F3 {b}": digest(fe.make_cuda_fd_estimate_per_member("du/dt=sin(u)", s, rf, "strided",
                                                               device=dev)(dt_pm, u0_pm)),
     }
-    print(json.dumps(out), flush=True)
+    import chip_smoke as cs
+
+    for d, (comps, jac) in {2: (cs.vdp_comps, cs.vdp_jac),
+                            **{d: v[1:] for d, v in cs.USER_VECTOR_D.items()}}.items():
+        u0d = torch.tensor(np.random.default_rng(40 + d).uniform(-1.5, 1.5, (n, d)), **f32)
+        run = fe.make_cuda_fd_ensemble_vec(f_comps=comps, jac_comps=jac, d=d, n_steps=16,
+                                           ref_factor=rf, dt=dt, device=dev)
+        out[f"F2 traced d={d} {n}"] = digest([run(u0d)])
+    return out
+
+
+def main(root: str) -> int:
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    print(json.dumps(digests(torch.device("cuda"))), flush=True)
     return 0
 
 
